@@ -1,0 +1,150 @@
+"""Single-token flash-decode partial stats: the CUDA kernel
+(``csrc/decode_attention.cu``) and its plain PyTorch version.
+
+Both return the running softmax statistics ``(m, l, acc)`` — m, l
+(B, Hq, 1, 1) f32 and acc (B, 1, Hq, hd) f32 — over one local KV shard,
+with per-row column validity, plus (prism mode) the Segment-Means
+columns ``kz``/``vz`` under a per-row ``+log g`` bias.  A row with no
+live column gives ``(NEG, 0, 0)``.  The cross-shard combine is the
+caller's (``runtime.serve``).
+
+Shapes, with the shard axis folded into the batch (``B = B_q · rep``;
+row ``b`` is shard ``b % rep`` of sequence ``b // rep``):
+
+    q        (B_q, 1, Hq, hd)
+    k, v     (B, M, Hkv, hd)        each row's own cache shard
+    valid    (B, M) bool
+    log_gz   (B, m) f32             each row's own means bias
+    kz, vz   (B_q, m, Hkv, hd)      the means, shared by the shards
+
+``rep = 1`` is the reference's single-shard signature.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .dispatch import LAUNCHES, check_tensor, raise_on_error, use_kernel
+from ..core.attention import _gqa_logits, _gqa_output
+from ..core.masks import NEG_INF
+
+NEG = NEG_INF
+HEAD_DIMS = (64,)              # the head dims csrc/decode_attention.cu builds
+
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+# --------------------------------------------------------------------------
+# plain version: two-pass partial stats + merge (no concatenate)
+# --------------------------------------------------------------------------
+
+def partial_softmax_stats(q, k, v, bias, scale):
+    """Softmax partial stats over one column set.  q (B,1,Hq,hd);
+    k,v (B,M,Hkv,hd); bias (B,M) additive logits (NEG = dead column).
+    Returns m, l: (B,Hq,1,1) f32 and acc: (B,1,Hq,hd) f32."""
+    s = _gqa_logits(q, k, scale).float()                  # (B,Hq,1,M)
+    s = s + bias[:, None, None, :].float()
+    m_p = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m_p)
+    p = torch.where(s > NEG / 2, p, torch.zeros_like(p))  # all-dead -> l=0
+    l_p = p.sum(dim=-1, keepdim=True)
+    acc_p = _gqa_output(p.to(v.dtype), v).float()
+    return m_p, l_p, acc_p
+
+
+def merge_stats(a, b):
+    """Combine two partial-stat triples over disjoint column sets (the
+    associative flash-softmax merge).  m, l (B,Hq,Nq,1), acc
+    (B,Nq,Hq,hd)."""
+    m_a, l_a, acc_a = a
+    m_b, l_b, acc_b = b
+    m = torch.maximum(m_a, m_b)
+    c_a = torch.exp(m_a - m)
+    c_b = torch.exp(m_b - m)
+    l = l_a * c_a + l_b * c_b
+    acc = (acc_a * c_a[..., 0].transpose(1, 2)[..., None]
+           + acc_b * c_b[..., 0].transpose(1, 2)[..., None])
+    return m, l, acc
+
+
+def decode_stats_reference(q, k, v, valid, log_gz=None, kz=None, vz=None,
+                           *, scale):
+    """Plain version of ``flash_decode_stats``: local columns masked by
+    ``valid`` (g = 1), then the optional means columns with their per-row
+    ``log_gz`` bias, merged without concatenating K/V."""
+    rep = k.shape[0] // q.shape[0]
+    if rep > 1:
+        q = q.repeat_interleave(rep, dim=0)
+        if kz is not None:
+            kz = kz.repeat_interleave(rep, dim=0)
+            vz = vz.repeat_interleave(rep, dim=0)
+    bias = torch.where(valid, 0.0, NEG)
+    stats = partial_softmax_stats(q, k, v, bias, scale)
+    if kz is not None:
+        stats = merge_stats(stats, partial_softmax_stats(
+            q, kz.to(k.dtype), vz.to(v.dtype), log_gz, scale))
+    return stats
+
+
+# --------------------------------------------------------------------------
+# CUDA kernel
+# --------------------------------------------------------------------------
+
+def flash_decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
+                       scale):
+    """The CUDA kernel.  f32 only; raises on anything it does not take.
+    Launches on the current stream and does not synchronise."""
+    dev = k.device
+    check_tensor(q, "q", dtype=torch.float32, ndim=4, device=dev)
+    check_tensor(k, "k", dtype=torch.float32, ndim=4, device=dev)
+    check_tensor(v, "v", dtype=torch.float32, ndim=4, device=dev)
+    check_tensor(valid, "valid", dtype=torch.bool, ndim=2, device=dev)
+    bq, nq, hq, hd = q.shape
+    b, m_loc, hkv, hd_k = k.shape
+    if nq != 1:
+        raise ValueError(f"decode kernel is single-token (got Nq={nq})")
+    if (hd_k != hd or v.shape != k.shape or b % bq or hq % hkv
+            or valid.shape != (b, m_loc)):
+        raise ValueError(f"shapes do not fit: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, valid {tuple(valid.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    mz, ptrs = 0, (None, None, None)
+    if kz is not None:
+        check_tensor(log_gz, "log_gz", dtype=torch.float32, ndim=2,
+                     device=dev)
+        check_tensor(kz, "kz", dtype=torch.float32, ndim=4, device=dev)
+        check_tensor(vz, "vz", dtype=torch.float32, ndim=4, device=dev)
+        mz = kz.shape[1]
+        if (kz.shape != (bq, mz, hkv, hd) or vz.shape != kz.shape
+                or log_gz.shape != (b, mz)):
+            raise ValueError(f"means shapes do not fit: kz "
+                             f"{tuple(kz.shape)}, log_gz "
+                             f"{tuple(log_gz.shape)}")
+        ptrs = (log_gz.data_ptr(), kz.data_ptr(), vz.data_ptr())
+    m_p = torch.empty((b, hq, 1, 1), dtype=torch.float32, device=dev)
+    l_p = torch.empty((b, hq, 1, 1), dtype=torch.float32, device=dev)
+    acc_p = torch.empty((b, 1, hq, hd), dtype=torch.float32, device=dev)
+    fn = build.function("decode_attention", "flash_decode_stats_f32",
+                        _ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+            *ptrs, m_p.data_ptr(), l_p.data_ptr(), acc_p.data_ptr(), b,
+            m_loc, mz, hq, hkv, hd, b // bq, ctypes.c_float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(rc, "flash_decode_stats")
+    LAUNCHES["flash_decode_stats"] += 1
+    return m_p, l_p, acc_p
+
+
+def decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *, scale,
+                 backend: str = "auto"):
+    """Partial stats from the kernel (CUDA tensors) or the plain version
+    (CPU tensors, or ``backend='plain'``)."""
+    if use_kernel(backend, k):
+        return flash_decode_stats(q, k, v, valid, log_gz, kz, vz,
+                                  scale=scale)
+    return decode_stats_reference(q, k, v, valid, log_gz, kz, vz,
+                                  scale=scale)

@@ -1,0 +1,333 @@
+"""The port's kernel modules on the CPU: each plain version against the
+JAX jnp oracle and the JAX Pallas kernel run with ``interpret=True``, at
+the tolerances of tests/test_kernels.py and tests/test_decode_attention.py
+and a few of their shapes (GQA ratios, ragged M, pos = -1 rows, means
+columns, per-shard metadata).  Also: the dispatch rule, and that a
+CUDA-only path raises cleanly without a card (no fallback).
+
+The CUDA kernels themselves build and run only on a card: chip_smoke.py
+compares them with their plain versions there.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import decode_attention as JD  # noqa: E402
+from repro.kernels.ops import prism_attention_op as j_attention_op  # noqa: E402
+from repro.kernels.ref import prism_attention_reference as j_attention_ref  # noqa: E402
+from repro.kernels.segment_means import segment_means_op as j_means_op  # noqa: E402
+from repro.core.segment_means import segment_means as j_means  # noqa: E402
+from repro_torch.kernels import build, dispatch  # noqa: E402
+from repro_torch.kernels import decode_attention as TD  # noqa: E402
+from repro_torch.kernels.ops import prism_attention_op  # noqa: E402
+from repro_torch.kernels.prism_attention import (  # noqa: E402
+    prism_attention_reference, prism_flash_attention)
+from repro_torch.kernels.segment_means import (  # noqa: E402
+    segment_means_cuda, segment_means_op)
+
+T = torch.as_tensor
+
+
+# ---------------------------------------------------------------------
+# inputs (numpy, seeded)
+# ---------------------------------------------------------------------
+
+def attention_case(b, nq, m_loc, L, hq, hkv, hd, *, seed=0):
+    """tests/test_kernels.py's case: m_loc exact columns, then L means
+    each covering 4 positions of a remote partition ahead."""
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, nq, hq, hd)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((b, m_loc + L, hkv, hd)) * 0.5).astype(np.float32)
+    v = (rng.standard_normal((b, m_loc + L, hkv, hd)) * 0.5).astype(np.float32)
+    g = np.concatenate([np.ones(m_loc), np.full(L, 4.0)]).astype(np.float32)
+    lo = np.concatenate([np.arange(m_loc),
+                         m_loc + 4 * np.arange(L)]).astype(np.int32)
+    hi = np.concatenate([np.arange(m_loc),
+                         m_loc + 4 * np.arange(L) + 3]).astype(np.int32)
+    row = (np.arange(nq) + (m_loc - nq)).astype(np.int32)
+    return q, k, v, g, lo, hi, row
+
+
+def decode_case(b, m_loc, hq, hkv, hd, *, mz=0, seed=0):
+    """tests/test_decode_attention.py's case: per-row positions (one
+    idle row at pos = -1), prefix-valid columns, optional means columns
+    with a per-row g (0 = dead)."""
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, 1, hq, hd)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((b, m_loc, hkv, hd)) * 0.5).astype(np.float32)
+    v = (rng.standard_normal((b, m_loc, hkv, hd)) * 0.5).astype(np.float32)
+    pos = rng.integers(-1, m_loc, size=b)
+    pos[0] = m_loc - 1
+    if b > 1:
+        pos[1] = -1
+    valid = np.arange(m_loc)[None, :] <= pos[:, None]
+    case = dict(q=q, k=k, v=v, valid=valid, pos=pos, scale=hd ** -0.5)
+    if mz:
+        case["kz"] = (rng.standard_normal((b, mz, hkv, hd)) * 0.5).astype(
+            np.float32)
+        case["vz"] = (rng.standard_normal((b, mz, hkv, hd)) * 0.5).astype(
+            np.float32)
+        gz = np.where(np.arange(mz)[None, :] % 3 == 0, 0.0, 4.0)
+        gz = (gz * (pos >= 0)[:, None]).astype(np.float32)
+        case["log_gz"] = np.where(gz > 0, np.log(np.maximum(gz, 1e-30)),
+                                  -1e30).astype(np.float32)
+    return case
+
+
+def assert_stats_close(got, want):
+    """Decode stats (m, l, acc): l and acc everywhere, m where the row
+    has a live column (an all-dead row's m is only the sentinel)."""
+    m_g, l_g, a_g = (np.asarray(t) for t in got)
+    m_w, l_w, a_w = (np.asarray(t) for t in want)
+    np.testing.assert_allclose(l_g, l_w, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(a_g, a_w, atol=1e-5, rtol=1e-5)
+    alive = l_w > 0
+    np.testing.assert_allclose(m_g[alive], m_w[alive], atol=1e-6, rtol=1e-6)
+
+
+GQA_GRID = [
+    (4, 16, 2, 2, 16),           # MHA
+    (3, 33, 8, 2, 32),           # GQA 4:1, ragged M
+    (2, 100, 6, 3, 64),          # GQA 2:1, ragged M
+    (1, 7, 4, 4, 16),            # shorter than one block
+]
+
+
+# ---------------------------------------------------------------------
+# prefill attention
+# ---------------------------------------------------------------------
+
+def j_log_g(g):
+    return jnp.where(jnp.asarray(g) > 0, jnp.log(jnp.asarray(g)), -1e30)
+
+
+@pytest.mark.parametrize("b,nq,m_loc,L,hq,hkv,hd", [
+    (2, 16, 16, 8, 4, 2, 32),
+    (1, 17, 33, 5, 6, 3, 32),         # odd everything, ragged M
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_plain_vs_reference(b, nq, m_loc, L, hq, hkv, hd, causal):
+    q, k, v, g, lo, hi, row = attention_case(b, nq, m_loc, L, hq, hkv, hd)
+    got = prism_attention_op(T(q), T(k), T(v), T(g), T(lo), T(hi), T(row),
+                             causal=causal).numpy()
+    want_ref = j_attention_ref(*map(jnp.asarray, (q, k, v)), j_log_g(g),
+                               *map(jnp.asarray, (lo, hi, row)),
+                               causal=causal)
+    want_pallas = j_attention_op(*map(jnp.asarray, (q, k, v, g, lo, hi,
+                                                    row)),
+                                 causal=causal, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want_ref), atol=2e-5,
+                               rtol=2e-4)
+    np.testing.assert_allclose(got, np.asarray(want_pallas), atol=2e-5,
+                               rtol=2e-4)
+
+
+@pytest.mark.parametrize("kw", [dict(window=8), dict(prefix_len=6),
+                                dict(window=16, prefix_len=4)])
+def test_attention_window_and_prefix(kw):
+    q, k, v, g, lo, hi, row = attention_case(1, 32, 32, 4, 2, 1, 32)
+    got = prism_attention_op(T(q), T(k), T(v), T(g), T(lo), T(hi), T(row),
+                             causal=True, **kw).numpy()
+    want = j_attention_op(*map(jnp.asarray, (q, k, v, g, lo, hi, row)),
+                          causal=True, interpret=True, **kw)
+    np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-4)
+
+
+def test_attention_g_zero_and_dead_rows():
+    """g = 0 columns get no weight; a row that sees nothing gives 0."""
+    q, k, v, g, lo, hi, row = attention_case(1, 16, 16, 4, 2, 2, 32)
+    g0 = g.copy()
+    g0[-2:] = 0.0
+    row = row.copy()
+    row[0] = -1                                   # sees no column
+    got = prism_attention_op(T(q), T(k), T(v), T(g0), T(lo), T(hi), T(row),
+                             causal=True).numpy()
+    want = prism_attention_op(T(q), T(k[:, :-2]), T(v[:, :-2]), T(g[:-2]),
+                              T(lo[:-2]), T(hi[:-2]), T(row),
+                              causal=True).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-4)
+    assert not got[:, 0].any()
+    pallas = j_attention_op(*map(jnp.asarray, (q, k, v, g0, lo, hi, row)),
+                            causal=True, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=2e-5, rtol=2e-4)
+
+
+def test_attention_per_shard_metadata_and_shared_kv():
+    """P shards folded into the batch, each with its own (P, M) / (P, Nq)
+    metadata, equal P separate reference calls; K/V with batch B / rep is
+    read by rep consecutive query rows (the voltage layout)."""
+    p, nq, m, hq, hkv, hd = 3, 8, 20, 4, 2, 16
+    rng = np.random.default_rng(9)
+    q = (rng.standard_normal((2 * p, nq, hq, hd)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((2, m, hkv, hd)) * 0.5).astype(np.float32)
+    v = (rng.standard_normal((2, m, hkv, hd)) * 0.5).astype(np.float32)
+    g = rng.integers(0, 4, size=(p, m)).astype(np.float32)
+    lo = rng.integers(0, 24, size=(p, m)).astype(np.int32)
+    hi = (lo + rng.integers(0, 3, size=(p, m))).astype(np.int32)
+    row = (np.arange(nq)[None] + 8 * np.arange(p)[:, None]).astype(np.int32)
+    got = prism_attention_op(T(q), T(k), T(v), T(g), T(lo), T(hi), T(row),
+                             causal=True).numpy()
+    for i in range(2 * p):
+        s = i % p
+        want = j_attention_op(jnp.asarray(q[i:i + 1]),
+                              jnp.asarray(k[i // p:i // p + 1]),
+                              jnp.asarray(v[i // p:i // p + 1]),
+                              *map(jnp.asarray, (g[s], lo[s], hi[s], row[s])),
+                              causal=True, interpret=True)
+        np.testing.assert_allclose(got[i:i + 1], np.asarray(want),
+                                   atol=2e-5, rtol=2e-4, err_msg=str(i))
+
+
+# ---------------------------------------------------------------------
+# segment means
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,n,L,d", [(1, 16, 4, 8), (2, 128, 16, 512),
+                                     (3, 32, 32, 16), (1, 17, 4, 8),
+                                     (2, 100, 16, 64), (1, 9, 1, 16)])
+def test_segment_means_plain_vs_reference(b, n, L, d):
+    """Even and Eq. 8 ragged splits: plain == jnp oracle == Pallas."""
+    x = np.random.default_rng(2).standard_normal((b, n, d)).astype(
+        np.float32)
+    got = segment_means_op(T(x), L=L).numpy()
+    np.testing.assert_allclose(got, np.asarray(j_means(jnp.asarray(x), L)),
+                               atol=1e-5, rtol=1e-5)
+    pallas = j_means_op(jnp.asarray(x), L=L, block_d=min(512, d),
+                        interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------
+# flash-decode stats
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,m_loc,hq,hkv,hd", GQA_GRID)
+@pytest.mark.parametrize("mz", [0, 6])
+def test_decode_plain_vs_reference(b, m_loc, hq, hkv, hd, mz):
+    """Against the jnp oracle everywhere, and against the Pallas kernel
+    with means columns (the superset of its two streams)."""
+    c = decode_case(b, m_loc, hq, hkv, hd, mz=mz, seed=b + m_loc)
+    names = ("q", "k", "v", "valid") + (("log_gz", "kz", "vz") if mz else ())
+    got = TD.decode_stats(*(T(c[n]) for n in names), scale=c["scale"])
+    want = JD.decode_stats_reference(*(jnp.asarray(c[n]) for n in names),
+                                     scale=c["scale"])
+    assert_stats_close(got, want)
+    if mz:
+        pallas = JD.flash_decode_stats(*(jnp.asarray(c[n]) for n in names),
+                                       scale=c["scale"], interpret=True)
+        assert_stats_close(got, pallas)
+    idle = c["pos"] < 0                           # exactly-empty stats
+    assert not got[1].numpy()[idle].any() and not got[2].numpy()[idle].any()
+
+
+def test_decode_folded_shards_equal_per_shard_calls():
+    """rep shards folded into the batch (each with its own cache shard,
+    valid and means bias, sharing the query and the means) equal one
+    reference call per shard."""
+    rep, bq, m_loc, hq, hkv, hd, mz = 4, 1, 12, 4, 2, 16, 8
+    c = decode_case(bq * rep, m_loc, hq, hkv, hd, mz=mz, seed=11)
+    q, kz, vz = c["q"][:bq], c["kz"][:bq], c["vz"][:bq]
+    got = TD.decode_stats(T(q), T(c["k"]), T(c["v"]), T(c["valid"]),
+                          T(c["log_gz"]), T(kz), T(vz), scale=c["scale"])
+    for i in range(bq * rep):
+        want = JD.flash_decode_stats(
+            jnp.asarray(q[i // rep:i // rep + 1]),
+            *(jnp.asarray(c[n][i:i + 1]) for n in ("k", "v", "valid",
+                                                    "log_gz")),
+            jnp.asarray(kz[i // rep:i // rep + 1]),
+            jnp.asarray(vz[i // rep:i // rep + 1]),
+            scale=c["scale"], interpret=True)
+        assert_stats_close([t[i:i + 1] for t in got], want)
+
+
+def test_merge_stats_is_concat():
+    c = decode_case(3, 24, 4, 2, 16, seed=5)
+    q, k, v = T(c["q"]), T(c["k"]), T(c["v"])
+    bias = torch.where(T(c["valid"]), 0.0, -1e30)
+    whole = TD.partial_softmax_stats(q, k, v, bias, c["scale"])
+    for cut in (1, 8, 23):
+        a = TD.partial_softmax_stats(q, k[:, :cut], v[:, :cut],
+                                     bias[:, :cut], c["scale"])
+        b = TD.partial_softmax_stats(q, k[:, cut:], v[:, cut:],
+                                     bias[:, cut:], c["scale"])
+        _, l, acc = TD.merge_stats(a, b)
+        np.testing.assert_allclose(l, whole[1], atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(acc, whole[2], atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------
+# dispatch: no fallback, clean failure without a card
+# ---------------------------------------------------------------------
+
+def test_dispatch_rule_has_no_fallback(monkeypatch):
+    x = torch.zeros(2, 3)
+    assert dispatch.use_kernel("auto", x) is False
+    assert dispatch.use_kernel("plain", x) is False
+    with pytest.raises(RuntimeError):
+        dispatch.use_kernel("kernel", x)          # never quietly plain
+    with pytest.raises(ValueError):
+        dispatch.use_kernel("cuda", x)
+    # the reference's env override does not exist here
+    monkeypatch.setenv("PRISM_KERNEL_BACKEND", "kernel")
+    assert dispatch.use_kernel("auto", x) is False
+    with pytest.raises(RuntimeError):
+        segment_means_op(torch.zeros(1, 4, 8), L=2, backend="kernel")
+
+
+def test_cuda_paths_raise_without_a_card():
+    """The kernel wrappers refuse CPU tensors (no hidden plain path), the
+    entry point refuses a missing card, and no launch is counted."""
+    dispatch.LAUNCHES.clear()
+    q, k, v, g, lo, hi, row = attention_case(1, 8, 8, 4, 1, 1, 64)
+    meta = (T(np.log(g))[None], T(lo)[None], T(hi)[None], T(row)[None])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        prism_flash_attention(T(q), T(k), T(v), *meta, causal=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        segment_means_cuda(torch.zeros(1, 4, 8), 2)
+    c = decode_case(2, 8, 2, 2, 64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TD.flash_decode_stats(T(c["q"]), T(c["k"]), T(c["v"]),
+                              T(c["valid"]), scale=c["scale"])
+    assert sum(dispatch.LAUNCHES.values()) == 0
+    if not torch.cuda.is_available():
+        from repro_torch.launch.serve import setup
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            setup(batch=1, prompt_len=8, gen=2, device="cuda")
+
+
+def test_kernel_wrappers_check_dtype_and_layout():
+    """check_tensor raises on dtype, rank, contiguity and a CPU tensor;
+    a nonzero CUDA error code raises."""
+    cpu = torch.device("cpu")
+    kw = dict(dtype=torch.float32, ndim=2, device=cpu)
+    with pytest.raises(TypeError, match="takes torch.float32"):
+        dispatch.check_tensor(torch.zeros(2, 3, dtype=torch.float16), "x",
+                              **kw)
+    with pytest.raises(ValueError, match="expected rank 2"):
+        dispatch.check_tensor(torch.zeros(2), "x", **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        dispatch.check_tensor(torch.zeros(3, 2).T, "x", **kw)
+    with pytest.raises(ValueError, match="takes a CUDA tensor"):
+        dispatch.check_tensor(torch.zeros(2, 3), "x", **kw)
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        dispatch.raise_on_error(7, "k")
+    dispatch.raise_on_error(0, "k")
+
+
+def test_build_sources_and_nvcc():
+    """Every library has its source in the repo; without nvcc the build
+    raises instead of doing anything else."""
+    for name in build.LIBS:
+        assert (build.CSRC / f"{name}.cu").exists()
+        assert build.library_path(name).parent == build.BUILD_DIR
+    if not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        import shutil
+        if shutil.which("nvcc") is None:
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                build.nvcc()
