@@ -12,10 +12,15 @@ Phases, one JSON line each:
 3. kernel   each kernel against its plain PyTorch version on the card, at
             the main path's shapes and over an edge sweep (ragged M and
             Nq, GQA groups 1/3/12 and a folded 64, dead rows, g = 0
-            columns, causal off, window, prefix, ragged segments; head
-            dim 64, the only one the kernels are built for); the
-            largest error beside the stated tolerance, and the times of
-            kernel, plain version, library call and the bound.
+            columns, causal off, window, prefix, ragged segments; whole
+            attention tiles invisible to a query tile, a window that
+            drops early tiles, shuffled PRISM columns; decode columns
+            off the 64-column pass, warps with no live column, groups
+            of 40 and 128 heads; head dim 64, the only one the kernels
+            are built for); the largest error beside the stated
+            tolerance, and the times of kernel, plain version, library
+            call and the bound (the attention kernel's operations at
+            the 3xTF32 tensor-core rate, the others' at f32 FMA's).
 4. path     GPT-2 small at full width and depth, random weights from
             torch.Generator seed 0, B = 8, prompt 512, 64 generated
             tokens, P = 4 sequence shards, CR 4, through
@@ -49,14 +54,20 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
+F32_FLOP_PER_S = 67e12                  # CUDA cores, f32 FMA
+TF32_FLOP_PER_S = 495e12                # tensor cores, TF32
+# f32-accurate products on the tensor cores take three TF32 products
+# each (3xTF32), so the attention kernel's peak is a third of TF32's
+F32_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
 
 # main path: GPT-2 small, B = 8, prompt 512, 64 generated, P = 4, CR 4
 ARCH, BATCH, PROMPT, GEN, SHARDS, CR = "gpt2-small", 8, 512, 64, 4, 4.0
 
 # kernel vs plain tolerances (|got - want| <= atol + rtol·|want|): both
-# sides compute in f32 (the kernels use FMA, not TF32); they differ only
-# in summation order.  The reference's own kernel tests use the same.
+# sides compute in f32 (the attention kernel's tensor-core products are
+# 3xTF32, whose error stays at f32 FMA's level; single-pass TF32 would
+# not fit); they differ only in summation order.  The reference's own
+# kernel tests use the same.
 TOL = {"prism_flash_attention": (2e-5, 2e-4),
        "segment_means": (1e-5, 1e-5),
        "flash_decode_stats": (1e-5, 1e-5)}
@@ -96,7 +107,12 @@ def nvidia_smi() -> str:
 
 class Timer:
     """Median CUDA-event time of one call, with the 50 MB L2 flushed
-    before each call: the main path finds its operands cold."""
+    before each call (the main path finds its operands cold) and the
+    card kept busy for about a millisecond after the flush, so that the
+    host has enqueued the whole call before its start event is reached:
+    the time is the card's, not the host's Python between launches."""
+
+    AHEAD_CYCLES = 2_000_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -109,6 +125,7 @@ class Timer:
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.AHEAD_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -119,8 +136,8 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(n_bytes, flops):
-    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound_ms(n_bytes, flops, flop_per_s=F32_FLOP_PER_S):
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -199,6 +216,8 @@ def check_attention(torch, chk, timer):
     from repro_torch.core.attention import log_repeats
     from repro_torch.core.masks import visibility
     from repro_torch.kernels.ops import prism_attention_op
+    from repro_torch.kernels.prism_attention import (
+        prism_attention_reference, prism_flash_attention)
     name = "prism_flash_attention"
 
     def both(args, case, **kw):
@@ -221,7 +240,7 @@ def check_attention(torch, chk, timer):
         pairs = int(vis.sum()) * (q.shape[0] // p) * q.shape[2]
         flops = 4 * q.shape[-1] * pairs          # QK^T and PV, 2 per FMA
         b_ms, b_by = bound_ms(nbytes(q, k, v, lg, lo, hi, row) +
-                              nbytes(q), flops)
+                              nbytes(q), flops, F32_3XTF32_FLOP_PER_S)
         # the library yardstick: SDPA with log g and the mask folded into
         # a float mask (K/V expanded to the query batch for voltage)
         rep = q.shape[0] // k.shape[0]
@@ -232,10 +251,20 @@ def check_attention(torch, chk, timer):
             lg[:, None, :], -1e30))
         bias = bias.repeat(q.shape[0] // p, 1, 1)[:, None].contiguous()
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        # the kernel and its plain version on the (P, M) / (P, Nq)
+        # metadata the entry point hands them; the entry point's own
+        # conversions (log g, int32, per-shard copies) are in op_ms
+        i32 = torch.int32
+        kargs = (q, k, v, lg.contiguous(),
+                 lo.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
+                 hi.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
+                 row.reshape(p, -1).to(i32).contiguous())
         main[mode] = {
-            "ms": timer(lambda: prism_attention_op(*args, backend="kernel")),
-            "plain_ms": timer(lambda: prism_attention_op(
-                *args, backend="plain"), iters=10),
+            "ms": timer(lambda: prism_flash_attention(*kargs, causal=True)),
+            "plain_ms": timer(lambda: prism_attention_reference(
+                *kargs, causal=True), iters=10),
+            "op_ms": timer(lambda: prism_attention_op(*args,
+                                                      backend="kernel")),
             "library_ms": timer(lambda: sdpa(qs, ks, vs, attn_mask=bias)),
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
             "shape": {"q": list(q.shape), "k": list(k.shape)}}
@@ -259,6 +288,37 @@ def check_attention(torch, chk, timer):
                                                       prefix_len=6),
                    dict(causal=False, window=24)):
             both(args, f"hq{hq}/hkv{hkv}/hd{hd}/{kw}", **kw)
+
+    # tile skipping: sorted positions over Nq = 130 / M = 200 and
+    # Nq = 200 / M = 400 (neither a tile multiple), two shards with their
+    # own rows, so whole column tiles are invisible to a query tile
+    # (causal), or drop out below the window; a prefix makes late tiles
+    # visible again
+    for (nq, m, r0, hq, hkv, kws) in (
+            (130, 200, 40, 12, 12, (dict(causal=True),
+                                    dict(causal=True, prefix_len=150))),
+            (200, 400, 200, 12, 4, (dict(causal=True, window=50),
+                                    dict(causal=True, window=150,
+                                         prefix_len=20),
+                                    dict(causal=False, window=70)))):
+        p = 2
+        q = 0.5 * torch.randn(2 * p, nq, hq, 64, device="cuda", generator=gen)
+        k = 0.5 * torch.randn(2, m, hkv, 64, device="cuda", generator=gen)
+        v = 0.5 * torch.randn(2, m, hkv, 64, device="cuda", generator=gen)
+        g = torch.randint(0, 3, (p, m), device="cuda", generator=gen).float()
+        lo = torch.arange(m, device="cuda").expand(p, m).contiguous()
+        hi = lo + (torch.arange(m, device="cuda") % 2)
+        row = (torch.arange(nq, device="cuda")[None] + r0
+               + 60 * torch.arange(p, device="cuda")[:, None])
+        for kw in kws:
+            both((q, k, v, g, lo, hi, row), f"skip/nq{nq}/m{m}/{kw}", **kw)
+
+    # the PRISM layout with its columns shuffled: a tile's positions are
+    # neither sorted nor contiguous
+    q, k, v, g, lo, hi, row = attention_inputs(torch, "prism", seed=4)
+    perm = torch.randperm(k.shape[1], device="cuda", generator=gen)
+    both((q[:8], k[:8, perm], v[:8, perm], g[..., perm], lo[..., perm],
+          hi[..., perm], row), "prism/shuffled")
     return main
 
 
@@ -347,40 +407,95 @@ def check_decode(torch, chk, timer):
         flops = 4 * hd * cols_per_row * hq
         n_bytes += 4 * (2 * k.shape[0] * hq + k.shape[0] * hq * hd)  # outputs
         b_ms, b_by = bound_ms(n_bytes, flops)
+        lib_ms, lib_err = decode_library(torch, timer, args, scale)
         main[mode] = {
             "ms": timer(lambda: decode_stats(*args, scale=scale,
                                              backend="kernel")),
             "plain_ms": timer(lambda: decode_stats(*args, scale=scale,
                                                    backend="plain")),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": n_bytes,
+            "library_ms": lib_ms, "library_check": lib_err,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
             "shape": {"q": list(q.shape), "k": list(k.shape)}}
 
     # edge sweep: GQA groups 1/3/12 and a folded 64, ragged M, all-dead
-    # rows, g = 0 means columns, shards folded into the batch (rep > 1)
-    for hq, hkv, hd, m_loc, rep in ((12, 12, 64, 100, 1), (12, 4, 64, 33, 4),
-                                    (12, 1, 64, 130, 2), (64, 1, 64, 70, 4),
-                                    (6, 3, 64, 7, 1), (8, 2, 64, 65, 2),
-                                    (4, 4, 64, 200, 3)):
-        bq = 3
-        b = bq * rep
-        q = 0.5 * torch.randn(bq, 1, hq, hd, device="cuda", generator=gen)
-        k = 0.5 * torch.randn(b, m_loc, hkv, hd, device="cuda", generator=gen)
-        v = 0.5 * torch.randn(b, m_loc, hkv, hd, device="cuda", generator=gen)
-        pos = torch.randint(-1, m_loc, (b,), device="cuda", generator=gen)
-        pos[0] = -1                                  # an all-dead row
-        valid = torch.arange(m_loc, device="cuda")[None] <= pos[:, None]
-        both([q, k, v, valid], hd ** -0.5, f"hq{hq}/hkv{hkv}/M{m_loc}")
-        mz = 37
-        gz = torch.randint(0, 5, (b, mz), device="cuda", generator=gen)
-        gz[0] = 0                                    # dead means too
-        log_gz = torch.where(gz > 0, gz.float().log(),
-                             torch.full_like(gz, -1e30, dtype=torch.float))
-        kz = 0.5 * torch.randn(bq, mz, hkv, hd, device="cuda", generator=gen)
-        vz = 0.5 * torch.randn(bq, mz, hkv, hd, device="cuda", generator=gen)
-        both([q, k, v, valid, log_gz, kz, vz], hd ** -0.5,
-             f"hq{hq}/hkv{hkv}/M{m_loc}/means")
+    # rows, g = 0 means columns, shards folded into the batch (rep > 1);
+    # then M and the means count off the 64-column pass, rows whose
+    # later passes and warps hold no live column, rows of many passes,
+    # and groups of 40 and 128 heads (more than one block of 32 heads)
+    for hq, hkv, m_loc, rep, mz, max_pos in (
+            (12, 12, 100, 1, 37, None), (12, 4, 33, 4, 37, None),
+            (12, 1, 130, 2, 37, None), (64, 1, 70, 4, 37, None),
+            (6, 3, 7, 1, 37, None), (8, 2, 65, 2, 37, None),
+            (4, 4, 200, 3, 37, None),
+            (12, 12, 300, 4, 100, None), (12, 4, 300, 2, 100, 20),
+            (64, 1, 190, 2, 70, 60), (12, 1, 700, 2, 37, None),
+            (24, 8, 450, 3, 129, 130), (40, 1, 90, 2, 37, 50),
+            (128, 1, 70, 2, 37, None)):
+        sweep_decode_case(torch, both, gen, hq, hkv, m_loc, rep, mz, max_pos)
     return main
+
+
+def sweep_decode_case(torch, both, gen, hq, hkv, m_loc, rep, mz, max_pos,
+                      hd=64):
+    """One decode sweep case, without and with means columns: 3 query
+    rows, each folded over ``rep`` shards; cache positions up to
+    ``max_pos`` (default: the whole shard) with row 0 all dead."""
+    bq = 3
+    b = bq * rep
+    top = m_loc if max_pos is None else max_pos
+    q = 0.5 * torch.randn(bq, 1, hq, hd, device="cuda", generator=gen)
+    k = 0.5 * torch.randn(b, m_loc, hkv, hd, device="cuda", generator=gen)
+    v = 0.5 * torch.randn(b, m_loc, hkv, hd, device="cuda", generator=gen)
+    pos = torch.randint(-1, top, (b,), device="cuda", generator=gen)
+    pos[0] = -1                                  # an all-dead row
+    valid = torch.arange(m_loc, device="cuda")[None] <= pos[:, None]
+    case = f"hq{hq}/hkv{hkv}/M{m_loc}/rep{rep}/top{top}"
+    both([q, k, v, valid], hd ** -0.5, case)
+    gz = torch.randint(0, 5, (b, mz), device="cuda", generator=gen)
+    gz[0] = 0                                    # dead means too
+    if max_pos is not None:
+        gz[:, max_pos:] = 0                      # late means not visible
+    log_gz = torch.where(gz > 0, gz.float().log(),
+                         torch.full_like(gz, -1e30, dtype=torch.float))
+    kz = 0.5 * torch.randn(bq, mz, hkv, hd, device="cuda", generator=gen)
+    vz = 0.5 * torch.randn(bq, mz, hkv, hd, device="cuda", generator=gen)
+    both([q, k, v, valid, log_gz, kz, vz], hd ** -0.5, f"{case}/mz{mz}")
+
+
+def decode_library(torch, timer, args, scale):
+    """The decode yardstick: one call of PyTorch's memory-efficient
+    attention over the same columns (local K/V and the means
+    concatenated, a float bias from ``valid`` / ``log_gz``), with its
+    log-sum-exp, which determine (m, l, acc).  Inputs are laid out
+    outside the timed call; the port never calls it.  Returns (ms, the
+    largest |out - acc / l| over live rows) or (None, the op's error)."""
+    from repro_torch.kernels.decode_attention import decode_stats
+    q, k, v, valid = args[:4]
+    b, bq = k.shape[0], q.shape[0]
+    rep, hq, hkv = b // bq, q.shape[2], k.shape[2]
+    bias = torch.where(valid, 0.0, -1e30)
+    if len(args) > 4:
+        log_gz, kz, vz = args[4:]
+        k = torch.cat([k, kz.repeat_interleave(rep, 0)], dim=1)
+        v = torch.cat([v, vz.repeat_interleave(rep, 0)], dim=1)
+        bias = torch.cat([bias, log_gz], dim=1)
+
+    def heads(t):                                # (B, N, Hkv, hd) -> BHNd
+        return t.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous()
+    qs = q.repeat_interleave(rep, 0).transpose(1, 2).contiguous()
+    ks, vs = heads(k), heads(v)
+    bias = bias[:, None, None, :].expand(b, hq, 1, -1).contiguous()
+    op = torch.ops.aten._scaled_dot_product_efficient_attention
+    try:
+        out = op(qs, ks, vs, bias, True, 0.0, False, scale=scale)[0]
+        ms = timer(lambda: op(qs, ks, vs, bias, True, 0.0, False,
+                              scale=scale))
+    except RuntimeError as e:
+        return None, f"refused: {str(e).splitlines()[0][:200]}"
+    _, l, acc = decode_stats(*args, scale=scale, backend="plain")
+    live = (l[:, :, 0, 0] > 0)                              # (B, Hq)
+    want = (acc[:, 0] / l[:, :, 0].clamp(min=1e-30))[live]
+    return ms, float((out[:, :, 0][live] - want).abs().max())
 
 
 # ---------------------------------------------------------------------------

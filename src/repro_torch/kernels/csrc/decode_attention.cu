@@ -13,33 +13,49 @@
 // The shard axis is folded into the batch: batch row b reads query row
 // and means row b / rep, and its own cache shard, `valid` and log g rows.
 //
-// What bounds it on an H100: memory.  Each cache column is read once and
-// used for a handful of FMAs per query head, so the floor is the K/V
-// bytes over the 3.35 TB/s HBM rate (about 28 MB per layer on the main
-// path: B = 8, 4 shards of 144 columns, 12 heads of 64, f32).
+// What bounds it on an H100: memory.  Each live cache column is read
+// once and used for a handful of FMAs per query head, so the floor is
+// the live K/V bytes over the 3.35 TB/s HBM rate (about 35 MB per layer
+// on the main path in prism mode: B = 8, 4 shards of 144 columns plus
+// 128 means, 12 heads of 64, f32).  One block per (row, KV head) gave
+// 384 blocks that each streamed up to 5 tiles with 4-byte loads and no
+// load in flight during compute, with one warp of four computing.
 //
-// Design: a split-K flash-decode whose split is the shard axis: one
-// block of 128 threads per (batch row x shard, KV head).  The block
-// streams its shard's columns, then the means columns, in tiles of 64
-// staged in shared memory (padded row stride, conflict-free).  The
-// grp = Hq / Hkv query heads that share the KV head are handed to the
-// four warps in turn, so any group size works (the chunked-prefill
-// caller folds C * Hq queries into the head axis later); each warp's
-// lanes compute two scores each, reduce max and sum with shuffles, and
-// own hd / 32 output dims of the row's accumulator.  The running
-// (m, l, acc) of every query row lives in shared memory across tiles.
-// This is the simple, correct form: with grp = 1 only one warp computes
-// while all four load; splitting each shard further and TMA loads are
-// for a later change.
+// Design: one block of 4 warps per (row, KV head, tile of up to 32 query
+// heads of its group), so the main path runs 12 x 32 blocks in both
+// modes, about three per SM.  Each warp takes 16 columns per pass, two at
+// a time: a half-warp holds one 64-float K or V row as 16 float4s.  A
+// warp first reads its columns' `valid` / log g, then issues the 16-byte
+// K and V loads of every live column of the pass at once into registers,
+// so 8 KB per warp are in flight; a dead column (`valid` false or
+// log g <= -1e30 / 2) is never loaded.  Every warp then computes the
+// scores of the tile's query heads over its columns, keeping a running
+// (m, l, acc) per head in shared memory, and the four warps' partials
+// are merged in warp order: deterministic, one launch per call.  A warp
+// that met no live column holds (-inf, 0, 0) and drops out of the merge.
+// A group of more than 32 heads takes more blocks, each of which reads
+// the KV head's columns again (from L2), so any group size launches with
+// at most 35 KB of shared memory.
+//
+// Splitting a row's columns over a cluster of up to 4 blocks, merged over
+// distributed shared memory, was measured 13% slower at the main path's
+// shape (chip_smoke.py's decode times, H100): 384 blocks already fill
+// the card, and the split adds a cluster barrier and a merge.
+//
+// What bounds it still: each block waits on two dependent device-memory
+// round trips (`valid`, then K/V), so the call is latency-bound, about
+// 2.6x its byte bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr int BK = 64;   // columns per tile
-constexpr int NT = 128;  // threads per block
-constexpr int NW = NT / 32;
+constexpr int NW = 4;               // warps per block
+constexpr int NT = 32 * NW;         // threads per block
+constexpr int WCOLS = 16;           // columns per warp per pass
+constexpr int UNIT = NW * WCOLS;    // columns per block per pass
+constexpr int GMAX = 32;            // query heads per block
 
 template <int HD>
 __global__ void __launch_bounds__(NT) decode_stats_kernel(
@@ -54,120 +70,145 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
     float* __restrict__ l_out,          // (B, Hq)
     float* __restrict__ acc_out,        // (B, Hq, HD)
     int M, int MZ, int Hq, int Hkv, int rep, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int DPL = (HD + 31) / 32;   // output dims per lane
+  // a half-warp holds one row as 16 float4s
+  static_assert(HD == 64, "decode kernel is laid out for head dim 64");
+  constexpr int LP = HD + 4;            // partial: acc[HD], m, l, pad
+  constexpr int NP = HD + 2;            // the used part of a partial
   const int grp = Hq / Hkv;
-  extern __shared__ float smem[];
-  float* sK = smem;                     // BK x LD
-  float* sV = sK + BK * LD;             // BK x LD
-  float* sP = sV + BK * LD;             // NW x BK probabilities
-  float* sQ = sP + NW * BK;             // grp x HD query rows
-  float* sAcc = sQ + grp * HD;          // grp x HD running accumulators
-  float* sM = sAcc + grp * HD;          // grp running maxima
-  float* sL = sM + grp;                 // grp running sums
-  __shared__ float sBias[BK];
-  __shared__ uint8_t sOk[BK];
+  const int g0 = blockIdx.x * GMAX;     // this block's heads of the group
+  const int gt = min(GMAX, grp - g0);
+  extern __shared__ __align__(16) float sPart[];  // NW x gt partials
 
-  const int b = blockIdx.x;
   const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
   const int bq = b / rep;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int half = lane >> 4, hl = lane & 15;
+  const int n_cols = M + (kz != nullptr ? MZ : 0);
+  const int h0 = kvh * grp + g0;        // the block's first query head
 
-  for (int i = tid; i < grp * HD; i += NT) {
-    sQ[i] = q[((size_t)bq * Hq + kvh * grp) * HD + i];
-    sAcc[i] = 0.f;
-  }
-  for (int i = tid; i < grp; i += NT) {
-    sM[i] = NEG;
-    sL[i] = 0.f;
-  }
+  const float4* qg =                    // the block's query rows
+      reinterpret_cast<const float4*>(q + ((size_t)bq * Hq + h0) * HD);
+  for (int i = lane; i < gt * LP; i += 32)    // this warp's partials
+    sPart[warp * gt * LP + i] = (i % LP) == HD ? -INFINITY : 0.f;
+  __syncwarp();
 
-  const int nt_loc = (M + BK - 1) / BK;
-  const int nt = nt_loc + (kz != nullptr ? (MZ + BK - 1) / BK : 0);
-  for (int t = 0; t < nt; ++t) {
-    const bool means = t >= nt_loc;
-    const int c0 = (means ? t - nt_loc : t) * BK;
-    const int mc = means ? MZ : M;
-    const float* ks = means ? kz + (size_t)bq * MZ * Hkv * HD
-                            : k + (size_t)b * M * Hkv * HD;
-    const float* vs = means ? vz + (size_t)bq * MZ * Hkv * HD
-                            : v + (size_t)b * M * Hkv * HD;
-    __syncthreads();                    // previous tile fully consumed
-    for (int idx = tid; idx < BK * HD; idx += NT) {
-      const int cc = idx / HD, d = idx % HD, c = c0 + cc;
-      const size_t off = ((size_t)c * Hkv + kvh) * HD + d;
-      sK[cc * LD + d] = c < mc ? ks[off] : 0.f;
-      sV[cc * LD + d] = c < mc ? vs[off] : 0.f;
-    }
-    if (tid < BK) {
-      const int c = c0 + tid;
-      if (means) {
-        sOk[tid] = c < mc;
-        sBias[tid] = c < mc ? log_gz[(size_t)b * MZ + c] : 0.f;
-      } else {
-        sOk[tid] = c < mc && valid[(size_t)b * M + c] != 0;
-        sBias[tid] = 0.f;
-      }
-    }
-    __syncthreads();
-
-    float* pw = sP + warp * BK;
-    for (int g = warp; g < grp; g += NW) {
-      const float* qr = sQ + g * HD;
-      float s[2];
+  for (int base = warp * WCOLS; base < n_cols; base += UNIT) {
+    // this pass: columns base + 2i + half, i < 8
+    bool live[WCOLS / 2];
+    float bias[WCOLS / 2];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int cc = lane + 32 * u;
-        const float* kr = sK + cc * LD;
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
-        // local columns: valid ? s : NEG; means columns: max(s + log g,
-        // NEG) -- the clamp keeps a dead mean at the sentinel
-        s[u] = sOk[cc] ? fmaxf(dot * scale + sBias[cc], NEG) : NEG;
-      }
-      float mx = fmaxf(s[0], s[1]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = sM[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float corr = expf(m_prev - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        // dead columns are re-zeroed: an all-dead row keeps l = 0
-        const float p = s[u] > NEG * 0.5f ? expf(s[u] - m_new) : 0.f;
-        pw[lane + 32 * u] = p;
-        ps += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      __syncwarp();                     // pw complete
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) {
-        const int d = lane + 32 * e;
-        if (d < HD) {
-          float a = sAcc[g * HD + d] * corr;
-          for (int cc = 0; cc < BK; ++cc) a = fmaf(pw[cc], sV[cc * LD + d], a);
-          sAcc[g * HD + d] = a;
+    for (int i = 0; i < WCOLS / 2; ++i) {
+      const int c = base + 2 * i + half;
+      live[i] = false;
+      bias[i] = 0.f;
+      if (c < n_cols) {
+        if (c < M) {
+          live[i] = valid[(size_t)b * M + c] != 0;
+        } else {
+          bias[i] = log_gz[(size_t)b * MZ + (c - M)];
+          live[i] = bias[i] > NEG * 0.5f;
         }
       }
-      __syncwarp();                     // every lane read sM[g] and pw
+    }
+    float4 kr[WCOLS / 2], vr[WCOLS / 2];
+#pragma unroll
+    for (int i = 0; i < WCOLS / 2; ++i) {
+      const int c = base + 2 * i + half;
+      kr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      vr[i] = kr[i];
+      if (live[i]) {
+        const size_t off =
+            c < M ? ((size_t)(b * M + c) * Hkv + kvh) * HD
+                  : ((size_t)(bq * MZ + (c - M)) * Hkv + kvh) * HD;
+        const float* ks = (c < M ? k : kz) + off;
+        const float* vs = (c < M ? v : vz) + off;
+        kr[i] = __ldg(reinterpret_cast<const float4*>(ks) + hl);
+        vr[i] = __ldg(reinterpret_cast<const float4*>(vs) + hl);
+      }
+    }
+    for (int g = 0; g < gt; ++g) {
+      const float4 q4 = __ldg(qg + g * (HD / 4) + hl);
+      float s[WCOLS / 2];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < WCOLS / 2; ++i) {
+        float d = q4.x * kr[i].x;
+        d = fmaf(q4.y, kr[i].y, d);
+        d = fmaf(q4.z, kr[i].z, d);
+        d = fmaf(q4.w, kr[i].w, d);
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
+        s[i] = live[i] ? fmaf(d, scale, bias[i]) : -INFINITY;
+        mx = fmaxf(mx, s[i]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      float* part = sPart + (warp * gt + g) * LP;
+      const float m_prev = part[HD];
+      const float m_new = fmaxf(m_prev, mx);
+      // nothing live yet: subtract 0, so exp gives 0 and never inf - inf
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = expf(m_prev - m_use);
+      float ps = 0.f;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < WCOLS / 2; ++i) {
+        const float p = expf(s[i] - m_use);
+        ps += p;
+        a.x = fmaf(p, vr[i].x, a.x);
+        a.y = fmaf(p, vr[i].y, a.y);
+        a.z = fmaf(p, vr[i].z, a.z);
+        a.w = fmaf(p, vr[i].w, a.w);
+      }
+      ps += __shfl_xor_sync(0xffffffffu, ps, 16);
+      a.x += __shfl_xor_sync(0xffffffffu, a.x, 16);
+      a.y += __shfl_xor_sync(0xffffffffu, a.y, 16);
+      a.z += __shfl_xor_sync(0xffffffffu, a.z, 16);
+      a.w += __shfl_xor_sync(0xffffffffu, a.w, 16);
+      const float l_prev = part[HD + 1];
+      __syncwarp();                     // every lane has read m, l
+      if (half == 0) {
+        float4* acc = reinterpret_cast<float4*>(part) + hl;
+        float4 r = *acc;
+        r.x = fmaf(r.x, corr, a.x);
+        r.y = fmaf(r.y, corr, a.y);
+        r.z = fmaf(r.z, corr, a.z);
+        r.w = fmaf(r.w, corr, a.w);
+        *acc = r;
+      }
       if (lane == 0) {
-        sM[g] = m_new;
-        sL[g] = sL[g] * corr + ps;
+        part[HD] = m_new;
+        part[HD + 1] = fmaf(l_prev, corr, ps);
       }
       __syncwarp();
     }
   }
   __syncthreads();
-  for (int i = tid; i < grp * HD; i += NT)
-    acc_out[((size_t)b * Hq + kvh * grp) * HD + i] = sAcc[i];
-  for (int i = tid; i < grp; i += NT) {
-    m_out[(size_t)b * Hq + kvh * grp + i] = sM[i];
-    l_out[(size_t)b * Hq + kvh * grp + i] = sL[i];
+
+  // merge the warps' partials in warp order
+  for (int i = tid; i < gt * NP; i += NT) {
+    const int g = i / NP, d = i % NP;
+    float mw = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      mw = fmaxf(mw, sPart[(w * gt + g) * LP + HD]);
+    const int h = h0 + g;
+    if (d == HD) {
+      m_out[(size_t)b * Hq + h] = mw == -INFINITY ? NEG : mw;
+      continue;
+    }
+    const float m_use = mw == -INFINITY ? 0.f : mw;
+    float x = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float* pw = sPart + (w * gt + g) * LP;
+      x = fmaf(pw[d], expf(pw[HD] - m_use), x);
+    }
+    if (d == HD + 1)
+      l_out[(size_t)b * Hq + h] = x;
+    else
+      acc_out[((size_t)b * Hq + h) * HD + d] = x;
   }
 }
 
@@ -178,16 +219,11 @@ int launch(const float* q, const float* k, const float* v,
            int B, int M, int MZ, int Hq, int Hkv, int rep, float scale,
            cudaStream_t stream) {
   const int grp = Hq / Hkv;
-  const size_t smem = sizeof(float) * (2 * BK * (HD + 1) + NW * BK +
-                                       2 * grp * HD + 2 * grp);
-  cudaError_t e = cudaFuncSetAttribute(
-      decode_stats_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B, Hkv);
+  const size_t smem = sizeof(float) * NW * min(grp, GMAX) * (HD + 4);
+  const dim3 grid((grp + GMAX - 1) / GMAX, Hkv, B);
   decode_stats_kernel<HD><<<grid, NT, smem, stream>>>(
-      q, k, v, valid, log_gz, kz, vz, m_out, l_out, acc_out, M, MZ, Hq, Hkv,
-      rep, scale);
+      q, k, v, valid, log_gz, kz, vz, m_out, l_out, acc_out, M, MZ, Hq,
+      Hkv, rep, scale);
   return (int)cudaGetLastError();
 }
 
@@ -209,8 +245,7 @@ extern "C" int flash_decode_stats_f32(
   auto* lo = static_cast<float*>(l_out);
   auto* ao = static_cast<float*>(acc_out);
   auto st = static_cast<cudaStream_t>(stream);
-  // one head dim per ported model (GPT-2: 64); each instantiation is
-  // fully unrolled and lengthens the build
+  // one head dim per ported model (GPT-2: 64)
   if (hd != 64) return (int)cudaErrorInvalidValue;
   return launch<64>(qf, kf, vf, ok, lg, kzf, vzf, mo, lo, ao, B, M, MZ, Hq,
                     Hkv, rep, scale, st);

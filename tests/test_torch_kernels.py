@@ -25,6 +25,7 @@ from repro.kernels.segment_means import segment_means_op as j_means_op  # noqa: 
 from repro.core.segment_means import segment_means as j_means  # noqa: E402
 from repro_torch.kernels import build, dispatch  # noqa: E402
 from repro_torch.kernels import decode_attention as TD  # noqa: E402
+from repro_torch.core.masks import NEG_INF, visibility  # noqa: E402
 from repro_torch.kernels.ops import prism_attention_op  # noqa: E402
 from repro_torch.kernels.prism_attention import (  # noqa: E402
     prism_attention_reference, prism_flash_attention)
@@ -184,6 +185,102 @@ def test_attention_per_shard_metadata_and_shared_kv():
                                    atol=2e-5, rtol=2e-4, err_msg=str(i))
 
 
+def _tf32(x, *, round_=True):
+    """x cut to TF32 (10 mantissa bits) on the f32 bit pattern: rounded
+    to nearest with ties away from zero (``cvt.rna.tf32.f32``), or
+    truncated, as the tensor core reads an operand's top 19 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return (((bits + 0x1000) if round_ else bits) & -0x2000).view(
+        torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b from TF32 parts with f32 accumulation, as the kernel forms
+    it: hi rounded, lo = x - hi truncated by the tensor core; lo·hi, then
+    hi·lo, then hi·hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah, round_=False), _tf32(b - bh, round_=False)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _attention_3xtf32(q, k, v, log_g, lo, hi, row, *, causal, window,
+                      q_tile=64, k_tile=32):
+    """csrc/prism_attention.cu's arithmetic on the CPU (one shard of
+    metadata): query tiles of 64 rows, the block's tile-skip rule from
+    each column's own [lo, hi] against the tile's row-position range,
+    an online softmax in the log2 domain over the kept 32-column tiles,
+    and both products in 3xTF32.  Returns the output and the number of
+    (query tile, K tile) pairs skipped; a skipped pair must hold no
+    visible live column."""
+    b, nq, hq, hd = q.shape
+    m = k.shape[1]
+    grp = hq // k.shape[2]
+    scale, log2e = hd ** -0.5, 1.4426950408889634
+    kh = k.repeat_interleave(grp, 2).transpose(1, 2)        # (b, hq, m, hd)
+    vh = v.repeat_interleave(grp, 2).transpose(1, 2)
+    live = visibility(row, lo, hi, causal=causal, window=window) & (
+        log_g > NEG_INF / 2)[None, :]                        # (nq, m)
+    out = torch.zeros_like(q)
+    skipped = 0
+    for q0 in range(0, nq, q_tile):
+        rows = slice(q0, q0 + q_tile)
+        rmin, rmax = int(row[rows].min()), int(row[rows].max())
+        a = torch.maximum(hi, torch.tensor(rmin)) if causal else \
+            torch.full_like(hi, rmin)
+        z = (torch.minimum(lo + window - 1, torch.tensor(rmax))
+             if window is not None else torch.full_like(lo, rmax))
+        maybe = (a <= z) & (log_g > NEG_INF / 2)
+        qt = q[:, rows].transpose(1, 2)                     # (b, hq, r, hd)
+        m_run = torch.full(qt.shape[:3], -torch.inf)
+        l_run = torch.zeros(qt.shape[:3])
+        acc = torch.zeros(qt.shape)
+        for c0 in range(0, m, k_tile):
+            cols = slice(c0, c0 + k_tile)
+            if not maybe[cols].any():
+                assert not live[rows, cols].any()
+                skipped += 1
+                continue
+            x = (_mm_3xtf32(qt, kh[:, :, cols].transpose(-1, -2)) * scale
+                 + log_g[cols]) * log2e
+            x = torch.where(live[rows, cols], x, -torch.inf)
+            m_new = torch.maximum(m_run, x.amax(-1))
+            m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+            corr = torch.exp2(m_run - m_use)
+            p = torch.exp2(x - m_use[..., None])
+            l_run = l_run * corr + p.sum(-1)
+            acc = acc * corr[..., None] + _mm_3xtf32(p, vh[:, :, cols])
+            m_run = m_new
+        out[:, rows] = (acc / l_run.clamp(min=1e-30)[..., None]).transpose(
+            1, 2)
+    return out, skipped
+
+
+@pytest.mark.parametrize("causal,window,shuffle", [
+    (True, None, False), (True, 40, False), (False, 50, False),
+    (True, None, True)])
+def test_attention_3xtf32_tiles_match_plain(causal, window, shuffle):
+    """The kernel's tensor-core arithmetic (3xTF32) with its tile
+    skipping stays within the kernel-vs-plain tolerance of the f32
+    plain version at the main path's input scale (0.5·randn): Nq 130
+    and M 200 are off the 64-row and 32-column tiles; the means lie ahead of every row, so
+    whole tiles are skipped; shuffled columns are the PRISM layout's
+    unsorted positions."""
+    q, k, v, g, lo, hi, row = attention_case(2, 130, 150, 50, 4, 2, 64,
+                                             seed=21)
+    if shuffle:
+        perm = np.random.default_rng(5).permutation(k.shape[1])
+        k, v, g, lo, hi = k[:, perm], v[:, perm], g[perm], lo[perm], hi[perm]
+    log_g = torch.where(T(g) > 0, T(g).log(), torch.tensor(NEG_INF))
+    got, skipped = _attention_3xtf32(T(q), T(k), T(v), log_g, T(lo), T(hi),
+                                     T(row), causal=causal, window=window)
+    want = prism_attention_reference(T(q), T(k), T(v), log_g[None],
+                                     T(lo)[None], T(hi)[None], T(row)[None],
+                                     causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                               rtol=2e-4)
+    assert shuffle or skipped > 0
+
+
 # ---------------------------------------------------------------------
 # segment means
 # ---------------------------------------------------------------------
@@ -259,6 +356,52 @@ def test_merge_stats_is_concat():
         _, l, acc = TD.merge_stats(a, b)
         np.testing.assert_allclose(l, whole[1], atol=1e-5, rtol=1e-5)
         np.testing.assert_allclose(acc, whole[2], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mz", [0, 20])
+@pytest.mark.parametrize("n_chunks", [1, 2, 3, 5, 8, None, "warps"])
+def test_decode_chunked_merge_equals_unsplit(n_chunks, mz):
+    """What csrc/decode_attention.cu's merge must compute: a row's
+    columns (its cache shard, then the means) split into sets, partial
+    stats per set, merged in order with ``merge_stats``, equal the
+    unsplit plain version at every split: contiguous chunks (None: one
+    column per chunk), and the kernel's own split over its 4 warps, each
+    taking every fourth group of 16 columns.  Row 1 is all dead, row 2
+    sees 3 local columns and 4 means (so some sets hold no live column),
+    and the shards are folded (rep = 2)."""
+    rep, bq, m_loc, hq, hkv, hd = 2, 2, 45, 6, 2, 16
+    c = decode_case(bq * rep, m_loc, hq, hkv, hd, mz=max(mz, 1), seed=13)
+    pos = np.array([m_loc - 1, -1, 2, 30])
+    valid = T(np.arange(m_loc)[None, :] <= pos[:, None])
+    q, k, v = T(c["q"][:bq]), T(c["k"]), T(c["v"])
+    args = [q, k, v, valid]
+    bias = torch.where(valid, 0.0, NEG_INF)
+    kc, vc = k, v
+    if mz:
+        log_gz = T(c["log_gz"][:, :mz]).clone()
+        log_gz[1] = NEG_INF
+        log_gz[2, 4:] = NEG_INF
+        kz, vz = T(c["kz"][:bq, :mz]), T(c["vz"][:bq, :mz])
+        args += [log_gz, kz, vz]
+        bias = torch.cat([bias, log_gz], dim=1)
+        kc = torch.cat([k, kz.repeat_interleave(rep, 0)], dim=1)
+        vc = torch.cat([v, vz.repeat_interleave(rep, 0)], dim=1)
+    want = TD.decode_stats_reference(*args, scale=c["scale"])
+    q_rows = q.repeat_interleave(rep, 0)
+    stats = None
+    n_cols = kc.shape[1]
+    if n_chunks == "warps":
+        group = np.arange(n_cols) // 16
+        sets = [np.flatnonzero(group % 4 == w) for w in range(4)]
+        sets = [cols for cols in sets if len(cols)]   # a warp of no column
+    else:
+        sets = np.array_split(np.arange(n_cols), n_chunks or n_cols)
+    for cols in sets:
+        part = TD.partial_softmax_stats(q_rows, kc[:, cols], vc[:, cols],
+                                        bias[:, cols], c["scale"])
+        stats = part if stats is None else TD.merge_stats(stats, part)
+    assert_stats_close(stats, want)
+    assert not stats[1][1].any() and not stats[2][1].any()   # dead row
 
 
 # ---------------------------------------------------------------------
