@@ -12,15 +12,20 @@ Phases, one JSON line each:
 3. kernel   each kernel against its plain PyTorch version on the card, at
             the main path's shapes and over an edge sweep (ragged M and
             Nq, GQA groups 1/3/12 and a folded 64, dead rows, g = 0
-            columns, causal off, window, prefix, ragged segments; whole
-            attention tiles invisible to a query tile, a window that
-            drops early tiles, shuffled PRISM columns; decode columns
-            off the 64-column pass, warps with no live column, groups
-            of 40 and 128 heads; head dim 64, the only one the kernels
-            are built for); the largest error beside the stated
+            columns, causal off, window, prefix; whole attention tiles
+            invisible to a query tile, a window that drops early tiles,
+            shuffled PRISM columns; decode columns off the 64-column
+            pass, warps with no live column, groups of 40 and 128 heads;
+            head dim 64, the only one the kernels are built for; segment
+            means and the fused PRISM augment in f32 and bf16 over
+            ragged segments, L = 1 and L = N, D = 33 and 5, P = 1/2/4
+            and a misaligned base); the largest error beside the stated
             tolerance, and the times of kernel, plain version, library
             call and the bound (the attention kernel's operations at
             the 3xTF32 tensor-core rate, the others' at f32 FMA's).
+            Times are event pairs (``ms``, over a floor of about 5 us,
+            ``floor_ms``) and, for the kernels, the profiler's kernel
+            durations (``device_ms``).
 4. path     GPT-2 small at full width and depth, random weights from
             torch.Generator seed 0, B = 8, prompt 512, 64 generated
             tokens, P = 4 sequence shards, CR 4, through
@@ -35,7 +40,8 @@ Phases, one JSON line each:
             kernel class.
 5. kernels  one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
-            against the plain version over phase 3.
+            against the plain version over phase 3; the segment_means
+            row adds its bf16 and fused-augment (``augment_*``) numbers.
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -44,6 +50,7 @@ does without a card, and outside the repository.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -71,6 +78,9 @@ ARCH, BATCH, PROMPT, GEN, SHARDS, CR = "gpt2-small", 8, 512, 64, 4, 4.0
 TOL = {"prism_flash_attention": (2e-5, 2e-4),
        "segment_means": (1e-5, 1e-5),
        "flash_decode_stats": (1e-5, 1e-5)}
+# bf16 segment means (both sides sum in f32 and round once to bf16): one
+# bf16 rounding apart, 2^-7 of the value, beyond f32's sum-order error
+TOL_BF16 = (1e-5, 2.0 ** -7)
 # end-to-end: max |logits - reference| / max |reference| over every step
 PATH_REL_TOL = 1e-4
 # greedy tokens must agree where the reference's top-2 gap exceeds this
@@ -135,6 +145,54 @@ class Timer:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
+    def device(self, fn, iters=25, warmup=3):
+        """Median device time of one call from torch.profiler's kernel
+        records: the summed durations of the call's kernels, each call
+        after the same L2 flush.  It holds none of the latency between
+        an event and the kernel beside it, which puts a floor of about
+        5 us under every event-pair time (``floor_ms``) and dominates a
+        kernel of a few microseconds."""
+        for _ in range(warmup):
+            fn()
+        flush = {name for name, _ in self._kernels(self.flush.zero_)}
+        one = [name for name, _ in self._kernels(fn)]
+        if not one or flush & set(one):
+            raise RuntimeError(f"cannot tell the call's kernels {one} from "
+                               f"the flush's {sorted(flush)}")
+
+        def calls():
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+        ms = [t for name, t in self._kernels(calls) if name not in flush]
+        if len(ms) != iters * len(one):
+            raise RuntimeError(f"{len(ms)} kernels in {iters} calls of "
+                               f"{len(one)}")
+        k = len(one)
+        return statistics.median(sum(ms[i:i + k])
+                                 for i in range(0, len(ms), k))
+
+    def _kernels(self, fn):
+        """(name, ms) of every device activity of ``fn``, in start order."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        return [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                for e in evs]
+
+    def floor(self):
+        """Event-pair time of a one-element add: the harness's floor."""
+        tiny = self.torch.zeros(1, device="cuda")
+        return self(lambda: tiny.add_(1))
+
 
 def bound_ms(n_bytes, flops, flop_per_s=F32_FLOP_PER_S):
     t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / flop_per_s
@@ -154,9 +212,12 @@ class Checker:
         self.max_err = {name: 0.0 for name in TOL}
         self.cases = {name: 0 for name in TOL}
 
-    def close(self, name, got, want, case, mask=None):
+    def close(self, name, got, want, case, mask=None, tol=None, key=None):
+        """``key`` (default ``name``) files the error apart, with its own
+        ``tol``, e.g. a kernel's bf16 cases."""
         torch = self.torch
-        atol, rtol = TOL[name]
+        atol, rtol = TOL[name] if tol is None else tol
+        key = name if key is None else key
         got, want = got.double(), want.double()
         if mask is not None:
             got, want = got[mask], want[mask]
@@ -168,7 +229,7 @@ class Checker:
         if bad.any():
             raise AssertionError(f"{name} [{case}]: max |err| {err:.3e} "
                                  f"outside atol {atol} rtol {rtol}")
-        self.max_err[name] = max(self.max_err[name], err)
+        self.max_err[key] = max(self.max_err.get(key, 0.0), err)
 
     def stats(self, got, want, case):
         """Decode stats: l and acc everywhere, m where the row is live."""
@@ -261,6 +322,8 @@ def check_attention(torch, chk, timer):
                  row.reshape(p, -1).to(i32).contiguous())
         main[mode] = {
             "ms": timer(lambda: prism_flash_attention(*kargs, causal=True)),
+            "device_ms": timer.device(lambda: prism_flash_attention(
+                *kargs, causal=True)),
             "plain_ms": timer(lambda: prism_attention_reference(
                 *kargs, causal=True), iters=10),
             "op_ms": timer(lambda: prism_attention_op(*args,
@@ -323,29 +386,102 @@ def check_attention(torch, chk, timer):
 
 
 def check_segment_means(torch, chk, timer):
-    from repro_torch.kernels.segment_means import segment_means_op
+    """Both entries of csrc/segment_means.cu, f32 and bf16, against their
+    plain versions: the means alone, and the fused PRISM augment.  Also
+    a base 4 bytes off 16-byte alignment, which takes the kernel's scalar
+    path at a D of whole vectors."""
+    from repro_torch.kernels.segment_means import (prism_augment_op,
+                                                   segment_means_op)
     name = "segment_means"
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = [(BATCH * SHARDS, PROMPT // SHARDS, 768,        # main path
-              int(PROMPT // (CR * SHARDS))),
-             (32, 100, 768, 16), (3, 17, 33, 4), (2, 9, 64, 1),
-             (1, 130, 5, 130), (4, 128, 768, 7)]
-    for b, n, d, L in cases:
-        x = torch.randn(b, n, d, device="cuda", generator=gen)
-        chk.close(name, segment_means_op(x, L=L, backend="kernel"),
-                  segment_means_op(x, L=L, backend="plain"),
-                  f"b{b}/n{n}/d{d}/L{L}")
+
+    def rand(shape, dtype, misaligned=False):
+        flat = torch.randn(math.prod(shape) + 1, device="cuda",
+                           generator=gen).to(dtype)
+        return (flat[1:] if misaligned else flat[:-1]).view(*shape)
+
+    def both(op, x, case, **kw):
+        tag = "" if x.dtype == torch.float32 else "/bf16"
+        got = op(x, backend="kernel", **kw)
+        want = op(x, backend="plain", **kw)
+        if got.dtype != x.dtype or got.shape != want.shape:
+            raise AssertionError(f"{name} [{case}{tag}]: {got.dtype} "
+                                 f"{tuple(got.shape)}, want {x.dtype} "
+                                 f"{tuple(want.shape)}")
+        chk.close(name, got, want, case + tag, key=name + tag,
+                  tol=None if not tag else TOL_BF16)
         chk.cases[name] += 1
-    b, n, d, L = cases[0]
-    x = torch.randn(b, n, d, device="cuda", generator=gen)
+        return got
+
+    n_loc, L0 = PROMPT // SHARDS, int(PROMPT // (CR * SHARDS))
+    main = (BATCH * SHARDS, n_loc, 768, L0)
+    means_cases = [main, (32, 100, 768, 16), (3, 17, 33, 4), (2, 9, 64, 1),
+                   (1, 130, 5, 130), (4, 128, 768, 7), (2, 130, 768, 1)]
+    # (B·P, n_loc, D, L, P): the main shape, ragged n_loc, L = 1,
+    # L = n_loc, D = 33 and 5, P = 1, 2 and 4
+    augment_cases = [main + (SHARDS,), (8, 100, 768, 16, 4),
+                     (6, 130, 768, 1, 2), (4, 12, 768, 12, 4),
+                     (6, 17, 33, 4, 2), (4, 9, 5, 3, 4), (3, 64, 768, 8, 1),
+                     (2, 7, 5, 7, 1), (8, 128, 64, 32, 2)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, n, d, L in means_cases:
+            both(segment_means_op, rand((b, n, d), dtype),
+                 f"means/b{b}/n{n}/d{d}/L{L}", L=L)
+        for bp, n, d, L, p in augment_cases:
+            x = rand((bp, n, d), dtype)
+            got = both(prism_augment_op, x,
+                       f"augment/bp{bp}/n{n}/d{d}/L{L}/P{p}", L=L,
+                       n_shards=p)
+            if not torch.equal(got[:, :n], x):
+                raise AssertionError(f"{name} [augment/bp{bp}/n{n}]: the "
+                                     "local rows are not copied exactly")
+        b, n, d, L = main
+        both(segment_means_op, rand((b, n, d), dtype, misaligned=True),
+             "means/misaligned", L=L)
+        both(prism_augment_op, rand((b, n, d), dtype, misaligned=True),
+             "augment/misaligned", L=L, n_shards=SHARDS)
+
+    # times at the main path's shape: the means alone (f32 and bf16),
+    # then the fused augment against the chain it replaced; each as an
+    # event pair (``*ms``) and from the profiler's kernel records
+    # (``*device_ms``)
+    b, n, d, L = main
+    s = n // L
+    x = rand((b, n, d), torch.float32)
+    xb = x.to(torch.bfloat16)
     out = torch.empty(b, L, d, device="cuda")
     b_ms, b_by = bound_ms(nbytes(x, out), x.numel())
-    return {"ms": timer(lambda: segment_means_op(x, L=L, backend="kernel")),
-            "plain_ms": timer(lambda: segment_means_op(x, L=L,
-                                                       backend="plain")),
-            "library_ms": timer(lambda: x.view(b, L, n // L, d).mean(2)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "shape": {"x": [b, n, d], "L": L}}
+    bf_ms, _ = bound_ms(nbytes(xb, out.to(torch.bfloat16)), x.numel())
+    x_hat = torch.empty(b, n + SHARDS * L, d, device="cuda")
+    a_ms, a_by = bound_ms(nbytes(x, x_hat), x.numel())
+    m = SHARDS * L
+
+    def chain(z):          # the unfused augment after the means
+        z_rep = z.reshape(b // SHARDS, m, d)[:, None].expand(
+            -1, SHARDS, m, d).reshape(b, m, d)
+        return torch.cat([x, z_rep], dim=1)
+    calls = {
+        "": lambda: segment_means_op(x, L=L, backend="kernel"),
+        "plain_": lambda: segment_means_op(x, L=L, backend="plain"),
+        "library_": lambda: x.view(b, L, s, d).mean(2),
+        "bf16_": lambda: segment_means_op(xb, L=L, backend="kernel"),
+        "augment_": lambda: prism_augment_op(x, L=L, n_shards=SHARDS,
+                                             backend="kernel"),
+        "augment_plain_": lambda: prism_augment_op(
+            x, L=L, n_shards=SHARDS, backend="plain"),
+        "augment_library_": lambda: chain(x.view(b, L, s, d).mean(2)),
+        # the parent's route: the means kernel, then expand and cat
+        "augment_unfused_": lambda: chain(
+            segment_means_op(x, L=L, backend="kernel")),
+    }
+    times = {}
+    for tag, fn in calls.items():
+        times[tag + "ms"] = timer(fn)
+        times[tag + "device_ms"] = timer.device(fn)
+    return {**times, "bound_ms": b_ms, "bound_by": b_by,
+            "bf16_bound_ms": bf_ms, "augment_bound_ms": a_ms,
+            "augment_bound_by": a_by,
+            "shape": {"x": [b, n, d], "L": L, "P": SHARDS}}
 
 
 def decode_inputs(torch, mode, gen):
@@ -371,8 +507,9 @@ def decode_inputs(torch, mode, gen):
             rnd(BATCH * SHARDS, lay.cap_l, hkv, hd), valid.contiguous()]
     if mode == "prism":
         m = SHARDS * lay.L
-        lo, _, g, cnt = means_columns(SHARDS, lay.n_loc0, lay.L, pos.device)
-        live = (g > 0) & (lo + cnt <= pos[:, None, None] + 1)
+        cols = means_columns(SHARDS, lay.n_loc0, lay.L, pos.device)
+        cnt = cols.sizes
+        live = (cols.g > 0) & (cols.lo + cnt <= pos[:, None, None] + 1)
         gz = torch.where(live, cnt, torch.zeros_like(cnt))
         args += [log_repeats(gz).reshape(BATCH * SHARDS, m).contiguous(),
                  rnd(BATCH, m, hkv, hd), rnd(BATCH, m, hkv, hd)]
@@ -411,6 +548,8 @@ def check_decode(torch, chk, timer):
         main[mode] = {
             "ms": timer(lambda: decode_stats(*args, scale=scale,
                                              backend="kernel")),
+            "device_ms": timer.device(lambda: decode_stats(
+                *args, scale=scale, backend="kernel")),
             "plain_ms": timer(lambda: decode_stats(*args, scale=scale,
                                                    backend="plain")),
             "library_ms": lib_ms, "library_check": lib_err,
@@ -703,7 +842,8 @@ def main() -> int:
     t_means = check_segment_means(torch, chk, timer)
     t_dec = check_decode(torch, chk, timer)
     emit("kernel", max_abs_err=chk.max_err, tol=TOL, cases=chk.cases,
-         attention=t_attn, segment_means=t_means, decode=t_dec)
+         floor_ms=timer.floor(), attention=t_attn, segment_means=t_means,
+         decode=t_dec)
 
     params = T.init(get_config(ARCH),
                     torch.Generator(device=dev).manual_seed(0), dev)
@@ -730,6 +870,12 @@ def main() -> int:
                         f"{tag}_plain_ms": te["plain_ms"],
                         f"{tag}_bound_ms": te["bound_ms"],
                         f"{tag}_library_ms": te["library_ms"]})
+        if name == "segment_means":        # bf16 and the fused augment
+            row.update({k: v for k, v in t.items() if k != "shape"})
+            row.update({"bf16_max_abs_err": chk.max_err[name + "/bf16"],
+                        "bf16_tol": list(TOL_BF16)})
+        else:
+            row["device_ms"] = t["device_ms"]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -42,12 +42,16 @@ def use_kernel(backend: str, t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def check_tensor(t: torch.Tensor, name: str, *, dtype: torch.dtype,
-                 ndim: int, device: torch.device) -> None:
+def check_tensor(t: torch.Tensor, name: str, *,
+                 dtype: torch.dtype | tuple[torch.dtype, ...], ndim: int,
+                 device: torch.device) -> None:
     """Raise unless ``t`` is what a kernel takes: a contiguous tensor of
-    ``dtype`` and rank ``ndim`` on the CUDA ``device``."""
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")
+    ``dtype`` (or one of a tuple of dtypes) and rank ``ndim`` on the CUDA
+    ``device``."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        want = " or ".join(str(d) for d in dtypes)
+        raise TypeError(f"{name}: kernel takes {want}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected rank {ndim}, got shape "
                          f"{tuple(t.shape)}")

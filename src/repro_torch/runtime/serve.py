@@ -156,7 +156,7 @@ def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
                 p["attn"], spec, norm(p["ln1"], z_all, cfg.norm_kind))
         # monolithic prefill covers every position of [0, n0): the repeat
         # counts are the full segment sizes, the sums means × sizes
-        sizes = means_columns(P, n_loc, lay.L, x.device)[3]
+        sizes = means_columns(P, n_loc, lay.L, x.device).sizes
         cache["kz"], cache["vz"] = kz, vz
         cache["gz"] = sizes[None].expand(b, m).contiguous()
         cache["zsum"] = z_all.float() * sizes[None, :, None]
@@ -288,9 +288,9 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
         # repeat counts ride in the cache; a shard's own means are masked
         # (its columns are exact), and a mean is visible once every
         # position it covers, [lo, lo + gz), is in the query's past
-        lo, _, g, _ = means_columns(lay.n_seq, lay.n_loc0, lay.L, x.device)
+        cols = means_columns(lay.n_seq, lay.n_loc0, lay.L, x.device)
         cnt = c["gz"][:, None, :]                            # (B, 1, m)
-        live = (g > 0) & (lo + cnt <= pos[:, None, None] + 1)
+        live = (cols.g > 0) & (cols.lo + cnt <= pos[:, None, None] + 1)
         gz = torch.where(live, cnt, torch.zeros_like(cnt))   # (B, P, m)
         out = decode_attention(q, c["k"], c["v"], valid, scale, gz=gz,
                                kz=c["kz"], vz=c["vz"], owner=owner,

@@ -22,34 +22,64 @@ Exchanges:
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..core.protocol import PrismConfig
 from ..core.segment_means import segment_bounds, segment_sizes
-from ..kernels.segment_means import segment_means_op
+from ..kernels.segment_means import prism_augment_op, segment_means_op
 from ..models.context import AugmentedKV, SeqContext
 from ..models.layers import AttnSpec
 
 
+class MeansColumns(NamedTuple):
+    """Position metadata of the PRISM exchange, for one (P, n_loc, L)."""
+    lo: torch.Tensor        # (P·L,) int32 first position of each mean
+    hi: torch.Tensor        # (P·L,) int32 last position of each mean
+    g: torch.Tensor         # (P, P·L) f32 repeat counts, own shard's 0
+    sizes: torch.Tensor     # (P·L,) f32 segment sizes
+    col_lo: torch.Tensor    # (P, n_loc + P·L) int32 x_hat's columns:
+    col_hi: torch.Tensor    #   the shard's own rows, then the means
+    col_g: torch.Tensor     # (P, n_loc + P·L) f32
+
+
 @functools.lru_cache(maxsize=16)
-def means_columns(n_shards: int, n_loc: int, L: int, device: torch.device):
-    """(lo, hi, g, sizes) of the gathered means columns, shard-major:
-    position ranges lo, hi (P·L,) int32, per-shard repeat counts g
-    (P, P·L) f32 where a shard's own means get g = 0 (its exact columns
-    are present), and the segment sizes (P·L,) f32.  Built once per shape
-    and device: a host-to-device copy per layer would stall the card."""
+def shard_rows(n_shards: int, n_loc: int, device: torch.device):
+    """(P, n_loc) global position of every shard's rows."""
+    return (torch.arange(n_shards, device=device)[:, None] * n_loc
+            + torch.arange(n_loc, device=device))
+
+
+@functools.lru_cache(maxsize=16)
+def means_columns(n_shards: int, n_loc: int, L: int,
+                  device: torch.device) -> MeansColumns:
+    """The gathered means columns, shard-major: position ranges, per-shard
+    repeat counts g where a shard's own means get g = 0 (its exact columns
+    are present), and the segment sizes; and the same for every column of
+    the PRISM x_hat, the shard's own rows first.  Built once per shape and
+    device: a host-to-device copy or a concatenation per layer would
+    stall the card."""
     lo0, hi0 = segment_bounds(n_loc, L)
     offs = np.repeat(np.arange(n_shards) * n_loc, L)
     shard_of = np.repeat(np.arange(n_shards), L)
     sizes = np.tile(segment_sizes(n_loc, L), n_shards).astype(np.float32)
     g = np.where(shard_of[None, :] == np.arange(n_shards)[:, None],
                  np.float32(0.0), sizes[None, :])
-    as_t = functools.partial(torch.as_tensor, device=device)
-    return (as_t(np.tile(lo0, n_shards) + offs, dtype=torch.int32),
-            as_t(np.tile(hi0, n_shards) + offs, dtype=torch.int32),
-            as_t(g, dtype=torch.float32), as_t(sizes, dtype=torch.float32))
+    lo = np.tile(lo0, n_shards) + offs
+    hi = np.tile(hi0, n_shards) + offs
+    rows = np.arange(n_shards * n_loc).reshape(n_shards, n_loc)
+    col_lo = np.concatenate([rows, np.broadcast_to(lo, (n_shards, lo.size))],
+                            axis=1)
+    col_hi = np.concatenate([rows, np.broadcast_to(hi, (n_shards, hi.size))],
+                            axis=1)
+    col_g = np.concatenate([np.ones_like(rows, dtype=np.float32), g], axis=1)
+    i32 = functools.partial(torch.as_tensor, dtype=torch.int32, device=device)
+    f32 = functools.partial(torch.as_tensor, dtype=torch.float32,
+                            device=device)
+    return MeansColumns(i32(lo), i32(hi), f32(g), f32(sizes), i32(col_lo),
+                        i32(col_hi), f32(col_g))
 
 
 class ShardedPrismContext(SeqContext):
@@ -68,8 +98,7 @@ class ShardedPrismContext(SeqContext):
             raise NotImplementedError("sliding-window layers are not "
                                       "ported yet")
         n_loc = x.shape[1]
-        row_pos = (torch.arange(self.P, device=x.device)[:, None] * n_loc
-                   + torch.arange(n_loc, device=x.device))   # (P, n_loc)
+        row_pos = shard_rows(self.P, n_loc, x.device)       # (P, n_loc)
         if self.cfg.mode == "voltage":
             return self._augment_voltage(x, n_loc, row_pos)
         if self.cfg.mode != "prism":
@@ -94,22 +123,15 @@ class ShardedPrismContext(SeqContext):
         return z.reshape(bp // self.P, self.P * L, d)
 
     def _augment_prism(self, x, n_loc, row_pos):
-        bp, _, d = x.shape
         L = self.cfg.landmarks(self.P * n_loc)
-        z_all = self.gather_means(x, L)                       # (B, P·L, D)
-        m = self.P * L
-        z_rep = z_all[:, None].expand(-1, self.P, m, d).reshape(bp, m, d)
-        x_hat = torch.cat([x, z_rep], dim=1)          # (B·P, n_loc + P·L, D)
-        z_lo, z_hi, z_g, _ = means_columns(self.P, n_loc, L, x.device)
-        rp = row_pos.to(torch.int32)
-        col_lo = torch.cat([rp, z_lo.expand(self.P, m)], dim=1)
-        col_hi = torch.cat([rp, z_hi.expand(self.P, m)], dim=1)
-        g = torch.cat([torch.ones(self.P, n_loc, device=x.device), z_g],
-                      dim=1)
+        # one launch: (B·P, n_loc + P·L, D), the local block first
+        x_hat = prism_augment_op(x, L=L, n_shards=self.P,
+                                 backend=self.backend)
+        cols = means_columns(self.P, n_loc, L, x.device)
         # g = 0 columns need no mask entry: log g = -1e30 already removes
         # them, so (col_lo, col_hi) alone reproduce the Eq. 17 mask
-        return x, AugmentedKV(x_hat, g, None, row_pos,
-                              col_lo=col_lo, col_hi=col_hi)
+        return x, AugmentedKV(x_hat, cols.col_g, None, row_pos,
+                              col_lo=cols.col_lo, col_hi=cols.col_hi)
 
     def last_shard(self, x):
         """Value held by the shard owning the END of the sequence:

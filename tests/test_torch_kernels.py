@@ -2,8 +2,9 @@
 JAX jnp oracle and the JAX Pallas kernel run with ``interpret=True``, at
 the tolerances of tests/test_kernels.py and tests/test_decode_attention.py
 and a few of their shapes (GQA ratios, ragged M, pos = -1 rows, means
-columns, per-shard metadata).  Also: the dispatch rule, and that a
-CUDA-only path raises cleanly without a card (no fallback).
+columns, per-shard metadata, bf16 segment means).  Also: the PRISM
+augment's plain version against a numpy construction, the dispatch rule,
+and that a CUDA-only path raises cleanly without a card (no fallback).
 
 The CUDA kernels themselves build and run only on a card: chip_smoke.py
 compares them with their plain versions there.
@@ -30,7 +31,9 @@ from repro_torch.kernels.ops import prism_attention_op  # noqa: E402
 from repro_torch.kernels.prism_attention import (  # noqa: E402
     prism_attention_reference, prism_flash_attention)
 from repro_torch.kernels.segment_means import (  # noqa: E402
+    prism_augment_cuda, prism_augment_op, prism_augment_plain,
     segment_means_cuda, segment_means_op)
+from repro_torch.sharding.context import means_columns  # noqa: E402
 
 T = torch.as_tensor
 
@@ -300,6 +303,105 @@ def test_segment_means_plain_vs_reference(b, n, L, d):
     np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("b,n,L,d", [(2, 64, 8, 64), (1, 17, 4, 8),
+                                     (3, 32, 32, 16), (1, 9, 1, 16)])
+def test_segment_means_bf16_vs_reference(b, n, L, d):
+    """bf16 in, bf16 out, summed in f32: plain == jnp oracle == Pallas
+    at the reference's bf16 tolerance (tests/test_kernels.py)."""
+    x = np.random.default_rng(3).standard_normal((b, n, d)).astype(
+        np.float32)
+    xt = T(x).to(torch.bfloat16)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    got = segment_means_op(xt, L=L)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, L, d)
+    got = got.float().numpy()
+    want = np.asarray(j_means(xj, L), np.float32)
+    pallas = np.asarray(j_means_op(xj, L=L, block_d=min(512, d),
+                                   interpret=True), np.float32)
+    np.testing.assert_allclose(got, want, atol=1e-2)
+    np.testing.assert_allclose(got, pallas, atol=1e-2)
+
+
+def numpy_augment(x, L, n_shards):
+    """[x_local ; every shard's means, shard-major] per shard row, from
+    the JAX package's segment means."""
+    bp, n, d = x.shape
+    z = np.asarray(j_means(jnp.asarray(x), L))               # (B·P, L, D)
+    rows = []
+    for r in range(bp):
+        seq = r - r % n_shards
+        rows.append(np.concatenate([x[r]] + [z[seq + q]
+                                             for q in range(n_shards)]))
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+@pytest.mark.parametrize("n_loc,L", [(16, 4), (17, 4), (9, 1), (12, 12),
+                                     (7, 7)])
+def test_prism_augment_plain_vs_numpy(n_shards, n_loc, L):
+    """The augment's plain version: even and ragged n_loc, L = 1 and
+    L = n_loc, against a numpy construction of x_hat."""
+    x = np.random.default_rng(4).standard_normal(
+        (2 * n_shards, n_loc, 24)).astype(np.float32)
+    got = prism_augment_op(T(x), L=L, n_shards=n_shards)
+    assert got.shape == (2 * n_shards, n_loc + n_shards * L, 24)
+    np.testing.assert_allclose(got.numpy(), numpy_augment(x, L, n_shards),
+                               atol=1e-5, rtol=1e-5)
+    bf = prism_augment_plain(T(x).to(torch.bfloat16), L, n_shards)
+    assert bf.dtype == torch.bfloat16
+    np.testing.assert_allclose(bf.float().numpy(),
+                               numpy_augment(x, L, n_shards), atol=1e-2)
+
+
+@pytest.mark.parametrize("n_shards,n_loc,L", [(1, 16, 4), (4, 17, 4),
+                                              (2, 9, 1), (4, 8, 8)])
+def test_means_columns_match_concatenated_metadata(n_shards, n_loc, L):
+    """The cached x_hat columns equal the local rows' positions followed
+    by the means columns, as the per-layer concatenation built them."""
+    cols = means_columns(n_shards, n_loc, L, torch.device("cpu"))
+    rows = (torch.arange(n_shards)[:, None] * n_loc
+            + torch.arange(n_loc)).to(torch.int32)
+    m = n_shards * L
+    assert torch.equal(cols.col_lo, torch.cat(
+        [rows, cols.lo.expand(n_shards, m)], dim=1))
+    assert torch.equal(cols.col_hi, torch.cat(
+        [rows, cols.hi.expand(n_shards, m)], dim=1))
+    assert torch.equal(cols.col_g, torch.cat(
+        [torch.ones(n_shards, n_loc), cols.g], dim=1))
+    assert cols.col_lo.dtype == cols.col_hi.dtype == torch.int32
+    # the own shard's means are dead, the others' weigh their sizes
+    for p in range(n_shards):
+        own = slice(p * L, (p + 1) * L)
+        others = torch.ones(m, dtype=torch.bool)
+        others[own] = False
+        assert torch.equal(cols.g[p, own], torch.zeros(L))
+        assert torch.equal(cols.g[p, others], cols.sizes[others])
+
+
+@pytest.mark.parametrize("entry", ["segment_means", "prism_augment"])
+@pytest.mark.parametrize("dtype,accepted", [(torch.float32, True),
+                                            (torch.bfloat16, True),
+                                            (torch.float16, False),
+                                            (torch.float64, False)])
+def test_segment_means_entries_check_dtype(entry, dtype, accepted):
+    """Both CUDA entries take f32 and bf16 and refuse other dtypes; on a
+    CPU tensor an accepted dtype still raises for want of a card, and no
+    launch is counted."""
+    dispatch.LAUNCHES.clear()
+    x = torch.zeros(4, 8, 16, dtype=dtype)
+    call = {"segment_means": lambda: segment_means_cuda(x, 2),
+            "prism_augment": lambda: prism_augment_cuda(x, 2, 2)}[entry]
+    if accepted:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    else:
+        with pytest.raises(TypeError, match="float32 or torch.bfloat16"):
+            call()
+    with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
+        prism_augment_op(x, L=2, n_shards=2, backend="kernel")
+    assert sum(dispatch.LAUNCHES.values()) == 0
+
+
 # ---------------------------------------------------------------------
 # flash-decode stats
 # ---------------------------------------------------------------------
@@ -433,6 +535,8 @@ def test_cuda_paths_raise_without_a_card():
         prism_flash_attention(T(q), T(k), T(v), *meta, causal=True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         segment_means_cuda(torch.zeros(1, 4, 8), 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        prism_augment_cuda(torch.zeros(2, 4, 8), 2, 2)
     c = decode_case(2, 8, 2, 2, 64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         TD.flash_decode_stats(T(c["q"]), T(c["k"]), T(c["v"]),
