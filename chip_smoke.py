@@ -16,13 +16,22 @@ Phases, one JSON line each:
             invisible to a query tile, a window that drops early tiles,
             shuffled PRISM columns; decode columns off the 64-column
             pass, warps with no live column, groups of 40 and 128 heads;
+            the decode kernel's two tick layouts at full width: a chunk's
+            64·12 queries folded into the head axis over the whole cache
+            rows at offsets 0, 64, 448 and staggered, and a packed tick
+            of T = 72 (decode and prompt tokens, several per slot, dead
+            entries) through the row map, exact and prism passes; the
+            row map with repeats, every entry equal, entries out of
+            range (clamped), T = 1, 7, 9, 13, 30, rep 1, 2 and 4;
             head dim 64, the only one the kernels are built for; segment
             means and the fused PRISM augment in f32 and bf16 over
             ragged segments, L = 1 and L = N, D = 33 and 5, P = 1/2/4
             and a misaligned base); the largest error beside the stated
             tolerance, and the times of kernel, plain version, library
-            call and the bound (the attention kernel's operations at
-            the 3xTF32 tensor-core rate, the others' at f32 FMA's).
+            call and the bound (the attention and decode kernels'
+            operations at the 3xTF32 tensor-core rate, segment means'
+            at f32 FMA's); the chunk layout's library call both at its
+            natural (B·P, Hq, C) shape and folded as the kernel sees it.
             Times are event pairs (``ms``, over a floor of about 5 us,
             ``floor_ms``) and, for the kernels, the profiler's kernel
             durations (``device_ms``).
@@ -38,10 +47,28 @@ Phases, one JSON line each:
    trace    after each pairing, torch.profiler over one prefill and 8
             decode steps: device busy time, idle share and time by
             kernel class.
-5. kernels  one line listing every kernel with its numbers: ``ms`` is
+5. path     the engine's tick programs at the same shape, each decode
+            mode, the launch counters zeroed before each run:
+            ``chunked``: chunked prefill of 64 tokens a call, row i
+            admitted at call i // 2, the rewind, 63 greedy decode
+            steps; its cache after the last chunk and its logits held
+            to the monolithic Voltage prefill (exact: ``generate``;
+            prism: the same rewind and prism decode steps).
+            ``packed``: every slot admitted at once, ticks of 72 tokens
+            planned as ``FifoScheduler.plan_tick`` plans them, greedy
+            through ``pack`` / ``merge`` (timed, launches counted);
+            its logits held to the chunked path's at every step by a
+            run teacher-forced on the chunked path's tokens.
+   trace    per mode, torch.profiler over one chunk call and one packed
+            tick with decode and prompt tokens.
+6. kernels  one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
-            against the plain version over phase 3; the segment_means
-            row adds its bf16 and fused-augment (``augment_*``) numbers.
+            against the plain version over phase 3, ``launches`` its
+            launches over every path (``launches_by_path``); the
+            flash_decode_stats row adds its chunk and packed layouts
+            (``chunk_*``, ``packed_*``, ``packed_prism_*``), the
+            segment_means row its bf16 and fused-augment (``augment_*``)
+            numbers.
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -64,7 +91,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12                  # CUDA cores, f32 FMA
 TF32_FLOP_PER_S = 495e12                # tensor cores, TF32
 # f32-accurate products on the tensor cores take three TF32 products
-# each (3xTF32), so the attention kernel's peak is a third of TF32's
+# each (3xTF32), so the card's peak for them is a third of TF32's
 F32_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
 
 # main path: GPT-2 small, B = 8, prompt 512, 64 generated, P = 4, CR 4
@@ -175,13 +202,7 @@ class Timer:
     def _kernels(self, fn):
         """(name, ms) of every device activity of ``fn``, in start order."""
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        torch = self.torch
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        prof = trace_device(self.torch, fn)
         evs = sorted((e for e in prof.events()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
@@ -192,6 +213,25 @@ class Timer:
         """Event-pair time of a one-element add: the harness's floor."""
         tiny = self.torch.zeros(1, device="cuda")
         return self(lambda: tiny.add_(1))
+
+
+def trace_device(torch, fn, tries=3):
+    """torch.profiler over ``fn()`` on the CPU and the card.  A trace that
+    recorded no device activity at all is taken again, up to ``tries``
+    times: the profiler's device tracing on the card now and then comes
+    back empty for one trace of a process."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            return prof
+    raise RuntimeError(f"the profiler recorded no device activity in "
+                       f"{tries} traces")
 
 
 def bound_ms(n_bytes, flops, flop_per_s=F32_FLOP_PER_S):
@@ -508,53 +548,170 @@ def decode_inputs(torch, mode, gen):
     if mode == "prism":
         m = SHARDS * lay.L
         cols = means_columns(SHARDS, lay.n_loc0, lay.L, pos.device)
-        cnt = cols.sizes
-        live = (cols.g > 0) & (cols.lo + cnt <= pos[:, None, None] + 1)
-        gz = torch.where(live, cnt, torch.zeros_like(cnt))
+        gz = S.prism_gz(cols, cols.sizes, pos)
         args += [log_repeats(gz).reshape(BATCH * SHARDS, m).contiguous(),
                  rnd(BATCH, m, hkv, hd), rnd(BATCH, m, hkv, hd)]
     return args, hd ** -0.5
+
+
+def decode_bound(torch, q, k, valid, log_gz=None, kz=None, rows=None):
+    """(bound ms, what bounds it, bytes) of one decode-stats call: each
+    live cache column read once, however many query rows read it (the
+    packed layout's tokens of one slot share their row), each live means
+    column once per means row, q / valid / log g / the row map once, the
+    stats written once; operations 4·hd per live (query head, column)
+    pair, at the rate the card computes f32-accurate products on its
+    tensor cores (3xTF32), as the attention kernel's bound counts them:
+    the least time the card could take, whatever this kernel's route."""
+    b, bq = valid.shape[0], q.shape[0]
+    rep, (hq, hd), hkv = b // bq, q.shape[2:], k.shape[2]
+    sel = (torch.arange(bq, device=q.device) if rows is None
+           else rows.long().clamp(0, k.shape[0] // rep - 1))
+    shard_row = (sel[:, None] * rep + torch.arange(rep, device=q.device)
+                 ).reshape(-1)
+    kv_live = torch.zeros(k.shape[:2], device=q.device).index_add_(
+        0, shard_row, valid.float()) > 0
+    n_bytes = (nbytes(q, valid) + 2 * int(kv_live.sum()) * hkv * hd * 4
+               + 4 * (2 * b * hq + b * hq * hd))
+    pairs = int(valid.sum())
+    if kz is not None:
+        live_z = log_gz > -1e29                                  # (B, m)
+        pairs += int(live_z.sum())
+        z_live = torch.zeros(kz.shape[:2], device=q.device).index_add_(
+            0, sel.repeat_interleave(rep), live_z.float()) > 0
+        n_bytes += nbytes(log_gz) + 2 * int(z_live.sum()) * hkv * hd * 4
+    if rows is not None:
+        n_bytes += nbytes(rows)
+    b_ms, b_by = bound_ms(n_bytes, 4 * hd * hq * pairs,
+                          F32_3XTF32_FLOP_PER_S)
+    return b_ms, b_by, n_bytes
+
+
+def time_decode(torch, timer, args, scale, rows=None):
+    """Kernel, plain version, library call and bound of one decode-stats
+    call.  The library call reads the rows the row map selects, gathered
+    outside the timed call."""
+    from repro_torch.kernels.decode_attention import (decode_stats,
+                                                      gather_rows)
+    q, k, v, valid = args[:4]
+    lib_args = list(args)
+    if rows is not None:
+        k_g, v_g, kz_g, vz_g = gather_rows(rows, valid.shape[0] // q.shape[0],
+                                           k, v, *args[5:7])
+        lib_args[1:3] = [k_g, v_g]
+        if kz_g is not None:
+            lib_args[5:7] = [kz_g, vz_g]
+    lib_ms, lib_err = decode_library(torch, timer, lib_args, scale)
+    b_ms, b_by, n_bytes = decode_bound(torch, q, k, valid, *args[4:6],
+                                       rows=rows)
+
+    def call(backend):
+        return lambda: decode_stats(*args, scale=scale, rows=rows,
+                                    backend=backend)
+    return {"ms": timer(call("kernel")),
+            "device_ms": timer.device(call("kernel")),
+            "plain_ms": timer(call("plain")),
+            "library_ms": lib_ms, "library_check": lib_err,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "shape": {"q": list(q.shape), "k": list(k.shape),
+                      "rows": None if rows is None else list(rows.shape)}}
+
+
+def tick_layout_inputs(torch, gen):
+    """The decode kernel's inputs on the two tick paths at full width.
+
+    chunk: the C = 64 chunk's queries folded into the head axis, q (B, 1,
+    64·12, 64), the whole cache rows (B·P, cap_l, 12, 64), valid =
+    col_pos < off, at the offsets of every row the same (0, 64, 448) and
+    staggered as in the chunked path's 8th call.
+
+    packed: a T = 72 tick of the main layout: 6 decode tokens (slots
+    0-5), 40 prompt tokens of slot 6 from offset 448 and 20 of slot 7
+    from offset 64 (several tokens per cache row), 6 dead entries; the
+    exact pass (valid = col_pos < off) and the prism pass (valid =
+    col_pos <= pos, the means columns of each token's slot)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.attention import log_repeats
+    from repro_torch.runtime import serve as S
+    from repro_torch.sharding.context import means_columns
+    cfg = get_config(ARCH)
+    hp = S.ServeHParams(decode_mode="prism", means_cr=CR)
+    cap = PROMPT + GEN + (-(PROMPT + GEN)) % SHARDS
+    lay = S.make_layout(SHARDS, cap, hp, prefill_len=PROMPT)
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dev = "cuda"
+
+    def rnd(*shape):
+        return 0.5 * torch.randn(*shape, device=dev, generator=gen)
+    k = rnd(BATCH * SHARDS, lay.cap_l, hkv, hd)
+    v = rnd(BATCH * SHARDS, lay.cap_l, hkv, hd)
+    _, _, col_pos = S._decode_cols(lay, torch.zeros(1, dtype=torch.long,
+                                                    device=dev))
+    chunk = {}
+    q = rnd(BATCH, 1, CHUNK_LEN * hq, hd)
+    for name, off in (("off0", [0] * BATCH), ("off64", [64] * BATCH),
+                      ("off448", [448] * BATCH),
+                      ("staggered", [448, 448, 384, 384, 320, 320, 256,
+                                     256])):
+        off = torch.as_tensor(off, device=dev)
+        valid = (col_pos[None] < off[:, None, None]).reshape(
+            BATCH * SHARDS, -1)
+        chunk[name] = [q, k, v, valid.contiguous()]
+
+    slot = [*range(6), *[6] * 40, *[7] * 20, *[-1] * 6]
+    pos = [PROMPT + 20 + s for s in range(6)] + list(range(448, 488)) + \
+        list(range(64, 84)) + [-1] * 6
+    off = [PROMPT + 20 + s for s in range(6)] + [448] * 40 + [64] * 20 + \
+        [-1] * 6
+    slot, pos, off = (torch.as_tensor(a, device=dev)
+                      for a in (slot, pos, off))
+    alive = slot >= 0
+    rows = slot.clamp(min=0).to(torch.int32)
+    t = slot.shape[0]
+    q = rnd(t, 1, hq, hd)
+    valid = alive[:, None, None] & (col_pos[None] < off[:, None, None])
+    valid_le = alive[:, None, None] & (col_pos[None] <= pos[:, None, None])
+    cols = means_columns(SHARDS, lay.n_loc0, lay.L, dev)
+    gz = S.prism_gz(cols, cols.sizes, torch.where(alive, pos, -1))
+    m = SHARDS * lay.L
+    packed = [q, k, v, valid.reshape(t * SHARDS, -1).contiguous()]
+    packed_prism = [q, k, v, valid_le.reshape(t * SHARDS, -1).contiguous(),
+                    log_repeats(gz).reshape(t * SHARDS, m).contiguous(),
+                    rnd(BATCH, m, hkv, hd), rnd(BATCH, m, hkv, hd)]
+    return chunk, packed, packed_prism, rows, hd ** -0.5
 
 
 def check_decode(torch, chk, timer):
     from repro_torch.kernels.decode_attention import decode_stats
     gen = torch.Generator(device="cuda").manual_seed(3)
 
-    def both(args, scale, case):
-        got = decode_stats(*args, scale=scale, backend="kernel")
-        want = decode_stats(*args, scale=scale, backend="plain")
+    def both(args, scale, case, rows=None):
+        got = decode_stats(*args, scale=scale, rows=rows, backend="kernel")
+        want = decode_stats(*args, scale=scale, rows=rows, backend="plain")
         chk.stats(got, want, case)
 
-    main = {}
+    times = {}
     for mode in ("exact", "prism"):
         args, scale = decode_inputs(torch, mode, gen)
         both(args, scale, f"main/{mode}")
-        q, k, v, valid = args[:4]
-        live_cols = int(valid.sum())
-        n_bytes = nbytes(q, valid) + 2 * live_cols * k.shape[2] * k.shape[3] * 4
-        cols_per_row = live_cols
-        if mode == "prism":
-            log_gz, kz, vz = args[4:]
-            live_z = log_gz > -1e29                    # (B·P, m)
-            cols_per_row += int(live_z.sum())
-            z_any = live_z.reshape(BATCH, SHARDS, -1).any(1)
-            n_bytes += (nbytes(log_gz)
-                        + 2 * int(z_any.sum()) * kz.shape[2] * kz.shape[3] * 4)
-        hq, hd = q.shape[2], q.shape[3]
-        flops = 4 * hd * cols_per_row * hq
-        n_bytes += 4 * (2 * k.shape[0] * hq + k.shape[0] * hq * hd)  # outputs
-        b_ms, b_by = bound_ms(n_bytes, flops)
-        lib_ms, lib_err = decode_library(torch, timer, args, scale)
-        main[mode] = {
-            "ms": timer(lambda: decode_stats(*args, scale=scale,
-                                             backend="kernel")),
-            "device_ms": timer.device(lambda: decode_stats(
-                *args, scale=scale, backend="kernel")),
-            "plain_ms": timer(lambda: decode_stats(*args, scale=scale,
-                                                   backend="plain")),
-            "library_ms": lib_ms, "library_check": lib_err,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-            "shape": {"q": list(q.shape), "k": list(k.shape)}}
+        times[mode] = time_decode(torch, timer, args, scale)
+
+    # the tick paths' layouts: the chunk's folded queries over the whole
+    # cache rows, the packed tokens through the row map
+    chunk, packed, packed_prism, rows, scale = tick_layout_inputs(torch, gen)
+    for name, args in chunk.items():
+        both(args, scale, f"chunk/{name}")
+    both(packed, scale, "packed/exact", rows=rows)
+    both(packed_prism, scale, "packed/prism", rows=rows)
+    times["chunk"] = time_decode(torch, timer, chunk["off448"], scale)
+    t = times["chunk"]
+    t["library_folded_ms"], t["library_folded_check"] = (
+        t["library_ms"], t["library_check"])
+    t["library_ms"], t["library_check"], t["library_bias"] = chunk_library(
+        torch, timer, chunk["off448"], scale, CHUNK_LEN)
+    times["packed"] = time_decode(torch, timer, packed, scale, rows=rows)
+    times["packed_prism"] = time_decode(torch, timer, packed_prism, scale,
+                                        rows=rows)
 
     # edge sweep: GQA groups 1/3/12 and a folded 64, ragged M, all-dead
     # rows, g = 0 means columns, shards folded into the batch (rep > 1);
@@ -571,7 +728,47 @@ def check_decode(torch, chk, timer):
             (24, 8, 450, 3, 129, 130), (40, 1, 90, 2, 37, 50),
             (128, 1, 70, 2, 37, None)):
         sweep_decode_case(torch, both, gen, hq, hkv, m_loc, rep, mz, max_pos)
-    return main
+    # the row map: repeats and out-of-range entries (clamped), every entry
+    # equal, T = 1, T not a multiple of 4, rep 1 and 4
+    for t, n_rows, rep, hq, hkv, kind in (
+            (72, 8, 4, 12, 12, "repeats"), (7, 3, 1, 12, 12, "equal"),
+            (1, 8, 4, 12, 12, "repeats"), (13, 5, 4, 12, 4, "clamped"),
+            (30, 2, 2, 64, 1, "repeats"), (9, 4, 1, 12, 3, "equal")):
+        sweep_rows_case(torch, both, gen, t, n_rows, rep, hq, hkv, kind)
+    return times
+
+
+def sweep_rows_case(torch, both, gen, t, n_rows, rep, hq, hkv, kind,
+                    m_loc=150, mz=40, hd=64):
+    """One row-map case, without and with means columns: ``t`` query rows
+    over ``n_rows`` cache rows of ``rep`` shards, per-output-row valid
+    columns (some rows all dead), rows drawn with repeats, all equal, or
+    with entries below and above the range (the kernel reads them
+    clamped)."""
+    dev = "cuda"
+    q = 0.5 * torch.randn(t, 1, hq, hd, device=dev, generator=gen)
+    k = 0.5 * torch.randn(n_rows * rep, m_loc, hkv, hd, device=dev,
+                          generator=gen)
+    v = 0.5 * torch.randn(n_rows * rep, m_loc, hkv, hd, device=dev,
+                          generator=gen)
+    rows = torch.randint(0, n_rows, (t,), device=dev, generator=gen)
+    if kind == "equal":
+        rows[:] = rows[0]
+    elif kind == "clamped":
+        rows[::3], rows[1::3] = -1, n_rows + 2
+    rows = rows.to(torch.int32)
+    pos = torch.randint(-1, m_loc, (t * rep,), device=dev, generator=gen)
+    pos[0] = -1                                  # an all-dead row
+    valid = torch.arange(m_loc, device=dev)[None] <= pos[:, None]
+    case = f"rows/{kind}/T{t}/R{n_rows}/rep{rep}/hq{hq}/hkv{hkv}"
+    both([q, k, v, valid], hd ** -0.5, case, rows=rows)
+    gz = torch.randint(0, 5, (t * rep, mz), device=dev, generator=gen)
+    log_gz = torch.where(gz > 0, gz.float().log(),
+                         torch.full_like(gz, -1e30, dtype=torch.float))
+    kz = 0.5 * torch.randn(n_rows, mz, hkv, hd, device=dev, generator=gen)
+    vz = 0.5 * torch.randn(n_rows, mz, hkv, hd, device=dev, generator=gen)
+    both([q, k, v, valid, log_gz, kz, vz], hd ** -0.5, f"{case}/mz{mz}",
+         rows=rows)
 
 
 def sweep_decode_case(torch, both, gen, hq, hkv, m_loc, rep, mz, max_pos,
@@ -644,6 +841,48 @@ def decode_library(torch, timer, args, scale):
 TRACED_STEPS = 8
 
 
+def chunk_library(torch, timer, args, scale, c):
+    """The chunk layout's yardstick at its natural shape: one call of
+    PyTorch's memory-efficient attention with each (row, shard)'s C
+    queries as its query axis, q (B·P, Hq, C, hd) over K/V (B·P, Hq,
+    cap_l, hd), under a bias (B·P, 1, 1, cap_l) from ``valid`` broadcast
+    over heads and queries (every query of a chunk sees the same prior
+    columns), or materialised if the op refuses the broadcast.  The
+    folded call (``decode_library``) reads K/V once per folded head.
+    Returns (ms, the largest |out - acc / l| over live rows, the bias's
+    form) or (None, the op's error, None)."""
+    from repro_torch.kernels.decode_attention import decode_stats
+    q, k, v, valid = args
+    b, bq, hqc, hd = k.shape[0], q.shape[0], q.shape[2], q.shape[3]
+    rep, hkv = b // bq, k.shape[2]
+    grp = hqc // (c * hkv)
+    hq = hkv * grp
+    qs = (q.reshape(bq, hkv, c, grp, hd).transpose(2, 3)
+          .reshape(bq, hq, c, hd).repeat_interleave(rep, 0).contiguous())
+    ks, vs = (t.repeat_interleave(grp, 2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    bias = torch.where(valid, 0.0, -1e30)[:, None, None, :].expand(
+        b, hq, c, -1)
+    op = torch.ops.aten._scaled_dot_product_efficient_attention
+    refused = []
+    for form, bb in (("broadcast", bias), ("materialised", bias.contiguous())):
+        try:
+            out = op(qs, ks, vs, bb, True, 0.0, False, scale=scale)[0]
+        except RuntimeError as e:
+            refused.append(f"{form}: {str(e).splitlines()[0][:200]}")
+            continue
+        ms = timer(lambda: op(qs, ks, vs, bb, True, 0.0, False, scale=scale))
+        break
+    else:
+        return None, "refused: " + "; ".join(refused), None
+    _, l, acc = decode_stats(*args, scale=scale, backend="plain")
+    live = l[:, :, 0, 0] > 0                               # (B·P, C·Hq)
+    want = acc[:, 0] / l[:, :, 0].clamp(min=1e-30)
+    got = (out.reshape(b, hkv, grp, c, hd).transpose(2, 3)
+           .reshape(b, hqc, hd))
+    return ms, float((got[live] - want[live]).abs().max()), form
+
+
 def kernel_kind(name: str) -> str:
     """Coarse class of a device kernel, by its name."""
     for kind, keys in (("prism_flash_attention", ("prism_attention",)),
@@ -696,24 +935,24 @@ def profile(torch, run) -> dict:
     returns the device breakdown of each window (per step for decode).
     The profiler's own overhead stretches the spans; the kernel times are
     the card's."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
     from repro_torch.runtime.serve import prefill, serve_step
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     b, n = run.prompts.shape
-    torch.cuda.synchronize()
-    with trace(activities=acts) as prof_pre:
-        logits, cache = prefill(run.cfg, run.params, run.prompts, run.prism,
-                                run.lay, run.hp)
-        torch.cuda.synchronize()
-    with trace(activities=acts) as prof_dec:
+    state = {}
+
+    def pre():
+        state["out"] = prefill(run.cfg, run.params, run.prompts, run.prism,
+                               run.lay, run.hp)
+
+    def dec():
+        logits, cache = state["out"]
         for i in range(TRACED_STEPS):
             pos = torch.full((b,), n + i, dtype=torch.long,
                              device=run.prompts.device)
             logits, cache = serve_step(run.cfg, run.params, cache,
                                        logits.argmax(dim=-1), pos, run.lay,
                                        run.hp)
-        torch.cuda.synchronize()
+    prof_pre = trace_device(torch, pre)
+    prof_dec = trace_device(torch, dec)
     return {"prefill": device_breakdown(prof_pre, 1),
             "decode_per_token": device_breakdown(prof_dec, TRACED_STEPS)}
 
@@ -741,12 +980,19 @@ def tokens_agree(torch, tokens, ref_logits):
     return int(clear.sum()), clear.numel()
 
 
+def check_launches(path, counts, need):
+    for name, n in need.items():
+        if counts.get(name, 0) != n:
+            raise AssertionError(f"{path}: {name} launched "
+                                 f"{counts.get(name, 0)} times, the path "
+                                 f"needs {n}")
+
+
 def drive_path(torch, params):
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.serve import setup
     from repro_torch.models import transformer as T
     n_layers = 12
-    launches = {name: 0 for name in TOL}
     results = {}
     for mode in ("exact", "prism"):
         run = setup(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
@@ -759,15 +1005,10 @@ def drive_path(torch, params):
         tokens, logits, times = run.run()
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
-        want = {"prism_flash_attention": n_layers,
-                "segment_means": n_layers if mode == "prism" else 0,
-                "flash_decode_stats": n_layers * (GEN - 1)}
-        for name, n in want.items():
-            got = counts.get(name, 0)
-            if got != n:
-                raise AssertionError(f"{mode}: {name} launched {got} "
-                                     f"times, the path needs {n}")
-            launches[name] += got
+        check_launches(f"static/{mode}", counts, {
+            "prism_flash_attention": n_layers,
+            "segment_means": n_layers if mode == "prism" else 0,
+            "flash_decode_stats": n_layers * (GEN - 1)})
         vocab = run.cfg.vocab_size
         if tuple(logits.shape) != (GEN, BATCH, vocab) or not bool(
                 torch.isfinite(logits).all()):
@@ -811,7 +1052,364 @@ def drive_path(torch, params):
         # a few decode steps, after the counted run
         emit("trace", mode=mode, **profile(torch, run))
         del logits, ref
-    return launches, results
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the engine's tick programs, chunked prefill and packed ticks
+# ---------------------------------------------------------------------------
+
+CHUNK_LEN = 64                       # the engine's default chunk_len
+TOKEN_BUDGET = BATCH + CHUNK_LEN     # its default token budget: 72
+TICK_KEYS = ("tok", "src", "slot", "pos", "off", "pre")
+
+
+def plan_chunks(prompts, chunk_len, join):
+    """The chunked-prefill calls an engine makes for ``prompts`` (lists of
+    token ids), row i admitted at call ``join[i]``: every admitted row
+    with prompt left advances by up to ``chunk_len`` tokens at its own
+    offset.  Returns one (tokens (B, C), off (B,), nreal (B,)) of numpy
+    arrays per call; a row not prefilling has off = -1."""
+    import numpy as np
+    b = len(prompts)
+    done = [0] * b
+    calls = []
+    while any(done[i] < len(p) for i, p in enumerate(prompts)):
+        tokens = np.zeros((b, chunk_len), np.int64)
+        off = np.full(b, -1, np.int64)
+        nreal = np.zeros(b, np.int64)
+        for i, p in enumerate(prompts):
+            take = min(chunk_len, len(p) - done[i])
+            if join[i] <= len(calls) and take > 0:
+                tokens[i, :take] = p[done[i]:done[i] + take]
+                off[i], nreal[i] = done[i], take
+                done[i] += take
+        calls.append((tokens, off, nreal))
+    return calls
+
+
+def plan_packed(prompts, gen, budget, forced=None):
+    """The packed ticks ``FifoScheduler.plan_tick`` plans for ``prompts``,
+    all admitted at the first tick, each generating ``gen`` tokens: every
+    decoding slot's token first, then prompt tokens in slot order up to
+    ``budget``, the dead tail padded (slot = -1).  A slot's first decode
+    token re-feeds its last prompt token at ``off = pos = n - 1``; a later
+    one is ``forced[slot][k - 1]`` if given, else the slot's sample of
+    the tick before (``src`` = the slot, for ``merge``).  Returns one dict
+    per tick: numpy arrays ``TICK_KEYS`` (budget,); ``n_dec``, its decode
+    rows, which come first; ``lengths`` (B,), each slot's cached tokens
+    after the tick; ``dslot`` and ``flat`` (B,), zero-padded: the slot
+    and the (step·B + slot) of each decode row."""
+    import numpy as np
+    b = len(prompts)
+    if budget < b:
+        raise ValueError(f"token budget {budget} < {b} slots")
+    done, n_dec = [0] * b, [0] * b
+    ticks = []
+    while any(n < gen for n in n_dec):
+        t = {k: np.full(budget, -1, np.int64) for k in TICK_KEYS}
+        t["tok"][:], t["pre"][:] = 0, 0
+        t["dslot"], t["flat"] = np.zeros(b, np.int64), np.zeros(b, np.int64)
+        i = 0
+        for s, p in enumerate(prompts):
+            if done[s] < len(p) or n_dec[s] >= gen:
+                continue
+            k = n_dec[s]
+            t["slot"][i] = s
+            t["pos"][i] = t["off"][i] = len(p) - 1 + k
+            if k == 0:
+                t["tok"][i] = p[-1]
+            elif forced is not None:
+                t["tok"][i] = forced[s][k - 1]
+            else:
+                t["src"][i] = s
+            t["dslot"][i], t["flat"][i] = s, k * b + s
+            n_dec[s] += 1
+            i += 1
+        t["n_dec"] = i
+        for s, p in enumerate(prompts):
+            take = min(budget - i, len(p) - done[s])
+            if take <= 0:
+                continue
+            t["tok"][i:i + take] = p[done[s]:done[s] + take]
+            t["slot"][i:i + take] = s
+            t["pos"][i:i + take] = np.arange(done[s], done[s] + take)
+            t["off"][i:i + take] = done[s]
+            t["pre"][i:i + take] = 1
+            done[s] += take
+            i += take
+        t["lengths"] = np.array([d + max(0, n - 1)
+                                 for d, n in zip(done, n_dec)], np.int64)
+        ticks.append(t)
+    return ticks
+
+
+class Clock:
+    """Time marks on the card's stream (CUDA events) or, on the CPU, the
+    host clock."""
+
+    def __init__(self, torch, device):
+        self.torch = torch
+        self.on_card = torch.device(device).type == "cuda"
+        self.kind = "cuda_events" if self.on_card else "host"
+        self.marks = []
+
+    def mark(self):
+        if self.on_card:
+            e = self.torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.marks.append(e)
+        else:
+            import time
+            self.marks.append(time.perf_counter())
+
+    def ms(self, i, j):
+        """Milliseconds from mark i to mark j (synchronises the card)."""
+        if self.on_card:
+            self.torch.cuda.synchronize()
+            return self.marks[i].elapsed_time(self.marks[j])
+        return 1e3 * (self.marks[j] - self.marks[i])
+
+
+def rewind_decode(cfg, params, cache, prompts, *, gen, lay, hp, device,
+                  forced=None):
+    """The rewind step (each row's last prompt token re-fed at
+    ``pos = n - 1``), then ``gen - 1`` greedy (or ``forced`` (B, gen-1))
+    ``serve_step``s on ``cache``.  Returns the logits (gen, B, V)."""
+    import torch
+    from repro_torch.runtime.serve import serve_step
+    tok = torch.as_tensor([p[-1] for p in prompts], device=device)
+    pos = torch.as_tensor([len(p) - 1 for p in prompts], device=device)
+    out = []
+    for k in range(gen):
+        logits, cache = serve_step(cfg, params, cache, tok, pos + k, lay, hp)
+        out.append(logits)
+        if k + 1 < gen:
+            tok = logits.argmax(dim=-1) if forced is None else forced[:, k]
+    return torch.stack(out)
+
+
+def run_chunked(cfg, params, prompts, *, gen, lay, hp, chunk_len, join,
+                device, forced=None):
+    """Chunked prefill of ``prompts`` (lists of token ids) into an empty
+    cache, row i admitted at call ``join[i]``, then ``rewind_decode``.
+    Returns (tokens (B, gen), logits (gen, B, V), a copy of the cache
+    after the last chunk, info: prefill_ms (the first chunk call to the
+    end of the last), decode_ms_per_token, the number of chunk calls)."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime.serve import init_cache
+    from repro_torch.runtime.ticks import chunk_prefill_step
+    calls = plan_chunks(prompts, chunk_len, join)
+    toks, offs, nreals = (torch.as_tensor(np.stack(a), device=device)
+                          for a in zip(*calls))
+    cache = init_cache(cfg, lay, len(prompts), hp, device)
+    clock = Clock(torch, device)
+    clock.mark()
+    for i in range(len(calls)):
+        chunk_prefill_step(cfg, params, cache, toks[i], offs[i], nreals[i],
+                           lay, hp)
+    clock.mark()
+    snap = [{k: t.clone() for k, t in c.items()} for c in cache]
+    clock.mark()
+    logits = rewind_decode(cfg, params, cache, prompts, gen=gen, lay=lay,
+                           hp=hp, device=device, forced=forced)
+    clock.mark()
+    info = {"prefill_ms": clock.ms(0, 1),
+            "decode_ms_per_token": clock.ms(2, 3) / gen,
+            "calls": len(calls), "clock": clock.kind}
+    return logits.argmax(dim=-1).T, logits, snap, info
+
+
+def run_packed(cfg, params, prompts, *, gen, lay, hp, budget, device,
+               forced=None):
+    """Every prompt admitted at once and served by packed ticks
+    (``plan_packed``) until each has ``gen`` tokens, sampled on the card
+    by ``pack`` and fed back by ``merge``.  Returns (tokens (B, gen),
+    logits (gen, B, V), the cache, info: prefill_ms (the first tick to the
+    end of the last with a prompt token), decode_ms_per_tick over the
+    ticks after it, the tick count, a mixed tick's index)."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime.serve import init_cache
+    from repro_torch.runtime.ticks import merge, pack, packed_step
+    ticks = plan_packed(prompts, gen, budget, forced)
+    b, v_size = len(prompts), cfg.vocab_size
+    head = min(b, budget)
+
+    def stack(key):
+        return torch.as_tensor(np.stack([t[key] for t in ticks]),
+                               device=device)
+    tok, src, slot, pos, off, pre = (stack(k) for k in TICK_KEYS)
+    lengths, dslot, flat = stack("lengths"), stack("dslot"), stack("flat")
+    is_dec = (pre[:, :head] == 0) & (slot[:, :head] >= 0)
+    logits_out = torch.zeros(gen * b, v_size, device=device)
+    tok_out = torch.zeros(gen * b, dtype=torch.long, device=device)
+    fin_out = torch.zeros(gen * b, dtype=torch.int32, device=device)
+    prev = torch.zeros(b, 4, dtype=torch.int32, device=device)
+    cache = init_cache(cfg, lay, b, hp, device)
+    clock = Clock(torch, device)
+    clock.mark()
+    for i, t in enumerate(ticks):
+        tokens = merge(tok[i], src[i], prev)
+        logits, cache = packed_step(cfg, params, cache, tokens, slot[i],
+                                    pos[i], off[i], pre[i], lay, hp)
+        prev = pack(logits, slot[i, :head], is_dec[i], lengths[i])
+        n = t["n_dec"]
+        if n:
+            rows = flat[i, :n]
+            logits_out.index_copy_(0, rows, logits[:n])
+            tok_out.index_copy_(0, rows, prev[dslot[i, :n], 0].long())
+            fin_out.index_copy_(0, rows, prev[dslot[i, :n], 3])
+        clock.mark()
+    if not bool((fin_out == 1).all()):
+        raise AssertionError("pack flagged a row with a non-finite logit")
+    last_pre = max(i for i, t in enumerate(ticks) if t["pre"].any())
+    n_after = len(ticks) - 1 - last_pre
+    mixed = [i for i, t in enumerate(ticks)
+             if t["pre"].any() and t["n_dec"] > 0]
+    info = {"prefill_ms": clock.ms(0, last_pre + 1),
+            "decode_ms_per_tick": (clock.ms(last_pre + 1, len(ticks))
+                                   / max(1, n_after)),
+            "total_ms": clock.ms(0, len(ticks)), "ticks": len(ticks),
+            "decode_only_ticks": n_after, "clock": clock.kind,
+            "mixed_tick": mixed[0] if mixed else None}
+    return (tok_out.view(gen, b).T, logits_out.view(gen, b, v_size), cache,
+            info)
+
+
+def profile_ticks(torch, cfg, params, prompts, lay, hp, join):
+    """torch.profiler over one chunk call (every row admitted, at its own
+    offset) and one mixed packed tick (decode and prompt tokens), each
+    on a fresh cache after one untraced call."""
+    import numpy as np
+    from repro_torch.runtime.serve import init_cache
+    from repro_torch.runtime.ticks import chunk_prefill_step, packed_step
+    calls = plan_chunks(prompts, CHUNK_LEN, join)
+    i = max(join)                               # the first with every row
+    args = [torch.as_tensor(a, device="cuda") for a in calls[i]]
+    ticks = plan_packed(prompts, GEN, TOKEN_BUDGET)
+    t = ticks[[j for j, t in enumerate(ticks)
+               if t["pre"].any() and t["n_dec"] > 0][0]]
+    targs = [torch.as_tensor(t[k], device="cuda") for k in TICK_KEYS]
+    tok, _, slot, pos, off, pre = targs
+    out = {}
+    for name, fn in (
+            ("chunk_call", lambda c: chunk_prefill_step(
+                cfg, params, c, *args, lay, hp)),
+            ("packed_tick", lambda c: packed_step(
+                cfg, params, c, tok, slot, pos, off, pre, lay, hp))):
+        cache = init_cache(cfg, lay, len(prompts), hp, "cuda")
+        fn(cache)
+        out[name] = device_breakdown(trace_device(torch, lambda: fn(cache)),
+                                     1)
+    out["chunk_call"]["offsets"] = calls[i][1].tolist()
+    out["packed_tick"]["tokens"] = {"decode": int(t["n_dec"]),
+                                    "prompt": int(np.sum(t["pre"]))}
+    return out
+
+
+def drive_ticks(torch, params):
+    """Phase 5: the chunked and packed paths in both decode modes, at the
+    main path's shape; returns the launches of each path."""
+    from repro_torch.core.protocol import PrismConfig
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.serve import setup
+    from repro_torch.runtime.serve import (ServeHParams, generate,
+                                           make_layout, prefill)
+    run = setup(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                seq_shards=SHARDS, cr=CR, device="cuda", params=params)
+    cfg, prompts_t = run.cfg, run.prompts
+    prompts = prompts_t.tolist()
+    n_layers = cfg.n_layers
+    join = [i // 2 for i in range(BATCH)]       # staggered admission
+    voltage = PrismConfig(P=SHARDS, cr=CR, mode="voltage")
+    launches = {}
+    for mode in ("exact", "prism"):
+        hp = ServeHParams(decode_mode=mode, means_cr=CR)
+        lay = make_layout(SHARDS, run.lay.cap, hp, prefill_len=PROMPT)
+        kw = dict(gen=GEN, lay=lay, hp=hp, device="cuda")
+
+        # chunked prefill, the rewind, greedy decode
+        run_chunked(cfg, params, prompts, chunk_len=CHUNK_LEN, join=join,
+                    **kw)                                        # warm-up
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        tokens, logits, snap, info = run_chunked(
+            cfg, params, prompts, chunk_len=CHUNK_LEN, join=join, **kw)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        check_launches(f"chunked/{mode}", counts, {
+            "flash_decode_stats": n_layers * (info["calls"] + GEN),
+            "prism_flash_attention": 0, "segment_means": 0})
+        launches[f"chunked/{mode}"] = counts
+        _, ref_cache = prefill(cfg, params, prompts_t, voltage, lay, hp)
+        leaf_err = {k: max(rel_err(a[k], b[k])
+                           for a, b in zip(snap, ref_cache))
+                    for k in ref_cache[0]}
+        if max(leaf_err.values()) > PATH_REL_TOL or set(snap[0]) != set(
+                ref_cache[0]):
+            raise AssertionError(f"chunked/{mode}: cache leaves {leaf_err} "
+                                 f"vs the monolithic prefill > "
+                                 f"{PATH_REL_TOL}")
+        if mode == "exact":
+            _, ref, _ = generate(cfg, params, prompts_t, gen=GEN,
+                                 prism=voltage, lay=lay, hp=hp,
+                                 forced=tokens[:, :-1])
+            ref_name = "monolithic Voltage prefill, exact decode"
+        else:
+            ref = rewind_decode(cfg, params, ref_cache, prompts,
+                                forced=tokens[:, :-1], **kw)
+            ref_name = "monolithic Voltage prefill, rewind, prism decode"
+        del snap, ref_cache
+        err = rel_err(logits, ref)
+        if tuple(logits.shape) != (GEN, BATCH, cfg.vocab_size) or not (
+                err <= PATH_REL_TOL):
+            raise AssertionError(f"chunked/{mode}: logits rel err {err:.3e} "
+                                 f"vs the {ref_name} > {PATH_REL_TOL}")
+        checked, total = tokens_agree(torch, tokens, ref)
+        del ref
+        emit("path", path="chunked", mode=mode, batch=BATCH, prompt=PROMPT,
+             gen=GEN, shards=SHARDS, cr=CR, chunk_len=CHUNK_LEN, join=join,
+             **info, launches=counts, leaf_rel_err=leaf_err,
+             logits_rel_err=err, reference=ref_name, tol=PATH_REL_TOL,
+             tokens_checked=checked, tokens_total=total)
+
+        # packed ticks, teacher-forced on the chunked path's tokens, so
+        # every step's logits compare (and the timed run's warm-up)
+        f_tokens, f_logits, _, _ = run_packed(
+            cfg, params, prompts, budget=TOKEN_BUDGET,
+            forced=tokens[:, :-1].tolist(), **kw)
+        err = rel_err(f_logits, logits)
+        if tuple(f_logits.shape) != tuple(logits.shape) or not bool(
+                torch.isfinite(f_logits).all()) or not err <= PATH_REL_TOL:
+            raise AssertionError(f"packed/{mode}: logits rel err {err:.3e} "
+                                 f"vs the chunked path > {PATH_REL_TOL}")
+        checked, total = tokens_agree(torch, f_tokens, logits)
+        del f_logits
+        # then greedy through pack / merge, timed and counted
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        p_tokens, _, _, p_info = run_packed(
+            cfg, params, prompts, budget=TOKEN_BUDGET, **kw)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        per_tick = n_layers * (2 if mode == "prism" else 1)
+        check_launches(f"packed/{mode}", counts, {
+            "flash_decode_stats": per_tick * p_info["ticks"],
+            "prism_flash_attention": 0, "segment_means": 0})
+        launches[f"packed/{mode}"] = counts
+        emit("path", path="packed", mode=mode, batch=BATCH, prompt=PROMPT,
+             gen=GEN, shards=SHARDS, cr=CR, token_budget=TOKEN_BUDGET,
+             **p_info, launches=counts, logits_rel_err=err,
+             reference=f"the chunked path ({mode}), teacher-forced",
+             tol=PATH_REL_TOL, tokens_checked=checked, tokens_total=total,
+             greedy_tokens_equal=bool((p_tokens == tokens).all()))
+        del logits
+        tr = profile_ticks(torch, cfg, params, prompts, lay, hp, join)
+        emit("trace", path="chunked", mode=mode, chunk_call=tr["chunk_call"])
+        emit("trace", path="packed", mode=mode, packed_tick=tr["packed_tick"])
+    return launches
 
 
 def main() -> int:
@@ -847,7 +1445,9 @@ def main() -> int:
 
     params = T.init(get_config(ARCH),
                     torch.Generator(device=dev).manual_seed(0), dev)
-    launches, _ = drive_path(torch, params)
+    by_path = {f"static/{mode}": r["launches"]
+               for mode, r in drive_path(torch, params).items()}
+    by_path.update(drive_ticks(torch, params))
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -859,7 +1459,10 @@ def main() -> int:
         src, rep = SOURCES[name]
         t = main_t[name]
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": rep, "launches": launches[name],
+               "replaces": rep,
+               "launches": sum(c.get(name, 0) for c in by_path.values()),
+               "launches_by_path": {path: c.get(name, 0)
+                                    for path, c in by_path.items()},
                "max_abs_err": chk.max_err[name], "tol": list(TOL[name]),
                "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -870,6 +1473,13 @@ def main() -> int:
                         f"{tag}_plain_ms": te["plain_ms"],
                         f"{tag}_bound_ms": te["bound_ms"],
                         f"{tag}_library_ms": te["library_ms"]})
+        if name == "flash_decode_stats":   # the tick paths' layouts
+            for tag in ("chunk", "packed", "packed_prism"):
+                row.update({f"{tag}_{k}": t_dec[tag][k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")})
+            row["chunk_library_folded_ms"] = t_dec["chunk"][
+                "library_folded_ms"]
         if name == "segment_means":        # bf16 and the fused augment
             row.update({k: v for k, v in t.items() if k != "shape"})
             row.update({"bf16_max_abs_err": chk.max_err[name + "/bf16"],

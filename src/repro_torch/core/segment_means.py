@@ -34,6 +34,18 @@ def segment_bounds(n_p: int, L: int, offset: int = 0
     return starts + offset, ends - 1 + offset
 
 
+def segment_fill_counts(lo: torch.Tensor, hi: torch.Tensor,
+                        filled: torch.Tensor) -> torch.Tensor:
+    """Per-segment count of real tokens once positions ``[0, filled)``
+    are laid down: ``clip(min(filled, hi + 1) - lo, 0)`` in f32.
+    ``lo``/``hi`` (m,) are the inclusive bounds of each segment column;
+    ``filled`` has any leading shape, the segment axis is appended.
+    These are the repeat counts g of a mean over a partly filled (or
+    short) segment, so it never weighs a column with no real token."""
+    filled = filled[..., None]
+    return torch.clamp(torch.minimum(filled, hi + 1) - lo, min=0).float()
+
+
 def segment_means(x: torch.Tensor, L: int) -> torch.Tensor:
     """Compress ``x (..., N_p, D)`` to ``(..., L, D)`` segment means,
     accumulated in f32 and returned in ``x``'s dtype."""

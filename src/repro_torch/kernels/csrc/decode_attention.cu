@@ -10,8 +10,12 @@
 // marks a dead column).  A row with no live column gives (-1e30, 0, 0).
 // The stats are not normalized: the caller combines them across shards
 // (exact mode) or normalizes per shard and selects the owner (prism).
-// The shard axis is folded into the batch: batch row b reads query row
-// and means row b / rep, and its own cache shard, `valid` and log g rows.
+// The shard axis is folded into the batch: output row b reads query row
+// b / rep, its own `valid` and log g rows, and the cache shard
+// r * rep + b % rep and means row r of its cache row r, where r is
+// rows[b / rep] when a row map is given (a packed tick: tokens of one
+// slot share its cache row; the wrapper clamps the map) and b / rep
+// otherwise.  The map replaces a gather of each token's cache row.
 //
 // What bounds it on an H100: memory.  Each live cache column is read
 // once and used for a handful of FMAs per query head, so the floor is
@@ -44,7 +48,14 @@
 //
 // What bounds it still: each block waits on two dependent device-memory
 // round trips (`valid`, then K/V), so the call is latency-bound, about
-// 2.6x its byte bound.
+// 2.6x its byte bound.  The chunked prefill's layout (a chunk of 64
+// queries folded into the head axis: 64 heads a KV head, two 32-head
+// blocks reading the same K/V) is bound by bytes too, but there every
+// score costs four FMAs and four warp shuffles on the f32 cores, where
+// the card's 3xTF32 tensor-core products would take under half the
+// byte time: about 15x its bound at 64 tokens after a 448-token prefix
+// (chip_smoke.py, H100).  A design for many queries a KV head (tensor
+// cores, K/V tiles shared by the heads) waits for its own change.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,12 +71,13 @@ constexpr int GMAX = 32;            // query heads per block
 template <int HD>
 __global__ void __launch_bounds__(NT) decode_stats_kernel(
     const float* __restrict__ q,        // (B / rep, Hq, HD)
-    const float* __restrict__ k,        // (B, M, Hkv, HD)
-    const float* __restrict__ v,        // (B, M, Hkv, HD)
+    const float* __restrict__ k,        // (R * rep, M, Hkv, HD)
+    const float* __restrict__ v,        // (R * rep, M, Hkv, HD)
     const uint8_t* __restrict__ valid,  // (B, M)
     const float* __restrict__ log_gz,   // (B, MZ) or null
-    const float* __restrict__ kz,       // (B / rep, MZ, Hkv, HD) or null
-    const float* __restrict__ vz,       // (B / rep, MZ, Hkv, HD) or null
+    const float* __restrict__ kz,       // (R, MZ, Hkv, HD) or null
+    const float* __restrict__ vz,       // (R, MZ, Hkv, HD) or null
+    const int* __restrict__ rows,       // (B / rep) cache row map or null
     float* __restrict__ m_out,          // (B, Hq)
     float* __restrict__ l_out,          // (B, Hq)
     float* __restrict__ acc_out,        // (B, Hq, HD)
@@ -82,6 +94,8 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int bq = b / rep;
+  const int r = rows != nullptr ? rows[bq] : bq;   // the cache row
+  const int bk = r * rep + (b - bq * rep);         // its shard's row
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int half = lane >> 4, hl = lane & 15;
   const int n_cols = M + (kz != nullptr ? MZ : 0);
@@ -119,8 +133,8 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
       vr[i] = kr[i];
       if (live[i]) {
         const size_t off =
-            c < M ? ((size_t)(b * M + c) * Hkv + kvh) * HD
-                  : ((size_t)(bq * MZ + (c - M)) * Hkv + kvh) * HD;
+            c < M ? ((size_t)(bk * M + c) * Hkv + kvh) * HD
+                  : ((size_t)(r * MZ + (c - M)) * Hkv + kvh) * HD;
         const float* ks = (c < M ? k : kz) + off;
         const float* vs = (c < M ? v : vz) + off;
         kr[i] = __ldg(reinterpret_cast<const float4*>(ks) + hl);
@@ -215,15 +229,15 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
 template <int HD>
 int launch(const float* q, const float* k, const float* v,
            const uint8_t* valid, const float* log_gz, const float* kz,
-           const float* vz, float* m_out, float* l_out, float* acc_out,
-           int B, int M, int MZ, int Hq, int Hkv, int rep, float scale,
-           cudaStream_t stream) {
+           const float* vz, const int* rows, float* m_out, float* l_out,
+           float* acc_out, int B, int M, int MZ, int Hq, int Hkv, int rep,
+           float scale, cudaStream_t stream) {
   const int grp = Hq / Hkv;
   const size_t smem = sizeof(float) * NW * min(grp, GMAX) * (HD + 4);
   const dim3 grid((grp + GMAX - 1) / GMAX, Hkv, B);
   decode_stats_kernel<HD><<<grid, NT, smem, stream>>>(
-      q, k, v, valid, log_gz, kz, vz, m_out, l_out, acc_out, M, MZ, Hq,
-      Hkv, rep, scale);
+      q, k, v, valid, log_gz, kz, vz, rows, m_out, l_out, acc_out, M, MZ,
+      Hq, Hkv, rep, scale);
   return (int)cudaGetLastError();
 }
 
@@ -231,9 +245,9 @@ int launch(const float* q, const float* k, const float* v,
 
 extern "C" int flash_decode_stats_f32(
     const void* q, const void* k, const void* v, const void* valid,
-    const void* log_gz, const void* kz, const void* vz, void* m_out,
-    void* l_out, void* acc_out, int B, int M, int MZ, int Hq, int Hkv,
-    int hd, int rep, float scale, void* stream) {
+    const void* log_gz, const void* kz, const void* vz, const void* rows,
+    void* m_out, void* l_out, void* acc_out, int B, int M, int MZ, int Hq,
+    int Hkv, int hd, int rep, float scale, void* stream) {
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
@@ -241,12 +255,13 @@ extern "C" int flash_decode_stats_f32(
   const auto* lg = static_cast<const float*>(log_gz);
   const auto* kzf = static_cast<const float*>(kz);
   const auto* vzf = static_cast<const float*>(vz);
+  const auto* rw = static_cast<const int*>(rows);
   auto* mo = static_cast<float*>(m_out);
   auto* lo = static_cast<float*>(l_out);
   auto* ao = static_cast<float*>(acc_out);
   auto st = static_cast<cudaStream_t>(stream);
   // one head dim per ported model (GPT-2: 64)
   if (hd != 64) return (int)cudaErrorInvalidValue;
-  return launch<64>(qf, kf, vf, ok, lg, kzf, vzf, mo, lo, ao, B, M, MZ, Hq,
-                    Hkv, rep, scale, st);
+  return launch<64>(qf, kf, vf, ok, lg, kzf, vzf, rw, mo, lo, ao, B, M, MZ,
+                    Hq, Hkv, rep, scale, st);
 }

@@ -9,15 +9,20 @@ live column gives ``(NEG, 0, 0)``.  The cross-shard combine is the
 caller's (``runtime.serve``).
 
 Shapes, with the shard axis folded into the batch (``B = B_q · rep``;
-row ``b`` is shard ``b % rep`` of sequence ``b // rep``):
+output row ``b`` is shard ``b % rep`` of query row ``b // rep``):
 
     q        (B_q, 1, Hq, hd)
-    k, v     (B, M, Hkv, hd)        each row's own cache shard
-    valid    (B, M) bool
-    log_gz   (B, m) f32             each row's own means bias
-    kz, vz   (B_q, m, Hkv, hd)      the means, shared by the shards
+    k, v     (R · rep, M, Hkv, hd)  R cache rows, each of rep shards
+    valid    (B, M) bool            per output row
+    log_gz   (B, m) f32             per output row: its means bias
+    kz, vz   (R, m, Hkv, hd)        the means, shared by the shards
+    rows     (B_q,) int32 or None   the cache row of each query row
 
-``rep = 1`` is the reference's single-shard signature.
+Without ``rows`` query row ``i`` reads cache row ``i`` (``R = B_q``).
+With it, query row ``i`` reads cache row ``rows[i]`` (clamped to
+``[0, R)``): the packed tick's tokens read their slot's cache row in
+place, where the reference gathers a copy per token.  ``rep = 1`` is the
+reference's single-shard signature.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from ..core.masks import NEG_INF
 NEG = NEG_INF
 HEAD_DIMS = (64,)              # the head dims csrc/decode_attention.cu builds
 
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -70,12 +75,43 @@ def merge_stats(a, b):
     return m, l, acc
 
 
+def chunk_softmax_stats(q, k, v, bias, scale):
+    """Multi-query softmax partial stats with a per-query additive bias:
+    the intra-chunk pass of chunked prefill and of a packed tick.
+    q (B,C,Hq,hd); k,v (B,M,Hkv,hd); bias (B,C,M) (NEG = dead column).
+    Returns m, l: (B,Hq,C,1) f32 and acc: (B,C,Hq,hd) f32."""
+    s = _gqa_logits(q, k, scale).float()                  # (B,Hq,C,M)
+    s = s + bias[:, None].float()
+    m_p = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m_p)
+    p = torch.where(s > NEG / 2, p, torch.zeros_like(p))  # all-dead -> l=0
+    l_p = p.sum(dim=-1, keepdim=True)
+    acc_p = _gqa_output(p.to(v.dtype), v).float()
+    return m_p, l_p, acc_p
+
+
+def gather_rows(rows, rep, k, v, kz=None, vz=None):
+    """The row map made explicit: each query row's ``rep`` cache shards
+    (and means row) gathered into a copy, as the reference's per-token
+    ``take`` does."""
+    rows = rows.long().clamp(0, k.shape[0] // rep - 1)
+    idx = (rows[:, None] * rep + torch.arange(rep, device=rows.device)
+           ).reshape(-1)
+    k, v = k.index_select(0, idx), v.index_select(0, idx)
+    if kz is not None:
+        kz, vz = kz.index_select(0, rows), vz.index_select(0, rows)
+    return k, v, kz, vz
+
+
 def decode_stats_reference(q, k, v, valid, log_gz=None, kz=None, vz=None,
-                           *, scale):
+                           *, scale, rows=None):
     """Plain version of ``flash_decode_stats``: local columns masked by
     ``valid`` (g = 1), then the optional means columns with their per-row
-    ``log_gz`` bias, merged without concatenating K/V."""
-    rep = k.shape[0] // q.shape[0]
+    ``log_gz`` bias, merged without concatenating K/V.  A row map is
+    applied as an explicit gather first."""
+    rep = valid.shape[0] // q.shape[0]
+    if rows is not None:
+        k, v, kz, vz = gather_rows(rows, rep, k, v, kz, vz)
     if rep > 1:
         q = q.repeat_interleave(rep, dim=0)
         if kz is not None:
@@ -94,7 +130,7 @@ def decode_stats_reference(q, k, v, valid, log_gz=None, kz=None, vz=None,
 # --------------------------------------------------------------------------
 
 def flash_decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
-                       scale):
+                       scale, rows=None):
     """The CUDA kernel.  f32 only; raises on anything it does not take.
     Launches on the current stream and does not synchronise."""
     dev = k.device
@@ -103,13 +139,24 @@ def flash_decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
     check_tensor(v, "v", dtype=torch.float32, ndim=4, device=dev)
     check_tensor(valid, "valid", dtype=torch.bool, ndim=2, device=dev)
     bq, nq, hq, hd = q.shape
-    b, m_loc, hkv, hd_k = k.shape
+    n_kv, m_loc, hkv, hd_k = k.shape
+    b = valid.shape[0]                       # output rows
+    rep = b // bq
     if nq != 1:
         raise ValueError(f"decode kernel is single-token (got Nq={nq})")
     if (hd_k != hd or v.shape != k.shape or b % bq or hq % hkv
-            or valid.shape != (b, m_loc)):
+            or valid.shape != (b, m_loc) or n_kv % rep
+            or (rows is None and n_kv != b)):
         raise ValueError(f"shapes do not fit: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, valid {tuple(valid.shape)}")
+    n_rows = n_kv // rep                     # cache rows
+    rows_ptr = None
+    if rows is not None:
+        check_tensor(rows, "rows", dtype=torch.int32, ndim=1, device=dev)
+        if rows.shape != (bq,):
+            raise ValueError(f"rows {tuple(rows.shape)} != ({bq},)")
+        rows = rows.clamp(0, n_rows - 1)
+        rows_ptr = rows.data_ptr()
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     mz, ptrs = 0, (None, None, None)
@@ -119,7 +166,7 @@ def flash_decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
         check_tensor(kz, "kz", dtype=torch.float32, ndim=4, device=dev)
         check_tensor(vz, "vz", dtype=torch.float32, ndim=4, device=dev)
         mz = kz.shape[1]
-        if (kz.shape != (bq, mz, hkv, hd) or vz.shape != kz.shape
+        if (kz.shape != (n_rows, mz, hkv, hd) or vz.shape != kz.shape
                 or log_gz.shape != (b, mz)):
             raise ValueError(f"means shapes do not fit: kz "
                              f"{tuple(kz.shape)}, log_gz "
@@ -131,20 +178,20 @@ def flash_decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
     fn = build.function("decode_attention", "flash_decode_stats_f32",
                         _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            *ptrs, m_p.data_ptr(), l_p.data_ptr(), acc_p.data_ptr(), b,
-            m_loc, mz, hq, hkv, hd, b // bq, ctypes.c_float(scale),
-            torch.cuda.current_stream(dev).cuda_stream)
+            *ptrs, rows_ptr, m_p.data_ptr(), l_p.data_ptr(),
+            acc_p.data_ptr(), b, m_loc, mz, hq, hkv, hd, rep,
+            ctypes.c_float(scale), torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "flash_decode_stats")
     LAUNCHES["flash_decode_stats"] += 1
     return m_p, l_p, acc_p
 
 
 def decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *, scale,
-                 backend: str = "auto"):
+                 rows=None, backend: str = "auto"):
     """Partial stats from the kernel (CUDA tensors) or the plain version
     (CPU tensors, or ``backend='plain'``)."""
     if use_kernel(backend, k):
         return flash_decode_stats(q, k, v, valid, log_gz, kz, vz,
-                                  scale=scale)
+                                  scale=scale, rows=rows)
     return decode_stats_reference(q, k, v, valid, log_gz, kz, vz,
-                                  scale=scale)
+                                  scale=scale, rows=rows)

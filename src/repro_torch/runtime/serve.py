@@ -81,6 +81,17 @@ def make_layout(n_seq: int, cap: int, hp: ServeHParams,
     return ServeLayout(n_seq, cap, cap // n_seq, n0, L)
 
 
+def init_cache(cfg: ModelConfig, lay: ServeLayout, batch: int,
+               hp: ServeHParams, device) -> list:
+    """An all-zero f32 decode-layout cache, one dict of leaves per layer
+    (``layer_cache_shape``): what the chunked and packed ticks admit
+    requests into."""
+    shapes = layer_cache_shape(cfg, lay, batch, hp)
+    return [{name: torch.zeros(shape, device=device)
+             for name, shape in shapes.items()}
+            for _ in range(cfg.n_layers)]
+
+
 def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
                       hp: ServeHParams) -> dict:
     """Per-layer cache leaves: k, v (B, P, cap_l, Hkv, hd); prism mode
@@ -190,10 +201,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
         x = x + o
         x = x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
         cache.append(c)
-    last = norm(params["final_norm"], ctx.last_shard(x[:, -1]),
-                cfg.norm_kind)                               # (B, D)
-    logits = last @ params["embed"]["table"].T.to(last.dtype)
-    return logits.float(), cache
+    return lm_head(cfg, params, ctx.last_shard(x[:, -1])), cache
 
 
 # --------------------------------------------------------------------------
@@ -201,97 +209,146 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _decode_cols(lay: ServeLayout, pos: torch.Tensor):
-    """(write slot (B, P), owner (B, P), col_pos (P, cap_l)) for the
-    (B,) positions ``pos`` (-1 = idle row: owner False everywhere)."""
+    """(write slot (..., P), owner (..., P), col_pos (P, cap_l)) for the
+    positions ``pos`` of any shape (-1 = dead entry: owner False on every
+    shard)."""
     n0, n_loc0, n_seq = lay.prefill_len, lay.n_loc0, lay.n_seq
-    idx = torch.arange(n_seq, device=pos.device)[None, :]       # (1, P)
-    extra = (pos - n0)[:, None]                                  # (B, 1)
+    idx = torch.arange(n_seq, device=pos.device)                 # (P,)
+    extra = (pos - n0)[..., None]                                # (..., 1)
     slot = torch.where(extra >= 0, n_loc0 + extra // n_seq,
-                       pos[:, None] - idx * n_loc0)
+                       pos[..., None] - idx * n_loc0)
     wr_shard = torch.where(extra >= 0, extra % n_seq,
-                           torch.clamp(pos[:, None] // max(n_loc0, 1),
+                           torch.clamp(pos[..., None] // max(n_loc0, 1),
                                        0, n_seq - 1))
     owner = (wr_shard == idx) & (slot >= 0) & (slot < lay.cap_l)
     j = torch.arange(lay.cap_l, device=pos.device)[None, :]
-    col_pos = torch.where(j < n_loc0, idx.T * n_loc0 + j,
-                          n0 + (j - n_loc0) * n_seq + idx.T)
+    col_pos = torch.where(j < n_loc0, idx[:, None] * n_loc0 + j,
+                          n0 + (j - n_loc0) * n_seq + idx[:, None])
     return slot, owner, col_pos
 
 
-def _write_slot(cache_kv, new_row, slot, owner):
-    """Write (B, 1, Hkv, hd) rows into the (B, P, cap_l, Hkv, hd) cache at
-    per-request slots, IN PLACE.  Non-owner (row, shard) pairs get their
-    current column written back unchanged: an O(B·P) scatter with no
-    host synchronisation, independent of the cache capacity."""
-    b, p, cap_l = cache_kv.shape[:3]
-    rows = torch.arange(b, device=slot.device)[:, None].expand(b, p)
-    shards = torch.arange(p, device=slot.device)[None, :].expand(b, p)
-    cols = torch.clamp(slot, 0, cap_l - 1)
-    cur = cache_kv[rows, shards, cols]                      # (B, P, Hkv, hd)
-    upd = torch.where(owner[..., None, None],
-                      new_row[:, 0][:, None].to(cache_kv.dtype), cur)
-    cache_kv[rows, shards, cols] = upd
+def write_plan(row, slot, owner, n_seq: int, cap_l: int):
+    """Flat cache addresses of N new K/V rows, computed once per step for
+    every layer and leaf: entry ``n`` goes to batch row ``row[n]``, column
+    ``slot[n, p]`` of the one shard ``p`` where ``owner[n, p]``.  Returns
+    (addr (N,), ok (N,), first (1,)): an entry that no shard owns (dead
+    token, idle row) is not ``ok`` and takes the address of the first
+    entry that is (``first``), so ``_write_kv`` drops it, as the
+    reference's out-of-range ``mode='drop'`` scatter does."""
+    ok = owner.any(dim=-1)
+    shard = owner.int().argmax(dim=-1)
+    col = slot.gather(-1, shard[:, None])[:, 0].clamp(0, cap_l - 1)
+    addr = (row * n_seq + shard) * cap_l + col
+    first = ok.int().argmax(dim=0, keepdim=True)
+    return torch.where(ok, addr, addr[first]), ok, first
+
+
+def _write_kv(cache_kv, new_rows, plan):
+    """Scatter (N, Hkv, hd) rows into the (B, P, cap_l, Hkv, hd) cache
+    IN PLACE at the addresses of ``plan`` (``write_plan``).  A dropped
+    entry rewrites the first owned entry's address with that entry's
+    value (the current value if no entry is owned), so every duplicate
+    address gets the same bytes.  O(N), no host synchronisation."""
+    addr, ok, first = plan
+    flat = cache_kv.view(-1, *cache_kv.shape[3:])
+    new_rows = new_rows.to(cache_kv.dtype)
+    keep = torch.where(ok[first][:, None, None], new_rows[first],
+                       flat[addr[first]])
+    flat[addr] = torch.where(ok[:, None, None], new_rows, keep)
 
 
 def _combine_exact(m_p, l_p, acc_p):
-    """Cross-shard flash-softmax combine over the shard axis (dim 1):
-    m, l (B, P, Hq), acc (B, P, Hq, hd) -> (B, Hq, hd).  Shards with no
-    valid column (m = NEG) cancel via corr = 0."""
+    """Cross-shard flash-softmax combine over the shard axis (dim 1) for
+    Nq queries: m, l (B, P, Hq, Nq), acc (B, P, Nq, Hq, hd) ->
+    (B, Nq, Hq, hd).  Any disjoint column sets combine the same way (the
+    chunked and packed ticks add their intra-tick columns as one more
+    entry of the axis).  Sets with no valid column (m = NEG) cancel via
+    corr = 0."""
     m_g = m_p.amax(dim=1, keepdim=True)
-    corr = torch.exp(m_p - m_g)
-    l_c = (l_p * corr).sum(dim=1)
-    acc_c = (acc_p * corr[..., None]).sum(dim=1)
-    return acc_c / torch.clamp(l_c, min=1e-30)[..., None]
+    corr = torch.exp(m_p - m_g)                                  # (B,P,Hq,Nq)
+    l_c = (l_p * corr).sum(dim=1)                                # (B,Hq,Nq)
+    acc_c = (acc_p * corr.transpose(2, 3)[..., None]).sum(dim=1)
+    return acc_c / torch.clamp(l_c, min=1e-30).transpose(1, 2)[..., None]
+
+
+def shard_stats(q, k, v, valid, scale, *, log_gz=None, kz=None, vz=None,
+                rows=None, backend="auto"):
+    """The decode kernel's partial stats of every (query row, shard),
+    shaped for ``_combine_exact``: q (Bq,1,Hq,hd); k, v (R,P,M,Hkv,hd)
+    the whole cache; valid (Bq,P,M); log_gz (Bq,P,m); kz, vz
+    (R,m,Hkv,hd); rows (Bq,) int32, the cache row of each query row
+    (None: row i reads row i).  Returns m, l (Bq,P,Hq,1) and acc
+    (Bq,P,1,Hq,hd)."""
+    bq, _, hq, hd = q.shape
+    r, p, m_loc, hkv = k.shape[:4]
+    m_p, l_p, acc_p = decode_stats(
+        q, k.view(r * p, m_loc, hkv, hd), v.view(r * p, m_loc, hkv, hd),
+        valid.reshape(bq * p, m_loc),
+        None if log_gz is None else log_gz.reshape(bq * p, -1), kz, vz,
+        scale=scale, rows=rows, backend=backend)
+    return (m_p.view(bq, p, hq, 1), l_p.view(bq, p, hq, 1),
+            acc_p.view(bq, p, 1, hq, hd))
 
 
 def decode_attention(q, k, v, valid, scale, *, gz=None, kz=None, vz=None,
-                     owner=None, mode="exact", backend="auto"):
+                     owner=None, mode="exact", rows=None, backend="auto"):
     """Per-token decode attention over the shard-stacked cache.
 
-    q (B,1,Hq,hd); k, v (B,P,M,Hkv,hd); valid (B,P,M) bool.  Prism extras:
-    gz (B,P,m) per-row, per-shard means repeat counts (0 = dead column),
-    kz/vz (B,m,Hkv,hd), owner (B,P) bool.  Returns (B,1,Hq,hd)."""
-    b, p, m_loc, hkv, hd = k.shape
-    hq = q.shape[2]
-    log_gz = (log_repeats(gz).reshape(b * p, -1) if kz is not None
-              else None)
-    m_p, l_p, acc_p = decode_stats(
-        q, k.reshape(b * p, m_loc, hkv, hd), v.reshape(b * p, m_loc, hkv, hd),
-        valid.reshape(b * p, m_loc), log_gz, kz, vz, scale=scale,
-        backend=backend)
-    m_p, l_p = m_p.reshape(b, p, hq), l_p.reshape(b, p, hq)
-    acc_p = acc_p.reshape(b, p, hq, hd)
+    q (Bq,1,Hq,hd); k, v (R,P,M,Hkv,hd); valid (Bq,P,M) bool; rows
+    (Bq,) int32 maps query rows to cache rows (None: the identity).
+    Prism extras: gz (Bq,P,m) per-row, per-shard means repeat counts
+    (0 = dead column), kz/vz (R,m,Hkv,hd), owner (Bq,P) bool.  Returns
+    (Bq,1,Hq,hd)."""
+    log_gz = log_repeats(gz) if kz is not None else None
+    m_p, l_p, acc_p = shard_stats(q, k, v, valid, scale, log_gz=log_gz,
+                                  kz=kz, vz=vz, rows=rows, backend=backend)
     if mode == "prism":
         # scaling-aware softmax already folded into the stats: normalize
         # per shard and take the owner's view (the reference's psum of the
         # owner-masked outputs)
-        out = acc_p / torch.clamp(l_p, min=1e-30)[..., None]
-        out = torch.where(owner[:, :, None, None], out,
+        out = acc_p / torch.clamp(l_p, min=1e-30).transpose(2, 3)[..., None]
+        out = torch.where(owner[:, :, None, None, None], out,
                           torch.zeros_like(out)).sum(dim=1)
     else:
         out = _combine_exact(m_p, l_p, acc_p)
-    return out[:, None].to(v.dtype)
+    return out.to(v.dtype)
+
+
+def prism_gz(cols, counts, pos):
+    """The repeat counts (Bq, P, m) under which each query's shards see
+    the means columns: ``counts`` (Bq, m) or (m,) the means' filled sizes,
+    ``pos`` (Bq,) the query positions (-1 = dead entry, which sees none).
+    A shard's own means are masked (its columns are exact), and a mean is
+    visible once every position it covers, [lo, lo + count), is in the
+    query's past."""
+    cnt = counts[..., None, :]                               # (Bq, 1, m)
+    live = (cols.g > 0) & (cols.lo + cnt <= pos[:, None, None] + 1)
+    return torch.where(live, cnt, torch.zeros_like(cnt))
+
+
+def lm_head(cfg: ModelConfig, params, x):
+    """Final norm and the tied-embedding LM head: x (..., D) -> logits
+    (..., V) f32."""
+    x = norm(params["final_norm"], x, cfg.norm_kind)
+    return (x @ params["embed"]["table"].T.to(x.dtype)).float()
 
 
 def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
                 lay: ServeLayout, hp: ServeHParams, cols):
     """x (B,1,D), pos (B,) -> out (B,1,D); writes this token's K/V into
-    the layer cache ``c`` in place.  ``cols`` = (slot, owner, valid)."""
-    slot, owner, valid = cols
+    the layer cache ``c`` in place.  ``cols`` = (write plan, owner,
+    valid)."""
+    plan, owner, valid = cols
     xn = norm(p["ln1"], x, cfg.norm_kind)
     q = attn_project_q(p["attn"], spec, xn)
     k_new, v_new = attn_project_kv(p["attn"], spec, xn)
     scale = spec.head_dim ** -0.5
-    _write_slot(c["k"], k_new, slot, owner)
-    _write_slot(c["v"], v_new, slot, owner)
+    _write_kv(c["k"], k_new[:, 0], plan)
+    _write_kv(c["v"], v_new[:, 0], plan)
     if hp.decode_mode == "prism" and "kz" in c:
-        # repeat counts ride in the cache; a shard's own means are masked
-        # (its columns are exact), and a mean is visible once every
-        # position it covers, [lo, lo + gz), is in the query's past
+        # repeat counts ride in the cache
         cols = means_columns(lay.n_seq, lay.n_loc0, lay.L, x.device)
-        cnt = c["gz"][:, None, :]                            # (B, 1, m)
-        live = (cols.g > 0) & (cols.lo + cnt <= pos[:, None, None] + 1)
-        gz = torch.where(live, cnt, torch.zeros_like(cnt))   # (B, P, m)
+        gz = prism_gz(cols, c["gz"], pos)                    # (B, P, m)
         out = decode_attention(q, c["k"], c["v"], valid, scale, gz=gz,
                                kz=c["kz"], vz=c["vz"], owner=owner,
                                mode="prism", backend=hp.backend)
@@ -308,12 +365,13 @@ def block_decode(cfg: ModelConfig, p, x, c, pos, lay: ServeLayout,
     return x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
 
 
-def embed_token(cfg: ModelConfig, params, token, pos):
-    """token (B,), pos (B,) -> x (B,1,D) with learned positions."""
+def embed_tokens(cfg: ModelConfig, params, token, pos):
+    """token (B, T), pos (B, T) -> x (B, T, D) with learned positions,
+    per request and per token.  A dead entry (pos = -1) still embeds
+    (its position clamped) but never reaches the cache."""
     tbl = params["pos_embed"]["table"]
     x = embed(params["embed"], token)
-    x = x + tbl[torch.clamp(pos, 0, tbl.shape[0] - 1)].to(x.dtype)
-    return x[:, None]
+    return x + tbl[torch.clamp(pos, 0, tbl.shape[0] - 1)].to(x.dtype)
 
 
 def serve_step(cfg: ModelConfig, params, cache, token, pos,
@@ -322,13 +380,13 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
     updated in place and returned."""
     slot, owner, col_pos = _decode_cols(lay, pos)
     valid = col_pos[None] <= pos[:, None, None]              # (B, P, cap_l)
-    cols = (slot, owner, valid)
-    x = embed_token(cfg, params, token, pos)
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    cols = (write_plan(rows, slot, owner, lay.n_seq, lay.cap_l), owner,
+            valid)
+    x = embed_tokens(cfg, params, token[:, None], pos[:, None])
     for p, c in zip(params["layers"], cache):
         x = block_decode(cfg, p, x, c, pos, lay, hp, cols)
-    x = norm(params["final_norm"], x, cfg.norm_kind)
-    logits = x[:, 0] @ params["embed"]["table"].T.to(x.dtype)
-    return logits.float(), cache
+    return lm_head(cfg, params, x[:, 0]), cache
 
 
 def generate(cfg: ModelConfig, params, prompts: torch.Tensor, *, gen: int,
