@@ -22,16 +22,29 @@ Phases, one JSON line each:
             of T = 72 (decode and prompt tokens, several per slot, dead
             entries) through the row map, exact and prism passes; the
             row map with repeats, every entry equal, entries out of
-            range (clamped), T = 1, 7, 9, 13, 30, rep 1, 2 and 4;
+            range (clamped), T = 1, 7, 9, 13, 30, rep 1, 2 and 4; the
+            decode kernel's tile route (a group of at least 4 query
+            heads a KV head and no row map: the chunk layouts and the
+            sweep's groups of 4 to 128 take it, each call checked to
+            take the route the wrapper's rule names; every case
+            without a row map also runs the other route) and its own
+            cases: means with g = 0 in whole tiles at a group of 64, a
+            row whose only live column ends a ragged local or means
+            tile, groups of 4 (the threshold) and 3, 16 alone and over
+            12 KV heads, rep 1 and 4;
             head dim 64, the only one the kernels are built for; segment
             means and the fused PRISM augment in f32 and bf16 over
             ragged segments, L = 1 and L = N, D = 33 and 5, P = 1/2/4
             and a misaligned base); the largest error beside the stated
-            tolerance, and the times of kernel, plain version, library
-            call and the bound (the attention and decode kernels'
-            operations at the 3xTF32 tensor-core rate, segment means'
-            at f32 FMA's); the chunk layout's library call both at its
-            natural (B·P, Hq, C) shape and folded as the kernel sees it.
+            tolerance and the largest share of it a kernel used
+            (``tol_share``), and the times of kernel, plain version,
+            library call and the bound (the attention and decode
+            kernels' operations at the 3xTF32 tensor-core rate, segment
+            means' at f32 FMA's); the chunk layout's library call both at its
+            natural (B·P, Hq, C) shape and folded as the kernel sees it;
+            both decode routes at the chunk layout and, for the
+            crossover, at its cache rows with folded groups of 1, 2, 4,
+            8, 16, 32, 40, 64 and 128 query heads a KV head.
             Times are event pairs (``ms``, over a floor of about 5 us,
             ``floor_ms``) and, for the kernels, the profiler's kernel
             durations (``device_ms``).
@@ -43,7 +56,8 @@ Phases, one JSON line each:
             prefill + prism decode (checked against the same run with
             backend='plain').  Launch counters are zeroed just before the
             run and read just after; every kernel must have launched as
-            often as the path requires.
+            often as the path requires (the decode kernel's tile route,
+            counted apart as ``flash_decode_stats.mq``, 0 times).
    trace    after each pairing, torch.profiler over one prefill and 8
             decode steps: device busy time, idle share and time by
             kernel class.
@@ -53,12 +67,16 @@ Phases, one JSON line each:
             admitted at call i // 2, the rewind, 63 greedy decode
             steps; its cache after the last chunk and its logits held
             to the monolithic Voltage prefill (exact: ``generate``;
-            prism: the same rewind and prism decode steps).
+            prism: the same rewind and prism decode steps); each chunk
+            call's decode-kernel launches take the tile route (12 a
+            call, 132 a run, ``flash_decode_stats.mq``), the decode
+            steps the row route.
             ``packed``: every slot admitted at once, ticks of 72 tokens
             planned as ``FifoScheduler.plan_tick`` plans them, greedy
-            through ``pack`` / ``merge`` (timed, launches counted);
-            its logits held to the chunked path's at every step by a
-            run teacher-forced on the chunked path's tokens.
+            through ``pack`` / ``merge`` (timed, launches counted; no
+            tile route: a row map takes the row route); its logits held
+            to the chunked path's at every step by a run teacher-forced
+            on the chunked path's tokens.
    trace    per mode, torch.profiler over one chunk call and one packed
             tick with decode and prompt tokens.
 6. kernels  one line listing every kernel with its numbers: ``ms`` is
@@ -66,9 +84,13 @@ Phases, one JSON line each:
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
             flash_decode_stats row adds its chunk and packed layouts
-            (``chunk_*``, ``packed_*``, ``packed_prism_*``), the
-            segment_means row its bf16 and fused-augment (``augment_*``)
-            numbers.
+            (``chunk_*``, ``packed_*``, ``packed_prism_*``), the chunk
+            layout per route (``chunk_tile_*``, ``chunk_row_*``; the
+            path's call, ``chunk_ms``, takes the tile route), the
+            ``crossover`` table, the cases checked per route and the tile
+            route's launches (``launches_mq``, ``launches_mq_by_path``);
+            the segment_means row its bf16 and fused-augment
+            (``augment_*``) numbers.
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -154,6 +176,7 @@ class Timer:
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+        self.flush_kernels = None           # names of the flush's kernels
 
     def __call__(self, fn, iters=25, warmup=3):
         torch = self.torch
@@ -181,33 +204,33 @@ class Timer:
         kernel of a few microseconds."""
         for _ in range(warmup):
             fn()
-        flush = {name for name, _ in self._kernels(self.flush.zero_)}
-        one = [name for name, _ in self._kernels(fn)]
-        if not one or flush & set(one):
-            raise RuntimeError(f"cannot tell the call's kernels {one} from "
-                               f"the flush's {sorted(flush)}")
+        if self.flush_kernels is None:
+            self.flush_kernels = {e.name for e in device_events(
+                trace_device(self.torch, self.flush.zero_))}
 
         def calls():
             for _ in range(iters):
                 self.flush.zero_()
                 fn()
-        ms = [t for name, t in self._kernels(calls) if name not in flush]
-        if len(ms) != iters * len(one):
-            raise RuntimeError(f"{len(ms)} kernels in {iters} calls of "
-                               f"{len(one)}")
-        k = len(one)
-        return statistics.median(sum(ms[i:i + k])
-                                 for i in range(0, len(ms), k))
 
-    def _kernels(self, fn):
-        """(name, ms) of every device activity of ``fn``, in start order."""
-        from torch.autograd import DeviceType
-        prof = trace_device(self.torch, fn)
-        evs = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        return [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
-                for e in evs]
+        def per_call(prof):
+            """Kernel times of each call: those between two flushes."""
+            runs, cur = [], None
+            for e in device_events(prof):
+                if e.name in self.flush_kernels:
+                    cur = None
+                    continue
+                if cur is None:
+                    cur = []
+                    runs.append(cur)
+                cur.append((e.time_range.end - e.time_range.start) / 1e3)
+            return runs
+
+        def complete(prof):
+            runs = per_call(prof)
+            return len(runs) == iters and len({len(r) for r in runs}) == 1
+        runs = per_call(trace_device(self.torch, calls, complete))
+        return statistics.median(sum(r) for r in runs)
 
     def floor(self):
         """Event-pair time of a one-element add: the harness's floor."""
@@ -215,23 +238,52 @@ class Timer:
         return self(lambda: tiny.add_(1))
 
 
-def trace_device(torch, fn, tries=3):
-    """torch.profiler over ``fn()`` on the CPU and the card.  A trace that
-    recorded no device activity at all is taken again, up to ``tries``
-    times: the profiler's device tracing on the card now and then comes
-    back empty for one trace of a process."""
+def device_events(prof):
+    """The device activities of a profile, in start order."""
     from torch.autograd import DeviceType
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def trace_device(torch, fn, complete=None, tries=6):
+    """torch.profiler over ``fn()`` on the CPU and the card.  A trace that
+    recorded no device activity, or that ``complete(prof)`` finds short
+    of what ``fn`` launched, is taken again, up to ``tries`` times, after
+    a pause that grows each time: the profiler's device tracing on the
+    card now and then comes back empty or holding only part of a call,
+    up to three traces in a row."""
+    import time
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
+    for i in range(tries):
+        time.sleep(0.25 * i)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+        if device_events(prof) and (complete is None or complete(prof)):
             return prof
-    raise RuntimeError(f"the profiler recorded no device activity in "
-                       f"{tries} traces")
+    raise RuntimeError(f"the profiler recorded no or an incomplete device "
+                       f"trace in {tries} tries")
+
+
+def trace_window(torch, fn):
+    """``trace_device`` over a window of the serving path, complete when
+    it holds a device record of every launch of the port's kernels that
+    the window counted (``LAUNCHES``)."""
+    from repro_torch.kernels.dispatch import LAUNCHES
+    counted = {}
+
+    def run():
+        n0 = sum(LAUNCHES[name] for name in TOL)
+        fn()
+        counted["n"] = sum(LAUNCHES[name] for name in TOL) - n0
+
+    def complete(prof):
+        return counted["n"] == sum(1 for e in device_events(prof)
+                                   if kernel_kind(e.name) in TOL)
+    return trace_device(torch, run, complete)
 
 
 def bound_ms(n_bytes, flops, flop_per_s=F32_FLOP_PER_S):
@@ -250,6 +302,9 @@ class Checker:
     def __init__(self, torch):
         self.torch = torch
         self.max_err = {name: 0.0 for name in TOL}
+        # the largest |err| / (atol + rtol·|want|): how much of its
+        # tolerance a kernel uses (1 fails)
+        self.tol_share = {name: 0.0 for name in TOL}
         self.cases = {name: 0 for name in TOL}
 
     def close(self, name, got, want, case, mask=None, tol=None, key=None):
@@ -265,11 +320,14 @@ class Checker:
             raise AssertionError(f"{name} [{case}]: non-finite output")
         diff = (got - want).abs()
         err = float(diff.max()) if diff.numel() else 0.0
-        bad = diff > atol + rtol * want.abs()
-        if bad.any():
+        share = diff / (atol + rtol * want.abs())
+        if (share > 1).any():
             raise AssertionError(f"{name} [{case}]: max |err| {err:.3e} "
                                  f"outside atol {atol} rtol {rtol}")
         self.max_err[key] = max(self.max_err.get(key, 0.0), err)
+        if share.numel():
+            self.tol_share[key] = max(self.tol_share.get(key, 0.0),
+                                      float(share.max()))
 
     def stats(self, got, want, case):
         """Decode stats: l and acc everywhere, m where the row is live."""
@@ -682,13 +740,34 @@ def tick_layout_inputs(torch, gen):
 
 
 def check_decode(torch, chk, timer):
-    from repro_torch.kernels.decode_attention import decode_stats
+    from repro_torch.kernels.decode_attention import (decode_route,
+                                                      decode_stats,
+                                                      launch_route)
+    from repro_torch.kernels.dispatch import LAUNCHES
     gen = torch.Generator(device="cuda").manual_seed(3)
+    by_route = {"row": 0, "tile": 0}
 
     def both(args, scale, case, rows=None):
+        """The routed kernel against the plain version (the call must
+        take the route the wrapper's rule names) and, without a row map,
+        the other route on the same inputs."""
+        n_mq = LAUNCHES["flash_decode_stats.mq"]
         got = decode_stats(*args, scale=scale, rows=rows, backend="kernel")
+        route = "tile" if LAUNCHES["flash_decode_stats.mq"] > n_mq else "row"
+        want_route = decode_route(args[0].shape[2], args[1].shape[2],
+                                  rows is None)
+        if route != want_route:
+            raise AssertionError(f"flash_decode_stats [{case}]: took the "
+                                 f"{route} route, the rule says "
+                                 f"{want_route}")
         want = decode_stats(*args, scale=scale, rows=rows, backend="plain")
-        chk.stats(got, want, case)
+        chk.stats(got, want, f"{case}/{route}")
+        by_route[route] += 1
+        if rows is None:
+            other = "row" if route == "tile" else "tile"
+            chk.stats(launch_route(other, *args, scale=scale), want,
+                      f"{case}/{other}")
+            by_route[other] += 1
 
     times = {}
     for mode in ("exact", "prism"):
@@ -709,6 +788,8 @@ def check_decode(torch, chk, timer):
         t["library_ms"], t["library_check"])
     t["library_ms"], t["library_check"], t["library_bias"] = chunk_library(
         torch, timer, chunk["off448"], scale, CHUNK_LEN)
+    t.update(time_routes(torch, timer, chunk["off448"], scale))
+    times["crossover"] = crossover(torch, timer, chunk["off448"], scale, gen)
     times["packed"] = time_decode(torch, timer, packed, scale, rows=rows)
     times["packed_prism"] = time_decode(torch, timer, packed_prism, scale,
                                         rows=rows)
@@ -717,7 +798,8 @@ def check_decode(torch, chk, timer):
     # rows, g = 0 means columns, shards folded into the batch (rep > 1);
     # then M and the means count off the 64-column pass, rows whose
     # later passes and warps hold no live column, rows of many passes,
-    # and groups of 40 and 128 heads (more than one block of 32 heads)
+    # and groups of 40 and 128 heads (more than one block of 32 heads of
+    # the row route); each case on both routes
     for hq, hkv, m_loc, rep, mz, max_pos in (
             (12, 12, 100, 1, 37, None), (12, 4, 33, 4, 37, None),
             (12, 1, 130, 2, 37, None), (64, 1, 70, 4, 37, None),
@@ -735,7 +817,107 @@ def check_decode(torch, chk, timer):
             (1, 8, 4, 12, 12, "repeats"), (13, 5, 4, 12, 4, "clamped"),
             (30, 2, 2, 64, 1, "repeats"), (9, 4, 1, 12, 3, "equal")):
         sweep_rows_case(torch, both, gen, t, n_rows, rep, hq, hkv, kind)
+    # the tile route's edges, on both routes: a group of 64 with means
+    # whose g is 0 in whole tiles and scattered columns; a row whose only
+    # live column is the last of a ragged local tile (M = 144, 4.5 tiles)
+    # or of a ragged means tile (37 columns); groups of 4 (the rule's
+    # threshold) and 3 (the row route's by the rule) over 12 KV heads, of
+    # 16 alone and over 12 KV heads; rep 1 and 4
+    for hq, hkv, m_loc, rep, mz, kind in (
+            (64, 1, 144, 4, 128, "dead_means"), (128, 2, 144, 1, 64,
+                                                 "dead_means"),
+            (64, 1, 144, 4, 37, "last_local"), (64, 2, 144, 1, 37,
+                                                "last_means"),
+            (4 * 12, 12, 144, 4, 128, "random"), (3 * 12, 12, 144, 4, 37,
+                                                  "random"),
+            (16, 1, 144, 4, 37, "random"), (16 * 12, 12, 144, 4, 128,
+                                            "random"),
+            (40, 1, 100, 1, 37, "random"), (128, 1, 70, 4, 37, "random")):
+        sweep_tile_case(torch, both, gen, hq, hkv, m_loc, rep, mz, kind)
+    times["cases_by_route"] = by_route
     return times
+
+
+def sweep_tile_case(torch, both, gen, hq, hkv, m_loc, rep, mz, kind,
+                    hd=64):
+    """One tile-route case over 3 query rows folded over ``rep`` shards,
+    without and with means columns: ``dead_means`` (local columns to a
+    random position, means g = 0 in the second 32-column tile and every
+    third column, and in every means column of one row), ``last_local``
+    / ``last_means`` (every row's only live column is the last local /
+    means column, the end of a ragged tile), ``random`` (random
+    positions and g, row 0 all dead)."""
+    dev = "cuda"
+    bq = 3
+    b = bq * rep
+    q = 0.5 * torch.randn(bq, 1, hq, hd, device=dev, generator=gen)
+    k = 0.5 * torch.randn(b, m_loc, hkv, hd, device=dev, generator=gen)
+    v = 0.5 * torch.randn(b, m_loc, hkv, hd, device=dev, generator=gen)
+    cols = torch.arange(m_loc, device=dev)
+    gz = torch.randint(1, 5, (b, mz), device=dev, generator=gen)
+    if kind == "last_local":
+        valid = (cols == m_loc - 1).expand(b, m_loc).contiguous()
+        gz[:] = 0
+    elif kind == "last_means":
+        valid = torch.zeros(b, m_loc, dtype=torch.bool, device=dev)
+        gz[:] = 0
+        gz[:, -1] = 3
+    else:
+        pos = torch.randint(-1, m_loc, (b,), device=dev, generator=gen)
+        pos[0] = -1                              # an all-dead row
+        valid = cols[None] <= pos[:, None]
+        gz[0] = 0
+        if kind == "dead_means":
+            gz[:, 32:64] = 0
+            gz[:, ::3] = 0
+            gz[1] = 0
+    case = f"tile/{kind}/hq{hq}/hkv{hkv}/M{m_loc}/rep{rep}"
+    args = [q, k, v, valid]
+    both(args, hd ** -0.5, case)                 # last_means: all dead
+    log_gz = torch.where(gz > 0, gz.float().log(),
+                         torch.full_like(gz, -1e30, dtype=torch.float))
+    kz = 0.5 * torch.randn(bq, mz, hkv, hd, device=dev, generator=gen)
+    vz = 0.5 * torch.randn(bq, mz, hkv, hd, device=dev, generator=gen)
+    args += [log_gz, kz, vz]
+    both(args, hd ** -0.5, f"{case}/mz{mz}")
+
+
+def time_routes(torch, timer, args, scale):
+    """Event and profiler times of each route of the decode kernel on
+    the same inputs (no row map)."""
+    from repro_torch.kernels.decode_attention import launch_route
+    out = {}
+    for route in ("tile", "row"):
+        def call():
+            return launch_route(route, *args, scale=scale)
+        out[f"{route}_ms"] = timer(call)
+        out[f"{route}_device_ms"] = timer.device(call)
+    return out
+
+
+CROSSOVER_GROUPS = (1, 2, 4, 8, 16, 32, 40, 64, 128)
+
+
+def crossover(torch, timer, chunk_args, scale, gen):
+    """Both routes at the chunk layout's cache rows (offset 448) with a
+    folded group of each of ``CROSSOVER_GROUPS`` query heads a KV head
+    (a chunk of that many tokens): where the tile route starts to win,
+    against the rule's threshold."""
+    from repro_torch.kernels.decode_attention import (TILE_MIN_GROUP,
+                                                      decode_route)
+    _, k, v, valid = chunk_args
+    bq, hkv, hd = chunk_args[0].shape[0], k.shape[2], k.shape[3]
+    rows = []
+    for grp in CROSSOVER_GROUPS:
+        q = 0.5 * torch.randn(bq, 1, grp * hkv, hd, device="cuda",
+                              generator=gen)
+        args = [q, k, v, valid]
+        b_ms, b_by, _ = decode_bound(torch, q, k, valid)
+        rows.append({"group": grp, "rule": decode_route(grp * hkv, hkv,
+                                                        True),
+                     **time_routes(torch, timer, args, scale),
+                     "bound_ms": b_ms, "bound_by": b_by})
+    return {"threshold": TILE_MIN_GROUP, "offset": 448, "by_group": rows}
 
 
 def sweep_rows_case(torch, both, gen, t, n_rows, rep, hq, hkv, kind,
@@ -903,11 +1085,8 @@ def device_breakdown(prof, n_steps: int) -> dict:
     (busy) time, the idle share of the span from the first kernel's
     start to the last one's end, and time by kernel class; all per
     step."""
-    from torch.autograd import DeviceType
     spans, by_kind = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device_events(prof):
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
         kind = kernel_kind(e.name)
@@ -951,8 +1130,8 @@ def profile(torch, run) -> dict:
             logits, cache = serve_step(run.cfg, run.params, cache,
                                        logits.argmax(dim=-1), pos, run.lay,
                                        run.hp)
-    prof_pre = trace_device(torch, pre)
-    prof_dec = trace_device(torch, dec)
+    prof_pre = trace_window(torch, pre)
+    prof_dec = trace_window(torch, dec)
     return {"prefill": device_breakdown(prof_pre, 1),
             "decode_per_token": device_breakdown(prof_dec, TRACED_STEPS)}
 
@@ -1008,7 +1187,8 @@ def drive_path(torch, params):
         check_launches(f"static/{mode}", counts, {
             "prism_flash_attention": n_layers,
             "segment_means": n_layers if mode == "prism" else 0,
-            "flash_decode_stats": n_layers * (GEN - 1)})
+            "flash_decode_stats": n_layers * (GEN - 1),
+            "flash_decode_stats.mq": 0})
         vocab = run.cfg.vocab_size
         if tuple(logits.shape) != (GEN, BATCH, vocab) or not bool(
                 torch.isfinite(logits).all()):
@@ -1301,7 +1481,7 @@ def profile_ticks(torch, cfg, params, prompts, lay, hp, join):
                 cfg, params, c, tok, slot, pos, off, pre, lay, hp))):
         cache = init_cache(cfg, lay, len(prompts), hp, "cuda")
         fn(cache)
-        out[name] = device_breakdown(trace_device(torch, lambda: fn(cache)),
+        out[name] = device_breakdown(trace_window(torch, lambda: fn(cache)),
                                      1)
     out["chunk_call"]["offsets"] = calls[i][1].tolist()
     out["packed_tick"]["tokens"] = {"decode": int(t["n_dec"]),
@@ -1341,6 +1521,7 @@ def drive_ticks(torch, params):
         counts = dict(LAUNCHES)
         check_launches(f"chunked/{mode}", counts, {
             "flash_decode_stats": n_layers * (info["calls"] + GEN),
+            "flash_decode_stats.mq": n_layers * info["calls"],
             "prism_flash_attention": 0, "segment_means": 0})
         launches[f"chunked/{mode}"] = counts
         _, ref_cache = prefill(cfg, params, prompts_t, voltage, lay, hp)
@@ -1397,6 +1578,7 @@ def drive_ticks(torch, params):
         per_tick = n_layers * (2 if mode == "prism" else 1)
         check_launches(f"packed/{mode}", counts, {
             "flash_decode_stats": per_tick * p_info["ticks"],
+            "flash_decode_stats.mq": 0,
             "prism_flash_attention": 0, "segment_means": 0})
         launches[f"packed/{mode}"] = counts
         emit("path", path="packed", mode=mode, batch=BATCH, prompt=PROMPT,
@@ -1439,7 +1621,8 @@ def main() -> int:
     t_attn = check_attention(torch, chk, timer)
     t_means = check_segment_means(torch, chk, timer)
     t_dec = check_decode(torch, chk, timer)
-    emit("kernel", max_abs_err=chk.max_err, tol=TOL, cases=chk.cases,
+    emit("kernel", max_abs_err=chk.max_err, tol_share=chk.tol_share,
+         tol=TOL, cases=chk.cases,
          floor_ms=timer.floor(), attention=t_attn, segment_means=t_means,
          decode=t_dec)
 
@@ -1464,6 +1647,7 @@ def main() -> int:
                "launches_by_path": {path: c.get(name, 0)
                                     for path, c in by_path.items()},
                "max_abs_err": chk.max_err[name], "tol": list(TOL[name]),
+               "tol_share": chk.tol_share[name],
                "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -1478,8 +1662,17 @@ def main() -> int:
                 row.update({f"{tag}_{k}": t_dec[tag][k] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")})
-            row["chunk_library_folded_ms"] = t_dec["chunk"][
-                "library_folded_ms"]
+            # the chunk layout per route (the path's call takes the tile
+            # route), and both routes over the folded group sizes
+            row.update({f"chunk_{k}": t_dec["chunk"][k] for k in (
+                "tile_ms", "tile_device_ms", "row_ms", "row_device_ms",
+                "library_folded_ms")})
+            row["crossover"] = t_dec["crossover"]
+            row["cases_by_route"] = t_dec["cases_by_route"]
+            mq = name + ".mq"
+            row["launches_mq"] = sum(c.get(mq, 0) for c in by_path.values())
+            row["launches_mq_by_path"] = {path: c.get(mq, 0)
+                                          for path, c in by_path.items()}
         if name == "segment_means":        # bf16 and the fused augment
             row.update({k: v for k, v in t.items() if k != "shape"})
             row.update({"bf16_max_abs_err": chk.max_err[name + "/bf16"],

@@ -5,8 +5,9 @@ includes the torch headers takes minutes.
 
 Builds happen at first use, one ``nvcc`` per source, started together,
 into ``_build/`` beside this file (listed in ``.gitignore``).  A library
-is named by a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded.
+is named by a hash of its source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.
 """
 from __future__ import annotations
 
@@ -38,9 +39,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
+    """Where library ``name`` is built: named by a hash of its source,
+    every shared header under ``csrc/`` (a source may include any of
+    them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:

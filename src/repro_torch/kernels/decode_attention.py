@@ -40,6 +40,8 @@ HEAD_DIMS = (64,)              # the head dims csrc/decode_attention.cu builds
 
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
+_TILE_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                  + [ctypes.c_float, ctypes.c_void_p])
 
 
 # --------------------------------------------------------------------------
@@ -126,13 +128,55 @@ def decode_stats_reference(q, k, v, valid, log_gz=None, kz=None, vz=None,
 
 
 # --------------------------------------------------------------------------
-# CUDA kernel
+# CUDA kernel: two routes, picked by a fixed rule
 # --------------------------------------------------------------------------
+
+#: the tile route takes a call from this many query heads a KV head: the
+#: measured crossover (``chip_smoke.py``'s ``crossover``, NVIDIA H100 at
+#: the chunk layout's cache rows): the tile route is 17% faster at a
+#: group of 4, 1.6x at 8, 2.6x at 16 and 6.1x at 64; the two tie at 2
+#: and the row route is 12% faster at 1
+TILE_MIN_GROUP = 4
+ROUTES = ("row", "tile")
+
+
+def decode_route(hq: int, hkv: int, no_rows: bool) -> str:
+    """Which kernel of ``csrc/decode_attention.cu`` takes a call with
+    ``hq`` query heads over ``hkv`` KV heads, ``no_rows`` when it has no
+    row map.
+
+    ``"tile"`` (``decode_stats_mq_kernel``): 64 query heads a block on
+    the tensor cores, each K/V tile read once for all of them; for a
+    group of at least ``TILE_MIN_GROUP`` heads (the measured crossover)
+    and no row map: the chunked prefill's folded queries.  ``"row"``
+    (``decode_stats_kernel``) for every other call: one token a row
+    (static decode, group 1) and every packed call (a row map), whose
+    per-token ``valid`` rows do not share a tile.  The rule is fixed;
+    nothing else selects a route."""
+    return "tile" if no_rows and hq // hkv >= TILE_MIN_GROUP else "row"
+
 
 def flash_decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
                        scale, rows=None):
-    """The CUDA kernel.  f32 only; raises on anything it does not take.
-    Launches on the current stream and does not synchronise."""
+    """The CUDA kernel, on the route ``decode_route`` picks from the
+    shapes and the row map.  f32 only; raises on anything it does not
+    take.  Launches on the current stream and does not synchronise."""
+    check_tensor(q, "q", dtype=torch.float32, ndim=4, device=k.device)
+    check_tensor(k, "k", dtype=torch.float32, ndim=4, device=k.device)
+    return launch_route(decode_route(q.shape[2], k.shape[2], rows is None),
+                        q, k, v, valid, log_gz, kz, vz, scale=scale,
+                        rows=rows)
+
+
+def launch_route(route, q, k, v, valid, log_gz=None, kz=None, vz=None, *,
+                 scale, rows=None):
+    """One launch of the named route, whatever ``decode_route`` would
+    pick: ``chip_smoke.py`` times both routes at one layout with it; the
+    serving path calls ``flash_decode_stats``.  Every launch counts under
+    ``flash_decode_stats``, the tile route's also under
+    ``flash_decode_stats.mq``."""
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} not in {ROUTES}")
     dev = k.device
     check_tensor(q, "q", dtype=torch.float32, ndim=4, device=dev)
     check_tensor(k, "k", dtype=torch.float32, ndim=4, device=dev)
@@ -152,6 +196,8 @@ def flash_decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
     n_rows = n_kv // rep                     # cache rows
     rows_ptr = None
     if rows is not None:
+        if route == "tile":
+            raise ValueError("the tile route takes no row map")
         check_tensor(rows, "rows", dtype=torch.int32, ndim=1, device=dev)
         if rows.shape != (bq,):
             raise ValueError(f"rows {tuple(rows.shape)} != ({bq},)")
@@ -175,14 +221,23 @@ def flash_decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
     m_p = torch.empty((b, hq, 1, 1), dtype=torch.float32, device=dev)
     l_p = torch.empty((b, hq, 1, 1), dtype=torch.float32, device=dev)
     acc_p = torch.empty((b, 1, hq, hd), dtype=torch.float32, device=dev)
-    fn = build.function("decode_attention", "flash_decode_stats_f32",
-                        _ARGTYPES)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            *ptrs, rows_ptr, m_p.data_ptr(), l_p.data_ptr(),
-            acc_p.data_ptr(), b, m_loc, mz, hq, hkv, hd, rep,
-            ctypes.c_float(scale), torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "flash_decode_stats")
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+              *ptrs)
+    outputs = (m_p.data_ptr(), l_p.data_ptr(), acc_p.data_ptr())
+    sizes = (b, m_loc, mz, hq, hkv, hd, rep, ctypes.c_float(scale),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if route == "tile":
+        fn = build.function("decode_attention", "flash_decode_stats_mq_f32",
+                            _TILE_ARGTYPES)
+        rc = fn(*inputs, *outputs, *sizes)
+    else:
+        fn = build.function("decode_attention", "flash_decode_stats_f32",
+                            _ARGTYPES)
+        rc = fn(*inputs, rows_ptr, *outputs, *sizes)
+    raise_on_error(rc, f"flash_decode_stats ({route} route)")
     LAUNCHES["flash_decode_stats"] += 1
+    if route == "tile":
+        LAUNCHES["flash_decode_stats.mq"] += 1
     return m_p, l_p, acc_p
 
 

@@ -12,6 +12,7 @@ compares them with their plain versions there.
 from __future__ import annotations
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -506,6 +507,182 @@ def test_decode_chunked_merge_equals_unsplit(n_chunks, mz):
     assert not stats[1][1].any() and not stats[2][1].any()   # dead row
 
 
+def _round_to_zero(x):
+    """float64 x to float32, rounded toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mma_3xtf32(c, a, b):
+    """c + a @ b as a chain of m16n8k8 mma.sync in 3xTF32, modelling the
+    tensor core: per 8-deep k-step, lo·hi, hi·lo, then hi·hi, each mma's
+    exact products added to c and the sum truncated to f32 (rounded
+    toward zero, as the card accumulates)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah, round_=False), _tf32(b - bh, round_=False)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            c = _round_to_zero(c.double() + x[..., ks].double()
+                               @ y[..., ks, :].double())
+    return c
+
+
+def _decode_3xtf32(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
+                   scale, tile=32):
+    """csrc/decode_attention.cu's tile route on the CPU: each output
+    row's column bias (log2 domain, -inf for a dead column), its local
+    32-column tiles then its means tiles in order, a tile with no live
+    column skipped (the state untouched), both products as chains of
+    3xTF32 mma (``_mma_3xtf32``), S from zero, each tile's PV in an
+    accumulator of its own added to the rescaled acc in f32, the online
+    softmax rescaled once per tile; m back in natural-log units, a row
+    with no live column (NEG, 0, 0).  Returns the stats and the number
+    of (output row, tile) pairs skipped."""
+    log2e = 1.4426950408889634
+    b, m_loc, hkv, hd = k.shape
+    rep = b // q.shape[0]
+    hq = q.shape[2]
+    grp = hq // hkv
+    qg = q[:, 0].repeat_interleave(rep, 0).reshape(b, hkv, grp, hd)
+    bias = torch.where(valid, 0.0, -torch.inf)
+    sets = [(k, v, bias)]
+    if kz is not None:
+        sets.append((kz.repeat_interleave(rep, 0),
+                     vz.repeat_interleave(rep, 0),
+                     torch.where(log_gz > NEG_INF / 2, log_gz * log2e,
+                                 -torch.inf)))
+    m_run = torch.full((b, hkv, grp), -torch.inf)
+    l_run = torch.zeros(b, hkv, grp)
+    acc = torch.zeros(b, hkv, grp, hd)
+    skipped = 0
+    for kk, vv, bb in sets:
+        for c0 in range(0, kk.shape[1], tile):
+            cols = slice(c0, c0 + tile)
+            bt = bb[:, cols]                               # (b, n)
+            live = (bt > -torch.inf).any(1)                # (b,)
+            skipped += int((~live).sum())
+            kt = torch.where(bt[..., None, None] > -torch.inf, kk[:, cols],
+                             0.0).transpose(1, 2)          # (b, hkv, n, hd)
+            vt = torch.where(bt[..., None, None] > -torch.inf, vv[:, cols],
+                             0.0).transpose(1, 2)
+            s = _mma_3xtf32(torch.zeros(b, hkv, grp, kt.shape[2]), qg,
+                            kt.transpose(-1, -2))          # (b, hkv, grp, n)
+            x = torch.where(bt[:, None, None] > -torch.inf,
+                            s * (scale * log2e) + bt[:, None, None],
+                            -torch.inf)
+            m_new = torch.maximum(m_run, x.amax(-1))
+            m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+            corr = torch.exp2(m_run - m_use)
+            p = torch.exp2(x - m_use[..., None])
+            keep = live[:, None, None]
+            l_run = torch.where(keep, l_run * corr + p.sum(-1), l_run)
+            pv = _mma_3xtf32(torch.zeros_like(acc), p, vt)
+            acc = torch.where(keep[..., None], acc * corr[..., None] + pv,
+                              acc)
+            m_run = torch.where(keep, m_new, m_run)
+    m = torch.where(m_run == -torch.inf, NEG_INF, m_run / log2e)
+    return ((m.reshape(b, hq, 1, 1), l_run.reshape(b, hq, 1, 1),
+             acc.reshape(b, 1, hq, hd)), skipped)
+
+
+@pytest.mark.parametrize("means", [False, True])
+@pytest.mark.parametrize("offsets", [(0,) * 4, (64,) * 4, (448,) * 4,
+                                     (448, 384, 320, 256)])
+def test_decode_3xtf32_tiles_match_plain(offsets, means):
+    """The tile route's tensor-core arithmetic (3xTF32 with the card's
+    truncating accumulation, 32-column tiles, dead tiles skipped, one
+    rescale a tile, a PV accumulator per tile) stays within the decode
+    kernel's (1e-5, 1e-5) tolerance of the f32 plain version at the chunk
+    layout (one PV chain over every tile misses it here, as it did on
+    the card): a chunk of 64 queries folded into the head axis (group 64 of
+    12 KV heads), the whole cache rows (8 rows of 4 shards of cap_l 144)
+    at 0.5·randn, valid = col_pos < offset; with means, 128 columns whose g is 0 in a whole
+    32-column tile, in scattered columns, and everywhere in one row.
+    Every layout here holds whole dead tiles, and each is skipped."""
+    from repro_torch.runtime.serve import (ServeHParams, _decode_cols,
+                                           make_layout)
+    n_seq, hkv, grp, hd = 4, 12, 64, 64
+    lay = make_layout(n_seq, 576, ServeHParams(), prefill_len=512)
+    _, _, col_pos = _decode_cols(lay, torch.zeros(1, dtype=torch.long))
+    off = torch.tensor(offsets).repeat_interleave(2)      # 8 cache rows
+    valid = (col_pos[None] < off[:, None, None]).reshape(-1, lay.cap_l)
+    b = valid.shape[0]
+    rng = np.random.default_rng(5)
+
+    def rnd(*shape):
+        return T((0.5 * rng.standard_normal(shape)).astype(np.float32))
+    q = rnd(len(off), 1, hkv * grp, hd)
+    k, v = rnd(b, lay.cap_l, hkv, hd), rnd(b, lay.cap_l, hkv, hd)
+    args = [q, k, v, valid]
+    if means:
+        mz = 128
+        g = T(rng.integers(0, 5, (b, mz)).astype(np.float32))
+        g[:, 32:64] = 0.0                      # a whole dead means tile
+        g[1] = 0.0                             # a row with no live mean
+        log_gz = torch.where(g > 0, g.log(), torch.tensor(NEG_INF))
+        args += [log_gz, rnd(len(off), mz, hkv, hd),
+                 rnd(len(off), mz, hkv, hd)]
+    scale = hd ** -0.5
+    got, skipped = _decode_3xtf32(*args, scale=scale)
+    want = TD.decode_stats_reference(*args, scale=scale)
+    m_g, l_g, a_g = (t.numpy() for t in got)
+    m_w, l_w, a_w = (t.numpy() for t in want)
+    np.testing.assert_allclose(l_g, l_w, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(a_g, a_w, atol=1e-5, rtol=1e-5)
+    alive = l_w > 0
+    np.testing.assert_allclose(m_g[alive], m_w[alive], atol=1e-5,
+                               rtol=1e-5)
+    assert (m_g[~alive] == NEG_INF).all()
+    pad = -lay.cap_l % 32
+    dead = ~torch.nn.functional.pad(valid, (0, pad)).reshape(
+        b, -1, 32).any(-1)
+    want_skipped = int(dead.sum())
+    if means:
+        want_skipped += int((~(log_gz > NEG_INF / 2).reshape(
+            b, -1, 32).any(-1)).sum())
+    assert skipped == want_skipped > 0
+
+
+@pytest.mark.parametrize("hq,hkv,no_rows,route", [
+    (64 * 12, 12, True, "tile"),      # the chunk layout: C = 64 folded
+    (12, 12, True, "row"),            # static decode: one token a row
+    (12, 12, False, "row"),           # a packed tick: the row map
+    (64 * 12, 12, False, "row"),      # a row map always takes the row route
+    (4, 1, True, "tile"),             # the measured crossover
+    (3, 1, True, "row"), (24, 8, True, "row"), (2, 1, True, "row"),
+    (16, 1, True, "tile"), (48, 12, True, "tile"), (40, 1, True, "tile"),
+    (128, 2, True, "tile"), (4, 1, False, "row"),
+])
+def test_decode_route_rule(hq, hkv, no_rows, route):
+    """The wrapper's fixed rule: the tile route for a group of at least
+    TILE_MIN_GROUP (4, the measured crossover) query heads a KV head and
+    no row map, else the row route."""
+    assert TD.decode_route(hq, hkv, no_rows) == route
+    assert TD.TILE_MIN_GROUP == 4
+
+
+def test_decode_tile_route_raises_without_a_card():
+    """At the chunk layout (the tile route's shapes) CPU tensors still
+    raise on every kernel entry, and no launch is counted; the tile route
+    takes no row map and an unknown route is refused."""
+    dispatch.LAUNCHES.clear()
+    c = decode_case(4, 40, 64, 1, 64)
+    args = [T(c[n]) for n in ("q", "k", "v", "valid")]
+    assert TD.decode_route(64, 1, True) == "tile"
+    with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
+        TD.decode_stats(*args, scale=c["scale"], backend="kernel")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TD.flash_decode_stats(*args, scale=c["scale"])
+    for route in TD.ROUTES:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            TD.launch_route(route, *args, scale=c["scale"])
+    with pytest.raises(ValueError, match="not in"):
+        TD.launch_route("cluster", *args, scale=c["scale"])
+    assert sum(dispatch.LAUNCHES.values()) == 0
+
+
 # ---------------------------------------------------------------------
 # dispatch: no fallback, clean failure without a card
 # ---------------------------------------------------------------------
@@ -567,6 +744,25 @@ def test_kernel_wrappers_check_dtype_and_layout():
     dispatch.raise_on_error(0, "k")
 
 
+def test_library_path_hashes_shared_headers(tmp_path, monkeypatch):
+    """A library's build path names its source, every shared header
+    under csrc/ and the flags: an edited or added header gives every
+    library a new path, so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build.library_path(n) for n in build.LIBS}
+    assert before == {n: build.library_path(n) for n in build.LIBS}
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    edited = {n: build.library_path(n) for n in build.LIBS}
+    assert all(edited[n] != before[n] for n in build.LIBS)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    added = {n: build.library_path(n) for n in build.LIBS}
+    assert all(added[n] != edited[n] for n in build.LIBS)
+
+
 def test_build_sources_and_nvcc():
     """Every library has its source in the repo; without nvcc the build
     raises instead of doing anything else."""
@@ -574,7 +770,6 @@ def test_build_sources_and_nvcc():
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR
     if not os.path.exists("/usr/local/cuda/bin/nvcc"):
-        import shutil
         if shutil.which("nvcc") is None:
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 build.nvcc()
