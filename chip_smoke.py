@@ -20,11 +20,15 @@ Phases, one JSON line each:
             64·12 queries folded into the head axis over the whole cache
             rows at offsets 0, 64, 448 and staggered, and a packed tick
             of T = 72 (decode and prompt tokens, several per slot, dead
-            entries) through the row map, exact and prism passes; the
-            row map with repeats, every entry equal, entries out of
-            range (clamped), T = 1, 7, 9, 13, 30, rep 1, 2 and 4; the
-            decode kernel's tile route (a group of at least 4 query
-            heads a KV head and no row map: the chunk layouts and the
+            entries) through the row map, exact and prism passes; each
+            main-path layout again over a page pool of 4-column pages
+            under a permuted page table, with unmapped tail pages and a
+            state pool through a means-row map, every page and state row
+            that nothing maps holding NaN; the row map with repeats,
+            every entry equal, entries out of range (clamped), T = 1,
+            7, 9, 13, 30, rep 1, 2 and 4; the decode kernel's tile
+            route (a group of at least 4 query heads a KV head and no
+            row map: the chunk layouts and the
             sweep's groups of 4 to 128 take it, each call checked to
             take the route the wrapper's rule names; every case
             without a row map also runs the other route) and its own
@@ -79,7 +83,24 @@ Phases, one JSON line each:
             on the chunked path's tokens.
    trace    per mode, torch.profiler over one chunk call and one packed
             tick with decode and prompt tokens.
-6. kernels  one line listing every kernel with its numbers: ``ms`` is
+6. path     the serving engine (``ServingEngine``) at the same shape: 8
+            slots, prefill 512, cap 576, 16-token pages (36 a row, 288 in
+            the pool), ticks of 72 tokens, chunks of 64; 16 requests from
+            a seeded rng, prompts of 64-512 tokens, the even 8 beginning
+            with one shared 256-token system prompt, 64 greedy tokens
+            each, all submitted at t = 0.  In packed exact, packed prism
+            and chunked exact, each on the paged cache and on the dense
+            one: per request, while the tokens agree, logits within
+            1e-4 of the dense run's largest |logit|, tokens equal where
+            its top-2 gap is clear (at most 2 of 16 may part at a
+            near-tie); exact mode's prefix cache must hit, and every page
+            be free or held by a prefix entry; every decode-kernel launch
+            of a paged run goes through the page table.  Wall time,
+            tokens/s, time to first token and ms per tick on the host
+            clock.
+   trace    per mode, one mixed packed tick on the paged cache and the
+            same tick on the dense cache.
+7. kernels  one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -88,9 +109,13 @@ Phases, one JSON line each:
             layout per route (``chunk_tile_*``, ``chunk_row_*``; the
             path's call, ``chunk_ms``, takes the tile route), the
             ``crossover`` table, the cases checked per route and the tile
-            route's launches (``launches_mq``, ``launches_mq_by_path``);
-            the segment_means row its bf16 and fused-augment
-            (``augment_*``) numbers.
+            route's launches (``launches_mq``, ``launches_mq_by_path``),
+            the paged layouts (``paged_*``: kernel, plain, bound, the
+            reference's gather plus the library call, the dense twin
+            from this call) and the launches through a page table
+            (``launches_paged``, ``launches_paged_by_path``); the
+            segment_means row its bf16 and fused-augment (``augment_*``)
+            numbers.
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -612,7 +637,8 @@ def decode_inputs(torch, mode, gen):
     return args, hd ** -0.5
 
 
-def decode_bound(torch, q, k, valid, log_gz=None, kz=None, rows=None):
+def decode_bound(torch, q, k, valid, log_gz=None, kz=None, rows=None,
+                 maps=()):
     """(bound ms, what bounds it, bytes) of one decode-stats call: each
     live cache column read once, however many query rows read it (the
     packed layout's tokens of one slot share their row), each live means
@@ -620,7 +646,8 @@ def decode_bound(torch, q, k, valid, log_gz=None, kz=None, rows=None):
     stats written once; operations 4·hd per live (query head, column)
     pair, at the rate the card computes f32-accurate products on its
     tensor cores (3xTF32), as the attention kernel's bound counts them:
-    the least time the card could take, whatever this kernel's route."""
+    the least time the card could take, whatever this kernel's route.
+    ``maps`` (a page table, a means-row map) are read once."""
     b, bq = valid.shape[0], q.shape[0]
     rep, (hq, hd), hkv = b // bq, q.shape[2:], k.shape[2]
     sel = (torch.arange(bq, device=q.device) if rows is None
@@ -640,31 +667,50 @@ def decode_bound(torch, q, k, valid, log_gz=None, kz=None, rows=None):
         n_bytes += nbytes(log_gz) + 2 * int(z_live.sum()) * hkv * hd * 4
     if rows is not None:
         n_bytes += nbytes(rows)
+    n_bytes += nbytes(*maps)                 # a page table, a means-row map
     b_ms, b_by = bound_ms(n_bytes, 4 * hd * hq * pairs,
                           F32_3XTF32_FLOP_PER_S)
     return b_ms, b_by, n_bytes
 
 
-def time_decode(torch, timer, args, scale, rows=None):
+def time_decode(torch, timer, args, scale, rows=None, pages=None,
+                zrows=None):
     """Kernel, plain version, library call and bound of one decode-stats
-    call.  The library call reads the rows the row map selects, gathered
-    outside the timed call."""
+    call.  The library call reads the rows the row map (and the page
+    table, the means-row map) selects, gathered outside the timed call.
+    A paged call's bound counts the live columns of mapped pages and the
+    page table (and means-row map)."""
     from repro_torch.kernels.decode_attention import (decode_stats,
+                                                      gather_pages,
                                                       gather_rows)
     q, k, v, valid = args[:4]
+    rep = valid.shape[0] // q.shape[0]
     lib_args = list(args)
+    if pages is not None:                  # the dense rows the pages hold
+        k_d, mapped = gather_pages(k, pages, rep)
+        v_d, _ = gather_pages(v, pages, rep)
+        sel = (torch.arange(q.shape[0], device=q.device) if rows is None
+               else rows.long().clamp(0, pages.shape[0] - 1))
+        lib_args[1:4] = [k_d, v_d, valid & mapped[sel].repeat_interleave(
+            rep, dim=0)]
+        if zrows is not None:
+            lib_args[5:7] = [t.index_select(0, zrows.long())
+                             for t in args[5:7]]
+    bound_args = list(lib_args)
     if rows is not None:
-        k_g, v_g, kz_g, vz_g = gather_rows(rows, valid.shape[0] // q.shape[0],
-                                           k, v, *args[5:7])
+        k_g, v_g, kz_g, vz_g = gather_rows(rows, rep, *lib_args[1:3],
+                                           *lib_args[5:7])
         lib_args[1:3] = [k_g, v_g]
         if kz_g is not None:
             lib_args[5:7] = [kz_g, vz_g]
     lib_ms, lib_err = decode_library(torch, timer, lib_args, scale)
-    b_ms, b_by, n_bytes = decode_bound(torch, q, k, valid, *args[4:6],
-                                       rows=rows)
+    b_ms, b_by, n_bytes = decode_bound(
+        torch, q, bound_args[1], bound_args[3], *bound_args[4:6], rows=rows,
+        maps=[t for t in (pages, zrows) if t is not None])
 
     def call(backend):
         return lambda: decode_stats(*args, scale=scale, rows=rows,
+                                    pages=pages, zrows=zrows,
                                     backend=backend)
     return {"ms": timer(call("kernel")),
             "device_ms": timer.device(call("kernel")),
@@ -747,12 +793,15 @@ def check_decode(torch, chk, timer):
     gen = torch.Generator(device="cuda").manual_seed(3)
     by_route = {"row": 0, "tile": 0}
 
-    def both(args, scale, case, rows=None):
+    def both(args, scale, case, rows=None, **paged):
         """The routed kernel against the plain version (the call must
         take the route the wrapper's rule names) and, without a row map,
-        the other route on the same inputs."""
+        the other route on the same inputs.  ``paged``: a page table and
+        means-row map, whose pool pages and state rows that no row maps
+        hold NaN: the outputs of both must be finite."""
         n_mq = LAUNCHES["flash_decode_stats.mq"]
-        got = decode_stats(*args, scale=scale, rows=rows, backend="kernel")
+        got = decode_stats(*args, scale=scale, rows=rows, backend="kernel",
+                           **paged)
         route = "tile" if LAUNCHES["flash_decode_stats.mq"] > n_mq else "row"
         want_route = decode_route(args[0].shape[2], args[1].shape[2],
                                   rows is None)
@@ -760,20 +809,25 @@ def check_decode(torch, chk, timer):
             raise AssertionError(f"flash_decode_stats [{case}]: took the "
                                  f"{route} route, the rule says "
                                  f"{want_route}")
-        want = decode_stats(*args, scale=scale, rows=rows, backend="plain")
+        want = decode_stats(*args, scale=scale, rows=rows, backend="plain",
+                            **paged)
+        if not all(bool(torch.isfinite(t).all()) for t in want):
+            raise AssertionError(f"flash_decode_stats [{case}]: the plain "
+                                 "version is not finite")
         chk.stats(got, want, f"{case}/{route}")
         by_route[route] += 1
         if rows is None:
             other = "row" if route == "tile" else "tile"
-            chk.stats(launch_route(other, *args, scale=scale), want,
+            chk.stats(launch_route(other, *args, scale=scale, **paged), want,
                       f"{case}/{other}")
             by_route[other] += 1
 
-    times = {}
+    times, dec_args = {}, {}
     for mode in ("exact", "prism"):
         args, scale = decode_inputs(torch, mode, gen)
         both(args, scale, f"main/{mode}")
         times[mode] = time_decode(torch, timer, args, scale)
+        dec_args[mode] = args
 
     # the tick paths' layouts: the chunk's folded queries over the whole
     # cache rows, the packed tokens through the row map
@@ -793,6 +847,13 @@ def check_decode(torch, chk, timer):
     times["packed"] = time_decode(torch, timer, packed, scale, rows=rows)
     times["packed_prism"] = time_decode(torch, timer, packed_prism, scale,
                                         rows=rows)
+    # the same layouts over the page pool (the engine's paged cache)
+    times["paged"] = check_paged(torch, chk, timer, both, gen, {
+        "decode": (dec_args["exact"], None, None),
+        "decode_prism": (dec_args["prism"], None, None),
+        "packed": (packed, rows, "packed"),
+        "packed_prism": (packed_prism, rows, "packed_prism"),
+        "chunk": (chunk["off448"], None, "chunk")}, scale, times)
 
     # edge sweep: GQA groups 1/3/12 and a folded 64, ragged M, all-dead
     # rows, g = 0 means columns, shards folded into the batch (rep > 1);
@@ -836,6 +897,103 @@ def check_decode(torch, chk, timer):
         sweep_tile_case(torch, both, gen, hq, hkv, m_loc, rep, mz, kind)
     times["cases_by_route"] = by_route
     return times
+
+
+PAGE_COLS = 4                        # the engine's default page: 16 tokens
+SPARE_PAGES = 32                     # pool pages that no row maps
+
+
+def to_pages(torch, gen, args, rep, n_cols):
+    """The decode inputs ``args`` over the first ``n_cols`` columns of
+    their cache rows, laid out as the engine's paged cache holds them:
+    the K/V rows in a pool of ``PAGE_COLS``-column pages under a page
+    table that is a seeded permutation of the pool, with ``SPARE_PAGES``
+    more pages and 0, 1 or 2 unmapped tail pages a row; the means rows in
+    a state pool of two rows more than the cache rows, under a permuted
+    means-row map.  Every pool page and state row that nothing maps is
+    NaN.  Returns (paged args, pages, zrows or None)."""
+    q, k, v, valid = args[:4]
+    n_rows = k.shape[0] // rep
+    ppr = n_cols // PAGE_COLS
+    n_pages = n_rows * ppr + SPARE_PAGES
+    dev = k.device
+    perm = torch.randperm(n_pages, device=dev, generator=gen)
+    pages = perm[:n_rows * ppr].view(n_rows, ppr).to(torch.int32)
+    for r in range(n_rows):
+        if r % 3:
+            pages[r, ppr - r % 3:] = -1
+    mapped = pages >= 0
+
+    def pool(x):
+        out = torch.full((n_pages, rep, PAGE_COLS, *x.shape[2:]),
+                         float("nan"), device=dev)
+        src = x[:, :n_cols].reshape(n_rows, rep, ppr, PAGE_COLS,
+                                    *x.shape[2:]).transpose(1, 2)
+        out[pages[mapped].long()] = src[mapped]
+        return out.view(n_pages * rep, PAGE_COLS, *x.shape[2:])
+    paged = [q, pool(k), pool(v), valid[:, :n_cols].contiguous()]
+    zrows = None
+    if len(args) > 4:
+        log_gz, kz, vz = args[4:]
+        n_state = n_rows + 2
+        zrows = torch.randperm(n_state, device=dev, generator=gen)[
+            :n_rows].to(torch.int32)
+
+        def state(x):
+            out = torch.full((n_state, *x.shape[1:]), float("nan"),
+                             device=dev)
+            out[zrows.long()] = x
+            return out
+        paged += [log_gz, state(kz), state(vz)]
+    return paged, pages, zrows
+
+
+def check_paged(torch, chk, timer, both, gen, layouts, scale, dense):
+    """The decode kernel over the page pool at each of the main path's
+    layouts (static decode exact and prism, the packed tick's two passes
+    through the row map, the chunk layout at offset 448 over the rows'
+    prefill pages): checked against the plain version on both routes
+    where no row map is given, then timed beside the dense layout's
+    time from this call (``dense_ms``)."""
+    from repro_torch.kernels.decode_attention import (gather_pages,
+                                                      gather_rows)
+    out = {}
+    n_loc0 = PROMPT // SHARDS
+    for name, (args, rows, dense_key) in layouts.items():
+        rep = args[3].shape[0] // args[0].shape[0]
+        n_cols = n_loc0 if name == "chunk" else args[1].shape[1]
+        pargs, pages, zrows = to_pages(torch, gen, args, rep, n_cols)
+        both(pargs, scale, f"paged/{name}", rows=rows, pages=pages,
+             zrows=zrows)
+        t = time_decode(torch, timer, pargs, scale, rows=rows, pages=pages,
+                        zrows=zrows)
+        # the reference's route: every row's pages gathered into a copy
+        # (``_gather_pages``), then the library call on the copy
+        def gather():
+            k_g, _ = gather_pages(pargs[1], pages, rep)
+            v_g, _ = gather_pages(pargs[2], pages, rep)
+            if rows is not None:
+                k_g, v_g, _, _ = gather_rows(rows, rep, k_g, v_g)
+            if zrows is not None:
+                pargs[5].index_select(0, zrows.long())
+                pargs[6].index_select(0, zrows.long())
+        t["gather_ms"] = timer(gather)
+        if name == "chunk":          # the library call at its natural layout
+            k_d, mapped = gather_pages(pargs[1], pages, rep)
+            v_d, _ = gather_pages(pargs[2], pages, rep)
+            valid = pargs[3] & mapped.repeat_interleave(rep, dim=0)
+            t["library_folded_ms"] = t["library_ms"]
+            t["library_ms"], t["library_check"], _ = chunk_library(
+                torch, timer, [pargs[0], k_d, v_d, valid], scale, CHUNK_LEN)
+        t["library_ms"] = (None if t["library_ms"] is None
+                           else t["gather_ms"] + t["library_ms"])
+        key = dense_key or ("exact" if name == "decode" else "prism")
+        t["dense_ms"] = dense[key]["ms"]
+        t["dense_device_ms"] = dense[key]["device_ms"]
+        t["pages"] = list(pages.shape)
+        t["mapped_pages"] = int((pages >= 0).sum())
+        out[name] = t
+    return out
 
 
 def sweep_tile_case(torch, both, gen, hq, hkv, m_loc, rep, mz, kind,
@@ -1188,7 +1346,7 @@ def drive_path(torch, params):
             "prism_flash_attention": n_layers,
             "segment_means": n_layers if mode == "prism" else 0,
             "flash_decode_stats": n_layers * (GEN - 1),
-            "flash_decode_stats.mq": 0})
+            "flash_decode_stats.mq": 0, "flash_decode_stats.paged": 0})
         vocab = run.cfg.vocab_size
         if tuple(logits.shape) != (GEN, BATCH, vocab) or not bool(
                 torch.isfinite(logits).all()):
@@ -1522,6 +1680,7 @@ def drive_ticks(torch, params):
         check_launches(f"chunked/{mode}", counts, {
             "flash_decode_stats": n_layers * (info["calls"] + GEN),
             "flash_decode_stats.mq": n_layers * info["calls"],
+            "flash_decode_stats.paged": 0,
             "prism_flash_attention": 0, "segment_means": 0})
         launches[f"chunked/{mode}"] = counts
         _, ref_cache = prefill(cfg, params, prompts_t, voltage, lay, hp)
@@ -1578,7 +1737,7 @@ def drive_ticks(torch, params):
         per_tick = n_layers * (2 if mode == "prism" else 1)
         check_launches(f"packed/{mode}", counts, {
             "flash_decode_stats": per_tick * p_info["ticks"],
-            "flash_decode_stats.mq": 0,
+            "flash_decode_stats.mq": 0, "flash_decode_stats.paged": 0,
             "prism_flash_attention": 0, "segment_means": 0})
         launches[f"packed/{mode}"] = counts
         emit("path", path="packed", mode=mode, batch=BATCH, prompt=PROMPT,
@@ -1591,6 +1750,255 @@ def drive_ticks(torch, params):
         tr = profile_ticks(torch, cfg, params, prompts, lay, hp, join)
         emit("trace", path="chunked", mode=mode, chunk_call=tr["chunk_call"])
         emit("trace", path="packed", mode=mode, packed_tick=tr["packed_tick"])
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serving engine on the paged cache
+# ---------------------------------------------------------------------------
+
+# the engine at full width: 8 slots, prefill 512, cap 576 (36 pages of 16
+# tokens a row, 288 in the pool), ticks of 72 tokens, chunks of 64
+ENGINE = dict(n_slots=BATCH, prefill_len=PROMPT, max_cache=PROMPT + GEN,
+              chunk_len=CHUNK_LEN, token_budget=TOKEN_BUDGET)
+ENGINE_REQUESTS, SYSTEM_PROMPT = 16, 256
+# (prefill mode, decode mode) of the paged runs, each checked against the
+# same trace on the dense cache
+ENGINE_RUNS = (("packed", "exact"), ("packed", "prism"), ("chunked", "exact"))
+# the most requests whose tokens may part at a near-tie (a top-2 gap
+# within TOKEN_GAP) before the check fails
+ENGINE_MAX_DIVERGED = 2
+
+
+def engine_trace(vocab):
+    """16 prompts from a seeded rng: lengths in [64, 512]; the even ones
+    begin with one shared 256-token system prompt (their lengths in
+    [272, 512], so each has a page of its own past it)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    system = rng.integers(1, vocab, size=SYSTEM_PROMPT).tolist()
+    prompts = []
+    for i in range(ENGINE_REQUESTS):
+        if i % 2 == 0:
+            n = int(rng.integers(SYSTEM_PROMPT + 16, PROMPT + 1))
+            prompts.append(system + rng.integers(
+                1, vocab, size=n - SYSTEM_PROMPT).tolist())
+        else:
+            n = int(rng.integers(PROMPT // 8, PROMPT + 1))
+            prompts.append(rng.integers(1, vocab, size=n).tolist())
+    return prompts
+
+
+def run_engine(torch, cfg, params, prefill, mode, paged, prompts):
+    """The trace through ``ServingEngine``: every request submitted at
+    t = 0 (8 take the slots, the rest admit as slots free up), 64 greedy
+    tokens each.  The engine's tick callables are wrapped here to keep
+    each decode row's logits by request.  Launch counters are zeroed just
+    before ``run`` and read just after.  Returns (engine, tokens, logits
+    by request, launches, wall s)."""
+    import time
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.runtime.serve import ServeHParams
+    from repro_torch.serving import EngineConfig, ServingEngine
+    eng = ServingEngine(cfg, params, EngineConfig(
+        hp=ServeHParams(decode_mode=mode, means_cr=CR), paged=paged,
+        prefill_mode=prefill, **ENGINE), n_seq=SHARDS)
+    log = {}
+    packed, decode = eng._packed, eng._decode
+
+    def keep(logits, slots):
+        for j, s in slots:
+            log.setdefault(eng._sched.active[s].req.rid, []).append(
+                logits[j])
+        return logits
+
+    def packed_tick(tok, slot, pos, off, pre):
+        return keep(packed(tok, slot, pos, off, pre),
+                    [(j, int(slot[j])) for j in range(len(slot))
+                     if slot[j] >= 0 and pre[j] == 0])
+
+    def decode_step(tok, pos):
+        return keep(decode(tok, pos),
+                    [(s, s) for s in range(len(pos)) if pos[s] >= 0])
+    eng._packed, eng._decode = packed_tick, decode_step
+    for prompt in prompts:
+        eng.submit(prompt, max_new_tokens=GEN)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, out, log, dict(LAUNCHES), wall
+
+
+def engine_launches(eng, paged, n_layers):
+    """The decode-kernel launches a run needs: one a layer per decode
+    step and chunk call, per packed tick too (two in prism mode: the
+    owner view over the means), every one through the page table when
+    paged; the tile route on chunk calls alone; no other kernel."""
+    s = eng.stats
+    per_tick = 2 if eng.config.hp.decode_mode == "prism" else 1
+    n = n_layers * (s.decode_steps + per_tick * s.packed_ticks
+                    + s.prefill_chunks)
+    return {"flash_decode_stats": n,
+            "flash_decode_stats.paged": n if paged else 0,
+            "flash_decode_stats.mq": n_layers * s.prefill_chunks,
+            "prism_flash_attention": 0, "segment_means": 0}
+
+
+def compare_engine(torch, out_p, log_p, out_d, log_d):
+    """The paged run against the dense one, request by request: while a
+    request's tokens agree, its logits within PATH_REL_TOL of the dense
+    run's largest |logit|; tokens equal wherever the dense run's top-2 gap
+    exceeds TOKEN_GAP of it.  A request that parts at a near-tie is
+    compared no further; more than ENGINE_MAX_DIVERGED of them fail."""
+    top = max(float(torch.stack(v).abs().max()) for v in log_d.values())
+    if sorted(out_p) != sorted(out_d) or len(out_d) != ENGINE_REQUESTS:
+        raise AssertionError("engine: paged and dense runs finished other "
+                             "requests")
+    diverged, checked, worst = [], 0, 0.0
+    for rid in sorted(out_d):
+        lp, ld = torch.stack(log_p[rid]), torch.stack(log_d[rid])
+        if lp.shape != ld.shape or len(out_p[rid]) != GEN or not bool(
+                torch.isfinite(lp).all()):
+            raise AssertionError(f"engine: request {rid}: logits "
+                                 f"{tuple(lp.shape)} vs {tuple(ld.shape)}")
+        err = (lp - ld).abs().amax(dim=-1).cpu().tolist()
+        top2 = ld.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+        for k in range(GEN):
+            if err[k] > PATH_REL_TOL * top:
+                raise AssertionError(f"engine: request {rid} step {k}: "
+                                     f"logits err {err[k]:.3e} > "
+                                     f"{PATH_REL_TOL} x {top:.3f}")
+            worst = max(worst, err[k] / top)
+            checked += 1
+            if out_p[rid][k] != out_d[rid][k]:
+                if gap[k] > TOKEN_GAP * top:
+                    raise AssertionError(f"engine: request {rid} step {k}: "
+                                         "tokens differ at a clear top-2 "
+                                         "gap")
+                diverged.append(rid)
+                break
+    if len(diverged) > ENGINE_MAX_DIVERGED:
+        raise AssertionError(f"engine: {len(diverged)} requests parted at "
+                             f"near-ties (at most {ENGINE_MAX_DIVERGED})")
+    return {"logits_rel_err": worst, "steps_checked": checked,
+            "diverged_at_near_tie": diverged,
+            "tokens_equal": sum(out_p[r] == out_d[r] for r in out_d)}
+
+
+def engine_record(eng, out, wall):
+    """What a run gives its users, on the host clock: wall time, tokens
+    a second, time to the first token and ms per tick."""
+    import numpy as np
+    s = eng.stats.summary()
+    lat = list(eng.stats.step_latency)
+    n = sum(len(v) for v in out.values())
+    return {"wall_s": wall, "tokens": n, "tokens_per_s": n / wall,
+            "ttft_p50_s": s["ttft_p50_s"], "ttft_p90_s": s["ttft_p90_s"],
+            "ms_per_tick": 1e3 * float(np.mean(lat)),
+            "ms_per_tick_p50": s["step_ms_p50"],
+            "ticks": len(lat), "packed_ticks": s["packed_ticks"],
+            "decode_steps": s["decode_steps"],
+            "prefill_chunks": s["prefill_chunks"],
+            "prefill_tokens": s["prefill_tokens"],
+            "prefix_hits": s["prefix_hits"],
+            "prefix_tokens_saved": s["prefix_tokens_saved"],
+            "out_of_pages": s["out_of_pages"], "clock": "host"}
+
+
+def profile_paged_tick(torch, cfg, params, mode, prompts):
+    """torch.profiler over one mixed packed tick (decode and prompt
+    tokens) on the paged cache, every slot's pages a seeded permutation
+    of the pool, and over the same tick on the dense cache; each on a
+    fresh cache after one untraced call."""
+    import numpy as np
+    from repro_torch.runtime.paging import make_paged_layout
+    from repro_torch.runtime.serve import (ServeHParams, init_cache,
+                                           make_layout, paged_placement)
+    from repro_torch.runtime.ticks import packed_step
+    hp = ServeHParams(decode_mode=mode, means_cr=CR)
+    ticks = plan_packed(prompts, GEN, TOKEN_BUDGET)
+    t = ticks[[j for j, t in enumerate(ticks)
+               if t["pre"].any() and t["n_dec"] > 0][0]]
+    targs = [torch.as_tensor(t[k], device="cuda") for k in
+             ("tok", "slot", "pos", "off", "pre")]
+    out = {}
+    for paged in (True, False):
+        base = make_layout(SHARDS, PROMPT + GEN, hp, prefill_len=PROMPT)
+        paging = (make_paged_layout(base, page_tokens=PAGE_COLS * SHARDS,
+                                    n_pages=None, n_slots=BATCH)
+                  if paged else None)
+        lay = make_layout(SHARDS, PROMPT + GEN, hp, prefill_len=PROMPT,
+                          placement=paged_placement(hp, paging))
+        maps = ()
+        if paged:
+            perm = np.random.default_rng(0).permutation(paging.n_pages)
+            maps = (torch.as_tensor(perm.reshape(BATCH, -1), device="cuda",
+                                    dtype=torch.int32),
+                    torch.arange(BATCH, device="cuda", dtype=torch.int32))
+        cache = init_cache(cfg, lay, BATCH, hp, "cuda", paging)
+
+        def tick():
+            packed_step(cfg, params, cache, *targs, lay, hp, *maps)
+        tick()
+        key = "paged" if paged else "dense"
+        out[key] = device_breakdown(trace_window(torch, tick), 1)
+    out["tokens"] = {"decode": int(t["n_dec"]),
+                     "prompt": int(np.sum(t["pre"]))}
+    return out
+
+
+def drive_engine(torch, params):
+    """Phase 6: the trace through the paged engine in each of
+    ``ENGINE_RUNS``, each checked against the dense cache's run; exact
+    mode's prefix cache must hit and account for every page.  Returns
+    the launches of each paged run."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    prompts = engine_trace(cfg.vocab_size)
+    card = nvidia_smi()
+    launches = {}
+    for prefill, mode in ENGINE_RUNS:
+        runs = {}
+        for paged in (True, False):
+            eng, out, log, counts, wall = run_engine(
+                torch, cfg, params, prefill, mode, paged, prompts)
+            check_launches(f"engine/{prefill}/{mode}/"
+                           f"{'paged' if paged else 'dense'}", counts,
+                           engine_launches(eng, paged, cfg.n_layers))
+            runs[paged] = (eng, out, log, counts, wall)
+        eng, out, log, counts, wall = runs[True]
+        d_eng, d_out, d_log, d_counts, d_wall = runs[False]
+        cmp = compare_engine(torch, out, log, d_out, d_log)
+        kv = eng.kv_cache
+        kv.check()
+        registered = ({p for e in kv.prefix.entries.values()
+                       for p in e.pages} if kv.prefix is not None else set())
+        if kv.table.free_pages + len(registered) != kv.paging.n_pages or (
+                kv.slot_pages):
+            raise AssertionError(f"engine/{prefill}/{mode}: pages not "
+                                 f"accounted for: {kv.stats()}")
+        if mode == "exact" and eng.stats.prefix_hits == 0:
+            raise AssertionError(f"engine/{prefill}/{mode}: no prefix hit")
+        launches[f"engine/{prefill}/{mode}"] = counts
+        emit("path", path="engine", prefill=prefill, mode=mode, card=card,
+             **ENGINE,
+             shards=SHARDS, cr=CR, requests=ENGINE_REQUESTS, gen=GEN,
+             system_prompt=SYSTEM_PROMPT, pages=kv.stats(),
+             registered_pages=len(registered),
+             paged=engine_record(eng, out, wall),
+             dense=engine_record(d_eng, d_out, d_wall),
+             launches=counts, dense_launches=d_counts,
+             reference="the same trace on the dense cache (paged=False)",
+             tol=PATH_REL_TOL, token_gap=TOKEN_GAP, **cmp)
+        del runs, log, out, d_log, d_out
+    for mode in ("exact", "prism"):
+        emit("trace", path="engine", mode=mode, card=card,
+             packed_tick=profile_paged_tick(torch, cfg, params, mode,
+                                            prompts[:BATCH]))
     return launches
 
 
@@ -1631,6 +2039,7 @@ def main() -> int:
     by_path = {f"static/{mode}": r["launches"]
                for mode, r in drive_path(torch, params).items()}
     by_path.update(drive_ticks(torch, params))
+    by_path.update(drive_engine(torch, params))
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -1673,6 +2082,18 @@ def main() -> int:
             row["launches_mq"] = sum(c.get(mq, 0) for c in by_path.values())
             row["launches_mq_by_path"] = {path: c.get(mq, 0)
                                           for path, c in by_path.items()}
+            # the page pool (the engine's paged cache): each layout, its
+            # dense twin's time from this call, and the paged launches
+            for tag, tp in t_dec["paged"].items():
+                row.update({f"paged_{tag}_{k}": tp[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "gather_ms", "dense_ms",
+                    "dense_device_ms")})
+            pg = name + ".paged"
+            row["launches_paged"] = sum(c.get(pg, 0)
+                                        for c in by_path.values())
+            row["launches_paged_by_path"] = {path: c.get(pg, 0)
+                                             for path, c in by_path.items()}
         if name == "segment_means":        # bf16 and the fused augment
             row.update({k: v for k, v in t.items() if k != "shape"})
             row.update({"bf16_max_abs_err": chk.max_err[name + "/bf16"],

@@ -17,6 +17,23 @@
 // slot share its cache row; the wrapper clamps the map) and b / rep
 // otherwise.  The map replaces a gather of each token's cache row.
 //
+// The paged cache (both routes).  With a page table `pages` (R, ppr)
+// the K/V operands are the page pool, (n_pages * rep, PC, Hkv, HD): a
+// page holds PC columns on each of the rep shards, and column j of
+// cache row r on shard s is pool row (pages[r, j / PC] * rep + s) * PC
+// + j % PC.  A page id below 0 (unmapped) makes its columns dead,
+// whatever `valid` says, and its rows are never read; an id past the
+// pool reads its last page (as the reference's take clips it), a means
+// row is clamped to the state pool, both in the kernel.  A dense call is
+// the same address with PC = M and pages[r, 0] = r: the tile route
+// computes it so when `pages` is null (one address path); the row route
+// has the lookup as a compile-time path (PAGED), because its per-column
+// division slowed the dense packed layout.  The means
+// rows of a paged call live in a state pool: `zrows` (R) maps cache row
+// r to its means row (null: means row r).  The reference gathers every
+// row's pages into a dense copy before its kernel (serve.py,
+// _gather_pages); here the page lookup is one load per column.
+//
 // What bounds it on an H100: memory.  Each live cache column is read
 // once and used for a handful of FMAs per query head, so the floor is
 // the live K/V bytes over the 3.35 TB/s HBM rate (about 35 MB per layer
@@ -91,7 +108,7 @@
 //   gives (-1e30, 0, 0).  One block owns each output element: no
 //   atomics, deterministic.
 // - 167 registers, no spills; 69 KB of dynamic shared memory at the
-//   chunk layout (the limit is raised once per process), three blocks
+//   chunk layout (the limit is raised once per device), three blocks
 //   an SM, so the 384 blocks run in one wave.
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 0.0225 ms at
 // the chunk layout, 2.5x its bound and 6.1x faster than the row route
@@ -121,7 +138,7 @@ constexpr float LN2 = 0.6931471805599453f;
 
 using namespace tc;   // 3xTF32 mma.sync and cp.async (mma_tf32.cuh)
 
-template <int HD>
+template <int HD, bool PAGED>
 __global__ void __launch_bounds__(NT) decode_stats_kernel(
     const float* __restrict__ q,        // (B / rep, Hq, HD)
     const float* __restrict__ k,        // (R * rep, M, Hkv, HD)
@@ -131,10 +148,13 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
     const float* __restrict__ kz,       // (R, MZ, Hkv, HD) or null
     const float* __restrict__ vz,       // (R, MZ, Hkv, HD) or null
     const int* __restrict__ rows,       // (B / rep) cache row map or null
+    const int* __restrict__ pages,      // (R, ppr) page table or null
+    const int* __restrict__ zrows,      // (R) means row map or null
     float* __restrict__ m_out,          // (B, Hq)
     float* __restrict__ l_out,          // (B, Hq)
     float* __restrict__ acc_out,        // (B, Hq, HD)
-    int M, int MZ, int Hq, int Hkv, int rep, float scale) {
+    int M, int MZ, int Hq, int Hkv, int rep, int ppr, int PC, int NPAGES,
+    int NZROWS, float scale) {
   // a half-warp holds one row as 16 float4s
   static_assert(HD == 64, "decode kernel is laid out for head dim 64");
   constexpr int LP = HD + 4;            // partial: acc[HD], m, l, pad
@@ -148,11 +168,18 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
   const int b = blockIdx.z;
   const int bq = b / rep;
   const int r = rows != nullptr ? rows[bq] : bq;   // the cache row
-  const int bk = r * rep + (b - bq * rep);         // its shard's row
+  const int sh = b - bq * rep;                     // its shard
+  const int bk = r * rep + sh;                     // its dense row
+  const int zr = zrows != nullptr ? min(max(zrows[r], 0), NZROWS - 1) : r;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int half = lane >> 4, hl = lane & 15;
   const int n_cols = M + (kz != nullptr ? MZ : 0);
   const int h0 = kvh * grp + g0;        // the block's first query head
+  // column c's page is floor((c + 0.5) / PC) in f32: exact for c < 2^21
+  // (the quotient stays 0.5 / PC from an integer, farther than the two
+  // roundings move it), where an integer division by a runtime PC costs
+  // about 20 instructions a column
+  const float inv_pc = 1.f / PC;
 
   const float4* qg =                    // the block's query rows
       reinterpret_cast<const float4*>(q + ((size_t)bq * Hq + h0) * HD);
@@ -161,20 +188,32 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
   __syncwarp();
 
   for (int base = warp * WCOLS; base < n_cols; base += UNIT) {
-    // this pass: columns base + 2i + half, i < 8
+    // this pass: columns base + 2i + half, i < 8; the page lookup and
+    // `valid` are independent loads
     bool live[WCOLS / 2];
     float bias[WCOLS / 2];
+    int krow[WCOLS / 2];                // the column's K/V or means row
 #pragma unroll
     for (int i = 0; i < WCOLS / 2; ++i) {
       const int c = base + 2 * i + half;
       live[i] = false;
       bias[i] = 0.f;
+      krow[i] = 0;
       if (c < n_cols) {
         if (c < M) {
           live[i] = valid[(size_t)b * M + c] != 0;
+          if constexpr (PAGED) {
+            const int j = __float2int_rz((c + 0.5f) * inv_pc);
+            const int pg = min(pages[r * ppr + j], NPAGES - 1);
+            live[i] = live[i] && pg >= 0;
+            krow[i] = (pg * rep + sh) * PC + (c - j * PC);
+          } else {
+            krow[i] = bk * M + c;
+          }
         } else {
           bias[i] = log_gz[(size_t)b * MZ + (c - M)];
           live[i] = bias[i] > NEG * 0.5f;
+          krow[i] = zr * MZ + (c - M);
         }
       }
     }
@@ -185,9 +224,7 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
       kr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
       vr[i] = kr[i];
       if (live[i]) {
-        const size_t off =
-            c < M ? ((size_t)(bk * M + c) * Hkv + kvh) * HD
-                  : ((size_t)(r * MZ + (c - M)) * Hkv + kvh) * HD;
+        const size_t off = ((size_t)krow[i] * Hkv + kvh) * HD;
         const float* ks = (c < M ? k : kz) + off;
         const float* vs = (c < M ? v : vz) + off;
         kr[i] = __ldg(reinterpret_cast<const float4*>(ks) + hl);
@@ -282,15 +319,22 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
 template <int HD>
 int launch(const float* q, const float* k, const float* v,
            const uint8_t* valid, const float* log_gz, const float* kz,
-           const float* vz, const int* rows, float* m_out, float* l_out,
-           float* acc_out, int B, int M, int MZ, int Hq, int Hkv, int rep,
-           float scale, cudaStream_t stream) {
+           const float* vz, const int* rows, const int* pages,
+           const int* zrows, float* m_out, float* l_out, float* acc_out,
+           int B, int M, int MZ, int Hq, int Hkv, int rep, int ppr, int PC,
+           int NPAGES, int NZROWS, float scale, cudaStream_t stream) {
   const int grp = Hq / Hkv;
   const size_t smem = sizeof(float) * NW * min(grp, GMAX) * (HD + 4);
   const dim3 grid((grp + GMAX - 1) / GMAX, Hkv, B);
-  decode_stats_kernel<HD><<<grid, NT, smem, stream>>>(
-      q, k, v, valid, log_gz, kz, vz, rows, m_out, l_out, acc_out, M, MZ,
-      Hq, Hkv, rep, scale);
+  // the page lookup is a compile-time path: a dense call keeps the
+  // plain address (one path for both cost the dense packed layout
+  // 26-30%: 0.063-0.065 ms against 0.050, chip_smoke.py, NVIDIA H100
+  // 80GB HBM3 at 700 W)
+  auto kernel = pages != nullptr ? decode_stats_kernel<HD, true>
+                                 : decode_stats_kernel<HD, false>;
+  kernel<<<grid, NT, smem, stream>>>(
+      q, k, v, valid, log_gz, kz, vz, rows, pages, zrows, m_out, l_out,
+      acc_out, M, MZ, Hq, Hkv, rep, ppr, PC, NPAGES, NZROWS, scale);
   return (int)cudaGetLastError();
 }
 
@@ -303,16 +347,19 @@ __host__ __device__ constexpr int mq_stage() {
 template <int HD>
 __global__ void __launch_bounds__(NT, 3) decode_stats_mq_kernel(
     const float* __restrict__ q,        // (B / rep, Hq, HD)
-    const float* __restrict__ k,        // (B, M, Hkv, HD)
-    const float* __restrict__ v,        // (B, M, Hkv, HD)
+    const float* __restrict__ k,        // (B, M, Hkv, HD) or the pool
+    const float* __restrict__ v,        // (B, M, Hkv, HD) or the pool
     const uint8_t* __restrict__ valid,  // (B, M)
     const float* __restrict__ log_gz,   // (B, MZ) or null
     const float* __restrict__ kz,       // (B / rep, MZ, Hkv, HD) or null
     const float* __restrict__ vz,       // (B / rep, MZ, Hkv, HD) or null
+    const int* __restrict__ pages,      // (B / rep, ppr) page table or null
+    const int* __restrict__ zrows,      // (B / rep) means row map or null
     float* __restrict__ m_out,          // (B, Hq)
     float* __restrict__ l_out,          // (B, Hq)
     float* __restrict__ acc_out,        // (B, Hq, HD)
-    int M, int MZ, int Hq, int Hkv, int rep, float scale) {
+    int M, int MZ, int Hq, int Hkv, int rep, int ppr, int PC, int NPAGES,
+    int NZROWS, float scale) {
   static_assert(HD % 8 == 0 && HD <= 128, "head dim");
   constexpr int KS = HD / 8;            // k-steps of QK^T; n-tiles of PV
   constexpr int NJ = MQ_BK / 8;         // n-tiles of QK^T; k-steps of PV
@@ -321,13 +368,15 @@ __global__ void __launch_bounds__(NT, 3) decode_stats_mq_kernel(
   constexpr int STAGE = mq_stage<HD>();
   extern __shared__ __align__(16) float smem[];
   // after the ring: Q's TF32 parts in A-fragment order, each column's
-  // bias (log2 domain, -inf = dead), then the live tiles' indices
+  // bias (log2 domain, -inf = dead), the live tiles' indices, then each
+  // local column's K/V row (its page looked up once)
   uint4* s_q = reinterpret_cast<uint4*>(smem + MQ_STAGES * STAGE);
   float* s_bias = reinterpret_cast<float*>(s_q + NW * KS * 2 * 32);
   const int mz = kz != nullptr ? MZ : 0;
   const int nlt = (M + MQ_BK - 1) / MQ_BK;            // local tiles
   const int ntiles = nlt + (mz + MQ_BK - 1) / MQ_BK;  // then means tiles
   int* s_tiles = reinterpret_cast<int*>(s_bias + ntiles * MQ_BK);
+  int* s_row = s_tiles + ntiles;
   __shared__ int s_nlive;
 
   const int grp = Hq / Hkv;
@@ -335,6 +384,8 @@ __global__ void __launch_bounds__(NT, 3) decode_stats_mq_kernel(
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int bq = b / rep;
+  const int sh = b - bq * rep;
+  const int zr = zrows != nullptr ? min(max(zrows[bq], 0), NZROWS - 1) : bq;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma groupID, thread-in-group
 
@@ -363,7 +414,12 @@ __global__ void __launch_bounds__(NT, 3) decode_stats_mq_kernel(
     float bias = -INFINITY;
     if (ti < nlt) {
       const int c = i;                  // local tiles start at column 0
-      if (c < M && valid[(size_t)b * M + c]) bias = 0.f;
+      if (c < M) {
+        const int pg =
+            pages != nullptr ? min(pages[bq * ppr + c / PC], NPAGES - 1) : bq;
+        if (valid[(size_t)b * M + c] && pg >= 0) bias = 0.f;
+        s_row[c] = bias == 0.f ? (pg * rep + sh) * PC + c % PC : 0;
+      }
     } else {
       const int c = i - nlt * MQ_BK;
       if (c < mz) {
@@ -395,14 +451,16 @@ __global__ void __launch_bounds__(NT, 3) decode_stats_mq_kernel(
     float* sV = sK + MQ_BK * LDK;
     const bool local = ti < nlt;
     const int c0 = (local ? ti : ti - nlt) * MQ_BK;
-    const size_t row0 = local ? (size_t)b * M : (size_t)bq * MZ;
     const float* kb = local ? k : kz;
     const float* vb = local ? v : vz;
     for (int i = tid; i < MQ_BK * HD / 4; i += NT) {
       const int cc = i / (HD / 4), d4 = (i % (HD / 4)) * 4;
       const bool ok = s_bias[ti * MQ_BK + cc] != -INFINITY;
-      const size_t off =
-          ((row0 + (ok ? c0 + cc : 0)) * Hkv + kvh) * HD + d4;
+      // each 256-byte row is one contiguous copy, wherever its page is
+      const size_t row = !ok ? 0
+                         : local ? (size_t)s_row[c0 + cc]
+                                 : (size_t)zr * MZ + c0 + cc;
+      const size_t off = (row * Hkv + kvh) * HD + d4;
       cp_async16(sK + cc * LDK + d4, kb + off, ok);
       cp_async16(sV + cc * LDV + d4, vb + off, ok);
     }
@@ -559,32 +617,44 @@ __global__ void __launch_bounds__(NT, 3) decode_stats_mq_kernel(
   }
 }
 
+// the devices a process may launch on (the limit below is per device)
+constexpr int MAX_DEVICES = 64;
+
 template <int HD>
 int launch_mq(const float* q, const float* k, const float* v,
               const uint8_t* valid, const float* log_gz, const float* kz,
-              const float* vz, float* m_out, float* l_out, float* acc_out,
-              int B, int M, int MZ, int Hq, int Hkv, int rep, float scale,
-              cudaStream_t stream) {
+              const float* vz, const int* pages, const int* zrows,
+              float* m_out, float* l_out, float* acc_out, int B, int M,
+              int MZ, int Hq, int Hkv, int rep, int ppr, int PC, int NPAGES,
+              int NZROWS, float scale, cudaStream_t stream) {
   const int grp = Hq / Hkv;
   const int mz = kz != nullptr ? MZ : 0;
-  const int ntiles = (M + MQ_BK - 1) / MQ_BK + (mz + MQ_BK - 1) / MQ_BK;
+  const int nlt = (M + MQ_BK - 1) / MQ_BK;
+  const int ntiles = nlt + (mz + MQ_BK - 1) / MQ_BK;
   const size_t smem = sizeof(float) * MQ_STAGES * mq_stage<HD>() +
                       sizeof(uint4) * NW * (HD / 8) * 2 * 32 +
-                      (sizeof(float) * MQ_BK + sizeof(int)) * ntiles;
-  // above 48 KB only after raising the kernel's limit: once per process
-  // for the largest size launched so far
-  static size_t allowed = 48 << 10;
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_stats_mq_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                      (sizeof(float) * MQ_BK + sizeof(int)) * ntiles +
+                      sizeof(int) * MQ_BK * nlt;
+  // above 48 KB only after raising the kernel's limit, which holds for
+  // the current device alone (the wrapper makes the tensors' device
+  // current): tracked per device, for the largest size launched so far
+  static size_t allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > (48 << 10) && smem > allowed[dev]) {
+    e = cudaFuncSetAttribute(decode_stats_mq_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
-    allowed = smem;
+    allowed[dev] = smem;
   }
   const dim3 grid((grp + MQ_ROWS - 1) / MQ_ROWS, Hkv, B);
   decode_stats_mq_kernel<HD><<<grid, NT, smem, stream>>>(
-      q, k, v, valid, log_gz, kz, vz, m_out, l_out, acc_out, M, MZ, Hq, Hkv,
-      rep, scale);
+      q, k, v, valid, log_gz, kz, vz, pages, zrows, m_out, l_out, acc_out,
+      M, MZ, Hq, Hkv, rep, ppr, pages != nullptr ? PC : M, NPAGES, NZROWS,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -593,39 +663,38 @@ int launch_mq(const float* q, const float* k, const float* v,
 extern "C" int flash_decode_stats_f32(
     const void* q, const void* k, const void* v, const void* valid,
     const void* log_gz, const void* kz, const void* vz, const void* rows,
-    void* m_out, void* l_out, void* acc_out, int B, int M, int MZ, int Hq,
-    int Hkv, int hd, int rep, float scale, void* stream) {
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* ok = static_cast<const uint8_t*>(valid);
-  const auto* lg = static_cast<const float*>(log_gz);
-  const auto* kzf = static_cast<const float*>(kz);
-  const auto* vzf = static_cast<const float*>(vz);
-  const auto* rw = static_cast<const int*>(rows);
-  auto* mo = static_cast<float*>(m_out);
-  auto* lo = static_cast<float*>(l_out);
-  auto* ao = static_cast<float*>(acc_out);
-  auto st = static_cast<cudaStream_t>(stream);
+    const void* pages, const void* zrows, void* m_out, void* l_out,
+    void* acc_out, int B, int M, int MZ, int Hq, int Hkv, int hd, int rep,
+    int ppr, int pc, int n_pages, int n_zrows, float scale, void* stream) {
   // one head dim per ported model (GPT-2: 64)
   if (hd != 64) return (int)cudaErrorInvalidValue;
-  return launch<64>(qf, kf, vf, ok, lg, kzf, vzf, rw, mo, lo, ao, B, M, MZ,
-                    Hq, Hkv, rep, scale, st);
+  return launch<64>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(valid),
+      static_cast<const float*>(log_gz), static_cast<const float*>(kz),
+      static_cast<const float*>(vz), static_cast<const int*>(rows),
+      static_cast<const int*>(pages), static_cast<const int*>(zrows),
+      static_cast<float*>(m_out), static_cast<float*>(l_out),
+      static_cast<float*>(acc_out), B, M, MZ, Hq, Hkv, rep, ppr, pc, n_pages,
+      n_zrows, scale, static_cast<cudaStream_t>(stream));
 }
 
-// the tile route: no row map (output row b reads cache row b)
+// the tile route: no row map (output row b reads cache row b / rep)
 extern "C" int flash_decode_stats_mq_f32(
     const void* q, const void* k, const void* v, const void* valid,
-    const void* log_gz, const void* kz, const void* vz, void* m_out,
-    void* l_out, void* acc_out, int B, int M, int MZ, int Hq, int Hkv,
-    int hd, int rep, float scale, void* stream) {
+    const void* log_gz, const void* kz, const void* vz, const void* pages,
+    const void* zrows, void* m_out, void* l_out, void* acc_out, int B,
+    int M, int MZ, int Hq, int Hkv, int hd, int rep, int ppr, int pc,
+    int n_pages, int n_zrows, float scale, void* stream) {
   // one head dim per ported model (GPT-2: 64)
   if (hd != 64) return (int)cudaErrorInvalidValue;
   return launch_mq<64>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(valid),
       static_cast<const float*>(log_gz), static_cast<const float*>(kz),
-      static_cast<const float*>(vz), static_cast<float*>(m_out),
+      static_cast<const float*>(vz), static_cast<const int*>(pages),
+      static_cast<const int*>(zrows), static_cast<float*>(m_out),
       static_cast<float*>(l_out), static_cast<float*>(acc_out), B, M, MZ,
-      Hq, Hkv, rep, scale, static_cast<cudaStream_t>(stream));
+      Hq, Hkv, rep, ppr, pc, n_pages, n_zrows, scale,
+      static_cast<cudaStream_t>(stream));
 }

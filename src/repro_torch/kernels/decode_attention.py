@@ -23,6 +23,18 @@ With it, query row ``i`` reads cache row ``rows[i]`` (clamped to
 ``[0, R)``): the packed tick's tokens read their slot's cache row in
 place, where the reference gathers a copy per token.  ``rep = 1`` is the
 reference's single-shard signature.
+
+The paged cache: with a page table ``pages (R, ppr)`` int32, k and v
+are the page pool ``(n_pages · rep, pc, Hkv, hd)`` (``M = ppr · pc``):
+column ``j`` of cache row ``r`` on shard ``s`` is pool row
+``(pages[r, j // pc] · rep + s) · pc + j % pc``, and a page id below 0
+makes its columns dead whatever ``valid`` says.  ``zrows (R,)`` int32
+maps cache row ``r`` to its means row in kz/vz (a state pool of any
+number of rows), as ``rows`` maps query rows to cache rows.  The kernel
+clamps both maps as the reference's takes clip: a page id past the pool
+reads its last page, a means row lies in the state pool.
+The kernel reads both in place, where the reference gathers each row's
+pages and means into a dense copy first.
 """
 from __future__ import annotations
 
@@ -30,17 +42,16 @@ import ctypes
 
 import torch
 
-from . import build
-from .dispatch import LAUNCHES, check_tensor, raise_on_error, use_kernel
+from .dispatch import check_tensor, launch, use_kernel
 from ..core.attention import _gqa_logits, _gqa_output
 from ..core.masks import NEG_INF
 
 NEG = NEG_INF
 HEAD_DIMS = (64,)              # the head dims csrc/decode_attention.cu builds
 
-_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_void_p])
-_TILE_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+_TILE_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                   + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -105,13 +116,42 @@ def gather_rows(rows, rep, k, v, kz=None, vz=None):
     return k, v, kz, vz
 
 
+def gather_pages(pool, pages, rep):
+    """The page table made explicit, as the reference's ``_gather_pages``
+    does per shard: pool (n_pages · rep, pc, Hkv, hd), pages (R, ppr) ->
+    dense rows (R · rep, ppr · pc, Hkv, hd) and ``mapped`` (R, ppr · pc).
+    An unmapped page's columns are zero in the copy: they are dead, and
+    no byte of a page that no row maps reaches a result."""
+    n_pages, pc = pool.shape[0] // rep, pool.shape[1]
+    r, ppr = pages.shape
+    pg = pages.long().clamp(0, n_pages - 1)
+    idx = pg[:, None, :] * rep + torch.arange(rep, device=pool.device
+                                              )[None, :, None]
+    mapped = pages >= 0                                      # (R, ppr)
+    g = pool.view(n_pages * rep, -1)[idx.reshape(-1)].view(
+        r, rep, ppr, *pool.shape[1:])
+    g = torch.where(mapped[:, None, :, None, None, None], g,
+                    torch.zeros((), dtype=g.dtype, device=g.device))
+    return (g.reshape(r * rep, ppr * pc, *pool.shape[2:]),
+            mapped.repeat_interleave(pc, dim=1))
+
+
 def decode_stats_reference(q, k, v, valid, log_gz=None, kz=None, vz=None,
-                           *, scale, rows=None):
+                           *, scale, rows=None, pages=None, zrows=None):
     """Plain version of ``flash_decode_stats``: local columns masked by
     ``valid`` (g = 1), then the optional means columns with their per-row
-    ``log_gz`` bias, merged without concatenating K/V.  A row map is
-    applied as an explicit gather first."""
+    ``log_gz`` bias, merged without concatenating K/V.  A page table, a
+    means-row map and a row map are applied as explicit gathers first."""
     rep = valid.shape[0] // q.shape[0]
+    if pages is not None:
+        k, mapped = gather_pages(k, pages, rep)
+        v, _ = gather_pages(v, pages, rep)
+        sel = (torch.arange(q.shape[0], device=q.device) if rows is None
+               else rows.long().clamp(0, pages.shape[0] - 1))
+        valid = valid & mapped[sel].repeat_interleave(rep, dim=0)
+    if zrows is not None:
+        zr = zrows.long().clamp(0, kz.shape[0] - 1)
+        kz, vz = kz.index_select(0, zr), vz.index_select(0, zr)
     if rows is not None:
         k, v, kz, vz = gather_rows(rows, rep, k, v, kz, vz)
     if rep > 1:
@@ -157,7 +197,7 @@ def decode_route(hq: int, hkv: int, no_rows: bool) -> str:
 
 
 def flash_decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
-                       scale, rows=None):
+                       scale, rows=None, pages=None, zrows=None):
     """The CUDA kernel, on the route ``decode_route`` picks from the
     shapes and the row map.  f32 only; raises on anything it does not
     take.  Launches on the current stream and does not synchronise."""
@@ -165,16 +205,24 @@ def flash_decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
     check_tensor(k, "k", dtype=torch.float32, ndim=4, device=k.device)
     return launch_route(decode_route(q.shape[2], k.shape[2], rows is None),
                         q, k, v, valid, log_gz, kz, vz, scale=scale,
-                        rows=rows)
+                        rows=rows, pages=pages, zrows=zrows)
+
+
+def _check_map(t, name, shape, dev):
+    """Raise unless ``t`` is an int32 map of ``shape`` on ``dev``."""
+    check_tensor(t, name, dtype=torch.int32, ndim=len(shape), device=dev)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
 
 
 def launch_route(route, q, k, v, valid, log_gz=None, kz=None, vz=None, *,
-                 scale, rows=None):
+                 scale, rows=None, pages=None, zrows=None):
     """One launch of the named route, whatever ``decode_route`` would
     pick: ``chip_smoke.py`` times both routes at one layout with it; the
     serving path calls ``flash_decode_stats``.  Every launch counts under
     ``flash_decode_stats``, the tile route's also under
-    ``flash_decode_stats.mq``."""
+    ``flash_decode_stats.mq``, a launch with a page table also under
+    ``flash_decode_stats.paged``."""
     if route not in ROUTES:
         raise ValueError(f"route {route!r} not in {ROUTES}")
     dev = k.device
@@ -183,70 +231,84 @@ def launch_route(route, q, k, v, valid, log_gz=None, kz=None, vz=None, *,
     check_tensor(v, "v", dtype=torch.float32, ndim=4, device=dev)
     check_tensor(valid, "valid", dtype=torch.bool, ndim=2, device=dev)
     bq, nq, hq, hd = q.shape
-    n_kv, m_loc, hkv, hd_k = k.shape
-    b = valid.shape[0]                       # output rows
+    n_kv, pc, hkv, hd_k = k.shape
+    b, m_loc = valid.shape                   # output rows, cache columns
     rep = b // bq
     if nq != 1:
         raise ValueError(f"decode kernel is single-token (got Nq={nq})")
     if (hd_k != hd or v.shape != k.shape or b % bq or hq % hkv
-            or valid.shape != (b, m_loc) or n_kv % rep
-            or (rows is None and n_kv != b)):
+            or n_kv % rep):
         raise ValueError(f"shapes do not fit: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, valid {tuple(valid.shape)}")
-    n_rows = n_kv // rep                     # cache rows
-    rows_ptr = None
+    if pages is None:
+        n_rows, ppr = n_kv // rep, 1         # cache rows; M = pc
+        ok = pc == m_loc and (rows is not None or n_kv == b)
+    else:
+        check_tensor(pages, "pages", dtype=torch.int32, ndim=2, device=dev)
+        n_rows, ppr = pages.shape
+        # the row route's page index is exact below 2^21 columns
+        ok = (ppr * pc == m_loc < 1 << 21
+              and (rows is not None or n_rows == bq))
+    if not ok:
+        got = None if pages is None else tuple(pages.shape)
+        raise ValueError(f"shapes do not fit: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, valid {tuple(valid.shape)}, "
+                         f"pages {got}")
+    ptr = {"rows": None, "pages": None, "zrows": None}
     if rows is not None:
         if route == "tile":
             raise ValueError("the tile route takes no row map")
-        check_tensor(rows, "rows", dtype=torch.int32, ndim=1, device=dev)
-        if rows.shape != (bq,):
-            raise ValueError(f"rows {tuple(rows.shape)} != ({bq},)")
+        _check_map(rows, "rows", (bq,), dev)
         rows = rows.clamp(0, n_rows - 1)
-        rows_ptr = rows.data_ptr()
+        ptr["rows"] = rows.data_ptr()
+    if pages is not None:
+        ptr["pages"] = pages.data_ptr()
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
-    mz, ptrs = 0, (None, None, None)
+    mz, means = 0, (None, None, None)
     if kz is not None:
         check_tensor(log_gz, "log_gz", dtype=torch.float32, ndim=2,
                      device=dev)
         check_tensor(kz, "kz", dtype=torch.float32, ndim=4, device=dev)
         check_tensor(vz, "vz", dtype=torch.float32, ndim=4, device=dev)
         mz = kz.shape[1]
-        if (kz.shape != (n_rows, mz, hkv, hd) or vz.shape != kz.shape
-                or log_gz.shape != (b, mz)):
+        if (kz.shape[1:] != (mz, hkv, hd) or vz.shape != kz.shape
+                or log_gz.shape != (b, mz)
+                or (zrows is None and kz.shape[0] != n_rows)):
             raise ValueError(f"means shapes do not fit: kz "
                              f"{tuple(kz.shape)}, log_gz "
                              f"{tuple(log_gz.shape)}")
-        ptrs = (log_gz.data_ptr(), kz.data_ptr(), vz.data_ptr())
+        if zrows is not None:
+            _check_map(zrows, "zrows", (n_rows,), dev)
+            ptr["zrows"] = zrows.data_ptr()
+        means = (log_gz.data_ptr(), kz.data_ptr(), vz.data_ptr())
     m_p = torch.empty((b, hq, 1, 1), dtype=torch.float32, device=dev)
     l_p = torch.empty((b, hq, 1, 1), dtype=torch.float32, device=dev)
     acc_p = torch.empty((b, 1, hq, hd), dtype=torch.float32, device=dev)
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-              *ptrs)
+              *means)
     outputs = (m_p.data_ptr(), l_p.data_ptr(), acc_p.data_ptr())
-    sizes = (b, m_loc, mz, hq, hkv, hd, rep, ctypes.c_float(scale),
-             torch.cuda.current_stream(dev).cuda_stream)
+    sizes = (b, m_loc, mz, hq, hkv, hd, rep, ppr, pc, n_kv // rep,
+             0 if kz is None else kz.shape[0], ctypes.c_float(scale))
+    counts = (("flash_decode_stats.mq",) if route == "tile" else ()) + (
+        ("flash_decode_stats.paged",) if pages is not None else ())
     if route == "tile":
-        fn = build.function("decode_attention", "flash_decode_stats_mq_f32",
-                            _TILE_ARGTYPES)
-        rc = fn(*inputs, *outputs, *sizes)
+        launch("flash_decode_stats", "decode_attention",
+               "flash_decode_stats_mq_f32", _TILE_ARGTYPES, dev, *inputs,
+               ptr["pages"], ptr["zrows"], *outputs, *sizes, counts=counts)
     else:
-        fn = build.function("decode_attention", "flash_decode_stats_f32",
-                            _ARGTYPES)
-        rc = fn(*inputs, rows_ptr, *outputs, *sizes)
-    raise_on_error(rc, f"flash_decode_stats ({route} route)")
-    LAUNCHES["flash_decode_stats"] += 1
-    if route == "tile":
-        LAUNCHES["flash_decode_stats.mq"] += 1
+        launch("flash_decode_stats", "decode_attention",
+               "flash_decode_stats_f32", _ARGTYPES, dev, *inputs,
+               ptr["rows"], ptr["pages"], ptr["zrows"], *outputs, *sizes,
+               counts=counts)
     return m_p, l_p, acc_p
 
 
 def decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *, scale,
-                 rows=None, backend: str = "auto"):
+                 rows=None, pages=None, zrows=None, backend: str = "auto"):
     """Partial stats from the kernel (CUDA tensors) or the plain version
     (CPU tensors, or ``backend='plain'``)."""
+    kw = dict(scale=scale, rows=rows, pages=pages, zrows=zrows)
     if use_kernel(backend, k):
-        return flash_decode_stats(q, k, v, valid, log_gz, kz, vz,
-                                  scale=scale, rows=rows)
-    return decode_stats_reference(q, k, v, valid, log_gz, kz, vz,
-                                  scale=scale, rows=rows)
+        return flash_decode_stats(q, k, v, valid, log_gz, kz, vz, **kw)
+    return decode_stats_reference(q, k, v, valid, log_gz, kz, vz, **kw)

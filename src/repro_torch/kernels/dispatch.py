@@ -14,15 +14,19 @@ There is deliberately no environment override: nothing on the main
 path can reach the plain version on a card except by passing
 ``backend="plain"``.
 
-``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds
-one right after its kernel launched, and nowhere else, so a run can show
-that the main path went through every kernel.
+``LAUNCHES`` counts kernel launches by kernel name.  ``launch`` adds
+one right after a kernel launched, and nowhere else, so a run can show
+that the main path went through every kernel.  Every wrapper launches
+through ``launch``, which makes the tensors' device the current one
+around the call: the C entry points launch on the current device.
 """
 from __future__ import annotations
 
 import collections
 
 import torch
+
+from . import build
 
 BACKENDS = ("auto", "kernel", "plain")
 
@@ -69,3 +73,18 @@ def raise_on_error(code: int, kernel: str) -> None:
     """Raise if a C entry point returned a nonzero ``cudaError_t``."""
     if code != 0:
         raise RuntimeError(f"{kernel}: CUDA error {code} at launch")
+
+
+def launch(name: str, lib: str, entry: str, argtypes: list,
+           device: torch.device, *args, counts: tuple = ()) -> None:
+    """Call the C entry point ``entry`` of library ``lib`` with ``args``
+    and the current stream of ``device``, with ``device`` made the
+    current device for the call; raise if it returned an error, then
+    count one launch under ``name`` and each of ``counts``."""
+    fn = build.function(lib, entry, argtypes)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    raise_on_error(rc, name)
+    LAUNCHES[name] += 1
+    for key in counts:
+        LAUNCHES[key] += 1

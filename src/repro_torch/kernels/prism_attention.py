@@ -21,8 +21,7 @@ import ctypes
 
 import torch
 
-from . import build
-from .dispatch import LAUNCHES, check_tensor, raise_on_error
+from .dispatch import check_tensor, launch
 from ..core.attention import _gqa_logits, _gqa_output
 from ..core.masks import NEG_INF, visibility
 
@@ -96,13 +95,10 @@ def prism_flash_attention(q, k, v, log_g, col_lo, col_hi, row_pos, *,
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     scale = (hd ** -0.5) if scale is None else scale
     out = torch.empty_like(q)
-    fn = build.function("prism_attention", "prism_attention_f32", _ARGTYPES)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_g.data_ptr(),
-            col_lo.data_ptr(), col_hi.data_ptr(), row_pos.data_ptr(),
-            out.data_ptr(), b, nq, m, hq, hkv, hd, b // bk, p, int(causal),
-            prefix_len, int(window is not None),
-            0 if window is None else window, ctypes.c_float(scale),
-            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "prism_flash_attention")
-    LAUNCHES["prism_flash_attention"] += 1
+    launch("prism_flash_attention", "prism_attention", "prism_attention_f32",
+           _ARGTYPES, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           log_g.data_ptr(), col_lo.data_ptr(), col_hi.data_ptr(),
+           row_pos.data_ptr(), out.data_ptr(), b, nq, m, hq, hkv, hd,
+           b // bk, p, int(causal), prefix_len, int(window is not None),
+           0 if window is None else window, ctypes.c_float(scale))
     return out

@@ -16,8 +16,7 @@ import ctypes
 
 import torch
 
-from . import build
-from .dispatch import LAUNCHES, check_tensor, raise_on_error, use_kernel
+from .dispatch import check_tensor, launch, use_kernel
 from ..core.segment_means import segment_means as segment_means_plain
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -35,10 +34,9 @@ def _check(x: torch.Tensor, L: int) -> tuple[int, int, int]:
     return b, n, d
 
 
-def _launch(entry: str, argtypes: list, *args) -> None:
-    fn = build.function("segment_means", entry, argtypes)
-    raise_on_error(fn(*args), entry)
-    LAUNCHES["segment_means"] += 1
+def _launch(entry: str, argtypes: list, x: torch.Tensor, *args) -> None:
+    launch("segment_means", "segment_means", entry, argtypes, x.device,
+           *args)
 
 
 def segment_means_cuda(x: torch.Tensor, L: int) -> torch.Tensor:
@@ -47,9 +45,8 @@ def segment_means_cuda(x: torch.Tensor, L: int) -> torch.Tensor:
     b, n, d = _check(x, L)
     out = torch.empty((b, L, d), dtype=x.dtype, device=x.device)
     if out.numel():
-        _launch(f"segment_means_{DTYPES[x.dtype]}", _MEANS_ARGS,
-                x.data_ptr(), out.data_ptr(), b, n, L, d,
-                torch.cuda.current_stream(x.device).cuda_stream)
+        _launch(f"segment_means_{DTYPES[x.dtype]}", _MEANS_ARGS, x,
+                x.data_ptr(), out.data_ptr(), b, n, L, d)
     return out
 
 
@@ -84,9 +81,8 @@ def prism_augment_cuda(x: torch.Tensor, L: int,
     out = torch.empty((bp, n + n_shards * L, d), dtype=x.dtype,
                       device=x.device)
     if out.numel():
-        _launch(f"prism_augment_{DTYPES[x.dtype]}", _AUGMENT_ARGS,
-                x.data_ptr(), out.data_ptr(), bp, n, L, d, n_shards,
-                torch.cuda.current_stream(x.device).cuda_stream)
+        _launch(f"prism_augment_{DTYPES[x.dtype]}", _AUGMENT_ARGS, x,
+                x.data_ptr(), out.data_ptr(), bp, n, L, d, n_shards)
     return out
 
 

@@ -1,14 +1,23 @@
-"""Static-batch serving launcher: prefill + greedy decode on one card.
+"""Serving launcher on one card: a static batch (prefill + greedy
+decode) or the continuous-batching engine on a seeded Poisson trace.
 
+    # static batch
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
         --batch 8 --prompt-len 512 --gen 64 --seq-shards 4 \
         --decode-mode exact
 
+    # request-level engine (paged cache, packed ticks), Poisson arrivals
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
+        --engine --requests 16 --rate 4 --batch 8 --prompt-len 512 \
+        --gen 64
+
 ``--decode-mode exact`` pairs the voltage prefill (full exchange) with
 exact split-K flash-decode; ``--decode-mode prism`` pairs the PRISM
-prefill (Segment-Means exchange) with prism decode.  Weights are random,
-drawn from ``torch.Generator`` seeded with ``--seed``.  Runs on CUDA
-unless ``--device cpu`` is given; without a card it raises.
+prefill (Segment-Means exchange) with prism decode (the engine prefills
+exactly in both modes and captures the means over real tokens).
+Weights are random, drawn from ``torch.Generator`` seeded with
+``--seed``; ``--reduced`` takes the architecture's smoke-test size.
+Runs on CUDA unless ``--device cpu`` is given; without a card it raises.
 """
 from __future__ import annotations
 
@@ -48,12 +57,14 @@ class StaticServe:
 def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
           gen: int = 16, seq_shards: int = 4, decode_mode: str = "exact",
           cr: float = 4.0, device: str = "cuda", seed: int = 0,
-          backend: str = "auto", params: dict | None = None) -> StaticServe:
+          backend: str = "auto", params: dict | None = None,
+          reduced: bool = False) -> StaticServe:
     """Build a static-batch run: the prompt length is rounded down and
     the cache capacity up to multiples of the shard count, as the
     reference launcher does.  ``params`` reuses weights already built."""
     dev = resolve_device(device)
     cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
     n = prompt_len - prompt_len % seq_shards
     cap = n + gen + (-(n + gen)) % seq_shards
     hp = ServeHParams(decode_mode=decode_mode, means_cr=cr, backend=backend)
@@ -69,23 +80,112 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
     return StaticServe(cfg, params, prompts, prism, lay, hp, gen)
 
 
+def poisson_trace(n_requests: int, rate: float, prefill_len: int,
+                  vocab: int, seed: int = 0):
+    """A seeded Poisson trace: (arrival s, prompt) per request, prompt
+    lengths drawn from [prefill_len // 2, prefill_len], as the
+    reference's launcher draws them."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n_requests))
+    trace = []
+    for i in range(n_requests):
+        plen = int(rng.integers(max(1, prefill_len // 2), prefill_len + 1))
+        trace.append((float(arrivals[i]),
+                      rng.integers(1, vocab, size=plen).tolist()))
+    return trace
+
+
+def run_engine(args) -> None:
+    """``--engine``: the continuous-batching engine over a Poisson trace;
+    prints the engine's stats summary."""
+    from ..serving import EngineConfig, SamplingParams, ServingEngine
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    cfg = cfg.reduced() if args.reduced else cfg
+    p = args.seq_shards
+    n = args.prompt_len - args.prompt_len % p
+    cap = n + args.gen                 # as the reference launcher does
+    cap += -cap % p
+    hp = ServeHParams(decode_mode=args.decode_mode, means_cr=args.cr)
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                    dev)
+    ecfg = EngineConfig(
+        n_slots=args.batch, prefill_len=n, max_cache=cap, hp=hp,
+        chunk_len=args.chunk_len, prefill_mode=args.prefill_mode,
+        token_budget=args.token_budget, paged=not args.no_paged,
+        page_tokens=args.page_tokens, n_pages=args.n_pages,
+        prefix_cache=False if args.no_prefix_cache else None)
+    eng = ServingEngine(cfg, params, ecfg, n_seq=p)
+    for i, (t, prompt) in enumerate(poisson_trace(
+            args.requests, args.rate, n, cfg.vocab_size, args.seed)):
+        eng.submit(prompt, max_new_tokens=args.gen, arrival=t,
+                   sampling=SamplingParams(temperature=args.temperature,
+                                           top_k=args.top_k, seed=i))
+    cache = "paged" if eng.kv_cache.paged else "dense"
+    print(f"[engine] {cfg.name} {args.decode_mode}, {args.requests} "
+          f"requests, Poisson rate {args.rate}/s, {args.batch} slots, "
+          f"{args.prefill_mode} prefill, {cache} cache, on {dev}")
+    eng.run()
+    for k, v in {**eng.stats.summary(), **eng.kv_cache.stats()}.items():
+        print(f"[engine] {k:22s} {v:.3f}" if isinstance(v, float)
+              else f"[engine] {k:22s} {v}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="gpt2-small")
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--prompt-len", type=int, default=64)
-    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the architecture's smoke-test size")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="static batch size / engine slot count")
+    ap.add_argument("--prompt-len", type=int, default=64,
+                    help="static prompt length / engine prefill length")
+    ap.add_argument("--gen", type=int, default=16,
+                    help="tokens generated per sequence / request")
     ap.add_argument("--seq-shards", type=int, default=4)
     ap.add_argument("--decode-mode", default="exact",
                     choices=("exact", "prism"))
     ap.add_argument("--cr", type=float, default=4.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", action="store_true",
+                    help="continuous-batching engine over a Poisson trace")
+    ap.add_argument("--requests", type=int, default=32,
+                    help="[engine] number of requests in the trace")
+    ap.add_argument("--rate", type=float, default=4.0,
+                    help="[engine] Poisson arrival rate, requests/s")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--prefill-mode", default="packed",
+                    choices=("packed", "chunked"),
+                    help="[engine] token-packed ticks (default) or "
+                         "chunked prefill")
+    ap.add_argument("--chunk-len", type=int, default=64,
+                    help="[engine] prefill chunk size (clamped to the "
+                         "prefill length)")
+    ap.add_argument("--token-budget", type=int, default=None,
+                    help="[engine, packed] tokens per packed tick "
+                         "(default: slots + chunk-len)")
+    ap.add_argument("--no-paged", action="store_true",
+                    help="[engine] dense slot-row cache instead of the "
+                         "paged pool")
+    ap.add_argument("--page-tokens", type=int, default=None,
+                    help="[engine, paged] page size in token positions "
+                         "(default: derived, about 16)")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="[engine, paged] pool pages (default: memory "
+                         "parity with the dense rows)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="[engine, paged] no shared-prefix reuse (on by "
+                         "default in exact decode mode)")
     args = ap.parse_args(argv)
+    if args.engine:
+        run_engine(args)
+        return
     run = setup(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                 gen=args.gen, seq_shards=args.seq_shards,
                 decode_mode=args.decode_mode, cr=args.cr,
-                device=args.device, seed=args.seed)
+                device=args.device, seed=args.seed, reduced=args.reduced)
     tokens, _, times = run.run()
     b, n = run.prompts.shape
     print(f"[serve] {run.cfg.name} {args.decode_mode}: prefill {b}x{n} "

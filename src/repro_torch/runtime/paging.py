@@ -1,0 +1,403 @@
+"""Paged KV cache: the host-side page table, prefix reuse and the
+``KVCache`` lifecycle object.
+
+A page is a gang of ``page_cols`` cache columns on EVERY sequence shard,
+so one page id names the same position span on all shards.  The device
+pool of a layer is (n_pages, P, page_cols, Hkv, hd) (``runtime.serve.
+layer_cache_shape``); a request's cache "row" is a page list: logical
+page ``j`` of its ``cap_l``-column row is physical page ``pages[j]``.
+The step programs take the per-slot page map (n_slots, pages_per_row)
+each tick and write and read through it; the decode kernel reads the
+pool in place through it (its page table).
+
+  * ``PageTable``: free list and per-page refcounts; O(1) alloc/free,
+    all-or-nothing; pure bookkeeping.
+  * ``PrefixCache``: a finished request registers its prompt's full
+    pages under their token prefix; a new request whose prompt starts
+    with a registered prefix maps those pages (refcount + 1) and skips
+    prefilling the tokens they hold.  Shared pages are never written:
+    writes land past the covered prefix, in private pages.
+  * In prism decode mode the Segment-Means state (kz, vz, gz, zsum) has
+    a state pool of its own, one row per active request, addressed
+    through the per-slot state map.
+
+``KVCache`` wraps both cache layouts: ``paging=None`` is the dense
+rowset (the ``paged=False`` oracle), ``paging=PagedLayout(...)`` the
+pools with the ``plan -> reserve -> bind -> free`` lifecycle the engine
+drives.  Page ids follow the reference's allocation order (the free
+list pops from its end), so both hand out the same ids.
+
+Host-side only, as the reference's bookkeeping is; the device storage
+is a list of per-layer dicts of tensors built by ``runtime.serve.
+make_kv_cache``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+#: page id meaning "no page mapped" in the device page maps
+NO_PAGE = -1
+
+
+@dataclass(frozen=True)
+class PagedLayout:
+    """Static shape of the paged pool, derived once per engine.
+
+    A page holds ``page_cols`` per-shard columns on every sequence
+    shard: ``span = page_cols * n_seq`` consecutive positions under the
+    round-robin placement (exact mode).  Paged prism keeps the
+    prefill-aligned column map, where a page still holds ``page_cols``
+    columns a shard but a partial page set covers no position prefix,
+    so prefixes are not shared there."""
+    page_cols: int                    # per-shard columns per page
+    n_seq: int                        # sequence shards (gang width)
+    pages_per_row: int                # logical pages per request
+    n_pages: int                      # physical pages in the pool
+    n_state_pages: int = 0            # prism means-state pool rows
+
+    @property
+    def span(self) -> int:            # tokens covered per page
+        return self.page_cols * self.n_seq
+
+
+def make_paged_layout(lay, *, page_tokens: int, n_pages: int | None,
+                      n_slots: int, n_state_pages: int | None = None
+                      ) -> PagedLayout:
+    """The pool's shape from a ``ServeLayout``.  ``page_tokens`` is the
+    page size in positions: a multiple of the shard count whose
+    per-shard ``page_cols`` divides both the prefill region and the
+    row, so a row and its prefill region are whole pages."""
+    if page_tokens % lay.n_seq:
+        raise ValueError(
+            f"page_tokens {page_tokens} not a multiple of the "
+            f"sequence-shard count {lay.n_seq}")
+    pc = page_tokens // lay.n_seq
+    if lay.n_loc0 % pc or lay.cap_l % pc:
+        raise ValueError(
+            f"page_cols {pc} must divide the per-shard prefill region "
+            f"{lay.n_loc0} and capacity {lay.cap_l}")
+    ppr = lay.cap_l // pc
+    if n_pages is None:
+        n_pages = n_slots * ppr       # memory parity with the dense rows
+    if n_state_pages is None:
+        n_state_pages = n_slots
+    return PagedLayout(page_cols=pc, n_seq=lay.n_seq, pages_per_row=ppr,
+                       n_pages=int(n_pages),
+                       n_state_pages=int(n_state_pages))
+
+
+class PageTable:
+    """Free-list page allocator with per-page refcounts.  A page is on
+    the free list (refcount 0) or held by one or more holders (a
+    request's page list, a prefix entry), each holding one reference."""
+
+    def __init__(self, n_pages: int):
+        if n_pages < 1:
+            raise ValueError(f"n_pages {n_pages} < 1")
+        self.n_pages = n_pages
+        self.refs = np.zeros(n_pages, np.int32)
+        self._free: list = list(range(n_pages))
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.n_pages - len(self._free)
+
+    def alloc(self, n: int) -> list | None:
+        """``n`` fresh pages (refcount 1 each), or None if the free list
+        cannot cover them: never a partial grant."""
+        if n < 0:
+            raise ValueError(n)
+        if n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        self.refs[pages] += 1
+        return pages
+
+    def share(self, pages) -> None:
+        """One more reference to each (allocated) page: a shared prefix
+        mapped into a new request."""
+        pages = list(pages)
+        if np.any(self.refs[pages] <= 0):
+            raise ValueError(f"share of unallocated page in {pages}")
+        self.refs[pages] += 1
+
+    def free(self, pages) -> None:
+        """Drop one reference per page; a page at refcount 0 goes back on
+        the free list."""
+        for p in pages:
+            if self.refs[p] <= 0:
+                raise ValueError(f"double free of page {p}")
+            self.refs[p] -= 1
+            if self.refs[p] == 0:
+                self._free.append(p)
+
+    def check(self) -> None:
+        """Refcounts non-negative; the free list is exactly the pages at
+        refcount 0, without duplicates."""
+        free = sorted(self._free)
+        assert len(set(free)) == len(free), "duplicate free-list entry"
+        zero = sorted(np.nonzero(self.refs == 0)[0].tolist())
+        assert free == zero, (free, zero)
+        assert np.all(self.refs >= 0)
+
+
+@dataclass
+class _PrefixEntry:
+    key: tuple
+    pages: tuple                       # physical ids, one per full span
+    tokens: int                        # positions covered (len(pages)·span)
+    last_used: int = 0
+
+
+class PrefixCache:
+    """Token prefix -> shared page prefix.  A finished request registers
+    one entry per full-page prefix level of its prompt (each entry holds
+    a reference to its pages, so they outlive the request); a lookup
+    takes the longest level; ``reclaim`` drops least recently used
+    entries when admission runs out of pages: a cache, never a
+    reservation."""
+
+    def __init__(self, table: PageTable):
+        self.table = table
+        self.entries: dict = {}        # key -> _PrefixEntry
+        self.hits = 0
+        self.misses = 0
+        self._tick = 0
+
+    @staticmethod
+    def _key(prompt, n_tokens: int) -> tuple:
+        return tuple(prompt[:n_tokens])
+
+    def register(self, prompt, pages, span: int) -> int:
+        """Register every full-page prefix level of ``prompt`` whose pages
+        hold prompt tokens only.  Returns the entries added."""
+        k_reg = min(len(prompt) // span, len(pages))
+        added = 0
+        for k in range(1, k_reg + 1):
+            key = self._key(prompt, k * span)
+            ent = self.entries.get(key)
+            self._tick += 1
+            if ent is not None:
+                ent.last_used = self._tick
+                continue
+            share = list(pages[:k])
+            self.table.share(share)
+            self.entries[key] = _PrefixEntry(
+                key=key, pages=tuple(share), tokens=k * span,
+                last_used=self._tick)
+            added += 1
+        return added
+
+    def lookup(self, prompt, span: int) -> _PrefixEntry | None:
+        """The longest registered full-page prefix STRICTLY shorter than
+        the prompt: the rewind re-feeds the last prompt token, so the page
+        holding position ``len(prompt) - 1`` stays private."""
+        for k in range((len(prompt) - 1) // span, 0, -1):
+            ent = self.entries.get(self._key(prompt, k * span))
+            if ent is not None:
+                self._tick += 1
+                ent.last_used = self._tick
+                self.hits += 1
+                return ent
+        self.misses += 1
+        return None
+
+    def reclaim(self, need_free: int) -> int:
+        """Drop least recently used entries until the free list holds
+        ``need_free`` pages or the cache is empty.  Returns entries
+        dropped."""
+        dropped = 0
+        while self.table.free_pages < need_free and self.entries:
+            key = min(self.entries, key=lambda k: self.entries[k].last_used)
+            self.table.free(list(self.entries.pop(key).pages))
+            dropped += 1
+        return dropped
+
+    def clear(self) -> None:
+        for ent in self.entries.values():
+            self.table.free(list(ent.pages))
+        self.entries.clear()
+
+
+@dataclass
+class AdmitPlan:
+    """What admitting one request takes and reuses."""
+    total_pages: int                   # logical pages the request needs
+    fresh_pages: int                   # pages off the free list
+    shared: tuple = ()                 # prefix pages mapped shared
+    covered: int = 0                   # prompt tokens already cached
+
+
+@dataclass
+class KVCache:
+    """One cache object, one lifecycle: ``plan -> reserve -> bind ->
+    free``.  ``storage`` is the per-layer list of device leaves (dense
+    rows, or the pools); in paged mode the object also holds the
+    ``PageTable``, the optional ``PrefixCache`` and the per-slot page
+    lists and state rows."""
+    storage: list                      # per layer: {leaf: tensor}
+    layout: object                     # ServeLayout
+    paging: PagedLayout | None = None
+    table: PageTable | None = None
+    prefix: PrefixCache | None = None
+    slot_pages: dict = field(default_factory=dict)   # slot -> [page ids]
+    slot_state: dict = field(default_factory=dict)   # slot -> state row
+    _state_free: list = field(default_factory=list)
+    _reserved: dict = field(default_factory=dict)    # key -> (pages, srow)
+
+    def __post_init__(self):
+        if self.paging is not None:
+            if self.table is None:
+                self.table = PageTable(self.paging.n_pages)
+            self._state_free = list(range(self.paging.n_state_pages))
+
+    @property
+    def paged(self) -> bool:
+        return self.paging is not None
+
+    def pages_needed(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.paging.span)
+
+    def plan(self, prompt, max_new_tokens: int, use_prefix: bool = True,
+             full_row: bool = False) -> AdmitPlan:
+        """The pages ``prompt`` plus its generation take, after prefix
+        reuse; commits nothing.  ``full_row`` takes the whole logical row
+        (paged prism: the means state is defined over the whole prefill
+        region, so rows are never partial and prefixes never shared)."""
+        total = (self.paging.pages_per_row if full_row
+                 else self.pages_needed(len(prompt) + max_new_tokens))
+        shared, covered = (), 0
+        if use_prefix and not full_row and self.prefix is not None:
+            ent = self.prefix.lookup(prompt, self.paging.span)
+            if ent is not None:
+                shared, covered = ent.pages, ent.tokens
+        return AdmitPlan(total_pages=total, fresh_pages=total - len(shared),
+                         shared=shared, covered=covered)
+
+    def can_admit(self, plan: AdmitPlan, *, reclaim: bool = True) -> bool:
+        """Whether the free list and the state pool cover ``plan``;
+        optionally reclaims prefix entries to make room."""
+        if self.table.free_pages >= plan.fresh_pages and self._state_free:
+            return True
+        if reclaim and self.prefix is not None:
+            self.prefix.reclaim(plan.fresh_pages)
+        return (self.table.free_pages >= plan.fresh_pages
+                and bool(self._state_free))
+
+    def reserve(self, key, plan: AdmitPlan) -> bool:
+        """Admission, phase one: commit the plan's pages and a state row
+        to ``key`` (the request id) before a slot is bound, so several
+        admissions in one engine loop never count the free list twice.
+        All or nothing: False commits nothing."""
+        assert key not in self._reserved, f"double reserve of {key!r}"
+        if not self._state_free:
+            return False
+        fresh = self.table.alloc(plan.fresh_pages)
+        if fresh is None:
+            return False
+        if plan.shared:
+            self.table.share(plan.shared)
+        self._reserved[key] = (list(plan.shared) + fresh,
+                               self._state_free.pop())
+        return True
+
+    def bind(self, key, slot: int) -> None:
+        """Admission, phase two: attach a reservation to its slot."""
+        assert slot not in self.slot_pages, f"slot {slot} already mapped"
+        pages, srow = self._reserved.pop(key)
+        self.slot_pages[slot] = pages
+        self.slot_state[slot] = srow
+
+    def cancel(self, key) -> None:
+        """Drop an unbound reservation."""
+        pages, srow = self._reserved.pop(key)
+        self.table.free(pages)
+        self._state_free.append(srow)
+
+    def alloc(self, slot: int, plan: AdmitPlan) -> AdmitPlan:
+        """``reserve`` and ``bind`` in one; raises when the plan does not
+        fit (``can_admit`` first)."""
+        assert slot not in self.slot_pages, f"slot {slot} already mapped"
+        if not self.reserve(("__alloc__", slot), plan):
+            raise RuntimeError(
+                f"out of pages: need {plan.fresh_pages}, "
+                f"free {self.table.free_pages}, "
+                f"state rows free {len(self._state_free)}")
+        self.bind(("__alloc__", slot), slot)
+        return plan
+
+    def append(self, slot: int, n_tokens: int) -> None:
+        """Grow a live request's page list to cover ``n_tokens`` positions
+        (a no-op under the eager allocation admission makes)."""
+        need = self.pages_needed(n_tokens)
+        have = len(self.slot_pages[slot])
+        if need > have:
+            extra = self.table.alloc(need - have)
+            if extra is None:
+                raise RuntimeError(f"out of pages appending slot {slot}")
+            self.slot_pages[slot].extend(extra)
+
+    def free(self, slot: int, prompt=None) -> None:
+        """Release a finished request's pages (shared prefix pages live on
+        under their entries) and state row.  With ``prompt`` and a prefix
+        cache, the prompt's full pages are registered first."""
+        pages = self.slot_pages.pop(slot)
+        if prompt is not None and self.prefix is not None:
+            self.prefix.register(prompt, pages, self.paging.span)
+        self.table.free(pages)
+        self._state_free.append(self.slot_state.pop(slot))
+
+    def page_map(self, n_slots: int) -> np.ndarray:
+        """(n_slots, pages_per_row) int32 physical page of every logical
+        page of every slot; NO_PAGE where unmapped."""
+        m = np.full((n_slots, self.paging.pages_per_row), NO_PAGE, np.int32)
+        for slot, pages in self.slot_pages.items():
+            m[slot, :len(pages)] = pages
+        return m
+
+    def state_map(self, n_slots: int) -> np.ndarray:
+        """(n_slots,) int32 state-pool row of every slot; NO_PAGE where
+        unmapped."""
+        m = np.full((n_slots,), NO_PAGE, np.int32)
+        for slot, row in self.slot_state.items():
+            m[slot] = row
+        return m
+
+    def check(self) -> None:
+        """Page accounting: the table is consistent and every page's
+        refcount equals the holders (slot page lists, reservations,
+        prefix entries) that name it; every state row is held once."""
+        self.table.check()
+        held = np.zeros(self.paging.n_pages, np.int64)
+        for pages in self.slot_pages.values():
+            for p in pages:
+                held[p] += 1
+        for pages, _ in self._reserved.values():
+            for p in pages:
+                held[p] += 1
+        if self.prefix is not None:
+            for ent in self.prefix.entries.values():
+                for p in ent.pages:
+                    held[p] += 1
+        assert np.array_equal(held, self.table.refs.astype(np.int64)), \
+            (held.tolist(), self.table.refs.tolist())
+        srows = (list(self.slot_state.values())
+                 + [s for _, s in self._reserved.values()]
+                 + list(self._state_free))
+        assert sorted(srows) == list(range(self.paging.n_state_pages))
+
+    def stats(self) -> dict:
+        if not self.paged:
+            return {}
+        return {"pages_total": self.paging.n_pages,
+                "pages_free": self.table.free_pages,
+                "pages_used": self.table.used_pages,
+                "prefix_entries": (len(self.prefix.entries)
+                                   if self.prefix else 0),
+                "prefix_hits": self.prefix.hits if self.prefix else 0}

@@ -20,11 +20,20 @@ Decode modes:
     the output is the view of the shard that owns the newest position.
     Every shard's view is computed; only the owner's is used.
 
-Only the unpaged, attention-only path with the ``aligned`` placement is
-ported: positions [0, n0) lie prefill-aligned (shard s holds
-[s·n_loc0, (s+1)·n_loc0) in slots [0, n_loc0)); decoded positions
-p >= n0 go round-robin to shard (p - n0) % P, slot
-n_loc0 + (p - n0) // P.
+Placements (``ServeLayout.placement``), attention-only:
+  * ``aligned`` (the default): positions [0, n0) lie prefill-aligned
+    (shard s holds [s·n_loc0, (s+1)·n_loc0) in slots [0, n_loc0));
+    decoded positions p >= n0 go round-robin to shard (p - n0) % P, slot
+    n_loc0 + (p - n0) // P;
+  * ``rr`` (the paged exact cache): every position round-robin, shard
+    p % P, slot p // P, so a page of consecutive slots on every shard
+    holds a contiguous block of positions (a prefix can be shared).
+
+The paged cache (``runtime/paging.py``): the layer cache is a page pool
+(n_pages, P, pc, Hkv, hd) with, in prism mode, a state pool of means
+rows; ``serve_step`` and the tick programs take the per-slot page map
+(B, ppr) and state map (B,), write through them and read the pool in
+place (the decode kernel's page table).
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ from ..models.layers import (AttnSpec, attn_output, attn_project_kv,
 from ..models.transformer import (attn_spec, check_supported,
                                   embed_inputs)
 from ..sharding.context import ShardedPrismContext, means_columns
+from .paging import KVCache, PrefixCache
 
 
 @dataclass(frozen=True)
@@ -58,12 +68,13 @@ class ServeHParams:
 
 @dataclass(frozen=True)
 class ServeLayout:
-    """Cache placement (the reference's ``'aligned'`` placement)."""
+    """Cache placement (see the module docstring)."""
     n_seq: int                       # sequence shards (PRISM's P)
     cap: int                         # global cache capacity (tokens)
     cap_l: int                       # per-shard capacity
     prefill_len: int                 # tokens laid down by prefill (n0)
     L: int                           # segment means per shard (prism cache)
+    placement: str = "aligned"       # 'aligned' | 'rr' (paged exact)
 
     @property
     def n_loc0(self) -> int:
@@ -71,43 +82,78 @@ class ServeLayout:
 
 
 def make_layout(n_seq: int, cap: int, hp: ServeHParams,
-                prefill_len: int | None = None) -> ServeLayout:
+                prefill_len: int | None = None,
+                placement: str = "aligned") -> ServeLayout:
     n0 = cap if prefill_len is None else prefill_len
     if cap % n_seq or n0 % n_seq or n0 > cap:
         raise ValueError(f"cap={cap} and prefill_len={n0} must be "
                          f"multiples of n_seq={n_seq}, prefill_len <= cap")
+    if placement not in ("aligned", "rr"):
+        raise ValueError(f"placement {placement!r} not in ('aligned', 'rr')")
     L = max(1, int(n0 // (hp.means_cr * n_seq)))
     L = min(L, n0 // n_seq)
-    return ServeLayout(n_seq, cap, cap // n_seq, n0, L)
+    return ServeLayout(n_seq, cap, cap // n_seq, n0, L, placement)
+
+
+def paged_placement(hp: ServeHParams, paging) -> str:
+    """Paged exact mode stores round-robin, so that pages cover
+    contiguous position blocks (prefix sharing); paged prism keeps the
+    aligned placement the Segment-Means shard ownership is defined
+    over."""
+    return "rr" if (paging is not None
+                    and hp.decode_mode == "exact") else "aligned"
 
 
 def init_cache(cfg: ModelConfig, lay: ServeLayout, batch: int,
-               hp: ServeHParams, device) -> list:
+               hp: ServeHParams, device, paging=None) -> list:
     """An all-zero f32 decode-layout cache, one dict of leaves per layer
     (``layer_cache_shape``): what the chunked and packed ticks admit
     requests into."""
-    shapes = layer_cache_shape(cfg, lay, batch, hp)
+    shapes = layer_cache_shape(cfg, lay, batch, hp, paging)
     return [{name: torch.zeros(shape, device=device)
              for name, shape in shapes.items()}
             for _ in range(cfg.n_layers)]
 
 
 def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
-                      hp: ServeHParams) -> dict:
+                      hp: ServeHParams, paging=None) -> dict:
     """Per-layer cache leaves: k, v (B, P, cap_l, Hkv, hd); prism mode
     adds the means K/V kz, vz (B, P·L, Hkv, hd), their per-request
     repeat counts gz (B, P·L) and the per-segment activation sums
-    zsum (B, P·L, D)."""
+    zsum (B, P·L, D).  With ``paging`` (a ``PagedLayout``) k, v are the
+    page pool (n_pages, P, pc, Hkv, hd) and the prism leaves have one
+    row per state page in place of the batch, and one more that no slot
+    maps: a sink for the writes of the slots a call does not advance
+    (where the reference drops them out of range)."""
     hkv, hd = cfg.n_kv_heads, cfg.hd
-    c = {"k": (batch, lay.n_seq, lay.cap_l, hkv, hd),
-         "v": (batch, lay.n_seq, lay.cap_l, hkv, hd)}
+    if paging is None:
+        kv = (batch, lay.n_seq, lay.cap_l, hkv, hd)
+        rows = batch
+    else:
+        kv = (paging.n_pages, lay.n_seq, paging.page_cols, hkv, hd)
+        rows = paging.n_state_pages + 1
+    c = {"k": kv, "v": kv}
     if hp.decode_mode == "prism":
         m = lay.n_seq * lay.L
-        c["kz"] = (batch, m, hkv, hd)
-        c["vz"] = (batch, m, hkv, hd)
-        c["gz"] = (batch, m)
-        c["zsum"] = (batch, m, cfg.d_model)
+        c["kz"] = (rows, m, hkv, hd)
+        c["vz"] = (rows, m, hkv, hd)
+        c["gz"] = (rows, m)
+        c["zsum"] = (rows, m, cfg.d_model)
     return c
+
+
+def make_kv_cache(cfg: ModelConfig, lay: ServeLayout, batch: int,
+                  hp: ServeHParams, *, device, paging=None,
+                  prefix_cache: bool = False) -> KVCache:
+    """The engine's one cache object: zero-filled device storage in a
+    ``KVCache`` (paged: the pools, a ``PageTable`` and, if asked, a
+    ``PrefixCache``; dense, ``paging=None``: the rowset of ``batch``
+    rows)."""
+    kv = KVCache(storage=init_cache(cfg, lay, batch, hp, device, paging),
+                 layout=lay, paging=paging)
+    if paging is not None and prefix_cache:
+        kv.prefix = PrefixCache(kv.table)
+    return kv
 
 
 # --------------------------------------------------------------------------
@@ -210,10 +256,17 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
 
 def _decode_cols(lay: ServeLayout, pos: torch.Tensor):
     """(write slot (..., P), owner (..., P), col_pos (P, cap_l)) for the
-    positions ``pos`` of any shape (-1 = dead entry: owner False on every
-    shard)."""
+    positions ``pos`` of any shape under the layout's placement (-1 =
+    dead entry: owner False on every shard)."""
     n0, n_loc0, n_seq = lay.prefill_len, lay.n_loc0, lay.n_seq
     idx = torch.arange(n_seq, device=pos.device)                 # (P,)
+    if lay.placement == "rr":
+        slot = (pos // n_seq)[..., None].expand(*pos.shape, n_seq)
+        owner = (((pos % n_seq)[..., None] == idx) & (slot >= 0)
+                 & (slot < lay.cap_l))
+        col_pos = (torch.arange(lay.cap_l, device=pos.device)[None, :]
+                   * n_seq + idx[:, None])
+        return slot, owner, col_pos
     extra = (pos - n0)[..., None]                                # (..., 1)
     slot = torch.where(extra >= 0, n_loc0 + extra // n_seq,
                        pos[..., None] - idx * n_loc0)
@@ -227,34 +280,54 @@ def _decode_cols(lay: ServeLayout, pos: torch.Tensor):
     return slot, owner, col_pos
 
 
-def write_plan(row, slot, owner, n_seq: int, cap_l: int):
+def write_plan(row, slot, owner, n_seq: int, cap_l: int, page_map=None):
     """Flat cache addresses of N new K/V rows, computed once per step for
     every layer and leaf: entry ``n`` goes to batch row ``row[n]``, column
-    ``slot[n, p]`` of the one shard ``p`` where ``owner[n, p]``.  Returns
-    (addr (N,), ok (N,), first (1,)): an entry that no shard owns (dead
-    token, idle row) is not ``ok`` and takes the address of the first
-    entry that is (``first``), so ``_write_kv`` drops it, as the
-    reference's out-of-range ``mode='drop'`` scatter does."""
+    ``slot[n, p]`` of the one shard ``p`` where ``owner[n, p]``.  With
+    ``page_map`` (B, ppr) the address is in the page pool: column ``j``
+    of row ``r`` is offset ``j % pc`` of page ``page_map[r, j // pc]``
+    on the shard.  Returns (addr (N,), ok (N,), first (1,)): an entry
+    that no shard owns (dead token, idle row) or whose page is unmapped
+    (id < 0) is not ``ok`` and takes the address of the first entry that
+    is (``first``), so ``_write_kv`` drops it, as the reference's
+    out-of-range ``mode='drop'`` scatter does."""
     ok = owner.any(dim=-1)
     shard = owner.int().argmax(dim=-1)
     col = slot.gather(-1, shard[:, None])[:, 0].clamp(0, cap_l - 1)
-    addr = (row * n_seq + shard) * cap_l + col
+    if page_map is None:
+        addr = (row * n_seq + shard) * cap_l + col
+    else:
+        pc = cap_l // page_map.shape[1]
+        page = page_map[row, col // pc].long()
+        ok = ok & (page >= 0)
+        addr = (page.clamp(min=0) * n_seq + shard) * pc + col % pc
     first = ok.int().argmax(dim=0, keepdim=True)
     return torch.where(ok, addr, addr[first]), ok, first
 
 
 def _write_kv(cache_kv, new_rows, plan):
-    """Scatter (N, Hkv, hd) rows into the (B, P, cap_l, Hkv, hd) cache
-    IN PLACE at the addresses of ``plan`` (``write_plan``).  A dropped
-    entry rewrites the first owned entry's address with that entry's
-    value (the current value if no entry is owned), so every duplicate
-    address gets the same bytes.  O(N), no host synchronisation."""
+    """Scatter (N, Hkv, hd) rows into the (B, P, cap_l, Hkv, hd) cache or
+    the (n_pages, P, pc, Hkv, hd) pool IN PLACE at the addresses of
+    ``plan`` (``write_plan``).  A dropped entry rewrites the first owned
+    entry's address with that entry's value (the current value if no
+    entry is owned), so every duplicate address gets the same bytes.
+    O(N), no host synchronisation."""
     addr, ok, first = plan
     flat = cache_kv.view(-1, *cache_kv.shape[3:])
     new_rows = new_rows.to(cache_kv.dtype)
     keep = torch.where(ok[first][:, None, None], new_rows[first],
                        flat[addr[first]])
     flat[addr] = torch.where(ok[:, None, None], new_rows, keep)
+
+
+def state_rows(c, state_map):
+    """The state-pool rows of the slots (clamped to the state pages, as
+    the reference's take clips; the sink row is never read): (B,) int64,
+    or None for a dense cache (row = slot).  Every layer's state pool has
+    the same rows, so a step computes this once, from any layer ``c``."""
+    if state_map is None:
+        return None
+    return state_map.long().clamp(0, c["gz"].shape[0] - 2)
 
 
 def _combine_exact(m_p, l_p, acc_p):
@@ -272,36 +345,41 @@ def _combine_exact(m_p, l_p, acc_p):
 
 
 def shard_stats(q, k, v, valid, scale, *, log_gz=None, kz=None, vz=None,
-                rows=None, backend="auto"):
+                rows=None, pages=None, zrows=None, backend="auto"):
     """The decode kernel's partial stats of every (query row, shard),
     shaped for ``_combine_exact``: q (Bq,1,Hq,hd); k, v (R,P,M,Hkv,hd)
-    the whole cache; valid (Bq,P,M); log_gz (Bq,P,m); kz, vz
-    (R,m,Hkv,hd); rows (Bq,) int32, the cache row of each query row
-    (None: row i reads row i).  Returns m, l (Bq,P,Hq,1) and acc
-    (Bq,P,1,Hq,hd)."""
+    the whole cache, or with ``pages`` (R, ppr) int32 the page pool
+    (n_pages,P,pc,Hkv,hd), M = ppr·pc; valid (Bq,P,M); log_gz (Bq,P,m);
+    kz, vz (R,m,Hkv,hd), or any number of rows with ``zrows`` (R,) int32
+    naming each cache row's; rows (Bq,) int32, the cache row of each
+    query row (None: row i reads row i).  Returns m, l (Bq,P,Hq,1) and
+    acc (Bq,P,1,Hq,hd)."""
     bq, _, hq, hd = q.shape
     r, p, m_loc, hkv = k.shape[:4]
     m_p, l_p, acc_p = decode_stats(
         q, k.view(r * p, m_loc, hkv, hd), v.view(r * p, m_loc, hkv, hd),
-        valid.reshape(bq * p, m_loc),
+        valid.reshape(bq * p, -1),
         None if log_gz is None else log_gz.reshape(bq * p, -1), kz, vz,
-        scale=scale, rows=rows, backend=backend)
+        scale=scale, rows=rows, pages=pages, zrows=zrows, backend=backend)
     return (m_p.view(bq, p, hq, 1), l_p.view(bq, p, hq, 1),
             acc_p.view(bq, p, 1, hq, hd))
 
 
 def decode_attention(q, k, v, valid, scale, *, gz=None, kz=None, vz=None,
-                     owner=None, mode="exact", rows=None, backend="auto"):
+                     owner=None, mode="exact", rows=None, pages=None,
+                     zrows=None, backend="auto"):
     """Per-token decode attention over the shard-stacked cache.
 
-    q (Bq,1,Hq,hd); k, v (R,P,M,Hkv,hd); valid (Bq,P,M) bool; rows
-    (Bq,) int32 maps query rows to cache rows (None: the identity).
-    Prism extras: gz (Bq,P,m) per-row, per-shard means repeat counts
-    (0 = dead column), kz/vz (R,m,Hkv,hd), owner (Bq,P) bool.  Returns
-    (Bq,1,Hq,hd)."""
+    q (Bq,1,Hq,hd); k, v (R,P,M,Hkv,hd) or the page pool with ``pages``
+    (as ``shard_stats``); valid (Bq,P,M) bool; rows (Bq,) int32 maps
+    query rows to cache rows (None: the identity).  Prism extras: gz
+    (Bq,P,m) per-row, per-shard means repeat counts (0 = dead column),
+    kz/vz (R,m,Hkv,hd) or the state pool with ``zrows``, owner (Bq,P)
+    bool.  Returns (Bq,1,Hq,hd)."""
     log_gz = log_repeats(gz) if kz is not None else None
     m_p, l_p, acc_p = shard_stats(q, k, v, valid, scale, log_gz=log_gz,
-                                  kz=kz, vz=vz, rows=rows, backend=backend)
+                                  kz=kz, vz=vz, rows=rows, pages=pages,
+                                  zrows=zrows, backend=backend)
     if mode == "prism":
         # scaling-aware softmax already folded into the stats: normalize
         # per shard and take the owner's view (the reference's psum of the
@@ -337,8 +415,9 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
                 lay: ServeLayout, hp: ServeHParams, cols):
     """x (B,1,D), pos (B,) -> out (B,1,D); writes this token's K/V into
     the layer cache ``c`` in place.  ``cols`` = (write plan, owner,
-    valid)."""
-    plan, owner, valid = cols
+    valid, page map, state map, state rows), all made once a step; the
+    last three are None for a dense cache."""
+    plan, owner, valid, page_map, state_map, sr = cols
     xn = norm(p["ln1"], x, cfg.norm_kind)
     q = attn_project_q(p["attn"], spec, xn)
     k_new, v_new = attn_project_kv(p["attn"], spec, xn)
@@ -346,15 +425,17 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
     _write_kv(c["k"], k_new[:, 0], plan)
     _write_kv(c["v"], v_new[:, 0], plan)
     if hp.decode_mode == "prism" and "kz" in c:
-        # repeat counts ride in the cache
-        cols = means_columns(lay.n_seq, lay.n_loc0, lay.L, x.device)
-        gz = prism_gz(cols, c["gz"], pos)                    # (B, P, m)
+        # repeat counts ride in the cache (the state pool when paged)
+        means = means_columns(lay.n_seq, lay.n_loc0, lay.L, x.device)
+        cnt = c["gz"] if sr is None else c["gz"][sr]
+        gz = prism_gz(means, cnt, pos)                       # (B, P, m)
         out = decode_attention(q, c["k"], c["v"], valid, scale, gz=gz,
                                kz=c["kz"], vz=c["vz"], owner=owner,
-                               mode="prism", backend=hp.backend)
+                               mode="prism", pages=page_map, zrows=state_map,
+                               backend=hp.backend)
     else:
         out = decode_attention(q, c["k"], c["v"], valid, scale,
-                               backend=hp.backend)
+                               pages=page_map, backend=hp.backend)
     return attn_output(p["attn"], out)
 
 
@@ -375,14 +456,18 @@ def embed_tokens(cfg: ModelConfig, params, token, pos):
 
 
 def serve_step(cfg: ModelConfig, params, cache, token, pos,
-               lay: ServeLayout, hp: ServeHParams):
+               lay: ServeLayout, hp: ServeHParams, page_map=None,
+               state_map=None):
     """(token (B,), pos (B,)) -> (logits (B, V) f32, cache).  The cache is
-    updated in place and returned."""
+    updated in place and returned.  A paged cache takes the slots' page
+    map (B, ppr) and, in prism mode, state map (B,), int32 (-1 =
+    unmapped)."""
     slot, owner, col_pos = _decode_cols(lay, pos)
     valid = col_pos[None] <= pos[:, None, None]              # (B, P, cap_l)
     rows = torch.arange(pos.shape[0], device=pos.device)
-    cols = (write_plan(rows, slot, owner, lay.n_seq, lay.cap_l), owner,
-            valid)
+    cols = (write_plan(rows, slot, owner, lay.n_seq, lay.cap_l, page_map),
+            owner, valid, page_map, state_map,
+            state_rows(cache[0], state_map) if "kz" in cache[0] else None)
     x = embed_tokens(cfg, params, token[:, None], pos[:, None])
     for p, c in zip(params["layers"], cache):
         x = block_decode(cfg, p, x, c, pos, lay, hp, cols)

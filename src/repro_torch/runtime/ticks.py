@@ -1,9 +1,11 @@
 """The engine's tick programs on one card: chunked prefill and the
-token-packed tick, unpaged, for the ``attn`` block kind.
+token-packed tick, for the ``attn`` block kind, on the dense cache or
+the paged one (a page map (B, ppr) and, in prism mode, a state map (B,)
+given; see ``runtime/serve.py``).
 
 Both write straight into the decode-layout cache (``init_cache``) IN
-PLACE, at per-token (row, shard, column) addresses, so a request is
-admitted into its decode slot with no grow or insert step.  Attention is
+PLACE, at per-token (row or page, shard, column) addresses, so a request
+is admitted into its decode slot with no grow or insert step.  Attention is
 exact and has two disjoint column sets, combined over the explicit shard
 axis with ``_combine_exact``:
 
@@ -11,7 +13,8 @@ axis with ``_combine_exact``:
     tick (``col_pos < off``), through the single-token decode kernel:
     the chunk's C·Hq queries folded into its GQA head axis, or the
     packed tokens as its batch, each reading its slot's cache row in
-    place through the kernel's row map;
+    place through the kernel's row map (and the paged pool through its
+    page table);
   * the **intra-tick columns**, the tick's own just-projected K/V under
     a per-query causal bias (``chunk_softmax_stats``), a small dense
     pass.  The reference counts each such column on the one shard that
@@ -44,7 +47,7 @@ from ..models.transformer import attn_spec, check_supported
 from ..sharding.context import means_columns
 from .serve import (ServeHParams, ServeLayout, _combine_exact,
                     _decode_cols, _write_kv, decode_attention, embed_tokens,
-                    lm_head, prism_gz, shard_stats, write_plan)
+                    lm_head, prism_gz, shard_stats, state_rows, write_plan)
 
 
 def _with_self(prior, self_stats):
@@ -54,22 +57,44 @@ def _with_self(prior, self_stats):
     return tuple(torch.cat([a, b], dim=1) for a, b in zip(prior, self_stats))
 
 
-def _capture_means(p, spec, cfg: ModelConfig, c, inc, cnt, restart, act):
+def state_plan(c, state_map, act):
+    """Where a step reads and writes the Segment-Means state of a paged
+    cache, made once a step (every layer's state pool has the same rows):
+    ``(sr, dst)`` (B,) int64, the clamped rows read (``state_rows``) and
+    the rows written, the sink (the pool's last row) for a row not
+    advanced (``act`` False) or unmapped (-1).  None for a dense cache."""
+    if state_map is None:
+        return None
+    dst = torch.where(act & (state_map >= 0), state_map.long(),
+                      c["gz"].shape[0] - 1)
+    return state_rows(c, state_map), dst
+
+
+def _capture_means(p, spec, cfg: ModelConfig, c, inc, cnt, restart, act,
+                   splan=None):
     """Advance the Segment-Means state of the rows ``act`` (B,) IN PLACE.
 
     ``inc`` (B, m, D) f32 sums the tick's layer inputs into each row's
     segment columns; ``cnt`` (B, m) counts each segment's real tokens
     after the tick (``segment_fill_counts``) and ``restart`` (B,) marks
-    the rows whose running sums start over (offset 0)."""
-    zsum = torch.where(restart[:, None, None], 0.0, c["zsum"]) + inc
+    the rows whose running sums start over (offset 0).  With ``splan``
+    (``state_plan``) the state lives in the state pool: row b reads pool
+    row ``sr[b]`` and writes ``dst[b]``; each active slot has a row of
+    its own, and the rest share the sink, whose bytes nothing reads."""
+    prev = c["zsum"] if splan is None else c["zsum"][splan[0]]
+    zsum = torch.where(restart[:, None, None], 0.0, prev) + inc
     z = (zsum / torch.clamp(cnt, min=1.0)[..., None]).to(c["kz"].dtype)
     kz, vz = attn_project_kv(p["attn"], spec,
                              norm(p["ln1"], z, cfg.norm_kind))
-    sel = act[:, None, None, None]
-    c["kz"].copy_(torch.where(sel, kz.to(c["kz"].dtype), c["kz"]))
-    c["vz"].copy_(torch.where(sel, vz.to(c["vz"].dtype), c["vz"]))
-    c["gz"].copy_(torch.where(act[:, None], cnt, c["gz"]))
-    c["zsum"].copy_(zsum)
+    if splan is None:
+        sel = act[:, None, None, None]
+        c["kz"].copy_(torch.where(sel, kz.to(c["kz"].dtype), c["kz"]))
+        c["vz"].copy_(torch.where(sel, vz.to(c["vz"].dtype), c["vz"]))
+        c["gz"].copy_(torch.where(act[:, None], cnt, c["gz"]))
+        c["zsum"].copy_(zsum)
+        return
+    for name, rows in (("kz", kz), ("vz", vz), ("gz", cnt), ("zsum", zsum)):
+        c[name].index_put_((splan[1],), rows.to(c[name].dtype))
 
 
 # --------------------------------------------------------------------------
@@ -77,20 +102,23 @@ def _capture_means(p, spec, cfg: ModelConfig, c, inc, cnt, restart, act):
 # --------------------------------------------------------------------------
 
 def chunk_attention(q, k, v, valid, bias_self, k_new, v_new, scale,
-                    backend="auto"):
+                    backend="auto", pages=None):
     """Exact attention for one prefill chunk.  q (B,C,Hq,hd); k, v
     (B,P,cap_l,Hkv,hd) the whole cache, passed in place (the prior
     columns are each shard's leading ``n_loc0``; ``valid`` (B,P,cap_l)
-    is ``col_pos < off``, False past them); k_new, v_new (B,C,Hkv,hd)
-    the chunk's own rows under ``bias_self`` (B,C,C).  The C·Hq queries
-    are folded KV-head-major into the kernel's GQA head axis, so query
-    head i reads KV head i // (C·grp).  Returns (B,C,Hq,hd)."""
+    is ``col_pos < off``, False past them), or the page pool with
+    ``pages`` (B, n_loc0 // pc), the rows' prefill pages, and valid
+    (B,P,n_loc0); k_new, v_new (B,C,Hkv,hd) the chunk's own rows under
+    ``bias_self`` (B,C,C).  The C·Hq queries are folded KV-head-major
+    into the kernel's GQA head axis, so query head i reads KV head
+    i // (C·grp).  Returns (B,C,Hq,hd)."""
     b, c, hq, hd = q.shape
     p, hkv = k.shape[1], k.shape[3]
     grp = hq // hkv
     qf = (q.reshape(b, c, hkv, grp, hd).transpose(1, 2)
           .reshape(b, 1, c * hq, hd))
-    m1, l1, a1 = shard_stats(qf, k, v, valid, scale, backend=backend)
+    m1, l1, a1 = shard_stats(qf, k, v, valid, scale, pages=pages,
+                             backend=backend)
 
     def unfold_stat(s):                        # (B,P,C·Hq,1) -> (B,P,Hq,C)
         return (s.reshape(b, p, hkv, c, grp).transpose(3, 4)
@@ -105,11 +133,13 @@ def chunk_attention(q, k, v, valid, bias_self, k_new, v_new, scale,
 
 
 def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
-                       lay: ServeLayout, hp: ServeHParams):
+                       lay: ServeLayout, hp: ServeHParams, page_map=None,
+                       state_map=None):
     """Advance every mid-prefill row by up to C prompt tokens at its own
     offset: row i's ``tokens[i, :nreal[i]]`` land at positions
     ``[off[i], off[i] + nreal[i])``; a row not prefilling passes
-    ``off = -1``.  tokens (B, C), off (B,), nreal (B,).  Updates and
+    ``off = -1``.  tokens (B, C), off (B,), nreal (B,); a paged cache
+    takes page_map (B, ppr) and state_map (B,) int32.  Updates and
     returns ``cache``; no logits (see the module docstring's rewind)."""
     check_supported(cfg)
     b, c = tokens.shape
@@ -119,7 +149,14 @@ def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
     slot, owner, col_pos = _decode_cols(lay, row_pos.reshape(-1))
     plan = write_plan(torch.arange(b, device=tokens.device)
                       .repeat_interleave(c), slot, owner, lay.n_seq,
-                      lay.cap_l)
+                      lay.cap_l, page_map)
+    pages = None
+    if page_map is not None:
+        # the prior columns lie in the rows' prefill pages under both
+        # placements (a position p < n0 has its column below n_loc0)
+        pc = cache[0]["k"].shape[2]
+        pages = page_map[:, :lay.n_loc0 // pc].contiguous()
+        col_pos = col_pos[:, :lay.n_loc0]
     valid = col_pos[None] < torch.clamp(off, min=0)[:, None, None]
     bias_self = torch.where((j[None, :] <= j[:, None])[None]
                             & alive[:, :, None] & alive[:, None, :],
@@ -131,6 +168,8 @@ def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
                & (row_pos[..., None] <= cols.hi)).float()        # (B, C, m)
         cnt = segment_fill_counts(
             cols.lo, cols.hi, torch.clamp(off, min=0) + alive.sum(dim=1))
+        restart, act = off == 0, off >= 0
+        splan = state_plan(cache[0], state_map, act)
     spec = attn_spec(cfg)
     scale = spec.head_dim ** -0.5
     x = embed_tokens(cfg, params, tokens, row_pos)               # (B, C, D)
@@ -141,10 +180,10 @@ def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
         _write_kv(cc["k"], k_new.flatten(0, 1), plan)
         _write_kv(cc["v"], v_new.flatten(0, 1), plan)
         o = chunk_attention(q, cc["k"], cc["v"], valid, bias_self, k_new,
-                            v_new, scale, backend=hp.backend)
+                            v_new, scale, backend=hp.backend, pages=pages)
         if prism:
             inc = torch.einsum("bcm,bcd->bmd", seg, x.float())
-            _capture_means(p, spec, cfg, cc, inc, cnt, off == 0, off >= 0)
+            _capture_means(p, spec, cfg, cc, inc, cnt, restart, act, splan)
         x = x + attn_output(p["attn"], o)
         x = x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
     return cache
@@ -155,14 +194,14 @@ def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
 # --------------------------------------------------------------------------
 
 def packed_attention(q, k, v, valid, bias_self, k_new, v_new, rows, scale,
-                     backend="auto"):
+                     backend="auto", pages=None):
     """Exact attention for one packed tick.  q (T,1,Hq,hd); k, v
-    (B,P,cap_l,Hkv,hd) the whole cache, each token reading its slot's
-    row ``rows`` (T,) int32 in place; valid (T,P,cap_l) is
-    ``col_pos < off``; k_new, v_new (T,1,Hkv,hd) under ``bias_self``
-    (1,T,T), which keeps tokens of different requests apart.  Returns
-    (T,1,Hq,hd)."""
-    m1, l1, a1 = shard_stats(q, k, v, valid, scale, rows=rows,
+    (B,P,cap_l,Hkv,hd) the whole cache, or the page pool with ``pages``
+    (B, ppr), each token reading its slot's row ``rows`` (T,) int32 in
+    place; valid (T,P,cap_l) is ``col_pos < off``; k_new, v_new
+    (T,1,Hkv,hd) under ``bias_self`` (1,T,T), which keeps tokens of
+    different requests apart.  Returns (T,1,Hq,hd)."""
+    m1, l1, a1 = shard_stats(q, k, v, valid, scale, rows=rows, pages=pages,
                              backend=backend)
     m2, l2, a2 = chunk_softmax_stats(q[:, 0][None], k_new[:, 0][None],
                                      v_new[:, 0][None], bias_self, scale)
@@ -175,7 +214,8 @@ def packed_attention(q, k, v, valid, bias_self, k_new, v_new, rows, scale,
 
 
 def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
-                is_prefill, lay: ServeLayout, hp: ServeHParams):
+                is_prefill, lay: ServeLayout, hp: ServeHParams,
+                page_map=None, state_map=None):
     """One tick over a flat batch of T mixed prefill and decode tokens.
 
     Entry t of the (T,) vectors: ``slot`` its request's cache row (-1 =
@@ -183,16 +223,19 @@ def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
     ``off`` the first position its request packs this tick (a decode
     token has ``off == pos``), ``is_prefill`` 1 for prompt tokens, 0 for
     decode tokens.  Decode tokens come first (at most one per slot), so
-    the LM head runs over the first min(B, T) entries only.  Returns
-    (logits (min(B, T), V) f32, cache), the cache updated in place."""
+    the LM head runs over the first min(B, T) entries only.  A paged
+    cache takes the slots' page_map (B, ppr) and state_map (B,) int32.
+    Returns (logits (min(B, T), V) f32, cache), the cache updated in
+    place."""
     check_supported(cfg)
-    b = cache[0]["k"].shape[0]
+    b = (cache[0]["k"].shape[0] if page_map is None
+         else page_map.shape[0])
     dev = tokens.device
     alive = (slot >= 0) & (pos >= 0)
     rows = torch.clamp(slot, 0, b - 1)
     col, owner, col_pos = _decode_cols(lay, pos)                 # (T, P)
     owner = owner & alive[:, None]
-    plan = write_plan(rows, col, owner, lay.n_seq, lay.cap_l)
+    plan = write_plan(rows, col, owner, lay.n_seq, lay.cap_l, page_map)
     rows32 = rows.to(torch.int32)
     valid = alive[:, None, None] & (
         col_pos[None] < torch.clamp(off, min=0)[:, None, None])
@@ -221,6 +264,9 @@ def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
         seg = ((r_upd[None, :] == torch.arange(b, device=dev)[:, None])
                [:, :, None] & (cols.lo <= pos[:, None])
                & (pos[:, None] <= cols.hi)).float()              # (B, T, m)
+        restart = act & (off_b == 0)
+        splan = state_plan(cache[0], state_map, act)
+        zr = rows if splan is None else splan[0][rows]   # gz row per token
     spec = attn_spec(cfg)
     scale = spec.head_dim ** -0.5
     x = embed_tokens(cfg, params, tokens[:, None], pos[:, None])  # (T,1,D)
@@ -231,19 +277,21 @@ def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
         _write_kv(c["k"], k_new[:, 0], plan)
         _write_kv(c["v"], v_new[:, 0], plan)
         o = packed_attention(q, c["k"], c["v"], valid, bias_self, k_new,
-                             v_new, rows32, scale, backend=hp.backend)
+                             v_new, rows32, scale, backend=hp.backend,
+                             pages=page_map)
         if prism:
             # decode tokens take the owner view over the means cache, as
             # serve_step does; prompt tokens keep the exact result
-            gz = prism_gz(cols, c["gz"][rows], pos_alive)        # (T,P,m)
+            cnt_t = c["gz"][zr]
+            gz = prism_gz(cols, cnt_t, pos_alive)                # (T,P,m)
             o_pz = decode_attention(q, c["k"], c["v"], valid_le, scale,
                                     gz=gz, kz=c["kz"], vz=c["vz"], owner=sel,
                                     mode="prism", rows=rows32,
+                                    pages=page_map, zrows=state_map,
                                     backend=hp.backend)
             o = torch.where(is_dec, o_pz, o)
             inc = torch.einsum("btm,td->bmd", seg, x[:, 0].float())
-            _capture_means(p, spec, cfg, c, inc, cnt, act & (off_b == 0),
-                           act)
+            _capture_means(p, spec, cfg, c, inc, cnt, restart, act, splan)
         x = x + attn_output(p["attn"], o)
         x = x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
     return lm_head(cfg, params, x[:min(b, x.shape[0]), 0]), cache

@@ -39,6 +39,17 @@ from repro_torch.sharding.context import means_columns  # noqa: E402
 T = torch.as_tensor
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small CPU ops: the suite
+    runs six test processes at once, and each would otherwise start a
+    thread per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------
 # inputs (numpy, seeded)
 # ---------------------------------------------------------------------
@@ -742,6 +753,109 @@ def test_kernel_wrappers_check_dtype_and_layout():
     with pytest.raises(RuntimeError, match="CUDA error 7"):
         dispatch.raise_on_error(7, "k")
     dispatch.raise_on_error(0, "k")
+
+
+def _c_signature(lib, entry):
+    """The ctypes argument types an ``extern "C"`` entry point of
+    ``csrc/<lib>.cu`` declares: a pointer is ``c_void_p``, an int
+    ``c_int``, a float ``c_float``."""
+    import ctypes
+    import re
+    src = (build.CSRC / f"{lib}.cu").read_text()
+    m = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", src,
+                  re.S)
+    assert m, (lib, entry)
+    kinds = []
+    for param in m.group(1).split(","):
+        param = param.strip()
+        kinds.append(ctypes.c_void_p if "*" in param else ctypes.c_float
+                     if param.startswith("float") else ctypes.c_int)
+    return kinds
+
+
+def test_launches_run_under_the_tensors_device(monkeypatch):
+    """Every wrapper launches through ``dispatch.launch``, which makes the
+    tensors' device current (``torch.cuda.device``) around the C call,
+    passes the arguments its C entry point declares, and counts one
+    launch (the decode kernel's also under ``.mq`` on the tile route and
+    ``.paged`` with a page table).  On the CPU the build, the guard, the
+    stream and the tensor checks are stand-ins, and the tensors' device
+    is the CPU."""
+    import ctypes
+    import types
+    from repro_torch.kernels import prism_attention as TP
+    from repro_torch.kernels import segment_means as TS
+    cpu = torch.device("cpu")
+    guard, calls = [], []
+
+    class Guard:
+        def __init__(self, dev):
+            self.dev = torch.device(dev)
+
+        def __enter__(self):
+            guard.append(self.dev)
+
+        def __exit__(self, *exc):
+            guard.pop()
+
+    def function(lib, entry, argtypes):
+        def fn(*args):
+            calls.append((lib, entry, argtypes, args, list(guard)))
+            return 0
+        return fn
+    monkeypatch.setattr(build, "function", function)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    for mod in (TD, TP, TS):
+        monkeypatch.setattr(mod, "check_tensor", lambda *a, **k: None)
+    dispatch.LAUNCHES.clear()
+
+    q, k, v, g, lo, hi, row = attention_case(2, 8, 8, 4, 1, 1, 64)
+    meta = (T(np.log(g))[None], T(lo)[None], T(hi)[None], T(row)[None])
+    prism_flash_attention(T(q), T(k), T(v), *meta, causal=True)
+    segment_means_cuda(torch.zeros(2, 8, 16), 2)
+    prism_augment_cuda(torch.zeros(2, 8, 16), 2, 2)
+    c = decode_case(2, 8, 4, 4, 64, mz=3)
+    args = [T(c[n]) for n in ("q", "k", "v", "valid")]
+    means = [T(c[n]) for n in ("log_gz", "kz", "vz")]
+    TD.flash_decode_stats(*args, *means, scale=c["scale"])      # row route
+    TD.flash_decode_stats(*args, scale=c["scale"],
+                          rows=torch.tensor([1, 0], dtype=torch.int32))
+    c64 = decode_case(2, 8, 64, 1, 64)
+    TD.flash_decode_stats(*[T(c64[n]) for n in ("q", "k", "v", "valid")],
+                          scale=c64["scale"])                    # tile route
+    pages = torch.tensor([[3, 0], [-1, 1]], dtype=torch.int32)
+    pool = torch.zeros(4, 4, 4, 64)                              # pc 4, ppr 2
+    TD.flash_decode_stats(args[0], pool, pool, args[3], *means,
+                          scale=c["scale"], pages=pages,
+                          zrows=torch.tensor([1, 0], dtype=torch.int32))
+    TD.flash_decode_stats(*[T(c64[n]) for n in ("q",)], pool[:, :, :1],
+                          pool[:, :, :1], T(c64["valid"]), scale=c64["scale"],
+                          pages=pages)                          # paged tile
+    assert [(lib, entry) for lib, entry, *_ in calls] == [
+        ("prism_attention", "prism_attention_f32"),
+        ("segment_means", "segment_means_f32"),
+        ("segment_means", "prism_augment_f32"),
+        *[("decode_attention", "flash_decode_stats_f32")] * 2,
+        ("decode_attention", "flash_decode_stats_mq_f32"),
+        ("decode_attention", "flash_decode_stats_f32"),
+        ("decode_attention", "flash_decode_stats_mq_f32")]
+    for lib, entry, argtypes, call_args, inside in calls:
+        assert inside == [cpu], (entry, inside)
+        assert argtypes == _c_signature(lib, entry), entry
+        assert len(call_args) == len(argtypes), entry
+        for t, a in zip(argtypes, call_args):
+            ok = {ctypes.c_void_p: a is None or isinstance(a, int),
+                  ctypes.c_int: isinstance(a, int),
+                  ctypes.c_float: isinstance(a, ctypes.c_float)}[t]
+            assert ok, (entry, t, a)
+    assert guard == []
+    assert dict(dispatch.LAUNCHES) == {
+        "prism_flash_attention": 1, "segment_means": 2,
+        "flash_decode_stats": 5, "flash_decode_stats.mq": 2,
+        "flash_decode_stats.paged": 2}
+    dispatch.LAUNCHES.clear()
 
 
 def test_library_path_hashes_shared_headers(tmp_path, monkeypatch):

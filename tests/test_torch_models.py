@@ -185,3 +185,21 @@ def test_importing_port_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
+
+
+def test_import_checks_cover_paging_and_serving():
+    """The two checks above reach the paged cache and every module of the
+    serving package (none of which may import jax or the reference,
+    though the reference's own copies are pure Python)."""
+    import pkgutil
+    import repro_torch
+    mods = ("runtime.paging", "serving", "serving.engine",
+            "serving.scheduler", "serving.sampling")
+    rel = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for m in mods:
+        path = m.replace(".", "/") + ("/__init__.py" if m == "serving"
+                                      else ".py")
+        assert f"src/repro_torch/{path}" in rel
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {f"repro_torch.{m}" for m in mods} <= names

@@ -36,6 +36,17 @@ MODES = ("exact", "prism")
 LEAVES = ("k", "v", "kz", "vz", "gz", "zsum")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small CPU ops: the suite
+    runs six test processes at once, and each would otherwise start a
+    thread per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(HERE, "..", "chip_smoke.py"))
