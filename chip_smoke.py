@@ -35,7 +35,11 @@ Phases, one JSON line each:
             cases: means with g = 0 in whole tiles at a group of 64, a
             row whose only live column ends a ragged local or means
             tile, groups of 4 (the threshold) and 3, 16 alone and over
-            12 KV heads, rep 1 and 4;
+            12 KV heads, rep 1 and 4; a poisoned page (one mapped page
+            of the static decode, packed and chunk layouts NaN-filled):
+            exactly the rows that read it come out non-finite, on the
+            route the rule names and (without a row map) the other, and
+            every other row matches the plain version;
             head dim 64, the only one the kernels are built for; segment
             means and the fused PRISM augment in f32 and bf16 over
             ragged segments, L = 1 and L = N, D = 33 and 5, P = 1/2/4
@@ -100,7 +104,27 @@ Phases, one JSON line each:
             clock.
    trace    per mode, one mixed packed tick on the paged cache and the
             same tick on the dense cache.
-7. kernels  one line listing every kernel with its numbers: ``ms`` is
+7. path     the engine's host offload tier, preemption, faults and
+            snapshots at the same shape, packed ticks, pool of 144 pages
+            (half of phase 6's), ``offload=True``; the even 8 prompts at
+            priority 0 at t = 0, the odd 8 at priority 1 after the
+            engine's 20th step.  (a) ``pressure``, exact and prism: each
+            request's tokens and logits held to phase 6's paged run of
+            its mode under phase 6's rules; preemptions, restore hits
+            and no restore miss required.  (c) ``snapshot``: (a)'s
+            engine snapshotted after step 40 and restored into a fresh
+            engine, run to the end: tokens equal to (a)'s.  (b)
+            ``chaos``, exact: every fault kind but shard_loss at a fixed
+            opportunity (a lost spill, a torn store read, a poisoned
+            page, a stalled admission, a delayed tick): every request
+            finished or failed, those finished held to (a)'s exact run,
+            a quarantine and a restart required.  Every run drains
+            leak-free (refcounts, pages, store).  Per run: wall time,
+            tokens/s, TTFT, ms per tick, the preemption and recovery
+            counters, and spill and restore times (host clock, the card
+            synchronised around each; median ms and MB a request, MB/s
+            over the bytes moved).
+8. kernels  one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -110,12 +134,12 @@ Phases, one JSON line each:
             path's call, ``chunk_ms``, takes the tile route), the
             ``crossover`` table, the cases checked per route and the tile
             route's launches (``launches_mq``, ``launches_mq_by_path``),
-            the paged layouts (``paged_*``: kernel, plain, bound, the
-            reference's gather plus the library call, the dense twin
-            from this call) and the launches through a page table
-            (``launches_paged``, ``launches_paged_by_path``); the
-            segment_means row its bf16 and fused-augment (``augment_*``)
-            numbers.
+            the poisoned-page cases (``poisoned``), the paged layouts
+            (``paged_*``: kernel, plain, bound, the reference's gather
+            plus the library call, the dense twin from this call) and
+            the launches through a page table (``launches_paged``,
+            ``launches_paged_by_path``); the segment_means row its bf16
+            and fused-augment (``augment_*``) numbers.
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -854,6 +878,13 @@ def check_decode(torch, chk, timer):
         "packed": (packed, rows, "packed"),
         "packed_prism": (packed_prism, rows, "packed_prism"),
         "chunk": (chunk["off448"], None, "chunk")}, scale, times)
+    # one mapped page NaN-filled: exactly the rows that read it come out
+    # non-finite, on each route (the engine's quarantine relies on it)
+    times["poisoned"] = check_poisoned(torch, chk, gen, {
+        "decode": (dec_args["exact"], None),
+        "decode_prism": (dec_args["prism"], None),
+        "packed": (packed, rows),
+        "chunk": (chunk["off448"], None)}, scale)
 
     # edge sweep: GQA groups 1/3/12 and a folded 64, ragged M, all-dead
     # rows, g = 0 means columns, shards folded into the batch (rep > 1);
@@ -993,6 +1024,67 @@ def check_paged(torch, chk, timer, both, gen, layouts, scale, dense):
         t["pages"] = list(pages.shape)
         t["mapped_pages"] = int((pages >= 0).sum())
         out[name] = t
+    return out
+
+
+def check_poisoned(torch, chk, gen, layouts, scale):
+    """The decode kernel over a page pool (``to_pages``) in which one
+    mapped page, the first of the cache row that query row 0 reads,
+    holds NaN in its K and V: the output rows that read a live column of
+    it (every shard of that cache row, every token of it in the packed
+    layout) must come out non-finite on the route the rule names and,
+    without a row map, on the other route too; every other row must
+    match the plain version on the pool without the poison.  The row
+    route's max drops a NaN score (``fmaxf``), so the NaN gets through in
+    ``exp(s - m)``; the tile route's must survive the TF32 split and the
+    tensor-core products."""
+    from repro_torch.kernels.decode_attention import (decode_route,
+                                                      decode_stats,
+                                                      launch_route)
+    out = {}
+    n_loc0 = PROMPT // SHARDS
+    for name, (args, rows) in layouts.items():
+        rep = args[3].shape[0] // args[0].shape[0]
+        n_cols = n_loc0 if name == "chunk" else args[1].shape[1]
+        pargs, pages, zrows = to_pages(torch, gen, args, rep, n_cols)
+        want = decode_stats(*pargs, scale=scale, rows=rows, pages=pages,
+                            zrows=zrows, backend="plain")
+        n_rows = pages.shape[0]
+        sel = (torch.arange(args[0].shape[0], device=pages.device)
+               if rows is None else rows.long().clamp(0, n_rows - 1))
+        page = int(pages[sel[0], 0])
+        poisoned = list(pargs)
+        for i in (1, 2):
+            poisoned[i] = pargs[i].clone()
+            poisoned[i][page * rep:(page + 1) * rep] = float("nan")
+        expect = ((pages[sel, 0] == page).repeat_interleave(rep)
+                  & pargs[3][:, :PAGE_COLS].any(dim=1))
+        rule = decode_route(args[0].shape[2], args[1].shape[2],
+                            rows is None)
+        got = {rule: decode_stats(*poisoned, scale=scale, rows=rows,
+                                  pages=pages, zrows=zrows,
+                                  backend="kernel")}
+        if rows is None:
+            other = "row" if rule == "tile" else "tile"
+            got[other] = launch_route(other, *poisoned, scale=scale,
+                                      pages=pages, zrows=zrows)
+        for route, stats in got.items():
+            case = f"poisoned/{name}/{route}"
+            b = expect.shape[0]
+            bad = ~torch.stack([torch.isfinite(t.reshape(b, -1)).all(dim=1)
+                                for t in stats]).all(dim=0)
+            if not torch.equal(bad, expect):
+                raise AssertionError(
+                    f"flash_decode_stats [{case}]: non-finite rows "
+                    f"{bad.nonzero().flatten().tolist()}, the rows that "
+                    f"read page {page}: "
+                    f"{expect.nonzero().flatten().tolist()}")
+            keep = ~expect
+            chk.stats(tuple(t[keep] for t in stats),
+                      tuple(t[keep] for t in want), case)
+        out[name] = {"page": page, "rows": int(expect.shape[0]),
+                     "rows_nonfinite": int(expect.sum()),
+                     "routes": sorted(got)}
     return out
 
 
@@ -1803,6 +1895,23 @@ def run_engine(torch, cfg, params, prefill, mode, paged, prompts):
     eng = ServingEngine(cfg, params, EngineConfig(
         hp=ServeHParams(decode_mode=mode, means_cr=CR), paged=paged,
         prefill_mode=prefill, **ENGINE), n_seq=SHARDS)
+    log = keep_logits(eng)
+    for prompt in prompts:
+        eng.submit(prompt, max_new_tokens=GEN)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, out, log, dict(LAUNCHES), wall
+
+
+def keep_logits(eng):
+    """Wrap the engine's tick callables to keep each decode row's logits
+    by request: {rid: [logits row, ...]} in the order sampled (a
+    request that starts again keeps its earlier rows before the new
+    ones)."""
     log = {}
     packed, decode = eng._packed, eng._decode
 
@@ -1821,68 +1930,65 @@ def run_engine(torch, cfg, params, prefill, mode, paged, prompts):
         return keep(decode(tok, pos),
                     [(s, s) for s in range(len(pos)) if pos[s] >= 0])
     eng._packed, eng._decode = packed_tick, decode_step
-    for prompt in prompts:
-        eng.submit(prompt, max_new_tokens=GEN)
-    torch.cuda.synchronize()
-    LAUNCHES.clear()
-    t0 = time.perf_counter()
-    out = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return eng, out, log, dict(LAUNCHES), wall
+    return log
 
 
-def engine_launches(eng, paged, n_layers):
+def engine_launches(eng, paged, n_layers, since=None):
     """The decode-kernel launches a run needs: one a layer per decode
     step and chunk call, per packed tick too (two in prism mode: the
     owner view over the means), every one through the page table when
-    paged; the tile route on chunk calls alone; no other kernel."""
+    paged; the tile route on chunk calls alone; no other kernel.
+    ``since``: the stats a restored engine started from."""
     s = eng.stats
+    ticks = [s.decode_steps, s.packed_ticks, s.prefill_chunks]
+    if since is not None:
+        ticks = [a - b for a, b in zip(ticks, (
+            since.decode_steps, since.packed_ticks, since.prefill_chunks))]
+    decode_steps, packed_ticks, chunks = ticks
     per_tick = 2 if eng.config.hp.decode_mode == "prism" else 1
-    n = n_layers * (s.decode_steps + per_tick * s.packed_ticks
-                    + s.prefill_chunks)
+    n = n_layers * (decode_steps + per_tick * packed_ticks + chunks)
     return {"flash_decode_stats": n,
             "flash_decode_stats.paged": n if paged else 0,
-            "flash_decode_stats.mq": n_layers * s.prefill_chunks,
+            "flash_decode_stats.mq": n_layers * chunks,
             "prism_flash_attention": 0, "segment_means": 0}
 
 
-def compare_engine(torch, out_p, log_p, out_d, log_d):
-    """The paged run against the dense one, request by request: while a
-    request's tokens agree, its logits within PATH_REL_TOL of the dense
-    run's largest |logit|; tokens equal wherever the dense run's top-2 gap
-    exceeds TOKEN_GAP of it.  A request that parts at a near-tie is
-    compared no further; more than ENGINE_MAX_DIVERGED of them fail."""
+def compare_engine(torch, out_p, log_p, out_d, log_d, what="engine"):
+    """A run against its reference run, request by request: while a
+    request's tokens agree, its logits within PATH_REL_TOL of the
+    reference's largest |logit|; tokens equal wherever the reference's
+    top-2 gap exceeds TOKEN_GAP of it.  A request that parts at a
+    near-tie is compared no further; more than ENGINE_MAX_DIVERGED of
+    them fail."""
     top = max(float(torch.stack(v).abs().max()) for v in log_d.values())
-    if sorted(out_p) != sorted(out_d) or len(out_d) != ENGINE_REQUESTS:
-        raise AssertionError("engine: paged and dense runs finished other "
-                             "requests")
+    if sorted(out_p) != sorted(out_d):
+        raise AssertionError(f"{what}: the runs finished other requests")
     diverged, checked, worst = [], 0, 0.0
     for rid in sorted(out_d):
         lp, ld = torch.stack(log_p[rid]), torch.stack(log_d[rid])
         if lp.shape != ld.shape or len(out_p[rid]) != GEN or not bool(
                 torch.isfinite(lp).all()):
-            raise AssertionError(f"engine: request {rid}: logits "
+            raise AssertionError(f"{what}: request {rid}: logits "
                                  f"{tuple(lp.shape)} vs {tuple(ld.shape)}")
         err = (lp - ld).abs().amax(dim=-1).cpu().tolist()
         top2 = ld.topk(2, dim=-1).values
         gap = (top2[:, 0] - top2[:, 1]).cpu().tolist()
         for k in range(GEN):
             if err[k] > PATH_REL_TOL * top:
-                raise AssertionError(f"engine: request {rid} step {k}: "
+                raise AssertionError(f"{what}: request {rid} step {k}: "
                                      f"logits err {err[k]:.3e} > "
                                      f"{PATH_REL_TOL} x {top:.3f}")
             worst = max(worst, err[k] / top)
             checked += 1
             if out_p[rid][k] != out_d[rid][k]:
                 if gap[k] > TOKEN_GAP * top:
-                    raise AssertionError(f"engine: request {rid} step {k}: "
+                    raise AssertionError(f"{what}: request {rid} step {k}: "
                                          "tokens differ at a clear top-2 "
                                          "gap")
                 diverged.append(rid)
                 break
     if len(diverged) > ENGINE_MAX_DIVERGED:
-        raise AssertionError(f"engine: {len(diverged)} requests parted at "
+        raise AssertionError(f"{what}: {len(diverged)} requests parted at "
                              f"near-ties (at most {ENGINE_MAX_DIVERGED})")
     return {"logits_rel_err": worst, "steps_checked": checked,
             "diverged_at_near_tie": diverged,
@@ -1955,12 +2061,13 @@ def drive_engine(torch, params):
     """Phase 6: the trace through the paged engine in each of
     ``ENGINE_RUNS``, each checked against the dense cache's run; exact
     mode's prefix cache must hit and account for every page.  Returns
-    the launches of each paged run."""
+    the launches of each paged run, and each packed paged run's tokens
+    and logits by decode mode (phase 7's reference)."""
     from repro_torch.configs import get_config
     cfg = get_config(ARCH)
     prompts = engine_trace(cfg.vocab_size)
     card = nvidia_smi()
-    launches = {}
+    launches, kept = {}, {}
     for prefill, mode in ENGINE_RUNS:
         runs = {}
         for paged in (True, False):
@@ -1972,6 +2079,9 @@ def drive_engine(torch, params):
             runs[paged] = (eng, out, log, counts, wall)
         eng, out, log, counts, wall = runs[True]
         d_eng, d_out, d_log, d_counts, d_wall = runs[False]
+        if len(d_out) != ENGINE_REQUESTS:
+            raise AssertionError(f"engine/{prefill}/{mode}: {len(d_out)} "
+                                 "requests finished")
         cmp = compare_engine(torch, out, log, d_out, d_log)
         kv = eng.kv_cache
         kv.check()
@@ -1984,6 +2094,8 @@ def drive_engine(torch, params):
         if mode == "exact" and eng.stats.prefix_hits == 0:
             raise AssertionError(f"engine/{prefill}/{mode}: no prefix hit")
         launches[f"engine/{prefill}/{mode}"] = counts
+        if prefill == "packed":
+            kept[mode] = (out, log)
         emit("path", path="engine", prefill=prefill, mode=mode, card=card,
              **ENGINE,
              shards=SHARDS, cr=CR, requests=ENGINE_REQUESTS, gen=GEN,
@@ -1999,6 +2111,263 @@ def drive_engine(torch, params):
         emit("trace", path="engine", mode=mode, card=card,
              packed_tick=profile_paged_tick(torch, cfg, params, mode,
                                             prompts[:BATCH]))
+    return launches, kept
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the engine's host offload tier, preemption, faults, snapshots
+# ---------------------------------------------------------------------------
+
+# phase 6's engine on half its pool (4 rows of 36 pages) with the host
+# offload tier: the even prompts at priority 0 at t = 0, the odd ones at
+# priority 1 after the engine's 20th step; a snapshot after its 40th
+ROBUST = dict(ENGINE, n_pages=144, offload=True)
+ROBUST_JOIN, ROBUST_SNAPSHOT = 20, 40
+# the chaos run: each kind (but shard_loss, not ported) at a fixed
+# opportunity, so that every one fires: the first spill lost, the second
+# store read torn (retried), the first decode tick's page poisoned, the
+# fourth admission stalled, the sixth tick delayed
+ROBUST_FAULTS = dict(store_put_loss=(0,), store_get_loss=(1,),
+                     page_poison=(0,), admission_stall=(3,),
+                     tick_delay=(5,))
+
+
+def time_moves(torch, eng):
+    """Wrap the engine cache's ``spill`` and ``restore`` to time each on
+    the host clock, the card synchronised on both sides (a spill's copy
+    is synchronous; a restore's host-to-device copy is not, and is timed
+    to its end).  Returns {"spill": [(s, bytes)], "restore": [...]}: the
+    bytes are the pages' K/V and the state row moved."""
+    import time
+    from repro_torch.runtime.paging import KV_LEAVES, STATE_LEAVES
+    kv = eng.kv_cache
+    page_b = sum(c[k][0].nbytes for c in kv.storage for k in KV_LEAVES)
+    state_b = sum(c[k][0].nbytes for c in kv.storage for k in STATE_LEAVES
+                  if k in c)
+    rec = {"spill": [], "restore": []}
+    spill, restore = kv.spill, kv.restore
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def spill_t(key, slot, store, *, tokens=0):
+        n, dt = timed(spill, key, slot, store, tokens=tokens)
+        rec["spill"].append((dt, n * page_b + state_b))
+        return n
+
+    def restore_t(key, slot, store, **kw):
+        ok, dt = timed(restore, key, slot, store, **kw)
+        if ok:
+            rec["restore"].append((dt, len(kv.slot_pages[slot]) * page_b
+                                   + state_b))
+        return ok
+    kv.spill, kv.restore = spill_t, restore_t
+    return rec
+
+
+def moves_record(rec):
+    """Per kind: count, median ms and MB a request, MB/s over all the
+    bytes moved."""
+    import numpy as np
+    out = {}
+    for kind, xs in rec.items():
+        if not xs:
+            out[kind] = {"n": 0}
+            continue
+        t, b = np.array(xs).T
+        out[kind] = {"n": len(xs), "ms_p50": 1e3 * float(np.median(t)),
+                     "ms_max": 1e3 * float(t.max()),
+                     "MB_p50": float(np.median(b)) / 1e6,
+                     "MB_per_s": float(b.sum() / t.sum()) / 1e6}
+    return out
+
+
+def robust_engine(cfg, params, mode, faults=None):
+    from repro_torch.runtime.serve import ServeHParams
+    from repro_torch.serving import EngineConfig, ServingEngine
+    return ServingEngine(cfg, params, EngineConfig(
+        hp=ServeHParams(decode_mode=mode, means_cr=CR),
+        prefill_mode="packed", faults=faults, **ROBUST), n_seq=SHARDS)
+
+
+def run_robust(torch, cfg, params, mode, prompts, faults=None,
+               snapshot=False):
+    """The priority-pressure trace through a fresh engine, step by step:
+    the even prompts at priority 0 first, the odd ones at priority 1
+    after step ``ROBUST_JOIN``, a snapshot after step ``ROBUST_SNAPSHOT``
+    (its time left out of the wall time).  Launch counters are zeroed
+    just before the first step and read just after the last.  Returns
+    the engine, tokens and logits by prompt index, the prompt index of
+    each rid, launches, wall s, spill/restore times, the snapshot and
+    its seconds."""
+    import time
+    from repro_torch.kernels.dispatch import LAUNCHES
+    eng = robust_engine(cfg, params, mode, faults)
+    log, moves = keep_logits(eng), time_moves(torch, eng)
+    index = {}
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for i in range(0, ENGINE_REQUESTS, 2):
+        index[eng.submit(prompts[i], max_new_tokens=GEN)] = i
+    steps, snap, snap_s = 0, None, 0.0
+    while steps <= ROBUST_JOIN or eng._sched.has_work:
+        if steps == ROBUST_JOIN:
+            for i in range(1, ENGINE_REQUESTS, 2):
+                index[eng.submit(prompts[i], max_new_tokens=GEN,
+                                 priority=1)] = i
+        if snapshot and steps == ROBUST_SNAPSHOT:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            snap = eng.snapshot()
+            snap_s = time.perf_counter() - ts
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - snap_s
+    counts = dict(LAUNCHES)
+    out = {index[r]: v for r, v in eng.results().items()}
+    # a request that started again keeps only its last GEN rows
+    log = {index[r]: v[-GEN:] for r, v in log.items()
+           if r in eng.results()}
+    return eng, out, log, index, counts, wall, moves, snap, snap_s
+
+
+def check_drained(eng, what):
+    """Leak-free after the drain: the refcounts hold, no slot holds
+    pages, every page is free or held by a prefix entry, the store is
+    empty."""
+    kv = eng.kv_cache
+    kv.check()
+    held = ({p for e in kv.prefix.entries.values() for p in e.pages}
+            if kv.prefix is not None else set())
+    if (kv.slot_pages or kv.slot_state
+            or kv.table.free_pages + len(held) != kv.paging.n_pages):
+        raise AssertionError(f"{what}: pages not accounted for: "
+                             f"{kv.stats()}")
+    if len(eng.kv_store) or eng.kv_store.bytes_used:
+        raise AssertionError(f"{what}: store not empty: "
+                             f"{eng.kv_store.stats()}")
+    return len(held)
+
+
+def robust_record(eng, out, wall, moves):
+    s = eng.stats.summary()
+    return {**engine_record(eng, out, wall),
+            **{k: s[k] for k in ("preemptions", "spilled_pages",
+                                 "restore_hits", "restore_misses",
+                                 "quarantined", "restarts",
+                                 "failed_requests", "faults_by_kind",
+                                 "store_get_retries")},
+            "spill": moves["spill"], "restore": moves["restore"]}
+
+
+def drive_robust(torch, params, phase6):
+    """Phase 7: (a) priority pressure on half the pool in packed exact and
+    packed prism, each request's tokens and logits held to phase 6's
+    paged run of its mode; (b) the chaos run in packed exact, every
+    request that did not fail held to (a)'s exact run; (c) (a)'s
+    snapshot after step 40 restored into a fresh engine and run to the
+    end, token-equal to (a).  Every run drains leak-free.  Returns the
+    launches of each run."""
+    import time
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec
+    cfg = get_config(ARCH)
+    prompts = engine_trace(cfg.vocab_size)
+    card = nvidia_smi()
+    launches, pressure = {}, {}
+    for mode in ("exact", "prism"):
+        path = f"robust/pressure/{mode}"
+        eng, out, log, index, counts, wall, moves, snap, snap_s = \
+            run_robust(torch, cfg, params, mode, prompts, snapshot=True)
+        check_launches(path, counts, engine_launches(eng, True,
+                                                     cfg.n_layers))
+        s = eng.stats
+        if s.preemptions < 1 or s.restore_hits < 1 or s.restore_misses:
+            raise AssertionError(f"{path}: preemptions {s.preemptions}, "
+                                 f"restore hits {s.restore_hits}, misses "
+                                 f"{s.restore_misses}")
+        if len(out) != ENGINE_REQUESTS:
+            raise AssertionError(f"{path}: {len(out)} requests finished")
+        registered = check_drained(eng, path)
+        cmp = compare_engine(torch, out, log, *phase6[mode], what=path)
+        launches[path] = counts
+        pressure[mode] = (out, log)
+        emit("path", path="robust", run="pressure", mode=mode, card=card,
+             **ROBUST, join_step=ROBUST_JOIN, shards=SHARDS, cr=CR,
+             requests=ENGINE_REQUESTS, gen=GEN,
+             record=robust_record(eng, out, wall, moves_record(moves)),
+             pages=eng.kv_cache.stats(), registered_pages=registered,
+             launches=counts, snapshot_s=snap_s,
+             reference="phase 6's paged run of the same mode",
+             tol=PATH_REL_TOL, token_gap=TOKEN_GAP, **cmp)
+        # (c) the snapshot taken after step ROBUST_SNAPSHOT of this run
+        path = f"robust/snapshot/{mode}"
+        eng2 = robust_engine(cfg, params, mode)
+        moves2 = time_moves(torch, eng2)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        eng2.restore(snap)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        res = eng2.run()
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        counts2 = dict(LAUNCHES)
+        check_launches(path, counts2, engine_launches(
+            eng2, True, cfg.n_layers, since=snap.stats))
+        out2 = {index[r]: v for r, v in res.items()}
+        if out2 != out:
+            diff = sorted(i for i in out if out2.get(i) != out[i])
+            raise AssertionError(f"{path}: the restored engine's tokens "
+                                 f"differ from the run's, requests {diff}")
+        check_drained(eng2, path)
+        launches[path] = counts2
+        emit("path", path="robust", run="snapshot", mode=mode, card=card,
+             snapshot_step=ROBUST_SNAPSHOT, snapshot_s=snap_s,
+             restore_s=restore_s, live_slots=len(snap.active),
+             spilled_at_cut=len(snap.store_entries),
+             record=robust_record(eng2, out2, wall2, moves_record(moves2)),
+             stats_note="stats carry over from the snapshot; wall_s is "
+                        "the restore and the run after it",
+             launches=counts2, tokens_equal=len(out2))
+        del eng, eng2, snap, log
+
+    # (b) chaos, packed exact
+    path = "robust/chaos/exact"
+    plan = FaultPlan(seed=0, **{k: FaultSpec(at=v)
+                                for k, v in ROBUST_FAULTS.items()})
+    eng, out, log, index, counts, wall, moves, _, _ = run_robust(
+        torch, cfg, params, "exact", prompts, faults=plan)
+    check_launches(path, counts, engine_launches(eng, True, cfg.n_layers))
+    s = eng.stats
+    failed = {index[r]: why for r, why in eng.failed().items()}
+    if set(out) | set(failed) != set(range(ENGINE_REQUESTS)):
+        raise AssertionError(f"{path}: requests lost: {sorted(out)} "
+                             f"finished, {failed} failed")
+    unfired = [k for k in ROBUST_FAULTS if not s.faults_by_kind.get(k)]
+    if unfired or s.quarantined < 1 or s.restarts < 1:
+        raise AssertionError(f"{path}: faults {s.faults_by_kind}, "
+                             f"quarantined {s.quarantined}, restarts "
+                             f"{s.restarts}")
+    check_drained(eng, path)
+    ref_out, ref_log = pressure["exact"]
+    cmp = compare_engine(torch, out, log, {i: ref_out[i] for i in out},
+                         {i: ref_log[i] for i in out}, what=path)
+    launches[path] = counts
+    emit("path", path="robust", run="chaos", mode="exact", card=card,
+         faults={k: list(v) for k, v in ROBUST_FAULTS.items()},
+         record=robust_record(eng, out, wall, moves_record(moves)),
+         failed=failed, launches=counts,
+         reference="(a)'s exact run", tol=PATH_REL_TOL,
+         token_gap=TOKEN_GAP, **cmp)
     return launches
 
 
@@ -2039,7 +2408,9 @@ def main() -> int:
     by_path = {f"static/{mode}": r["launches"]
                for mode, r in drive_path(torch, params).items()}
     by_path.update(drive_ticks(torch, params))
-    by_path.update(drive_engine(torch, params))
+    engine_launches_by_path, engine_runs = drive_engine(torch, params)
+    by_path.update(engine_launches_by_path)
+    by_path.update(drive_robust(torch, params, engine_runs))
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -2077,6 +2448,7 @@ def main() -> int:
                 "tile_ms", "tile_device_ms", "row_ms", "row_device_ms",
                 "library_folded_ms")})
             row["crossover"] = t_dec["crossover"]
+            row["poisoned"] = t_dec["poisoned"]
             row["cases_by_route"] = t_dec["cases_by_route"]
             mq = name + ".mq"
             row["launches_mq"] = sum(c.get(mq, 0) for c in by_path.values())

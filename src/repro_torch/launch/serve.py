@@ -11,6 +11,12 @@ decode) or the continuous-batching engine on a seeded Poisson trace.
         --engine --requests 16 --rate 4 --batch 8 --prompt-len 512 \
         --gen 64
 
+    # two priority classes over a short pool with the host offload tier,
+    # under the seeded chaos plan (store losses, page poison, stalls)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
+        --engine --requests 16 --rate 4 --batch 8 --prompt-len 512 \
+        --gen 64 --offload --priority 2 --n-pages 144 --chaos 0
+
 ``--decode-mode exact`` pairs the voltage prefill (full exchange) with
 exact split-K flash-decode; ``--decode-mode prism`` pairs the PRISM
 prefill (Segment-Means exchange) with prism decode (the engine prefills
@@ -81,24 +87,33 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
 
 
 def poisson_trace(n_requests: int, rate: float, prefill_len: int,
-                  vocab: int, seed: int = 0):
-    """A seeded Poisson trace: (arrival s, prompt) per request, prompt
-    lengths drawn from [prefill_len // 2, prefill_len], as the
-    reference's launcher draws them."""
+                  vocab: int, seed: int = 0, classes: int = 1):
+    """A seeded Poisson trace: (arrival s, prompt, priority) per request,
+    prompt lengths drawn from [prefill_len // 2, prefill_len] and
+    priorities from [0, classes), as the reference's launcher draws
+    them."""
     rng = np.random.default_rng(seed)
     arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n_requests))
     trace = []
     for i in range(n_requests):
         plen = int(rng.integers(max(1, prefill_len // 2), prefill_len + 1))
-        trace.append((float(arrivals[i]),
-                      rng.integers(1, vocab, size=plen).tolist()))
+        prompt = rng.integers(1, vocab, size=plen).tolist()
+        trace.append((float(arrivals[i]), prompt,
+                      int(rng.integers(0, max(1, classes)))))
     return trace
 
 
 def run_engine(args) -> None:
     """``--engine``: the continuous-batching engine over a Poisson trace;
-    prints the engine's stats summary."""
-    from ..serving import EngineConfig, SamplingParams, ServingEngine
+    prints the engine's stats summary and, under ``--chaos``, checks that
+    every request finished or failed and that nothing leaked."""
+    from ..serving import (EngineConfig, FaultPlan, FaultSpec,
+                           SamplingParams, ServingEngine)
+    if args.shard_loss is not None:
+        raise SystemExit("--shard-loss (the degraded mesh) is not ported "
+                         "yet: ROADMAP queue 1, item 11")
+    faults = (FaultPlan.chaos(args.chaos, shard_loss=FaultSpec())
+              if args.chaos is not None else None)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     cfg = cfg.reduced() if args.reduced else cfg
@@ -114,21 +129,47 @@ def run_engine(args) -> None:
         chunk_len=args.chunk_len, prefill_mode=args.prefill_mode,
         token_budget=args.token_budget, paged=not args.no_paged,
         page_tokens=args.page_tokens, n_pages=args.n_pages,
-        prefix_cache=False if args.no_prefix_cache else None)
+        prefix_cache=False if args.no_prefix_cache else None,
+        offload=args.offload, faults=faults,
+        max_restarts=8 if faults is not None else 3)
     eng = ServingEngine(cfg, params, ecfg, n_seq=p)
-    for i, (t, prompt) in enumerate(poisson_trace(
-            args.requests, args.rate, n, cfg.vocab_size, args.seed)):
+    for i, (t, prompt, prio) in enumerate(poisson_trace(
+            args.requests, args.rate, n, cfg.vocab_size, args.seed,
+            args.priority)):
         eng.submit(prompt, max_new_tokens=args.gen, arrival=t,
+                   priority=prio,
                    sampling=SamplingParams(temperature=args.temperature,
                                            top_k=args.top_k, seed=i))
     cache = "paged" if eng.kv_cache.paged else "dense"
+    extras = (f", {args.priority} priority classes"
+              if args.priority > 1 else "")
+    extras += ", host offload" if args.offload else ""
+    extras += f", chaos seed {args.chaos}" if faults is not None else ""
     print(f"[engine] {cfg.name} {args.decode_mode}, {args.requests} "
           f"requests, Poisson rate {args.rate}/s, {args.batch} slots, "
-          f"{args.prefill_mode} prefill, {cache} cache, on {dev}")
+          f"{args.prefill_mode} prefill, {cache} cache{extras}, on {dev}")
     eng.run()
     for k, v in {**eng.stats.summary(), **eng.kv_cache.stats()}.items():
         print(f"[engine] {k:22s} {v:.3f}" if isinstance(v, float)
               else f"[engine] {k:22s} {v}")
+    if faults is None:
+        return
+    inj = eng._injector.stats()
+    done, failed = len(eng.results()), eng.failed()
+    print(f"[chaos] injected {inj['injected']} over {inj['ops']} "
+          "opportunities")
+    print(f"[chaos] completed {done}/{args.requests}, failed "
+          f"{len(failed)} {sorted(failed.values())}")
+    # every request accounted for; the refcounts hold, no slot holds
+    # pages, the store is empty and every slot is back in the pool
+    assert done + len(failed) == args.requests, (done, failed)
+    kv = eng.kv_cache
+    kv.check()
+    assert not kv.slot_pages and not kv.slot_state
+    if eng.kv_store is not None:
+        assert len(eng.kv_store) == 0, eng.kv_store.stats()
+    assert sorted(eng._sched.free_slots) == list(range(args.batch))
+    print("[chaos] zero-leak audits OK")
 
 
 def main(argv=None):
@@ -178,6 +219,24 @@ def main(argv=None):
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="[engine, paged] no shared-prefix reuse (on by "
                          "default in exact decode mode)")
+    ap.add_argument("--offload", action="store_true",
+                    help="[engine, paged] host KV offload tier: blocked "
+                         "higher-priority requests preempt lower-priority "
+                         "work (spilled to host memory, restored on "
+                         "resume)")
+    ap.add_argument("--priority", type=int, default=1, metavar="CLASSES",
+                    help="[engine] priority classes in the trace: each "
+                         "request draws one from [0, CLASSES) (higher = "
+                         "more urgent; 1 = plain FIFO)")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="[engine] seeded fault injection: the trace under "
+                         "FaultPlan.chaos(SEED) without shard_loss (store "
+                         "put and get loss, page poison, admission "
+                         "stalls, tick delays), then zero-leak audits")
+    ap.add_argument("--shard-loss", type=int, default=None,
+                    metavar="SHARD",
+                    help="[engine] the degraded-mesh drill: not ported "
+                         "yet (ROADMAP queue 1, item 11); refused")
     args = ap.parse_args(argv)
     if args.engine:
         run_engine(args)

@@ -27,18 +27,32 @@ pools with the ``plan -> reserve -> bind -> free`` lifecycle the engine
 drives.  Page ids follow the reference's allocation order (the free
 list pops from its end), so both hand out the same ids.
 
-Host-side only, as the reference's bookkeeping is; the device storage
-is a list of per-layer dicts of tensors built by ``runtime.serve.
-make_kv_cache``.
+The host offload tier, fault injection and snapshots move a slot's
+content: ``spill`` / ``restore`` and ``extract_slot`` / ``inject_slot``
+gather a slot's pages and state row to the host and scatter them back
+into other pages; ``poison_page`` and ``scrub_slot`` fill a page with
+NaN and zero a slot; ``ensure_writable`` forks shared pages before a
+write.  These are plain tensor indexing and copies, as the reference's
+are plain jnp outside any kernel.
+
+The bookkeeping is host-side, as the reference's is; the device
+storage is a list of per-layer dicts of tensors built by
+``runtime.serve.make_kv_cache`` (``storage=None`` keeps the bookkeeping
+alone).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 #: page id meaning "no page mapped" in the device page maps
 NO_PAGE = -1
+#: the pool leaves (page axis first) and the prism state leaves (state
+#: row axis first) of a layer's storage
+KV_LEAVES = ("k", "v")
+STATE_LEAVES = ("kz", "vz", "gz", "zsum")
 
 
 @dataclass(frozen=True)
@@ -250,6 +264,7 @@ class KVCache:
     slot_state: dict = field(default_factory=dict)   # slot -> state row
     _state_free: list = field(default_factory=list)
     _reserved: dict = field(default_factory=dict)    # key -> (pages, srow)
+    cow_copies: int = 0                # pages forked private on write
 
     def __post_init__(self):
         if self.paging is not None:
@@ -343,6 +358,46 @@ class KVCache:
                 raise RuntimeError(f"out of pages appending slot {slot}")
             self.slot_pages[slot].extend(extra)
 
+    def fork_cow(self, src_pages, slot: int, n_fresh: int) -> list:
+        """Map ``src_pages`` copy-on-write into ``slot`` and extend with
+        ``n_fresh`` private pages: the share primitive under
+        ``alloc(plan)``."""
+        assert slot not in self.slot_pages
+        fresh = self.table.alloc(n_fresh)
+        if fresh is None:
+            raise RuntimeError("out of pages in fork_cow")
+        self.table.share(src_pages)
+        self.slot_pages[slot] = list(src_pages) + fresh
+        if not self._state_free:
+            raise RuntimeError("out of state pages")
+        self.slot_state[slot] = self._state_free.pop()
+        return self.slot_pages[slot]
+
+    def ensure_writable(self, slot: int, first_pos: int,
+                        last_pos: int) -> int:
+        """Copy-on-write fork: every page in the slot's write window
+        [first_pos, last_pos] that is still shared (refcount > 1) is
+        copied to a fresh private page before a tick writes it (a
+        quarantined slot re-prefills from position 0).  Returns pages
+        forked."""
+        if first_pos > last_pos:
+            return 0
+        pages = self.slot_pages[slot]
+        j0 = first_pos // self.paging.span
+        j1 = min(last_pos // self.paging.span, len(pages) - 1)
+        forked = 0
+        for j in range(j0, j1 + 1):
+            if self.table.refs[pages[j]] > 1:
+                new = self.table.alloc(1)
+                if new is None:
+                    raise RuntimeError("out of pages in COW fork")
+                self._copy_page(pages[j], new[0])
+                self.table.free([pages[j]])
+                pages[j] = new[0]
+                forked += 1
+                self.cow_copies += 1
+        return forked
+
     def free(self, slot: int, prompt=None) -> None:
         """Release a finished request's pages (shared prefix pages live on
         under their entries) and state row.  With ``prompt`` and a prefix
@@ -353,6 +408,162 @@ class KVCache:
         self.table.free(pages)
         self._state_free.append(self.slot_state.pop(slot))
 
+    # -- host offload tier (spill / restore) -------------------------------
+    def spill(self, key, slot: int, store, *, tokens: int = 0) -> int:
+        """Spill ``slot``'s whole cache footprint to the host ``store``
+        under ``key`` (the request id): one gather and one device->host
+        copy per leaf of every page the slot holds and, in prism mode,
+        its state row, finished before the store takes it; then the
+        pages go back to the table (shared prefix pages just lose a
+        reference: their content was copied, so the restored copy is
+        private) and the state row to the pool.  ``tokens`` is the
+        covered-token count ``plan_restore`` reports.  Returns pages
+        spilled."""
+        pages = self.slot_pages.pop(slot)
+        srow = self.slot_state.pop(slot)
+        payload = (self._extract(pages, srow)
+                   if self.storage is not None else None)
+        store.put(key, len(pages), payload, tokens=tokens)
+        self.table.free(pages)
+        self._state_free.append(srow)
+        return len(pages)
+
+    def plan_restore(self, key, store, *, retries: int = 0,
+                     backoff_s: float = 0.0) -> AdmitPlan | None:
+        """The admission plan of a spilled request: every page fresh (the
+        content comes by injection, not sharing), the covered tokens from
+        the store.  ``retries`` re-reads through transient store losses.
+        None when the store lost the entry for good: the caller falls
+        back to a re-prefill plan."""
+        ent = store.get(key, retries=retries, backoff_s=backoff_s)
+        if ent is None:
+            return None
+        return AdmitPlan(total_pages=ent.n_pages, fresh_pages=ent.n_pages,
+                         covered=ent.tokens)
+
+    def restore(self, key, slot: int, store, *, retries: int = 0,
+                backoff_s: float = 0.0) -> bool:
+        """Inject the spilled content of ``key`` into the fresh pages and
+        state row just bound to ``slot`` (``plan_restore`` -> ``reserve``
+        -> ``bind`` first).  The pages differ from the spilled ones; the
+        page and state maps each tick takes make that invisible.  False
+        when the store dropped the entry between plan and bind: the pages
+        stay bound (a restore plan is never smaller than a re-prefill
+        plan), and the caller re-prefills into them."""
+        ent = store.get(key, retries=retries, backoff_s=backoff_s,
+                        consume=True)
+        if ent is None:
+            return False
+        pages = self.slot_pages[slot]
+        assert len(pages) == ent.n_pages, (len(pages), ent.n_pages)
+        if self.storage is not None and ent.payload is not None:
+            self._inject(pages, self.slot_state[slot], ent.payload)
+        return True
+
+    def extract_slot(self, slot: int):
+        """One live slot's footprint on the host: the snapshot's gather,
+        as ``spill``'s but leaving the slot its pages.  None without
+        device storage."""
+        if self.storage is None:
+            return None
+        return self._extract(self.slot_pages[slot], self.slot_state[slot])
+
+    def inject_slot(self, slot: int, payload) -> None:
+        """Scatter a snapshot's footprint into the (fresh) pages and state
+        row bound to ``slot``: the engine restore's path."""
+        if self.storage is None or payload is None:
+            return
+        self._inject(self.slot_pages[slot], self.slot_state[slot], payload)
+
+    # -- device copies -----------------------------------------------------
+    def _index(self, ids) -> torch.Tensor:
+        return torch.as_tensor(list(ids), dtype=torch.long,
+                               device=self.storage[0]["k"].device)
+
+    def _extract(self, pages, srow: int) -> list:
+        """One request's pages and state row on the host, one dict of
+        leaves per layer: per leaf one ``index_select`` gather, then one
+        device->host copy into pinned memory, all finished on return so
+        the store owns settled bytes."""
+        idx, sidx = self._index(pages), self._index([srow])
+        out = [{name: t.index_select(0, idx if name in KV_LEAVES else sidx)
+                for name, t in c.items()} for c in self.storage]
+        if idx.device.type != "cuda":
+            return out                 # the gathers are copies already
+        host = []
+        for layer in out:
+            h = {}
+            for name, t in layer.items():
+                h[name] = torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True)
+                h[name].copy_(t, non_blocking=True)
+            host.append(h)
+        torch.cuda.current_stream(idx.device).synchronize()
+        return host
+
+    def _inject(self, pages, srow: int, payload) -> None:
+        """Scatter a payload back into (other) pool pages and a state
+        row, in place: the inverse of ``_extract`` up to relocation.  The
+        host->device copies run on the current stream, the one the next
+        tick's program runs on."""
+        idx, sidx = self._index(pages), self._index([srow])
+        for c, p in zip(self.storage, payload):
+            for name, t in c.items():
+                src = p[name].to(t.device, t.dtype, non_blocking=True)
+                t.index_copy_(0, idx if name in KV_LEAVES else sidx, src)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy one pool page to another on every K/V leaf: the COW
+        fork."""
+        for c in self.storage:
+            for name in KV_LEAVES:
+                c[name][dst].copy_(c[name][src])
+
+    def copy_state(self, src_row: int, dst_row: int) -> None:
+        """Copy one state-pool row (kz/vz/gz/zsum) to another."""
+        for c in self.storage:
+            for name in STATE_LEAVES:
+                if name in c:
+                    c[name][dst_row].copy_(c[name][src_row])
+
+    # -- fault injection and quarantine ------------------------------------
+    def poison_page(self, page: int) -> None:
+        """NaN-fill one pool page's K/V (the ``page_poison`` fault, a
+        simulated device-memory corruption).  Content only: the table,
+        the maps and the refcounts are untouched, so only reads through
+        this page see the poison."""
+        for c in self.storage:
+            for name in KV_LEAVES:
+                c[name][page].fill_(float("nan"))
+
+    def scrub_slot(self, slot: int) -> int:
+        """Zero the slot's private (refcount 1) pages and its state row:
+        the step before a quarantined slot re-prefills in place, and
+        before failed pages rejoin the free list.  Zero, not just
+        overwritten: the plain decode version multiplies masked columns,
+        and 0 * NaN is NaN.  Shared pages are skipped (others read them;
+        the poison fault never picks one).  Returns pages scrubbed."""
+        pages = [p for p in self.slot_pages[slot]
+                 if self.table.refs[p] == 1]
+        srow = self.slot_state[slot]
+        if not pages:
+            return 0
+        idx = self._index(pages)
+        for c in self.storage:
+            for name, t in c.items():
+                if name in KV_LEAVES:
+                    t.index_fill_(0, idx, 0.0)
+                else:
+                    t[srow].zero_()
+        return len(pages)
+
+    def reset_row(self, row: int) -> None:
+        """Dense mode: zero one slot's row of every leaf."""
+        for c in self.storage:
+            for t in c.values():
+                t[row].zero_()
+
+    # -- device-side maps --------------------------------------------------
     def page_map(self, n_slots: int) -> np.ndarray:
         """(n_slots, pages_per_row) int32 physical page of every logical
         page of every slot; NO_PAGE where unmapped."""

@@ -31,19 +31,38 @@ with ``paged=False``, the oracle.  Attention in every program is exact
 (the cross-shard stat combine), so the engine's tokens are the
 sequential ones.
 
-Not served yet (ROADMAP queue 1): the host offload tier and
-preemption, fault injection, NaN quarantine, deadlines, snapshots (item
-9), streaming (item 10), the degraded mesh (item 11), the padded
-admission flush, other block kinds and frontends (item 12).
-``EngineConfig`` and the engine refuse the ones a caller can ask for
-with a ``ValueError`` that names the item; a tick whose decode logits
-are not finite raises.
+Robustness, as the reference serves it:
+
+  * priority classes (``submit(priority=)``); with ``offload=True`` a
+    blocked higher-priority candidate preempts lower-priority work into
+    the host KV store (``runtime/offload.py``), and the victim restores
+    through admission into other pages (``preempt``, ``suspend``,
+    ``resume`` by hand too);
+  * deadlines (``submit(deadline=)``): a request past its deadline is
+    cancelled wherever it is, its pages, slot or store bytes reclaimed;
+    ``cancel`` does the same on request;
+  * fault injection (``faults=FaultPlan(...)``, ``runtime/faults.py``):
+    store losses, poisoned pages, admission stalls, tick delays;
+  * NaN quarantine: one isfinite reduction over each tick's logits; a
+    decode row that fails quarantines exactly its slot (pages scrubbed,
+    the prompt prefilled again, the sampler re-seeded), at most
+    ``max_restarts`` times before the request fails;
+  * ``snapshot`` / ``restore``: the whole serving state, every live
+    slot's pages and state row included, into a fresh engine.
+
+Not served yet (ROADMAP queue 1): streaming (item 10), the degraded
+mesh and the ``shard_loss`` fault (item 11), the padded admission
+flush, other block kinds and frontends (item 12).  ``EngineConfig`` and
+the engine refuse the ones a caller can ask for with a ``ValueError``
+that names the item.
 """
 from __future__ import annotations
 
+import copy
 import heapq
 import math
 import time
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,12 +70,14 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.transformer import check_supported
-from ..runtime.paging import make_paged_layout
+from ..runtime.faults import FaultInjector, FaultPlan
+from ..runtime.offload import KVStore
+from ..runtime.paging import AdmitPlan, make_paged_layout
 from ..runtime.serve import (ServeHParams, make_kv_cache, make_layout,
                              paged_placement, serve_step)
 from ..runtime.ticks import chunk_prefill_step, packed_step
 from .sampling import SamplingParams, sample_token
-from .scheduler import EngineStats, FifoScheduler, Request
+from .scheduler import EngineStats, FifoScheduler, Request, RequestState
 
 
 @dataclass(frozen=True)
@@ -66,7 +87,8 @@ class EngineConfig:
     as the reference's does: ``chunk_len`` clamps to ``[1,
     prefill_len]``, ``token_budget`` defaults to ``n_slots + chunk_len``,
     ``prefix_cache`` defaults on where it is sound (the paged exact
-    cache)."""
+    cache).  ``offload`` needs the paged cache; ``faults`` is a
+    ``FaultPlan`` whose ``shard_loss`` stays off."""
     n_slots: int
     prefill_len: int
     max_cache: int
@@ -80,16 +102,31 @@ class EngineConfig:
     page_tokens: int | None = None     # page size in token positions
     n_pages: int | None = None         # pool size (default: slot parity)
     prefix_cache: bool | None = None   # shared-prefix reuse
-    offload: bool = False              # host offload tier: not ported
-    faults: object = None              # fault injection: not ported
+    offload: bool = False              # host KVStore tier + preemption
+    offload_bytes: int | None = None   # store capacity (None = unbounded)
+    faults: FaultPlan | None = None    # seeded chaos plan (None = off)
+    max_restarts: int = 3              # reset_for_refill bound per request
+    restore_retries: int = 2           # KVStore.get retries before refill
+    restore_backoff_s: float = 0.0     # exponential backoff base (sleep)
 
     def __post_init__(self):
-        if self.offload:
-            raise ValueError("offload (the host KV tier and preemption) is "
-                             "not ported yet: ROADMAP queue 1, item 9")
+        if self.max_restarts < 1:
+            raise ValueError(f"max_restarts {self.max_restarts} < 1")
+        if self.restore_retries < 0:
+            raise ValueError(
+                f"restore_retries {self.restore_retries} < 0")
+        if self.restore_backoff_s < 0.0:
+            raise ValueError(
+                f"restore_backoff_s {self.restore_backoff_s} < 0")
         if self.faults is not None:
-            raise ValueError("fault injection is not ported yet: ROADMAP "
-                             "queue 1, item 9")
+            if not isinstance(self.faults, FaultPlan):
+                raise ValueError(
+                    f"faults must be a FaultPlan, got "
+                    f"{type(self.faults).__name__}")
+            if self.faults.spec("shard_loss").enabled:
+                raise ValueError(
+                    "the shard_loss fault (the degraded mesh) is not "
+                    "ported yet: ROADMAP queue 1, item 11")
         if self.prefill_mode == "padded":
             raise ValueError("prefill_mode='padded' (the padded admission "
                              "flush) is not ported: ROADMAP queue 1, item 8 "
@@ -120,6 +157,37 @@ class EngineConfig:
                 "prefix_cache requires the paged cache in exact decode "
                 f"mode (paged={self.paged}, "
                 f"decode_mode={self.hp.decode_mode!r})")
+        if self.offload and not self.paged:
+            raise ValueError(
+                "offload requires the paged cache (paged=False): spill "
+                "and restore move pages, not dense rows")
+
+
+@dataclass
+class EngineSnapshot:
+    """The whole serving state of one engine, taken between steps
+    (``ServingEngine.snapshot``), on the host.  Every live slot's cache
+    footprint rides as the offload tier's gather, so an engine restored
+    from it (``ServingEngine.restore`` on a fresh engine with the same
+    config and weights) gives the tokens of one never stopped, in exact
+    and prism decode modes (the prism state row is in the payload).
+
+    ``active`` holds ``(slot, RequestState, payload, n_pages)`` per live
+    slot; the sampler RNGs travel inside the deep-copied states."""
+    now: float                         # engine-clock time of the cut
+    next_rid: int
+    active: list                       # [(slot, state, payload, n_pages)]
+    queues: dict                       # priority -> [Request] (fresh)
+    resume: dict                       # priority -> [RequestState]
+    pending: list                      # future arrivals (heap entries)
+    suspended: dict                    # rid -> RequestState
+    store_entries: list                # the store's SpilledEntry objects
+    results: dict                      # rid -> finished RequestState
+    failed: dict                       # rid -> failure reason
+    stats: EngineStats
+    injector: object                   # FaultInjector mid-stream (or None)
+    decodes_since_prefill: int
+    has_deadlines: bool
 
 
 class ServingEngine:
@@ -173,6 +241,17 @@ class ServingEngine:
         self._plans: dict = {}         # rid -> reserved AdmitPlan
         self._next_rid = 0
         self._t0 = None                # clock origin (first submit/run)
+        # seeded chaos: one injector per engine, shared with the store
+        self._injector = (FaultInjector(config.faults)
+                          if config.faults is not None else None)
+        # host offload tier: spilled pages and prism state rows by rid
+        self._store = (KVStore(capacity_bytes=config.offload_bytes,
+                               injector=self._injector)
+                       if config.offload else None)
+        self._suspended: dict = {}     # rid -> parked RequestState
+        self._from_store: set = set()  # rids whose reservation restores
+        self._failed: dict = {}        # rid -> reason
+        self._has_deadlines = False    # any live request with a deadline
 
     @staticmethod
     def _derive_paging(base, config: EngineConfig):
@@ -194,6 +273,11 @@ class ServingEngine:
         """The engine's ``KVCache`` (page table, prefix cache, device
         storage)."""
         return self._kv
+
+    @property
+    def kv_store(self):
+        """The host offload tier (None unless ``offload=True``)."""
+        return self._store
 
     # ------------------------------------------------------------------
     # the tick programs
@@ -234,10 +318,17 @@ class ServingEngine:
 
     def submit(self, prompt, *, max_new_tokens: int, eos_id=None,
                sampling: SamplingParams = SamplingParams(),
-               arrival: float | None = None) -> int:
+               arrival: float | None = None, priority: int = 0,
+               deadline: float | None = None) -> int:
         """Queue one request.  ``arrival`` (engine-relative seconds) may
         lie in the future: the run loop holds the request back until the
-        clock passes it, which is how Poisson traces are replayed."""
+        clock passes it, which is how Poisson traces are replayed.
+        ``priority`` (higher = more urgent) picks the admission class;
+        with ``offload=True`` a blocked higher-priority request preempts
+        lower-priority work into the host store.  ``deadline`` is an
+        absolute engine-clock time: once the clock passes it the request
+        is cancelled wherever it is and counted as a miss of its
+        class."""
         prompt = tuple(int(t) for t in prompt)
         if not 1 <= len(prompt) <= self.prefill_len:
             raise ValueError(
@@ -256,10 +347,16 @@ class ServingEngine:
                     f"request needs {need} pages; the pool holds "
                     f"{self._paging.n_pages}")
         arrival = self.now() if arrival is None else arrival
+        if deadline is not None:
+            if deadline <= arrival:
+                raise ValueError(
+                    f"deadline {deadline} <= arrival {arrival}")
+            self._has_deadlines = True
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=prompt, max_new_tokens=max_new_tokens,
-                      eos_id=eos_id, sampling=sampling, arrival=arrival)
+                      eos_id=eos_id, sampling=sampling, arrival=arrival,
+                      priority=priority, deadline=deadline)
         # through the arrival-ordered heap, so a late submit with a past
         # arrival cannot jump earlier arrivals still waiting
         heapq.heappush(self._pending, (req.arrival, rid, req))
@@ -281,14 +378,30 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def step(self) -> str:
         """One scheduler decision: a packed tick (chunked mode: a prefill
-        chunk), a decode step, or nothing.  Returns 'packed', 'prefill',
-        'decode' or 'idle'."""
+        chunk), a decode step, a stall (the ``tick_delay`` fault), or
+        nothing.  Returns 'packed', 'prefill', 'decode', 'stalled' or
+        'idle'."""
+        kind = self._step_inner()
+        if kind == "idle":
+            self.stats.ticks_idle += 1
+        if self._injector is not None:
+            self.stats.faults_injected = self._injector.total_injected
+            self.stats.faults_by_kind = dict(self._injector.injected)
+        if self._store is not None:
+            self.stats.store_get_retries = self._store.get_retries
+        return kind
+
+    def _step_inner(self) -> str:
         sch = self._sched
         self._release_arrivals()
         if self.stats.t_start is None:
             self.stats.t_start = self.now()
-        if sch.want_admit():
-            self._admit()
+        if self._has_deadlines:
+            self._expire()
+        if (self._injector is not None and sch.has_work
+                and self._injector.fire("tick_delay")):
+            return "stalled"           # the whole tick does nothing
+        self._admit_or_preempt()       # host side: slots and pages
         if self.prefill_mode == "chunked":
             if sch.want_chunk():
                 return self._chunk_step()
@@ -296,41 +409,41 @@ class ServingEngine:
             return self._packed_tick()
         decoding = sch.decoding()
         if not decoding:
-            self.stats.ticks_idle += 1
             return "idle"
+        self._maybe_poison()
         tok = np.zeros(self.n_slots, np.int64)
         pos = np.full(self.n_slots, -1, np.int64)
         for st in decoding:
             tok[st.slot] = st.next_token
             pos[st.slot] = st.pos
         t0 = self.now()
-        rows = self._logits_host(self._decode(tok, pos),
-                                 [st.slot for st in decoding])
+        rows, bad = self._logits_host(self._decode(tok, pos))
         now = self.now()
         self.stats.step_latency.append(now - t0)
         self.stats.occupancy.append(len(sch.active) / self.n_slots)
         self.stats.decode_steps += 1
         for st in decoding:
-            self._advance_decode(st, rows[st.slot], now)
+            if bad[st.slot]:
+                self._quarantine(st)
+            else:
+                self._advance_decode(st, rows[st.slot], now)
         sch.note_decode()
         self.stats.t_end = self.now()
         return "decode"
 
     @staticmethod
-    def _logits_host(logits, decode_rows) -> np.ndarray:
-        """The tick's logits on the host; raises if a decode row is not
-        finite (there is no quarantine yet, ROADMAP queue 1, item 9)."""
+    def _logits_host(logits) -> tuple:
+        """The tick's logits on the host and, from one isfinite reduction
+        over them, which rows hold a non-finite value: a decode row that
+        does is quarantined."""
         rows = logits.cpu().numpy()
-        bad = [i for i in decode_rows if not np.isfinite(rows[i]).all()]
-        if bad:
-            raise RuntimeError(f"non-finite decode logits in rows {bad}")
-        return rows
+        return rows, ~np.isfinite(rows).all(axis=-1)
 
     # ------------------------------------------------------------------
     # admission (page-aware)
     # ------------------------------------------------------------------
     def _admit_gate(self, req) -> bool:
-        """Page-aware admission check on the FIFO head: plan the
+        """Page-aware admission check on the queue's head: plan the
         request's pages (prefix lookup included), reclaim prefix entries
         if the free list is short, and RESERVE the pages before the
         scheduler pops the request."""
@@ -354,23 +467,425 @@ class ServingEngine:
         self._plans[req.rid] = plan
         return True
 
+    def _restore_gate(self, st: RequestState) -> bool:
+        """Admission check for a preempted request coming back from the
+        host store: its plan's pages and covered tokens come from the
+        spilled entry.  When the store lost the entry, the request
+        starts again (``reset_for_refill``) through the fresh-admission
+        gate, or fails once its restarts are spent; no other slot is
+        touched."""
+        kv, rid = self._kv, st.req.rid
+        plan = kv.plan_restore(rid, self._store,
+                               retries=self.config.restore_retries,
+                               backoff_s=self.config.restore_backoff_s)
+        if plan is None:
+            self.stats.restore_misses += 1
+            if st.restarts >= self.config.max_restarts:
+                # fail the head here (it holds no pages, slot or store
+                # entry) so that it cannot block the queue for ever
+                self._sched.cancel(rid)
+                self._store.drop(rid)
+                self._failed[rid] = "max_restarts"
+                self.stats.failed_requests += 1
+                return False
+            self._note_restart(st)
+            return self._admit_gate(st.req)
+        if not kv.can_admit(plan, reclaim=False):
+            if kv.prefix is not None:
+                kv.prefix.reclaim(plan.fresh_pages)
+            if not kv.can_admit(plan, reclaim=False):
+                self.stats.out_of_pages += 1
+                return False
+        if not kv.reserve(rid, plan):
+            self.stats.out_of_pages += 1
+            return False
+        self._plans[rid] = plan
+        self._from_store.add(rid)
+        return True
+
+    def _gate(self, cand) -> bool:
+        """The admission gate of a candidate: a fresh Request, or a
+        RequestState resuming from the store."""
+        if isinstance(cand, RequestState):
+            return self._restore_gate(cand)
+        return self._admit_gate(cand)
+
     def _admit(self) -> list:
         """Assign free slots to queued requests; in paged mode each binds
-        its reserved pages, and a prefix hit starts its prompt past the
-        tokens the shared pages hold."""
+        its reserved pages, then a prefix hit starts its prompt past the
+        tokens the shared pages hold, or a resume's spilled content is
+        injected into the pages just bound."""
         states = self._sched.admit(
-            self.now(), gate=self._admit_gate if self._paged else None)
+            self.now(), gate=self._gate if self._paged else None)
         for st in states:
             if not self._paged:
                 continue
             rid = st.req.rid
             self._kv.bind(rid, st.slot)
             plan = self._plans.pop(rid)
-            if plan.covered:
+            if rid in self._from_store:
+                self._from_store.discard(rid)
+                if self._kv.restore(
+                        rid, st.slot, self._store,
+                        retries=self.config.restore_retries,
+                        backoff_s=self.config.restore_backoff_s):
+                    self.stats.restore_hits += 1
+                else:
+                    # the entry went between plan and bind: the bound
+                    # pages hold a full re-prefill
+                    self.stats.restore_misses += 1
+                    if st.restarts >= self.config.max_restarts:
+                        self._fail_active(st, "max_restarts")
+                        continue
+                    self._note_restart(st)
+            elif plan.covered:
                 st.nprefilled = plan.covered
                 self.stats.prefix_hits += 1
                 self.stats.prefix_tokens_saved += plan.covered
         return states
+
+    def _admit_or_preempt(self) -> None:
+        """The tick's admission move: admit what fits, then, with the
+        offload tier on, spill strictly lower-priority active work while
+        the head candidate is still blocked (no free slot, or out of
+        pages).  Each spill is one gather and copy to the host; the
+        victim parks on the resume queue and restores through admission
+        once the pressure clears.  Equal priorities never preempt (the
+        pool drains by itself; swapping would only thrash)."""
+        sch = self._sched
+        if (self._injector is not None and sch.queued
+                and self._injector.fire("admission_stall")):
+            return                     # control plane stuck this tick
+        if sch.want_admit():
+            self._admit()
+        if self._store is None:
+            return
+        while True:
+            cand = sch.peek_admit()
+            if cand is None:
+                return
+            prio = (cand.req.priority if isinstance(cand, RequestState)
+                    else cand.priority)
+            victim = sch.pick_victim(prio, now=self.now())
+            if victim is None:
+                return
+            self._spill(victim)
+            self._admit()
+
+    def _spill(self, st: RequestState, *, requeue: bool = True) -> None:
+        """Preempt an active request: its pages and state row to the host
+        store, its device footprint freed; then park it for resume, or
+        hand it to the caller (suspend)."""
+        n = self._kv.spill(st.req.rid, st.slot, self._store,
+                           tokens=st.nprefilled)
+        self.stats.preemptions += 1
+        self.stats.spilled_pages += n
+        if requeue:
+            self._sched.preempt(st)
+        else:
+            self._sched.remove(st)
+
+    def _find_active(self, rid: int) -> RequestState | None:
+        for st in self._sched.active.values():
+            if st.req.rid == rid:
+                return st
+        return None
+
+    # ------------------------------------------------------------------
+    # fault injection and quarantine
+    # ------------------------------------------------------------------
+    def _maybe_poison(self) -> None:
+        """The ``page_poison`` fault: NaN-fill the first page of one
+        decoding slot whose page is private (refcount 1; a shared prefix
+        page is other requests' too).  Page 0 always holds attended
+        positions, so in exact decode mode the poison reaches the slot's
+        logits in the same tick and the isfinite guard fires.  Prism
+        decode reads remote content through the means state, where raw
+        page poison can go unseen, so injection is exact mode only.
+
+        Only before decode ticks: there one poisoned page NaNs exactly
+        its slot's row.  The packed tick's intra-tick pass folds every
+        token's K/V under an additive mask, so a poisoned slot's
+        second-layer K/V would NaN every decode row of the tick; the
+        same-tick detection here means the scrub lands before a packed
+        tick could read the page."""
+        if (self._injector is None or not self._paged
+                or self._hp.decode_mode != "exact"):
+            return
+        kv = self._kv
+        cands = [st for st in self._sched.decoding()
+                 if kv.slot_pages.get(st.slot)
+                 and kv.table.refs[kv.slot_pages[st.slot][0]] == 1]
+        if not cands or not self._injector.fire("page_poison"):
+            return
+        st = cands[self._injector.pick("page_poison", len(cands))]
+        kv.poison_page(kv.slot_pages[st.slot][0])
+
+    def _note_restart(self, st: RequestState) -> None:
+        """The one re-prefill entry point (a lost restore, a quarantine),
+        so the engine's restart count never drifts from the requests'."""
+        st.reset_for_refill()
+        self.stats.restarts += 1
+
+    def _fail_active(self, st: RequestState, reason: str) -> None:
+        """Fail an active request: scrub its private pages (NaN must not
+        rejoin the free list), release its pages and slot, record the
+        failure.  It never reaches ``results()``."""
+        if self._paged:
+            self._kv.scrub_slot(st.slot)
+            self._kv.free(st.slot, None)   # never register the prompt
+        else:
+            self._kv.reset_row(st.slot)
+        self._sched.remove(st)
+        self._failed[st.req.rid] = reason
+        self.stats.failed_requests += 1
+
+    def _quarantine(self, st: RequestState) -> None:
+        """Non-finite logits in a decode row: quarantine exactly that
+        slot.  Shared prefix pages are forked private, the slot's pages
+        and state row zeroed, and the prompt prefilled again into the
+        same pages (seeded sampling gives the same tokens).  After
+        ``max_restarts`` the request fails instead."""
+        self.stats.quarantined += 1
+        if st.restarts >= self.config.max_restarts:
+            self._fail_active(st, "max_restarts")
+            return
+        if self._paged:
+            try:
+                # the re-prefill writes from position 0 on; a shared
+                # page must never see a write
+                self._kv.ensure_writable(st.slot, 0,
+                                         len(st.req.prompt) - 1)
+            except RuntimeError:
+                self._fail_active(st, "quarantine_out_of_pages")
+                return
+            self._kv.scrub_slot(st.slot)
+        else:
+            self._kv.reset_row(st.slot)
+        self._note_restart(st)
+
+    # ------------------------------------------------------------------
+    # deadlines
+    # ------------------------------------------------------------------
+    def _miss(self, req, *, st: RequestState | None = None,
+              now: float | None = None) -> None:
+        self.stats.deadline_miss += 1
+        cls = self.stats.deadline_miss_by_class
+        cls[req.priority] = cls.get(req.priority, 0) + 1
+        self._failed[req.rid] = "deadline"
+        if st is not None and st.t_finish is None and now is not None:
+            st.t_finish = now
+
+    def _expire(self) -> None:
+        """Cancel every request past its deadline, wherever it is: a
+        future arrival, the fresh queue, the resume queue (spilled),
+        suspended (spilled) or active.  Each path reclaims what that
+        state holds (heap entry, queue place, store bytes, or pages,
+        state row and slot), so a storm of deadlines leaks nothing."""
+        now = self.now()
+        dead = lambda req: (req.deadline is not None       # noqa: E731
+                            and now >= req.deadline)
+        expired = [e for e in self._pending if dead(e[2])]
+        if expired:
+            self._pending = [e for e in self._pending if not dead(e[2])]
+            heapq.heapify(self._pending)
+            for _, _, req in expired:
+                self._miss(req)
+        sch = self._sched
+        for q in sch.queues.values():
+            for req in [r for r in q if dead(r)]:
+                q.remove(req)
+                self._miss(req)
+        for q in sch.resume.values():
+            for st in [s for s in q if dead(s.req)]:
+                q.remove(st)
+                if self._store is not None:
+                    self._store.drop(st.req.rid)
+                self._miss(st.req, st=st, now=now)
+        for rid in [r for r, s in self._suspended.items() if dead(s.req)]:
+            st = self._suspended.pop(rid)
+            self._store.drop(rid)
+            self._miss(st.req, st=st, now=now)
+        # active: pages, state row, slot; the prompt is never registered
+        # for prefix reuse (its pages may be partly prefilled)
+        for st in [s for s in list(sch.active.values()) if dead(s.req)]:
+            if self._paged:
+                self._kv.free(st.slot, None)
+            else:
+                self._kv.reset_row(st.slot)
+            sch.remove(st)
+            self._miss(st.req, st=st, now=now)
+        self._has_deadlines = any(r.deadline is not None
+                                  for r in self._live_requests())
+
+    def _live_requests(self):
+        """Every unfinished Request the engine still holds."""
+        for _, _, req in self._pending:
+            yield req
+        for q in self._sched.queues.values():
+            yield from q
+        for q in self._sched.resume.values():
+            for st in q:
+                yield st.req
+        for st in self._sched.active.values():
+            yield st.req
+        for st in self._suspended.values():
+            yield st.req
+
+    # ------------------------------------------------------------------
+    # offload controls
+    # ------------------------------------------------------------------
+    def preempt(self, rid: int) -> bool:
+        """Preempt an active request into the host store; it queues for
+        resume.  The tick preempts under priority pressure by itself;
+        this is for tests, draining and outside policies."""
+        st = self._find_active(rid)
+        if st is None or self._store is None:
+            return False
+        self._spill(st, requeue=True)
+        return True
+
+    def suspend(self, rid: int) -> bool:
+        """Move an idle session to the host tier without queueing it: it
+        holds no slot and no pages until ``resume(rid)``; ``run()`` does
+        not wait for it."""
+        st = self._find_active(rid)
+        if st is None or self._store is None:
+            return False
+        self._spill(st, requeue=False)
+        self._suspended[rid] = st
+        return True
+
+    def resume(self, rid: int) -> bool:
+        """Queue a suspended session again; its cache restores through
+        admission on a tick with room."""
+        st = self._suspended.pop(rid, None)
+        if st is None:
+            return False
+        self._sched.push_resume(st)
+        return True
+
+    def cancel(self, rid: int) -> bool:
+        """Drop a request wherever it is: pending, queued, parked for
+        resume, suspended or active.  Each path reclaims what that state
+        holds, as the deadline sweep does (the prompt is never
+        registered for prefix reuse).  An active request lands in
+        ``failed()`` as 'cancelled'.  False if the rid is not live."""
+        for i, (_, r, _) in enumerate(self._pending):
+            if r == rid:
+                self._pending.pop(i)
+                heapq.heapify(self._pending)
+                self.stats.cancelled += 1
+                return True
+        if self._sched.cancel(rid) is not None:
+            if self._store is not None:
+                self._store.drop(rid)
+            self.stats.cancelled += 1
+            return True
+        if self._suspended.pop(rid, None) is not None:
+            self._store.drop(rid)
+            self.stats.cancelled += 1
+            return True
+        st = self._find_active(rid)
+        if st is None:
+            return False
+        if self._paged:
+            self._kv.free(st.slot, None)
+        else:
+            self._kv.reset_row(st.slot)
+        self._sched.remove(st)
+        st.t_finish = self.now()
+        self._failed[rid] = "cancelled"
+        self.stats.cancelled += 1
+        return True
+
+    # ------------------------------------------------------------------
+    # snapshot and restore
+    # ------------------------------------------------------------------
+    def snapshot(self) -> EngineSnapshot:
+        """The engine's whole serving state on the host: every live
+        slot's pages and state row (the offload tier's gather, leaving
+        the slot its pages), the queues, pending arrivals, suspended
+        sessions, the store's entries, the requests' sampler RNGs (in
+        the deep-copied states), stats and the fault injector's place.
+        Called between steps."""
+        if not self._paged:
+            raise ValueError(
+                "snapshot requires the paged cache (paged=True): the "
+                "journal rides the page gather")
+        assert not self._plans and not self._from_store, (
+            "snapshot mid-admission: call between engine steps")
+        active = [(slot, copy.deepcopy(st), self._kv.extract_slot(slot),
+                   len(self._kv.slot_pages[slot]))
+                  for slot, st in sorted(self._sched.active.items())]
+        return EngineSnapshot(
+            now=self.now(),
+            next_rid=self._next_rid,
+            active=active,
+            queues={p: list(q) for p, q in self._sched.queues.items()
+                    if q},
+            resume={p: copy.deepcopy(q)
+                    for p, q in self._sched.resume.items() if q},
+            pending=copy.deepcopy(self._pending),
+            suspended=copy.deepcopy(self._suspended),
+            store_entries=(copy.deepcopy(self._store.entries())
+                           if self._store is not None else []),
+            results=copy.deepcopy(self._results),
+            failed=dict(self._failed),
+            stats=copy.deepcopy(self.stats),
+            injector=copy.deepcopy(self._injector),
+            decodes_since_prefill=self._sched._decodes_since_prefill,
+            has_deadlines=self._has_deadlines)
+
+    def restore(self, snap: EngineSnapshot) -> None:
+        """Rebuild a snapshot's serving state in this engine, which must
+        be fresh and built with the same config and weights.  Each live
+        slot reserves its page count through admission and takes its
+        payload; the page ids may differ, which the per-tick maps hide.
+        The prefix cache starts cold (losing it costs prefill, never
+        tokens).  The snapshot is not consumed."""
+        if not self._paged:
+            raise ValueError("restore requires the paged cache")
+        if self._next_rid or self._sched.active or self._sched.queued:
+            raise ValueError("restore target must be a fresh engine")
+        snap = copy.deepcopy(snap)     # keep the journal re-restorable
+        sch = self._sched
+        sch.queues = {p: deque(q) for p, q in snap.queues.items()}
+        sch.resume = snap.resume
+        sch._decodes_since_prefill = snap.decodes_since_prefill
+        self._pending = snap.pending
+        heapq.heapify(self._pending)
+        self._suspended = snap.suspended
+        if self._store is not None:
+            self._store.adopt(snap.store_entries)
+        for slot, st, payload, n_pages in snap.active:
+            key = ("__restore__", slot)
+            if not self._kv.reserve(key, AdmitPlan(total_pages=n_pages,
+                                                   fresh_pages=n_pages)):
+                raise RuntimeError(
+                    f"restore out of pages binding slot {slot}")
+            self._kv.bind(key, slot)
+            st.slot = slot
+            self._kv.inject_slot(slot, payload)
+            sch.active[slot] = st
+            sch.free_slots.remove(slot)
+        self._results = snap.results
+        self._failed = snap.failed
+        self.stats = snap.stats
+        self._next_rid = snap.next_rid
+        self._has_deadlines = snap.has_deadlines
+        if snap.injector is not None:
+            self._injector = snap.injector
+            if self._store is not None:
+                self._store._injector = snap.injector
+        # the clock resumes at the cut, so arrivals and deadlines keep
+        # their meaning
+        self._t0 = self._clock() - snap.now
+
+    def failed(self) -> dict:
+        """{rid: reason} of the requests the engine gave up on (deadline,
+        max_restarts, cancelled): disjoint from ``results()``."""
+        return dict(self._failed)
 
     # ------------------------------------------------------------------
     # ticks
@@ -427,8 +942,8 @@ class ServingEngine:
             i += take
             n_prefill += take
         t0 = self.now()
-        rows = self._logits_host(self._packed(tok, slot, pos, off, pre),
-                                 range(len(decode)))
+        rows, bad = self._logits_host(self._packed(tok, slot, pos, off,
+                                                   pre))
         now = self.now()
         self.stats.step_latency.append(now - t0)
         self.stats.occupancy.append(len(sch.active) / self.n_slots)
@@ -436,8 +951,12 @@ class ServingEngine:
         self.stats.packed_decode_tokens += len(decode)
         self.stats.packed_prefill_tokens += n_prefill
         self.stats.prefill_tokens += n_prefill
+        # only decode rows sample, so only they quarantine
         for j, st in enumerate(decode):
-            self._advance_decode(st, rows[j], now)
+            if bad[j]:
+                self._quarantine(st)
+            else:
+                self._advance_decode(st, rows[j], now)
         for st, take in prefill:
             st.nprefilled += take
             if not st.prefilling:

@@ -1,7 +1,8 @@
 """Request-level scheduling for the continuous-batching engine.
 
-FIFO admission over a fixed pool of decode slots.  Admission assigns a slot at once (host bookkeeping);
-the prompt is then prefilled *packed* or *in chunks*.
+FIFO admission within priority classes over a fixed pool of decode
+slots.  Admission assigns a slot at once (host bookkeeping); the prompt
+is then prefilled *packed* or *in chunks*.
 
 In **packed** mode (the default) ``plan_tick(token_budget)`` gives every
 decoding slot its one decode token first, then fills the rest of the
@@ -14,10 +15,23 @@ In **chunked** mode a chunk call runs at most once per
 once while nothing decodes; every mid-prefill row advances in the one
 call, each at its own offset.
 
-A copy of the reference's ``serving/scheduler.py`` without what the
-port does not serve yet: priority classes, deadlines, preemption and
-resume queues, the padded flush (ROADMAP queue 1, items 9-11) and gang
-admission (the static-batching baseline, item 14).
+**Priority classes and preemption**: every request carries an integer
+``priority`` (higher = more urgent; 0 by default keeps the scheduler
+exactly FIFO).  Admission serves the highest non-empty class first;
+within a class, *resume* candidates (requests preempted earlier, in
+order of original arrival) go before fresh ones, and fresh ones stay
+FIFO.  ``pick_victim`` is the preempt policy: when a higher-priority
+candidate is blocked (no slot, or out of pages) the engine spills the
+lowest-priority active request with the most deadline slack and the
+most work left to the host KV store (``runtime/offload.py``) and parks
+its RequestState on the resume queue.  A preempted request keeps its
+RequestState (generated tokens, decode position, sampler RNG), so a
+restore continues bit-identically.
+
+A copy of the reference's ``serving/scheduler.py`` without the padded
+flush (ROADMAP queue 1, item 8), gang admission (the static-batching
+baseline, item 14), the streaming front-end's counters and in-flight
+epochs (item 10) and the degraded mesh's counters (item 11).
 """
 from __future__ import annotations
 
@@ -37,6 +51,8 @@ class Request:
     eos_id: int | None = None
     sampling: SamplingParams = SamplingParams()
     arrival: float = 0.0             # absolute clock time of arrival
+    priority: int = 0                # higher = more urgent; 0 = default
+    deadline: float | None = None    # absolute clock time; None = never
 
 
 class RequestState:
@@ -49,7 +65,8 @@ class RequestState:
     K/V row the first decode step rewrites in place (the same values)
     while it yields the next-token logits."""
     __slots__ = ("req", "slot", "pos", "next_token", "nprefilled",
-                 "generated", "rng", "t_admit", "ttft", "t_finish")
+                 "generated", "rng", "t_admit", "ttft", "t_finish",
+                 "restarts")
 
     def __init__(self, req: Request, slot: int, t_admit: float):
         self.req = req
@@ -62,10 +79,31 @@ class RequestState:
         self.t_admit = t_admit
         self.ttft = None
         self.t_finish = None
+        self.restarts = 0              # re-prefills (lost restore, NaN)
 
     @property
     def prefilling(self) -> bool:
         return self.nprefilled < len(self.req.prompt)
+
+    @property
+    def remaining(self) -> int:
+        """Tokens of work left (prompt still to prefill and tokens still
+        to generate): the preempt policy's tie-breaker."""
+        return ((len(self.req.prompt) - self.nprefilled)
+                + (self.req.max_new_tokens - len(self.generated)))
+
+    def reset_for_refill(self):
+        """Restart from scratch after the offload store lost this
+        request's spilled KV, or a quarantine: re-prefill the prompt and
+        regenerate from a fresh sampler RNG (greedy or seeded sampling
+        makes the rerun give the same tokens).  ``ttft`` is kept: the
+        first token was already seen and is not counted twice."""
+        self.pos = -1
+        self.next_token = None
+        self.nprefilled = 0
+        self.generated = []
+        self.rng = self.req.sampling.make_rng()
+        self.restarts += 1
 
     def begin_decode(self):
         """Prefill done: rewind to the last prompt token and decode."""
@@ -109,6 +147,19 @@ class EngineStats:
     out_of_pages: int = 0              # admissions blocked on the free list
     prefix_hits: int = 0               # admissions that mapped a prefix
     prefix_tokens_saved: int = 0       # prompt tokens never prefilled
+    preemptions: int = 0               # spills to the host KV store
+    spilled_pages: int = 0             # pages gathered device -> host
+    restore_hits: int = 0              # resumes injected from the store
+    restore_misses: int = 0            # resumes re-prefilled (entry lost)
+    restarts: int = 0                  # reset_for_refill invocations
+    deadline_miss: int = 0             # requests cancelled past deadline
+    deadline_miss_by_class: dict = field(default_factory=dict)
+    quarantined: int = 0               # non-finite decode rows caught
+    failed_requests: int = 0           # max_restarts / unrecoverable
+    faults_injected: int = 0           # chaos faults actually fired
+    faults_by_kind: dict = field(default_factory=dict)  # kind -> fired
+    store_get_retries: int = 0         # KVStore reads re-tried (restore)
+    cancelled: int = 0                 # requests cancelled by the caller
     ticks_idle: int = 0                # step() calls that found no work
     t_start: float | None = None
     t_end: float | None = None
@@ -144,30 +195,53 @@ class EngineStats:
             "out_of_pages": self.out_of_pages,
             "prefix_hits": self.prefix_hits,
             "prefix_tokens_saved": self.prefix_tokens_saved,
+            "preemptions": self.preemptions,
+            "spilled_pages": self.spilled_pages,
+            "restore_hits": self.restore_hits,
+            "restore_misses": self.restore_misses,
+            "restarts": self.restarts,
+            "deadline_miss": self.deadline_miss,
+            "deadline_miss_by_class": {
+                str(k): v for k, v
+                in sorted(self.deadline_miss_by_class.items())},
+            "quarantined": self.quarantined,
+            "failed_requests": self.failed_requests,
+            "faults_injected": self.faults_injected,
+            "faults_by_kind": {k: v for k, v
+                               in sorted(self.faults_by_kind.items())},
+            "store_get_retries": self.store_get_retries,
+            "cancelled": self.cancelled,
             "ticks_idle": self.ticks_idle,
         }
 
 
 class FifoScheduler:
-    """FIFO queue, slot pool and interleave policy."""
+    """FIFO-within-priority queues, slot pool and interleave policy.
+
+    With every request at priority 0 and no preemption this is a plain
+    FIFO scheduler.  Priorities add per-class queues; preemption adds
+    per-class resume queues of parked RequestStates."""
 
     def __init__(self, n_slots: int, *, decode_per_prefill: int = 4):
         if n_slots < 1:
             raise ValueError(f"n_slots {n_slots} < 1")
         self.n_slots = n_slots
         self.decode_per_prefill = max(1, decode_per_prefill)
-        self.queue: deque = deque()    # Requests, FIFO
+        self.queues: dict = {}         # priority -> deque[Request], FIFO
+        self.resume: dict = {}         # priority -> [RequestState] by arrival
         self.free_slots: list = list(range(n_slots))   # ascending order
         self.active: dict = {}                         # slot -> RequestState
         self._decodes_since_prefill = self.decode_per_prefill
 
     # -- queue -------------------------------------------------------------
     def submit(self, req: Request):
-        self.queue.append(req)
+        self.queues.setdefault(req.priority, deque()).append(req)
 
     @property
     def queued(self) -> int:
-        return len(self.queue)
+        """Pending admissions: fresh requests and parked preemptees."""
+        return (sum(len(q) for q in self.queues.values())
+                + sum(len(q) for q in self.resume.values()))
 
     @property
     def has_work(self) -> bool:
@@ -225,28 +299,58 @@ class FifoScheduler:
     def note_chunk(self):
         self._decodes_since_prefill = 0
 
-    # -- admission -----------------------------------------------------------
-    def peek_admit(self) -> Request | None:
-        """The next admission candidate without popping it: the queue's
-        head."""
-        return self.queue[0] if self.queue else None
+    # -- admission order ---------------------------------------------------
+    def peek_admit(self):
+        """The next admission candidate without popping it: the highest
+        non-empty priority class first; within a class, resume
+        candidates (parked RequestStates, by original arrival: they
+        already hold progress) before fresh Requests, each FIFO.
+        Returns a Request, a RequestState, or None."""
+        for prio in sorted(set(self.resume) | set(self.queues),
+                           reverse=True):
+            if self.resume.get(prio):
+                return self.resume[prio][0]
+            if self.queues.get(prio):
+                return self.queues[prio][0]
+        return None
 
+    def _pop_head(self, cand) -> None:
+        """Remove the candidate ``peek_admit`` just returned."""
+        if isinstance(cand, RequestState):
+            q = self.resume[cand.req.priority]
+            assert q[0] is cand
+            q.pop(0)
+        else:
+            q = self.queues[cand.priority]
+            assert q[0] is cand
+            q.popleft()
+
+    # -- transitions -------------------------------------------------------
     def admit(self, now: float, gate=None) -> list:
         """Pop candidates into free slots (lowest slot first) and return
-        the admitted RequestStates in admission order.  ``gate(request)
-        -> bool`` is the page-aware check, consulted on the head before
-        the pop; False stops admission for this call (strict order: a
-        later, smaller request never jumps an out-of-pages head)."""
+        the admitted RequestStates in admission order, candidates in
+        ``peek_admit``'s order.  ``gate(candidate) -> bool`` is the
+        page-aware check, consulted on the head before the pop; False
+        stops admission for this call (strict order: a later, smaller
+        request never jumps an out-of-pages head).  A True gate may
+        reserve resources, so the pop follows it.  A candidate is a
+        Request (fresh) or a RequestState (a resume from the offload
+        store), which keeps its progress and is bound to the new slot."""
         states = []
         while self.free_slots:
-            req = self.peek_admit()
-            if req is None:
+            cand = self.peek_admit()
+            if cand is None:
                 break
-            if gate is not None and not gate(req):
+            if gate is not None and not gate(cand):
                 break
-            self.queue.popleft()
-            st = RequestState(req, self.free_slots.pop(0), now)
-            self.active[st.slot] = st
+            self._pop_head(cand)
+            slot = self.free_slots.pop(0)
+            if isinstance(cand, RequestState):
+                st = cand
+                st.slot = slot
+            else:
+                st = RequestState(cand, slot, now)
+            self.active[slot] = st
             states.append(st)
         if states:
             self._decodes_since_prefill = 0
@@ -259,3 +363,70 @@ class FifoScheduler:
         st.t_finish = now
         self.free_slots.append(st.slot)
         self.free_slots.sort()
+
+    # -- preemption --------------------------------------------------------
+    def pick_victim(self, below_priority: int, now: float = 0.0):
+        """Preempt policy: among active requests of priority strictly
+        below ``below_priority``, the lowest-priority one with the most
+        deadline slack (``deadline - now - remaining``; no deadline is
+        infinite slack, so work without one goes before anything racing
+        a deadline), then the most work left (ties: the highest rid, the
+        latest arrival).  Decode-phase requests are preferred (spilling
+        one frees a whole row at no recompute); a mid-prefill victim only
+        when nothing decodes.  None when no strictly lower-priority
+        request is active (equal-priority preemption would thrash)."""
+        cands = [st for st in self.active.values()
+                 if st.req.priority < below_priority]
+        if not cands:
+            return None
+        decode = [st for st in cands if not st.prefilling]
+        pool = decode or cands
+
+        def slack(st):
+            if st.req.deadline is None:
+                return float("inf")
+            return st.req.deadline - now - st.remaining
+
+        return max(pool, key=lambda st: (-st.req.priority, slack(st),
+                                         st.remaining, st.req.rid))
+
+    def remove(self, st: RequestState) -> None:
+        """Detach an active request from its slot without finishing it
+        (the spill half of preempt and suspend; the caller decides
+        where the RequestState goes next)."""
+        assert self.active.get(st.slot) is st
+        del self.active[st.slot]
+        self.free_slots.append(st.slot)
+        self.free_slots.sort()
+        st.slot = -1
+
+    def push_resume(self, st: RequestState) -> None:
+        """Park a spilled RequestState for re-admission, its class's
+        resume queue kept in order of original arrival (the earliest
+        preemptee restores first however often it was bounced)."""
+        q = self.resume.setdefault(st.req.priority, [])
+        q.append(st)
+        q.sort(key=lambda s: (s.req.arrival, s.req.rid))
+
+    def preempt(self, st: RequestState) -> None:
+        """Spill-side bookkeeping: free the slot and queue the state for
+        resume (the engine has spilled its KV to the store)."""
+        self.remove(st)
+        self.push_resume(st)
+
+    def cancel(self, rid: int):
+        """Remove a request that is not active (queued fresh or parked
+        for resume) by rid.  Returns the removed Request or
+        RequestState, or None if the rid is not waiting here; the engine
+        cancels active requests (``ServingEngine.cancel``)."""
+        for q in self.queues.values():
+            for req in q:
+                if req.rid == rid:
+                    q.remove(req)
+                    return req
+        for q in self.resume.values():
+            for st in q:
+                if st.req.rid == rid:
+                    q.remove(st)
+                    return st
+        return None

@@ -276,8 +276,10 @@ def test_future_arrivals_fast_forward_a_still_clock():
 
 
 def test_engine_config_validation_and_defaults():
-    """The reference's normalisation and refusals, and a ValueError that
-    names the ROADMAP item for each part this port does not serve yet."""
+    """The reference's normalisation and refusals (offload needs the
+    paged cache, faults a FaultPlan, the restart and retry bounds), and a
+    ValueError that names the ROADMAP item for each part this port does
+    not serve yet (the padded flush, the shard_loss fault)."""
     import dataclasses
     from repro_torch.runtime.serve import ServeHParams
     from repro_torch.serving import EngineConfig, ServingEngine
@@ -293,15 +295,23 @@ def test_engine_config_validation_and_defaults():
                 dict(paged=False, prefix_cache=True),
                 dict(prefill_mode="bogus"), dict(token_budget=1),
                 dict(n_slots=0), dict(prefill_len=17),
-                dict(offload=True), dict(faults=object()),
+                dict(max_restarts=0), dict(restore_retries=-1),
+                dict(restore_backoff_s=-0.5),
                 dict(prefill_mode="padded")):
         with pytest.raises(ValueError):
             EngineConfig(**{**base, **bad})
-    for bad, item in ((dict(offload=True), "item 9"),
-                      (dict(faults=object()), "item 9"),
-                      (dict(prefill_mode="padded"), "item 8")):
-        with pytest.raises(ValueError, match=item):
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec
+    for bad, match in ((dict(offload=True, paged=False), "paged"),
+                       (dict(faults=object()), "FaultPlan"),
+                       (dict(faults=FaultPlan.chaos(0)), "item 11"),
+                       (dict(prefill_mode="padded"), "item 8")):
+        with pytest.raises(ValueError, match=match):
             EngineConfig(**{**base, **bad})
+    cfg = EngineConfig(offload=True, faults=FaultPlan(
+        page_poison=FaultSpec(p=0.5)), **base)
+    assert (cfg.offload, cfg.offload_bytes, cfg.max_restarts,
+            cfg.restore_retries, cfg.restore_backoff_s) == (
+        True, None, 3, 2, 0.0)
     c, params = _port()
     eng = ServingEngine(c, params, EngineConfig(**base), n_seq=P)
     pg = eng.kv_cache.paging
