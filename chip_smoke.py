@@ -39,7 +39,13 @@ Phases, one JSON line each:
             of the static decode, packed and chunk layouts NaN-filled):
             exactly the rows that read it come out non-finite, on the
             route the rule names and (without a row map) the other, and
-            every other row matches the plain version;
+            every other row matches the plain version; the degraded
+            step's configurations (sequence shard 1 lost: its lane's
+            exact columns dead; exact mode with the standby replica's
+            means live on that lane only, prism mode with the lost
+            shard's own means opened), dense and over the page pool,
+            timed against their bound, the library call and the healthy
+            decode layout;
             head dim 64, the only one the kernels are built for; segment
             means and the fused PRISM augment in f32 and bf16 over
             ragged segments, L = 1 and L = N, D = 33 and 5, P = 1/2/4
@@ -124,7 +130,37 @@ Phases, one JSON line each:
             counters, and spill and restore times (host clock, the card
             synchronised around each; median ms and MB a request, MB/s
             over the bytes moved).
-8. kernels  one line listing every kernel with its numbers: ``ms`` is
+8. path     the rest of the serving engine at phase 6's widths and trace.
+            (a) ``stream``: ``StreamingEngine`` (double-buffered, tick
+            N+1 dispatched before tick N's tokens are home; inputs in one
+            non-blocking copy from pinned memory, the (8, 4) result array
+            the one copy home) in packed exact and prism, overlap on and
+            off in turns (on, off, off, on): tokens equal to phase 6's
+            synchronous paged run (a
+            request may part only at a near-tie), every stream delivering
+            its tokens; wall s, tokens/s, TTFT, ITL p50/p99 and
+            ``host_overhead_fraction``; then a fresh run's window of 24
+            loop iterations after 30 under torch.profiler, streamed and
+            synchronous: device busy and idle share per tick; the card's
+            sync debug mode must name no host synchronisation inside the
+            streamed window.  (b) ``degraded``: a ``shard_loss`` fault on
+            shard 1 at the engine's 60th tick, at most 8 degraded ticks,
+            packed exact and prism;
+            the lost shard's columns of the active slots' pages are
+            NaN-filled when it is lost; the degraded ticks' logits must be
+            finite, and every request's tokens and logits after the
+            recovery are held to phase 6's paged run under its rules;
+            capture ms and bytes, ms per degraded tick beside the healthy
+            decode ticks, the recovery step and the refill time.  (c)
+            ``padded``: the padded admission flush on the dense cache in
+            both pairings, held to the same run with ``backend='plain'``;
+            ``prism_flash_attention`` launches once a layer a flush,
+            ``segment_means`` too in prism mode; ms per flush.  (d)
+            ``gang``: gang admission in packed exact, held to phase 6's
+            paged run, in turns with the continuous engine (continuous,
+            gang, gang, continuous); wall and tokens/s of each.
+            Every run drains leak-free.
+9. kernels  one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -136,7 +172,9 @@ Phases, one JSON line each:
             route's launches (``launches_mq``, ``launches_mq_by_path``),
             the poisoned-page cases (``poisoned``), the paged layouts
             (``paged_*``: kernel, plain, bound, the reference's gather
-            plus the library call, the dense twin from this call) and
+            plus the library call, the dense twin from this call), the
+            degraded step's (``degraded_exact_*``, ``degraded_prism_*``,
+            over the page pool, with the healthy layout's ``ms``) and
             the launches through a page table (``launches_paged``,
             ``launches_paged_by_path``); the segment_means row its bf16
             and fused-augment (``augment_*``) numbers.
@@ -661,6 +699,49 @@ def decode_inputs(torch, mode, gen):
     return args, hd ** -0.5
 
 
+def degraded_inputs(torch, mode, gen):
+    """The degraded step's decode-kernel inputs at the main path's shape,
+    sequence shard 1 lost (``serve_step(lost=...)``): the lost lane's
+    exact columns dead; exact mode: the standby replica's means (random
+    K/V, counts 1..segment size, a quarter of them dead) live on the lost
+    lane only (``serve.replica_gz``); prism mode: the cache's means with
+    the lost shard's own gate opened (``serve.prism_gz`` with ``lost``).
+    The engine's exact placement is round-robin, prism's aligned."""
+    from repro_torch.core.attention import log_repeats
+    from repro_torch.runtime import serve as S
+    from repro_torch.sharding.context import means_columns
+    args, scale = decode_inputs(torch, mode, gen)
+    hp = S.ServeHParams(decode_mode=mode, means_cr=CR)
+    cap = PROMPT + GEN + (-(PROMPT + GEN)) % SHARDS
+    lay = S.make_layout(SHARDS, cap, hp, prefill_len=PROMPT,
+                        placement="rr" if mode == "exact" else "aligned")
+    lost = torch.zeros(SHARDS, device="cuda")
+    lost[1] = 1.0
+    pos = torch.full((BATCH,), PROMPT + GEN - 2, device="cuda")
+    _, _, col_pos = S._decode_cols(lay, pos)
+    valid = (col_pos[None] <= pos[:, None, None]) & (lost == 0)[None, :,
+                                                                  None]
+    args[3] = valid.reshape(BATCH * SHARDS, -1).contiguous()
+    m = SHARDS * lay.L
+    if mode == "exact":
+        hkv, hd = args[1].shape[2:]
+        size = PROMPT // SHARDS // lay.L
+        counts = torch.randint(1, size + 1, (BATCH, m), device="cuda",
+                               generator=gen).float()
+        counts[torch.rand(BATCH, m, device="cuda", generator=gen) < 0.25] = 0
+        gz = S.replica_gz(counts, lost)
+        args += [log_repeats(gz).reshape(BATCH * SHARDS, m).contiguous(),
+                 0.5 * torch.randn(BATCH, m, hkv, hd, device="cuda",
+                                   generator=gen),
+                 0.5 * torch.randn(BATCH, m, hkv, hd, device="cuda",
+                                   generator=gen)]
+    else:
+        cols = means_columns(SHARDS, lay.n_loc0, lay.L, pos.device)
+        gz = S.prism_gz(cols, cols.sizes, pos, lost)
+        args[4] = log_repeats(gz).reshape(BATCH * SHARDS, m).contiguous()
+    return args, scale
+
+
 def decode_bound(torch, q, k, valid, log_gz=None, kz=None, rows=None,
                  maps=()):
     """(bound ms, what bounds it, bytes) of one decode-stats call: each
@@ -878,6 +959,24 @@ def check_decode(torch, chk, timer):
         "packed": (packed, rows, "packed"),
         "packed_prism": (packed_prism, rows, "packed_prism"),
         "chunk": (chunk["off448"], None, "chunk")}, scale, times)
+    # the degraded step's configurations over the page pool: exact with
+    # the replica's means on the lost lane (its rows are the cache rows:
+    # no means-row map), prism with the lost shard's own means opened
+    times["degraded"] = {}
+    for mode in ("exact", "prism"):
+        args, _ = degraded_inputs(torch, mode, gen)
+        both(args, scale, f"degraded/{mode}")
+        pargs, pages, zrows = to_pages(torch, gen, args, SHARDS,
+                                       args[1].shape[1])
+        if mode == "exact":
+            pargs[5:7], zrows = args[5:7], None
+        both(pargs, scale, f"paged/degraded/{mode}", pages=pages,
+             zrows=zrows)
+        t = time_decode(torch, timer, pargs, scale, pages=pages,
+                        zrows=zrows)
+        t["healthy_ms"] = times["paged"][
+            "decode" if mode == "exact" else "decode_prism"]["ms"]
+        times["degraded"][mode] = t
     # one mapped page NaN-filled: exactly the rows that read it come out
     # non-finite, on each route (the engine's quarantine relies on it)
     times["poisoned"] = check_poisoned(torch, chk, gen, {
@@ -2062,7 +2161,7 @@ def drive_engine(torch, params):
     ``ENGINE_RUNS``, each checked against the dense cache's run; exact
     mode's prefix cache must hit and account for every page.  Returns
     the launches of each paged run, and each packed paged run's tokens
-    and logits by decode mode (phase 7's reference)."""
+    and logits by decode mode (phases 7 and 8's reference)."""
     from repro_torch.configs import get_config
     cfg = get_config(ARCH)
     prompts = engine_trace(cfg.vocab_size)
@@ -2123,7 +2222,7 @@ def drive_engine(torch, params):
 # priority 1 after the engine's 20th step; a snapshot after its 40th
 ROBUST = dict(ENGINE, n_pages=144, offload=True)
 ROBUST_JOIN, ROBUST_SNAPSHOT = 20, 40
-# the chaos run: each kind (but shard_loss, not ported) at a fixed
+# the chaos run: each kind (but shard_loss, phase 8b's) at a fixed
 # opportunity, so that every one fires: the first spill lost, the second
 # store read torn (retried), the first decode tick's page poisoned, the
 # fourth admission stalled, the sixth tick delayed
@@ -2239,8 +2338,8 @@ def run_robust(torch, cfg, params, mode, prompts, faults=None,
 
 def check_drained(eng, what):
     """Leak-free after the drain: the refcounts hold, no slot holds
-    pages, every page is free or held by a prefix entry, the store is
-    empty."""
+    pages, every page is free or held by a prefix entry, the store (if
+    any) is empty."""
     kv = eng.kv_cache
     kv.check()
     held = ({p for e in kv.prefix.entries.values() for p in e.pages}
@@ -2249,9 +2348,9 @@ def check_drained(eng, what):
             or kv.table.free_pages + len(held) != kv.paging.n_pages):
         raise AssertionError(f"{what}: pages not accounted for: "
                              f"{kv.stats()}")
-    if len(eng.kv_store) or eng.kv_store.bytes_used:
-        raise AssertionError(f"{what}: store not empty: "
-                             f"{eng.kv_store.stats()}")
+    store = eng.kv_store
+    if store is not None and (len(store) or store.bytes_used):
+        raise AssertionError(f"{what}: store not empty: {store.stats()}")
     return len(held)
 
 
@@ -2371,6 +2470,458 @@ def drive_robust(torch, params, phase6):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: streaming, the degraded mesh, padded and gang admission
+# ---------------------------------------------------------------------------
+
+# (a) the streaming loop's traced windows: loop iterations before the
+# window and in it
+STREAM_SKIP, STREAM_WINDOW = 30, 24
+# (b) sequence shard 1 lost at the engine's 60th and 150th ticks with
+# work (every slot decoding then), each time up to 8 ticks served
+# through the standby replicas (the engine's default is 2; 8 give a
+# degraded tick's time more samples; two windows tell a slow window of
+# the host from a slow degraded tick)
+SHARD_LOSS_AT, SHARD_LOST, DEGRADED_GRACE = (60, 150), 1, 8
+# what the lost shard's columns hold once it is lost: NaN, which the hand
+# kernel never loads (a dead column), so any read of them would show
+LOST_FILL = float("nan")
+
+
+def engine_config(mode, **over):
+    from repro_torch.runtime.serve import ServeHParams
+    from repro_torch.serving import EngineConfig
+    backend = over.pop("backend", "auto")
+    return EngineConfig(hp=ServeHParams(decode_mode=mode, means_cr=CR,
+                                        backend=backend),
+                        **{**ENGINE, "prefill_mode": "packed", **over})
+
+
+def compare_tokens(out, ref_out, ref_log, what):
+    """Tokens against a reference run's, request by request: a request
+    may part from it only where the reference's top-2 gap is within
+    TOKEN_GAP of its largest |logit| (at most ENGINE_MAX_DIVERGED)."""
+    import torch
+    if sorted(out) != sorted(ref_out):
+        raise AssertionError(f"{what}: the runs finished other requests")
+    top = max(float(torch.stack(v).abs().max()) for v in ref_log.values())
+    diverged = []
+    for rid in sorted(ref_out):
+        if out[rid] == ref_out[rid]:
+            continue
+        k = next(i for i, (a, b) in enumerate(zip(out[rid], ref_out[rid]))
+                 if a != b)
+        top2 = ref_log[rid][k].topk(2).values
+        if float(top2[0] - top2[1]) > TOKEN_GAP * top:
+            raise AssertionError(f"{what}: request {rid} step {k}: tokens "
+                                 "differ at a clear top-2 gap")
+        diverged.append(rid)
+    if len(diverged) > ENGINE_MAX_DIVERGED:
+        raise AssertionError(f"{what}: {len(diverged)} requests parted at "
+                             f"near-ties (at most {ENGINE_MAX_DIVERGED})")
+    return {"tokens_equal": len(ref_out) - len(diverged),
+            "diverged_at_near_tie": diverged}
+
+
+def stream_record(eng, seng, out, wall):
+    import numpy as np
+    s = eng.stats.summary()
+    itl = [dt for ds in seng.itl_samples().values() for dt in ds]
+    return {**engine_record(eng, out, wall),
+            "itl_p50_s": float(np.percentile(itl, 50)),
+            "itl_p99_s": float(np.percentile(itl, 99)),
+            "host_overhead_fraction": s["host_overhead_fraction"],
+            "tokens_streamed": s["tokens_streamed"],
+            "overlap": seng.overlap, "depth": seng.depth}
+
+
+def stream_window(torch, cfg, params, mode, overlap, prompts):
+    """A fresh streamed run: ``STREAM_SKIP`` loop iterations untraced,
+    then torch.profiler over the next ``STREAM_WINDOW`` (with the card's
+    sync debug mode on, its warnings kept), per tick dispatched."""
+    import warnings
+    from repro_torch.serving import ServingEngine, StreamingEngine
+    eng = ServingEngine(cfg, params, engine_config(mode), n_seq=SHARDS)
+    seng = StreamingEngine(eng, overlap=overlap)
+    for p in prompts:
+        seng.submit_stream(p, max_new_tokens=GEN)
+    for _ in range(STREAM_SKIP):
+        seng.step()
+    st = eng.stats
+    n0 = st.packed_ticks + st.decode_steps
+    syncs = []
+
+    def window():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(STREAM_WINDOW):
+                    seng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # where each synchronising operation was called from (the mode's
+        # own notice that it is a prototype aside)
+        syncs.extend(f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+                     for w in caught if "prototype" not in str(w.message))
+    prof = trace_window(torch, window)
+    ticks = st.packed_ticks + st.decode_steps - n0
+    out = device_breakdown(prof, max(1, ticks))
+    out.update(ticks=ticks, syncs=len(syncs), sync_sites=sorted(set(syncs)))
+    seng.drain()
+    return out
+
+
+def drive_streaming(torch, cfg, params, prompts, phase6, card):
+    """(a): the trace through ``StreamingEngine`` in packed exact and prism,
+    overlap on and off in turns (on, off, off, on: host time moves a lot
+    between runs); tokens held to phase 6's synchronous paged run; then
+    a profiled window of each.  On the overlapped path no host
+    synchronisation may happen inside a window but the reconcile's event
+    wait (the card's sync debug mode names any other); returns the
+    launches of each run and the sites of any such synchronisation."""
+    import time
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.serving import ServingEngine, StreamingEngine
+    launches, syncs = {}, {}
+    for mode in ("exact", "prism"):
+        windows = {}
+        for turn, overlap in enumerate((True, False, False, True)):
+            tag = "overlap" if overlap else "sync"
+            path = f"stream/{mode}/{tag}/{1 + turn // 2}"
+            eng = ServingEngine(cfg, params, engine_config(mode),
+                                n_seq=SHARDS)
+            seng = StreamingEngine(eng, overlap=overlap)
+            streams = dict(seng.submit_stream(p, max_new_tokens=GEN)
+                           for p in prompts)
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            out = seng.run_sync()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+            check_launches(path, counts, engine_launches(eng, True,
+                                                         cfg.n_layers))
+            if any(s.drain() != out[r] or s.finished != "length"
+                   for r, s in streams.items()):
+                raise AssertionError(f"{path}: a stream did not deliver "
+                                     "its request's tokens")
+            cmp = compare_tokens(out, *phase6[mode], path)
+            check_drained(eng, path)
+            launches[path] = counts
+            if tag not in windows:
+                windows[tag] = stream_window(torch, cfg, params, mode,
+                                             overlap, prompts)
+                if overlap and windows[tag]["syncs"]:
+                    syncs[path] = windows[tag]["sync_sites"]
+            emit("path", path="stream", mode=mode, overlap=overlap,
+                 turn=turn, card=card, **ENGINE, requests=ENGINE_REQUESTS,
+                 gen=GEN,
+                 record=stream_record(eng, seng, out, wall),
+                 launches=counts, reference="phase 6's paged run of the "
+                 "same mode (synchronous engine)", **cmp)
+        emit("trace", path="stream", mode=mode, card=card,
+             window_iterations=STREAM_WINDOW, after=STREAM_SKIP,
+             streamed=windows["overlap"], synchronous=windows["sync"])
+    return launches, syncs
+
+
+def drive_shard_loss(torch, cfg, params, prompts, phase6, card):
+    """(b): ``shard_loss`` on shard 1 at the engine's 60th and 150th ticks
+    with work, each window at most ``DEGRADED_GRACE`` degraded ticks,
+    packed exact and prism.  When the shard is lost the active slots'
+    K/V columns on it are filled with NaN, so that any read of them
+    shows; the degraded ticks' logits must be finite, the recovery's
+    scrub clears the NaN, and every request's tokens and logits after the
+    recoveries are held to phase 6's paged run under its rules.  The
+    degraded step runs under the card's sync debug mode: its only host
+    synchronisations may be the engine's input copies.  Captures (ms,
+    bytes), ms per degraded tick against the 8 healthy decode ticks
+    nearest each window, the recovery step and the time until every
+    restarted request decodes again, on the host clock with the card
+    synchronised."""
+    import time
+    import warnings
+    import numpy as np
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec
+    from repro_torch.serving import ServingEngine
+    launches = {}
+    for mode in ("exact", "prism"):
+        path = f"degraded/{mode}"
+        plan = FaultPlan(shard_loss=FaultSpec(at=SHARD_LOSS_AT,
+                                              shard=SHARD_LOST))
+        eng = ServingEngine(cfg, params, engine_config(
+            mode, faults=plan, degraded_grace=DEGRADED_GRACE), n_seq=SHARDS)
+        log = keep_logits(eng)
+        kv, rep = eng.kv_cache, eng._replica
+        caps, lost_at, finite, fill_s = [], [], [], [0.0]
+        sync_sites = set()
+        capture, lose, degraded = (rep.capture, eng._lose_shard,
+                                   eng._decode_degraded)
+
+        def timed_capture(kv_, st, tick_no=0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            capture(kv_, st, tick_no)
+            torch.cuda.synchronize()
+            caps.append((time.perf_counter() - t0,
+                         rep._slots[st.slot].nbytes))
+
+        def lose_and_poison(shard):
+            lose(shard)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pages = sorted({p for s in eng._sched.active
+                            for p in kv.slot_pages[s]})
+            idx = torch.as_tensor(pages, device=eng.device)
+            for c in kv.storage:
+                for name in ("k", "v"):
+                    c[name][idx, shard] = LOST_FILL
+            torch.cuda.synchronize()
+            fill_s[0] = time.perf_counter() - t0
+            lost_at.append({"pages": len(pages),
+                            "slots": len(eng._sched.active),
+                            "decoding": len(eng._sched.decoding())})
+
+        def checked_degraded(tok, pos):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    logits = degraded(tok, pos)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            sync_sites.update(
+                f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+                for w in caught if "prototype" not in str(w.message))
+            finite.append(bool(torch.isfinite(logits[torch.as_tensor(
+                pos >= 0, device=logits.device)]).all()))
+            return logits
+        rep.capture, eng._lose_shard = timed_capture, lose_and_poison
+        eng._decode_degraded = checked_degraded
+        index = {eng.submit(p, max_new_tokens=GEN): i
+                 for i, p in enumerate(prompts)}
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        steps, restarted, refill_s = [], None, []
+        t_start = time.perf_counter()
+        while eng._sched.has_work:
+            n_caps, fill_s[0] = len(caps), 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kind = eng.step()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            # a tick's own time: without the replica's captures after it
+            # and this script's NaN fill at the loss
+            steps.append((kind, t1 - t0 - fill_s[0]
+                          - sum(c[0] for c in caps[n_caps:])))
+            if kind == "recovered":
+                restarted, t_rec = set(eng._sched.active), t0
+            if restarted is not None and not any(
+                    st.prefilling for s, st in eng._sched.active.items()
+                    if s in restarted):
+                refill_s.append(t1 - t_rec)
+                restarted = None
+        wall = time.perf_counter() - t_start
+        counts = dict(LAUNCHES)
+        s = eng.stats
+        kinds = [k for k, _ in steps]
+        # each window: its run of degraded ticks (it closes early once
+        # nothing can decode)
+        windows = []
+        for i, k in enumerate(kinds):
+            if k == "degraded":
+                if not windows or windows[-1][-1] != i - 1:
+                    windows.append([])
+                windows[-1].append(i)
+        n_loss = len(SHARD_LOSS_AT)
+        if (s.shard_lost != n_loss or kinds.count("recovered") != n_loss
+                or len(windows) != n_loss
+                or not all(1 <= len(w) <= DEGRADED_GRACE for w in windows)
+                or kinds.count("degraded") != s.degraded_ticks
+                or not finite or not all(finite)):
+            raise AssertionError(f"{path}: shard_lost {s.shard_lost}, "
+                                 f"windows {windows}, finite {finite}")
+        stray = sorted(x for x in sync_sites
+                       if not x.startswith("src/repro_torch/serving/"
+                                           "engine.py"))
+        if stray:
+            raise AssertionError(f"{path}: the degraded step synchronised "
+                                 f"the host at {stray}")
+        need = engine_launches(eng, True, cfg.n_layers)
+        for name in ("flash_decode_stats", "flash_decode_stats.paged"):
+            need[name] += cfg.n_layers * s.degraded_ticks
+        check_launches(path, counts, need)
+        out = {index[r]: v for r, v in eng.results().items()}
+        log = {index[r]: v[-GEN:] for r, v in log.items()
+               if r in eng.results()}
+        cmp = compare_engine(torch, out, log, *phase6[mode], what=path)
+        check_drained(eng, path)
+        launches[path] = counts
+        tick_ms = [1e3 * dt for _, dt in steps]
+        decode_at = [i for i, k in enumerate(kinds) if k == "decode"]
+        per_window = []
+        for w in windows:
+            near = sorted(decode_at, key=lambda i: abs(i - w[0]))[:8]
+            per_window.append({
+                "at_tick": w[0], "degraded_tick_ms": [tick_ms[i] for i in w],
+                "degraded_ms_p50": float(np.median([tick_ms[i] for i in w])),
+                "nearest_decode_ms_p50": float(np.median(
+                    [tick_ms[i] for i in near])),
+                "recover_step_ms": tick_ms[w[-1] + 1]})
+        cap_t, cap_b = (np.array([c[i] for c in caps]) for i in (0, 1))
+        emit("path", path="degraded", mode=mode, card=card, **ENGINE,
+             requests=ENGINE_REQUESTS, gen=GEN, lost_shard=SHARD_LOST,
+             lost_at_ticks=list(SHARD_LOSS_AT), at_loss=lost_at,
+             record=engine_record(eng, out, wall),
+             counters={k: getattr(s, k) for k in (
+                 "shard_lost", "degraded_ticks", "restarts",
+                 "failed_requests")},
+             captures={"n": len(caps), "refreshes": rep.refreshes,
+                       "ms_p50": 1e3 * float(np.median(cap_t)),
+                       "ms_max": 1e3 * float(cap_t.max()),
+                       "bytes_p50": int(np.median(cap_b)),
+                       "clock": "host, card synchronised"},
+             tick_ms_note="host clock, card synchronised; without the "
+                          "captures after a tick and the NaN fill",
+             windows=per_window,
+             healthy_decode_tick_ms_p50=float(np.median(
+                 [tick_ms[i] for i in decode_at])),
+             packed_tick_ms_p50=float(np.median(
+                 [t for t, k in zip(tick_ms, kinds) if k == "packed"])),
+             refill_s=refill_s, degraded_sync_sites=sorted(sync_sites),
+             degraded_logits_finite=all(finite), launches=counts,
+             reference="phase 6's paged run of the same mode",
+             tol=PATH_REL_TOL, token_gap=TOKEN_GAP, **cmp)
+        del eng, log
+    return launches
+
+
+def drive_padded(torch, cfg, params, prompts, card):
+    """(c): the padded admission flush in both pairings on the dense
+    cache (Voltage prefill + exact decode, PRISM prefill + prism decode),
+    each held to the same run with ``backend='plain'``; every flush
+    launches ``prism_flash_attention`` once a layer and, in prism mode,
+    ``segment_means`` (the fused augment) once a layer."""
+    import time
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.serving import ServingEngine
+    launches = {}
+    for mode in ("exact", "prism"):
+        path = f"padded/{mode}"
+        runs, flush_ms = {}, []
+        for backend in ("auto", "plain"):
+            eng = ServingEngine(cfg, params, engine_config(
+                mode, prefill_mode="padded", backend=backend), n_seq=SHARDS)
+            log = keep_logits(eng)
+            if backend == "auto":
+                flush = eng._padded_flush
+
+                def timed_flush(flush=flush):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    kind = flush()
+                    torch.cuda.synchronize()
+                    flush_ms.append(1e3 * (time.perf_counter() - t0))
+                    return kind
+                eng._padded_flush = timed_flush
+            for p in prompts:
+                eng.submit(p, max_new_tokens=GEN)
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            out = eng.run()
+            torch.cuda.synchronize()
+            runs[backend] = (eng, out, log, dict(LAUNCHES),
+                             time.perf_counter() - t0)
+        eng, out, log, counts, wall = runs["auto"]
+        s, n = eng.stats, cfg.n_layers
+        check_launches(path, counts, {
+            "prism_flash_attention": n * s.prefills,
+            "segment_means": n * s.prefills if mode == "prism" else 0,
+            "flash_decode_stats": n * s.decode_steps,
+            "flash_decode_stats.paged": 0, "flash_decode_stats.mq": 0})
+        if eng.kv_cache.paged or len(out) != ENGINE_REQUESTS:
+            raise AssertionError(f"{path}: {len(out)} requests on a "
+                                 f"{'paged' if eng.kv_cache.paged else 'dense'}"
+                                 " cache")
+        _, p_out, p_log, p_counts, p_wall = runs["plain"]
+        if any(p_counts.get(k, 0) for k in TOL):
+            raise AssertionError(f"{path}: the plain run launched kernels")
+        cmp = compare_engine(torch, out, log, p_out, p_log, what=path)
+        launches[path] = counts
+        emit("path", path="padded", mode=mode, card=card, **ENGINE,
+             requests=ENGINE_REQUESTS, gen=GEN, flushes=s.prefills,
+             flush_ms=flush_ms,
+             record=engine_record(eng, out, wall),
+             plain=engine_record(runs["plain"][0], p_out, p_wall),
+             launches=counts, reference="the same run with backend='plain'",
+             tol=PATH_REL_TOL, token_gap=TOKEN_GAP, **cmp)
+        del runs, log, p_log
+    return launches
+
+
+def drive_gang(torch, cfg, params, prompts, phase6, card):
+    """(d): gang admission (static batching) in packed exact, 8 requests
+    into the empty pool, the next 8 once all of them finished, in turns
+    with the continuous engine (continuous, gang, gang, continuous: host
+    time moves a lot between runs); every run's tokens and logits held to
+    phase 6's continuous paged run; wall time and tokens/s of each."""
+    import time
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.serving import ServingEngine
+    launches = {}
+    for turn, gang in enumerate((False, True, True, False)):
+        path = f"{'gang' if gang else 'continuous'}/exact/{1 + turn // 2}"
+        eng = ServingEngine(cfg, params, engine_config("exact", gang=gang),
+                            n_seq=SHARDS)
+        log = keep_logits(eng)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=GEN)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        check_launches(path, counts, engine_launches(eng, True,
+                                                     cfg.n_layers))
+        cmp = compare_engine(torch, out, log, *phase6["exact"], what=path)
+        check_drained(eng, path)
+        launches[path] = counts
+        emit("path", path="gang", mode="exact", gang=gang, turn=turn,
+             card=card, **ENGINE, requests=ENGINE_REQUESTS, gen=GEN,
+             record=engine_record(eng, out, wall), launches=counts,
+             reference="phase 6's paged run (continuous admission)",
+             tol=PATH_REL_TOL, token_gap=TOKEN_GAP, **cmp)
+        del eng, log
+    return launches
+
+
+def drive_phase8(torch, params, phase6):
+    """Phase 8: (a) streaming, (b) the degraded mesh, (c) padded
+    admission, (d) gang admission, at phase 6's widths and trace.
+    Returns the launches of each run."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    prompts = engine_trace(cfg.vocab_size)
+    card = nvidia_smi()
+    launches, syncs = drive_streaming(torch, cfg, params, prompts, phase6,
+                                      card)
+    launches.update(drive_shard_loss(torch, cfg, params, prompts, phase6,
+                                     card))
+    launches.update(drive_padded(torch, cfg, params, prompts, card))
+    launches.update(drive_gang(torch, cfg, params, prompts, phase6, card))
+    if syncs:
+        raise AssertionError(f"the streamed windows synchronised the host "
+                             f"at: {syncs}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2411,6 +2962,7 @@ def main() -> int:
     engine_launches_by_path, engine_runs = drive_engine(torch, params)
     by_path.update(engine_launches_by_path)
     by_path.update(drive_robust(torch, params, engine_runs))
+    by_path.update(drive_phase8(torch, params, engine_runs))
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -2447,6 +2999,11 @@ def main() -> int:
             row.update({f"chunk_{k}": t_dec["chunk"][k] for k in (
                 "tile_ms", "tile_device_ms", "row_ms", "row_device_ms",
                 "library_folded_ms")})
+            # the degraded step's configurations over the page pool
+            for tag, td in t_dec["degraded"].items():
+                row.update({f"degraded_{tag}_{k}": td[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "healthy_ms")})
             row["crossover"] = t_dec["crossover"]
             row["poisoned"] = t_dec["poisoned"]
             row["cases_by_route"] = t_dec["cases_by_route"]

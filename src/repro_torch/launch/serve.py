@@ -12,10 +12,26 @@ decode) or the continuous-batching engine on a seeded Poisson trace.
         --gen 64
 
     # two priority classes over a short pool with the host offload tier,
-    # under the seeded chaos plan (store losses, page poison, stalls)
+    # under the seeded chaos plan (store losses, page poison, stalls,
+    # tick delays, a shard loss)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
         --engine --requests 16 --rate 4 --batch 8 --prompt-len 512 \
         --gen 64 --offload --priority 2 --n-pages 144 --chaos 0
+
+    # the streaming loop (tick N+1 dispatched before tick N's tokens are
+    # home; --no-overlap for synchronous ticks, still streamed)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
+        --engine --requests 16 --rate 4 --batch 8 --prompt-len 512 \
+        --gen 64 --stream
+
+    # the degraded-mesh drill: sequence shard 1 lost at the 6th tick
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
+        --engine --requests 16 --rate 4 --batch 8 --prompt-len 512 \
+        --gen 64 --shard-loss 1 --shard-loss-at 6
+
+    # static-batching admission (the gang baseline); the padded flush
+    ... --engine --gang
+    ... --engine --prefill-mode padded
 
 ``--decode-mode exact`` pairs the voltage prefill (full exchange) with
 exact split-K flash-decode; ``--decode-mode prism`` pairs the PRISM
@@ -103,17 +119,27 @@ def poisson_trace(n_requests: int, rate: float, prefill_len: int,
     return trace
 
 
+def fault_plan(chaos, shard_loss, shard_loss_at):
+    """The launcher's fault plan: ``FaultPlan.chaos(chaos)`` (every kind),
+    with ``shard_loss`` pinned to shard ``shard_loss`` at its
+    ``shard_loss_at``-th opportunity when that is given; None without
+    either."""
+    from ..serving import FaultPlan, FaultSpec
+    if shard_loss is None:
+        return FaultPlan.chaos(chaos) if chaos is not None else None
+    spec = FaultSpec(at=(shard_loss_at,), shard=shard_loss)
+    return (FaultPlan(shard_loss=spec) if chaos is None
+            else FaultPlan.chaos(chaos, shard_loss=spec))
+
+
 def run_engine(args) -> None:
     """``--engine``: the continuous-batching engine over a Poisson trace;
-    prints the engine's stats summary and, under ``--chaos``, checks that
-    every request finished or failed and that nothing leaked."""
-    from ..serving import (EngineConfig, FaultPlan, FaultSpec,
-                           SamplingParams, ServingEngine)
-    if args.shard_loss is not None:
-        raise SystemExit("--shard-loss (the degraded mesh) is not ported "
-                         "yet: ROADMAP queue 1, item 11")
-    faults = (FaultPlan.chaos(args.chaos, shard_loss=FaultSpec())
-              if args.chaos is not None else None)
+    prints the engine's stats summary and, under ``--chaos`` or
+    ``--shard-loss``, checks that every request finished or failed and
+    that nothing leaked."""
+    from ..serving import (EngineConfig, SamplingParams, ServingEngine,
+                           StreamingEngine, serve_stream)
+    faults = fault_plan(args.chaos, args.shard_loss, args.shard_loss_at)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     cfg = cfg.reduced() if args.reduced else cfg
@@ -126,29 +152,53 @@ def run_engine(args) -> None:
                     dev)
     ecfg = EngineConfig(
         n_slots=args.batch, prefill_len=n, max_cache=cap, hp=hp,
-        chunk_len=args.chunk_len, prefill_mode=args.prefill_mode,
+        gang=args.gang, chunk_len=args.chunk_len,
+        prefill_mode=args.prefill_mode,
         token_budget=args.token_budget, paged=not args.no_paged,
         page_tokens=args.page_tokens, n_pages=args.n_pages,
         prefix_cache=False if args.no_prefix_cache else None,
         offload=args.offload, faults=faults,
         max_restarts=8 if faults is not None else 3)
     eng = ServingEngine(cfg, params, ecfg, n_seq=p)
-    for i, (t, prompt, prio) in enumerate(poisson_trace(
-            args.requests, args.rate, n, cfg.vocab_size, args.seed,
-            args.priority)):
-        eng.submit(prompt, max_new_tokens=args.gen, arrival=t,
-                   priority=prio,
-                   sampling=SamplingParams(temperature=args.temperature,
-                                           top_k=args.top_k, seed=i))
+    reqs = [dict(prompt=prompt, max_new_tokens=args.gen, arrival=t,
+                 priority=prio,
+                 sampling=SamplingParams(temperature=args.temperature,
+                                         top_k=args.top_k, seed=i))
+            for i, (t, prompt, prio) in enumerate(poisson_trace(
+                args.requests, args.rate, n, cfg.vocab_size, args.seed,
+                args.priority))]
     cache = "paged" if eng.kv_cache.paged else "dense"
     extras = (f", {args.priority} priority classes"
               if args.priority > 1 else "")
     extras += ", host offload" if args.offload else ""
-    extras += f", chaos seed {args.chaos}" if faults is not None else ""
+    extras += f", chaos seed {args.chaos}" if args.chaos is not None else ""
+    extras += (f", shard {args.shard_loss} lost at tick "
+               f"{args.shard_loss_at}" if args.shard_loss is not None
+               else "")
+    extras += (", streaming" + (" (overlap off)" if args.no_overlap
+                                else " (overlap)") if args.stream else "")
+    admission = "gang (static)" if args.gang else "continuous"
     print(f"[engine] {cfg.name} {args.decode_mode}, {args.requests} "
           f"requests, Poisson rate {args.rate}/s, {args.batch} slots, "
-          f"{args.prefill_mode} prefill, {cache} cache{extras}, on {dev}")
-    eng.run()
+          f"{admission} admission, {args.prefill_mode} prefill, {cache} "
+          f"cache{extras}, on {dev}")
+    if args.stream:
+        import asyncio
+        seng = StreamingEngine(eng, overlap=not args.no_overlap)
+        got = asyncio.run(serve_stream(seng, reqs))
+        fins = {}
+        for g in got.values():
+            fins[g["finished"]] = fins.get(g["finished"], 0) + 1
+        print(f"[stream] {len(got)} streams closed: "
+              + ", ".join(f"{k}={v}" for k, v in sorted(fins.items())))
+        itl = [dt for ds in seng.itl_samples().values() for dt in ds]
+        if itl:
+            print(f"[stream] itl_p50_s {float(np.percentile(itl, 50)):.4f}"
+                  f"  itl_p99_s {float(np.percentile(itl, 99)):.4f}")
+    else:
+        for kw in reqs:
+            eng.submit(**kw)
+        eng.run()
     for k, v in {**eng.stats.summary(), **eng.kv_cache.stats()}.items():
         print(f"[engine] {k:22s} {v:.3f}" if isinstance(v, float)
               else f"[engine] {k:22s} {v}")
@@ -170,6 +220,13 @@ def run_engine(args) -> None:
         assert len(eng.kv_store) == 0, eng.kv_store.stats()
     assert sorted(eng._sched.free_slots) == list(range(args.batch))
     print("[chaos] zero-leak audits OK")
+    if args.shard_loss is not None:
+        s = eng.stats
+        rep = eng._replica.stats() if eng._replica is not None else {}
+        print(f"[degraded] shard_lost {s.shard_lost} degraded_ticks "
+              f"{s.degraded_ticks} restarts {s.restarts} replica_captures "
+              f"{rep.get('captures', 0)}")
+        assert s.shard_lost >= 1, "shard_loss never fired"
 
 
 def main(argv=None):
@@ -197,10 +254,14 @@ def main(argv=None):
                     help="[engine] Poisson arrival rate, requests/s")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--gang", action="store_true",
+                    help="[engine] static-batching admission (the "
+                         "baseline): a full gang into an empty pool")
     ap.add_argument("--prefill-mode", default="packed",
-                    choices=("packed", "chunked"),
-                    help="[engine] token-packed ticks (default) or "
-                         "chunked prefill")
+                    choices=("packed", "chunked", "padded"),
+                    help="[engine] token-packed ticks (default), chunked "
+                         "prefill, or the padded admission flush (dense "
+                         "cache)")
     ap.add_argument("--chunk-len", type=int, default=64,
                     help="[engine] prefill chunk size (clamped to the "
                          "prefill length)")
@@ -228,15 +289,29 @@ def main(argv=None):
                     help="[engine] priority classes in the trace: each "
                          "request draws one from [0, CLASSES) (higher = "
                          "more urgent; 1 = plain FIFO)")
+    ap.add_argument("--stream", action="store_true",
+                    help="[engine] the streaming front-end: tokens stream "
+                         "per request while the double-buffered loop "
+                         "overlaps host and device work")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="[engine, stream] synchronous ticks, tokens still "
+                         "streamed: the baseline of the overlap")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
                     help="[engine] seeded fault injection: the trace under "
-                         "FaultPlan.chaos(SEED) without shard_loss (store "
-                         "put and get loss, page poison, admission "
-                         "stalls, tick delays), then zero-leak audits")
+                         "FaultPlan.chaos(SEED) (store put and get loss, "
+                         "page poison, admission stalls, tick delays, "
+                         "shard loss), then zero-leak audits")
     ap.add_argument("--shard-loss", type=int, default=None,
                     metavar="SHARD",
-                    help="[engine] the degraded-mesh drill: not ported "
-                         "yet (ROADMAP queue 1, item 11); refused")
+                    help="[engine] the degraded-mesh drill: sequence shard "
+                         "SHARD's K/V lost mid-trace (a scheduled "
+                         "shard_loss fault); decoding requests go on "
+                         "through the Segment-Means standby replicas, then "
+                         "are prefilled again; audited as --chaos is")
+    ap.add_argument("--shard-loss-at", type=int, default=6, metavar="N",
+                    help="[engine] shard_loss fires at the Nth "
+                         "opportunity (an engine tick with work; default "
+                         "6)")
     args = ap.parse_args(argv)
     if args.engine:
         run_engine(args)

@@ -563,6 +563,15 @@ class KVCache:
             for t in c.values():
                 t[row].zero_()
 
+    def insert_row(self, src, src_row: int, dst_row: int) -> None:
+        """Dense mode: copy row ``src_row`` of the cache ``src`` (a
+        prefill's, with this cache's leaves and row shapes) into row
+        ``dst_row`` of every leaf, in place: the padded admission's
+        splice."""
+        for c, s in zip(self.storage, src):
+            for name, t in c.items():
+                t[dst_row].copy_(s[name][src_row])
+
     # -- device-side maps --------------------------------------------------
     def page_map(self, n_slots: int) -> np.ndarray:
         """(n_slots, pages_per_row) int32 physical page of every logical

@@ -392,16 +392,41 @@ def decode_attention(q, k, v, valid, scale, *, gz=None, kz=None, vz=None,
     return out.to(v.dtype)
 
 
-def prism_gz(cols, counts, pos):
+def prism_gz(cols, counts, pos, lost=None):
     """The repeat counts (Bq, P, m) under which each query's shards see
     the means columns: ``counts`` (Bq, m) or (m,) the means' filled sizes,
     ``pos`` (Bq,) the query positions (-1 = dead entry, which sees none).
     A shard's own means are masked (its columns are exact), and a mean is
     visible once every position it covers, [lo, lo + count), is in the
-    query's past."""
+    query's past.  ``lost`` (P,) marks the shards a degraded step cannot
+    read (> 0): the means of a lost shard open on every shard, its own
+    included, since the state rows they come from are not on it."""
     cnt = counts[..., None, :]                               # (Bq, 1, m)
-    live = (cols.g > 0) & (cols.lo + cnt <= pos[:, None, None] + 1)
+    served = cols.g > 0                                      # (P, m)
+    if lost is not None:
+        served = served | lost_columns(lost, cols.g.shape[1])[None, :]
+    live = served & (cols.lo + cnt <= pos[:, None, None] + 1)
     return torch.where(live, cnt, torch.zeros_like(cnt))
+
+
+def replica_gz(counts, lost):
+    """The repeat counts (B, P, m) under which the degraded exact step's
+    shards see the standby replica's columns: ``counts`` (B, m) the
+    replica's, shard-major; each lost shard's lane sees its own columns,
+    and nothing else sees any, so the shard combine counts each mean
+    once."""
+    p, m = lost.shape[0], counts.shape[1]
+    lane = (torch.arange(p, device=counts.device)[:, None]
+            == torch.arange(m, device=counts.device)[None, :] // (m // p))
+    serve = lane & lost_columns(lost, m)[None, :]                # (P, m)
+    return torch.where(serve[None], counts[:, None, :], 0.0)
+
+
+def lost_columns(lost, m: int):
+    """(m,) bool: the shard-major means columns of the lost shards, from
+    ``lost`` (P,) (> 0 = lost)."""
+    p = lost.shape[0]
+    return (lost > 0).repeat_interleave(m // p)
 
 
 def lm_head(cfg: ModelConfig, params, x):
@@ -412,11 +437,20 @@ def lm_head(cfg: ModelConfig, params, x):
 
 
 def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
-                lay: ServeLayout, hp: ServeHParams, cols):
+                lay: ServeLayout, hp: ServeHParams, cols, lost=None,
+                rep=None):
     """x (B,1,D), pos (B,) -> out (B,1,D); writes this token's K/V into
     the layer cache ``c`` in place.  ``cols`` = (write plan, owner,
     valid, page map, state map, state rows), all made once a step; the
-    last three are None for a dense cache."""
+    last three are None for a dense cache.
+
+    ``lost`` (P,) arms the degraded step (``serve_step``): the write
+    plan and ``valid`` already leave the lost shards out, and their
+    positions are served by Segment-Means columns instead: in exact mode
+    the standby replica ``rep`` ({"kz" (B,m,Hkv,hd), "vz", "gz" (B,m)},
+    ``MeansReplica.assemble``) on the lost shard's own lane only, so the
+    shard combine counts each mean once; in prism mode the means the
+    state rows already hold, the lost shard's own gate opened."""
     plan, owner, valid, page_map, state_map, sr = cols
     xn = norm(p["ln1"], x, cfg.norm_kind)
     q = attn_project_q(p["attn"], spec, xn)
@@ -428,10 +462,15 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
         # repeat counts ride in the cache (the state pool when paged)
         means = means_columns(lay.n_seq, lay.n_loc0, lay.L, x.device)
         cnt = c["gz"] if sr is None else c["gz"][sr]
-        gz = prism_gz(means, cnt, pos)                       # (B, P, m)
+        gz = prism_gz(means, cnt, pos, lost)                 # (B, P, m)
         out = decode_attention(q, c["k"], c["v"], valid, scale, gz=gz,
                                kz=c["kz"], vz=c["vz"], owner=owner,
                                mode="prism", pages=page_map, zrows=state_map,
+                               backend=hp.backend)
+    elif rep is not None:
+        gz = replica_gz(rep["gz"], lost)                         # (B, P, m)
+        out = decode_attention(q, c["k"], c["v"], valid, scale, gz=gz,
+                               kz=rep["kz"], vz=rep["vz"], pages=page_map,
                                backend=hp.backend)
     else:
         out = decode_attention(q, c["k"], c["v"], valid, scale,
@@ -440,9 +479,10 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
 
 
 def block_decode(cfg: ModelConfig, p, x, c, pos, lay: ServeLayout,
-                 hp: ServeHParams, cols):
+                 hp: ServeHParams, cols, lost=None, rep=None):
     """One residual ``attn`` block, single-token decode."""
-    x = x + attn_decode(p, attn_spec(cfg), cfg, x, c, pos, lay, hp, cols)
+    x = x + attn_decode(p, attn_spec(cfg), cfg, x, c, pos, lay, hp, cols,
+                        lost, rep)
     return x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
 
 
@@ -457,20 +497,40 @@ def embed_tokens(cfg: ModelConfig, params, token, pos):
 
 def serve_step(cfg: ModelConfig, params, cache, token, pos,
                lay: ServeLayout, hp: ServeHParams, page_map=None,
-               state_map=None):
+               state_map=None, lost=None, rep=None):
     """(token (B,), pos (B,)) -> (logits (B, V) f32, cache).  The cache is
     updated in place and returned.  A paged cache takes the slots' page
     map (B, ppr) and, in prism mode, state map (B,), int32 (-1 =
-    unmapped)."""
+    unmapped).
+
+    The degraded step (a sequence shard lost, ``runtime/replica.py``):
+    ``lost`` (P,) f32 marks the unreadable shards (> 0).  Their exact
+    columns leave ``valid``, writes to them are dropped, and their
+    positions are served by Segment-Means columns (``attn_decode``): in
+    exact mode from ``rep``, one {"kz", "vz", "gz"} dict a layer (the
+    assembled standby replica), in prism mode from the cache's own state
+    rows.  It requires the paged cache."""
     slot, owner, col_pos = _decode_cols(lay, pos)
     valid = col_pos[None] <= pos[:, None, None]              # (B, P, cap_l)
+    wr_owner = owner
+    if lost is not None:
+        if page_map is None:
+            raise ValueError("the degraded step requires the paged cache")
+        if (rep is None) != (hp.decode_mode == "prism"):
+            raise ValueError("the degraded step takes the replica in exact "
+                             "decode mode, and only there")
+        dead = lost > 0                                          # (P,)
+        wr_owner = owner & ~dead
+        valid = valid & ~dead[None, :, None]
     rows = torch.arange(pos.shape[0], device=pos.device)
-    cols = (write_plan(rows, slot, owner, lay.n_seq, lay.cap_l, page_map),
+    cols = (write_plan(rows, slot, wr_owner, lay.n_seq, lay.cap_l,
+                       page_map),
             owner, valid, page_map, state_map,
             state_rows(cache[0], state_map) if "kz" in cache[0] else None)
     x = embed_tokens(cfg, params, token[:, None], pos[:, None])
-    for p, c in zip(params["layers"], cache):
-        x = block_decode(cfg, p, x, c, pos, lay, hp, cols)
+    for i, (p, c) in enumerate(zip(params["layers"], cache)):
+        x = block_decode(cfg, p, x, c, pos, lay, hp, cols, lost,
+                         None if rep is None else rep[i])
     return lm_head(cfg, params, x[:, 0]), cache
 
 

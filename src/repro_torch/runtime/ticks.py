@@ -314,7 +314,9 @@ def pack(logits, row_slot, is_decode, lengths):
     out[:, 3] = 1
     idx = torch.where(is_decode > 0, row_slot.long(), s)     # s: sink row
     out[idx, 0] = logits.argmax(dim=-1).to(torch.int32)
-    out[idx, 1] = 1
+    # index_fill_ takes the 1 as a scalar argument: ``out[idx, 1] = 1``
+    # would copy it to the card as a tensor and wait for the copy
+    out[:, 1].index_fill_(0, idx, 1)
     out[idx, 3] = torch.isfinite(logits).all(dim=-1).to(torch.int32)
     out[:s, 2] = lengths.to(torch.int32)
     return out[:s]

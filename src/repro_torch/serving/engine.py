@@ -22,7 +22,14 @@ compiled program per kind; here nothing is traced):
     vector, for ticks with nothing prefilling;
   * ``chunk`` (``prefill_mode='chunked'``): every mid-prefill row
     advances up to ``chunk_len`` prompt tokens at its own offset,
-    interleaved with decodes under ``decode_per_prefill``.
+    interleaved with decodes under ``decode_per_prefill``;
+  * the ``padded`` flush (``prefill_mode='padded'``, the dense cache
+    only): every admitted prompt right-padded to ``prefill_len``, one
+    monolithic ``prefill`` (``prism_flash_attention``; the PRISM
+    exchange through ``segment_means`` in prism mode) whose rows come
+    out at decode capacity, one row splice (``KVCache.insert_row``) per
+    request.  Its prism means count the pad columns (the reference's
+    known wart), so its prism tokens are the reference's padded ones.
 
 The cache is one ``KVCache``: the page pool and page table by default
 (exact mode stores round-robin and shares prompt prefixes; prism mode
@@ -48,13 +55,19 @@ Robustness, as the reference serves it:
     the prompt prefilled again, the sampler re-seeded), at most
     ``max_restarts`` times before the request fails;
   * ``snapshot`` / ``restore``: the whole serving state, every live
-    slot's pages and state row included, into a fresh engine.
+    slot's pages and state row included, into a fresh engine;
+  * the degraded mesh (a ``shard_loss`` fault): one sequence shard's K/V
+    is lost; for ``degraded_grace`` ticks the decoding requests go on
+    through the Segment-Means standby replicas (``runtime/replica.py``,
+    ``serve_step(lost=...)``), held in their slots, then every active
+    request is prefilled again from its prompt and its tokens are the
+    uninterrupted ones;
+  * gang admission (``gang=True``): the static-batching baseline.
 
-Not served yet (ROADMAP queue 1): streaming (item 10), the degraded
-mesh and the ``shard_loss`` fault (item 11), the padded admission
-flush, other block kinds and frontends (item 12).  ``EngineConfig`` and
-the engine refuse the ones a caller can ask for with a ``ValueError``
-that names the item.
+``serving/streaming.py`` wraps the engine in the double-buffered
+streaming loop.  Other block kinds and frontends are not served yet
+(ROADMAP queue 1, item 12); the engine refuses them with a
+``ValueError`` that names the item.
 """
 from __future__ import annotations
 
@@ -68,13 +81,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.protocol import PrismConfig
 from ..models.config import ModelConfig
 from ..models.transformer import check_supported
 from ..runtime.faults import FaultInjector, FaultPlan
 from ..runtime.offload import KVStore
 from ..runtime.paging import AdmitPlan, make_paged_layout
+from ..runtime.replica import MeansReplica
 from ..runtime.serve import (ServeHParams, make_kv_cache, make_layout,
-                             paged_placement, serve_step)
+                             paged_placement, prefill, serve_step)
 from ..runtime.ticks import chunk_prefill_step, packed_step
 from .sampling import SamplingParams, sample_token
 from .scheduler import EngineStats, FifoScheduler, Request, RequestState
@@ -86,14 +101,18 @@ class EngineConfig:
     ``ServingEngine``.  ``__post_init__`` normalises the derived fields
     as the reference's does: ``chunk_len`` clamps to ``[1,
     prefill_len]``, ``token_budget`` defaults to ``n_slots + chunk_len``,
-    ``prefix_cache`` defaults on where it is sound (the paged exact
-    cache).  ``offload`` needs the paged cache; ``faults`` is a
-    ``FaultPlan`` whose ``shard_loss`` stays off."""
+    ``prefill_mode='padded'`` forces the dense cache (the flush and
+    splice predate paging), ``prefix_cache`` defaults on where it is
+    sound (the paged exact cache), and ``prism`` (the padded flush's
+    prefill exchange) defaults to the decode mode's pairing.
+    ``offload`` needs the paged cache and refuses gang admission."""
     n_slots: int
     prefill_len: int
     max_cache: int
     hp: ServeHParams = ServeHParams()
+    prism: PrismConfig | None = None
     decode_per_prefill: int = 4
+    gang: bool = False
     chunk_len: int = 64
     prefill_mode: str = "packed"
     token_budget: int | None = None
@@ -106,32 +125,31 @@ class EngineConfig:
     offload_bytes: int | None = None   # store capacity (None = unbounded)
     faults: FaultPlan | None = None    # seeded chaos plan (None = off)
     max_restarts: int = 3              # reset_for_refill bound per request
+    degraded_grace: int = 2            # means-served ticks per shard loss
+    replica_refresh: int = 16          # standby staleness refresh period
     restore_retries: int = 2           # KVStore.get retries before refill
     restore_backoff_s: float = 0.0     # exponential backoff base (sleep)
 
     def __post_init__(self):
         if self.max_restarts < 1:
             raise ValueError(f"max_restarts {self.max_restarts} < 1")
+        if self.degraded_grace < 0:
+            raise ValueError(f"degraded_grace {self.degraded_grace} < 0")
+        if self.replica_refresh < 1:
+            raise ValueError(
+                f"replica_refresh {self.replica_refresh} < 1")
         if self.restore_retries < 0:
             raise ValueError(
                 f"restore_retries {self.restore_retries} < 0")
         if self.restore_backoff_s < 0.0:
             raise ValueError(
                 f"restore_backoff_s {self.restore_backoff_s} < 0")
-        if self.faults is not None:
-            if not isinstance(self.faults, FaultPlan):
-                raise ValueError(
-                    f"faults must be a FaultPlan, got "
-                    f"{type(self.faults).__name__}")
-            if self.faults.spec("shard_loss").enabled:
-                raise ValueError(
-                    "the shard_loss fault (the degraded mesh) is not "
-                    "ported yet: ROADMAP queue 1, item 11")
-        if self.prefill_mode == "padded":
-            raise ValueError("prefill_mode='padded' (the padded admission "
-                             "flush) is not ported: ROADMAP queue 1, item 8 "
-                             "(what is left of it)")
-        if self.prefill_mode not in ("packed", "chunked"):
+        if self.faults is not None and not isinstance(self.faults,
+                                                      FaultPlan):
+            raise ValueError(
+                f"faults must be a FaultPlan, got "
+                f"{type(self.faults).__name__}")
+        if self.prefill_mode not in ("packed", "chunked", "padded"):
             raise ValueError(f"prefill_mode {self.prefill_mode!r} not in "
                              "('packed', 'chunked', 'padded')")
         if self.n_slots < 1:
@@ -149,6 +167,8 @@ class EngineConfig:
                 f"token_budget {self.token_budget} < n_slots "
                 f"{self.n_slots}: every decoding slot needs its token "
                 "in each tick")
+        if self.prefill_mode == "padded" and self.paged:
+            set_("paged", False)       # the flush splices dense rows
         ok_prefix = self.paged and self.hp.decode_mode == "exact"
         if self.prefix_cache is None:
             set_("prefix_cache", ok_prefix)
@@ -157,10 +177,21 @@ class EngineConfig:
                 "prefix_cache requires the paged cache in exact decode "
                 f"mode (paged={self.paged}, "
                 f"decode_mode={self.hp.decode_mode!r})")
-        if self.offload and not self.paged:
-            raise ValueError(
-                "offload requires the paged cache (paged=False): spill "
-                "and restore move pages, not dense rows")
+        if self.offload:
+            if not self.paged:
+                raise ValueError(
+                    "offload requires the paged cache (paged=False, "
+                    f"prefill_mode={self.prefill_mode!r}): spill and "
+                    "restore move pages, not dense rows")
+            if self.gang:
+                raise ValueError(
+                    "offload and preemption do not go with gang (static "
+                    "batching) admission")
+        if self.prism is None:
+            set_("prism", PrismConfig(
+                P=1, cr=self.hp.means_cr,
+                mode="prism" if self.hp.decode_mode == "prism"
+                else "voltage"))
 
 
 @dataclass
@@ -187,6 +218,7 @@ class EngineSnapshot:
     stats: EngineStats
     injector: object                   # FaultInjector mid-stream (or None)
     decodes_since_prefill: int
+    drain: bool
     has_deadlines: bool
 
 
@@ -234,7 +266,8 @@ class ServingEngine:
                                  device=self.device, paging=self._paging,
                                  prefix_cache=self._prefix_on)
         self._sched = FifoScheduler(
-            self.n_slots, decode_per_prefill=config.decode_per_prefill)
+            self.n_slots, decode_per_prefill=config.decode_per_prefill,
+            gang=config.gang)
         self.stats = EngineStats(n_slots=self.n_slots)
         self._pending: list = []       # heap of (arrival, rid, Request)
         self._results: dict = {}       # rid -> RequestState
@@ -252,6 +285,20 @@ class ServingEngine:
         self._from_store: set = set()  # rids whose reservation restores
         self._failed: dict = {}        # rid -> reason
         self._has_deadlines = False    # any live request with a deadline
+        # the NaN guard rides the packed, chunked and decode ticks; the
+        # padded flush cannot prefill an active slot again in place
+        self._nan_guard = self.prefill_mode != "padded"
+        # the degraded mesh: the standby replica is armed only when a
+        # shard_loss fault can fire and the cache is paged (a dense
+        # engine never draws the shard_loss stream)
+        self._replica = None
+        self._lost: set = set()        # sequence shards lost now
+        self._degraded_left = 0        # means-served ticks before recovery
+        if (self._injector is not None and self._paged
+                and config.faults.spec("shard_loss").enabled):
+            self._replica = MeansReplica(
+                cfg, self.layout, hp, self._paging, self.n_slots,
+                refresh_every=config.replica_refresh)
 
     @staticmethod
     def _derive_paging(base, config: EngineConfig):
@@ -294,14 +341,40 @@ class ServingEngine:
                 self._tensor(self._kv.state_map(self.n_slots)))
 
     def _decode(self, tok, pos):
-        return serve_step(self.cfg, self.params, self._kv.storage,
-                          self._tensor(tok), self._tensor(pos), self.layout,
-                          self._hp, *self._maps())[0]
+        return self._decode_program(self._tensor(tok), self._tensor(pos),
+                                    self._maps())
+
+    def _decode_program(self, tok, pos, maps, lost=None, rep=None):
+        """``serve_step`` on device tensors (the streaming loop stages
+        its own)."""
+        return serve_step(self.cfg, self.params, self._kv.storage, tok, pos,
+                          self.layout, self._hp, *maps, lost=lost,
+                          rep=rep)[0]
+
+    def _packed_program(self, tok, slot, pos, off, pre, maps):
+        """``packed_step`` on device tensors."""
+        return packed_step(self.cfg, self.params, self._kv.storage, tok,
+                           slot, pos, off, pre, self.layout, self._hp,
+                           *maps)[0]
+
+    def _decode_degraded(self, tok, pos):
+        """The degraded decode step: the lost shards' mask and, in exact
+        mode, the assembled standby replica."""
+        rep = (self._replica.assemble(self.device)
+               if self._hp.decode_mode == "exact" else None)
+        return self._decode_program(
+            self._tensor(tok), self._tensor(pos), self._maps(),
+            self._tensor(self._replica.lost_mask(self._lost)), rep)
+
+    def _prefill(self, tokens):
+        """The padded flush's prefill: (n_slots, prefill_len) tokens ->
+        a dense cache at decode capacity (the engine's layout)."""
+        return prefill(self.cfg, self.params, self._tensor(tokens),
+                       self.config.prism, self.layout, self._hp)[1]
 
     def _packed(self, tok, slot, pos, off, pre):
-        return packed_step(self.cfg, self.params, self._kv.storage,
-                           *map(self._tensor, (tok, slot, pos, off, pre)),
-                           self.layout, self._hp, *self._maps())[0]
+        return self._packed_program(
+            *map(self._tensor, (tok, slot, pos, off, pre)), self._maps())
 
     def _chunk(self, tokens, off, nreal):
         chunk_prefill_step(self.cfg, self.params, self._kv.storage,
@@ -367,6 +440,7 @@ class ServingEngine:
         now = self.now()
         while self._pending and self._pending[0][0] <= now:
             self._sched.submit(heapq.heappop(self._pending)[2])
+        self._sched.drain = not self._pending
 
     def next_arrival(self) -> float | None:
         """Arrival time of the earliest request not yet released: what a
@@ -378,18 +452,32 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def step(self) -> str:
         """One scheduler decision: a packed tick (chunked mode: a prefill
-        chunk), a decode step, a stall (the ``tick_delay`` fault), or
-        nothing.  Returns 'packed', 'prefill', 'decode', 'stalled' or
-        'idle'."""
+        chunk; padded mode: an admission flush), a decode step, a stall
+        (the ``tick_delay`` fault), a degraded tick or the recovery, or
+        nothing.  Returns 'packed', 'prefill', 'decode', 'stalled',
+        'degraded', 'recovered' or 'idle'."""
         kind = self._step_inner()
         if kind == "idle":
             self.stats.ticks_idle += 1
+        self._after_tick(kind)
+        return kind
+
+    def _after_tick(self, kind: str) -> None:
+        """The bookkeeping after every tick, the streaming loop's too:
+        the fault and store counters, and the standby replica's
+        piggyback (capture every newly decoding slot, refresh at most one
+        stale one), never while a shard is lost: a capture would read
+        it."""
         if self._injector is not None:
             self.stats.faults_injected = self._injector.total_injected
             self.stats.faults_by_kind = dict(self._injector.injected)
         if self._store is not None:
             self.stats.store_get_retries = self._store.get_retries
-        return kind
+        if (self._replica is not None and not self._lost
+                and kind in ("decode", "packed", "prefill")):
+            self._replica.tick(self._kv, self._sched.decoding(),
+                               self.stats.decode_steps
+                               + self.stats.packed_ticks)
 
     def _step_inner(self) -> str:
         sch = self._sched
@@ -401,12 +489,25 @@ class ServingEngine:
         if (self._injector is not None and sch.has_work
                 and self._injector.fire("tick_delay")):
             return "stalled"           # the whole tick does nothing
-        self._admit_or_preempt()       # host side: slots and pages
-        if self.prefill_mode == "chunked":
-            if sch.want_chunk():
-                return self._chunk_step()
-        elif any(st.prefilling for st in sch.active.values()):
-            return self._packed_tick()
+        if (self._replica is not None and sch.has_work
+                and self._injector.fire("shard_loss")):
+            spec = self._injector.plan.spec("shard_loss")
+            shard = (spec.shard if spec.shard is not None
+                     else self._injector.pick("shard_loss",
+                                              self.layout.n_seq))
+            self._lose_shard(shard % self.layout.n_seq)
+        if self._lost:
+            return self._degraded_tick()
+        if self.prefill_mode == "padded":
+            if sch.want_prefill():
+                return self._padded_flush()
+        else:
+            self._admit_or_preempt()   # host side: slots and pages
+            if self.prefill_mode == "chunked":
+                if sch.want_chunk():
+                    return self._chunk_step()
+            elif any(st.prefilling for st in sch.active.values()):
+                return self._packed_tick()
         decoding = sch.decoding()
         if not decoding:
             return "idle"
@@ -423,7 +524,7 @@ class ServingEngine:
         self.stats.occupancy.append(len(sch.active) / self.n_slots)
         self.stats.decode_steps += 1
         for st in decoding:
-            if bad[st.slot]:
+            if self._nan_guard and bad[st.slot]:
                 self._quarantine(st)
             else:
                 self._advance_decode(st, rows[st.slot], now)
@@ -580,6 +681,7 @@ class ServingEngine:
                            tokens=st.nprefilled)
         self.stats.preemptions += 1
         self.stats.spilled_pages += n
+        self._drop_replica(st.slot)
         if requeue:
             self._sched.preempt(st)
         else:
@@ -636,6 +738,7 @@ class ServingEngine:
             self._kv.free(st.slot, None)   # never register the prompt
         else:
             self._kv.reset_row(st.slot)
+        self._drop_replica(st.slot)
         self._sched.remove(st)
         self._failed[st.req.rid] = reason
         self.stats.failed_requests += 1
@@ -663,6 +766,95 @@ class ServingEngine:
         else:
             self._kv.reset_row(st.slot)
         self._note_restart(st)
+        self._drop_replica(st.slot)
+
+    # ------------------------------------------------------------------
+    # the degraded mesh (shard loss)
+    # ------------------------------------------------------------------
+    def _drop_replica(self, slot: int) -> None:
+        if self._replica is not None:
+            self._replica.drop(slot)
+
+    def _lose_shard(self, shard: int) -> None:
+        """A ``shard_loss`` fault fired: one sequence shard's K/V is
+        unreadable.  The degraded window opens for ``degraded_grace``
+        ticks, and the prefix cache empties: its pages hold content on
+        the lost shard, and every later hit would map it."""
+        if shard in self._lost:
+            return
+        self._lost.add(shard)
+        self.stats.shard_lost += 1
+        self._degraded_left = self.config.degraded_grace
+        if self._kv.prefix is not None:
+            self._kv.prefix.clear()
+
+    def _degraded_tick(self) -> str:
+        """One tick with a sequence shard lost: the decoding requests go
+        on through the degraded step (the lost shard's exact columns out
+        of the combine, its positions served by Segment-Means columns).
+        No admission, no prefill, no capture (it would read the lost
+        shard) and NO eviction: a request that looks finished is held in
+        its slot, so that its degraded tokens never reach ``results()``;
+        recovery prefills it again and regenerates every token.  When the
+        window closes, or nothing decodes, the tick recovers instead."""
+        sch = self._sched
+        decoding = [st for st in sch.decoding() if not st.finished()]
+        if self._degraded_left <= 0 or not decoding:
+            return self._recover_from_loss()
+        self.stats.degraded_ticks += 1
+        self._degraded_left -= 1
+        tok = np.zeros(self.n_slots, np.int64)
+        pos = np.full(self.n_slots, -1, np.int64)
+        for st in decoding:
+            tok[st.slot] = st.next_token
+            pos[st.slot] = st.pos
+        t0 = self.now()
+        rows, bad = self._logits_host(self._decode_degraded(tok, pos))
+        now = self.now()
+        self.stats.step_latency.append(now - t0)
+        self.stats.occupancy.append(len(sch.active) / self.n_slots)
+        for st in decoding:
+            if not bad[st.slot]:       # recovery resets it anyway
+                self._advance_degraded(st, rows[st.slot], now)
+        sch.note_decode()
+        self.stats.t_end = self.now()
+        return "degraded"
+
+    def _advance_degraded(self, st: RequestState, logits_row, now) -> None:
+        """Sample and keep the degraded token, but never finish or evict:
+        the slot is held until ``_recover_from_loss`` resets it."""
+        t = sample_token(logits_row, st.req.sampling, st.rng)
+        st.generated.append(t)
+        self.stats.generated_tokens += 1
+        if st.ttft is None:
+            st.ttft = now - st.req.arrival
+            self.stats.ttft.append(st.ttft)
+        st.pos += 1
+        st.next_token = t
+
+    def _recover_from_loss(self) -> str:
+        """Close the degraded window: every active request is prefilled
+        again into its own pages (shared prefix pages forked private,
+        the pages zeroed, ``reset_for_refill``), or fails if its
+        restarts are spent or no page is left for the fork.  Spilled and
+        suspended requests live in host memory and restore as usual."""
+        for _slot, st in sorted(self._sched.active.items()):
+            if st.restarts >= self.config.max_restarts:
+                self._fail_active(st, "max_restarts")
+                continue
+            try:
+                self._kv.ensure_writable(st.slot, 0,
+                                         len(st.req.prompt) - 1)
+            except RuntimeError:
+                self._fail_active(st, "degraded_out_of_pages")
+                continue
+            self._kv.scrub_slot(st.slot)
+            self._note_restart(st)
+        if self._replica is not None:
+            self._replica.drop_all()
+        self._lost.clear()
+        self._degraded_left = 0
+        return "recovered"
 
     # ------------------------------------------------------------------
     # deadlines
@@ -713,6 +905,7 @@ class ServingEngine:
                 self._kv.free(st.slot, None)
             else:
                 self._kv.reset_row(st.slot)
+            self._drop_replica(st.slot)
             sch.remove(st)
             self._miss(st.req, st=st, now=now)
         self._has_deadlines = any(r.deadline is not None
@@ -793,6 +986,7 @@ class ServingEngine:
             self._kv.free(st.slot, None)
         else:
             self._kv.reset_row(st.slot)
+        self._drop_replica(st.slot)
         self._sched.remove(st)
         st.t_finish = self.now()
         self._failed[rid] = "cancelled"
@@ -815,6 +1009,10 @@ class ServingEngine:
                 "journal rides the page gather")
         assert not self._plans and not self._from_store, (
             "snapshot mid-admission: call between engine steps")
+        if self._lost:
+            raise ValueError(
+                "snapshot during a degraded window (a shard is lost): the "
+                "page gather would read the lost shard; recover first")
         active = [(slot, copy.deepcopy(st), self._kv.extract_slot(slot),
                    len(self._kv.slot_pages[slot]))
                   for slot, st in sorted(self._sched.active.items())]
@@ -835,6 +1033,7 @@ class ServingEngine:
             stats=copy.deepcopy(self.stats),
             injector=copy.deepcopy(self._injector),
             decodes_since_prefill=self._sched._decodes_since_prefill,
+            drain=self._sched.drain,
             has_deadlines=self._has_deadlines)
 
     def restore(self, snap: EngineSnapshot) -> None:
@@ -852,6 +1051,7 @@ class ServingEngine:
         sch = self._sched
         sch.queues = {p: deque(q) for p, q in snap.queues.items()}
         sch.resume = snap.resume
+        sch.drain = snap.drain
         sch._decodes_since_prefill = snap.decodes_since_prefill
         self._pending = snap.pending
         heapq.heapify(self._pending)
@@ -910,6 +1110,7 @@ class ServingEngine:
             if self._paged:
                 self._kv.free(st.slot, st.req.prompt
                               if self._prefix_on else None)
+            self._drop_replica(st.slot)
             self._sched.evict(st, now)
             self._results[st.req.rid] = st
             self.stats.completed += 1
@@ -953,7 +1154,7 @@ class ServingEngine:
         self.stats.prefill_tokens += n_prefill
         # only decode rows sample, so only they quarantine
         for j, st in enumerate(decode):
-            if bad[j]:
+            if self._nan_guard and bad[j]:
                 self._quarantine(st)
             else:
                 self._advance_decode(st, rows[j], now)
@@ -991,6 +1192,26 @@ class ServingEngine:
         self.stats.prefill_tokens += real
         self.stats.chunk_tokens_real += real
         self.stats.chunk_tokens_padded += self.n_slots * c - real
+        self.stats.t_end = self.now()
+        return "prefill"
+
+    def _padded_flush(self) -> str:
+        """The padded admission: every admitted prompt right-padded to
+        ``prefill_len``, one monolithic prefill whose rows come out at
+        decode capacity, each row spliced into its slot, decoding from
+        the rewind."""
+        sch = self._sched
+        batch = np.full((self.n_slots, self.prefill_len), self.pad_id,
+                        np.int64)
+        states = sch.admit(self.now())
+        for i, st in enumerate(states):
+            batch[i, :len(st.req.prompt)] = st.req.prompt
+        fresh = self._prefill(batch)
+        for i, st in enumerate(states):
+            self._kv.insert_row(fresh, i, st.slot)
+            st.begin_decode()
+            self.stats.prefill_tokens += len(st.req.prompt)
+        self.stats.prefills += 1
         self.stats.t_end = self.now()
         return "prefill"
 

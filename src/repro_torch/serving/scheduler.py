@@ -28,10 +28,12 @@ its RequestState on the resume queue.  A preempted request keeps its
 RequestState (generated tokens, decode position, sampler RNG), so a
 restore continues bit-identically.
 
-A copy of the reference's ``serving/scheduler.py`` without the padded
-flush (ROADMAP queue 1, item 8), gang admission (the static-batching
-baseline, item 14), the streaming front-end's counters and in-flight
-epochs (item 10) and the degraded mesh's counters (item 11).
+**Gang admission** (``gang=True``, the static-batching baseline) admits
+only a full gang into an empty pool, or what is left once no more
+arrivals come (``drain``).  The padded flush (``want_prefill``) admits
+and prefills a whole batch at once under the same interleave bound.
+
+A copy of the reference's ``serving/scheduler.py``.
 """
 from __future__ import annotations
 
@@ -66,7 +68,7 @@ class RequestState:
     while it yields the next-token logits."""
     __slots__ = ("req", "slot", "pos", "next_token", "nprefilled",
                  "generated", "rng", "t_admit", "ttft", "t_finish",
-                 "restarts")
+                 "restarts", "epoch", "inflight")
 
     def __init__(self, req: Request, slot: int, t_admit: float):
         self.req = req
@@ -80,6 +82,11 @@ class RequestState:
         self.ttft = None
         self.t_finish = None
         self.restarts = 0              # re-prefills (lost restore, NaN)
+        # bumped on every rewind to zero: the streaming engine stamps its
+        # in-flight rows with it, so a result that raced a quarantine or
+        # restart reconciles as stale
+        self.epoch = 0
+        self.inflight = 0              # rows dispatched, not reconciled
 
     @property
     def prefilling(self) -> bool:
@@ -104,6 +111,7 @@ class RequestState:
         self.generated = []
         self.rng = self.req.sampling.make_rng()
         self.restarts += 1
+        self.epoch += 1                # in-flight rows are stale now
 
     def begin_decode(self):
         """Prefill done: rewind to the last prompt token and decode."""
@@ -159,8 +167,13 @@ class EngineStats:
     faults_injected: int = 0           # chaos faults actually fired
     faults_by_kind: dict = field(default_factory=dict)  # kind -> fired
     store_get_retries: int = 0         # KVStore reads re-tried (restore)
+    shard_lost: int = 0                # shard_loss faults that degraded
+    degraded_ticks: int = 0            # ticks served on a degraded mesh
     cancelled: int = 0                 # requests cancelled by the caller
     ticks_idle: int = 0                # step() calls that found no work
+    tokens_streamed: int = 0           # tokens delivered to TokenStreams
+    host_busy_s: float = 0.0           # host bookkeeping (streaming loop)
+    loop_wall_s: float = 0.0           # non-idle streaming loop wall time
     t_start: float | None = None
     t_end: float | None = None
 
@@ -210,8 +223,15 @@ class EngineStats:
             "faults_by_kind": {k: v for k, v
                                in sorted(self.faults_by_kind.items())},
             "store_get_retries": self.store_get_retries,
+            "shard_lost": self.shard_lost,
+            "degraded_ticks": self.degraded_ticks,
             "cancelled": self.cancelled,
             "ticks_idle": self.ticks_idle,
+            "tokens_streamed": self.tokens_streamed,
+            # the host's share of the streaming loop's wall time (0 when
+            # the streaming loop never ran)
+            "host_overhead_fraction": (self.host_busy_s / self.loop_wall_s
+                                       if self.loop_wall_s > 0 else 0.0),
         }
 
 
@@ -222,15 +242,18 @@ class FifoScheduler:
     FIFO scheduler.  Priorities add per-class queues; preemption adds
     per-class resume queues of parked RequestStates."""
 
-    def __init__(self, n_slots: int, *, decode_per_prefill: int = 4):
+    def __init__(self, n_slots: int, *, decode_per_prefill: int = 4,
+                 gang: bool = False):
         if n_slots < 1:
             raise ValueError(f"n_slots {n_slots} < 1")
         self.n_slots = n_slots
         self.decode_per_prefill = max(1, decode_per_prefill)
+        self.gang = gang
         self.queues: dict = {}         # priority -> deque[Request], FIFO
         self.resume: dict = {}         # priority -> [RequestState] by arrival
         self.free_slots: list = list(range(n_slots))   # ascending order
         self.active: dict = {}                         # slot -> RequestState
+        self.drain = False        # no more arrivals expected (gang flushes)
         self._decodes_since_prefill = self.decode_per_prefill
 
     # -- queue -------------------------------------------------------------
@@ -259,9 +282,18 @@ class FifoScheduler:
                 if not st.prefilling]
 
     # -- policy ------------------------------------------------------------
+    def _gang_ready(self) -> bool:
+        """Static batching admits only a full gang into an EMPTY pool (or
+        the remainder once no more arrivals come)."""
+        return not self.active and (self.queued >= self.n_slots
+                                    or self.drain)
+
     def want_admit(self) -> bool:
-        """Admission is host bookkeeping, never rate-limited."""
-        return bool(self.queued and self.free_slots)
+        """Admission is host bookkeeping, never rate-limited, except in
+        gang mode."""
+        if not self.queued or not self.free_slots:
+            return False
+        return self._gang_ready() if self.gang else True
 
     def plan_tick(self, token_budget: int) -> tuple:
         """The token-budget plan of one packed tick: every decoding slot's
@@ -290,6 +322,17 @@ class FifoScheduler:
         if not any(st.prefilling for st in self.active.values()):
             return False
         if not any(not st.prefilling for st in self.active.values()):
+            return True
+        return self._decodes_since_prefill >= self.decode_per_prefill
+
+    def want_prefill(self) -> bool:
+        """The padded flush: admit and prefill a whole batch as one step,
+        under the same interleave bound (gang mode: a full gang)."""
+        if not self.queued or not self.free_slots:
+            return False
+        if self.gang:
+            return self._gang_ready()
+        if not self.active:
             return True
         return self._decodes_since_prefill >= self.decode_per_prefill
 

@@ -277,9 +277,10 @@ def test_future_arrivals_fast_forward_a_still_clock():
 
 def test_engine_config_validation_and_defaults():
     """The reference's normalisation and refusals (offload needs the
-    paged cache, faults a FaultPlan, the restart and retry bounds), and a
-    ValueError that names the ROADMAP item for each part this port does
-    not serve yet (the padded flush, the shard_loss fault)."""
+    paged cache, faults a FaultPlan, the restart and retry bounds), the
+    padded flush on the dense cache and a plan with ``shard_loss`` taken,
+    and a ValueError that names the ROADMAP item for each part this port
+    does not serve yet (other block kinds and frontends)."""
     import dataclasses
     from repro_torch.runtime.serve import ServeHParams
     from repro_torch.serving import EngineConfig, ServingEngine
@@ -296,17 +297,16 @@ def test_engine_config_validation_and_defaults():
                 dict(prefill_mode="bogus"), dict(token_budget=1),
                 dict(n_slots=0), dict(prefill_len=17),
                 dict(max_restarts=0), dict(restore_retries=-1),
-                dict(restore_backoff_s=-0.5),
-                dict(prefill_mode="padded")):
+                dict(restore_backoff_s=-0.5)):
         with pytest.raises(ValueError):
             EngineConfig(**{**base, **bad})
     from repro_torch.runtime.faults import FaultPlan, FaultSpec
     for bad, match in ((dict(offload=True, paged=False), "paged"),
-                       (dict(faults=object()), "FaultPlan"),
-                       (dict(faults=FaultPlan.chaos(0)), "item 11"),
-                       (dict(prefill_mode="padded"), "item 8")):
+                       (dict(faults=object()), "FaultPlan")):
         with pytest.raises(ValueError, match=match):
             EngineConfig(**{**base, **bad})
+    assert EngineConfig(prefill_mode="padded", **base).paged is False
+    assert EngineConfig(faults=FaultPlan.chaos(0), **base).faults.seed == 0
     cfg = EngineConfig(offload=True, faults=FaultPlan(
         page_poison=FaultSpec(p=0.5)), **base)
     assert (cfg.offload, cfg.offload_bytes, cfg.max_restarts,

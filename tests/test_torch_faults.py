@@ -1,8 +1,7 @@
 """The port's fault injection, deadlines, NaN quarantine and snapshots,
 on the CPU.
 
-Units: ``FaultSpec`` / ``FaultPlan`` validation, the refusal of a plan
-with ``shard_loss`` (the degraded mesh is not ported), and the seeded
+Units: ``FaultSpec`` / ``FaultPlan`` validation and the seeded
 ``FaultInjector`` streams (``fire`` and ``pick`` of every kind under the
 chaos plan, and scheduled ``at`` hits) equal to the reference's for
 three seeds.
@@ -306,21 +305,6 @@ def test_injector_streams_match_reference(jax_ref, seed):
     got = json.loads(json.dumps(injector_streams(faults, seed)))
     assert got == jax_ref["streams"][str(seed)]
     assert got["at"][2] and got["at"][5]
-
-
-def test_engine_refuses_shard_loss():
-    """A plan with ``shard_loss`` on names the ROADMAP item; the chaos
-    plan with it off, and offload, are accepted."""
-    from repro_torch.runtime.faults import FaultPlan, FaultSpec
-    from repro_torch.serving import EngineConfig
-    base = dict(n_slots=2, prefill_len=8, max_cache=16)
-    for plan in (FaultPlan.chaos(0), FaultPlan(shard_loss=FaultSpec(at=(1,)))):
-        with pytest.raises(ValueError, match="item 11"):
-            EngineConfig(faults=plan, **base)
-    cfg = EngineConfig(offload=True, offload_bytes=10,
-                       faults=FaultPlan.chaos(0, shard_loss=FaultSpec()),
-                       **base)
-    assert cfg.offload and cfg.faults.seed == 0
 
 
 # --------------------------------------------------------------------------

@@ -188,13 +188,14 @@ def test_importing_port_loads_no_jax():
 
 
 def test_import_checks_cover_paging_and_serving():
-    """The two checks above reach the paged cache and every module of the
-    serving package (none of which may import jax or the reference,
+    """The two checks above reach the paged cache, the standby replica
+    and every module of the serving package (none of which may import jax or the reference,
     though the reference's own copies are pure Python)."""
     import pkgutil
     import repro_torch
-    mods = ("runtime.paging", "serving", "serving.engine",
-            "serving.scheduler", "serving.sampling")
+    mods = ("runtime.paging", "runtime.replica", "serving",
+            "serving.engine", "serving.scheduler", "serving.sampling",
+            "serving.streaming")
     rel = {str(p.relative_to(ROOT)) for p in _port_sources()}
     for m in mods:
         path = m.replace(".", "/") + ("/__init__.py" if m == "serving"
