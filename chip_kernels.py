@@ -1,0 +1,60 @@
+#!/usr/bin/env python3
+"""Phase 3 of a checkout's ``chip_smoke.py`` on one NVIDIA card: GPT-2
+small's three kernels (head dim 64) built from that checkout's sources,
+checked against their plain versions and timed with its own functions;
+one JSON line with the main-shape times.
+
+    python3 chip_kernels.py [CHECKOUT] [TAG]
+
+CHECKOUT (default: the directory of this file) is the root of a checkout
+of this repository, for example an older commit unpacked with ``git
+archive``.  To compare two checkouts' kernels, run them in turns in one
+call on one card (a, b, b, a): machines and power limits differ between
+calls.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+
+def main() -> int:
+    tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1
+                           else os.path.dirname(os.path.abspath(__file__)))
+    tag = sys.argv[2] if len(sys.argv) > 2 else os.path.basename(tree)
+    sys.path[:0] = [os.path.join(tree, "src"), tree]
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    if not cs.__file__.startswith(tree):
+        raise RuntimeError(f"imported {cs.__file__}, not {tree}'s")
+    resolve_device("cuda")
+    build.build()
+    timer, chk = cs.Timer(torch), cs.Checker(torch)
+    t0 = time.perf_counter()
+    att = cs.check_attention(torch, chk, timer)
+    means = cs.check_segment_means(torch, chk, timer)
+    dec = cs.check_decode(torch, chk, timer)
+    keys = ("ms", "device_ms")
+    print(json.dumps({
+        "tag": tag, "nvidia_smi": cs.nvidia_smi(),
+        "attention": {m: {k: t[k] for k in keys} for m, t in att.items()},
+        "segment_means": {k: means[k] for k in (
+            "ms", "device_ms", "augment_ms", "augment_device_ms")},
+        "decode": {m: {k: dec[m][k] for k in keys} for m in (
+            "exact", "prism", "chunk", "packed", "packed_prism")},
+        "decode_paged": {m: {k: t[k] for k in keys}
+                         for m, t in dec["paged"].items()},
+        "max_abs_err": chk.max_err,
+        "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

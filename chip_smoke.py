@@ -46,7 +46,13 @@ Phases, one JSON line each:
             shard's own means opened), dense and over the page pool,
             timed against their bound, the library call and the healthy
             decode layout;
-            head dim 64, the only one the kernels are built for; segment
+            then head dim 128 (the Llama family; ``check_head_dim_128``):
+            attention at Yi-6B's PRISM and Voltage shapes and GQA groups
+            1, 3 and 8 over ragged Nq and M, the decode kernel at Yi's
+            static decode (a group of 8, no row map: the tile route, the
+            row route beside it), chunk and packed layouts, over the page
+            pool, a poisoned page and a sweep of both routes, segment
+            means and the augment at D 4096; segment
             means and the fused PRISM augment in f32 and bf16 over
             ragged segments, L = 1 and L = N, D = 33 and 5, P = 1/2/4
             and a misaligned base); the largest error beside the stated
@@ -160,7 +166,18 @@ Phases, one JSON line each:
             paged run, in turns with the continuous engine (continuous,
             gang, gang, continuous); wall and tokens/s of each.
             Every run drains leak-free.
-9. kernels  one line listing every kernel with its numbers: ``ms`` is
+9. path     the Llama family: Yi-6B at full width and depth (32 layers,
+            d 4096, 32 query heads over 4 KV heads of 128, SwiGLU d_ff
+            11008, RMSNorm, RoPE theta 5e6, untied head, vocab 64000),
+            f32 weights from torch.Generator seed 0 on the card, at the
+            same shapes: phase 4's static pairings, phase 5's chunked and
+            packed paths in both modes and phase 6's engine in packed
+            exact and packed prism, under the same checks and traces.
+            The static and engine decode steps take the decode kernel's
+            tile route (a group of 8, no row map), the packed ticks the
+            row route; the launch counts are held per path.
+   total    the script's seconds so far.
+10. kernels one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -177,7 +194,9 @@ Phases, one JSON line each:
             over the page pool, with the healthy layout's ``ms``) and
             the launches through a page table (``launches_paged``,
             ``launches_paged_by_path``); the segment_means row its bf16
-            and fused-augment (``augment_*``) numbers.
+            and fused-augment (``augment_*``) numbers; each row's ``yi``
+            its numbers at Yi-6B's layouts (head dim 128, D 4096) and
+            its launches on phase 9's paths.
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -205,6 +224,9 @@ F32_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
 
 # main path: GPT-2 small, B = 8, prompt 512, 64 generated, P = 4, CR 4
 ARCH, BATCH, PROMPT, GEN, SHARDS, CR = "gpt2-small", 8, 512, 64, 4, 4.0
+# phase 9: the Llama family (RoPE, RMSNorm, SwiGLU, GQA 8:1, head dim
+# 128, untied head) at full width and depth, at the same shapes
+LLAMA = "yi-6b"
 
 # kernel vs plain tolerances (|got - want| <= atol + rtol·|want|): both
 # sides compute in f32 (the attention kernel's tensor-core products are
@@ -333,15 +355,17 @@ def device_events(prof):
                   key=lambda e: e.time_range.start)
 
 
-def trace_device(torch, fn, complete=None, tries=6):
+def trace_device(torch, fn, complete=None, tries=12):
     """torch.profiler over ``fn()`` on the CPU and the card.  A trace that
     recorded no device activity, or that ``complete(prof)`` finds short
     of what ``fn`` launched, is taken again, up to ``tries`` times, after
     a pause that grows each time: the profiler's device tracing on the
     card now and then comes back empty or holding only part of a call,
-    up to three traces in a row."""
+    up to three traces in a row (six in a row once, for a one-second
+    Yi-6B prefill).  The error names each try's device record count."""
     import time
     from torch.profiler import ProfilerActivity, profile
+    seen = []
     for i in range(tries):
         time.sleep(0.25 * i)
         torch.cuda.synchronize()
@@ -349,10 +373,12 @@ def trace_device(torch, fn, complete=None, tries=6):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        if device_events(prof) and (complete is None or complete(prof)):
+        events = device_events(prof)
+        if events and (complete is None or complete(prof)):
             return prof
+        seen.append(len(events))
     raise RuntimeError(f"the profiler recorded no or an incomplete device "
-                       f"trace in {tries} tries")
+                       f"trace in {tries} tries (device records: {seen})")
 
 
 def trace_window(torch, fn):
@@ -416,14 +442,14 @@ class Checker:
             self.tol_share[key] = max(self.tol_share.get(key, 0.0),
                                       float(share.max()))
 
-    def stats(self, got, want, case):
+    def stats(self, got, want, case, key=None):
         """Decode stats: l and acc everywhere, m where the row is live."""
         m_g, l_g, a_g = got
         m_w, l_w, a_w = want
-        self.close("flash_decode_stats", l_g, l_w, case + "/l")
-        self.close("flash_decode_stats", a_g, a_w, case + "/acc")
+        self.close("flash_decode_stats", l_g, l_w, case + "/l", key=key)
+        self.close("flash_decode_stats", a_g, a_w, case + "/acc", key=key)
         self.close("flash_decode_stats", m_g, m_w, case + "/m",
-                   mask=l_w > 0)
+                   mask=l_w > 0, key=key)
         self.cases["flash_decode_stats"] += 1
 
 
@@ -431,14 +457,15 @@ class Checker:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def attention_inputs(torch, ctx_mode, seed=0):
-    """The main path's prefill-attention inputs: q/k/v at GPT-2 small
-    widths, metadata from the port's own sharded context."""
+def attention_inputs(torch, ctx_mode, seed=0, arch=ARCH):
+    """A path's prefill-attention inputs: q/k/v at ``arch``'s widths
+    (GPT-2 small for the main path), metadata from the port's own sharded
+    context."""
     from repro_torch.configs import get_config
     from repro_torch.core.protocol import PrismConfig
     from repro_torch.models.transformer import attn_spec
     from repro_torch.sharding.context import ShardedPrismContext
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n_loc, L = PROMPT // SHARDS, int(PROMPT // (CR * SHARDS))
     ctx = ShardedPrismContext(PrismConfig(P=SHARDS, L=L, mode=ctx_mode),
@@ -458,69 +485,78 @@ def attention_inputs(torch, ctx_mode, seed=0):
     return q, k, v, g, akv.col_lo, akv.col_hi, akv.row_pos
 
 
-def check_attention(torch, chk, timer):
+def attention_main(torch, timer, both, mode, arch=ARCH, tag="main"):
+    """The prefill kernel at a path's shapes in one exchange: checked by
+    ``both``, then the kernel (event pair and profiler), its plain
+    version, the entry point, the library call and the bound."""
     from repro_torch.core.attention import log_repeats
     from repro_torch.core.masks import visibility
     from repro_torch.kernels.ops import prism_attention_op
     from repro_torch.kernels.prism_attention import (
         prism_attention_reference, prism_flash_attention)
+    args = attention_inputs(torch, mode, arch=arch)
+    both(args, f"{tag}/{mode}")
+    q, k, v, g, lo, hi, row = args
+    p = row.shape[0] if row.dim() == 2 else 1
+    lg = log_repeats(g).reshape(-1, k.shape[1]).expand(p, -1)
+    vis = visibility(row, lo.reshape(-1, k.shape[1]).expand(p, -1),
+                     hi.reshape(-1, k.shape[1]).expand(p, -1),
+                     causal=True) & (lg > -1e29)[:, None, :]
+    pairs = int(vis.sum()) * (q.shape[0] // p) * q.shape[2]
+    flops = 4 * q.shape[-1] * pairs          # QK^T and PV, 2 per FMA
+    b_ms, b_by = bound_ms(nbytes(q, k, v, lg, lo, hi, row) +
+                          nbytes(q), flops, F32_3XTF32_FLOP_PER_S)
+    # the library yardstick: SDPA with log g and the mask folded into
+    # a float mask (K/V expanded to the query batch for voltage, and to
+    # the query heads for GQA)
+    rep, grp = q.shape[0] // k.shape[0], q.shape[2] // k.shape[2]
+    qs = q.transpose(1, 2).contiguous()
+    ks, vs = (t.repeat_interleave(rep, 0).repeat_interleave(grp, 2)
+              .transpose(1, 2).contiguous() for t in (k, v))
+    bias = torch.where(vis, lg[:, None, :], torch.full_like(
+        lg[:, None, :], -1e30))
+    bias = bias.repeat(q.shape[0] // p, 1, 1)[:, None].contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the kernel and its plain version on the (P, M) / (P, Nq)
+    # metadata the entry point hands them; the entry point's own
+    # conversions (log g, int32, per-shard copies) are in op_ms
+    i32 = torch.int32
+    kargs = (q, k, v, lg.contiguous(),
+             lo.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
+             hi.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
+             row.reshape(p, -1).to(i32).contiguous())
+    return {
+        "ms": timer(lambda: prism_flash_attention(*kargs, causal=True)),
+        "device_ms": timer.device(lambda: prism_flash_attention(
+            *kargs, causal=True)),
+        "plain_ms": timer(lambda: prism_attention_reference(
+            *kargs, causal=True), iters=10),
+        "op_ms": timer(lambda: prism_attention_op(*args,
+                                                  backend="kernel")),
+        "library_ms": timer(lambda: sdpa(qs, ks, vs, attn_mask=bias)),
+        "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+        "shape": {"q": list(q.shape), "k": list(k.shape)}}
+
+
+def attention_checker(chk, key=None):
+    """``both(args, case, **kw)``: the prefill kernel against its plain
+    version through the entry point, the error filed under ``key``
+    (default the kernel's name)."""
+    from repro_torch.kernels.ops import prism_attention_op
     name = "prism_flash_attention"
 
     def both(args, case, **kw):
         got = prism_attention_op(*args, backend="kernel", **kw)
         want = prism_attention_op(*args, backend="plain", **kw)
-        chk.close(name, got, want, case)
+        chk.close(name, got, want, case, key=key)
         chk.cases[name] += 1
+    return both
 
-    # main-path shapes, both exchanges
-    main = {}
-    for mode in ("prism", "voltage"):
-        args = attention_inputs(torch, mode)
-        both(args, f"main/{mode}")
-        q, k, v, g, lo, hi, row = args
-        p = row.shape[0] if row.dim() == 2 else 1
-        lg = log_repeats(g).reshape(-1, k.shape[1]).expand(p, -1)
-        vis = visibility(row, lo.reshape(-1, k.shape[1]).expand(p, -1),
-                         hi.reshape(-1, k.shape[1]).expand(p, -1),
-                         causal=True) & (lg > -1e29)[:, None, :]
-        pairs = int(vis.sum()) * (q.shape[0] // p) * q.shape[2]
-        flops = 4 * q.shape[-1] * pairs          # QK^T and PV, 2 per FMA
-        b_ms, b_by = bound_ms(nbytes(q, k, v, lg, lo, hi, row) +
-                              nbytes(q), flops, F32_3XTF32_FLOP_PER_S)
-        # the library yardstick: SDPA with log g and the mask folded into
-        # a float mask (K/V expanded to the query batch for voltage)
-        rep = q.shape[0] // k.shape[0]
-        qs = q.transpose(1, 2).contiguous()
-        ks = k.repeat_interleave(rep, 0).transpose(1, 2).contiguous()
-        vs = v.repeat_interleave(rep, 0).transpose(1, 2).contiguous()
-        bias = torch.where(vis, lg[:, None, :], torch.full_like(
-            lg[:, None, :], -1e30))
-        bias = bias.repeat(q.shape[0] // p, 1, 1)[:, None].contiguous()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        # the kernel and its plain version on the (P, M) / (P, Nq)
-        # metadata the entry point hands them; the entry point's own
-        # conversions (log g, int32, per-shard copies) are in op_ms
-        i32 = torch.int32
-        kargs = (q, k, v, lg.contiguous(),
-                 lo.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
-                 hi.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
-                 row.reshape(p, -1).to(i32).contiguous())
-        main[mode] = {
-            "ms": timer(lambda: prism_flash_attention(*kargs, causal=True)),
-            "device_ms": timer.device(lambda: prism_flash_attention(
-                *kargs, causal=True)),
-            "plain_ms": timer(lambda: prism_attention_reference(
-                *kargs, causal=True), iters=10),
-            "op_ms": timer(lambda: prism_attention_op(*args,
-                                                      backend="kernel")),
-            "library_ms": timer(lambda: sdpa(qs, ks, vs, attn_mask=bias)),
-            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-            "shape": {"q": list(q.shape), "k": list(k.shape)}}
 
-    # edge sweep: ragged Nq and M, GQA groups, dead rows,
-    # g = 0 columns, causal off, window, prefix
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    for hq, hkv, hd in ((12, 12, 64), (12, 4, 64), (12, 1, 64)):
+def attention_groups(torch, both, gen, groups, hd):
+    """Ragged Nq (100) and M (97) at each (hq, hkv) of ``groups``: rows
+    that see nothing, g = 0 columns, causal off, window, prefix."""
+    for hq, hkv in groups:
         b, nq, m = 2, 100, 97
         q = 0.5 * torch.randn(b, nq, hq, hd, device="cuda", generator=gen)
         k = 0.5 * torch.randn(b, m, hkv, hd, device="cuda", generator=gen)
@@ -536,6 +572,18 @@ def check_attention(torch, chk, timer):
                                                       prefix_len=6),
                    dict(causal=False, window=24)):
             both(args, f"hq{hq}/hkv{hkv}/hd{hd}/{kw}", **kw)
+
+
+def check_attention(torch, chk, timer):
+    both = attention_checker(chk)
+    # main-path shapes, both exchanges
+    main = {mode: attention_main(torch, timer, both, mode)
+            for mode in ("prism", "voltage")}
+
+    # edge sweep: ragged Nq and M, GQA groups, dead rows,
+    # g = 0 columns, causal off, window, prefix
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    attention_groups(torch, both, gen, ((12, 12), (12, 4), (12, 1)), 64)
 
     # tile skipping: sorted positions over Nq = 130 / M = 200 and
     # Nq = 200 / M = 400 (neither a tile multiple), two shards with their
@@ -570,11 +618,13 @@ def check_attention(torch, chk, timer):
     return main
 
 
-def check_segment_means(torch, chk, timer):
+def check_segment_means(torch, chk, timer, d=768):
     """Both entries of csrc/segment_means.cu, f32 and bf16, against their
     plain versions: the means alone, and the fused PRISM augment.  Also
     a base 4 bytes off 16-byte alignment, which takes the kernel's scalar
-    path at a D of whole vectors."""
+    path at a D of whole vectors.  ``d``: the path's width (GPT-2's 768
+    with the full edge sweep; Yi-6B's 4096 at its path's shape and a
+    ragged one)."""
     from repro_torch.kernels.segment_means import (prism_augment_op,
                                                    segment_means_op)
     name = "segment_means"
@@ -599,15 +649,18 @@ def check_segment_means(torch, chk, timer):
         return got
 
     n_loc, L0 = PROMPT // SHARDS, int(PROMPT // (CR * SHARDS))
-    main = (BATCH * SHARDS, n_loc, 768, L0)
-    means_cases = [main, (32, 100, 768, 16), (3, 17, 33, 4), (2, 9, 64, 1),
-                   (1, 130, 5, 130), (4, 128, 768, 7), (2, 130, 768, 1)]
+    main = (BATCH * SHARDS, n_loc, d, L0)
+    means_cases = [main, (32, 100, d, 16)]
     # (B·P, n_loc, D, L, P): the main shape, ragged n_loc, L = 1,
     # L = n_loc, D = 33 and 5, P = 1, 2 and 4
-    augment_cases = [main + (SHARDS,), (8, 100, 768, 16, 4),
-                     (6, 130, 768, 1, 2), (4, 12, 768, 12, 4),
-                     (6, 17, 33, 4, 2), (4, 9, 5, 3, 4), (3, 64, 768, 8, 1),
-                     (2, 7, 5, 7, 1), (8, 128, 64, 32, 2)]
+    augment_cases = [main + (SHARDS,), (8, 100, d, 16, 4)]
+    if d == 768:
+        means_cases += [(3, 17, 33, 4), (2, 9, 64, 1), (1, 130, 5, 130),
+                        (4, 128, 768, 7), (2, 130, 768, 1)]
+        augment_cases += [(6, 130, 768, 1, 2), (4, 12, 768, 12, 4),
+                          (6, 17, 33, 4, 2), (4, 9, 5, 3, 4),
+                          (3, 64, 768, 8, 1), (2, 7, 5, 7, 1),
+                          (8, 128, 64, 32, 2)]
     for dtype in (torch.float32, torch.bfloat16):
         for b, n, d, L in means_cases:
             both(segment_means_op, rand((b, n, d), dtype),
@@ -669,15 +722,15 @@ def check_segment_means(torch, chk, timer):
             "shape": {"x": [b, n, d], "L": L, "P": SHARDS}}
 
 
-def decode_inputs(torch, mode, gen):
-    """The main path's decode-kernel inputs at the last decode step
-    (position prompt + gen - 2), with the layout's own valid mask and
-    means bias."""
+def decode_inputs(torch, mode, gen, arch=ARCH):
+    """A path's decode-kernel inputs at the last decode step (position
+    prompt + gen - 2), at ``arch``'s widths, with the layout's own valid
+    mask and means bias."""
     from repro_torch.configs import get_config
     from repro_torch.core.attention import log_repeats
     from repro_torch.runtime import serve as S
     from repro_torch.sharding.context import means_columns
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     hp = S.ServeHParams(decode_mode=mode, means_cr=CR)
     cap = PROMPT + GEN + (-(PROMPT + GEN)) % SHARDS
     lay = S.make_layout(SHARDS, cap, hp, prefill_len=PROMPT)
@@ -826,11 +879,12 @@ def time_decode(torch, timer, args, scale, rows=None, pages=None,
                       "rows": None if rows is None else list(rows.shape)}}
 
 
-def tick_layout_inputs(torch, gen):
-    """The decode kernel's inputs on the two tick paths at full width.
+def tick_layout_inputs(torch, gen, arch=ARCH):
+    """The decode kernel's inputs on the two tick paths at ``arch``'s full
+    width.
 
     chunk: the C = 64 chunk's queries folded into the head axis, q (B, 1,
-    64·12, 64), the whole cache rows (B·P, cap_l, 12, 64), valid =
+    64·Hq, hd), the whole cache rows (B·P, cap_l, Hkv, hd), valid =
     col_pos < off, at the offsets of every row the same (0, 64, 448) and
     staggered as in the chunked path's 8th call.
 
@@ -843,7 +897,7 @@ def tick_layout_inputs(torch, gen):
     from repro_torch.core.attention import log_repeats
     from repro_torch.runtime import serve as S
     from repro_torch.sharding.context import means_columns
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     hp = S.ServeHParams(decode_mode="prism", means_cr=CR)
     cap = PROMPT + GEN + (-(PROMPT + GEN)) % SHARDS
     lay = S.make_layout(SHARDS, cap, hp, prefill_len=PROMPT)
@@ -890,13 +944,14 @@ def tick_layout_inputs(torch, gen):
     return chunk, packed, packed_prism, rows, hd ** -0.5
 
 
-def check_decode(torch, chk, timer):
+def decode_checker(torch, chk, by_route, key=None):
+    """``both(args, scale, case, rows=None, **paged)``: the decode kernel
+    against its plain version, the error filed under ``key`` (default
+    the kernel's name), the cases counted per route in ``by_route``."""
     from repro_torch.kernels.decode_attention import (decode_route,
                                                       decode_stats,
                                                       launch_route)
     from repro_torch.kernels.dispatch import LAUNCHES
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    by_route = {"row": 0, "tile": 0}
 
     def both(args, scale, case, rows=None, **paged):
         """The routed kernel against the plain version (the call must
@@ -919,13 +974,20 @@ def check_decode(torch, chk, timer):
         if not all(bool(torch.isfinite(t).all()) for t in want):
             raise AssertionError(f"flash_decode_stats [{case}]: the plain "
                                  "version is not finite")
-        chk.stats(got, want, f"{case}/{route}")
+        chk.stats(got, want, f"{case}/{route}", key=key)
         by_route[route] += 1
         if rows is None:
             other = "row" if route == "tile" else "tile"
             chk.stats(launch_route(other, *args, scale=scale, **paged), want,
-                      f"{case}/{other}")
+                      f"{case}/{other}", key=key)
             by_route[other] += 1
+    return both
+
+
+def check_decode(torch, chk, timer):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    by_route = {"row": 0, "tile": 0}
+    both = decode_checker(torch, chk, by_route)
 
     times, dec_args = {}, {}
     for mode in ("exact", "prism"):
@@ -1029,6 +1091,80 @@ def check_decode(torch, chk, timer):
     return times
 
 
+def check_head_dim_128(torch, chk, timer):
+    """Phase 3 at the Llama family's head dim of 128 (Yi-6B's widths):
+    prefill attention at Yi's PRISM and Voltage shapes, then GQA groups
+    1, 3 and 8 over ragged Nq and M; segment means and the augment at
+    D 4096; the decode kernel at Yi's static decode (a group of 8 and no
+    row map: the tile route, and the row route on the same inputs, both
+    timed), its chunk layout (the tile route) and packed layouts (the
+    row route through the row map), each again over the page pool, a
+    poisoned page, and a sweep of both routes (groups 1 to 128, ragged
+    M and means, row maps, a 68 KB row-route block).  Errors are filed
+    under ``<kernel>/hd128``."""
+    from repro_torch.configs import get_config
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    both = attention_checker(chk, key="prism_flash_attention/hd128")
+    out["attention"] = {mode: attention_main(torch, timer, both, mode,
+                                             arch=LLAMA, tag="yi")
+                        for mode in ("prism", "voltage")}
+    attention_groups(torch, both, gen, ((8, 8), (12, 4), (32, 4)), 128)
+    out["segment_means"] = check_segment_means(
+        torch, chk, timer, d=get_config(LLAMA).d_model)
+
+    by_route = {"row": 0, "tile": 0}
+    both = decode_checker(torch, chk, by_route,
+                          key="flash_decode_stats/hd128")
+    times, dec_args = {}, {}
+    for mode in ("exact", "prism"):
+        args, scale = decode_inputs(torch, mode, gen, arch=LLAMA)
+        both(args, scale, f"yi/{mode}")
+        times[mode] = time_decode(torch, timer, args, scale)
+        times[mode].update(time_routes(torch, timer, args, scale))
+        dec_args[mode] = args
+    chunk, packed, packed_prism, rows, scale = tick_layout_inputs(
+        torch, gen, arch=LLAMA)
+    for name in ("off448", "staggered"):
+        both(chunk[name], scale, f"yi/chunk/{name}")
+    both(packed, scale, "yi/packed/exact", rows=rows)
+    both(packed_prism, scale, "yi/packed/prism", rows=rows)
+    times["chunk"] = time_decode(torch, timer, chunk["off448"], scale)
+    times["packed"] = time_decode(torch, timer, packed, scale, rows=rows)
+    times["packed_prism"] = time_decode(torch, timer, packed_prism, scale,
+                                        rows=rows)
+    times["paged"] = check_paged(torch, chk, timer, both, gen, {
+        "decode": (dec_args["exact"], None, None),
+        "decode_prism": (dec_args["prism"], None, None),
+        "packed": (packed, rows, "packed"),
+        "packed_prism": (packed_prism, rows, "packed_prism")}, scale, times)
+    times["poisoned"] = check_poisoned(torch, chk, gen, {
+        "decode": (dec_args["exact"], None),
+        "decode_prism": (dec_args["prism"], None),
+        "packed": (packed, rows)}, scale, key="flash_decode_stats/hd128")
+    for hq, hkv, m_loc, rep, mz, max_pos in (
+            (8, 8, 100, 1, 37, None), (12, 4, 33, 4, 37, None),
+            (32, 4, 300, 2, 100, 20), (8, 1, 190, 2, 70, 60),
+            (40, 1, 90, 2, 37, 50)):
+        sweep_decode_case(torch, both, gen, hq, hkv, m_loc, rep, mz,
+                          max_pos, hd=128)
+    for t, n_rows, rep, hq, hkv, kind in (
+            (72, 8, 4, 32, 4, "repeats"), (13, 5, 4, 32, 4, "clamped"),
+            (9, 4, 1, 12, 3, "equal"), (30, 2, 2, 32, 1, "repeats")):
+        sweep_rows_case(torch, both, gen, t, n_rows, rep, hq, hkv, kind,
+                        hd=128)
+    for hq, hkv, m_loc, rep, mz, kind in (
+            (32, 4, 144, 4, 128, "dead_means"),
+            (64, 1, 144, 4, 37, "last_local"),
+            (32, 4, 144, 1, 37, "last_means"),
+            (128, 1, 70, 4, 37, "random")):
+        sweep_tile_case(torch, both, gen, hq, hkv, m_loc, rep, mz, kind,
+                        hd=128)
+    times["cases_by_route"] = by_route
+    out["decode"] = times
+    return out
+
+
 PAGE_COLS = 4                        # the engine's default page: 16 tokens
 SPARE_PAGES = 32                     # pool pages that no row maps
 
@@ -1126,7 +1262,7 @@ def check_paged(torch, chk, timer, both, gen, layouts, scale, dense):
     return out
 
 
-def check_poisoned(torch, chk, gen, layouts, scale):
+def check_poisoned(torch, chk, gen, layouts, scale, key=None):
     """The decode kernel over a page pool (``to_pages``) in which one
     mapped page, the first of the cache row that query row 0 reads,
     holds NaN in its K and V: the output rows that read a live column of
@@ -1180,7 +1316,7 @@ def check_poisoned(torch, chk, gen, layouts, scale):
                     f"{expect.nonzero().flatten().tolist()}")
             keep = ~expect
             chk.stats(tuple(t[keep] for t in stats),
-                      tuple(t[keep] for t in want), case)
+                      tuple(t[keep] for t in want), case, key=key)
         out[name] = {"page": page, "rows": int(expect.shape[0]),
                      "rows_nonfinite": int(expect.sum()),
                      "routes": sorted(got)}
@@ -1516,28 +1652,44 @@ def check_launches(path, counts, need):
                                  f"needs {n}")
 
 
-def drive_path(torch, params):
+def static_tile(cfg) -> bool:
+    """Whether one token a row (static decode, the engine's decode
+    steps: no row map) takes the decode kernel's tile route: GPT-2's
+    group of 1 does not, Yi-6B's group of 8 does."""
+    from repro_torch.kernels.decode_attention import decode_route
+    return decode_route(cfg.n_heads, cfg.n_kv_heads, True) == "tile"
+
+
+def drive_path(torch, params, arch=ARCH):
+    from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.serve import setup
     from repro_torch.models import transformer as T
-    n_layers = 12
+    arch_cfg = get_config(arch)
+    n_layers = arch_cfg.n_layers
     results = {}
     for mode in ("exact", "prism"):
-        run = setup(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+        run = setup(arch, batch=BATCH, prompt_len=PROMPT, gen=GEN,
                     seq_shards=SHARDS, decode_mode=mode, cr=CR,
                     device="cuda", params=params)
-        assert run.cfg.n_layers == n_layers and run.cfg.d_model == 768
+        width = ("n_layers", "d_model", "n_heads", "n_kv_heads", "hd",
+                 "d_ff", "vocab_size")
+        got = [getattr(run.cfg, f) for f in width]
+        if got != [getattr(arch_cfg, f) for f in width]:  # full size
+            raise AssertionError(f"{arch}/{mode}: {dict(zip(width, got))}")
         run.run()                                    # warm-up
         torch.cuda.synchronize()
         LAUNCHES.clear()
         tokens, logits, times = run.run()
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
-        check_launches(f"static/{mode}", counts, {
+        check_launches(f"{arch}/static/{mode}", counts, {
             "prism_flash_attention": n_layers,
             "segment_means": n_layers if mode == "prism" else 0,
             "flash_decode_stats": n_layers * (GEN - 1),
-            "flash_decode_stats.mq": 0, "flash_decode_stats.paged": 0})
+            "flash_decode_stats.mq": (n_layers * (GEN - 1)
+                                      if static_tile(arch_cfg) else 0),
+            "flash_decode_stats.paged": 0})
         vocab = run.cfg.vocab_size
         if tuple(logits.shape) != (GEN, BATCH, vocab) or not bool(
                 torch.isfinite(logits).all()):
@@ -1552,7 +1704,7 @@ def drive_path(torch, params):
             ref = full[:, PROMPT - 1:].transpose(0, 1)        # (gen, B, V)
             ref_name = "plain full forward"
         else:
-            plain = setup(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+            plain = setup(arch, batch=BATCH, prompt_len=PROMPT, gen=GEN,
                           seq_shards=SHARDS, decode_mode=mode, cr=CR,
                           device="cuda", params=params, backend="plain")
             _, ref, _ = plain.run(forced=tokens[:, :-1])
@@ -1574,12 +1726,12 @@ def drive_path(torch, params):
             "logits_rel_err": err, "reference": ref_name,
             "tol": PATH_REL_TOL, "tokens_checked": checked,
             "tokens_total": total}
-        emit("path", mode=mode, prefill="voltage" if mode == "exact"
-             else "prism", batch=BATCH, prompt=PROMPT, gen=GEN,
-             shards=SHARDS, cr=CR, **results[mode])
+        emit("path", arch=arch, mode=mode, prefill="voltage"
+             if mode == "exact" else "prism", batch=BATCH, prompt=PROMPT,
+             gen=GEN, shards=SHARDS, cr=CR, **results[mode])
         # where the time goes: a torch.profiler trace of one prefill and
         # a few decode steps, after the counted run
-        emit("trace", mode=mode, **profile(torch, run))
+        emit("trace", arch=arch, mode=mode, **profile(torch, run))
         del logits, ref
     return results
 
@@ -1838,7 +1990,7 @@ def profile_ticks(torch, cfg, params, prompts, lay, hp, join):
     return out
 
 
-def drive_ticks(torch, params):
+def drive_ticks(torch, params, arch=ARCH):
     """Phase 5: the chunked and packed paths in both decode modes, at the
     main path's shape; returns the launches of each path."""
     from repro_torch.core.protocol import PrismConfig
@@ -1846,9 +1998,11 @@ def drive_ticks(torch, params):
     from repro_torch.launch.serve import setup
     from repro_torch.runtime.serve import (ServeHParams, generate,
                                            make_layout, prefill)
-    run = setup(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+    run = setup(arch, batch=BATCH, prompt_len=PROMPT, gen=GEN,
                 seq_shards=SHARDS, cr=CR, device="cuda", params=params)
     cfg, prompts_t = run.cfg, run.prompts
+    # the rewind and decode steps take the tile route where static
+    # decode does (Yi-6B), the chunk calls always
     prompts = prompts_t.tolist()
     n_layers = cfg.n_layers
     join = [i // 2 for i in range(BATCH)]       # staggered admission
@@ -1868,9 +2022,10 @@ def drive_ticks(torch, params):
             cfg, params, prompts, chunk_len=CHUNK_LEN, join=join, **kw)
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
-        check_launches(f"chunked/{mode}", counts, {
+        check_launches(f"{arch}/chunked/{mode}", counts, {
             "flash_decode_stats": n_layers * (info["calls"] + GEN),
-            "flash_decode_stats.mq": n_layers * info["calls"],
+            "flash_decode_stats.mq": n_layers * (
+                info["calls"] + (GEN if static_tile(cfg) else 0)),
             "flash_decode_stats.paged": 0,
             "prism_flash_attention": 0, "segment_means": 0})
         launches[f"chunked/{mode}"] = counts
@@ -1900,7 +2055,8 @@ def drive_ticks(torch, params):
                                  f"vs the {ref_name} > {PATH_REL_TOL}")
         checked, total = tokens_agree(torch, tokens, ref)
         del ref
-        emit("path", path="chunked", mode=mode, batch=BATCH, prompt=PROMPT,
+        emit("path", arch=arch, path="chunked", mode=mode, batch=BATCH,
+             prompt=PROMPT,
              gen=GEN, shards=SHARDS, cr=CR, chunk_len=CHUNK_LEN, join=join,
              **info, launches=counts, leaf_rel_err=leaf_err,
              logits_rel_err=err, reference=ref_name, tol=PATH_REL_TOL,
@@ -1926,12 +2082,13 @@ def drive_ticks(torch, params):
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
         per_tick = n_layers * (2 if mode == "prism" else 1)
-        check_launches(f"packed/{mode}", counts, {
+        check_launches(f"{arch}/packed/{mode}", counts, {
             "flash_decode_stats": per_tick * p_info["ticks"],
             "flash_decode_stats.mq": 0, "flash_decode_stats.paged": 0,
             "prism_flash_attention": 0, "segment_means": 0})
         launches[f"packed/{mode}"] = counts
-        emit("path", path="packed", mode=mode, batch=BATCH, prompt=PROMPT,
+        emit("path", arch=arch, path="packed", mode=mode, batch=BATCH,
+             prompt=PROMPT,
              gen=GEN, shards=SHARDS, cr=CR, token_budget=TOKEN_BUDGET,
              **p_info, launches=counts, logits_rel_err=err,
              reference=f"the chunked path ({mode}), teacher-forced",
@@ -1939,8 +2096,10 @@ def drive_ticks(torch, params):
              greedy_tokens_equal=bool((p_tokens == tokens).all()))
         del logits
         tr = profile_ticks(torch, cfg, params, prompts, lay, hp, join)
-        emit("trace", path="chunked", mode=mode, chunk_call=tr["chunk_call"])
-        emit("trace", path="packed", mode=mode, packed_tick=tr["packed_tick"])
+        emit("trace", arch=arch, path="chunked", mode=mode,
+             chunk_call=tr["chunk_call"])
+        emit("trace", arch=arch, path="packed", mode=mode,
+             packed_tick=tr["packed_tick"])
     return launches
 
 
@@ -2036,7 +2195,8 @@ def engine_launches(eng, paged, n_layers, since=None):
     """The decode-kernel launches a run needs: one a layer per decode
     step and chunk call, per packed tick too (two in prism mode: the
     owner view over the means), every one through the page table when
-    paged; the tile route on chunk calls alone; no other kernel.
+    paged; the tile route on chunk calls, and on decode steps where
+    static decode takes it (Yi-6B); no other kernel.
     ``since``: the stats a restored engine started from."""
     s = eng.stats
     ticks = [s.decode_steps, s.packed_ticks, s.prefill_chunks]
@@ -2046,9 +2206,10 @@ def engine_launches(eng, paged, n_layers, since=None):
     decode_steps, packed_ticks, chunks = ticks
     per_tick = 2 if eng.config.hp.decode_mode == "prism" else 1
     n = n_layers * (decode_steps + per_tick * packed_ticks + chunks)
+    tile = chunks + (decode_steps if static_tile(eng.cfg) else 0)
     return {"flash_decode_stats": n,
             "flash_decode_stats.paged": n if paged else 0,
-            "flash_decode_stats.mq": n_layers * chunks,
+            "flash_decode_stats.mq": n_layers * tile,
             "prism_flash_attention": 0, "segment_means": 0}
 
 
@@ -2156,23 +2317,23 @@ def profile_paged_tick(torch, cfg, params, mode, prompts):
     return out
 
 
-def drive_engine(torch, params):
-    """Phase 6: the trace through the paged engine in each of
-    ``ENGINE_RUNS``, each checked against the dense cache's run; exact
-    mode's prefix cache must hit and account for every page.  Returns
-    the launches of each paged run, and each packed paged run's tokens
-    and logits by decode mode (phases 7 and 8's reference)."""
+def drive_engine(torch, params, arch=ARCH, runs=ENGINE_RUNS):
+    """Phase 6: the trace through the paged engine in each of ``runs``,
+    each checked against the dense cache's run; exact mode's prefix
+    cache must hit and account for every page.  Returns the launches of
+    each paged run, and each packed paged run's tokens and logits by
+    decode mode (phases 7 and 8's reference)."""
     from repro_torch.configs import get_config
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     prompts = engine_trace(cfg.vocab_size)
     card = nvidia_smi()
     launches, kept = {}, {}
-    for prefill, mode in ENGINE_RUNS:
+    for prefill, mode in runs:
         runs = {}
         for paged in (True, False):
             eng, out, log, counts, wall = run_engine(
                 torch, cfg, params, prefill, mode, paged, prompts)
-            check_launches(f"engine/{prefill}/{mode}/"
+            check_launches(f"{arch}/engine/{prefill}/{mode}/"
                            f"{'paged' if paged else 'dense'}", counts,
                            engine_launches(eng, paged, cfg.n_layers))
             runs[paged] = (eng, out, log, counts, wall)
@@ -2195,8 +2356,8 @@ def drive_engine(torch, params):
         launches[f"engine/{prefill}/{mode}"] = counts
         if prefill == "packed":
             kept[mode] = (out, log)
-        emit("path", path="engine", prefill=prefill, mode=mode, card=card,
-             **ENGINE,
+        emit("path", arch=arch, path="engine", prefill=prefill, mode=mode,
+             card=card, **ENGINE,
              shards=SHARDS, cr=CR, requests=ENGINE_REQUESTS, gen=GEN,
              system_prompt=SYSTEM_PROMPT, pages=kv.stats(),
              registered_pages=len(registered),
@@ -2207,7 +2368,7 @@ def drive_engine(torch, params):
              tol=PATH_REL_TOL, token_gap=TOKEN_GAP, **cmp)
         del runs, log, out, d_log, d_out
     for mode in ("exact", "prism"):
-        emit("trace", path="engine", mode=mode, card=card,
+        emit("trace", arch=arch, path="engine", mode=mode, card=card,
              packed_tick=profile_paged_tick(torch, cfg, params, mode,
                                             prompts[:BATCH]))
     return launches, kept
@@ -2922,7 +3083,87 @@ def drive_phase8(torch, params, phase6):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the Llama family (Yi-6B) at full width and depth
+# ---------------------------------------------------------------------------
+
+TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+
+
+def yi_row(name, t_128, chk):
+    """A kernel's numbers at Yi-6B's layouts (phase 3's head-dim-128
+    part): per layout the kernel's times, its plain version's, the bound
+    and the library call's; the largest error there."""
+    pick = lambda t: {k: t[k] for k in TIME_KEYS if k in t}  # noqa: E731
+    if name == "prism_flash_attention":
+        out = {mode: pick(t) for mode, t in t_128["attention"].items()}
+    elif name == "segment_means":
+        t = t_128["segment_means"]
+        out = {"means": pick(t),
+               "augment": {k: t["augment_" + k] for k in TIME_KEYS
+                           if "augment_" + k in t},
+               "bf16_ms": t["bf16_ms"], "bf16_device_ms": t["bf16_device_ms"]}
+    else:
+        d = t_128["decode"]
+        out = {tag: pick(d[tag]) for tag in ("exact", "prism", "chunk",
+                                             "packed", "packed_prism")}
+        for mode in ("exact", "prism"):            # the static layouts
+            out[mode].update({k: d[mode][k] for k in (
+                "tile_ms", "tile_device_ms", "row_ms", "row_device_ms")})
+        out["paged"] = {tag: pick(t) for tag, t in d["paged"].items()}
+        out["poisoned"] = d["poisoned"]
+        out["cases_by_route"] = d["cases_by_route"]
+    out["max_abs_err"] = chk.max_err.get(name + "/hd128",
+                                         chk.max_err[name])
+    return out
+
+
+# the engine runs of phase 9: packed exact and packed prism
+LLAMA_ENGINE_RUNS = (("packed", "exact"), ("packed", "prism"))
+
+
+def drive_llama(torch):
+    """Phase 9: Yi-6B (32 layers, d 4096, 32 query heads over 4 KV heads
+    of 128, SwiGLU, RMSNorm, RoPE, untied head), f32 weights from
+    torch.Generator seed 0 on the card, through phase 4's static paths,
+    phase 5's tick paths and phase 6's engine (packed exact and prism)
+    at the same shapes and under the same checks.  Returns the launches
+    of each path, keyed ``yi-6b/...``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(LLAMA)
+    params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    emit("model", arch=LLAMA, params=n_params,
+         weight_bytes=4 * n_params, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         decode_route_static=("tile" if static_tile(cfg) else "row"))
+    by_path = {f"{LLAMA}/static/{mode}": r["launches"]
+               for mode, r in drive_path(torch, params, LLAMA).items()}
+    by_path.update({f"{LLAMA}/{k}": v for k, v in
+                    drive_ticks(torch, params, LLAMA).items()})
+    launches, _ = drive_engine(torch, params, LLAMA, LLAMA_ENGINE_RUNS)
+    by_path.update({f"{LLAMA}/{k}": v for k, v in launches.items()})
+    return by_path
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
+    import time
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2940,7 +3181,8 @@ def main() -> int:
 
     secs = build.build()
     ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "entry function" in ln]
              for name in build.LIBS}
     emit("build", seconds=secs, ptxas=ptxas)
 
@@ -2949,10 +3191,11 @@ def main() -> int:
     t_attn = check_attention(torch, chk, timer)
     t_means = check_segment_means(torch, chk, timer)
     t_dec = check_decode(torch, chk, timer)
+    t_128 = check_head_dim_128(torch, chk, timer)
     emit("kernel", max_abs_err=chk.max_err, tol_share=chk.tol_share,
          tol=TOL, cases=chk.cases,
          floor_ms=timer.floor(), attention=t_attn, segment_means=t_means,
-         decode=t_dec)
+         decode=t_dec, hd128=t_128)
 
     params = T.init(get_config(ARCH),
                     torch.Generator(device=dev).manual_seed(0), dev)
@@ -2963,6 +3206,9 @@ def main() -> int:
     by_path.update(engine_launches_by_path)
     by_path.update(drive_robust(torch, params, engine_runs))
     by_path.update(drive_phase8(torch, params, engine_runs))
+    del params, engine_runs                     # GPT-2's weights and runs
+    torch.cuda.empty_cache()
+    by_path.update(drive_llama(torch))
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -2970,6 +3216,7 @@ def main() -> int:
     extra = {"prism_flash_attention": ("voltage", t_attn["voltage"]),
              "flash_decode_stats": ("exact", t_dec["exact"])}
     rows = []
+    llama = [path for path in by_path if path.startswith(LLAMA + "/")]
     for name in TOL:
         src, rep = SOURCES[name]
         t = main_t[name]
@@ -2978,8 +3225,11 @@ def main() -> int:
                "launches": sum(c.get(name, 0) for c in by_path.values()),
                "launches_by_path": {path: c.get(name, 0)
                                     for path, c in by_path.items()},
-               "max_abs_err": chk.max_err[name], "tol": list(TOL[name]),
-               "tol_share": chk.tol_share[name],
+               "max_abs_err": max(chk.max_err[name],
+                                  chk.max_err.get(name + "/hd128", 0.0)),
+               "tol": list(TOL[name]),
+               "tol_share": max(chk.tol_share[name],
+                                chk.tol_share.get(name + "/hd128", 0.0)),
                "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -3029,7 +3279,17 @@ def main() -> int:
                         "bf16_tol": list(TOL_BF16)})
         else:
             row["device_ms"] = t["device_ms"]
+        # the Llama family's layouts (Yi-6B: head dim 128, D 4096), with
+        # their launches on phase 9's paths
+        row["yi"] = yi_row(name, t_128, chk)
+        row["yi"]["launches"] = sum(by_path[p].get(name, 0) for p in llama)
+        if name == "flash_decode_stats":
+            row["yi"]["launches_mq"] = sum(
+                by_path[p].get(name + ".mq", 0) for p in llama)
+            row["yi"]["launches_paged"] = sum(
+                by_path[p].get(name + ".paged", 0) for p in llama)
         rows.append(row)
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ import importlib
 # arch-id -> module name
 _REGISTRY = {
     "gpt2-small": "gpt2_small",
+    "yi-6b": "yi_6b",
 }
 
 

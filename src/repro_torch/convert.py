@@ -9,8 +9,9 @@ itself never imports jax.
 The reference stores layers as ``{"scan": [u stacked trees], "tail":
 [...]}`` (``ModelConfig.scan_split``): layer ``i·u + j`` of the scanned
 part is slice ``i`` of ``scan[j]``, and the ``tail`` layers follow.  The
-port keeps one dict per layer.  Dense weights stay ``(d_in, d_out)`` and
-the head stays tied to ``embed.table``, so every leaf is a plain copy.
+port keeps one dict per layer.  Dense weights stay ``(d_in, d_out)``, a
+tied head stays ``embed.table`` and an untied one is ``lm_head``, so
+every leaf is a plain copy.
 """
 from __future__ import annotations
 
@@ -46,7 +47,11 @@ def from_jax_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, config has "
                          f"{cfg.n_layers}")
-    return {"layers": layers,
-            "final_norm": _tensors(tree["final_norm"], device),
-            "embed": _tensors(tree["embed"], device),
-            "pos_embed": _tensors(tree["pos_embed"], device)}
+    params = {"layers": layers,
+              "final_norm": _tensors(tree["final_norm"], device),
+              "embed": _tensors(tree["embed"], device)}
+    # learned positions and an untied head only where the model has them
+    for name in ("pos_embed", "lm_head"):
+        if name in tree:
+            params[name] = _tensors(tree[name], device)
+    return params

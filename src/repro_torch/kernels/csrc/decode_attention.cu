@@ -49,13 +49,14 @@
 // through the row map).
 //
 // The row route (decode_stats_kernel): one block of 4 warps per (row, KV
-// head, tile of up to 32 query heads of its group), so the main path
-// runs 12 x 32 blocks in both modes, about three per SM.  Each warp
-// takes 16 columns per pass, two at a time: a half-warp holds one
-// 64-float K or V row as 16 float4s.  A warp first reads its columns'
-// `valid` / log g, then issues the 16-byte K and V loads of every live
-// column of the pass at once into registers, so 8 KB per warp are in
-// flight; a dead column (`valid` false or log g <= -1e30 / 2) is never
+// head, tile of up to 32 query heads of its group), so GPT-2's path
+// runs 12 x 32 blocks in both modes, about three per SM.  A half-warp
+// holds one K or V row, each lane HD / 64 float4s of it (lane l float4s
+// l, l + 16, ...), two rows at a time a warp: 16 columns per pass at head
+// dim 64, 8 at 128.  A warp first reads its columns' `valid` / log g,
+// then issues the 16-byte K and V loads of every live column of the pass
+// at once into registers, so 8 KB per warp are in flight at either head
+// dim; a dead column (`valid` false or log g <= -1e30 / 2) is never
 // loaded.  Every warp then computes the scores of the tile's query heads
 // over its columns, keeping a running (m, l, acc) per head in shared
 // memory, and the four warps' partials are merged in warp order:
@@ -63,7 +64,8 @@
 // holds (-inf, 0, 0) and drops out of the merge.  A group of more than
 // 32 heads takes more blocks, each of which reads the KV head's columns
 // again (from L2), so any group size launches with at most 35 KB of
-// shared memory.
+// shared memory at head dim 64 and 68 KB at 128 (above 48 KB the limit
+// is raised once per device).
 //
 // Splitting a row's columns over a cluster of up to 4 blocks, merged over
 // distributed shared memory, was measured 13% slower at the main path's
@@ -110,6 +112,17 @@
 // - 167 registers, no spills; 69 KB of dynamic shared memory at the
 //   chunk layout (the limit is raised once per device), three blocks
 //   an SM, so the 384 blocks run in one wave.
+// - Head dim 128 (the Llama family: Yi-6B's static and engine decode,
+//   a group of 8 and no row map, take this route): strides HD + 4 and
+//   HD + 8, about 135 KB of shared memory a block (64 KB of it Q's
+//   fragments), one block an SM, so the kernel is built for one block an
+//   SM there and may take up to 255 registers (acc doubles to 64 a
+//   thread; it takes 226, no spills).  QK^T's 16 k-steps run as two
+//   chains of 8, each in its own accumulator (mma_tf32.cuh, QK_CHAIN).
+//   At a group of 8 a 64-row query tile holds 8 live rows, in its first
+//   warp: right, and slow.  Yi's static decode (32 rows of 144 columns,
+//   4 KV heads) moves 19.5 MB, a bound of 0.0058 ms; the tile route
+//   takes 0.025 ms there, the row route 0.032 (chip_smoke.py, H100).
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 0.0225 ms at
 // the chunk layout, 2.5x its bound and 6.1x faster than the row route
 // there; 0.017 ms for any group up to 16 (the latency of a block's two
@@ -119,6 +132,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_tf32.cuh"
 
 namespace {
@@ -126,8 +141,6 @@ namespace {
 constexpr float NEG = -1e30f;
 constexpr int NW = 4;               // warps per block
 constexpr int NT = 32 * NW;         // threads per block
-constexpr int WCOLS = 16;           // columns per warp per pass
-constexpr int UNIT = NW * WCOLS;    // columns per block per pass
 constexpr int GMAX = 32;            // query heads per block
 // the tile route
 constexpr int MQ_ROWS = 16 * NW;    // query heads per block, 16 per warp
@@ -155,8 +168,13 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
     float* __restrict__ acc_out,        // (B, Hq, HD)
     int M, int MZ, int Hq, int Hkv, int rep, int ppr, int PC, int NPAGES,
     int NZROWS, float scale) {
-  // a half-warp holds one row as 16 float4s
-  static_assert(HD == 64, "decode kernel is laid out for head dim 64");
+  // a half-warp holds one row as 16 x VEC float4s: lane hl holds
+  // float4s hl, hl + 16, ...
+  static_assert(HD % 64 == 0 && HD <= 128, "head dim");
+  constexpr int VEC = HD / 64;          // float4s of a row a lane holds
+  constexpr int HC = 8 / VEC;           // columns a half-warp takes a pass
+  constexpr int WCOLS = 2 * HC;         // columns per warp per pass
+  constexpr int UNIT = NW * WCOLS;      // columns per block per pass
   constexpr int LP = HD + 4;            // partial: acc[HD], m, l, pad
   constexpr int NP = HD + 2;            // the used part of a partial
   const int grp = Hq / Hkv;
@@ -188,13 +206,13 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
   __syncwarp();
 
   for (int base = warp * WCOLS; base < n_cols; base += UNIT) {
-    // this pass: columns base + 2i + half, i < 8; the page lookup and
+    // this pass: columns base + 2i + half, i < HC; the page lookup and
     // `valid` are independent loads
-    bool live[WCOLS / 2];
-    float bias[WCOLS / 2];
-    int krow[WCOLS / 2];                // the column's K/V or means row
+    bool live[HC];
+    float bias[HC];
+    int krow[HC];                       // the column's K/V or means row
 #pragma unroll
-    for (int i = 0; i < WCOLS / 2; ++i) {
+    for (int i = 0; i < HC; ++i) {
       const int c = base + 2 * i + half;
       live[i] = false;
       bias[i] = 0.f;
@@ -217,30 +235,48 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
         }
       }
     }
-    float4 kr[WCOLS / 2], vr[WCOLS / 2];
+    float4 kr[HC][VEC], vr[HC][VEC];
 #pragma unroll
-    for (int i = 0; i < WCOLS / 2; ++i) {
+    for (int i = 0; i < HC; ++i) {
       const int c = base + 2 * i + half;
-      kr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      vr[i] = kr[i];
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        kr[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        vr[i][u] = kr[i][u];
+      }
       if (live[i]) {
         const size_t off = ((size_t)krow[i] * Hkv + kvh) * HD;
-        const float* ks = (c < M ? k : kz) + off;
-        const float* vs = (c < M ? v : vz) + off;
-        kr[i] = __ldg(reinterpret_cast<const float4*>(ks) + hl);
-        vr[i] = __ldg(reinterpret_cast<const float4*>(vs) + hl);
+        const float4* ks =
+            reinterpret_cast<const float4*>((c < M ? k : kz) + off) + hl;
+        const float4* vs =
+            reinterpret_cast<const float4*>((c < M ? v : vz) + off) + hl;
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          kr[i][u] = __ldg(ks + 16 * u);
+          vr[i][u] = __ldg(vs + 16 * u);
+        }
       }
     }
     for (int g = 0; g < gt; ++g) {
-      const float4 q4 = __ldg(qg + g * (HD / 4) + hl);
-      float s[WCOLS / 2];
+      float4 q4[VEC];
+#pragma unroll
+      for (int u = 0; u < VEC; ++u)
+        q4[u] = __ldg(qg + g * (HD / 4) + hl + 16 * u);
+      float s[HC];
       float mx = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < WCOLS / 2; ++i) {
-        float d = q4.x * kr[i].x;
-        d = fmaf(q4.y, kr[i].y, d);
-        d = fmaf(q4.z, kr[i].z, d);
-        d = fmaf(q4.w, kr[i].w, d);
+      for (int i = 0; i < HC; ++i) {
+        float d = q4[0].x * kr[i][0].x;
+        d = fmaf(q4[0].y, kr[i][0].y, d);
+        d = fmaf(q4[0].z, kr[i][0].z, d);
+        d = fmaf(q4[0].w, kr[i][0].w, d);
+#pragma unroll
+        for (int u = 1; u < VEC; ++u) {
+          d = fmaf(q4[u].x, kr[i][u].x, d);
+          d = fmaf(q4[u].y, kr[i][u].y, d);
+          d = fmaf(q4[u].z, kr[i][u].z, d);
+          d = fmaf(q4[u].w, kr[i][u].w, d);
+        }
 #pragma unroll
         for (int o = 8; o > 0; o >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, o);
@@ -255,31 +291,42 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
       const float corr = expf(m_prev - m_use);
       float ps = 0.f;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 a[VEC];
 #pragma unroll
-      for (int i = 0; i < WCOLS / 2; ++i) {
+      for (int u = 0; u < VEC; ++u) a[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < HC; ++i) {
         const float p = expf(s[i] - m_use);
         ps += p;
-        a.x = fmaf(p, vr[i].x, a.x);
-        a.y = fmaf(p, vr[i].y, a.y);
-        a.z = fmaf(p, vr[i].z, a.z);
-        a.w = fmaf(p, vr[i].w, a.w);
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          a[u].x = fmaf(p, vr[i][u].x, a[u].x);
+          a[u].y = fmaf(p, vr[i][u].y, a[u].y);
+          a[u].z = fmaf(p, vr[i][u].z, a[u].z);
+          a[u].w = fmaf(p, vr[i][u].w, a[u].w);
+        }
       }
       ps += __shfl_xor_sync(0xffffffffu, ps, 16);
-      a.x += __shfl_xor_sync(0xffffffffu, a.x, 16);
-      a.y += __shfl_xor_sync(0xffffffffu, a.y, 16);
-      a.z += __shfl_xor_sync(0xffffffffu, a.z, 16);
-      a.w += __shfl_xor_sync(0xffffffffu, a.w, 16);
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        a[u].x += __shfl_xor_sync(0xffffffffu, a[u].x, 16);
+        a[u].y += __shfl_xor_sync(0xffffffffu, a[u].y, 16);
+        a[u].z += __shfl_xor_sync(0xffffffffu, a[u].z, 16);
+        a[u].w += __shfl_xor_sync(0xffffffffu, a[u].w, 16);
+      }
       const float l_prev = part[HD + 1];
       __syncwarp();                     // every lane has read m, l
       if (half == 0) {
-        float4* acc = reinterpret_cast<float4*>(part) + hl;
-        float4 r = *acc;
-        r.x = fmaf(r.x, corr, a.x);
-        r.y = fmaf(r.y, corr, a.y);
-        r.z = fmaf(r.z, corr, a.z);
-        r.w = fmaf(r.w, corr, a.w);
-        *acc = r;
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          float4* acc = reinterpret_cast<float4*>(part) + hl + 16 * u;
+          float4 r = *acc;
+          r.x = fmaf(r.x, corr, a[u].x);
+          r.y = fmaf(r.y, corr, a[u].y);
+          r.z = fmaf(r.z, corr, a[u].z);
+          r.w = fmaf(r.w, corr, a[u].w);
+          *acc = r;
+        }
       }
       if (lane == 0) {
         part[HD] = m_new;
@@ -316,6 +363,30 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
   }
 }
 
+// the devices a process may launch on (the limits below are per device)
+constexpr int MAX_DEVICES = 64;
+
+// Dynamic shared memory above 48 KB needs the kernel's limit raised,
+// which holds for the current device alone (the wrapper makes the
+// tensors' device current): `allowed` tracks, per device, the largest
+// size raised for `kernel` so far.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t* allowed) {
+  if (smem <= (48 << 10)) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem > allowed[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    allowed[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
 template <int HD>
 int launch(const float* q, const float* k, const float* v,
            const uint8_t* valid, const float* log_gz, const float* kz,
@@ -332,6 +403,9 @@ int launch(const float* q, const float* k, const float* v,
   // 80GB HBM3 at 700 W)
   auto kernel = pages != nullptr ? decode_stats_kernel<HD, true>
                                  : decode_stats_kernel<HD, false>;
+  static size_t allowed[2][MAX_DEVICES] = {};
+  const cudaError_t e = allow_smem(kernel, smem, allowed[pages != nullptr]);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<grid, NT, smem, stream>>>(
       q, k, v, valid, log_gz, kz, vz, rows, pages, zrows, m_out, l_out,
       acc_out, M, MZ, Hq, Hkv, rep, ppr, PC, NPAGES, NZROWS, scale);
@@ -344,8 +418,13 @@ __host__ __device__ constexpr int mq_stage() {
   return MQ_BK * ((HD + 4) + (HD + 8));
 }
 
+// blocks an SM the tile route is built for: three at head dim 64; one at
+// 128, whose shared memory admits no second
+constexpr int mq_min_blocks(int hd) { return hd <= 64 ? 3 : 1; }
+
 template <int HD>
-__global__ void __launch_bounds__(NT, 3) decode_stats_mq_kernel(
+__global__ void __launch_bounds__(NT, mq_min_blocks(HD))
+    decode_stats_mq_kernel(
     const float* __restrict__ q,        // (B / rep, Hq, HD)
     const float* __restrict__ k,        // (B, M, Hkv, HD) or the pool
     const float* __restrict__ v,        // (B, M, Hkv, HD) or the pool
@@ -514,19 +593,21 @@ __global__ void __launch_bounds__(NT, 3) decode_stats_mq_kernel(
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    if constexpr (KS <= QK_CHAIN) {
+      qk_3xtf32<0, KS, NJ, LDK>(sc, my_q, sK, g, t);
+    } else {                            // two chains, added in f32
+      static_assert(KS == 2 * QK_CHAIN, "head dim");
+      float part[NJ][4];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const uint4 h4 = my_q[(2 * ks) * 32], l4 = my_q[(2 * ks + 1) * 32];
-      const uint32_t qh[4] = {h4.x, h4.y, h4.z, h4.w};
-      const uint32_t ql[4] = {l4.x, l4.y, l4.z, l4.w};
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float* kr = sK + (j * 8 + (g >> 1) + (g & 1) * 4) * LDK + ks * 8;
-        uint32_t bh0, bl0, bh1, bl1;
-        split(kr[t], bh0, bl0);
-        split(kr[t + 4], bh1, bl1);
-        mma_3xtf32(sc[j], qh, ql, bh0, bh1, bl0, bl1);
-      }
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+      qk_3xtf32<0, QK_CHAIN, NJ, LDK>(sc, my_q, sK, g, t);
+      qk_3xtf32<QK_CHAIN, KS, NJ, LDK>(part, my_q, sK, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] += part[j][e];
     }
 
     // bias and mask (one per column, every row alike), online softmax
@@ -617,9 +698,6 @@ __global__ void __launch_bounds__(NT, 3) decode_stats_mq_kernel(
   }
 }
 
-// the devices a process may launch on (the limit below is per device)
-constexpr int MAX_DEVICES = 64;
-
 template <int HD>
 int launch_mq(const float* q, const float* k, const float* v,
               const uint8_t* valid, const float* log_gz, const float* kz,
@@ -635,21 +713,9 @@ int launch_mq(const float* q, const float* k, const float* v,
                       sizeof(uint4) * NW * (HD / 8) * 2 * 32 +
                       (sizeof(float) * MQ_BK + sizeof(int)) * ntiles +
                       sizeof(int) * MQ_BK * nlt;
-  // above 48 KB only after raising the kernel's limit, which holds for
-  // the current device alone (the wrapper makes the tensors' device
-  // current): tracked per device, for the largest size launched so far
   static size_t allowed[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = allow_smem(decode_stats_mq_kernel<HD>, smem, allowed);
   if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (smem > (48 << 10) && smem > allowed[dev]) {
-    e = cudaFuncSetAttribute(decode_stats_mq_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    allowed[dev] = smem;
-  }
   const dim3 grid((grp + MQ_ROWS - 1) / MQ_ROWS, Hkv, B);
   decode_stats_mq_kernel<HD><<<grid, NT, smem, stream>>>(
       q, k, v, valid, log_gz, kz, vz, pages, zrows, m_out, l_out, acc_out,
@@ -660,23 +726,37 @@ int launch_mq(const float* q, const float* k, const float* v,
 
 }  // namespace
 
+// one head dim per ported model family (GPT-2: 64; Llama, Yi-6B: 128):
+// fn(std::integral_constant<int, HD>) for the call's head dim
+template <typename Fn>
+int by_head_dim(int hd, Fn fn) {
+  switch (hd) {
+    case 64:
+      return fn(std::integral_constant<int, 64>{});
+    case 128:
+      return fn(std::integral_constant<int, 128>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 extern "C" int flash_decode_stats_f32(
     const void* q, const void* k, const void* v, const void* valid,
     const void* log_gz, const void* kz, const void* vz, const void* rows,
     const void* pages, const void* zrows, void* m_out, void* l_out,
     void* acc_out, int B, int M, int MZ, int Hq, int Hkv, int hd, int rep,
     int ppr, int pc, int n_pages, int n_zrows, float scale, void* stream) {
-  // one head dim per ported model (GPT-2: 64)
-  if (hd != 64) return (int)cudaErrorInvalidValue;
-  return launch<64>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const uint8_t*>(valid),
-      static_cast<const float*>(log_gz), static_cast<const float*>(kz),
-      static_cast<const float*>(vz), static_cast<const int*>(rows),
-      static_cast<const int*>(pages), static_cast<const int*>(zrows),
-      static_cast<float*>(m_out), static_cast<float*>(l_out),
-      static_cast<float*>(acc_out), B, M, MZ, Hq, Hkv, rep, ppr, pc, n_pages,
-      n_zrows, scale, static_cast<cudaStream_t>(stream));
+  return by_head_dim(hd, [&](auto h) {
+    return launch<decltype(h)::value>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const uint8_t*>(valid),
+        static_cast<const float*>(log_gz), static_cast<const float*>(kz),
+        static_cast<const float*>(vz), static_cast<const int*>(rows),
+        static_cast<const int*>(pages), static_cast<const int*>(zrows),
+        static_cast<float*>(m_out), static_cast<float*>(l_out),
+        static_cast<float*>(acc_out), B, M, MZ, Hq, Hkv, rep, ppr, pc,
+        n_pages, n_zrows, scale, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // the tile route: no row map (output row b reads cache row b / rep)
@@ -686,15 +766,15 @@ extern "C" int flash_decode_stats_mq_f32(
     const void* zrows, void* m_out, void* l_out, void* acc_out, int B,
     int M, int MZ, int Hq, int Hkv, int hd, int rep, int ppr, int pc,
     int n_pages, int n_zrows, float scale, void* stream) {
-  // one head dim per ported model (GPT-2: 64)
-  if (hd != 64) return (int)cudaErrorInvalidValue;
-  return launch_mq<64>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const uint8_t*>(valid),
-      static_cast<const float*>(log_gz), static_cast<const float*>(kz),
-      static_cast<const float*>(vz), static_cast<const int*>(pages),
-      static_cast<const int*>(zrows), static_cast<float*>(m_out),
-      static_cast<float*>(l_out), static_cast<float*>(acc_out), B, M, MZ,
-      Hq, Hkv, rep, ppr, pc, n_pages, n_zrows, scale,
-      static_cast<cudaStream_t>(stream));
+  return by_head_dim(hd, [&](auto h) {
+    return launch_mq<decltype(h)::value>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const uint8_t*>(valid),
+        static_cast<const float*>(log_gz), static_cast<const float*>(kz),
+        static_cast<const float*>(vz), static_cast<const int*>(pages),
+        static_cast<const int*>(zrows), static_cast<float*>(m_out),
+        static_cast<float*>(l_out), static_cast<float*>(acc_out), B, M, MZ,
+        Hq, Hkv, rep, ppr, pc, n_pages, n_zrows, scale,
+        static_cast<cudaStream_t>(stream));
+  });
 }

@@ -49,6 +49,38 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_tf32(c, ah, bh0, bh1);
 }
 
+// k-steps of QK^T a score accumulator takes: the tensor core truncates
+// as it accumulates, so a longer product (head dim 128's 16 k-steps)
+// runs as chains of this many, each in its own accumulator, added in f32
+constexpr int QK_CHAIN = 8;
+
+// acc += Q K^T over k-steps [K0, K1) of a warp's 16 query rows and a
+// 32-column K tile (NJ n-tiles of 8).  Q's TF32 parts are parked per
+// thread in A-fragment order (my_q[(2 ks) * 32] hi, [(2 ks + 1) * 32]
+// lo); K's rows (stride LDK floats in shared memory) are read permuted
+// inside each 8-column group (column 2i <- i, 2i + 1 <- i + 4), so the
+// accumulator is the A fragment of the P V product that follows.  n-tile
+// j, entry e holds column j*8 + t + 4*(e & 1) of row g + 8*(e >> 1).
+template <int K0, int K1, int NJ, int LDK>
+__device__ __forceinline__ void qk_3xtf32(float (&acc)[NJ][4],
+                                          const uint4* my_q, const float* sK,
+                                          int g, int t) {
+#pragma unroll
+  for (int ks = K0; ks < K1; ++ks) {
+    const uint4 h4 = my_q[(2 * ks) * 32], l4 = my_q[(2 * ks + 1) * 32];
+    const uint32_t qh[4] = {h4.x, h4.y, h4.z, h4.w};
+    const uint32_t ql[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float* kr = sK + (j * 8 + (g >> 1) + (g & 1) * 4) * LDK + ks * 8;
+      uint32_t bh0, bl0, bh1, bl1;
+      split(kr[t], bh0, bl0);
+      split(kr[t + 4], bh1, bl1);
+      mma_3xtf32(acc[j], qh, ql, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
 // 16 bytes from global to shared memory, zero-filled when !ok
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool ok) {

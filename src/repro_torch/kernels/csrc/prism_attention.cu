@@ -13,7 +13,7 @@
 // head h / (Hq / Hkv).  The shard axis is folded into the batch: batch
 // row b reads metadata row b % P and K/V row b / rep.
 //
-// What bounds it on an H100.  On the main path (GPT-2 small, B = 8,
+// What bounds it on an H100.  On GPT-2 small's path (B = 8,
 // P = 4) a PRISM layer (Nq = 128, M = 256) moves 75 MB and needs
 // 1.4 GFLOP for its visible pairs; a Voltage layer (M = 512) moves 50 MB
 // and needs 3.2 GFLOP.  At 3.35 TB/s and at the tensor cores' rate for
@@ -36,12 +36,25 @@
 //   scores, the online softmax (m, l) and the output accumulator stay in
 //   registers; Q's hi/lo A fragments are split once and parked in shared
 //   memory in fragment order (each thread reads back only its own), which
-//   keeps the kernel at 145 registers, three blocks per SM.  K's rows are
-//   read in a permuted order inside each 8-column group (column 2i <- i,
-//   2i + 1 <- i + 4), so the score accumulator of QK^T already is the
-//   A fragment of PV: no shuffle or shared-memory round trip for P.
-//   K and V tiles have padded row strides (68 and 72 floats) so that
-//   every fragment load is free of bank conflicts.
+//   keeps the kernel at 148 registers, three blocks per SM at head dim 64.
+//   K's rows are read in a permuted order inside each 8-column group
+//   (column 2i <- i, 2i + 1 <- i + 4), so the score accumulator of QK^T
+//   already is the A fragment of PV: no shuffle or shared-memory round
+//   trip for P.
+//   K and V tiles have padded row strides (HD + 4 and HD + 8 floats) so
+//   that every fragment load is free of bank conflicts.
+// - Head dims 64 (GPT-2) and 128 (the Llama family: Yi-6B).  At 128 the
+//   output accumulator doubles to 64 registers a thread and shared memory
+//   grows to 133 KB a block (a two-stage ring of 32 x (132 + 136) floats
+//   and 64 KB of Q fragments), one block an SM: the kernel is built for
+//   one block an SM there, so it may take up to 255 registers (it takes
+//   195, no spills).  QK^T's 16 k-steps run as two chains of 8, each in
+//   its own accumulator, added in f32: the tensor core truncates as it
+//   accumulates, and one chain of 48 products would double the error of
+//   hd 64's 24.  At Yi-6B's shapes (B 8, P 4, 32 query heads over 4 KV
+//   heads) a PRISM layer is bound by its 168 MB (0.050 ms) and a Voltage
+//   layer by 17 GFLOP (0.104 ms); this runs 6.9x and 5.9x above that,
+//   1.4-1.5x faster than SDPA (chip_smoke.py, H100).
 // - Exact tile skipping.  Before the loop the block scans all column
 //   metadata once and keeps the 32-column tiles in which some column
 //   is live (log g > -1e30 / 2) and could be visible to a row position
@@ -69,11 +82,12 @@ constexpr int BK = 32;          // K/V columns per tile
 constexpr int NW = 4;           // warps per block
 constexpr int NT = 32 * NW;     // threads per block
 constexpr int STAGES = 2;       // cp.async ring depth
-constexpr int LDK = 68;         // padded row strides (floats): conflict-
-constexpr int LDV = 72;         // free B-fragment loads for K and V
 
 // one ring stage, in floats: K and V tiles, then log g, lo, hi per column
+template <int HD>
 struct Smem {
+  static constexpr int LDK = HD + 4;  // padded row strides (floats):
+  static constexpr int LDV = HD + 8;  // conflict-free B-fragment loads
   static constexpr int K = 0;
   static constexpr int V = K + BK * LDK;
   static constexpr int LG = V + BK * LDV;
@@ -97,8 +111,12 @@ __device__ __forceinline__ bool visible(int lo, int hi, int r, int causal,
   return vis;
 }
 
+// blocks an SM the kernel is built for: three at head dim 64; one at
+// 128, whose shared memory admits no second
+constexpr int min_blocks(int hd) { return hd <= 64 ? 3 : 1; }
+
 template <int HD>
-__global__ void __launch_bounds__(NT, 3) prism_attention_kernel(
+__global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
     const float* __restrict__ q,        // (B, Nq, Hq, HD)
     const float* __restrict__ k,        // (B / rep, M, Hkv, HD)
     const float* __restrict__ v,        // (B / rep, M, Hkv, HD)
@@ -110,7 +128,8 @@ __global__ void __launch_bounds__(NT, 3) prism_attention_kernel(
     int Nq, int M, int Hq, int Hkv, int rep, int P, int causal,
     int prefix_len, int has_window, int window, float scale) {
   static_assert(HD % 8 == 0 && HD <= 128, "head dim");
-  using S = Smem;
+  using S = Smem<HD>;
+  constexpr int LDK = S::LDK, LDV = S::LDV;
   constexpr int KS = HD / 8;            // k-steps of QK^T; n-tiles of PV
   constexpr int NJ = BK / 8;            // n-tiles of QK^T; k-steps of PV
   extern __shared__ __align__(16) float smem[];
@@ -255,19 +274,21 @@ __global__ void __launch_bounds__(NT, 3) prism_attention_kernel(
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    if constexpr (KS <= QK_CHAIN) {
+      qk_3xtf32<0, KS, NJ, LDK>(sc, my_q, sK, g, t);
+    } else {                            // two chains, added in f32
+      static_assert(KS == 2 * QK_CHAIN, "head dim");
+      float part[NJ][4];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const uint4 h4 = my_q[(2 * ks) * 32], l4 = my_q[(2 * ks + 1) * 32];
-      const uint32_t qh[4] = {h4.x, h4.y, h4.z, h4.w};
-      const uint32_t ql[4] = {l4.x, l4.y, l4.z, l4.w};
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float* kr = sK + (j * 8 + (g >> 1) + (g & 1) * 4) * LDK + ks * 8;
-        uint32_t bh0, bl0, bh1, bl1;
-        split(kr[t], bh0, bl0);
-        split(kr[t + 4], bh1, bl1);
-        mma_3xtf32(sc[j], qh, ql, bh0, bh1, bl0, bl1);
-      }
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+      qk_3xtf32<0, QK_CHAIN, NJ, LDK>(sc, my_q, sK, g, t);
+      qk_3xtf32<QK_CHAIN, KS, NJ, LDK>(part, my_q, sK, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] += part[j][e];
     }
 
     // mask, bias, online softmax
@@ -365,7 +386,7 @@ int launch(const float* q, const float* k, const float* v,
            int has_window, int window, float scale, cudaStream_t stream) {
   const int ntiles = (M + BK - 1) / BK;
   const size_t smem =
-      sizeof(float) * STAGES * Smem::STAGE +
+      sizeof(float) * STAGES * Smem<HD>::STAGE +
       sizeof(uint4) * NW * (HD / 8) * 2 * 32 + sizeof(int) * ntiles;
   cudaError_t e = cudaFuncSetAttribute(
       prism_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -395,8 +416,17 @@ extern "C" int prism_attention_f32(
   const auto* rp = static_cast<const int*>(row_pos);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  // one head dim per ported model (GPT-2: 64)
-  if (hd != 64) return (int)cudaErrorInvalidValue;
-  return launch<64>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv, rep, P,
-                    causal, prefix_len, has_window, window, scale, st);
+  // one head dim per ported model family (GPT-2: 64; Llama, Yi-6B: 128)
+  switch (hd) {
+    case 64:
+      return launch<64>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv,
+                        rep, P, causal, prefix_len, has_window, window,
+                        scale, st);
+    case 128:
+      return launch<128>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv,
+                         rep, P, causal, prefix_len, has_window, window,
+                         scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

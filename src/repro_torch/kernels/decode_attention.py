@@ -47,7 +47,7 @@ from ..core.attention import _gqa_logits, _gqa_output
 from ..core.masks import NEG_INF
 
 NEG = NEG_INF
-HEAD_DIMS = (64,)              # the head dims csrc/decode_attention.cu builds
+HEAD_DIMS = (64, 128)          # the head dims csrc/decode_attention.cu builds
 
 _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_void_p])
@@ -189,8 +189,9 @@ def decode_route(hq: int, hkv: int, no_rows: bool) -> str:
     the tensor cores, each K/V tile read once for all of them; for a
     group of at least ``TILE_MIN_GROUP`` heads (the measured crossover)
     and no row map: the chunked prefill's folded queries.  ``"row"``
-    (``decode_stats_kernel``) for every other call: one token a row
-    (static decode, group 1) and every packed call (a row map), whose
+    (``decode_stats_kernel``) for every other call: one token a row at a
+    group below 4 (GPT-2's static decode, group 1; Yi-6B's group of 8
+    takes the tile route) and every packed call (a row map), whose
     per-token ``valid`` rows do not share a tile.  The rule is fixed;
     nothing else selects a route."""
     return "tile" if no_rows and hq // hkv >= TILE_MIN_GROUP else "row"

@@ -26,7 +26,7 @@ from ..core.attention import _gqa_logits, _gqa_output
 from ..core.masks import NEG_INF, visibility
 
 NEG = NEG_INF
-HEAD_DIMS = (64,)              # the head dims csrc/prism_attention.cu builds
+HEAD_DIMS = (64, 128)          # the head dims csrc/prism_attention.cu builds
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
              + [ctypes.c_float, ctypes.c_void_p])

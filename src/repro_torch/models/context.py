@@ -24,7 +24,8 @@ class AugmentedKV:
     x_hat: torch.Tensor                # (B', M, D) K/V source
     g: Optional[torch.Tensor]          # repeat counts, or None (exact)
     mask: Optional[torch.Tensor]       # bool (Nq, M), or None
-    row_pos: torch.Tensor              # (Nq,) or (P, Nq)
+    row_pos: torch.Tensor              # (Nq,) or (P, Nq): q's RoPE
+    col_pos: torch.Tensor              # (M,) or (P, M): k's RoPE
     # per-column global position ranges, (M,) or (P, M): the prefill
     # kernel re-derives visibility from them instead of taking a mask
     col_lo: Optional[torch.Tensor] = None
@@ -51,4 +52,4 @@ class FullContext(SeqContext):
         pos = torch.arange(n, device=x.device) + self.start
         mask = visibility(pos, pos, pos, causal=spec.causal,
                           prefix_len=self.prefix_len, window=spec.window)
-        return x, AugmentedKV(x, None, mask, pos, pos, pos)
+        return x, AugmentedKV(x, None, mask, pos, pos, pos, pos)

@@ -2,8 +2,9 @@
 
 Layouts follow the JAX reference so parameters convert by copying:
 dense weights are ``(d_in, d_out)``, embeddings ``(vocab, d)``.  Only
-what the ported models use is here: LayerNorm, the tanh-GELU MLP, and
-attention projections without rotary embeddings.
+what the ported models use is here: LayerNorm and RMSNorm, the tanh-GELU
+and SwiGLU MLPs, rotary embeddings (split halves) and the attention
+projections that apply them.
 """
 from __future__ import annotations
 
@@ -46,18 +47,27 @@ def embed(p, tokens):
     return p["table"][tokens]
 
 
+NORM_KINDS = ("layernorm", "rmsnorm")
+
+
 def norm_init(d: int, kind: str, device):
-    if kind != "layernorm":
+    if kind not in NORM_KINDS:
         raise NotImplementedError(f"norm kind {kind!r} is not ported yet")
-    return {"scale": torch.ones(d, device=device),
-            "bias": torch.zeros(d, device=device)}
+    p = {"scale": torch.ones(d, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(d, device=device)
+    return p
 
 
 def norm(p, x, kind: str = "layernorm", eps: float = 1e-6):
-    """LayerNorm computed in f32 with the reference's eps of 1e-6."""
-    if kind != "layernorm":
+    """LayerNorm or RMSNorm (no bias), computed in f32 with the
+    reference's eps of 1e-6."""
+    if kind not in NORM_KINDS:
         raise NotImplementedError(f"norm kind {kind!r} is not ported yet")
     xf = x.float()
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+        return (y * p["scale"].float()).to(x.dtype)
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
@@ -66,20 +76,48 @@ def norm(p, x, kind: str = "layernorm", eps: float = 1e-6):
 
 
 # --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+def rope(x, pos, *, theta: float = 10000.0):
+    """Rotary position embedding over split halves, as the reference's.
+    x (..., n, H, hd), pos (n,) or (..., n), int or float: a PRISM
+    segment-mean column takes its segment's midpoint, which may be
+    fractional.  The angle is computed in f32."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angle = (pos.float()[..., :, None] * freq)[..., :, None, :]
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
 # MLP
 # --------------------------------------------------------------------------
 
+MLP_KINDS = ("gelu", "swiglu")
+
+
 def mlp_init(gen, d: int, d_ff: int, kind: str, *, device,
              bias: bool = False):
-    if kind != "gelu":
+    if kind not in MLP_KINDS:
         raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
-    return {"up": dense_init(gen, d, d_ff, bias=bias, device=device),
-            "down": dense_init(gen, d_ff, d, bias=bias, device=device)}
+    p = {"up": dense_init(gen, d, d_ff, bias=bias, device=device),
+         "down": dense_init(gen, d_ff, d, bias=bias, device=device)}
+    if kind == "swiglu":
+        p["gate"] = dense_init(gen, d, d_ff, bias=bias, device=device)
+    return p
 
 
 def mlp(p, x, kind: str):
-    if kind != "gelu":
+    if kind not in MLP_KINDS:
         raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
+    if kind == "swiglu":
+        return dense(p["down"], F.silu(dense(p["gate"], x))
+                     * dense(p["up"], x))
     # jax.nn.gelu's default is the tanh approximation
     return dense(p["down"], F.gelu(dense(p["up"], x), approximate="tanh"))
 
@@ -102,9 +140,8 @@ class AttnSpec:
     causal: bool = True
 
     def __post_init__(self):
-        if self.rope_theta is not None or self.qk_norm:
-            raise NotImplementedError(
-                "rotary embeddings and qk-norm are not ported yet")
+        if self.qk_norm:
+            raise NotImplementedError("qk-norm is not ported yet")
 
 
 def attn_init(gen, s: AttnSpec, device):
@@ -117,16 +154,31 @@ def attn_init(gen, s: AttnSpec, device):
     }
 
 
-def attn_project_q(p, s: AttnSpec, x):
+def _rotate(s: AttnSpec, t, pos):
+    """RoPE at ``pos`` when the spec has it.  Positions (P, n) given for
+    a (B·P, n, ...) activation (the port's shard axis folded into the
+    batch) are per shard: batch row b·P + p takes row p."""
+    if s.rope_theta is None:
+        return t
+    if pos.dim() == 2 and pos.shape[0] != t.shape[0]:
+        pos = pos.repeat(t.shape[0] // pos.shape[0], 1)
+    return rope(t, pos, theta=s.rope_theta)
+
+
+def attn_project_q(p, s: AttnSpec, x, row_pos):
+    """x (B, n, D) -> q (B, n, Hq, hd), rotated to ``row_pos``."""
     b, n, _ = x.shape
-    return dense(p["wq"], x).reshape(b, n, s.n_heads, s.head_dim)
+    q = dense(p["wq"], x).reshape(b, n, s.n_heads, s.head_dim)
+    return _rotate(s, q, row_pos)
 
 
-def attn_project_kv(p, s: AttnSpec, x_hat):
+def attn_project_kv(p, s: AttnSpec, x_hat, col_pos):
+    """x_hat (B, m, D) -> k, v (B, m, Hkv, hd), k rotated to
+    ``col_pos``."""
     b, m, _ = x_hat.shape
     k = dense(p["wk"], x_hat).reshape(b, m, s.n_kv_heads, s.head_dim)
     v = dense(p["wv"], x_hat).reshape(b, m, s.n_kv_heads, s.head_dim)
-    return k, v
+    return _rotate(s, k, col_pos), v
 
 
 def attn_output(p, o):

@@ -2,10 +2,12 @@
 dict, ``forward(cfg, params, tokens)`` runs it under a ``SeqContext``.
 
 Parameters: {"layers": [per-layer dicts], "embed": {"table"},
-"pos_embed": {"table"}, "final_norm": {...}} — the reference's stacked
+"final_norm": {...}}, plus "pos_embed": {"table"} for learned positions
+and "lm_head": {"w"} for an untied head — the reference's stacked
 ``scan``/``tail`` layout unstacked into one dict per layer
-(``convert.from_jax_numpy``).  Only the ``attn`` block kind with learned
-positions and a tied head is ported.
+(``convert.from_jax_numpy``).  Only the ``attn`` block kind is ported:
+GPT-2's pieces (learned positions, LayerNorm, GELU, tied head) and the
+Llama family's (RoPE, RMSNorm, SwiGLU, GQA, untied head).
 """
 from __future__ import annotations
 
@@ -13,9 +15,10 @@ import torch
 
 from .config import ModelConfig
 from .context import FullContext, SeqContext
-from .layers import (AttnSpec, attn_init, attn_output, attn_project_kv,
-                     attn_project_q, embed, embedding_init, mlp, mlp_init,
-                     norm, norm_init)
+from .layers import (MLP_KINDS, NORM_KINDS, AttnSpec, attn_init,
+                     attn_output, attn_project_kv, attn_project_q, dense,
+                     dense_init, embed, embedding_init, mlp, mlp_init, norm,
+                     norm_init)
 from ..core.attention import prism_attention
 from ..device import resolve_device
 
@@ -23,18 +26,23 @@ from ..device import resolve_device
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a configuration the port does not run yet."""
     bad = sorted(set(cfg.block_kinds) - {"attn"})
-    if (bad or cfg.pos != "learned" or not cfg.tie_embeddings
+    if (bad or cfg.pos not in ("learned", "rope")
+            or cfg.norm_kind not in NORM_KINDS
+            or cfg.mlp_kind not in MLP_KINDS or cfg.qk_norm
             or cfg.parallel_block or cfg.embed_scale or cfg.logit_softcap
             or cfg.frontend or cfg.num_classes or cfg.prefix_len):
         raise NotImplementedError(
-            f"{cfg.name}: only attention-only decoders with learned "
-            f"positions and a tied head are ported (block kinds {bad})")
+            f"{cfg.name}: only attention-only decoders with learned or "
+            f"rotary positions, {'/'.join(NORM_KINDS)} and "
+            f"{'/'.join(MLP_KINDS)} are ported (block kinds {bad}, pos "
+            f"{cfg.pos!r}, norm {cfg.norm_kind!r}, mlp {cfg.mlp_kind!r})")
 
 
 def attn_spec(cfg: ModelConfig, kind: str = "attn") -> AttnSpec:
     return AttnSpec(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.hd, bias=cfg.attn_bias, rope_theta=None,
+        head_dim=cfg.hd, bias=cfg.attn_bias,
+        rope_theta=cfg.rope_theta if cfg.pos == "rope" else None,
         qk_norm=cfg.qk_norm, logit_softcap=cfg.logit_softcap,
         window=None, causal=cfg.causal)
 
@@ -54,15 +62,20 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     asks for the CPU; raises without a card."""
     check_supported(cfg)
     device = resolve_device(device)
-    return {
+    params = {
         "layers": [block_init(cfg, generator, device)
                    for _ in range(cfg.n_layers)],
         "final_norm": norm_init(cfg.d_model, cfg.norm_kind, device),
         "embed": embedding_init(generator, cfg.vocab_size, cfg.d_model,
                                 device),
-        "pos_embed": embedding_init(generator, cfg.max_seq, cfg.d_model,
-                                    device),
     }
+    if cfg.pos == "learned":
+        params["pos_embed"] = embedding_init(generator, cfg.max_seq,
+                                             cfg.d_model, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(generator, cfg.d_model,
+                                       cfg.vocab_size, device=device)
+    return params
 
 
 def attn_sublayer(p, x, ctx: SeqContext, spec: AttnSpec, cfg: ModelConfig):
@@ -71,8 +84,8 @@ def attn_sublayer(p, x, ctx: SeqContext, spec: AttnSpec, cfg: ModelConfig):
     xq, akv = ctx.augment(x, spec)
     xq_n = norm(p["ln1"], xq, cfg.norm_kind)
     xh_n = norm(p["ln1"], akv.x_hat, cfg.norm_kind)
-    q = attn_project_q(p["attn"], spec, xq_n)
-    k, v = attn_project_kv(p["attn"], spec, xh_n)
+    q = attn_project_q(p["attn"], spec, xq_n, akv.row_pos)
+    k, v = attn_project_kv(p["attn"], spec, xh_n, akv.col_pos)
     o = prism_attention(q, k, v, g=akv.g, mask=akv.mask,
                         block=cfg.attn_block)
     return ctx.finalize(attn_output(p["attn"], o))
@@ -85,21 +98,31 @@ def block_apply(cfg: ModelConfig, p, x, ctx: SeqContext):
 
 
 def embed_inputs(cfg: ModelConfig, params, tokens, pos_start: int = 0):
-    """tokens (B, N) -> x (B, N, D): token plus learned position
-    embeddings."""
+    """tokens (B, N) -> x (B, N, D): token embeddings, plus the learned
+    position embeddings where the model has them (RoPE rotates q and k
+    in the attention layers instead)."""
     x = embed(params["embed"], tokens)
+    if cfg.pos != "learned":
+        return x
     n = x.shape[1]
     return x + params["pos_embed"]["table"][pos_start:pos_start + n].to(
         x.dtype)
 
 
+def head(cfg: ModelConfig, params, x):
+    """The LM head on the final-normed x (..., D) -> (..., V): tied to
+    the embedding table, or its own dense ``lm_head``."""
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["table"].T.to(x.dtype)
+    return dense(params["lm_head"], x)
+
+
 def forward(cfg: ModelConfig, params, tokens, *,
             ctx: SeqContext | None = None):
-    """tokens (B, N) -> logits (B, N, V) through the tied head."""
+    """tokens (B, N) -> logits (B, N, V)."""
     check_supported(cfg)
     ctx = ctx or FullContext(prefix_len=cfg.prefix_len)
     x = embed_inputs(cfg, params, tokens)
     for p in params["layers"]:
         x = block_apply(cfg, p, x, ctx)
-    x = norm(params["final_norm"], x, cfg.norm_kind)
-    return x @ params["embed"]["table"].T.to(x.dtype)
+    return head(cfg, params, norm(params["final_norm"], x, cfg.norm_kind))

@@ -50,7 +50,7 @@ from ..models.config import ModelConfig
 from ..models.layers import (AttnSpec, attn_output, attn_project_kv,
                              attn_project_q, embed, mlp, norm)
 from ..models.transformer import (attn_spec, check_supported,
-                                  embed_inputs)
+                                  embed_inputs, head)
 from ..sharding.context import ShardedPrismContext, means_columns
 from .paging import KVCache, PrefixCache
 
@@ -180,8 +180,8 @@ def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
     xq, akv = ctx.augment(x, spec)
     xq_n = norm(p["ln1"], xq, cfg.norm_kind)
     xh_n = norm(p["ln1"], akv.x_hat, cfg.norm_kind)
-    q = attn_project_q(p["attn"], spec, xq_n)
-    k, v = attn_project_kv(p["attn"], spec, xh_n)
+    q = attn_project_q(p["attn"], spec, xq_n, akv.row_pos)
+    k, v = attn_project_kv(p["attn"], spec, xh_n, akv.col_pos)
     o = attn_output(p["attn"], _prefill_attention(q, k, v, akv, spec, cfg,
                                                   hp))
 
@@ -200,6 +200,7 @@ def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
         cache[name] = c
     if hp.decode_mode == "prism":
         m = P * lay.L
+        means = means_columns(P, n_loc, lay.L, x.device)
         if prism_augment:
             # the means columns follow the local block, equal on all shards
             def means_cols(t):
@@ -210,10 +211,11 @@ def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
         else:                            # voltage prefill: compute means-KV
             z_all = ctx.gather_means(x, lay.L)               # (B, P·L, D)
             kz, vz = attn_project_kv(
-                p["attn"], spec, norm(p["ln1"], z_all, cfg.norm_kind))
+                p["attn"], spec, norm(p["ln1"], z_all, cfg.norm_kind),
+                means.mid)                   # each mean at its midpoint
         # monolithic prefill covers every position of [0, n0): the repeat
         # counts are the full segment sizes, the sums means × sizes
-        sizes = means_columns(P, n_loc, lay.L, x.device).sizes
+        sizes = means.sizes
         cache["kz"], cache["vz"] = kz, vz
         cache["gz"] = sizes[None].expand(b, m).contiguous()
         cache["zsum"] = z_all.float() * sizes[None, :, None]
@@ -430,10 +432,10 @@ def lost_columns(lost, m: int):
 
 
 def lm_head(cfg: ModelConfig, params, x):
-    """Final norm and the tied-embedding LM head: x (..., D) -> logits
+    """Final norm and the LM head (tied or untied): x (..., D) -> logits
     (..., V) f32."""
-    x = norm(params["final_norm"], x, cfg.norm_kind)
-    return (x @ params["embed"]["table"].T.to(x.dtype)).float()
+    return head(cfg, params,
+                norm(params["final_norm"], x, cfg.norm_kind)).float()
 
 
 def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
@@ -453,8 +455,9 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
     state rows already hold, the lost shard's own gate opened."""
     plan, owner, valid, page_map, state_map, sr = cols
     xn = norm(p["ln1"], x, cfg.norm_kind)
-    q = attn_project_q(p["attn"], spec, xn)
-    k_new, v_new = attn_project_kv(p["attn"], spec, xn)
+    rp = pos[:, None]                                # (B, 1) row positions
+    q = attn_project_q(p["attn"], spec, xn, rp)
+    k_new, v_new = attn_project_kv(p["attn"], spec, xn, rp)
     scale = spec.head_dim ** -0.5
     _write_kv(c["k"], k_new[:, 0], plan)
     _write_kv(c["v"], v_new[:, 0], plan)
@@ -487,11 +490,15 @@ def block_decode(cfg: ModelConfig, p, x, c, pos, lay: ServeLayout,
 
 
 def embed_tokens(cfg: ModelConfig, params, token, pos):
-    """token (B, T), pos (B, T) -> x (B, T, D) with learned positions,
-    per request and per token.  A dead entry (pos = -1) still embeds
-    (its position clamped) but never reaches the cache."""
-    tbl = params["pos_embed"]["table"]
+    """token (B, T), pos (B, T) -> x (B, T, D), with learned positions
+    per request and per token where the model has them (a RoPE model
+    rotates q and k at ``pos`` in its attention layers instead).  A dead
+    entry (pos = -1) still embeds (its position clamped) but never
+    reaches the cache."""
     x = embed(params["embed"], token)
+    if cfg.pos != "learned":
+        return x
+    tbl = params["pos_embed"]["table"]
     return x + tbl[torch.clamp(pos, 0, tbl.shape[0] - 1)].to(x.dtype)
 
 

@@ -71,13 +71,14 @@ def state_plan(c, state_map, act):
 
 
 def _capture_means(p, spec, cfg: ModelConfig, c, inc, cnt, restart, act,
-                   splan=None):
+                   mid, splan=None):
     """Advance the Segment-Means state of the rows ``act`` (B,) IN PLACE.
 
     ``inc`` (B, m, D) f32 sums the tick's layer inputs into each row's
     segment columns; ``cnt`` (B, m) counts each segment's real tokens
     after the tick (``segment_fill_counts``) and ``restart`` (B,) marks
-    the rows whose running sums start over (offset 0).  With ``splan``
+    the rows whose running sums start over (offset 0).  The means' keys
+    take RoPE at ``mid`` (m,), their segments' midpoints.  With ``splan``
     (``state_plan``) the state lives in the state pool: row b reads pool
     row ``sr[b]`` and writes ``dst[b]``; each active slot has a row of
     its own, and the rest share the sink, whose bytes nothing reads."""
@@ -85,7 +86,7 @@ def _capture_means(p, spec, cfg: ModelConfig, c, inc, cnt, restart, act,
     zsum = torch.where(restart[:, None, None], 0.0, prev) + inc
     z = (zsum / torch.clamp(cnt, min=1.0)[..., None]).to(c["kz"].dtype)
     kz, vz = attn_project_kv(p["attn"], spec,
-                             norm(p["ln1"], z, cfg.norm_kind))
+                             norm(p["ln1"], z, cfg.norm_kind), mid)
     if splan is None:
         sel = act[:, None, None, None]
         c["kz"].copy_(torch.where(sel, kz.to(c["kz"].dtype), c["kz"]))
@@ -175,15 +176,16 @@ def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
     x = embed_tokens(cfg, params, tokens, row_pos)               # (B, C, D)
     for p, cc in zip(params["layers"], cache):
         xn = norm(p["ln1"], x, cfg.norm_kind)
-        q = attn_project_q(p["attn"], spec, xn)
-        k_new, v_new = attn_project_kv(p["attn"], spec, xn)
+        q = attn_project_q(p["attn"], spec, xn, row_pos)
+        k_new, v_new = attn_project_kv(p["attn"], spec, xn, row_pos)
         _write_kv(cc["k"], k_new.flatten(0, 1), plan)
         _write_kv(cc["v"], v_new.flatten(0, 1), plan)
         o = chunk_attention(q, cc["k"], cc["v"], valid, bias_self, k_new,
                             v_new, scale, backend=hp.backend, pages=pages)
         if prism:
             inc = torch.einsum("bcm,bcd->bmd", seg, x.float())
-            _capture_means(p, spec, cfg, cc, inc, cnt, restart, act, splan)
+            _capture_means(p, spec, cfg, cc, inc, cnt, restart, act,
+                           cols.mid, splan)
         x = x + attn_output(p["attn"], o)
         x = x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
     return cache
@@ -272,8 +274,8 @@ def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
     x = embed_tokens(cfg, params, tokens[:, None], pos[:, None])  # (T,1,D)
     for p, c in zip(params["layers"], cache):
         xn = norm(p["ln1"], x, cfg.norm_kind)
-        q = attn_project_q(p["attn"], spec, xn)
-        k_new, v_new = attn_project_kv(p["attn"], spec, xn)
+        q = attn_project_q(p["attn"], spec, xn, pos[:, None])
+        k_new, v_new = attn_project_kv(p["attn"], spec, xn, pos[:, None])
         _write_kv(c["k"], k_new[:, 0], plan)
         _write_kv(c["v"], v_new[:, 0], plan)
         o = packed_attention(q, c["k"], c["v"], valid, bias_self, k_new,
@@ -291,7 +293,8 @@ def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
                                     backend=hp.backend)
             o = torch.where(is_dec, o_pz, o)
             inc = torch.einsum("btm,td->bmd", seg, x[:, 0].float())
-            _capture_means(p, spec, cfg, c, inc, cnt, restart, act, splan)
+            _capture_means(p, spec, cfg, c, inc, cnt, restart, act,
+                           cols.mid, splan)
         x = x + attn_output(p["attn"], o)
         x = x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
     return lm_head(cfg, params, x[:min(b, x.shape[0]), 0]), cache

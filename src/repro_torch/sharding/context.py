@@ -43,6 +43,9 @@ class MeansColumns(NamedTuple):
     col_lo: torch.Tensor    # (P, n_loc + P·L) int32 x_hat's columns:
     col_hi: torch.Tensor    #   the shard's own rows, then the means
     col_g: torch.Tensor     # (P, n_loc + P·L) f32
+    mid: torch.Tensor       # (P·L,) f32 each mean's RoPE position, the
+                            #   midpoint (lo + hi) / 2 of its segment
+    col_pos: torch.Tensor   # (P, n_loc + P·L) f32 x_hat's RoPE positions
 
 
 @functools.lru_cache(maxsize=16)
@@ -57,8 +60,9 @@ def means_columns(n_shards: int, n_loc: int, L: int,
                   device: torch.device) -> MeansColumns:
     """The gathered means columns, shard-major: position ranges, per-shard
     repeat counts g where a shard's own means get g = 0 (its exact columns
-    are present), and the segment sizes; and the same for every column of
-    the PRISM x_hat, the shard's own rows first.  Built once per shape and
+    are present), the segment sizes and midpoints (a mean's RoPE
+    position); and the same for every column of the PRISM x_hat, the
+    shard's own rows first.  Built once per shape and
     device: a host-to-device copy or a concatenation per layer would
     stall the card."""
     lo0, hi0 = segment_bounds(n_loc, L)
@@ -75,11 +79,14 @@ def means_columns(n_shards: int, n_loc: int, L: int,
     col_hi = np.concatenate([rows, np.broadcast_to(hi, (n_shards, hi.size))],
                             axis=1)
     col_g = np.concatenate([np.ones_like(rows, dtype=np.float32), g], axis=1)
+    mid = (lo + hi) / 2.0
+    col_pos = np.concatenate(
+        [rows, np.broadcast_to(mid, (n_shards, mid.size))], axis=1)
     i32 = functools.partial(torch.as_tensor, dtype=torch.int32, device=device)
     f32 = functools.partial(torch.as_tensor, dtype=torch.float32,
                             device=device)
     return MeansColumns(i32(lo), i32(hi), f32(g), f32(sizes), i32(col_lo),
-                        i32(col_hi), f32(col_g))
+                        i32(col_hi), f32(col_g), f32(mid), f32(col_pos))
 
 
 class ShardedPrismContext(SeqContext):
@@ -111,7 +118,7 @@ class ShardedPrismContext(SeqContext):
         n = self.P * n_loc
         x_hat = x.reshape(bp // self.P, n, d)         # the all-gather
         col = torch.arange(n, device=x.device)
-        return x, AugmentedKV(x_hat, None, None, row_pos,
+        return x, AugmentedKV(x_hat, None, None, row_pos, col,
                               col_lo=col, col_hi=col)
 
     def gather_means(self, x, L: int):
@@ -131,7 +138,8 @@ class ShardedPrismContext(SeqContext):
         # g = 0 columns need no mask entry: log g = -1e30 already removes
         # them, so (col_lo, col_hi) alone reproduce the Eq. 17 mask
         return x, AugmentedKV(x_hat, cols.col_g, None, row_pos,
-                              col_lo=cols.col_lo, col_hi=cols.col_hi)
+                              cols.col_pos, col_lo=cols.col_lo,
+                              col_hi=cols.col_hi)
 
     def last_shard(self, x):
         """Value held by the shard owning the END of the sequence:

@@ -541,16 +541,18 @@ def _mma_3xtf32(c, a, b):
 
 
 def _decode_3xtf32(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
-                   scale, tile=32):
+                   scale, tile=32, qk_chain=8):
     """csrc/decode_attention.cu's tile route on the CPU: each output
     row's column bias (log2 domain, -inf for a dead column), its local
     32-column tiles then its means tiles in order, a tile with no live
     column skipped (the state untouched), both products as chains of
-    3xTF32 mma (``_mma_3xtf32``), S from zero, each tile's PV in an
-    accumulator of its own added to the rescaled acc in f32, the online
-    softmax rescaled once per tile; m back in natural-log units, a row
-    with no live column (NEG, 0, 0).  Returns the stats and the number
-    of (output row, tile) pairs skipped."""
+    3xTF32 mma (``_mma_3xtf32``), S from zero in chains of ``qk_chain``
+    k-steps (mma_tf32.cuh's QK_CHAIN: head dim 128 takes two) added in
+    f32, each tile's PV in an accumulator of its own added to the
+    rescaled acc in f32, the online softmax rescaled once per tile; m
+    back in natural-log units, a row with no live column (NEG, 0, 0).
+    Returns the stats and the number of (output row, tile) pairs
+    skipped."""
     log2e = 1.4426950408889634
     b, m_loc, hkv, hd = k.shape
     rep = b // q.shape[0]
@@ -578,8 +580,13 @@ def _decode_3xtf32(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
                              0.0).transpose(1, 2)          # (b, hkv, n, hd)
             vt = torch.where(bt[..., None, None] > -torch.inf, vv[:, cols],
                              0.0).transpose(1, 2)
-            s = _mma_3xtf32(torch.zeros(b, hkv, grp, kt.shape[2]), qg,
-                            kt.transpose(-1, -2))          # (b, hkv, grp, n)
+            s = None                                       # (b, hkv, grp, n)
+            for d0 in range(0, hd, 8 * qk_chain):
+                ds = slice(d0, d0 + 8 * qk_chain)
+                part = _mma_3xtf32(torch.zeros(b, hkv, grp, kt.shape[2]),
+                                   qg[..., ds], kt.transpose(-1, -2)[..., ds,
+                                                                     :])
+                s = part if s is None else s + part
             x = torch.where(bt[:, None, None] > -torch.inf,
                             s * (scale * log2e) + bt[:, None, None],
                             -torch.inf)
@@ -656,6 +663,48 @@ def test_decode_3xtf32_tiles_match_plain(offsets, means):
     assert skipped == want_skipped > 0
 
 
+@pytest.mark.parametrize("means", [False, True])
+def test_decode_3xtf32_tiles_match_plain_at_head_dim_128(means):
+    """The tile route's arithmetic at Yi-6B's static decode (a group of 8
+    query heads a KV head, head dim 128, no row map: the route the rule
+    names): QK^T's 16 k-steps as two chains of 8 added in f32, the rest
+    as at head dim 64, within the decode kernel's (1e-5, 1e-5) tolerance
+    of the f32 plain version; 8 rows of 4 shards of cap_l 144, valid =
+    col_pos <= pos at the last decode step, with means: the prism
+    layout's 128 columns under ``prism_gz``."""
+    from repro_torch.core.attention import log_repeats
+    from repro_torch.runtime.serve import (ServeHParams, _decode_cols,
+                                           make_layout, prism_gz)
+    n_seq, hkv, grp, hd = 4, 4, 8, 128
+    assert TD.decode_route(hkv * grp, hkv, True) == "tile"
+    lay = make_layout(n_seq, 576, ServeHParams(decode_mode="prism",
+                                               means_cr=4.0),
+                      prefill_len=512)
+    pos = torch.full((8,), 574)
+    _, _, col_pos = _decode_cols(lay, pos)
+    valid = (col_pos[None] <= pos[:, None, None]).reshape(-1, lay.cap_l)
+    b = valid.shape[0]
+    rng = np.random.default_rng(8)
+
+    def rnd(*shape):
+        return T((0.5 * rng.standard_normal(shape)).astype(np.float32))
+    args = [rnd(8, 1, hkv * grp, hd), rnd(b, lay.cap_l, hkv, hd),
+            rnd(b, lay.cap_l, hkv, hd), valid]
+    if means:
+        cols = means_columns(n_seq, lay.n_loc0, lay.L, torch.device("cpu"))
+        m = n_seq * lay.L
+        log_gz = log_repeats(prism_gz(cols, cols.sizes, pos)).reshape(b, m)
+        args += [log_gz, rnd(8, m, hkv, hd), rnd(8, m, hkv, hd)]
+    scale = hd ** -0.5
+    got, skipped = _decode_3xtf32(*args, scale=scale)
+    want = TD.decode_stats_reference(*args, scale=scale)
+    for g, w, name in zip(got, want, ("m", "l", "acc")):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+    assert skipped == (int((~(log_gz > NEG_INF / 2).reshape(
+        b, -1, 32).any(-1)).sum()) if means else 0)
+
+
 @pytest.mark.parametrize("hq,hkv,no_rows,route", [
     (64 * 12, 12, True, "tile"),      # the chunk layout: C = 64 folded
     (12, 12, True, "row"),            # static decode: one token a row
@@ -665,6 +714,8 @@ def test_decode_3xtf32_tiles_match_plain(offsets, means):
     (3, 1, True, "row"), (24, 8, True, "row"), (2, 1, True, "row"),
     (16, 1, True, "tile"), (48, 12, True, "tile"), (40, 1, True, "tile"),
     (128, 2, True, "tile"), (4, 1, False, "row"),
+    (32, 4, True, "tile"),            # Yi-6B's static and engine decode
+    (32, 4, False, "row"),            # Yi-6B's packed ticks
 ])
 def test_decode_route_rule(hq, hkv, no_rows, route):
     """The wrapper's fixed rule: the tile route for a group of at least
@@ -855,6 +906,68 @@ def test_launches_run_under_the_tensors_device(monkeypatch):
         "prism_flash_attention": 1, "segment_means": 2,
         "flash_decode_stats": 5, "flash_decode_stats.mq": 2,
         "flash_decode_stats.paged": 2}
+    dispatch.LAUNCHES.clear()
+
+
+def _c_params(lib, entry):
+    """The parameter names of an ``extern "C"`` entry point of
+    ``csrc/<lib>.cu``."""
+    import re
+    src = (build.CSRC / f"{lib}.cu").read_text()
+    m = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", src,
+                  re.S)
+    return [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("hd", [64, 128, 96])
+def test_wrappers_take_head_dims_64_and_128(monkeypatch, hd):
+    """The prefill kernel and both decode routes take head dim 64
+    (GPT-2) and 128 (the Llama family) and pass it to their C entry as
+    ``hd``; any other head dim raises before a launch."""
+    import contextlib
+    import types
+    from repro_torch.kernels import prism_attention as TP
+    calls = []
+
+    def function(lib, entry, argtypes):
+        def fn(*args):
+            calls.append((lib, entry, args))
+            return 0
+        return fn
+    monkeypatch.setattr(build, "function", function)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    for mod in (TD, TP):
+        monkeypatch.setattr(mod, "check_tensor", lambda *a, **k: None)
+    dispatch.LAUNCHES.clear()
+    assert TP.HEAD_DIMS == TD.HEAD_DIMS == (64, 128)
+    q, k, v, g, lo, hi, row = attention_case(2, 8, 8, 4, 8, 2, hd)
+    meta = (T(np.log(g))[None], T(lo)[None], T(hi)[None], T(row)[None])
+    c_row = decode_case(2, 8, 2, 2, hd)                  # group 1: row
+    c_tile = decode_case(2, 8, 8, 1, hd)                 # group 8: tile
+    launches = [
+        lambda: prism_flash_attention(T(q), T(k), T(v), *meta, causal=True),
+        lambda: TD.flash_decode_stats(
+            *[T(c_row[n]) for n in ("q", "k", "v", "valid")],
+            scale=c_row["scale"]),
+        lambda: TD.flash_decode_stats(
+            *[T(c_tile[n]) for n in ("q", "k", "v", "valid")],
+            scale=c_tile["scale"])]
+    if hd not in (64, 128):
+        for call in launches:
+            with pytest.raises(ValueError, match=f"head dim {hd} not in"):
+                call()
+        assert calls == [] and sum(dispatch.LAUNCHES.values()) == 0
+        return
+    for call in launches:
+        call()
+    assert [entry for _, entry, _ in calls] == [
+        "prism_attention_f32", "flash_decode_stats_f32",
+        "flash_decode_stats_mq_f32"]
+    for lib, entry, args in calls:
+        assert args[_c_params(lib, entry).index("hd")] == hd, entry
     dispatch.LAUNCHES.clear()
 
 

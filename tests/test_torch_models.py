@@ -115,10 +115,14 @@ def test_unported_configs_raise():
         get_config("gemma-7b")
     cfg = get_config("gpt2-small")
     import dataclasses
+    # RoPE, RMSNorm and SwiGLU are ported (the Llama family); sinusoidal
+    # positions, qk-norm and GeGLU are not
+    for over in (dict(pos="sincos"), dict(qk_norm=True),
+                 dict(mlp_kind="geglu")):
+        with pytest.raises(NotImplementedError):
+            TT.check_supported(dataclasses.replace(cfg, **over))
     with pytest.raises(NotImplementedError):
-        TT.check_supported(dataclasses.replace(cfg, pos="rope"))
-    with pytest.raises(NotImplementedError):
-        TL.norm({}, torch.zeros(2), kind="rmsnorm")
+        TL.mlp({}, torch.zeros(2), "geglu")
 
 
 def test_init_is_seeded():
