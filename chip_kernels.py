@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Phase 3 of a checkout's ``chip_smoke.py`` on one NVIDIA card: GPT-2
-small's three kernels (head dim 64) built from that checkout's sources,
-checked against their plain versions and timed with its own functions;
-one JSON line with the main-shape times.
+small's three kernels (head dim 64) and, where the checkout has them,
+Yi-6B's (head dim 128, ``check_head_dim_128``), built from that
+checkout's sources, checked against their plain versions and timed with
+its own functions; one JSON line with the main-shape times.
 
     python3 chip_kernels.py [CHECKOUT] [TAG]
 
@@ -42,6 +43,16 @@ def main() -> int:
     means = cs.check_segment_means(torch, chk, timer)
     dec = cs.check_decode(torch, chk, timer)
     keys = ("ms", "device_ms")
+    yi = {}
+    if hasattr(cs, "check_head_dim_128"):
+        t = cs.check_head_dim_128(torch, chk, timer)
+        yi = {"attention": {m: {k: a[k] for k in keys}
+                            for m, a in t["attention"].items()},
+              "segment_means": {k: t["segment_means"][k] for k in (
+                  "ms", "device_ms", "augment_ms", "augment_device_ms")},
+              "decode": {m: {k: t["decode"][m][k] for k in keys}
+                         for m in ("exact", "prism", "chunk", "packed",
+                                   "packed_prism")}}
     print(json.dumps({
         "tag": tag, "nvidia_smi": cs.nvidia_smi(),
         "attention": {m: {k: t[k] for k in keys} for m, t in att.items()},
@@ -51,7 +62,7 @@ def main() -> int:
             "exact", "prism", "chunk", "packed", "packed_prism")},
         "decode_paged": {m: {k: t[k] for k in keys}
                          for m, t in dec["paged"].items()},
-        "max_abs_err": chk.max_err,
+        "hd128": yi, "max_abs_err": chk.max_err,
         "seconds": time.perf_counter() - t0}), flush=True)
     return 0
 

@@ -52,7 +52,15 @@ Phases, one JSON line each:
             static decode (a group of 8, no row map: the tile route, the
             row route beside it), chunk and packed layouts, over the page
             pool, a poisoned page and a sweep of both routes, segment
-            means and the augment at D 4096; segment
+            means and the augment at D 4096;
+            then head dim 256 (Gemma 3 1B; ``check_head_dim_256``):
+            attention at its global PRISM, global Voltage and local
+            (windowed) shapes at a 2048-token prompt, GQA groups 1, 3
+            and 4 over ragged Nq and M and a window that drops whole
+            early tiles with halo columns at g = 0; the decode kernel at
+            its global static layout (exact and prism) and its ring
+            (``valid`` wrapped), both routes timed, and a sweep of both
+            routes; segment means and the augment at D 1152; segment
             means and the fused PRISM augment in f32 and bf16 over
             ragged segments, L = 1 and L = N, D = 33 and 5, P = 1/2/4
             and a misaligned base); the largest error beside the stated
@@ -176,8 +184,22 @@ Phases, one JSON line each:
             The static and engine decode steps take the decode kernel's
             tile route (a group of 8, no row map), the packed ticks the
             row route; the launch counts are held per path.
+10. path    Gemma 3 1B at full width and depth (26 layers, 22 of them
+            sliding-window local layers of window 512 and 4 global, d
+            1152, 4 query heads over 1 KV head of 256, qk-norm, GeGLU
+            d_ff 6912, RoPE thetas 1e4 local and 1e6 global, sqrt(d)
+            input scaling, tied head over 262144), f32 weights from
+            torch.Generator seed 0 on the card, B = 8, prompt 2048 (each
+            of the 4 shards holds a window), 64 generated, CR 4, through
+            the static path in three pairings: voltage + exact (held to
+            the plain full forward), PRISM + prism and voltage + prism
+            (each held to the same run with backend='plain'), under phase
+            4's checks and traces; every prefill launches the attention
+            kernel once a layer (22 of them windowed), segment means
+            once a global layer where it captures means, and every decode
+            step the decode kernel's tile route once a layer.
    total    the script's seconds so far.
-10. kernels one line listing every kernel with its numbers: ``ms`` is
+11. kernels one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -196,7 +218,9 @@ Phases, one JSON line each:
             ``launches_paged_by_path``); the segment_means row its bf16
             and fused-augment (``augment_*``) numbers; each row's ``yi``
             its numbers at Yi-6B's layouts (head dim 128, D 4096) and
-            its launches on phase 9's paths.
+            its launches on phase 9's paths; each row's ``gemma`` the
+            same at Gemma 3 1B's layouts (head dim 256, D 1152) and its
+            launches on phase 10's paths.
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -227,6 +251,14 @@ ARCH, BATCH, PROMPT, GEN, SHARDS, CR = "gpt2-small", 8, 512, 64, 4, 4.0
 # phase 9: the Llama family (RoPE, RMSNorm, SwiGLU, GQA 8:1, head dim
 # 128, untied head) at full width and depth, at the same shapes
 LLAMA = "yi-6b"
+# phase 10: Gemma 3 1B (sliding-window local layers 5:1 with global ones,
+# qk-norm, GeGLU, MQA, head dim 256, tied head over 262144) at full width
+# and depth; its prompt is 2048, so that each of the P shards holds a
+# window of 512 (the reference's window prefill needs one a shard)
+GEMMA, GEMMA_PROMPT = "gemma3-1b", 2048
+# the static prefill / decode pairings: phase 4's two, and Gemma's third
+PAIRINGS = (("voltage", "exact"), ("prism", "prism"))
+GEMMA_PAIRINGS = PAIRINGS + (("voltage", "prism"),)
 
 # kernel vs plain tolerances (|got - want| <= atol + rtol·|want|): both
 # sides compute in f32 (the attention kernel's tensor-core products are
@@ -418,6 +450,8 @@ class Checker:
         # the largest |err| / (atol + rtol·|want|): how much of its
         # tolerance a kernel uses (1 fails)
         self.tol_share = {name: 0.0 for name in TOL}
+        # the case that used the most of each key's tolerance
+        self.worst = {}
         self.cases = {name: 0 for name in TOL}
 
     def close(self, name, got, want, case, mask=None, tol=None, key=None):
@@ -438,9 +472,10 @@ class Checker:
             raise AssertionError(f"{name} [{case}]: max |err| {err:.3e} "
                                  f"outside atol {atol} rtol {rtol}")
         self.max_err[key] = max(self.max_err.get(key, 0.0), err)
-        if share.numel():
-            self.tol_share[key] = max(self.tol_share.get(key, 0.0),
-                                      float(share.max()))
+        if share.numel() and float(share.max()) > self.tol_share.get(key,
+                                                                     0.0):
+            self.tol_share[key] = float(share.max())
+            self.worst[key] = case
 
     def stats(self, got, want, case, key=None):
         """Decode stats: l and acc everywhere, m where the row is live."""
@@ -457,22 +492,24 @@ class Checker:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def attention_inputs(torch, ctx_mode, seed=0, arch=ARCH):
+def attention_inputs(torch, ctx_mode, seed=0, arch=ARCH, prompt=PROMPT,
+                     kind="attn"):
     """A path's prefill-attention inputs: q/k/v at ``arch``'s widths
-    (GPT-2 small for the main path), metadata from the port's own sharded
-    context."""
+    (GPT-2 small for the main path) and a ``prompt``-token prompt,
+    metadata from the port's own sharded context for a block of
+    ``kind`` (``attn_local``: the window augment, in either mode)."""
     from repro_torch.configs import get_config
     from repro_torch.core.protocol import PrismConfig
     from repro_torch.models.transformer import attn_spec
     from repro_torch.sharding.context import ShardedPrismContext
     cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    n_loc, L = PROMPT // SHARDS, int(PROMPT // (CR * SHARDS))
+    n_loc, L = prompt // SHARDS, int(prompt // (CR * SHARDS))
     ctx = ShardedPrismContext(PrismConfig(P=SHARDS, L=L, mode=ctx_mode),
                               n_shards=SHARDS, backend="plain")
     x = torch.randn(BATCH * SHARDS, n_loc, cfg.d_model, device="cuda",
                     generator=gen)
-    _, akv = ctx.augment(x, attn_spec(cfg))
+    _, akv = ctx.augment(x, attn_spec(cfg, kind))
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     m = akv.x_hat.shape[1]
 
@@ -485,23 +522,27 @@ def attention_inputs(torch, ctx_mode, seed=0, arch=ARCH):
     return q, k, v, g, akv.col_lo, akv.col_hi, akv.row_pos
 
 
-def attention_main(torch, timer, both, mode, arch=ARCH, tag="main"):
-    """The prefill kernel at a path's shapes in one exchange: checked by
-    ``both``, then the kernel (event pair and profiler), its plain
-    version, the entry point, the library call and the bound."""
+def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
+                   prompt=PROMPT, kind="attn"):
+    """The prefill kernel at a path's shapes in one exchange (a block of
+    ``kind``: a local one with its window): checked by ``both``, then the
+    kernel (event pair and profiler), its plain version, the entry point,
+    the library call and the bound."""
+    from repro_torch.configs import get_config
     from repro_torch.core.attention import log_repeats
     from repro_torch.core.masks import visibility
     from repro_torch.kernels.ops import prism_attention_op
     from repro_torch.kernels.prism_attention import (
         prism_attention_reference, prism_flash_attention)
-    args = attention_inputs(torch, mode, arch=arch)
-    both(args, f"{tag}/{mode}")
+    args = attention_inputs(torch, mode, arch=arch, prompt=prompt, kind=kind)
+    window = get_config(arch).window if kind == "attn_local" else None
+    both(args, f"{tag}/{mode}/{kind}", window=window)
     q, k, v, g, lo, hi, row = args
     p = row.shape[0] if row.dim() == 2 else 1
     lg = log_repeats(g).reshape(-1, k.shape[1]).expand(p, -1)
     vis = visibility(row, lo.reshape(-1, k.shape[1]).expand(p, -1),
                      hi.reshape(-1, k.shape[1]).expand(p, -1),
-                     causal=True) & (lg > -1e29)[:, None, :]
+                     causal=True, window=window) & (lg > -1e29)[:, None, :]
     pairs = int(vis.sum()) * (q.shape[0] // p) * q.shape[2]
     flops = 4 * q.shape[-1] * pairs          # QK^T and PV, 2 per FMA
     b_ms, b_by = bound_ms(nbytes(q, k, v, lg, lo, hi, row) +
@@ -525,17 +566,24 @@ def attention_main(torch, timer, both, mode, arch=ARCH, tag="main"):
              lo.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
              hi.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
              row.reshape(p, -1).to(i32).contiguous())
+    kw = dict(causal=True, window=window)
+    try:
+        lib_ms = timer(lambda: sdpa(qs, ks, vs, attn_mask=bias))
+        lib_note = None
+    except RuntimeError as e:                 # no library call takes it
+        lib_ms, lib_note = None, f"refused: {str(e).splitlines()[0][:200]}"
     return {
-        "ms": timer(lambda: prism_flash_attention(*kargs, causal=True)),
+        "ms": timer(lambda: prism_flash_attention(*kargs, **kw)),
         "device_ms": timer.device(lambda: prism_flash_attention(
-            *kargs, causal=True)),
+            *kargs, **kw)),
         "plain_ms": timer(lambda: prism_attention_reference(
-            *kargs, causal=True), iters=10),
-        "op_ms": timer(lambda: prism_attention_op(*args,
-                                                  backend="kernel")),
-        "library_ms": timer(lambda: sdpa(qs, ks, vs, attn_mask=bias)),
+            *kargs, **kw), iters=10),
+        "op_ms": timer(lambda: prism_attention_op(*args, backend="kernel",
+                                                  **kw)),
+        "library_ms": lib_ms, "library_note": lib_note,
         "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-        "shape": {"q": list(q.shape), "k": list(k.shape)}}
+        "shape": {"q": list(q.shape), "k": list(k.shape),
+                  "window": window}}
 
 
 def attention_checker(chk, key=None):
@@ -618,13 +666,14 @@ def check_attention(torch, chk, timer):
     return main
 
 
-def check_segment_means(torch, chk, timer, d=768):
+def check_segment_means(torch, chk, timer, d=768, prompt=PROMPT, key=None):
     """Both entries of csrc/segment_means.cu, f32 and bf16, against their
     plain versions: the means alone, and the fused PRISM augment.  Also
     a base 4 bytes off 16-byte alignment, which takes the kernel's scalar
     path at a D of whole vectors.  ``d``: the path's width (GPT-2's 768
-    with the full edge sweep; Yi-6B's 4096 at its path's shape and a
-    ragged one)."""
+    with the full edge sweep; Yi-6B's 4096 and Gemma 3's 1152 at their
+    paths' shapes and a ragged one); ``prompt`` the path's prompt length;
+    errors filed under ``key`` (default the kernel's name)."""
     from repro_torch.kernels.segment_means import (prism_augment_op,
                                                    segment_means_op)
     name = "segment_means"
@@ -643,12 +692,12 @@ def check_segment_means(torch, chk, timer, d=768):
             raise AssertionError(f"{name} [{case}{tag}]: {got.dtype} "
                                  f"{tuple(got.shape)}, want {x.dtype} "
                                  f"{tuple(want.shape)}")
-        chk.close(name, got, want, case + tag, key=name + tag,
+        chk.close(name, got, want, case + tag, key=(key or name) + tag,
                   tol=None if not tag else TOL_BF16)
         chk.cases[name] += 1
         return got
 
-    n_loc, L0 = PROMPT // SHARDS, int(PROMPT // (CR * SHARDS))
+    n_loc, L0 = prompt // SHARDS, int(prompt // (CR * SHARDS))
     main = (BATCH * SHARDS, n_loc, d, L0)
     means_cases = [main, (32, 100, d, 16)]
     # (B·P, n_loc, D, L, P): the main shape, ragged n_loc, L = 1,
@@ -722,27 +771,35 @@ def check_segment_means(torch, chk, timer, d=768):
             "shape": {"x": [b, n, d], "L": L, "P": SHARDS}}
 
 
-def decode_inputs(torch, mode, gen, arch=ARCH):
+def decode_inputs(torch, mode, gen, arch=ARCH, prompt=PROMPT):
     """A path's decode-kernel inputs at the last decode step (position
     prompt + gen - 2), at ``arch``'s widths, with the layout's own valid
-    mask and means bias."""
+    mask and means bias; ``mode`` 'ring' is a sliding-window layer's ring
+    (one shard of W slots, ``valid`` wrapped)."""
     from repro_torch.configs import get_config
     from repro_torch.core.attention import log_repeats
     from repro_torch.runtime import serve as S
     from repro_torch.sharding.context import means_columns
     cfg = get_config(arch)
-    hp = S.ServeHParams(decode_mode=mode, means_cr=CR)
-    cap = PROMPT + GEN + (-(PROMPT + GEN)) % SHARDS
-    lay = S.make_layout(SHARDS, cap, hp, prefill_len=PROMPT)
+    hp = S.ServeHParams(decode_mode="exact" if mode == "ring" else mode,
+                        means_cr=CR)
+    cap = prompt + GEN + (-(prompt + GEN)) % SHARDS
+    lay = S.make_layout(SHARDS, cap, hp, prefill_len=prompt)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    pos = torch.full((BATCH,), PROMPT + GEN - 2, device="cuda")
-    _, _, col_pos = S._decode_cols(lay, pos)
-    valid = (col_pos[None] <= pos[:, None, None]).reshape(BATCH * SHARDS, -1)
+    pos = torch.full((BATCH,), prompt + GEN - 2, device="cuda")
+    if mode == "ring":
+        _, valid = S.ring_cols(S.ring_width(cfg, lay), cfg.window, pos)
+        valid = valid[:, 0]
+    else:
+        _, _, col_pos = S._decode_cols(lay, pos)
+        valid = (col_pos[None] <= pos[:, None, None]).reshape(
+            BATCH * SHARDS, -1)
 
     def rnd(*shape):
         return 0.5 * torch.randn(*shape, device="cuda", generator=gen)
-    args = [rnd(BATCH, 1, hq, hd), rnd(BATCH * SHARDS, lay.cap_l, hkv, hd),
-            rnd(BATCH * SHARDS, lay.cap_l, hkv, hd), valid.contiguous()]
+    args = [rnd(BATCH, 1, hq, hd), rnd(valid.shape[0], valid.shape[1], hkv,
+                                       hd),
+            rnd(valid.shape[0], valid.shape[1], hkv, hd), valid.contiguous()]
     if mode == "prism":
         m = SHARDS * lay.L
         cols = means_columns(SHARDS, lay.n_loc0, lay.L, pos.device)
@@ -1160,6 +1217,89 @@ def check_head_dim_128(torch, chk, timer):
             (128, 1, 70, 4, 37, "random")):
         sweep_tile_case(torch, both, gen, hq, hkv, m_loc, rep, mz, kind,
                         hd=128)
+    times["cases_by_route"] = by_route
+    out["decode"] = times
+    return out
+
+
+def window_tiles_case(torch, both, gen, hd):
+    """A window that drops whole early tiles: the window augment's
+    per-shard metadata at 200 rows a shard and a window of 40 (one shard
+    of halo, g = 0 before position 0; a query tile sees at most 103 of
+    its 400 columns), 4 query heads over 1 KV head."""
+    from repro_torch.core.protocol import PrismConfig
+    from repro_torch.models.layers import AttnSpec
+    from repro_torch.sharding.context import ShardedPrismContext
+    ctx = ShardedPrismContext(PrismConfig(P=SHARDS, L=2, mode="voltage"),
+                              n_shards=SHARDS, backend="plain")
+    spec = AttnSpec(d_model=8, n_heads=4, n_kv_heads=1, head_dim=hd,
+                    window=40)
+    _, akv = ctx.augment(torch.zeros(2 * SHARDS, 200, 8, device="cuda"),
+                         spec)
+    m = akv.col_lo.shape[1]
+
+    def rnd(*shape):
+        return 0.5 * torch.randn(*shape, device="cuda", generator=gen)
+    both((rnd(2 * SHARDS, 200, 4, hd), rnd(2 * SHARDS, m, 1, hd),
+          rnd(2 * SHARDS, m, 1, hd), akv.g, akv.col_lo, akv.col_hi,
+          akv.row_pos), f"window/tiles/hd{hd}", window=40)
+
+
+def check_head_dim_256(torch, chk, timer):
+    """Phase 3 at Gemma 3 1B's head dim of 256 and width of 1152: prefill
+    attention at its global PRISM, global Voltage and local (windowed)
+    shapes, GQA groups 1, 3 and 4 over ragged Nq and M, a window that
+    drops whole early tiles with halo columns at g = 0; segment means and
+    the augment at D 1152; the decode kernel at Gemma's global static
+    layout (exact and prism) and its ring (``valid`` wrapped, the first
+    slots the newest positions), each on both routes and timed, and a
+    sweep of both routes (groups 3 to 32, ragged M and means, row maps).
+    Errors are filed under ``<kernel>/hd256`` (``segment_means/d1152``)."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    both = attention_checker(chk, key="prism_flash_attention/hd256")
+    kw = dict(arch=GEMMA, tag="gemma", prompt=GEMMA_PROMPT)
+    out["attention"] = {
+        "prism": attention_main(torch, timer, both, "prism", **kw),
+        "voltage": attention_main(torch, timer, both, "voltage", **kw),
+        "local": attention_main(torch, timer, both, "voltage",
+                                kind="attn_local", **kw)}
+    attention_groups(torch, both, gen, ((4, 4), (3, 1), (4, 1)), 256)
+    window_tiles_case(torch, both, gen, 256)
+    out["segment_means"] = check_segment_means(
+        torch, chk, timer, d=1152, prompt=GEMMA_PROMPT,
+        key="segment_means/d1152")
+
+    by_route = {"row": 0, "tile": 0}
+    both = decode_checker(torch, chk, by_route,
+                          key="flash_decode_stats/hd256")
+    times = {}
+    for mode in ("exact", "prism", "ring"):
+        args, scale = decode_inputs(torch, mode, gen, arch=GEMMA,
+                                    prompt=GEMMA_PROMPT)
+        both(args, scale, f"gemma/{mode}")
+        times[mode] = time_decode(torch, timer, args, scale)
+        times[mode].update(time_routes(torch, timer, args, scale))
+    # groups 4 (Gemma), 3 (the row route's by the rule), 12 (the row
+    # route's partials past 48 KB), 16 and 32 (133 KB of them); ragged M
+    # and means, dead rows
+    for hq, hkv, m_loc, rep, mz, max_pos in (
+            (4, 1, 100, 4, 37, None), (3, 1, 33, 2, 37, None),
+            (12, 1, 190, 2, 70, 60), (16, 2, 300, 1, 100, 20),
+            (32, 1, 90, 2, 37, 50)):
+        sweep_decode_case(torch, both, gen, hq, hkv, m_loc, rep, mz,
+                          max_pos, hd=256)
+    for t, n_rows, rep, hq, hkv, kind in (
+            (13, 5, 4, 4, 1, "clamped"), (9, 4, 1, 12, 1, "equal")):
+        sweep_rows_case(torch, both, gen, t, n_rows, rep, hq, hkv, kind,
+                        hd=256)
+    for hq, hkv, m_loc, rep, mz, kind in (
+            (4, 1, 144, 4, 128, "dead_means"),
+            (4, 1, 144, 4, 37, "last_local"),
+            (16, 1, 144, 1, 37, "last_means"),
+            (20, 1, 70, 4, 37, "random")):
+        sweep_tile_case(torch, both, gen, hq, hkv, m_loc, rep, mz, kind,
+                        hd=256)
     times["cases_by_route"] = by_route
     out["decode"] = times
     return out
@@ -1660,18 +1800,25 @@ def static_tile(cfg) -> bool:
     return decode_route(cfg.n_heads, cfg.n_kv_heads, True) == "tile"
 
 
-def drive_path(torch, params, arch=ARCH):
+def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS):
+    """The static path in each (prefill, decode) pairing, keyed by the
+    decode mode (by 'prefill+decode' for a pairing other than the mode's
+    own): exact decode held to the plain full forward, prism decode to
+    the same run with backend='plain'."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.serve import setup
     from repro_torch.models import transformer as T
     arch_cfg = get_config(arch)
     n_layers = arch_cfg.n_layers
+    n_local = arch_cfg.block_kinds.count("attn_local")
     results = {}
-    for mode in ("exact", "prism"):
-        run = setup(arch, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+    for prefill_mode, mode in pairings:
+        key = (mode if (prefill_mode, mode) in PAIRINGS
+               else f"{prefill_mode}+{mode}")
+        run = setup(arch, batch=BATCH, prompt_len=prompt, gen=GEN,
                     seq_shards=SHARDS, decode_mode=mode, cr=CR,
-                    device="cuda", params=params)
+                    device="cuda", params=params, prefill=prefill_mode)
         width = ("n_layers", "d_model", "n_heads", "n_kv_heads", "hd",
                  "d_ff", "vocab_size")
         got = [getattr(run.cfg, f) for f in width]
@@ -1683,9 +1830,12 @@ def drive_path(torch, params, arch=ARCH):
         tokens, logits, times = run.run()
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
-        check_launches(f"{arch}/static/{mode}", counts, {
+        check_launches(f"{arch}/static/{key}", counts, {
             "prism_flash_attention": n_layers,
-            "segment_means": n_layers if mode == "prism" else 0,
+            "prism_flash_attention.window": n_local,
+            # a prefill that captures means: once a global layer
+            "segment_means": (n_layers - n_local) if mode == "prism"
+            else 0,
             "flash_decode_stats": n_layers * (GEN - 1),
             "flash_decode_stats.mq": (n_layers * (GEN - 1)
                                       if static_tile(arch_cfg) else 0),
@@ -1693,29 +1843,31 @@ def drive_path(torch, params, arch=ARCH):
         vocab = run.cfg.vocab_size
         if tuple(logits.shape) != (GEN, BATCH, vocab) or not bool(
                 torch.isfinite(logits).all()):
-            raise AssertionError(f"{mode}: logits {tuple(logits.shape)} "
+            raise AssertionError(f"{key}: logits {tuple(logits.shape)} "
                                  "not finite or of the wrong shape")
         if mode == "exact":
             # teacher-forced: one causal forward over prompt + generated
-            # tokens covers every step
+            # tokens covers every step (the head over those steps only)
             seq = torch.cat([run.prompts, tokens[:, :-1]], dim=1)
             with torch.no_grad():
-                full = T.forward(run.cfg, params, seq)
-            ref = full[:, PROMPT - 1:].transpose(0, 1)        # (gen, B, V)
+                full = T.forward(run.cfg, params, seq, start=prompt - 1)
+            ref = full.transpose(0, 1)                        # (gen, B, V)
+            del full
             ref_name = "plain full forward"
         else:
-            plain = setup(arch, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+            plain = setup(arch, batch=BATCH, prompt_len=prompt, gen=GEN,
                           seq_shards=SHARDS, decode_mode=mode, cr=CR,
-                          device="cuda", params=params, backend="plain")
+                          device="cuda", params=params, backend="plain",
+                          prefill=prefill_mode)
             _, ref, _ = plain.run(forced=tokens[:, :-1])
             ref_name = "backend='plain' run"
         err = rel_err(logits, ref)
         if err > PATH_REL_TOL:
-            raise AssertionError(f"{mode}: logits rel err {err:.3e} vs the "
+            raise AssertionError(f"{key}: logits rel err {err:.3e} vs the "
                                  f"{ref_name} > {PATH_REL_TOL}")
         checked, total = tokens_agree(torch, tokens, ref)
         decode_s = times["decode_ms_per_token"] / 1e3
-        results[mode] = {
+        results[key] = {
             "prefill_ms": times["prefill_ms"],
             "decode_ms_per_token": times["decode_ms_per_token"],
             "decode_tokens_per_s": BATCH / decode_s,
@@ -1726,12 +1878,13 @@ def drive_path(torch, params, arch=ARCH):
             "logits_rel_err": err, "reference": ref_name,
             "tol": PATH_REL_TOL, "tokens_checked": checked,
             "tokens_total": total}
-        emit("path", arch=arch, mode=mode, prefill="voltage"
-             if mode == "exact" else "prism", batch=BATCH, prompt=PROMPT,
-             gen=GEN, shards=SHARDS, cr=CR, **results[mode])
+        emit("path", arch=arch, mode=mode, prefill=prefill_mode,
+             batch=BATCH, prompt=prompt, gen=GEN, shards=SHARDS, cr=CR,
+             **results[key])
         # where the time goes: a torch.profiler trace of one prefill and
         # a few decode steps, after the counted run
-        emit("trace", arch=arch, mode=mode, **profile(torch, run))
+        emit("trace", arch=arch, mode=mode, exchange=prefill_mode,
+             **profile(torch, run))
         del logits, ref
     return results
 
@@ -3150,6 +3303,69 @@ def drive_llama(torch):
     return by_path
 
 
+def gemma_row(name, t_256, chk):
+    """A kernel's numbers at Gemma 3 1B's layouts (phase 3's head-dim-256
+    part, D 1152 for segment means): per layout the kernel's times, its
+    plain version's, the bound and the library call's (None where no
+    PyTorch call takes the layout, with the op's refusal); the largest
+    error there and its share of the tolerance."""
+    pick = lambda t: {k: t[k] for k in TIME_KEYS + (  # noqa: E731
+        "library_note",) if k in t}
+    if name == "prism_flash_attention":
+        out = {tag: pick(t) for tag, t in t_256["attention"].items()}
+        key = name + "/hd256"
+    elif name == "segment_means":
+        t = t_256["segment_means"]
+        out = {"means": pick(t),
+               "augment": {k: t["augment_" + k] for k in TIME_KEYS
+                           if "augment_" + k in t},
+               "bf16_ms": t["bf16_ms"], "bf16_device_ms": t["bf16_device_ms"],
+               "shape": t["shape"]}
+        key = name + "/d1152"
+    else:
+        d = t_256["decode"]
+        out = {tag: pick(d[tag]) for tag in ("exact", "prism", "ring")}
+        for tag in ("exact", "prism", "ring"):     # both routes
+            out[tag].update({k: d[tag][k] for k in (
+                "tile_ms", "tile_device_ms", "row_ms", "row_device_ms",
+                "library_check")})
+        out["cases_by_route"] = d["cases_by_route"]
+        key = name + "/hd256"
+    out["max_abs_err"] = chk.max_err.get(key, 0.0)
+    out["tol_share"] = chk.tol_share.get(key, 0.0)
+    return out
+
+
+def drive_gemma(torch):
+    """Phase 10: Gemma 3 1B (26 layers, 22 sliding-window local and 4
+    global, d 1152, 4 query heads over 1 KV head of 256, qk-norm, GeGLU
+    d_ff 6912, sqrt(d) input scaling, two RoPE thetas, tied head over
+    262144), f32 weights from torch.Generator seed 0 on the card, through
+    the static path in its three pairings at B 8, prompt 2048, 64
+    generated, P 4, CR 4 (the reference serves the kind on the static
+    path alone).  Returns the launches of each path, keyed
+    ``gemma3-1b/static/...``."""
+    import time
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cfg = get_config(GEMMA)
+    params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    emit("model", arch=GEMMA, params=n_params, weight_bytes=4 * n_params,
+         layers=cfg.n_layers, local_layers=cfg.block_kinds.count(
+             "attn_local"), window=cfg.window, d_model=cfg.d_model,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, prompt=GEMMA_PROMPT,
+         decode_route_static=("tile" if static_tile(cfg) else "row"))
+    by_path = {f"{GEMMA}/static/{key}": r["launches"]
+               for key, r in drive_path(torch, params, GEMMA, GEMMA_PROMPT,
+                                        GEMMA_PAIRINGS).items()}
+    emit("phase", name=GEMMA, seconds=time.perf_counter() - t0)
+    return by_path
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3192,10 +3408,11 @@ def main() -> int:
     t_means = check_segment_means(torch, chk, timer)
     t_dec = check_decode(torch, chk, timer)
     t_128 = check_head_dim_128(torch, chk, timer)
+    t_256 = check_head_dim_256(torch, chk, timer)
     emit("kernel", max_abs_err=chk.max_err, tol_share=chk.tol_share,
-         tol=TOL, cases=chk.cases,
+         worst_case=chk.worst, tol=TOL, cases=chk.cases,
          floor_ms=timer.floor(), attention=t_attn, segment_means=t_means,
-         decode=t_dec, hd128=t_128)
+         decode=t_dec, hd128=t_128, hd256=t_256)
 
     params = T.init(get_config(ARCH),
                     torch.Generator(device=dev).manual_seed(0), dev)
@@ -3209,6 +3426,8 @@ def main() -> int:
     del params, engine_runs                     # GPT-2's weights and runs
     torch.cuda.empty_cache()
     by_path.update(drive_llama(torch))
+    torch.cuda.empty_cache()
+    by_path.update(drive_gemma(torch))
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -3217,6 +3436,12 @@ def main() -> int:
              "flash_decode_stats": ("exact", t_dec["exact"])}
     rows = []
     llama = [path for path in by_path if path.startswith(LLAMA + "/")]
+    gemma = [path for path in by_path if path.startswith(GEMMA + "/")]
+    # every error key of a kernel: its main one, its bf16 and head-dim
+    # cases
+    keys = {name: [k for k in chk.max_err
+                   if k == name or k.startswith(name + "/")]
+            for name in TOL}
     for name in TOL:
         src, rep = SOURCES[name]
         t = main_t[name]
@@ -3225,11 +3450,11 @@ def main() -> int:
                "launches": sum(c.get(name, 0) for c in by_path.values()),
                "launches_by_path": {path: c.get(name, 0)
                                     for path, c in by_path.items()},
-               "max_abs_err": max(chk.max_err[name],
-                                  chk.max_err.get(name + "/hd128", 0.0)),
+               "max_abs_err": max(chk.max_err[k] for k in keys[name]
+                                  if not k.endswith("/bf16")),
                "tol": list(TOL[name]),
-               "tol_share": max(chk.tol_share[name],
-                                chk.tol_share.get(name + "/hd128", 0.0)),
+               "tol_share": max(chk.tol_share[k] for k in keys[name]
+                                if not k.endswith("/bf16")),
                "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -3288,6 +3513,19 @@ def main() -> int:
                 by_path[p].get(name + ".mq", 0) for p in llama)
             row["yi"]["launches_paged"] = sum(
                 by_path[p].get(name + ".paged", 0) for p in llama)
+        # Gemma 3 1B's layouts (head dim 256, D 1152), with their launches
+        # on phase 10's paths
+        row["gemma"] = gemma_row(name, t_256, chk)
+        row["gemma"]["launches"] = sum(by_path[p].get(name, 0)
+                                       for p in gemma)
+        row["gemma"]["launches_by_path"] = {p: by_path[p].get(name, 0)
+                                            for p in gemma}
+        if name == "flash_decode_stats":
+            row["gemma"]["launches_mq"] = sum(
+                by_path[p].get(name + ".mq", 0) for p in gemma)
+        if name == "prism_flash_attention":
+            row["gemma"]["launches_window"] = sum(
+                by_path[p].get(name + ".window", 0) for p in gemma)
         rows.append(row)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -8,6 +8,7 @@ import importlib
 _REGISTRY = {
     "gpt2-small": "gpt2_small",
     "yi-6b": "yi_6b",
+    "gemma3-1b": "gemma3_1b",
 }
 
 

@@ -123,6 +123,25 @@
 //   warp: right, and slow.  Yi's static decode (32 rows of 144 columns,
 //   4 KV heads) moves 19.5 MB, a bound of 0.0058 ms; the tile route
 //   takes 0.025 ms there, the row route 0.032 (chip_smoke.py, H100).
+// - Head dim 256 (Gemma 3 1B: a group of 4 query heads over 1 KV head,
+//   static decode over the global layers' cache and the local layers'
+//   ring).  A 64-row tile does not fit there (a 134 KB ring plus 128 KB
+//   of Q's parts), and a group of 4 fills 4 of its rows.  So the hd-256
+//   kernel (decode_stats_mq_split_kernel) takes 16 query heads a block,
+//   one 16-row tile shared by its 4 warps, and splits the head dim
+//   across them: warp w computes k-steps [8w, 8w + 8) of QK^T, one chain
+//   of QK_CHAIN, into its own accumulator; the four partial score tiles
+//   meet in shared memory and every warp adds them in f32 in warp order
+//   (the four chains of the other kernels, without computing any twice),
+//   runs the same online softmax, and computes P V for its own 64 output
+//   dims (8 n-tiles, a 32-float accumulator).  Shared memory: the
+//   two-stage ring of 32 x (260 + 264) floats, 32 KB of Q's parts (a
+//   warp parks only its k-steps) and 8 KB of score partials, about 175
+//   KB a block at Gemma's layouts; one block an SM.  One more barrier a
+//   tile.  Its K/V traffic is the hd-128 kernel's per column; the grid
+//   is one block per (output row, KV head): 32 at Gemma's global layers,
+//   8 at its ring, too few to fill the card (a later PR's split over
+//   columns).
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 0.0225 ms at
 // the chunk layout, 2.5x its bound and 6.1x faster than the row route
 // there; 0.017 ms for any group up to 16 (the latency of a block's two
@@ -169,8 +188,9 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
     int M, int MZ, int Hq, int Hkv, int rep, int ppr, int PC, int NPAGES,
     int NZROWS, float scale) {
   // a half-warp holds one row as 16 x VEC float4s: lane hl holds
-  // float4s hl, hl + 16, ...
-  static_assert(HD % 64 == 0 && HD <= 128, "head dim");
+  // float4s hl, hl + 16, ... (head dim 256: 4 of them, 2 columns a
+  // half-warp a pass)
+  static_assert(HD % 64 == 0 && HD <= 256, "head dim");
   constexpr int VEC = HD / 64;          // float4s of a row a lane holds
   constexpr int HC = 8 / VEC;           // columns a half-warp takes a pass
   constexpr int WCOLS = 2 * HC;         // columns per warp per pass
@@ -418,6 +438,84 @@ __host__ __device__ constexpr int mq_stage() {
   return MQ_BK * ((HD + 4) + (HD + 8));
 }
 
+// The tile route's column scan, once a block for its output row b: each
+// column's bias in the log2 domain into s_bias (-inf = dead: `valid`
+// false, an unmapped page, or g = 0), each live local column's K/V row
+// (its page looked up once) into s_row, and the indices of the 32-column
+// tiles that hold a live column, local tiles then means tiles, compacted
+// in order into s_tiles.  Returns how many are live.  Every thread of the
+// block calls it.
+__device__ __forceinline__ int mq_scan_columns(
+    const uint8_t* __restrict__ valid, const float* __restrict__ log_gz,
+    const int* __restrict__ pages, int b, int bq, int sh, int M, int MZ,
+    int mz, int nlt, int ntiles, int rep, int ppr, int PC, int NPAGES,
+    float* s_bias, int* s_tiles, int* s_row, int* s_nlive) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int i = tid; i < ntiles; i += NT) s_tiles[i] = 0;
+  __syncthreads();
+  for (int i = tid; i < ntiles * MQ_BK; i += NT) {
+    const int ti = i / MQ_BK;
+    float bias = -INFINITY;
+    if (ti < nlt) {
+      const int c = i;                  // local tiles start at column 0
+      if (c < M) {
+        const int pg =
+            pages != nullptr ? min(pages[bq * ppr + c / PC], NPAGES - 1) : bq;
+        if (valid[(size_t)b * M + c] && pg >= 0) bias = 0.f;
+        s_row[c] = bias == 0.f ? (pg * rep + sh) * PC + c % PC : 0;
+      }
+    } else {
+      const int c = i - nlt * MQ_BK;
+      if (c < mz) {
+        const float lg = log_gz[(size_t)b * MZ + c];
+        if (lg > NEG * 0.5f) bias = lg * LOG2E;
+      }
+    }
+    s_bias[i] = bias;
+    if (bias != -INFINITY) s_tiles[ti] = 1;
+  }
+  __syncthreads();
+  if (warp == 0) {                      // compact the live tiles in order
+    int n = 0;
+    for (int base = 0; base < ntiles; base += 32) {
+      const int i = base + lane;
+      const bool live = i < ntiles && s_tiles[i] != 0;
+      const unsigned bal = __ballot_sync(0xffffffffu, live);
+      if (live) s_tiles[n + __popc(bal & ((1u << lane) - 1u))] = i;
+      n += __popc(bal);
+    }
+    if (lane == 0) *s_nlive = n;
+  }
+  __syncthreads();
+  return *s_nlive;
+}
+
+// a tile's K and V rows into one ring stage at row strides LDK and LDV;
+// a dead or out-of-range column is zero-filled
+template <int HD, int LDK, int LDV>
+__device__ __forceinline__ void mq_load_tile(
+    float* sK, int ti, int nlt, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ kz,
+    const float* __restrict__ vz, const float* s_bias, const int* s_row,
+    int zr, int MZ, int Hkv, int kvh) {
+  float* sV = sK + MQ_BK * LDK;
+  const bool local = ti < nlt;
+  const int c0 = (local ? ti : ti - nlt) * MQ_BK;
+  const float* kb = local ? k : kz;
+  const float* vb = local ? v : vz;
+  for (int i = threadIdx.x; i < MQ_BK * HD / 4; i += NT) {
+    const int cc = i / (HD / 4), d4 = (i % (HD / 4)) * 4;
+    const bool ok = s_bias[ti * MQ_BK + cc] != -INFINITY;
+    // each row is one contiguous copy, wherever its page is
+    const size_t row = !ok ? 0
+                       : local ? (size_t)s_row[c0 + cc]
+                               : (size_t)zr * MZ + c0 + cc;
+    const size_t off = (row * Hkv + kvh) * HD + d4;
+    cp_async16(sK + cc * LDK + d4, kb + off, ok);
+    cp_async16(sV + cc * LDV + d4, vb + off, ok);
+  }
+}
+
 // blocks an SM the tile route is built for: three at head dim 64; one at
 // 128, whose shared memory admits no second
 constexpr int mq_min_blocks(int hd) { return hd <= 64 ? 3 : 1; }
@@ -486,63 +584,13 @@ __global__ void __launch_bounds__(NT, mq_min_blocks(HD))
   }
 
   // ---- the row's columns: bias per column, which tiles are live ------
-  for (int i = tid; i < ntiles; i += NT) s_tiles[i] = 0;
-  __syncthreads();
-  for (int i = tid; i < ntiles * MQ_BK; i += NT) {
-    const int ti = i / MQ_BK;
-    float bias = -INFINITY;
-    if (ti < nlt) {
-      const int c = i;                  // local tiles start at column 0
-      if (c < M) {
-        const int pg =
-            pages != nullptr ? min(pages[bq * ppr + c / PC], NPAGES - 1) : bq;
-        if (valid[(size_t)b * M + c] && pg >= 0) bias = 0.f;
-        s_row[c] = bias == 0.f ? (pg * rep + sh) * PC + c % PC : 0;
-      }
-    } else {
-      const int c = i - nlt * MQ_BK;
-      if (c < mz) {
-        const float lg = log_gz[(size_t)b * MZ + c];
-        if (lg > NEG * 0.5f) bias = lg * LOG2E;
-      }
-    }
-    s_bias[i] = bias;
-    if (bias != -INFINITY) s_tiles[ti] = 1;
-  }
-  __syncthreads();
-  if (warp == 0) {                      // compact the live tiles in order
-    int n = 0;
-    for (int base = 0; base < ntiles; base += 32) {
-      const int i = base + lane;
-      const bool live = i < ntiles && s_tiles[i] != 0;
-      const unsigned bal = __ballot_sync(0xffffffffu, live);
-      if (live) s_tiles[n + __popc(bal & ((1u << lane) - 1u))] = i;
-      n += __popc(bal);
-    }
-    if (lane == 0) s_nlive = n;
-  }
-  __syncthreads();
-  const int nlive = s_nlive;
+  const int nlive = mq_scan_columns(valid, log_gz, pages, b, bq, sh, M, MZ,
+                                    mz, nlt, ntiles, rep, ppr, PC, NPAGES,
+                                    s_bias, s_tiles, s_row, &s_nlive);
 
-  // a tile's K and V rows; a dead or out-of-range column is zero-filled
   auto load_tile = [&](int ti, int stage) {
-    float* sK = smem + stage * STAGE;
-    float* sV = sK + MQ_BK * LDK;
-    const bool local = ti < nlt;
-    const int c0 = (local ? ti : ti - nlt) * MQ_BK;
-    const float* kb = local ? k : kz;
-    const float* vb = local ? v : vz;
-    for (int i = tid; i < MQ_BK * HD / 4; i += NT) {
-      const int cc = i / (HD / 4), d4 = (i % (HD / 4)) * 4;
-      const bool ok = s_bias[ti * MQ_BK + cc] != -INFINITY;
-      // each 256-byte row is one contiguous copy, wherever its page is
-      const size_t row = !ok ? 0
-                         : local ? (size_t)s_row[c0 + cc]
-                                 : (size_t)zr * MZ + c0 + cc;
-      const size_t off = (row * Hkv + kvh) * HD + d4;
-      cp_async16(sK + cc * LDK + d4, kb + off, ok);
-      cp_async16(sV + cc * LDV + d4, vb + off, ok);
-    }
+    mq_load_tile<HD, LDK, LDV>(smem + stage * STAGE, ti, nlt, k, v, kz, vz,
+                               s_bias, s_row, zr, MZ, Hkv, kvh);
   };
 
   for (int s = 0; s < MQ_STAGES - 1; ++s) {
@@ -698,6 +746,267 @@ __global__ void __launch_bounds__(NT, mq_min_blocks(HD))
   }
 }
 
+// the tile route at head dim 256: 16 query heads a block, the head dim
+// split across the 4 warps (see the file's note)
+constexpr int MQS_ROWS = 16;
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 1) decode_stats_mq_split_kernel(
+    const float* __restrict__ q,        // (B / rep, Hq, HD)
+    const float* __restrict__ k,        // (B, M, Hkv, HD) or the pool
+    const float* __restrict__ v,        // (B, M, Hkv, HD) or the pool
+    const uint8_t* __restrict__ valid,  // (B, M)
+    const float* __restrict__ log_gz,   // (B, MZ) or null
+    const float* __restrict__ kz,       // (B / rep, MZ, Hkv, HD) or null
+    const float* __restrict__ vz,       // (B / rep, MZ, Hkv, HD) or null
+    const int* __restrict__ pages,      // (B / rep, ppr) page table or null
+    const int* __restrict__ zrows,      // (B / rep) means row map or null
+    float* __restrict__ m_out,          // (B, Hq)
+    float* __restrict__ l_out,          // (B, Hq)
+    float* __restrict__ acc_out,        // (B, Hq, HD)
+    int M, int MZ, int Hq, int Hkv, int rep, int ppr, int PC, int NPAGES,
+    int NZROWS, float scale) {
+  constexpr int KS = HD / 8;            // k-steps of QK^T
+  constexpr int KW = KS / NW;           // a warp's k-steps: one chain
+  static_assert(KW == QK_CHAIN, "head dim");
+  constexpr int DW = HD / NW;           // a warp's output dims
+  constexpr int NV = DW / 8;            // a warp's n-tiles of PV
+  constexpr int NJ = MQ_BK / 8;         // n-tiles of QK^T; k-steps of PV
+  constexpr int LDK = HD + 4;           // padded row strides (floats)
+  constexpr int LDV = HD + 8;
+  constexpr int STAGE = mq_stage<HD>();
+  constexpr int SC = NJ * 4 * 32;       // floats of a warp's score tile
+  extern __shared__ __align__(16) float smem[];
+  // after the ring: each warp's Q parts (its k-steps), each warp's
+  // partial score tile, each column's bias (log2 domain, -inf = dead),
+  // the live tiles' indices, then each local column's K/V row
+  uint4* s_q = reinterpret_cast<uint4*>(smem + MQ_STAGES * STAGE);
+  float* s_sc = reinterpret_cast<float*>(s_q + NW * KW * 2 * 32);
+  float* s_bias = s_sc + NW * SC;
+  const int mz = kz != nullptr ? MZ : 0;
+  const int nlt = (M + MQ_BK - 1) / MQ_BK;            // local tiles
+  const int ntiles = nlt + (mz + MQ_BK - 1) / MQ_BK;  // then means tiles
+  int* s_tiles = reinterpret_cast<int*>(s_bias + ntiles * MQ_BK);
+  int* s_row = s_tiles + ntiles;
+  __shared__ int s_nlive;
+
+  const int grp = Hq / Hkv;
+  const int g0 = blockIdx.x * MQS_ROWS; // the block's heads of the group
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int bq = b / rep;
+  const int sh = b - bq * rep;
+  const int zr = zrows != nullptr ? min(max(zrows[bq], 0), NZROWS - 1) : bq;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // mma groupID, thread-in-group
+
+  // ---- the tile's query rows g and g + 8, this warp's k-steps --------
+  const int r0 = g0 + g, r1 = r0 + 8;   // heads of the group
+  const bool ok0 = r0 < grp, ok1 = r1 < grp;
+  float qf[KW][4];
+  {
+    const float* p0 =
+        q + ((size_t)bq * Hq + kvh * grp + r0) * HD + warp * KW * 8;
+    const float* p1 = p0 + 8 * HD;
+#pragma unroll
+    for (int ks = 0; ks < KW; ++ks) {
+      qf[ks][0] = ok0 ? p0[ks * 8 + t] : 0.f;
+      qf[ks][1] = ok1 ? p1[ks * 8 + t] : 0.f;
+      qf[ks][2] = ok0 ? p0[ks * 8 + t + 4] : 0.f;
+      qf[ks][3] = ok1 ? p1[ks * 8 + t + 4] : 0.f;
+    }
+  }
+
+  // ---- the row's columns: bias per column, which tiles are live ------
+  const int nlive = mq_scan_columns(valid, log_gz, pages, b, bq, sh, M, MZ,
+                                    mz, nlt, ntiles, rep, ppr, PC, NPAGES,
+                                    s_bias, s_tiles, s_row, &s_nlive);
+
+  auto load_tile = [&](int ti, int stage) {
+    mq_load_tile<HD, LDK, LDV>(smem + stage * STAGE, ti, nlt, k, v, kz, vz,
+                               s_bias, s_row, zr, MZ, Hkv, kvh);
+  };
+
+  for (int s = 0; s < MQ_STAGES - 1; ++s) {
+    if (s < nlive) load_tile(s_tiles[s], s);
+    cp_async_commit();
+  }
+
+  // this warp's Q parts (A fragments: rows g / g + 8, dims t and t + 4
+  // of each of its k-steps), parked in shared memory
+  uint4* my_q = s_q + warp * KW * 2 * 32 + lane;
+#pragma unroll
+  for (int ks = 0; ks < KW; ++ks) {
+    uint32_t qh[4], ql[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(qf[ks][e], qh[e], ql[e]);
+    my_q[(2 * ks) * 32] = make_uint4(qh[0], qh[1], qh[2], qh[3]);
+    my_q[(2 * ks + 1) * 32] = make_uint4(ql[0], ql[1], ql[2], ql[3]);
+  }
+  float* my_sc = s_sc + warp * SC + lane;
+
+  // online softmax state in the log2 domain, the same in every warp; l
+  // is this thread's partial sum over its columns
+  const float scale2 = scale * LOG2E;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  float o[NV][4];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int it = 0; it < nlive; ++it) {
+    cp_async_wait<MQ_STAGES - 2>();
+    __syncthreads();                    // tile `it` landed; `it - 1` and
+                                        // its score partials consumed
+    {
+      const int nxt = it + MQ_STAGES - 1;
+      if (nxt < nlive) load_tile(s_tiles[nxt], nxt % MQ_STAGES);
+      cp_async_commit();
+    }
+    const float* sK = smem + (it % MQ_STAGES) * STAGE;
+    const float* sV = sK + MQ_BK * LDK;
+    const float* sB = s_bias + s_tiles[it] * MQ_BK;
+
+    // this warp's chain of QK^T, shared; then S = the four chains added
+    // in f32 in warp order (n-tile j, entry e: column j*8 + t +
+    // 4*(e & 1) of row g + 8*(e >> 1))
+    float sc[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    qk_3xtf32<0, KW, NJ, LDK>(sc, my_q, sK + warp * KW * 8, g, t);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) my_sc[(j * 4 + e) * 32] = sc[j][e];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s_sc[(j * 4 + e) * 32 + lane];
+#pragma unroll
+        for (int w = 1; w < NW; ++w)
+          x += s_sc[w * SC + (j * 4 + e) * 32 + lane];
+        sc[j][e] = x;
+      }
+
+    // bias and mask (one per column, every row alike), online softmax
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float bias = sB[j * 8 + t + 4 * u];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float x = bias == -INFINITY
+                              ? -INFINITY
+                              : fmaf(sc[j][2 * rr + u], scale2, bias);
+          sc[j][2 * rr + u] = x;
+          mx[rr] = fmaxf(mx[rr], x);
+        }
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      // every row of the block sees the tile's live columns, so m_new
+      // is finite (a row's first tile: corr = exp2(-inf) = 0)
+      const float m_new = fmaxf(m_run[rr], mx[rr]);
+      corr[rr] = exp2f(m_run[rr] - m_new);
+      m_run[rr] = m_new;
+      mx[rr] = m_new;
+      l_run[rr] *= corr[rr];
+    }
+    uint32_t ph[NJ][4], pl[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[j][e] - mx[e >> 1]);
+        l_run[e >> 1] += p;
+        const int a = (e & 1) * 2 + (e >> 1);   // A fragment order
+        split(p, ph[j][a], pl[j][a]);
+      }
+    }
+
+    // acc = acc * corr + P V over this warp's output dims, each tile's
+    // product in an accumulator of its own, added in f32
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < NJ; ++ks) {
+        const float* v0 = sV + (ks * 8 + t) * LDV + warp * DW + j * 8 + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split(v0[0], bh0, bl0);
+        split(v0[4 * LDV], bh1, bl1);
+        mma_3xtf32(c, ph[ks], pl[ks], bh0, bh1, bl0, bl1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = fmaf(o[j][e], corr[e >> 1], c[e]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // store: m and l from warp 0 (every warp holds the same), each warp
+  // its output dims; entry e of n-tile j is dim j*8 + 2t + (e & 1)
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = l_run[rr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = rr ? r1 : r0;
+    if (r < grp) {
+      const size_t row = (size_t)b * Hq + kvh * grp + r;
+      if (warp == 0 && t == 0) {
+        m_out[row] = m_run[rr] == -INFINITY ? NEG : m_run[rr] * LN2;
+        l_out[row] = l;
+      }
+      float* op = acc_out + row * HD + warp * DW + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        *reinterpret_cast<float2*>(op + j * 8) =
+            make_float2(o[j][2 * rr], o[j][2 * rr + 1]);
+    }
+  }
+}
+
+template <int HD>
+int launch_mq_split(const float* q, const float* k, const float* v,
+                    const uint8_t* valid, const float* log_gz,
+                    const float* kz, const float* vz, const int* pages,
+                    const int* zrows, float* m_out, float* l_out,
+                    float* acc_out, int B, int M, int MZ, int Hq, int Hkv,
+                    int rep, int ppr, int PC, int NPAGES, int NZROWS,
+                    float scale, cudaStream_t stream) {
+  const int grp = Hq / Hkv;
+  const int mz = kz != nullptr ? MZ : 0;
+  const int nlt = (M + MQ_BK - 1) / MQ_BK;
+  const int ntiles = nlt + (mz + MQ_BK - 1) / MQ_BK;
+  const size_t smem = sizeof(float) * MQ_STAGES * mq_stage<HD>() +
+                      sizeof(uint4) * HD / 8 * 2 * 32 +
+                      sizeof(float) * NW * (MQ_BK / 8) * 4 * 32 +
+                      (sizeof(float) * MQ_BK + sizeof(int)) * ntiles +
+                      sizeof(int) * MQ_BK * nlt;
+  static size_t allowed[MAX_DEVICES] = {};
+  const cudaError_t e =
+      allow_smem(decode_stats_mq_split_kernel<HD>, smem, allowed);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((grp + MQS_ROWS - 1) / MQS_ROWS, Hkv, B);
+  decode_stats_mq_split_kernel<HD><<<grid, NT, smem, stream>>>(
+      q, k, v, valid, log_gz, kz, vz, pages, zrows, m_out, l_out, acc_out,
+      M, MZ, Hq, Hkv, rep, ppr, pages != nullptr ? PC : M, NPAGES, NZROWS,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch_mq(const float* q, const float* k, const float* v,
               const uint8_t* valid, const float* log_gz, const float* kz,
@@ -724,10 +1033,21 @@ int launch_mq(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+// the tile route's kernel for a head dim: at 256 the one that splits the
+// head dim over its warps
+template <int HD, typename... Args>
+int launch_tile(Args... args) {
+  if constexpr (HD > 128)
+    return launch_mq_split<HD>(args...);
+  else
+    return launch_mq<HD>(args...);
+}
+
 }  // namespace
 
-// one head dim per ported model family (GPT-2: 64; Llama, Yi-6B: 128):
-// fn(std::integral_constant<int, HD>) for the call's head dim
+// one head dim per ported model family (GPT-2: 64; Llama, Yi-6B: 128;
+// Gemma 3 1B: 256): fn(std::integral_constant<int, HD>) for the call's
+// head dim
 template <typename Fn>
 int by_head_dim(int hd, Fn fn) {
   switch (hd) {
@@ -735,6 +1055,8 @@ int by_head_dim(int hd, Fn fn) {
       return fn(std::integral_constant<int, 64>{});
     case 128:
       return fn(std::integral_constant<int, 128>{});
+    case 256:
+      return fn(std::integral_constant<int, 256>{});
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -767,7 +1089,7 @@ extern "C" int flash_decode_stats_mq_f32(
     int M, int MZ, int Hq, int Hkv, int hd, int rep, int ppr, int pc,
     int n_pages, int n_zrows, float scale, void* stream) {
   return by_head_dim(hd, [&](auto h) {
-    return launch_mq<decltype(h)::value>(
+    return launch_tile<decltype(h)::value>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const uint8_t*>(valid),
         static_cast<const float*>(log_gz), static_cast<const float*>(kz),

@@ -50,8 +50,9 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
 }
 
 // k-steps of QK^T a score accumulator takes: the tensor core truncates
-// as it accumulates, so a longer product (head dim 128's 16 k-steps)
-// runs as chains of this many, each in its own accumulator, added in f32
+// as it accumulates, so a longer product (head dim 128's 16 k-steps,
+// 256's 32) runs as chains of this many, each in its own accumulator,
+// added in f32 in order
 constexpr int QK_CHAIN = 8;
 
 // acc += Q K^T over k-steps [K0, K1) of a warp's 16 query rows and a
@@ -70,6 +71,36 @@ __device__ __forceinline__ void qk_3xtf32(float (&acc)[NJ][4],
     const uint4 h4 = my_q[(2 * ks) * 32], l4 = my_q[(2 * ks + 1) * 32];
     const uint32_t qh[4] = {h4.x, h4.y, h4.z, h4.w};
     const uint32_t ql[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float* kr = sK + (j * 8 + (g >> 1) + (g & 1) * 4) * LDK + ks * 8;
+      uint32_t bh0, bl0, bh1, bl1;
+      split(kr[t], bh0, bl0);
+      split(kr[t + 4], bh1, bl1);
+      mma_3xtf32(acc[j], qh, ql, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// acc += Q K^T over NK k-steps, as qk_3xtf32, with Q kept in f32 (one
+// float4 a k-step per thread, A-fragment order: rows g, g + 8 at dim t,
+// then at dim t + 4) and split into its TF32 parts where it is used:
+// half the shared memory of parked parts, for two integer ops an operand.
+// The parts are the same, so the product is qk_3xtf32's.  my_q and sK
+// point at the chain's first k-step.
+template <int NK, int NJ, int LDK>
+__device__ __forceinline__ void qk_3xtf32_f32q(float (&acc)[NJ][4],
+                                               const float4* my_q,
+                                               const float* sK, int g,
+                                               int t) {
+#pragma unroll
+  for (int ks = 0; ks < NK; ++ks) {
+    const float4 q4 = my_q[ks * 32];
+    uint32_t qh[4], ql[4];
+    split(q4.x, qh[0], ql[0]);
+    split(q4.y, qh[1], ql[1]);
+    split(q4.z, qh[2], ql[2]);
+    split(q4.w, qh[3], ql[3]);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const float* kr = sK + (j * 8 + (g >> 1) + (g & 1) * 4) * LDK + ks * 8;

@@ -55,6 +55,23 @@
 //   heads) a PRISM layer is bound by its 168 MB (0.050 ms) and a Voltage
 //   layer by 17 GFLOP (0.104 ms); this runs 6.9x and 5.9x above that,
 //   1.4-1.5x faster than SDPA (chip_smoke.py, H100).
+// - Head dim 256 (Gemma 3 1B: 4 query heads over 1 KV head).  Neither
+//   the hd-128 tile nor its accumulator fits there: two ring stages of
+//   32 x (260 + 264) floats and 128 KB of Q's parked parts are 263 KB
+//   of shared memory, and the output accumulator would be 128 floats a
+//   lane.  So a block computes half of the output dims (128 of 256; two
+//   blocks per query tile, each computing QK^T over all 256 dims) and
+//   keeps Q once in f32, split into its TF32 parts where it is used
+//   (mma_tf32.cuh, qk_3xtf32_f32q): the V tile holds the block's half,
+//   shared memory is 2 x 32 x (260 + 136 + 3) floats plus 64 KB of Q,
+//   166 KB a block, and the accumulator stays at hd 128's 64 floats.  QK^T
+//   is computed twice (a third more tensor-core work than one pass);
+//   that is the price of the fit, for a later PR to remove.  Its 32
+//   k-steps run as four chains of 8, each from zero, added in f32 in
+//   order.  A local (sliding-window) layer's query tile sees at most
+//   W + 63 of its columns: the tile skip below drops every whole tile
+//   before the window, and halo columns before position 0 come with
+//   log g = -1e30.
 // - Exact tile skipping.  Before the loop the block scans all column
 //   metadata once and keeps the 32-column tiles in which some column
 //   is live (log g > -1e30 / 2) and could be visible to a row position
@@ -83,11 +100,20 @@ constexpr int NW = 4;           // warps per block
 constexpr int NT = 32 * NW;     // threads per block
 constexpr int STAGES = 2;       // cp.async ring depth
 
+// output dims a block computes: all of them up to head dim 128, half of
+// them at 256 (two blocks a query tile)
+__host__ __device__ constexpr int out_dims(int hd) {
+  return hd <= 128 ? hd : 128;
+}
+// whether Q is parked as TF32 hi / lo parts (up to 128) or in f32 and
+// split where it is used (256)
+__host__ __device__ constexpr bool q_parts(int hd) { return hd <= 128; }
+
 // one ring stage, in floats: K and V tiles, then log g, lo, hi per column
 template <int HD>
 struct Smem {
   static constexpr int LDK = HD + 4;  // padded row strides (floats):
-  static constexpr int LDV = HD + 8;  // conflict-free B-fragment loads
+  static constexpr int LDV = out_dims(HD) + 8;  // conflict-free loads
   static constexpr int K = 0;
   static constexpr int V = K + BK * LDK;
   static constexpr int LG = V + BK * LDV;
@@ -112,7 +138,7 @@ __device__ __forceinline__ bool visible(int lo, int hi, int r, int causal,
 }
 
 // blocks an SM the kernel is built for: three at head dim 64; one at
-// 128, whose shared memory admits no second
+// 128 and 256, whose shared memory admits no second
 constexpr int min_blocks(int hd) { return hd <= 64 ? 3 : 1; }
 
 template <int HD>
@@ -127,20 +153,25 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
     float* __restrict__ out,            // (B, Nq, Hq, HD)
     int Nq, int M, int Hq, int Hkv, int rep, int P, int causal,
     int prefix_len, int has_window, int window, float scale) {
-  static_assert(HD % 8 == 0 && HD <= 128, "head dim");
+  static_assert(HD % 8 == 0 && HD <= 256, "head dim");
   using S = Smem<HD>;
   constexpr int LDK = S::LDK, LDV = S::LDV;
-  constexpr int KS = HD / 8;            // k-steps of QK^T; n-tiles of PV
+  constexpr int KS = HD / 8;            // k-steps of QK^T
+  constexpr int DV = out_dims(HD);      // output dims of this block
+  constexpr int NSPLIT = HD / DV;       // blocks a query tile
+  constexpr int KV = DV / 8;            // n-tiles of PV
+  constexpr bool QP = q_parts(HD);
   constexpr int NJ = BK / 8;            // n-tiles of QK^T; k-steps of PV
   extern __shared__ __align__(16) float smem[];
-  // Q's TF32 parts, kept per thread in its mma A-fragment order
+  // Q kept per thread in its mma A-fragment order: TF32 parts, or f32
   uint4* s_q = reinterpret_cast<uint4*>(smem + STAGES * S::STAGE);
-  int* s_tiles = reinterpret_cast<int*>(s_q + NW * KS * 2 * 32);
+  int* s_tiles = reinterpret_cast<int*>(s_q + NW * KS * (QP ? 2 : 1) * 32);
   __shared__ int s_rmin, s_rmax, s_ntiles;
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (blockIdx.x / NSPLIT) * BQ;
+  const int d0 = (blockIdx.x % NSPLIT) * DV;   // the block's output dims
   const int kvh = h / (Hq / Hkv);
   const int bk = b / rep;
   const int pm = b % P;
@@ -152,16 +183,16 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
   // ---- this warp's Q rows g and g + 8: loads issued first, split later
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
   const bool ok0 = r0 < Nq, ok1 = r1 < Nq;
-  float qf[KS][4];
-  {
-    const float* p0 = q + ((size_t)(b * Nq + (ok0 ? r0 : 0)) * Hq + h) * HD;
-    const float* p1 = q + ((size_t)(b * Nq + (ok1 ? r1 : 0)) * Hq + h) * HD;
+  const float* qp0 = q + ((size_t)(b * Nq + (ok0 ? r0 : 0)) * Hq + h) * HD;
+  const float* qp1 = q + ((size_t)(b * Nq + (ok1 ? r1 : 0)) * Hq + h) * HD;
+  float qf[QP ? KS : 1][4];
+  if constexpr (QP) {
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      qf[ks][0] = ok0 ? p0[ks * 8 + t] : 0.f;
-      qf[ks][1] = ok1 ? p1[ks * 8 + t] : 0.f;
-      qf[ks][2] = ok0 ? p0[ks * 8 + t + 4] : 0.f;
-      qf[ks][3] = ok1 ? p1[ks * 8 + t + 4] : 0.f;
+      qf[ks][0] = ok0 ? qp0[ks * 8 + t] : 0.f;
+      qf[ks][1] = ok1 ? qp1[ks * 8 + t] : 0.f;
+      qf[ks][2] = ok0 ? qp0[ks * 8 + t + 4] : 0.f;
+      qf[ks][3] = ok1 ? qp1[ks * 8 + t + 4] : 0.f;
     }
   }
   const int rp0 = ok0 ? row_pos[pm * Nq + r0] : INT_MIN;
@@ -205,6 +236,7 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
   auto load_tile = [&](int tile, int stage) {
     float* st = smem + stage * S::STAGE;
     const int c0 = tile * BK;
+    // K whole, V's dims [d0, d0 + DV): all of them below head dim 256
     for (int i = tid; i < BK * HD / 4; i += NT) {
       const int cc = i / (HD / 4), d4 = (i % (HD / 4)) * 4;
       const int c = c0 + cc;
@@ -212,6 +244,14 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
       const size_t off =
           ((size_t)(bk * M + (ok ? c : 0)) * Hkv + kvh) * HD + d4;
       cp_async16(st + S::K + cc * LDK + d4, k + off, ok);
+      if (DV == HD) cp_async16(st + S::V + cc * LDV + d4, v + off, ok);
+    }
+    for (int i = tid; DV < HD && i < BK * DV / 4; i += NT) {
+      const int cc = i / (DV / 4), d4 = (i % (DV / 4)) * 4;
+      const int c = c0 + cc;
+      const bool ok = c < M;
+      const size_t off =
+          ((size_t)(bk * M + (ok ? c : 0)) * Hkv + kvh) * HD + d0 + d4;
       cp_async16(st + S::V + cc * LDV + d4, v + off, ok);
     }
     if (tid < BK) {
@@ -231,23 +271,33 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
 
   // Q's TF32 parts for all tiles (A fragments: rows g / g + 8, dims t
   // and t + 4 of each 8-dim k-step), parked in shared memory
-  uint4* my_q = s_q + warp * KS * 2 * 32 + lane;
+  uint4* my_q = s_q + warp * KS * (QP ? 2 : 1) * 32 + lane;
+  float4* my_qf = reinterpret_cast<float4*>(my_q);
+  if constexpr (QP) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t qh[4], ql[4];
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qh[4], ql[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) split(qf[ks][e], qh[e], ql[e]);
-    my_q[(2 * ks) * 32] = make_uint4(qh[0], qh[1], qh[2], qh[3]);
-    my_q[(2 * ks + 1) * 32] = make_uint4(ql[0], ql[1], ql[2], ql[3]);
+      for (int e = 0; e < 4; ++e) split(qf[ks][e], qh[e], ql[e]);
+      my_q[(2 * ks) * 32] = make_uint4(qh[0], qh[1], qh[2], qh[3]);
+      my_q[(2 * ks + 1) * 32] = make_uint4(ql[0], ql[1], ql[2], ql[3]);
+    }
+  } else {                              // f32, in the same order
+#pragma unroll 4
+    for (int ks = 0; ks < KS; ++ks)
+      my_qf[ks * 32] = make_float4(ok0 ? qp0[ks * 8 + t] : 0.f,
+                                   ok1 ? qp1[ks * 8 + t] : 0.f,
+                                   ok0 ? qp0[ks * 8 + t + 4] : 0.f,
+                                   ok1 ? qp1[ks * 8 + t + 4] : 0.f);
   }
 
   // online softmax state in the log2 domain; l is this thread's partial
   // sum over its columns (the quad is reduced once, at the end)
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
-  float o[KS][4];
+  float o[KV][4];
 #pragma unroll
-  for (int j = 0; j < KS; ++j)
+  for (int j = 0; j < KV; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 
@@ -276,6 +326,22 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
     if constexpr (KS <= QK_CHAIN) {
       qk_3xtf32<0, KS, NJ, LDK>(sc, my_q, sK, g, t);
+    } else if constexpr (!QP) {         // four chains from f32 Q
+      static_assert(KS == 4 * QK_CHAIN, "head dim");
+#pragma unroll
+      for (int c = 0; c < KS / QK_CHAIN; ++c) {
+        float part[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+        qk_3xtf32_f32q<QK_CHAIN, NJ, LDK>(part, my_qf + c * QK_CHAIN * 32,
+                                          sK + c * QK_CHAIN * 8, g, t);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] += part[j][e];
+      }
     } else {                            // two chains, added in f32
       static_assert(KS == 2 * QK_CHAIN, "head dim");
       float part[NJ][4];
@@ -335,7 +401,7 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
         l_run[e >> 1] += p;
       }
 #pragma unroll
-    for (int j = 0; j < KS; ++j)
+    for (int j = 0; j < KV; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
 
@@ -350,7 +416,7 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
       const float* v0 = sV + (ks * 8 + t) * LDV + g;
       const float* v1 = v0 + 4 * LDV;
 #pragma unroll
-      for (int j = 0; j < KS; ++j) {
+      for (int j = 0; j < KV; ++j) {
         uint32_t bh0, bl0, bh1, bl1;
         split(v0[j * 8], bh0, bl0);
         split(v1[j * 8], bh1, bl1);
@@ -369,9 +435,9 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int r = rr ? r1 : r0;
     if (r < Nq) {
-      float* op = out + ((size_t)(b * Nq + r) * Hq + h) * HD + 2 * t;
+      float* op = out + ((size_t)(b * Nq + r) * Hq + h) * HD + d0 + 2 * t;
 #pragma unroll
-      for (int j = 0; j < KS; ++j)
+      for (int j = 0; j < KV; ++j)
         *reinterpret_cast<float2*>(op + j * 8) =
             make_float2(o[j][2 * rr] * inv, o[j][2 * rr + 1] * inv);
     }
@@ -387,12 +453,13 @@ int launch(const float* q, const float* k, const float* v,
   const int ntiles = (M + BK - 1) / BK;
   const size_t smem =
       sizeof(float) * STAGES * Smem<HD>::STAGE +
-      sizeof(uint4) * NW * (HD / 8) * 2 * 32 + sizeof(int) * ntiles;
+      sizeof(uint4) * NW * (HD / 8) * (q_parts(HD) ? 2 : 1) * 32 +
+      sizeof(int) * ntiles;
   cudaError_t e = cudaFuncSetAttribute(
       prism_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Nq + BQ - 1) / BQ, Hq, B);
+  const dim3 grid((Nq + BQ - 1) / BQ * (HD / out_dims(HD)), Hq, B);
   prism_attention_kernel<HD><<<grid, NT, smem, stream>>>(
       q, k, v, log_g, col_lo, col_hi, row_pos, out, Nq, M, Hq, Hkv, rep, P,
       causal, prefix_len, has_window, window, scale);
@@ -416,7 +483,8 @@ extern "C" int prism_attention_f32(
   const auto* rp = static_cast<const int*>(row_pos);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  // one head dim per ported model family (GPT-2: 64; Llama, Yi-6B: 128)
+  // one head dim per ported model family (GPT-2: 64; Llama, Yi-6B: 128;
+  // Gemma 3 1B: 256)
   switch (hd) {
     case 64:
       return launch<64>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv,
@@ -424,6 +492,10 @@ extern "C" int prism_attention_f32(
                         scale, st);
     case 128:
       return launch<128>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv,
+                         rep, P, causal, prefix_len, has_window, window,
+                         scale, st);
+    case 256:
+      return launch<256>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv,
                          rep, P, causal, prefix_len, has_window, window,
                          scale, st);
     default:

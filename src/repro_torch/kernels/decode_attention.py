@@ -47,7 +47,7 @@ from ..core.attention import _gqa_logits, _gqa_output
 from ..core.masks import NEG_INF
 
 NEG = NEG_INF
-HEAD_DIMS = (64, 128)          # the head dims csrc/decode_attention.cu builds
+HEAD_DIMS = (64, 128, 256)  # head dims csrc/decode_attention.cu builds
 
 _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_void_p])

@@ -26,7 +26,7 @@ from ..core.attention import _gqa_logits, _gqa_output
 from ..core.masks import NEG_INF, visibility
 
 NEG = NEG_INF
-HEAD_DIMS = (64, 128)          # the head dims csrc/prism_attention.cu builds
+HEAD_DIMS = (64, 128, 256)  # head dims csrc/prism_attention.cu builds
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
              + [ctypes.c_float, ctypes.c_void_p])
@@ -79,7 +79,8 @@ def prism_flash_attention(q, k, v, log_g, col_lo, col_hi, row_pos, *,
                           window: int | None = None,
                           scale: float | None = None) -> torch.Tensor:
     """The CUDA kernel.  f32 only; raises on anything it does not take.
-    Launches on the current stream and does not synchronise."""
+    Launches on the current stream and does not synchronise.  A launch
+    with a window counts also under ``prism_flash_attention.window``."""
     dev = q.device
     for name, t, dt, ndim in (("q", q, torch.float32, 4),
                               ("k", k, torch.float32, 4),
@@ -100,5 +101,7 @@ def prism_flash_attention(q, k, v, log_g, col_lo, col_hi, row_pos, *,
            log_g.data_ptr(), col_lo.data_ptr(), col_hi.data_ptr(),
            row_pos.data_ptr(), out.data_ptr(), b, nq, m, hq, hkv, hd,
            b // bk, p, int(causal), prefix_len, int(window is not None),
-           0 if window is None else window, ctypes.c_float(scale))
+           0 if window is None else window, ctypes.c_float(scale),
+           counts=("prism_flash_attention.window",) if window is not None
+           else ())
     return out

@@ -36,7 +36,15 @@ decode) or the continuous-batching engine on a seeded Poisson trace.
 ``--decode-mode exact`` pairs the voltage prefill (full exchange) with
 exact split-K flash-decode; ``--decode-mode prism`` pairs the PRISM
 prefill (Segment-Means exchange) with prism decode (the engine prefills
-exactly in both modes and captures the means over real tokens).
+exactly in both modes and captures the means over real tokens);
+``--prefill voltage --decode-mode prism`` is the third static pairing.
+
+    # Gemma 3 1B (sliding-window local layers, 5:1 local:global): the
+    # static path only (the engine refuses its ring caches); each of the
+    # P shards must hold a window, so the prompt is at least P x 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --batch 8 --prompt-len 2048 --gen 64 --seq-shards 4 \
+        --decode-mode prism
 Weights are random, drawn from ``torch.Generator`` seeded with
 ``--seed``; ``--reduced`` takes the architecture's smoke-test size.
 Runs on CUDA unless ``--device cpu`` is given; without a card it raises.
@@ -80,19 +88,21 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
           gen: int = 16, seq_shards: int = 4, decode_mode: str = "exact",
           cr: float = 4.0, device: str = "cuda", seed: int = 0,
           backend: str = "auto", params: dict | None = None,
-          reduced: bool = False) -> StaticServe:
+          reduced: bool = False, prefill: str | None = None) -> StaticServe:
     """Build a static-batch run: the prompt length is rounded down and
     the cache capacity up to multiples of the shard count, as the
-    reference launcher does.  ``params`` reuses weights already built."""
+    reference launcher does.  ``params`` reuses weights already built.
+    ``prefill`` ('voltage' | 'prism') picks the prefill exchange; by
+    default the decode mode's pairing (exact: voltage, prism: PRISM)."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduced else cfg
     n = prompt_len - prompt_len % seq_shards
     cap = n + gen + (-(n + gen)) % seq_shards
     hp = ServeHParams(decode_mode=decode_mode, means_cr=cr, backend=backend)
-    prism = PrismConfig(P=seq_shards, cr=cr,
-                        mode="prism" if decode_mode == "prism"
-                        else "voltage")
+    if prefill is None:
+        prefill = "prism" if decode_mode == "prism" else "voltage"
+    prism = PrismConfig(P=seq_shards, cr=cr, mode=prefill)
     lay = make_layout(seq_shards, cap, hp, prefill_len=n)
     if params is None:
         params = T.init(cfg, torch.Generator(device=dev).manual_seed(seed),
@@ -243,6 +253,10 @@ def main(argv=None):
     ap.add_argument("--seq-shards", type=int, default=4)
     ap.add_argument("--decode-mode", default="exact",
                     choices=("exact", "prism"))
+    ap.add_argument("--prefill", default=None,
+                    choices=("voltage", "prism"),
+                    help="[static] the prefill exchange (default: voltage "
+                         "for exact decode, prism for prism decode)")
     ap.add_argument("--cr", type=float, default=4.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
@@ -319,10 +333,12 @@ def main(argv=None):
     run = setup(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                 gen=args.gen, seq_shards=args.seq_shards,
                 decode_mode=args.decode_mode, cr=args.cr,
-                device=args.device, seed=args.seed, reduced=args.reduced)
+                device=args.device, seed=args.seed, reduced=args.reduced,
+                prefill=args.prefill)
     tokens, _, times = run.run()
     b, n = run.prompts.shape
-    print(f"[serve] {run.cfg.name} {args.decode_mode}: prefill {b}x{n} "
+    print(f"[serve] {run.cfg.name} {run.prism.mode}+{args.decode_mode}: "
+          f"prefill {b}x{n} "
           f"{times['prefill_ms']:.2f} ms, decode "
           f"{times['decode_ms_per_token']:.3f} ms/token over "
           f"{args.gen - 1} steps ({times['clock']})")

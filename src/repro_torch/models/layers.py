@@ -2,9 +2,9 @@
 
 Layouts follow the JAX reference so parameters convert by copying:
 dense weights are ``(d_in, d_out)``, embeddings ``(vocab, d)``.  Only
-what the ported models use is here: LayerNorm and RMSNorm, the tanh-GELU
-and SwiGLU MLPs, rotary embeddings (split halves) and the attention
-projections that apply them.
+what the ported models use is here: LayerNorm and RMSNorm, the tanh-GELU,
+GeGLU and SwiGLU MLPs, rotary embeddings (split halves) and the attention
+projections that apply them, with qk-norm where the model has it.
 """
 from __future__ import annotations
 
@@ -98,7 +98,7 @@ def rope(x, pos, *, theta: float = 10000.0):
 # MLP
 # --------------------------------------------------------------------------
 
-MLP_KINDS = ("gelu", "swiglu")
+MLP_KINDS = ("gelu", "geglu", "swiglu")
 
 
 def mlp_init(gen, d: int, d_ff: int, kind: str, *, device,
@@ -107,7 +107,7 @@ def mlp_init(gen, d: int, d_ff: int, kind: str, *, device,
         raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
     p = {"up": dense_init(gen, d, d_ff, bias=bias, device=device),
          "down": dense_init(gen, d_ff, d, bias=bias, device=device)}
-    if kind == "swiglu":
+    if kind in ("geglu", "swiglu"):              # the gated kinds
         p["gate"] = dense_init(gen, d, d_ff, bias=bias, device=device)
     return p
 
@@ -119,6 +119,10 @@ def mlp(p, x, kind: str):
         return dense(p["down"], F.silu(dense(p["gate"], x))
                      * dense(p["up"], x))
     # jax.nn.gelu's default is the tanh approximation
+    if kind == "geglu":
+        return dense(p["down"], F.gelu(dense(p["gate"], x),
+                                       approximate="tanh")
+                     * dense(p["up"], x))
     return dense(p["down"], F.gelu(dense(p["up"], x), approximate="tanh"))
 
 
@@ -139,19 +143,19 @@ class AttnSpec:
     window: int | None = None            # sliding-window layer (gemma3 local)
     causal: bool = True
 
-    def __post_init__(self):
-        if self.qk_norm:
-            raise NotImplementedError("qk-norm is not ported yet")
-
 
 def attn_init(gen, s: AttnSpec, device):
     hq, hkv = s.n_heads * s.head_dim, s.n_kv_heads * s.head_dim
-    return {
+    p = {
         "wq": dense_init(gen, s.d_model, hq, bias=s.bias, device=device),
         "wk": dense_init(gen, s.d_model, hkv, bias=s.bias, device=device),
         "wv": dense_init(gen, s.d_model, hkv, bias=s.bias, device=device),
         "wo": dense_init(gen, hq, s.d_model, bias=s.bias, device=device),
     }
+    if s.qk_norm:                 # RMSNorm of each head's q and k
+        p["qnorm"] = norm_init(s.head_dim, "rmsnorm", device)
+        p["knorm"] = norm_init(s.head_dim, "rmsnorm", device)
+    return p
 
 
 def _rotate(s: AttnSpec, t, pos):
@@ -166,18 +170,23 @@ def _rotate(s: AttnSpec, t, pos):
 
 
 def attn_project_q(p, s: AttnSpec, x, row_pos):
-    """x (B, n, D) -> q (B, n, Hq, hd), rotated to ``row_pos``."""
+    """x (B, n, D) -> q (B, n, Hq, hd), normed (qk-norm) and rotated to
+    ``row_pos``."""
     b, n, _ = x.shape
     q = dense(p["wq"], x).reshape(b, n, s.n_heads, s.head_dim)
+    if s.qk_norm:
+        q = norm(p["qnorm"], q, "rmsnorm")
     return _rotate(s, q, row_pos)
 
 
 def attn_project_kv(p, s: AttnSpec, x_hat, col_pos):
-    """x_hat (B, m, D) -> k, v (B, m, Hkv, hd), k rotated to
-    ``col_pos``."""
+    """x_hat (B, m, D) -> k, v (B, m, Hkv, hd), k normed (qk-norm) and
+    rotated to ``col_pos``."""
     b, m, _ = x_hat.shape
     k = dense(p["wk"], x_hat).reshape(b, m, s.n_kv_heads, s.head_dim)
     v = dense(p["wv"], x_hat).reshape(b, m, s.n_kv_heads, s.head_dim)
+    if s.qk_norm:
+        k = norm(p["knorm"], k, "rmsnorm")
     return _rotate(s, k, col_pos), v
 
 

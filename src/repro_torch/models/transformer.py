@@ -5,9 +5,11 @@ Parameters: {"layers": [per-layer dicts], "embed": {"table"},
 "final_norm": {...}}, plus "pos_embed": {"table"} for learned positions
 and "lm_head": {"w"} for an untied head — the reference's stacked
 ``scan``/``tail`` layout unstacked into one dict per layer
-(``convert.from_jax_numpy``).  Only the ``attn`` block kind is ported:
-GPT-2's pieces (learned positions, LayerNorm, GELU, tied head) and the
-Llama family's (RoPE, RMSNorm, SwiGLU, GQA, untied head).
+(``convert.from_jax_numpy``).  The ``attn`` and ``attn_local`` block
+kinds are ported: GPT-2's pieces (learned positions, LayerNorm, GELU,
+tied head), the Llama family's (RoPE, RMSNorm, SwiGLU, GQA, untied head)
+and Gemma 3's (sliding-window local layers beside global ones, a RoPE
+theta for each kind, qk-norm, GeGLU, MQA, sqrt(d) input scaling).
 """
 from __future__ import annotations
 
@@ -23,33 +25,42 @@ from ..core.attention import prism_attention
 from ..device import resolve_device
 
 
+BLOCK_KINDS = ("attn", "attn_local")
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a configuration the port does not run yet."""
-    bad = sorted(set(cfg.block_kinds) - {"attn"})
+    bad = sorted(set(cfg.block_kinds) - set(BLOCK_KINDS))
     if (bad or cfg.pos not in ("learned", "rope")
             or cfg.norm_kind not in NORM_KINDS
-            or cfg.mlp_kind not in MLP_KINDS or cfg.qk_norm
-            or cfg.parallel_block or cfg.embed_scale or cfg.logit_softcap
+            or cfg.mlp_kind not in MLP_KINDS
+            or cfg.parallel_block or cfg.logit_softcap
             or cfg.frontend or cfg.num_classes or cfg.prefix_len):
         raise NotImplementedError(
-            f"{cfg.name}: only attention-only decoders with learned or "
-            f"rotary positions, {'/'.join(NORM_KINDS)} and "
+            f"{cfg.name}: only decoders of {'/'.join(BLOCK_KINDS)} blocks "
+            f"with learned or rotary positions, {'/'.join(NORM_KINDS)} and "
             f"{'/'.join(MLP_KINDS)} are ported (block kinds {bad}, pos "
             f"{cfg.pos!r}, norm {cfg.norm_kind!r}, mlp {cfg.mlp_kind!r})")
 
 
 def attn_spec(cfg: ModelConfig, kind: str = "attn") -> AttnSpec:
+    """The attention of a block of ``kind``: a local (sliding-window)
+    layer takes the window and its own RoPE theta, a global one the
+    other theta and no window."""
+    local = kind == "attn_local"
+    theta = None
+    if cfg.pos == "rope":
+        theta = cfg.rope_theta_local if local else cfg.rope_theta
     return AttnSpec(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.hd, bias=cfg.attn_bias,
-        rope_theta=cfg.rope_theta if cfg.pos == "rope" else None,
+        head_dim=cfg.hd, bias=cfg.attn_bias, rope_theta=theta,
         qk_norm=cfg.qk_norm, logit_softcap=cfg.logit_softcap,
-        window=None, causal=cfg.causal)
+        window=cfg.window if local else None, causal=cfg.causal)
 
 
-def block_init(cfg: ModelConfig, gen: torch.Generator, device):
+def block_init(cfg: ModelConfig, kind: str, gen: torch.Generator, device):
     return {"ln1": norm_init(cfg.d_model, cfg.norm_kind, device),
-            "attn": attn_init(gen, attn_spec(cfg), device),
+            "attn": attn_init(gen, attn_spec(cfg, kind), device),
             "ln2": norm_init(cfg.d_model, cfg.norm_kind, device),
             "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
                             bias=cfg.attn_bias, device=device)}
@@ -63,8 +74,8 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     check_supported(cfg)
     device = resolve_device(device)
     params = {
-        "layers": [block_init(cfg, generator, device)
-                   for _ in range(cfg.n_layers)],
+        "layers": [block_init(cfg, kind, generator, device)
+                   for kind in cfg.block_kinds],
         "final_norm": norm_init(cfg.d_model, cfg.norm_kind, device),
         "embed": embedding_init(generator, cfg.vocab_size, cfg.d_model,
                                 device),
@@ -91,17 +102,26 @@ def attn_sublayer(p, x, ctx: SeqContext, spec: AttnSpec, cfg: ModelConfig):
     return ctx.finalize(attn_output(p["attn"], o))
 
 
-def block_apply(cfg: ModelConfig, p, x, ctx: SeqContext):
-    """One residual ``attn`` block."""
-    x = x + attn_sublayer(p, x, ctx, attn_spec(cfg), cfg)
+def block_apply(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext):
+    """One residual ``attn`` or ``attn_local`` block."""
+    x = x + attn_sublayer(p, x, ctx, attn_spec(cfg, kind), cfg)
     return x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
 
 
+def embed_scale(cfg: ModelConfig, x):
+    """Gemma's sqrt(d_model) input scaling, in x's dtype; x as it is
+    elsewhere."""
+    if not cfg.embed_scale:
+        return x
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+
+
 def embed_inputs(cfg: ModelConfig, params, tokens, pos_start: int = 0):
-    """tokens (B, N) -> x (B, N, D): token embeddings, plus the learned
-    position embeddings where the model has them (RoPE rotates q and k
-    in the attention layers instead)."""
-    x = embed(params["embed"], tokens)
+    """tokens (B, N) -> x (B, N, D): token embeddings (scaled by
+    sqrt(d_model) where the model says so), plus the learned position
+    embeddings where the model has them (RoPE rotates q and k in the
+    attention layers instead)."""
+    x = embed_scale(cfg, embed(params["embed"], tokens))
     if cfg.pos != "learned":
         return x
     n = x.shape[1]
@@ -118,11 +138,14 @@ def head(cfg: ModelConfig, params, x):
 
 
 def forward(cfg: ModelConfig, params, tokens, *,
-            ctx: SeqContext | None = None):
-    """tokens (B, N) -> logits (B, N, V)."""
+            ctx: SeqContext | None = None, start: int = 0):
+    """tokens (B, N) -> logits (B, N - start, V) of positions start.. (the
+    head over the tail only: at a large vocabulary the whole (B, N, V)
+    would dwarf the rest)."""
     check_supported(cfg)
     ctx = ctx or FullContext(prefix_len=cfg.prefix_len)
     x = embed_inputs(cfg, params, tokens)
-    for p in params["layers"]:
-        x = block_apply(cfg, p, x, ctx)
-    return head(cfg, params, norm(params["final_norm"], x, cfg.norm_kind))
+    for kind, p in zip(cfg.block_kinds, params["layers"]):
+        x = block_apply(cfg, kind, p, x, ctx)
+    return head(cfg, params,
+                norm(params["final_norm"], x[:, start:], cfg.norm_kind))

@@ -29,6 +29,12 @@ Placements (``ServeLayout.placement``), attention-only:
     p % P, slot p // P, so a page of consecutive slots on every shard
     holds a contiguous block of positions (a prefix can be shared).
 
+Sliding-window layers (Gemma 3's ``attn_local``) keep a ring of the
+last W positions, (B, W, Hkv, hd), position p in slot p % W, read by
+every shard as one column set: exact in both decode modes, as the
+reference's static path serves them.  The paged cache, the tick
+programs and the engine refuse the kind, as the reference's do.
+
 The paged cache (``runtime/paging.py``): the layer cache is a page pool
 (n_pages, P, pc, Hkv, hd) with, in prism mode, a state pool of means
 rows; ``serve_step`` and the tick programs take the per-slot page map
@@ -49,8 +55,8 @@ from ..kernels.ops import prism_attention_op
 from ..models.config import ModelConfig
 from ..models.layers import (AttnSpec, attn_output, attn_project_kv,
                              attn_project_q, embed, mlp, norm)
-from ..models.transformer import (attn_spec, check_supported,
-                                  embed_inputs, head)
+from ..models.transformer import (attn_spec, check_supported, embed_inputs,
+                                  embed_scale, head)
 from ..sharding.context import ShardedPrismContext, means_columns
 from .paging import KVCache, PrefixCache
 
@@ -109,14 +115,20 @@ def init_cache(cfg: ModelConfig, lay: ServeLayout, batch: int,
     """An all-zero f32 decode-layout cache, one dict of leaves per layer
     (``layer_cache_shape``): what the chunked and packed ticks admit
     requests into."""
-    shapes = layer_cache_shape(cfg, lay, batch, hp, paging)
     return [{name: torch.zeros(shape, device=device)
-             for name, shape in shapes.items()}
-            for _ in range(cfg.n_layers)]
+             for name, shape in layer_cache_shape(cfg, lay, batch, hp,
+                                                  paging, kind).items()}
+            for kind in cfg.block_kinds]
+
+
+def ring_width(cfg: ModelConfig, lay: ServeLayout) -> int:
+    """W, the ring cache's slots of a sliding-window layer."""
+    return min(cfg.window or lay.cap, lay.cap)
 
 
 def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
-                      hp: ServeHParams, paging=None) -> dict:
+                      hp: ServeHParams, paging=None,
+                      kind: str = "attn") -> dict:
     """Per-layer cache leaves: k, v (B, P, cap_l, Hkv, hd); prism mode
     adds the means K/V kz, vz (B, P·L, Hkv, hd), their per-request
     repeat counts gz (B, P·L) and the per-segment activation sums
@@ -124,8 +136,17 @@ def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
     page pool (n_pages, P, pc, Hkv, hd) and the prism leaves have one
     row per state page in place of the batch, and one more that no slot
     maps: a sink for the writes of the slots a call does not advance
-    (where the reference drops them out of range)."""
+    (where the reference drops them out of range).  A sliding-window
+    layer (``kind`` 'attn_local') has the ring k, v (B, W, Hkv, hd) alone,
+    in either decode mode, and no paged form."""
     hkv, hd = cfg.n_kv_heads, cfg.hd
+    if kind == "attn_local":
+        if paging is not None:
+            raise ValueError("paged caches support position-addressed "
+                             "attention kinds only (got block kind "
+                             "'attn_local')")
+        ring = (batch, ring_width(cfg, lay), hkv, hd)
+        return {"k": ring, "v": ring}
     if paging is None:
         kv = (batch, lay.n_seq, lay.cap_l, hkv, hd)
         rows = batch
@@ -189,6 +210,8 @@ def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
     P = lay.n_seq
     b = bp // P
     hkv, hd = k.shape[2:]
+    if spec.window is not None:
+        return ctx.finalize(o), ring_capture(k, v, b, lay, shapes)
     # prism: the local block comes first in every shard's K/V; voltage: K/V
     # is the full sequence, whose shard-p slice is batch row b·P + p
     k_loc = k[:, :n_loc] if prism_augment else k.reshape(bp, n_loc, hkv, hd)
@@ -222,6 +245,25 @@ def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
     return ctx.finalize(o), cache
 
 
+def ring_capture(k, v, b: int, lay: ServeLayout, shapes: dict) -> dict:
+    """A sliding-window layer's ring cache after prefill: the last W
+    prompt positions, position p in slot p % W (placed by the prompt
+    length, where the reference's ``cap - W`` placement is right only
+    when cap = n0 mod W).  k, v (B·P, m, Hkv, hd) hold each shard's own
+    rows last."""
+    n0, n_loc = lay.prefill_len, lay.n_loc0
+    w = shapes["k"][1]
+    first = max(0, n0 - w)
+    slots = torch.arange(first, n0, device=k.device) % w
+    cache = {}
+    for name, t in (("k", k), ("v", v)):
+        seq = t[:, t.shape[1] - n_loc:].reshape(b, n0, *t.shape[2:])
+        c = torch.zeros(shapes[name], dtype=t.dtype, device=t.device)
+        c[:, slots] = seq[:, first:]
+        cache[name] = c
+    return cache
+
+
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
             prism: PrismConfig, lay: ServeLayout, hp: ServeHParams):
     """tokens (B, n0) -> (last-token logits (B, V) f32, decode cache).
@@ -239,13 +281,12 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
                             else prism.L)
     ctx = ShardedPrismContext(prism_cfg, n_shards=P, backend=hp.backend)
     prism_augment = prism_cfg.mode == "prism"
-    spec = attn_spec(cfg)
     x = embed_inputs(cfg, params, tokens).reshape(b * P, n_loc, cfg.d_model)
-    shapes = layer_cache_shape(cfg, lay, b, hp)
     cache = []
-    for p in params["layers"]:
-        o, c = prefill_attn(p, spec, cfg, x, ctx, lay, hp, prism_augment,
-                            shapes)
+    for kind, p in zip(cfg.block_kinds, params["layers"]):
+        o, c = prefill_attn(p, attn_spec(cfg, kind), cfg, x, ctx, lay, hp,
+                            prism_augment,
+                            layer_cache_shape(cfg, lay, b, hp, kind=kind))
         x = x + o
         x = x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
         cache.append(c)
@@ -308,14 +349,15 @@ def write_plan(row, slot, owner, n_seq: int, cap_l: int, page_map=None):
 
 
 def _write_kv(cache_kv, new_rows, plan):
-    """Scatter (N, Hkv, hd) rows into the (B, P, cap_l, Hkv, hd) cache or
-    the (n_pages, P, pc, Hkv, hd) pool IN PLACE at the addresses of
-    ``plan`` (``write_plan``).  A dropped entry rewrites the first owned
-    entry's address with that entry's value (the current value if no
-    entry is owned), so every duplicate address gets the same bytes.
+    """Scatter (N, Hkv, hd) rows into the (B, P, cap_l, Hkv, hd) cache,
+    the (n_pages, P, pc, Hkv, hd) pool or the (B, W, Hkv, hd) ring IN
+    PLACE at the addresses of ``plan`` (``write_plan``).  A dropped entry
+    rewrites the first owned entry's address with that entry's value
+    (the current value if no entry is owned), so every duplicate address
+    gets the same bytes.
     O(N), no host synchronisation."""
     addr, ok, first = plan
-    flat = cache_kv.view(-1, *cache_kv.shape[3:])
+    flat = cache_kv.view(-1, *cache_kv.shape[-2:])
     new_rows = new_rows.to(cache_kv.dtype)
     keep = torch.where(ok[first][:, None, None], new_rows[first],
                        flat[addr[first]])
@@ -438,13 +480,29 @@ def lm_head(cfg: ModelConfig, params, x):
                 norm(params["final_norm"], x, cfg.norm_kind)).float()
 
 
+def ring_cols(w: int, window: int, pos):
+    """(write plan, valid (B, 1, w)) of a sliding-window layer's ring at
+    the positions ``pos`` (B,), made once a step for every such layer:
+    position p goes to slot p % w (live rows only), and slot j holds
+    position pos - ((pos - j) % w), visible when it is at least 0 and
+    inside the window."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    plan = write_plan(rows, (pos % w)[:, None], (pos >= 0)[:, None], 1, w)
+    j = torch.arange(w, device=pos.device)
+    col_pos = pos[:, None] - ((pos[:, None] - j) % w)
+    valid = (col_pos >= 0) & (col_pos > pos[:, None] - window)
+    return plan, valid[:, None]
+
+
 def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
                 lay: ServeLayout, hp: ServeHParams, cols, lost=None,
                 rep=None):
     """x (B,1,D), pos (B,) -> out (B,1,D); writes this token's K/V into
     the layer cache ``c`` in place.  ``cols`` = (write plan, owner,
     valid, page map, state map, state rows), all made once a step; the
-    last three are None for a dense cache.
+    last three are None for a dense cache.  A sliding-window layer's
+    ``cols`` is its ring's (``ring_cols``): the ring is one column set,
+    attended exactly in either decode mode.
 
     ``lost`` (P,) arms the degraded step (``serve_step``): the write
     plan and ``valid`` already leave the lost shards out, and their
@@ -453,7 +511,10 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
     ``MeansReplica.assemble``) on the lost shard's own lane only, so the
     shard combine counts each mean once; in prism mode the means the
     state rows already hold, the lost shard's own gate opened."""
-    plan, owner, valid, page_map, state_map, sr = cols
+    if spec.window is not None:
+        plan, valid = cols                           # the ring's
+    else:
+        plan, owner, valid, page_map, state_map, sr = cols
     xn = norm(p["ln1"], x, cfg.norm_kind)
     rp = pos[:, None]                                # (B, 1) row positions
     q = attn_project_q(p["attn"], spec, xn, rp)
@@ -461,7 +522,10 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
     scale = spec.head_dim ** -0.5
     _write_kv(c["k"], k_new[:, 0], plan)
     _write_kv(c["v"], v_new[:, 0], plan)
-    if hp.decode_mode == "prism" and "kz" in c:
+    if spec.window is not None:                  # the ring, one shard
+        out = decode_attention(q, c["k"][:, None], c["v"][:, None], valid,
+                               scale, backend=hp.backend)
+    elif hp.decode_mode == "prism" and "kz" in c:
         # repeat counts ride in the cache (the state pool when paged)
         means = means_columns(lay.n_seq, lay.n_loc0, lay.L, x.device)
         cnt = c["gz"] if sr is None else c["gz"][sr]
@@ -481,21 +545,24 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
     return attn_output(p["attn"], out)
 
 
-def block_decode(cfg: ModelConfig, p, x, c, pos, lay: ServeLayout,
-                 hp: ServeHParams, cols, lost=None, rep=None):
-    """One residual ``attn`` block, single-token decode."""
-    x = x + attn_decode(p, attn_spec(cfg), cfg, x, c, pos, lay, hp, cols,
-                        lost, rep)
+def block_decode(cfg: ModelConfig, kind: str, p, x, c, pos,
+                 lay: ServeLayout, hp: ServeHParams, cols, lost=None,
+                 rep=None):
+    """One residual ``attn`` or ``attn_local`` block, single-token
+    decode."""
+    x = x + attn_decode(p, attn_spec(cfg, kind), cfg, x, c, pos, lay, hp,
+                        cols, lost, rep)
     return x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
 
 
 def embed_tokens(cfg: ModelConfig, params, token, pos):
-    """token (B, T), pos (B, T) -> x (B, T, D), with learned positions
-    per request and per token where the model has them (a RoPE model
-    rotates q and k at ``pos`` in its attention layers instead).  A dead
+    """token (B, T), pos (B, T) -> x (B, T, D), scaled by sqrt(d_model)
+    where the model says so, with learned positions per request and per
+    token where the model has them (a RoPE model rotates q and k at
+    ``pos`` in its attention layers instead).  A dead
     entry (pos = -1) still embeds (its position clamped) but never
     reaches the cache."""
-    x = embed(params["embed"], token)
+    x = embed_scale(cfg, embed(params["embed"], token))
     if cfg.pos != "learned":
         return x
     tbl = params["pos_embed"]["table"]
@@ -530,13 +597,19 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
         wr_owner = owner & ~dead
         valid = valid & ~dead[None, :, None]
     rows = torch.arange(pos.shape[0], device=pos.device)
+    # the prism state rows, from a global layer (a local one has none)
+    glob = next((c for c in cache if "kz" in c), None)
     cols = (write_plan(rows, slot, wr_owner, lay.n_seq, lay.cap_l,
                        page_map),
             owner, valid, page_map, state_map,
-            state_rows(cache[0], state_map) if "kz" in cache[0] else None)
+            None if glob is None else state_rows(glob, state_map))
+    kinds = cfg.block_kinds
+    ring = (ring_cols(ring_width(cfg, lay), cfg.window, pos)
+            if "attn_local" in kinds else None)
     x = embed_tokens(cfg, params, token[:, None], pos[:, None])
-    for i, (p, c) in enumerate(zip(params["layers"], cache)):
-        x = block_decode(cfg, p, x, c, pos, lay, hp, cols, lost,
+    for i, (kind, p, c) in enumerate(zip(kinds, params["layers"], cache)):
+        x = block_decode(cfg, kind, p, x, c, pos, lay, hp,
+                         ring if kind == "attn_local" else cols, lost,
                          None if rep is None else rep[i])
     return lm_head(cfg, params, x[:, 0]), cache
 

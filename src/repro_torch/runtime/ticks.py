@@ -133,6 +133,19 @@ def chunk_attention(q, k, v, valid, bias_self, k_new, v_new, scale,
     return _combine_exact(m, l, acc).to(v.dtype)
 
 
+def check_tick_kinds(cfg: ModelConfig, program: str) -> None:
+    """Raise unless every block has a position-addressed attention cache:
+    a sliding-window layer's ring holds the last W positions, which a
+    chunk or a packed tick does not address, as the reference's
+    ``make_chunk_prefill_step`` / ``make_packed_step`` refuse it."""
+    check_supported(cfg)
+    for kind in cfg.block_kinds:
+        if kind != "attn":
+            raise ValueError(
+                f"{program} needs position-addressed attention caches; "
+                f"arch {cfg.name!r} has block kind {kind!r}")
+
+
 def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
                        lay: ServeLayout, hp: ServeHParams, page_map=None,
                        state_map=None):
@@ -142,7 +155,7 @@ def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
     ``off = -1``.  tokens (B, C), off (B,), nreal (B,); a paged cache
     takes page_map (B, ppr) and state_map (B,) int32.  Updates and
     returns ``cache``; no logits (see the module docstring's rewind)."""
-    check_supported(cfg)
+    check_tick_kinds(cfg, "chunked prefill")
     b, c = tokens.shape
     j = torch.arange(c, device=tokens.device)
     alive = (off[:, None] >= 0) & (j[None, :] < nreal[:, None])   # (B, C)
@@ -229,7 +242,7 @@ def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
     cache takes the slots' page_map (B, ppr) and state_map (B,) int32.
     Returns (logits (min(B, T), V) f32, cache), the cache updated in
     place."""
-    check_supported(cfg)
+    check_tick_kinds(cfg, "packed serving")
     b = (cache[0]["k"].shape[0] if page_map is None
          else page_map.shape[0])
     dev = tokens.device

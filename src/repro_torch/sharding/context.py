@@ -17,7 +17,12 @@ Exchanges:
              shard's means included but neutralized with g = 0
              (paper Eq. 6 with static shapes);
   * Voltage: the full sequence, shared by all shards (the K/V of the
-             full sequence is computed once and read by every shard).
+             full sequence is computed once and read by every shard);
+  * window:  a sliding-window layer (Gemma 3's local layers) in either
+             mode: the previous ``hops`` shards' rows as a halo before
+             the shard's own (the reference's ring ``ppermute``), halo
+             columns before position 0 dead (g = 0); the kernel applies
+             the window from the positions.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.protocol import PrismConfig
 from ..core.segment_means import segment_bounds, segment_sizes
@@ -89,6 +95,30 @@ def means_columns(n_shards: int, n_loc: int, L: int,
                         i32(col_hi), f32(col_g), f32(mid), f32(col_pos))
 
 
+class WindowColumns(NamedTuple):
+    """Position metadata of the window halo, for one (P, n_loc, hops)."""
+    col: torch.Tensor       # (P, m) int32 each column's global position,
+                            #   the halo's (negative before the start)
+                            #   then the shard's own rows
+    g: torch.Tensor         # (P, m) f32 1, or 0 before position 0
+    pos: torch.Tensor       # (P, m) int32 RoPE positions, max(col, 0)
+
+
+@functools.lru_cache(maxsize=16)
+def window_columns(n_shards: int, n_loc: int, hops: int,
+                   device: torch.device) -> WindowColumns:
+    """The window x_hat's columns per shard: ``hops`` shards of halo,
+    then the shard's own rows, at positions start - hops·n_loc +
+    arange((hops + 1)·n_loc).  Built once per shape and device."""
+    m = (hops + 1) * n_loc
+    col = (np.arange(n_shards)[:, None] * n_loc - hops * n_loc
+           + np.arange(m)[None, :])
+    i32 = functools.partial(torch.as_tensor, dtype=torch.int32, device=device)
+    return WindowColumns(i32(col), torch.as_tensor(
+        (col >= 0).astype(np.float32), device=device),
+        i32(np.maximum(col, 0)))
+
+
 class ShardedPrismContext(SeqContext):
     def __init__(self, cfg: PrismConfig, *, n_shards: int,
                  backend: str = "auto"):
@@ -100,12 +130,13 @@ class ShardedPrismContext(SeqContext):
     def augment(self, x, spec: AttnSpec):
         """x (B·P, n_loc, D) -> (x, AugmentedKV) with per-shard (P, ·)
         metadata.  Voltage's x_hat is (B, N, D), shared by the P shards;
-        PRISM's is (B·P, n_loc + P·L, D), local block first."""
-        if spec.window is not None:
-            raise NotImplementedError("sliding-window layers are not "
-                                      "ported yet")
+        PRISM's is (B·P, n_loc + P·L, D), local block first; a window
+        layer's (B·P, (hops + 1)·n_loc, D), local block last, in either
+        mode."""
         n_loc = x.shape[1]
         row_pos = shard_rows(self.P, n_loc, x.device)       # (P, n_loc)
+        if spec.window is not None:
+            return self._augment_window(x, spec.window, n_loc, row_pos)
         if self.cfg.mode == "voltage":
             return self._augment_voltage(x, n_loc, row_pos)
         if self.cfg.mode != "prism":
@@ -120,6 +151,26 @@ class ShardedPrismContext(SeqContext):
         col = torch.arange(n, device=x.device)
         return x, AugmentedKV(x_hat, None, None, row_pos, col,
                               col_lo=col, col_hi=col)
+
+    def window_hops(self, window: int, n_loc: int) -> int:
+        """Shards of halo a window of ``window`` needs: ceil(W / n_loc),
+        at most P - 1."""
+        return min(self.P - 1, -(-window // n_loc))
+
+    def _augment_window(self, x, window, n_loc, row_pos):
+        """The ring halo: shard p's x_hat is shards p - hops .. p - 1
+        (zeros before shard 0, as ``ppermute`` fills them), then its own
+        rows."""
+        bp, _, d = x.shape
+        hops = self.window_hops(window, n_loc)
+        xs = x.view(bp // self.P, self.P, n_loc, d)
+        halo = [F.pad(xs[:, :self.P - h], (0, 0, 0, 0, h, 0))
+                for h in range(hops, 0, -1)]
+        x_hat = torch.cat(halo + [xs], dim=2).reshape(
+            bp, (hops + 1) * n_loc, d)
+        cols = window_columns(self.P, n_loc, hops, x.device)
+        return x, AugmentedKV(x_hat, cols.g, None, row_pos, cols.pos,
+                              col_lo=cols.col, col_hi=cols.col)
 
     def gather_means(self, x, L: int):
         """Every shard's L segment means of x (B·P, n_loc, D), gathered

@@ -414,6 +414,42 @@ def test_segment_means_entries_check_dtype(entry, dtype, accepted):
     assert sum(dispatch.LAUNCHES.values()) == 0
 
 
+def test_attention_plain_at_head_dim_256_window_halo():
+    """Gemma 3's local layer at head dim 256 (4 query heads over 1 KV
+    head): the window augment's per-shard metadata (one shard of halo,
+    then the shard's own rows; g = 0 on the halo before position 0) with
+    the window applied from the positions, equal to the jnp oracle per
+    shard."""
+    from repro_torch.core.protocol import PrismConfig
+    from repro_torch.models.layers import AttnSpec
+    from repro_torch.sharding.context import ShardedPrismContext
+    p, n_loc, window, hd = 4, 16, 16, 256
+    spec = AttnSpec(d_model=8, n_heads=4, n_kv_heads=1, head_dim=hd,
+                    window=window)
+    ctx = ShardedPrismContext(PrismConfig(P=p, L=2, mode="voltage"),
+                              n_shards=p)
+    _, akv = ctx.augment(torch.zeros(2 * p, n_loc, 8), spec)
+    m = akv.col_lo.shape[1]
+    assert m == 2 * n_loc and akv.g[0, :n_loc].sum() == 0
+    rng = np.random.default_rng(12)
+    q = (rng.standard_normal((2 * p, n_loc, 4, hd)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((2 * p, m, 1, hd)) * 0.5).astype(np.float32)
+    v = (rng.standard_normal((2 * p, m, 1, hd)) * 0.5).astype(np.float32)
+    got = prism_attention_op(T(q), T(k), T(v), akv.g, akv.col_lo,
+                             akv.col_hi, akv.row_pos, causal=True,
+                             window=window).numpy()
+    for i in range(2 * p):
+        s = i % p
+        want = j_attention_ref(
+            *(jnp.asarray(t[i:i + 1]) for t in (q, k, v)),
+            j_log_g(akv.g[s].numpy()),
+            *(jnp.asarray(t[s].numpy()) for t in (akv.col_lo, akv.col_hi,
+                                                   akv.row_pos)),
+            causal=True, window=window)
+        np.testing.assert_allclose(got[i:i + 1], np.asarray(want),
+                                   atol=2e-5, rtol=2e-4, err_msg=str(i))
+
+
 # ---------------------------------------------------------------------
 # flash-decode stats
 # ---------------------------------------------------------------------
@@ -455,6 +491,29 @@ def test_decode_folded_shards_equal_per_shard_calls():
             jnp.asarray(vz[i // rep:i // rep + 1]),
             scale=c["scale"], interpret=True)
         assert_stats_close([t[i:i + 1] for t in got], want)
+
+
+def test_decode_plain_on_a_ring_at_head_dim_256():
+    """A local layer's ring at head dim 256 (a group of 4 over 1 KV
+    head): slot j holds position pos - ((pos - j) % W), so ``valid``
+    wraps and the first slots hold the newest positions; the plain
+    version equals the jnp oracle."""
+    from repro_torch.runtime.serve import ring_cols
+    w, window, hd = 16, 12, 256
+    pos = torch.tensor([40, 16, 5, -1])             # wrapped, short, idle
+    _, valid = ring_cols(w, window, pos)
+    valid = valid[:, 0]
+    assert valid[0].tolist() == [j <= 8 or j >= 13 for j in range(w)]
+    assert valid[2].sum() == 6 and not valid[3].any()
+    rng = np.random.default_rng(13)
+    q = (rng.standard_normal((4, 1, 4, hd)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((4, w, 1, hd)) * 0.5).astype(np.float32)
+    v = (rng.standard_normal((4, w, 1, hd)) * 0.5).astype(np.float32)
+    got = TD.decode_stats(T(q), T(k), T(v), valid, scale=hd ** -0.5)
+    want = JD.decode_stats_reference(*map(jnp.asarray, (q, k, v)),
+                                     jnp.asarray(valid.numpy()),
+                                     scale=hd ** -0.5)
+    assert_stats_close(got, want)
 
 
 def test_merge_stats_is_concat():
@@ -705,6 +764,66 @@ def test_decode_3xtf32_tiles_match_plain_at_head_dim_128(means):
         b, -1, 32).any(-1)).sum()) if means else 0)
 
 
+@pytest.mark.parametrize("layout", ["global", "global_prism", "ring"])
+def test_decode_3xtf32_tiles_match_plain_at_head_dim_256(layout):
+    """The tile route's arithmetic at Gemma 3 1B's static decode (4 query
+    heads over 1 KV head of 256, no row map: the route the rule names):
+    QK^T's 32 k-steps as four chains of 8 (one a warp in the hd-256
+    kernel) added in f32 in order, each tile's PV in its own
+    accumulator, within the decode kernel's (1e-5, 1e-5) tolerance of the
+    f32 plain version; 2 rows of 4 shards of cap_l 528 at the last
+    decode step of a 2048-token prompt (with means: the prism layout's
+    512 columns under ``prism_gz``), or the 512-slot ring of a local
+    layer as one shard, wrapped."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.attention import log_repeats
+    from repro_torch.runtime.serve import (ServeHParams, _decode_cols,
+                                           make_layout, prism_gz, ring_cols)
+    cfg = get_config("gemma3-1b")
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    assert (hq, hkv, hd) == (4, 1, 256)
+    assert TD.decode_route(hq, hkv, True) == "tile"
+    rng = np.random.default_rng(14)
+
+    def rnd(*shape):
+        return T((0.5 * rng.standard_normal(shape)).astype(np.float32))
+    pos = torch.full((2,), 2048 + 62)
+    if layout == "ring":
+        _, valid = ring_cols(cfg.window, cfg.window, pos)
+        valid = valid[:, 0]
+    else:
+        lay = make_layout(4, 2112, ServeHParams(decode_mode="prism",
+                                                means_cr=4.0),
+                          prefill_len=2048)
+        _, _, col_pos = _decode_cols(lay, pos)
+        valid = (col_pos[None] <= pos[:, None, None]).reshape(-1, lay.cap_l)
+    b = valid.shape[0]
+    args = [rnd(2, 1, hq, hd), rnd(b, valid.shape[1], hkv, hd),
+            rnd(b, valid.shape[1], hkv, hd), valid]
+    if layout == "global_prism":
+        cols = means_columns(4, lay.n_loc0, lay.L, torch.device("cpu"))
+        m = 4 * lay.L
+        log_gz = log_repeats(prism_gz(cols, cols.sizes, pos)).reshape(b, m)
+        args += [log_gz, rnd(2, m, hkv, hd), rnd(2, m, hkv, hd)]
+    scale = hd ** -0.5
+    got, _ = _decode_3xtf32(*args, scale=scale)
+    want = TD.decode_stats_reference(*args, scale=scale)
+    for g, w, name in zip(got, want, ("m", "l", "acc")):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+    # the kernel's arithmetic is no farther from the exact (float64)
+    # stats than the plain f32 version is: what is left of the
+    # tolerance at these lengths is f32 summation, not the tensor cores
+    exact = TD.decode_stats_reference(
+        *(a.double() if a.is_floating_point() else a for a in args),
+        scale=scale)
+
+    def share(t):
+        return float(((t[2].double() - exact[2]).abs()
+                      / (1e-5 + 1e-5 * exact[2].abs())).max())
+    assert share(got) <= share(want), (share(got), share(want))
+
+
 @pytest.mark.parametrize("hq,hkv,no_rows,route", [
     (64 * 12, 12, True, "tile"),      # the chunk layout: C = 64 folded
     (12, 12, True, "row"),            # static decode: one token a row
@@ -919,11 +1038,12 @@ def _c_params(lib, entry):
     return [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
 
 
-@pytest.mark.parametrize("hd", [64, 128, 96])
+@pytest.mark.parametrize("hd", [64, 128, 256, 96])
 def test_wrappers_take_head_dims_64_and_128(monkeypatch, hd):
     """The prefill kernel and both decode routes take head dim 64
-    (GPT-2) and 128 (the Llama family) and pass it to their C entry as
-    ``hd``; any other head dim raises before a launch."""
+    (GPT-2), 128 (the Llama family) and 256 (Gemma 3) and pass it to
+    their C entry as ``hd``; any other head dim raises before a
+    launch."""
     import contextlib
     import types
     from repro_torch.kernels import prism_attention as TP
@@ -942,7 +1062,7 @@ def test_wrappers_take_head_dims_64_and_128(monkeypatch, hd):
     for mod in (TD, TP):
         monkeypatch.setattr(mod, "check_tensor", lambda *a, **k: None)
     dispatch.LAUNCHES.clear()
-    assert TP.HEAD_DIMS == TD.HEAD_DIMS == (64, 128)
+    assert TP.HEAD_DIMS == TD.HEAD_DIMS == (64, 128, 256)
     q, k, v, g, lo, hi, row = attention_case(2, 8, 8, 4, 8, 2, hd)
     meta = (T(np.log(g))[None], T(lo)[None], T(hi)[None], T(row)[None])
     c_row = decode_case(2, 8, 2, 2, hd)                  # group 1: row
@@ -955,7 +1075,7 @@ def test_wrappers_take_head_dims_64_and_128(monkeypatch, hd):
         lambda: TD.flash_decode_stats(
             *[T(c_tile[n]) for n in ("q", "k", "v", "valid")],
             scale=c_tile["scale"])]
-    if hd not in (64, 128):
+    if hd not in (64, 128, 256):
         for call in launches:
             with pytest.raises(ValueError, match=f"head dim {hd} not in"):
                 call()

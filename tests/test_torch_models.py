@@ -115,14 +115,20 @@ def test_unported_configs_raise():
         get_config("gemma-7b")
     cfg = get_config("gpt2-small")
     import dataclasses
-    # RoPE, RMSNorm and SwiGLU are ported (the Llama family); sinusoidal
-    # positions, qk-norm and GeGLU are not
-    for over in (dict(pos="sincos"), dict(qk_norm=True),
-                 dict(mlp_kind="geglu")):
+    # RoPE, RMSNorm and SwiGLU (the Llama family), qk-norm, GeGLU, local
+    # layers and embed_scale (Gemma 3) are ported; sinusoidal positions,
+    # the ReLU MLP, logit soft-capping, parallel blocks and MoE are not
+    for over in (dict(pos="sincos"), dict(mlp_kind="relu"),
+                 dict(logit_softcap=30.0), dict(parallel_block=True),
+                 dict(blocks=("moe",) * cfg.n_layers)):
         with pytest.raises(NotImplementedError):
             TT.check_supported(dataclasses.replace(cfg, **over))
+    for over in (dict(qk_norm=True), dict(mlp_kind="geglu"),
+                 dict(embed_scale=True),
+                 dict(blocks=("attn_local", "attn") * 6, window=64)):
+        TT.check_supported(dataclasses.replace(cfg, **over))
     with pytest.raises(NotImplementedError):
-        TL.mlp({}, torch.zeros(2), "geglu")
+        TL.mlp({}, torch.zeros(2), "relu")
 
 
 def test_init_is_seeded():
