@@ -180,7 +180,9 @@ Phases, one JSON line each:
             f32 weights from torch.Generator seed 0 on the card, at the
             same shapes: phase 4's static pairings, phase 5's chunked and
             packed paths in both modes and phase 6's engine in packed
-            exact and packed prism, under the same checks and traces.
+            exact and packed prism (these two on its first 8 layers,
+            ``LLAMA_TICK_DEPTH``: the script's time limit), under the
+            same checks and traces.
             The static and engine decode steps take the decode kernel's
             tile route (a group of 8, no row map), the packed ticks the
             row route; the launch counts are held per path.
@@ -198,8 +200,31 @@ Phases, one JSON line each:
             kernel once a layer (22 of them windowed), segment means
             once a global layer where it captures means, and every decode
             step the decode kernel's tile route once a layer.
+11. path    Mixture-of-Experts: OLMoE-1B-7B at full width and depth (16
+            MoE layers, d 2048, 16 heads of 128, qk-norm, 64 experts
+            top-8 of SwiGLU d_ff 1024 at capacity factor 1.25, untied head
+            over 50304), f32 weights from torch.Generator seed 0 on the
+            card, at the main path's shapes: phase 4's static pairings,
+            phase 5's chunked and packed paths in both modes and phase
+            6's engine runs (paged).  Capacity counts per routing group
+            (a prefill shard; a decode step's, chunk call's or packed
+            tick's tokens), so every run is held to its backend='plain'
+            twin: the counted and timed run records its routing (no
+            launches), the twin, teacher-forced on its tokens, replays
+            it; a token the twin would route otherwise must have a
+            router margin under ROUTE_MARGIN in both runs (``replay_
+            check``), and the logits compare under the path tolerance.
+12. path    Gemma 7B at full width and depth (28 layers, d 3072, 16 heads
+            of 256, GeGLU d_ff 24576, sqrt(d) input scaling, tied head
+            over 256000), the same paths under phases 4-6's references.
+            Before both, phase 3 checks and times the three kernels at
+            their layouts (``check_family``): attention PRISM and
+            Voltage, segment means and the augment at D 2048 and 3072,
+            the decode kernel's static, chunk (a folded group of 64; at
+            head dim 256 the split tile kernel), packed and paged layouts
+            and a poisoned page.
    total    the script's seconds so far.
-11. kernels one line listing every kernel with its numbers: ``ms`` is
+13. kernels one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -220,7 +245,8 @@ Phases, one JSON line each:
             its numbers at Yi-6B's layouts (head dim 128, D 4096) and
             its launches on phase 9's paths; each row's ``gemma`` the
             same at Gemma 3 1B's layouts (head dim 256, D 1152) and its
-            launches on phase 10's paths.
+            launches on phase 10's paths; ``olmoe`` and ``gemma7b`` the
+            same at phases 11 and 12's layouts and paths.
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -234,6 +260,7 @@ import os
 import statistics
 import subprocess
 import sys
+from dataclasses import replace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -256,6 +283,10 @@ LLAMA = "yi-6b"
 # and depth; its prompt is 2048, so that each of the P shards holds a
 # window of 512 (the reference's window prefill needs one a shard)
 GEMMA, GEMMA_PROMPT = "gemma3-1b", 2048
+# phase 11: Mixture-of-Experts, OLMoE-1B-7B (64 experts top-8, capacity
+# factor 1.25, MHA at head dim 128); phase 12: Gemma 7B (MHA at head dim
+# 256, GeGLU); both at full width and depth, at the main path's shapes
+MOE, GEMMA7 = "olmoe-1b-7b", "gemma-7b"
 # the static prefill / decode pairings: phase 4's two, and Gemma's third
 PAIRINGS = (("voltage", "exact"), ("prism", "prism"))
 GEMMA_PAIRINGS = PAIRINGS + (("voltage", "prism"),)
@@ -276,6 +307,12 @@ PATH_REL_TOL = 1e-4
 # greedy tokens must agree where the reference's top-2 gap exceeds this
 # share of its largest |logit|
 TOKEN_GAP = 1e-3
+# MoE routing: a kernel run and its backend='plain' twin may route a
+# token differently only where the token's router margin (the gap
+# between its k-th and (k+1)-th router logits, f32) is under this in
+# both runs; the twin replays the kernel run's decisions, so the logits
+# compare under PATH_REL_TOL whatever a near-tie does
+ROUTE_MARGIN = 1e-4
 
 SOURCES = {
     "prism_flash_attention": (
@@ -387,14 +424,15 @@ def device_events(prof):
                   key=lambda e: e.time_range.start)
 
 
-def trace_device(torch, fn, complete=None, tries=12):
+def trace_device(torch, fn, complete=None, tries=12, why=None):
     """torch.profiler over ``fn()`` on the CPU and the card.  A trace that
     recorded no device activity, or that ``complete(prof)`` finds short
     of what ``fn`` launched, is taken again, up to ``tries`` times, after
     a pause that grows each time: the profiler's device tracing on the
     card now and then comes back empty or holding only part of a call,
     up to three traces in a row (six in a row once, for a one-second
-    Yi-6B prefill).  The error names each try's device record count."""
+    Yi-6B prefill).  The error names each try's device record count and
+    ``why(prof)`` of the last try."""
     import time
     from torch.profiler import ProfilerActivity, profile
     seen = []
@@ -410,25 +448,50 @@ def trace_device(torch, fn, complete=None, tries=12):
             return prof
         seen.append(len(events))
     raise RuntimeError(f"the profiler recorded no or an incomplete device "
-                       f"trace in {tries} tries (device records: {seen})")
+                       f"trace in {tries} tries (device records: {seen}"
+                       f"{'' if why is None else '; ' + why(prof)})")
 
 
 def trace_window(torch, fn):
     """``trace_device`` over a window of the serving path, complete when
     it holds a device record of every launch of the port's kernels that
-    the window counted (``LAUNCHES``)."""
+    the window counted (``LAUNCHES``), kernel by kernel.  On failure the
+    error gives both counts by kernel, the same count over the
+    profiler's raw records (before torch parses them into events) and
+    the kernels' names."""
     from repro_torch.kernels.dispatch import LAUNCHES
     counted = {}
 
     def run():
-        n0 = sum(LAUNCHES[name] for name in TOL)
+        n0 = {name: LAUNCHES[name] for name in TOL}
         fn()
-        counted["n"] = sum(LAUNCHES[name] for name in TOL) - n0
+        counted.update({name: LAUNCHES[name] - n0[name] for name in TOL})
+
+    def by_kind(names):
+        n = dict.fromkeys(TOL, 0)
+        for name in names:
+            kind = kernel_kind(name)
+            if kind in n:
+                n[kind] += 1
+        return n
+
+    def traced(prof):
+        return by_kind(e.name for e in device_events(prof))
 
     def complete(prof):
-        return counted["n"] == sum(1 for e in device_events(prof)
-                                   if kernel_kind(e.name) in TOL)
-    return trace_device(torch, run, complete)
+        return traced(prof) == counted
+
+    def why(prof):
+        from torch.autograd import DeviceType
+        raw = getattr(prof.profiler, "kineto_results", None)
+        raw = None if raw is None else by_kind(
+            e.name() for e in raw.events()
+            if e.device_type() == DeviceType.CUDA)
+        names = sorted({e.name[:120] for e in device_events(prof)
+                        if kernel_kind(e.name) in TOL})
+        return (f"launched {counted}, traced {traced(prof)}, raw records "
+                f"{raw}: {names}")
+    return trace_device(torch, run, complete, why=why)
 
 
 def bound_ms(n_bytes, flops, flop_per_s=F32_FLOP_PER_S):
@@ -1150,55 +1213,17 @@ def check_decode(torch, chk, timer):
 
 def check_head_dim_128(torch, chk, timer):
     """Phase 3 at the Llama family's head dim of 128 (Yi-6B's widths):
-    prefill attention at Yi's PRISM and Voltage shapes, then GQA groups
-    1, 3 and 8 over ragged Nq and M; segment means and the augment at
-    D 4096; the decode kernel at Yi's static decode (a group of 8 and no
-    row map: the tile route, and the row route on the same inputs, both
-    timed), its chunk layout (the tile route) and packed layouts (the
-    row route through the row map), each again over the page pool, a
-    poisoned page, and a sweep of both routes (groups 1 to 128, ragged
+    ``check_family``'s layouts at Yi's widths (a group of 8: its static
+    decode takes the tile route), then GQA groups 1, 3 and 8 over ragged
+    Nq and M, and a sweep of both decode routes (groups 1 to 128, ragged
     M and means, row maps, a 68 KB row-route block).  Errors are filed
     under ``<kernel>/hd128``."""
-    from repro_torch.configs import get_config
-    out = {}
-    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = check_family(torch, chk, timer, LLAMA, "hd128", 11)
+    gen = torch.Generator(device="cuda").manual_seed(12)
     both = attention_checker(chk, key="prism_flash_attention/hd128")
-    out["attention"] = {mode: attention_main(torch, timer, both, mode,
-                                             arch=LLAMA, tag="yi")
-                        for mode in ("prism", "voltage")}
     attention_groups(torch, both, gen, ((8, 8), (12, 4), (32, 4)), 128)
-    out["segment_means"] = check_segment_means(
-        torch, chk, timer, d=get_config(LLAMA).d_model)
-
-    by_route = {"row": 0, "tile": 0}
-    both = decode_checker(torch, chk, by_route,
+    both = decode_checker(torch, chk, out["decode"]["cases_by_route"],
                           key="flash_decode_stats/hd128")
-    times, dec_args = {}, {}
-    for mode in ("exact", "prism"):
-        args, scale = decode_inputs(torch, mode, gen, arch=LLAMA)
-        both(args, scale, f"yi/{mode}")
-        times[mode] = time_decode(torch, timer, args, scale)
-        times[mode].update(time_routes(torch, timer, args, scale))
-        dec_args[mode] = args
-    chunk, packed, packed_prism, rows, scale = tick_layout_inputs(
-        torch, gen, arch=LLAMA)
-    for name in ("off448", "staggered"):
-        both(chunk[name], scale, f"yi/chunk/{name}")
-    both(packed, scale, "yi/packed/exact", rows=rows)
-    both(packed_prism, scale, "yi/packed/prism", rows=rows)
-    times["chunk"] = time_decode(torch, timer, chunk["off448"], scale)
-    times["packed"] = time_decode(torch, timer, packed, scale, rows=rows)
-    times["packed_prism"] = time_decode(torch, timer, packed_prism, scale,
-                                        rows=rows)
-    times["paged"] = check_paged(torch, chk, timer, both, gen, {
-        "decode": (dec_args["exact"], None, None),
-        "decode_prism": (dec_args["prism"], None, None),
-        "packed": (packed, rows, "packed"),
-        "packed_prism": (packed_prism, rows, "packed_prism")}, scale, times)
-    times["poisoned"] = check_poisoned(torch, chk, gen, {
-        "decode": (dec_args["exact"], None),
-        "decode_prism": (dec_args["prism"], None),
-        "packed": (packed, rows)}, scale, key="flash_decode_stats/hd128")
     for hq, hkv, m_loc, rep, mz, max_pos in (
             (8, 8, 100, 1, 37, None), (12, 4, 33, 4, 37, None),
             (32, 4, 300, 2, 100, 20), (8, 1, 190, 2, 70, 60),
@@ -1217,8 +1242,6 @@ def check_head_dim_128(torch, chk, timer):
             (128, 1, 70, 4, 37, "random")):
         sweep_tile_case(torch, both, gen, hq, hkv, m_loc, rep, mz, kind,
                         hd=128)
-    times["cases_by_route"] = by_route
-    out["decode"] = times
     return out
 
 
@@ -1300,6 +1323,63 @@ def check_head_dim_256(torch, chk, timer):
             (20, 1, 70, 4, 37, "random")):
         sweep_tile_case(torch, both, gen, hq, hkv, m_loc, rep, mz, kind,
                         hd=256)
+    times["cases_by_route"] = by_route
+    out["decode"] = times
+    return out
+
+
+def check_family(torch, chk, timer, arch, tag, seed):
+    """Phase 3 at a family's own layouts (Yi-6B's, and phases 11 and
+    12's: OLMoE's 16 heads of 128 and D 2048, Gemma 7B's 16 heads of 256
+    and D 3072): prefill attention at its PRISM and Voltage shapes;
+    segment means and the augment at its width; the decode kernel at its
+    static decode (exact and prism, no row map: the route the rule
+    names, the other on the same inputs, both timed), its chunk layout
+    (the C = 64 queries folded into the head axis: the tile route, at
+    head dim 256 ``decode_stats_mq_split_kernel``), its packed layouts
+    through the row map, each again over the page pool, and a poisoned
+    page.  Errors are filed under ``<kernel>/<tag>``."""
+    from repro_torch.configs import get_config
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    both = attention_checker(chk, key=f"prism_flash_attention/{tag}")
+    out["attention"] = {mode: attention_main(torch, timer, both, mode,
+                                             arch=arch, tag=tag)
+                        for mode in ("prism", "voltage")}
+    out["segment_means"] = check_segment_means(
+        torch, chk, timer, d=get_config(arch).d_model,
+        key=f"segment_means/{tag}")
+    key = f"flash_decode_stats/{tag}"
+    by_route = {"row": 0, "tile": 0}
+    both = decode_checker(torch, chk, by_route, key=key)
+    times, dec_args = {}, {}
+    for mode in ("exact", "prism"):
+        args, scale = decode_inputs(torch, mode, gen, arch=arch)
+        both(args, scale, f"{tag}/{mode}")
+        times[mode] = time_decode(torch, timer, args, scale)
+        times[mode].update(time_routes(torch, timer, args, scale))
+        dec_args[mode] = args
+    chunk, packed, packed_prism, rows, scale = tick_layout_inputs(
+        torch, gen, arch=arch)
+    for name in ("off0", "off448", "staggered"):
+        both(chunk[name], scale, f"{tag}/chunk/{name}")
+    both(packed, scale, f"{tag}/packed/exact", rows=rows)
+    both(packed_prism, scale, f"{tag}/packed/prism", rows=rows)
+    times["chunk"] = time_decode(torch, timer, chunk["off448"], scale)
+    times["packed"] = time_decode(torch, timer, packed, scale, rows=rows)
+    times["packed_prism"] = time_decode(torch, timer, packed_prism, scale,
+                                        rows=rows)
+    times["paged"] = check_paged(torch, chk, timer, both, gen, {
+        "decode": (dec_args["exact"], None, None),
+        "decode_prism": (dec_args["prism"], None, None),
+        "chunk": (chunk["off448"], None, "chunk"),
+        "packed": (packed, rows, "packed"),
+        "packed_prism": (packed_prism, rows, "packed_prism")}, scale, times)
+    times["poisoned"] = check_poisoned(torch, chk, gen, {
+        "decode": (dec_args["exact"], None),
+        "decode_prism": (dec_args["prism"], None),
+        "packed": (packed, rows), "chunk": (chunk["off448"], None)},
+        scale, key=key)
     times["cases_by_route"] = by_route
     out["decode"] = times
     return out
@@ -1784,6 +1864,60 @@ def tokens_agree(torch, tokens, ref_logits):
     return int(clear.sum()), clear.numel()
 
 
+def replay_check(torch, rec, twin, what):
+    """The routing rule of a MoE run: ``rec`` the kernel run's
+    ``RoutingLog``, ``twin`` its backend='plain' twin's, which replayed
+    ``rec`` and kept its own decisions beside.  Every token whose own
+    top-k (as a set) differs from the replayed one must have a router
+    margin under ROUTE_MARGIN in both runs, and the twin's own capacity
+    drops may differ only in a group where such a token is.  Returns the
+    decisions compared, the tokens that flipped, their largest margin,
+    the smallest margin of any decision and the share of assignments
+    dropped."""
+    from repro_torch.models.moe import record_keep, record_margin
+    if len(rec.calls) != len(twin.calls):
+        raise AssertionError(f"{what}: {len(rec.calls)} routed calls, the "
+                             f"plain twin made {len(twin.calls)}")
+
+    def by_expert(idx, keep):
+        """A token's (expert, kept) pairs in expert order: two runs may
+        rank a token's own experts in another order."""
+        order = idx.argsort(dim=-1)
+        return (idx.gather(-1, order),
+                keep.view(idx.shape).gather(-1, order))
+
+    n, flips, flip_margin, least, kept, assigned = 0, 0, 0.0, math.inf, 0, 0
+    for a, b in zip(rec.calls, twin.calls):
+        if not torch.equal(a["idx"], b["idx"]):
+            raise AssertionError(f"{what}: the twin did not replay")
+        keep_a = record_keep(a)
+        own, own_keep = by_expert(b["own_idx"], record_keep(b, own=True))
+        used, keep = by_expert(b["idx"], keep_a)
+        flip = (own != used).any(dim=-1)                         # (G, T)
+        g = flip.shape[0]
+        margin_a = record_margin(a)
+        if bool(flip.any()):
+            m = torch.maximum(margin_a, record_margin(b))[flip]
+            flip_margin = max(flip_margin, float(m.max()))
+            if flip_margin > ROUTE_MARGIN:
+                raise AssertionError(
+                    f"{what}: a token routed differently at a router "
+                    f"margin of {flip_margin:.3e} > {ROUTE_MARGIN}")
+            flips += int(flip.sum())
+        moved = (own_keep != keep).view(g, -1).any(dim=1)
+        if bool((moved & ~flip.any(dim=1)).any()):
+            raise AssertionError(f"{what}: capacity dropped other entries "
+                                 "in a group where no token flipped")
+        n += flip.numel()
+        least = min(least, float(margin_a.min()))
+        kept += int(keep_a.sum())
+        assigned += keep_a.numel()
+    return {"decisions": n, "flipped": flips,
+            "flipped_margin_max": flip_margin, "margin_min": least,
+            "margin_bound": ROUTE_MARGIN,
+            "dropped_share": 1.0 - kept / max(1, assigned)}
+
+
 def check_launches(path, counts, need):
     for name, n in need.items():
         if counts.get(name, 0) != n:
@@ -1804,14 +1938,19 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS):
     """The static path in each (prefill, decode) pairing, keyed by the
     decode mode (by 'prefill+decode' for a pairing other than the mode's
     own): exact decode held to the plain full forward, prism decode to
-    the same run with backend='plain'."""
+    the same run with backend='plain'.  A model with MoE blocks holds
+    every pairing to its backend='plain' twin under ``replay_check``:
+    the counted run records its routing (``RoutingLog`` launches
+    nothing)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.serve import setup
     from repro_torch.models import transformer as T
+    from repro_torch.models.moe import RoutingLog
     arch_cfg = get_config(arch)
     n_layers = arch_cfg.n_layers
     n_local = arch_cfg.block_kinds.count("attn_local")
+    moe = "moe" in arch_cfg.block_kinds
     results = {}
     for prefill_mode, mode in pairings:
         key = (mode if (prefill_mode, mode) in PAIRINGS
@@ -1820,16 +1959,21 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS):
                     seq_shards=SHARDS, decode_mode=mode, cr=CR,
                     device="cuda", params=params, prefill=prefill_mode)
         width = ("n_layers", "d_model", "n_heads", "n_kv_heads", "hd",
-                 "d_ff", "vocab_size")
+                 "d_ff", "vocab_size", "n_experts", "top_k", "expert_d_ff")
         got = [getattr(run.cfg, f) for f in width]
-        if got != [getattr(arch_cfg, f) for f in width]:  # full size
+        if got != [getattr(arch_cfg, f) for f in width]:   # full size
             raise AssertionError(f"{arch}/{mode}: {dict(zip(width, got))}")
         run.run()                                    # warm-up
+        if moe:                 # the counted run records its routing
+            hp = run.hp
+            run.hp = replace(hp, routing=RoutingLog())
         torch.cuda.synchronize()
         LAUNCHES.clear()
         tokens, logits, times = run.run()
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
+        if moe:
+            rec, run.hp = run.hp.routing, hp
         check_launches(f"{arch}/static/{key}", counts, {
             "prism_flash_attention": n_layers,
             "prism_flash_attention.window": n_local,
@@ -1845,7 +1989,19 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS):
                 torch.isfinite(logits).all()):
             raise AssertionError(f"{key}: logits {tuple(logits.shape)} "
                                  "not finite or of the wrong shape")
-        if mode == "exact":
+        extra = {}
+        if moe:
+            plain = setup(arch, batch=BATCH, prompt_len=prompt, gen=GEN,
+                          seq_shards=SHARDS, decode_mode=mode, cr=CR,
+                          device="cuda", params=params, backend="plain",
+                          prefill=prefill_mode)
+            plain.hp = replace(plain.hp, routing=RoutingLog(replay=rec))
+            _, ref, _ = plain.run(forced=tokens[:, :-1])
+            extra["routing"] = replay_check(torch, rec, plain.hp.routing,
+                                            f"{arch}/static/{key}")
+            del rec
+            ref_name = "backend='plain' run replaying the routing"
+        elif mode == "exact":
             # teacher-forced: one causal forward over prompt + generated
             # tokens covers every step (the head over those steps only)
             seq = torch.cat([run.prompts, tokens[:, :-1]], dim=1)
@@ -1877,7 +2033,7 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS):
             "clock": times["clock"], "launches": counts,
             "logits_rel_err": err, "reference": ref_name,
             "tol": PATH_REL_TOL, "tokens_checked": checked,
-            "tokens_total": total}
+            "tokens_total": total, **extra}
         emit("path", arch=arch, mode=mode, prefill=prefill_mode,
              batch=BATCH, prompt=prompt, gen=GEN, shards=SHARDS, cr=CR,
              **results[key])
@@ -2143,9 +2299,11 @@ def profile_ticks(torch, cfg, params, prompts, lay, hp, join):
     return out
 
 
-def drive_ticks(torch, params, arch=ARCH):
+def drive_ticks(torch, params, arch=ARCH, cfg=None):
     """Phase 5: the chunked and packed paths in both decode modes, at the
-    main path's shape; returns the launches of each path."""
+    main path's shape (a model with MoE blocks through ``moe_ticks``);
+    returns the launches of each path.  ``cfg`` (default ``arch``'s)
+    serves a config cut in depth, ``params`` its layers."""
     from repro_torch.core.protocol import PrismConfig
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.serve import setup
@@ -2153,11 +2311,8 @@ def drive_ticks(torch, params, arch=ARCH):
                                            make_layout, prefill)
     run = setup(arch, batch=BATCH, prompt_len=PROMPT, gen=GEN,
                 seq_shards=SHARDS, cr=CR, device="cuda", params=params)
-    cfg, prompts_t = run.cfg, run.prompts
-    # the rewind and decode steps take the tile route where static
-    # decode does (Yi-6B), the chunk calls always
+    cfg, prompts_t = cfg or run.cfg, run.prompts
     prompts = prompts_t.tolist()
-    n_layers = cfg.n_layers
     join = [i // 2 for i in range(BATCH)]       # staggered admission
     voltage = PrismConfig(P=SHARDS, cr=CR, mode="voltage")
     launches = {}
@@ -2165,6 +2320,10 @@ def drive_ticks(torch, params, arch=ARCH):
         hp = ServeHParams(decode_mode=mode, means_cr=CR)
         lay = make_layout(SHARDS, run.lay.cap, hp, prefill_len=PROMPT)
         kw = dict(gen=GEN, lay=lay, hp=hp, device="cuda")
+        if "moe" in cfg.block_kinds:
+            launches.update(moe_ticks(torch, cfg, params, prompts, join,
+                                      mode, kw))
+            continue
 
         # chunked prefill, the rewind, greedy decode
         run_chunked(cfg, params, prompts, chunk_len=CHUNK_LEN, join=join,
@@ -2175,12 +2334,8 @@ def drive_ticks(torch, params, arch=ARCH):
             cfg, params, prompts, chunk_len=CHUNK_LEN, join=join, **kw)
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
-        check_launches(f"{arch}/chunked/{mode}", counts, {
-            "flash_decode_stats": n_layers * (info["calls"] + GEN),
-            "flash_decode_stats.mq": n_layers * (
-                info["calls"] + (GEN if static_tile(cfg) else 0)),
-            "flash_decode_stats.paged": 0,
-            "prism_flash_attention": 0, "segment_means": 0})
+        check_launches(f"{arch}/chunked/{mode}", counts,
+                       tick_launches(cfg, "chunked", mode, info["calls"]))
         launches[f"chunked/{mode}"] = counts
         _, ref_cache = prefill(cfg, params, prompts_t, voltage, lay, hp)
         leaf_err = {k: max(rel_err(a[k], b[k])
@@ -2209,7 +2364,7 @@ def drive_ticks(torch, params, arch=ARCH):
         checked, total = tokens_agree(torch, tokens, ref)
         del ref
         emit("path", arch=arch, path="chunked", mode=mode, batch=BATCH,
-             prompt=PROMPT,
+             prompt=PROMPT, layers=cfg.n_layers,
              gen=GEN, shards=SHARDS, cr=CR, chunk_len=CHUNK_LEN, join=join,
              **info, launches=counts, leaf_rel_err=leaf_err,
              logits_rel_err=err, reference=ref_name, tol=PATH_REL_TOL,
@@ -2234,14 +2389,11 @@ def drive_ticks(torch, params, arch=ARCH):
             cfg, params, prompts, budget=TOKEN_BUDGET, **kw)
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
-        per_tick = n_layers * (2 if mode == "prism" else 1)
-        check_launches(f"{arch}/packed/{mode}", counts, {
-            "flash_decode_stats": per_tick * p_info["ticks"],
-            "flash_decode_stats.mq": 0, "flash_decode_stats.paged": 0,
-            "prism_flash_attention": 0, "segment_means": 0})
+        check_launches(f"{arch}/packed/{mode}", counts,
+                       tick_launches(cfg, "packed", mode, p_info["ticks"]))
         launches[f"packed/{mode}"] = counts
         emit("path", arch=arch, path="packed", mode=mode, batch=BATCH,
-             prompt=PROMPT,
+             prompt=PROMPT, layers=cfg.n_layers,
              gen=GEN, shards=SHARDS, cr=CR, token_budget=TOKEN_BUDGET,
              **p_info, launches=counts, logits_rel_err=err,
              reference=f"the chunked path ({mode}), teacher-forced",
@@ -2253,6 +2405,99 @@ def drive_ticks(torch, params, arch=ARCH):
              chunk_call=tr["chunk_call"])
         emit("trace", arch=arch, path="packed", mode=mode,
              packed_tick=tr["packed_tick"])
+    return launches
+
+
+def tick_launches(cfg, path, mode, calls_or_ticks):
+    """The decode-kernel launches a chunked run (its chunk calls, the
+    rewind and decode steps) or a packed run (its ticks; two a layer in
+    prism mode) needs, and no other kernel.  The chunk calls take the
+    tile route, the rewind and decode steps where static decode does
+    (Yi-6B); packed ticks (a row map) the row route."""
+    n_layers = cfg.n_layers
+    if path == "chunked":
+        return {"flash_decode_stats": n_layers * (calls_or_ticks + GEN),
+                "flash_decode_stats.mq": n_layers * (
+                    calls_or_ticks + (GEN if static_tile(cfg) else 0)),
+                "flash_decode_stats.paged": 0,
+                "prism_flash_attention": 0, "segment_means": 0}
+    per_tick = n_layers * (2 if mode == "prism" else 1)
+    return {"flash_decode_stats": per_tick * calls_or_ticks,
+            "flash_decode_stats.mq": 0, "flash_decode_stats.paged": 0,
+            "prism_flash_attention": 0, "segment_means": 0}
+
+
+def moe_ticks(torch, cfg, params, prompts, join, mode, kw):
+    """Phase 5's chunked and packed paths for a model with MoE blocks, in
+    one decode mode.  A chunk call or packed tick routes its tokens as
+    one group, so neither path can be held to the monolithic prefill
+    (whose groups are the shards) or to the other: each run is held to
+    its own backend='plain' twin under ``replay_check``, the cache after
+    the last chunk leaf by leaf.  Per path: the counted and timed run,
+    recording its routing (the chunked path after a warm-up), then the
+    twin teacher-forced on its tokens.  Returns the launches of each
+    path."""
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.models.moe import RoutingLog
+    arch, hp = cfg.name, kw["hp"]
+    launches = {}
+    for path in ("chunked", "packed"):
+        what = f"{arch}/{path}/{mode}"
+
+        def go(hp, forced=None):
+            k = dict(kw, hp=hp)
+            if path == "chunked":
+                return run_chunked(cfg, params, prompts, chunk_len=CHUNK_LEN,
+                                   join=join, forced=forced, **k)
+            t, lg, _, info = run_packed(
+                cfg, params, prompts, budget=TOKEN_BUDGET,
+                forced=None if forced is None else forced.tolist(), **k)
+            return t, lg, None, info
+        if path == "chunked":
+            go(hp)                                              # warm-up
+        rec = RoutingLog()
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        tokens, logits, snap, info = go(replace(hp, routing=rec))
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        check_launches(what, counts, tick_launches(
+            cfg, path, mode, info["calls" if path == "chunked"
+                                   else "ticks"]))
+        launches[f"{path}/{mode}"] = counts
+        twin = RoutingLog(replay=rec)
+        _, ref, p_snap, _ = go(replace(hp, backend="plain", routing=twin),
+                               forced=tokens[:, :-1])
+        routing = replay_check(torch, rec, twin, what)
+        del rec, twin
+        leaf_err = {}
+        if path == "chunked":
+            leaf_err = {k: max(rel_err(a[k], b[k])
+                               for a, b in zip(snap, p_snap))
+                        for k in snap[0]}
+            if max(leaf_err.values()) > PATH_REL_TOL:
+                raise AssertionError(f"{what}: cache leaves {leaf_err} vs "
+                                     f"the plain twin > {PATH_REL_TOL}")
+        err = rel_err(logits, ref)
+        if tuple(logits.shape) != (GEN, BATCH, cfg.vocab_size) or not (
+                err <= PATH_REL_TOL):
+            raise AssertionError(f"{what}: logits rel err {err:.3e} vs the "
+                                 f"plain twin > {PATH_REL_TOL}")
+        checked, total = tokens_agree(torch, tokens, ref)
+        emit("path", arch=arch, path=path, mode=mode, batch=BATCH,
+             prompt=PROMPT, layers=cfg.n_layers, gen=GEN, shards=SHARDS, cr=CR,
+             chunk_len=CHUNK_LEN, join=join, token_budget=TOKEN_BUDGET,
+             **info, launches=counts, leaf_rel_err=leaf_err,
+             logits_rel_err=err,
+             reference="backend='plain' twin replaying the routing",
+             tol=PATH_REL_TOL, tokens_checked=checked, tokens_total=total,
+             routing=routing)
+        del logits, ref, snap, p_snap
+    tr = profile_ticks(torch, cfg, params, prompts, kw["lay"], hp, join)
+    emit("trace", arch=arch, path="chunked", mode=mode,
+         chunk_call=tr["chunk_call"])
+    emit("trace", arch=arch, path="packed", mode=mode,
+         packed_tick=tr["packed_tick"])
     return launches
 
 
@@ -2292,21 +2537,24 @@ def engine_trace(vocab):
     return prompts
 
 
-def run_engine(torch, cfg, params, prefill, mode, paged, prompts):
+def run_engine(torch, cfg, params, prefill, mode, paged, prompts,
+               forced=None, **hp_over):
     """The trace through ``ServingEngine``: every request submitted at
     t = 0 (8 take the slots, the rest admit as slots free up), 64 greedy
     tokens each.  The engine's tick callables are wrapped here to keep
-    each decode row's logits by request.  Launch counters are zeroed just
-    before ``run`` and read just after.  Returns (engine, tokens, logits
-    by request, launches, wall s)."""
+    each decode row's logits by request (and, with ``forced``, to
+    teacher-force each request's tokens).  ``hp_over``: fields of the
+    run's ``ServeHParams`` (a plain twin's backend, a ``RoutingLog``).
+    Launch counters are zeroed just before ``run`` and read just after.
+    Returns (engine, tokens, logits by request, launches, wall s)."""
     import time
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.runtime.serve import ServeHParams
     from repro_torch.serving import EngineConfig, ServingEngine
     eng = ServingEngine(cfg, params, EngineConfig(
-        hp=ServeHParams(decode_mode=mode, means_cr=CR), paged=paged,
-        prefill_mode=prefill, **ENGINE), n_seq=SHARDS)
-    log = keep_logits(eng)
+        hp=ServeHParams(decode_mode=mode, means_cr=CR, **hp_over),
+        paged=paged, prefill_mode=prefill, **ENGINE), n_seq=SHARDS)
+    log = keep_logits(eng, forced)
     for prompt in prompts:
         eng.submit(prompt, max_new_tokens=GEN)
     torch.cuda.synchronize()
@@ -2318,19 +2566,25 @@ def run_engine(torch, cfg, params, prefill, mode, paged, prompts):
     return eng, out, log, dict(LAUNCHES), wall
 
 
-def keep_logits(eng):
+def keep_logits(eng, forced=None):
     """Wrap the engine's tick callables to keep each decode row's logits
     by request: {rid: [logits row, ...]} in the order sampled (a
     request that starts again keeps its earlier rows before the new
-    ones)."""
+    ones).  ``forced`` {rid: tokens}: the engine samples request rid's
+    k-th token as ``forced[rid][k]`` (its logit raised above the row's
+    largest in a copy the engine sees), the log keeps the real row."""
     log = {}
     packed, decode = eng._packed, eng._decode
 
     def keep(logits, slots):
+        seen = logits.clone() if forced is not None else logits
         for j, s in slots:
-            log.setdefault(eng._sched.active[s].req.rid, []).append(
-                logits[j])
-        return logits
+            rid = eng._sched.active[s].req.rid
+            log.setdefault(rid, []).append(logits[j])
+            if forced is not None:
+                tok = forced[rid][len(log[rid]) - 1]
+                seen[j, tok] = logits[j].max() + 1.0
+        return seen
 
     def packed_tick(tok, slot, pos, off, pre):
         return keep(packed(tok, slot, pos, off, pre),
@@ -2408,6 +2662,37 @@ def compare_engine(torch, out_p, log_p, out_d, log_d, what="engine"):
             "tokens_equal": sum(out_p[r] == out_d[r] for r in out_d)}
 
 
+def moe_engine_runs(torch, cfg, params, prefill, mode, prompts):
+    """Phase 6's runs of one (prefill, decode) mode for a model with MoE
+    blocks, both on the paged cache.  A tick routes its tokens as one
+    group, and exact mode's prefix hits change which tokens a tick
+    holds, so the dense cache's run is no reference.  The counted and
+    timed run records its routing; the backend='plain' twin, teacher-
+    forced on its tokens, replays it (``replay_check``): the run is held
+    to the twin's logits, and its tokens to the twin's own greedy choice
+    where the gap is clear.  Returns ({True: the run, False: the twin},
+    the comparison, the reference's name)."""
+    from repro_torch.models.moe import RoutingLog
+    what = f"{cfg.name}/engine/{prefill}/{mode}"
+    rec = RoutingLog()
+    eng, out, log, counts, wall = run_engine(
+        torch, cfg, params, prefill, mode, True, prompts, routing=rec)
+    check_launches(f"{what}/paged", counts,
+                   engine_launches(eng, True, cfg.n_layers))
+    twin = RoutingLog(replay=rec)
+    t_eng, _, t_log, t_counts, t_wall = run_engine(
+        torch, cfg, params, prefill, mode, True, prompts, forced=out,
+        backend="plain", routing=twin)
+    own = {rid: [int(row.argmax()) for row in rows]
+           for rid, rows in t_log.items()}
+    cmp = compare_engine(torch, out, log, own, t_log, what=what)
+    cmp["routing"] = replay_check(torch, rec, twin, what)
+    return ({True: (eng, out, log, counts, wall),
+             False: (t_eng, own, t_log, t_counts, t_wall)}, cmp,
+            "the backend='plain' twin on the paged cache, teacher-forced "
+            "on the run and replaying its routing")
+
+
 def engine_record(eng, out, wall):
     """What a run gives its users, on the host clock: wall time, tokens
     a second, time to the first token and ms per tick."""
@@ -2470,32 +2755,41 @@ def profile_paged_tick(torch, cfg, params, mode, prompts):
     return out
 
 
-def drive_engine(torch, params, arch=ARCH, runs=ENGINE_RUNS):
+def drive_engine(torch, params, arch=ARCH, runs=ENGINE_RUNS, cfg=None):
     """Phase 6: the trace through the paged engine in each of ``runs``,
-    each checked against the dense cache's run; exact mode's prefix
-    cache must hit and account for every page.  Returns the launches of
+    each checked against the dense cache's run (a model with MoE blocks:
+    against its backend='plain' twin, ``moe_engine_runs``); exact mode's
+    prefix cache must hit and account for every page.  Returns the launches of
     each paged run, and each packed paged run's tokens and logits by
-    decode mode (phases 7 and 8's reference)."""
+    decode mode (phases 7 and 8's reference).  ``cfg`` (default
+    ``arch``'s) serves a config cut in depth, ``params`` its layers."""
     from repro_torch.configs import get_config
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     prompts = engine_trace(cfg.vocab_size)
     card = nvidia_smi()
+    moe = "moe" in cfg.block_kinds
     launches, kept = {}, {}
     for prefill, mode in runs:
-        runs = {}
-        for paged in (True, False):
-            eng, out, log, counts, wall = run_engine(
-                torch, cfg, params, prefill, mode, paged, prompts)
-            check_launches(f"{arch}/engine/{prefill}/{mode}/"
-                           f"{'paged' if paged else 'dense'}", counts,
-                           engine_launches(eng, paged, cfg.n_layers))
-            runs[paged] = (eng, out, log, counts, wall)
+        if moe:
+            runs, cmp, ref_name = moe_engine_runs(torch, cfg, params,
+                                                  prefill, mode, prompts)
+        else:
+            runs = {}
+            for paged in (True, False):
+                eng, out, log, counts, wall = run_engine(
+                    torch, cfg, params, prefill, mode, paged, prompts)
+                check_launches(f"{arch}/engine/{prefill}/{mode}/"
+                               f"{'paged' if paged else 'dense'}", counts,
+                               engine_launches(eng, paged, cfg.n_layers))
+                runs[paged] = (eng, out, log, counts, wall)
+            ref_name = "the same trace on the dense cache (paged=False)"
         eng, out, log, counts, wall = runs[True]
         d_eng, d_out, d_log, d_counts, d_wall = runs[False]
         if len(d_out) != ENGINE_REQUESTS:
             raise AssertionError(f"engine/{prefill}/{mode}: {len(d_out)} "
                                  "requests finished")
-        cmp = compare_engine(torch, out, log, d_out, d_log)
+        if not moe:
+            cmp = compare_engine(torch, out, log, d_out, d_log)
         kv = eng.kv_cache
         kv.check()
         registered = ({p for e in kv.prefix.entries.values()
@@ -2510,15 +2804,16 @@ def drive_engine(torch, params, arch=ARCH, runs=ENGINE_RUNS):
         if prefill == "packed":
             kept[mode] = (out, log)
         emit("path", arch=arch, path="engine", prefill=prefill, mode=mode,
-             card=card, **ENGINE,
+             card=card, layers=cfg.n_layers, **ENGINE,
              shards=SHARDS, cr=CR, requests=ENGINE_REQUESTS, gen=GEN,
              system_prompt=SYSTEM_PROMPT, pages=kv.stats(),
              registered_pages=len(registered),
              paged=engine_record(eng, out, wall),
-             dense=engine_record(d_eng, d_out, d_wall),
+             **{"plain_twin" if moe else "dense": engine_record(
+                 d_eng, d_out, d_wall)},
              launches=counts, dense_launches=d_counts,
-             reference="the same trace on the dense cache (paged=False)",
-             tol=PATH_REL_TOL, token_gap=TOKEN_GAP, **cmp)
+             reference=ref_name, tol=PATH_REL_TOL, token_gap=TOKEN_GAP,
+             **cmp)
         del runs, log, out, d_log, d_out
     for mode in ("exact", "prism"):
         emit("trace", arch=arch, path="engine", mode=mode, card=card,
@@ -3244,43 +3539,20 @@ TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
 
 
-def yi_row(name, t_128, chk):
-    """A kernel's numbers at Yi-6B's layouts (phase 3's head-dim-128
-    part): per layout the kernel's times, its plain version's, the bound
-    and the library call's; the largest error there."""
-    pick = lambda t: {k: t[k] for k in TIME_KEYS if k in t}  # noqa: E731
-    if name == "prism_flash_attention":
-        out = {mode: pick(t) for mode, t in t_128["attention"].items()}
-    elif name == "segment_means":
-        t = t_128["segment_means"]
-        out = {"means": pick(t),
-               "augment": {k: t["augment_" + k] for k in TIME_KEYS
-                           if "augment_" + k in t},
-               "bf16_ms": t["bf16_ms"], "bf16_device_ms": t["bf16_device_ms"]}
-    else:
-        d = t_128["decode"]
-        out = {tag: pick(d[tag]) for tag in ("exact", "prism", "chunk",
-                                             "packed", "packed_prism")}
-        for mode in ("exact", "prism"):            # the static layouts
-            out[mode].update({k: d[mode][k] for k in (
-                "tile_ms", "tile_device_ms", "row_ms", "row_device_ms")})
-        out["paged"] = {tag: pick(t) for tag, t in d["paged"].items()}
-        out["poisoned"] = d["poisoned"]
-        out["cases_by_route"] = d["cases_by_route"]
-    out["max_abs_err"] = chk.max_err.get(name + "/hd128",
-                                         chk.max_err[name])
-    return out
-
-
 # the engine runs of phase 9: packed exact and packed prism
 LLAMA_ENGINE_RUNS = (("packed", "exact"), ("packed", "prism"))
+# phase 9's tick and engine paths serve Yi-6B's first 8 of 32 layers
+# (widths full; its static paths run all 32): at full depth the whole
+# script took 1,105 s of its 1,200 s limit on an H100 (PERF.md §4)
+LLAMA_TICK_DEPTH = 8
 
 
 def drive_llama(torch):
     """Phase 9: Yi-6B (32 layers, d 4096, 32 query heads over 4 KV heads
     of 128, SwiGLU, RMSNorm, RoPE, untied head), f32 weights from
-    torch.Generator seed 0 on the card, through phase 4's static paths,
-    phase 5's tick paths and phase 6's engine (packed exact and prism)
+    torch.Generator seed 0 on the card, through phase 4's static paths
+    at full depth, then phase 5's tick paths and phase 6's engine
+    (packed exact and prism) on its first ``LLAMA_TICK_DEPTH`` layers,
     at the same shapes and under the same checks.  Returns the launches
     of each path, keyed ``yi-6b/...``."""
     from repro_torch.configs import get_config
@@ -3296,9 +3568,13 @@ def drive_llama(torch):
          decode_route_static=("tile" if static_tile(cfg) else "row"))
     by_path = {f"{LLAMA}/static/{mode}": r["launches"]
                for mode, r in drive_path(torch, params, LLAMA).items()}
+    n = LLAMA_TICK_DEPTH
+    cut = replace(cfg, n_layers=n, blocks=cfg.block_kinds[:n])
+    params = {**params, "layers": params["layers"][:n]}
     by_path.update({f"{LLAMA}/{k}": v for k, v in
-                    drive_ticks(torch, params, LLAMA).items()})
-    launches, _ = drive_engine(torch, params, LLAMA, LLAMA_ENGINE_RUNS)
+                    drive_ticks(torch, params, LLAMA, cut).items()})
+    launches, _ = drive_engine(torch, params, LLAMA, LLAMA_ENGINE_RUNS,
+                               cut)
     by_path.update({f"{LLAMA}/{k}": v for k, v in launches.items()})
     return by_path
 
@@ -3366,6 +3642,84 @@ def drive_gemma(torch):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: Mixture-of-Experts (OLMoE-1B-7B), then Gemma 7B
+# ---------------------------------------------------------------------------
+
+def family_row(name, t, chk, tag):
+    """A kernel's numbers at a later family's layouts (``check_family``):
+    per layout the kernel's times, its plain version's, the bound and
+    the library call's; the largest error there and its share of the
+    tolerance."""
+    pick = lambda t: {k: t[k] for k in TIME_KEYS + (  # noqa: E731
+        "library_note", "library_check") if k in t}
+    if name == "prism_flash_attention":
+        out = {mode: pick(tm) for mode, tm in t["attention"].items()}
+    elif name == "segment_means":
+        tm = t["segment_means"]
+        out = {"means": pick(tm),
+               "augment": {k: tm["augment_" + k] for k in TIME_KEYS
+                           if "augment_" + k in tm},
+               "bf16_ms": tm["bf16_ms"],
+               "bf16_device_ms": tm["bf16_device_ms"], "shape": tm["shape"]}
+    else:
+        d = t["decode"]
+        out = {tag_: pick(d[tag_]) for tag_ in ("exact", "prism", "chunk",
+                                                "packed", "packed_prism")}
+        for mode in ("exact", "prism"):            # both routes
+            out[mode].update({k: d[mode][k] for k in (
+                "tile_ms", "tile_device_ms", "row_ms", "row_device_ms")})
+        out["paged"] = {k: pick(v) for k, v in d["paged"].items()}
+        out["poisoned"] = d["poisoned"]
+        out["cases_by_route"] = d["cases_by_route"]
+    out["max_abs_err"] = chk.max_err.get(f"{name}/{tag}", 0.0)
+    out["tol_share"] = chk.tol_share.get(f"{name}/{tag}", 0.0)
+    return out
+
+
+def drive_family(torch, arch):
+    """Phase 11 (OLMoE-1B-7B: 16 layers of MoE blocks, d 2048, 16 heads
+    of 128, 64 experts top-8 of d_ff 1024 at capacity factor 1.25,
+    qk-norm, SwiGLU, untied head over 50304) or phase 12 (Gemma 7B: 28
+    layers, d 3072, 16 heads of 256, GeGLU d_ff 24576, sqrt(d) input
+    scaling, tied head over 256000): f32 weights from torch.Generator
+    seed 0 on the card, through phase 4's static pairings, phase 5's tick
+    paths and phase 6's engine runs at their shapes (B 8, prompt 512, 64
+    generated, P 4, CR 4).  OLMoE's runs are each held to their
+    backend='plain' twin under the routing rule (``replay_check``),
+    Gemma 7B's to phase 4-6's references.  Returns the launches of each
+    path, keyed ``<arch>/...``."""
+    import time
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    moe = {}
+    if "moe" in cfg.block_kinds:
+        experts = [p["moe"]["experts"] for p in params["layers"]]
+        expert_bytes = 4 * sum(t.numel() for t in _leaves(experts))
+        moe = dict(experts=cfg.n_experts, top_k=cfg.top_k,
+                   expert_d_ff=cfg.expert_d_ff,
+                   capacity_factor=cfg.capacity_factor,
+                   expert_bytes_per_step=expert_bytes)
+    emit("model", arch=arch, params=n_params, weight_bytes=4 * n_params,
+         layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+         kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, **moe,
+         decode_route_static=("tile" if static_tile(cfg) else "row"))
+    by_path = {f"{arch}/static/{mode}": r["launches"]
+               for mode, r in drive_path(torch, params, arch).items()}
+    by_path.update({f"{arch}/{k}": v for k, v in
+                    drive_ticks(torch, params, arch).items()})
+    launches, _ = drive_engine(torch, params, arch, ENGINE_RUNS)
+    by_path.update({f"{arch}/{k}": v for k, v in launches.items()})
+    emit("phase", name=arch, seconds=time.perf_counter() - t0)
+    return by_path
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3409,25 +3763,45 @@ def main() -> int:
     t_dec = check_decode(torch, chk, timer)
     t_128 = check_head_dim_128(torch, chk, timer)
     t_256 = check_head_dim_256(torch, chk, timer)
+    t_fam = {MOE: check_family(torch, chk, timer, MOE, "olmoe", 17),
+             GEMMA7: check_family(torch, chk, timer, GEMMA7, "gemma7b",
+                                  19)}
     emit("kernel", max_abs_err=chk.max_err, tol_share=chk.tol_share,
          worst_case=chk.worst, tol=TOL, cases=chk.cases,
          floor_ms=timer.floor(), attention=t_attn, segment_means=t_means,
-         decode=t_dec, hd128=t_128, hd256=t_256)
+         decode=t_dec, hd128=t_128, hd256=t_256, olmoe=t_fam[MOE],
+         gemma7b=t_fam[GEMMA7])
 
+    t_phase = [t_start]
+
+    def phase_done(name):
+        """The seconds since the previous phase ended."""
+        t_phase.append(time.perf_counter())
+        emit("phase", name=name, seconds=t_phase[-1] - t_phase[-2])
+    phase_done("kernel")
     params = T.init(get_config(ARCH),
                     torch.Generator(device=dev).manual_seed(0), dev)
     by_path = {f"static/{mode}": r["launches"]
                for mode, r in drive_path(torch, params).items()}
+    phase_done("static")
     by_path.update(drive_ticks(torch, params))
+    phase_done("ticks")
     engine_launches_by_path, engine_runs = drive_engine(torch, params)
     by_path.update(engine_launches_by_path)
+    phase_done("engine")
     by_path.update(drive_robust(torch, params, engine_runs))
+    phase_done("robust")
     by_path.update(drive_phase8(torch, params, engine_runs))
+    phase_done("phase8")
     del params, engine_runs                     # GPT-2's weights and runs
     torch.cuda.empty_cache()
     by_path.update(drive_llama(torch))
+    phase_done(LLAMA)
     torch.cuda.empty_cache()
     by_path.update(drive_gemma(torch))
+    for arch in (MOE, GEMMA7):       # each model's weights freed after it
+        torch.cuda.empty_cache()
+        by_path.update(drive_family(torch, arch))
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -3506,7 +3880,7 @@ def main() -> int:
             row["device_ms"] = t["device_ms"]
         # the Llama family's layouts (Yi-6B: head dim 128, D 4096), with
         # their launches on phase 9's paths
-        row["yi"] = yi_row(name, t_128, chk)
+        row["yi"] = family_row(name, t_128, chk, "hd128")
         row["yi"]["launches"] = sum(by_path[p].get(name, 0) for p in llama)
         if name == "flash_decode_stats":
             row["yi"]["launches_mq"] = sum(
@@ -3526,6 +3900,19 @@ def main() -> int:
         if name == "prism_flash_attention":
             row["gemma"]["launches_window"] = sum(
                 by_path[p].get(name + ".window", 0) for p in gemma)
+        # OLMoE-1B-7B's and Gemma 7B's layouts, with their launches on
+        # phases 11 and 12's paths
+        for arch, tag in ((MOE, "olmoe"), (GEMMA7, "gemma7b")):
+            paths = [p for p in by_path if p.startswith(arch + "/")]
+            row[tag] = family_row(name, t_fam[arch], chk, tag)
+            row[tag]["launches"] = sum(by_path[p].get(name, 0)
+                                       for p in paths)
+            row[tag]["launches_by_path"] = {p: by_path[p].get(name, 0)
+                                            for p in paths}
+            if name == "flash_decode_stats":
+                for sub in ("mq", "paged"):
+                    row[tag]["launches_" + sub] = sum(
+                        by_path[p].get(f"{name}.{sub}", 0) for p in paths)
         rows.append(row)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)

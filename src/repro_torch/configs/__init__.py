@@ -9,6 +9,10 @@ _REGISTRY = {
     "gpt2-small": "gpt2_small",
     "yi-6b": "yi_6b",
     "gemma3-1b": "gemma3_1b",
+    "gemma-7b": "gemma_7b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    # 480 B parameters fit on no card: served at its reduced size only
+    "arctic-480b": "arctic_480b",
 }
 
 

@@ -11,7 +11,9 @@ The reference stores layers as ``{"scan": [u stacked trees], "tail":
 part is slice ``i`` of ``scan[j]``, and the ``tail`` layers follow.  The
 port keeps one dict per layer.  Dense weights stay ``(d_in, d_out)``, a
 tied head stays ``embed.table`` and an untied one is ``lm_head``, so
-every leaf is a plain copy.
+every leaf is a plain copy.  A MoE block's stacked expert leaves
+``(E, d_in, d_out)`` are ``(n_units, E, ...)`` under the scan, and come
+across slice by slice like every other leaf.
 """
 from __future__ import annotations
 

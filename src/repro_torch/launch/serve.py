@@ -45,6 +45,15 @@ exactly in both modes and captures the means over real tokens);
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
         --batch 8 --prompt-len 2048 --gen 64 --seq-shards 4 \
         --decode-mode prism
+    # Mixture-of-Experts (OLMoE-1B-7B: 64 experts top-8, 27.7 GB of f32
+    # weights) and Gemma 7B (MHA at head dim 256, 34.2 GB): every path
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --batch 8 --prompt-len 512 --gen 64 --seq-shards 4 \
+        --decode-mode prism
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \
+        --engine --requests 16 --rate 4 --batch 8 --prompt-len 512 \
+        --gen 64
+
 Weights are random, drawn from ``torch.Generator`` seeded with
 ``--seed``; ``--reduced`` takes the architecture's smoke-test size.
 Runs on CUDA unless ``--device cpu`` is given; without a card it raises.

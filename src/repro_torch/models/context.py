@@ -4,6 +4,11 @@
     ... attention(xq ..., akv.x_hat ..., akv.g, akv.mask) ...
     out = ctx.finalize(out)            # back to the caller's layout
 
+and for Mixture-of-Experts layers:
+
+    xg, ungroup = ctx.expert_groups(x)     # (G, T, D) routing groups
+    buf_e, undo = ctx.expert_exchange(buf) # (G, E, cap, D) -> (E, G·cap, D)
+
 ``FullContext`` runs the whole sequence on one executor (the plain full
 forward).  ``sharding.context.ShardedPrismContext`` runs the PRISM
 protocol over an explicit shard axis.
@@ -38,6 +43,31 @@ class SeqContext:
 
     def finalize(self, out):
         return out
+
+    # ---- MoE: routing groups and the expert exchange ---------------------
+    def expert_groups(self, x):
+        """x (B, N, D) -> (G, T, D), the token sets capacity is counted
+        over, and the inverse for the outputs.  One executor routes all
+        of its tokens as one group."""
+        return x.reshape(1, -1, x.shape[-1]), lambda y: y.reshape(x.shape)
+
+    def expert_exchange(self, buf):
+        """(G, E, cap, D), every group's dispatch buffer -> (E, G·cap, D),
+        each expert's slots of every group side by side (what the
+        reference's tiled ``all_to_all`` gives each expert's device), and
+        the inverse for the outputs."""
+        g, e, cap, d = buf.shape
+        return (buf.transpose(0, 1).reshape(e, g * cap, d),
+                lambda y: y.reshape(e, g, cap, d).transpose(0, 1))
+
+    def expert_reduce(self, y):
+        """Sum of expert-TP partials: the identity on one card."""
+        return y
+
+    def ffn_reduce(self, y):
+        """Sum of Megatron-TP FFN partials (the MoE dense residual): the
+        identity on one card."""
+        return y
 
 
 class FullContext(SeqContext):

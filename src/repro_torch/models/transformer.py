@@ -5,11 +5,14 @@ Parameters: {"layers": [per-layer dicts], "embed": {"table"},
 "final_norm": {...}}, plus "pos_embed": {"table"} for learned positions
 and "lm_head": {"w"} for an untied head — the reference's stacked
 ``scan``/``tail`` layout unstacked into one dict per layer
-(``convert.from_jax_numpy``).  The ``attn`` and ``attn_local`` block
-kinds are ported: GPT-2's pieces (learned positions, LayerNorm, GELU,
-tied head), the Llama family's (RoPE, RMSNorm, SwiGLU, GQA, untied head)
-and Gemma 3's (sliding-window local layers beside global ones, a RoPE
-theta for each kind, qk-norm, GeGLU, MQA, sqrt(d) input scaling).
+(``convert.from_jax_numpy``).  The ``attn``, ``attn_local`` and ``moe``
+block kinds are ported: GPT-2's pieces (learned positions, LayerNorm,
+GELU, tied head), the Llama family's (RoPE, RMSNorm, SwiGLU, GQA, untied
+head), Gemma's (sliding-window local layers beside global ones, a RoPE
+theta for each kind, qk-norm, GeGLU, MQA, sqrt(d) input scaling) and
+Mixture-of-Experts blocks (``models/moe.py``: global attention, then
+routed experts, with arctic's dense residual MLP where the model has
+one).
 """
 from __future__ import annotations
 
@@ -21,11 +24,12 @@ from .layers import (MLP_KINDS, NORM_KINDS, AttnSpec, attn_init,
                      attn_output, attn_project_kv, attn_project_q, dense,
                      dense_init, embed, embedding_init, mlp, mlp_init, norm,
                      norm_init)
+from .moe import moe_apply, moe_init
 from ..core.attention import prism_attention
 from ..device import resolve_device
 
 
-BLOCK_KINDS = ("attn", "attn_local")
+BLOCK_KINDS = ("attn", "attn_local", "moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -35,7 +39,9 @@ def check_supported(cfg: ModelConfig) -> None:
             or cfg.norm_kind not in NORM_KINDS
             or cfg.mlp_kind not in MLP_KINDS
             or cfg.parallel_block or cfg.logit_softcap
-            or cfg.frontend or cfg.num_classes or cfg.prefix_len):
+            or cfg.frontend or cfg.num_classes or cfg.prefix_len
+            or ("moe" in cfg.block_kinds
+                and not (cfg.n_experts and cfg.top_k and cfg.expert_d_ff))):
         raise NotImplementedError(
             f"{cfg.name}: only decoders of {'/'.join(BLOCK_KINDS)} blocks "
             f"with learned or rotary positions, {'/'.join(NORM_KINDS)} and "
@@ -59,11 +65,17 @@ def attn_spec(cfg: ModelConfig, kind: str = "attn") -> AttnSpec:
 
 
 def block_init(cfg: ModelConfig, kind: str, gen: torch.Generator, device):
-    return {"ln1": norm_init(cfg.d_model, cfg.norm_kind, device),
-            "attn": attn_init(gen, attn_spec(cfg, kind), device),
-            "ln2": norm_init(cfg.d_model, cfg.norm_kind, device),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                            bias=cfg.attn_bias, device=device)}
+    p = {"ln1": norm_init(cfg.d_model, cfg.norm_kind, device),
+         "attn": attn_init(gen, attn_spec(cfg, kind), device),
+         "ln2": norm_init(cfg.d_model, cfg.norm_kind, device)}
+    if kind == "moe":
+        p["moe"] = moe_init(gen, cfg.d_model, cfg.n_experts,
+                            cfg.expert_d_ff, cfg.mlp_kind, device=device,
+                            dense_d_ff=cfg.moe_dense_d_ff)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                            bias=cfg.attn_bias, device=device)
+    return p
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
@@ -102,10 +114,21 @@ def attn_sublayer(p, x, ctx: SeqContext, spec: AttnSpec, cfg: ModelConfig):
     return ctx.finalize(attn_output(p["attn"], o))
 
 
-def block_apply(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext):
-    """One residual ``attn`` or ``attn_local`` block."""
+def ffn(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext, routing=None):
+    """A block's feed-forward on its normed input: the MLP, or for a
+    ``moe`` block the experts, routed in ``ctx``'s groups (``routing``:
+    the checks' ``RoutingLog``)."""
+    h = norm(p["ln2"], x, cfg.norm_kind)
+    if kind == "moe":
+        return moe_apply(p["moe"], h, cfg, ctx, routing=routing)[0]
+    return mlp(p["mlp"], h, cfg.mlp_kind)
+
+
+def block_apply(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext,
+                routing=None):
+    """One residual ``attn``, ``attn_local`` or ``moe`` block."""
     x = x + attn_sublayer(p, x, ctx, attn_spec(cfg, kind), cfg)
-    return x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
+    return x + ffn(cfg, kind, p, x, ctx, routing)
 
 
 def embed_scale(cfg: ModelConfig, x):
@@ -138,14 +161,15 @@ def head(cfg: ModelConfig, params, x):
 
 
 def forward(cfg: ModelConfig, params, tokens, *,
-            ctx: SeqContext | None = None, start: int = 0):
+            ctx: SeqContext | None = None, start: int = 0, routing=None):
     """tokens (B, N) -> logits (B, N - start, V) of positions start.. (the
     head over the tail only: at a large vocabulary the whole (B, N, V)
-    would dwarf the rest)."""
+    would dwarf the rest).  A ``moe`` block routes all B·N tokens as one
+    group."""
     check_supported(cfg)
     ctx = ctx or FullContext(prefix_len=cfg.prefix_len)
     x = embed_inputs(cfg, params, tokens)
     for kind, p in zip(cfg.block_kinds, params["layers"]):
-        x = block_apply(cfg, kind, p, x, ctx)
+        x = block_apply(cfg, kind, p, x, ctx, routing)
     return head(cfg, params,
                 norm(params["final_norm"], x[:, start:], cfg.norm_kind))

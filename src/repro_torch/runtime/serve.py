@@ -35,6 +35,12 @@ every shard as one column set: exact in both decode modes, as the
 reference's static path serves them.  The paged cache, the tick
 programs and the engine refuse the kind, as the reference's do.
 
+A Mixture-of-Experts block (``moe``) has a global-attention cache; its
+experts route in groups that count capacity (``models/moe.py``): in
+prefill each sequence shard's B·n_loc tokens (the sharded context's
+groups, as the reference's ``shard_map``), in a decode step all B tokens
+(``DECODE_MOE_CTX``).
+
 The paged cache (``runtime/paging.py``): the layer cache is a page pool
 (n_pages, P, pc, Hkv, hd) with, in prism mode, a state pool of means
 rows; ``serve_step`` and the tick programs take the per-slot page map
@@ -44,7 +50,7 @@ place (the decode kernel's page table).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -53,10 +59,12 @@ from ..core.protocol import PrismConfig
 from ..kernels.decode_attention import decode_stats
 from ..kernels.ops import prism_attention_op
 from ..models.config import ModelConfig
+from ..models.context import SeqContext
 from ..models.layers import (AttnSpec, attn_output, attn_project_kv,
-                             attn_project_q, embed, mlp, norm)
+                             attn_project_q, embed, norm)
+from ..models.moe import RoutingLog
 from ..models.transformer import (attn_spec, check_supported, embed_inputs,
-                                  embed_scale, head)
+                                  embed_scale, ffn, head)
 from ..sharding.context import ShardedPrismContext, means_columns
 from .paging import KVCache, PrefixCache
 
@@ -66,6 +74,26 @@ class ServeHParams:
     decode_mode: str = "exact"       # 'exact' | 'prism'
     means_cr: float = 16.0           # CR for the prism decode means cache
     backend: str = "auto"            # kernel dispatch: 'auto'|'kernel'|'plain'
+    # the reference's tensor-parallel decode over a data axis (expert-TP
+    # for MoE blocks): multi-card work, refused
+    decode_tp: bool = False
+    # the checks' record or replay of the MoE routing decisions
+    routing: RoutingLog | None = field(default=None, compare=False,
+                                       repr=False)
+
+    def __post_init__(self):
+        if self.decode_tp:
+            raise NotImplementedError(
+                "decode_tp (tensor-parallel decode, expert-TP for MoE "
+                "blocks) needs more than one card: ROADMAP queue 1, "
+                "item 15")
+
+
+# the expert exchange of a decode step, a chunk call or a packed tick
+# (the reference's DecodeMoeCtx with tp=False; its expert-TP form is
+# decode_tp's): all of the call's tokens are one routing group, as the
+# reference's all_to_all over tokens every shard holds gives
+DECODE_MOE_CTX = SeqContext()
 
 
 # --------------------------------------------------------------------------
@@ -288,7 +316,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
                             prism_augment,
                             layer_cache_shape(cfg, lay, b, hp, kind=kind))
         x = x + o
-        x = x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
+        # a moe block routes each shard's tokens as a group (ctx's groups)
+        x = x + ffn(cfg, kind, p, x, ctx, hp.routing)
         cache.append(c)
     return lm_head(cfg, params, ctx.last_shard(x[:, -1])), cache
 
@@ -548,11 +577,12 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
 def block_decode(cfg: ModelConfig, kind: str, p, x, c, pos,
                  lay: ServeLayout, hp: ServeHParams, cols, lost=None,
                  rep=None):
-    """One residual ``attn`` or ``attn_local`` block, single-token
-    decode."""
+    """One residual ``attn``, ``attn_local`` or ``moe`` block,
+    single-token decode (a moe block routes the step's B tokens as one
+    group)."""
     x = x + attn_decode(p, attn_spec(cfg, kind), cfg, x, c, pos, lay, hp,
                         cols, lost, rep)
-    return x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
+    return x + ffn(cfg, kind, p, x, DECODE_MOE_CTX, hp.routing)
 
 
 def embed_tokens(cfg: ModelConfig, params, token, pos):

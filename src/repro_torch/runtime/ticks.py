@@ -1,7 +1,9 @@
 """The engine's tick programs on one card: chunked prefill and the
-token-packed tick, for the ``attn`` block kind, on the dense cache or
-the paged one (a page map (B, ppr) and, in prism mode, a state map (B,)
-given; see ``runtime/serve.py``).
+token-packed tick, for the ``attn`` and ``moe`` block kinds, on the dense
+cache or the paged one (a page map (B, ppr) and, in prism mode, a state
+map (B,) given; see ``runtime/serve.py``).  A moe block routes all of a
+call's tokens as one group: a chunk call's B·C, a packed tick's T
+entries, dead and padding entries included, as the reference's do.
 
 Both write straight into the decode-layout cache (``init_cache``) IN
 PLACE, at per-token (row or page, shard, column) addresses, so a request
@@ -42,10 +44,10 @@ from ..core.segment_means import segment_fill_counts
 from ..kernels.decode_attention import chunk_softmax_stats
 from ..models.config import ModelConfig
 from ..models.layers import (attn_output, attn_project_kv, attn_project_q,
-                             mlp, norm)
-from ..models.transformer import attn_spec, check_supported
+                             norm)
+from ..models.transformer import attn_spec, check_supported, ffn
 from ..sharding.context import means_columns
-from .serve import (ServeHParams, ServeLayout, _combine_exact,
+from .serve import (DECODE_MOE_CTX, ServeHParams, ServeLayout, _combine_exact,
                     _decode_cols, _write_kv, decode_attention, embed_tokens,
                     lm_head, prism_gz, shard_stats, state_rows, write_plan)
 
@@ -140,7 +142,7 @@ def check_tick_kinds(cfg: ModelConfig, program: str) -> None:
     ``make_chunk_prefill_step`` / ``make_packed_step`` refuse it."""
     check_supported(cfg)
     for kind in cfg.block_kinds:
-        if kind != "attn":
+        if kind not in ("attn", "moe"):
             raise ValueError(
                 f"{program} needs position-addressed attention caches; "
                 f"arch {cfg.name!r} has block kind {kind!r}")
@@ -187,7 +189,7 @@ def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
     spec = attn_spec(cfg)
     scale = spec.head_dim ** -0.5
     x = embed_tokens(cfg, params, tokens, row_pos)               # (B, C, D)
-    for p, cc in zip(params["layers"], cache):
+    for kind, p, cc in zip(cfg.block_kinds, params["layers"], cache):
         xn = norm(p["ln1"], x, cfg.norm_kind)
         q = attn_project_q(p["attn"], spec, xn, row_pos)
         k_new, v_new = attn_project_kv(p["attn"], spec, xn, row_pos)
@@ -200,7 +202,7 @@ def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
             _capture_means(p, spec, cfg, cc, inc, cnt, restart, act,
                            cols.mid, splan)
         x = x + attn_output(p["attn"], o)
-        x = x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
+        x = x + ffn(cfg, kind, p, x, DECODE_MOE_CTX, hp.routing)
     return cache
 
 
@@ -285,7 +287,7 @@ def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
     spec = attn_spec(cfg)
     scale = spec.head_dim ** -0.5
     x = embed_tokens(cfg, params, tokens[:, None], pos[:, None])  # (T,1,D)
-    for p, c in zip(params["layers"], cache):
+    for kind, p, c in zip(cfg.block_kinds, params["layers"], cache):
         xn = norm(p["ln1"], x, cfg.norm_kind)
         q = attn_project_q(p["attn"], spec, xn, pos[:, None])
         k_new, v_new = attn_project_kv(p["attn"], spec, xn, pos[:, None])
@@ -309,7 +311,7 @@ def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
             _capture_means(p, spec, cfg, c, inc, cnt, restart, act,
                            cols.mid, splan)
         x = x + attn_output(p["attn"], o)
-        x = x + mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_kind), cfg.mlp_kind)
+        x = x + ffn(cfg, kind, p, x, DECODE_MOE_CTX, hp.routing)
     return lm_head(cfg, params, x[:min(b, x.shape[0]), 0]), cache
 
 

@@ -230,14 +230,14 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params, config: EngineConfig, *,
                  n_seq: int = 4, clock=time.monotonic):
-        other = sorted(set(cfg.block_kinds) - {"attn"})
+        other = sorted(set(cfg.block_kinds) - {"attn", "moe"})
         if other:
             # as the reference's engine: admission relies on a cache
             # addressed purely by global position, and the ring of a
             # sliding-window layer (attn_local) holds the padded tail
             raise ValueError(
-                f"the port's engine serves global-attention blocks only; "
-                f"arch {cfg.name!r} has {other}, which need a state-"
+                f"the port's engine serves global-attention and moe blocks "
+                f"only; arch {cfg.name!r} has {other}, which need a state-"
                 f"snapshot admission path (the static serve path serves "
                 f"attn_local): ROADMAP queue 1, item 12")
         if cfg.arch_type == "vlm" or cfg.frontend:

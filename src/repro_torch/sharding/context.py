@@ -10,7 +10,11 @@ activations are (B·P, n_loc, D), batch row ``b·P + p`` holding shard
   * the per-shard metadata (query positions, column ranges, repeat
     counts) gets a leading shard dimension, which the prefill kernel
     reads per batch row;
-  * ``last_shard`` is indexing shard P-1.
+  * ``last_shard`` is indexing shard P-1;
+  * a Mixture-of-Experts layer routes each shard's tokens as a group of
+    their own, at the capacity of that group, as the reference's
+    ``shard_map`` does (``expert_groups``); its ``all_to_all`` pair is
+    the exchange every context has (``SeqContext.expert_exchange``).
 
 Exchanges:
   * PRISM:   every shard's (B, L, D) segment means, gathered — the own
@@ -191,6 +195,17 @@ class ShardedPrismContext(SeqContext):
         return x, AugmentedKV(x_hat, cols.col_g, None, row_pos,
                               cols.col_pos, col_lo=cols.col_lo,
                               col_hi=cols.col_hi)
+
+    def expert_groups(self, x):
+        """x (B·P, n_loc, D) -> (P, B·n_loc, D): shard p's tokens of every
+        sequence, sequence-major (the order of the reference's per-device
+        (B, n_loc) block), and the inverse."""
+        bp, n_loc, d = x.shape
+        b = bp // self.P
+        xg = x.view(b, self.P, n_loc, d).transpose(0, 1).reshape(
+            self.P, b * n_loc, d)
+        return xg, lambda y: y.view(self.P, b, n_loc, d).transpose(
+            0, 1).reshape(bp, n_loc, d)
 
     def last_shard(self, x):
         """Value held by the shard owning the END of the sequence:

@@ -112,20 +112,23 @@ def test_layers_match_reference():
 
 def test_unported_configs_raise():
     with pytest.raises(KeyError, match="not ported"):
-        get_config("gemma-7b")
+        get_config("bert-base")
     cfg = get_config("gpt2-small")
     import dataclasses
     # RoPE, RMSNorm and SwiGLU (the Llama family), qk-norm, GeGLU, local
-    # layers and embed_scale (Gemma 3) are ported; sinusoidal positions,
-    # the ReLU MLP, logit soft-capping, parallel blocks and MoE are not
+    # layers and embed_scale (Gemma 3), MoE blocks (OLMoE, arctic) are
+    # ported; sinusoidal positions, the ReLU MLP, logit soft-capping,
+    # parallel blocks and Mamba blocks are not
     for over in (dict(pos="sincos"), dict(mlp_kind="relu"),
                  dict(logit_softcap=30.0), dict(parallel_block=True),
-                 dict(blocks=("moe",) * cfg.n_layers)):
+                 dict(blocks=("mamba",) * cfg.n_layers)):
         with pytest.raises(NotImplementedError):
             TT.check_supported(dataclasses.replace(cfg, **over))
     for over in (dict(qk_norm=True), dict(mlp_kind="geglu"),
                  dict(embed_scale=True),
-                 dict(blocks=("attn_local", "attn") * 6, window=64)):
+                 dict(blocks=("attn_local", "attn") * 6, window=64),
+                 dict(blocks=("moe",) * cfg.n_layers, n_experts=4, top_k=2,
+                      expert_d_ff=64)):
         TT.check_supported(dataclasses.replace(cfg, **over))
     with pytest.raises(NotImplementedError):
         TL.mlp({}, torch.zeros(2), "relu")
