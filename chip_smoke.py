@@ -181,8 +181,8 @@ Phases, one JSON line each:
             same shapes: phase 4's static pairings, phase 5's chunked and
             packed paths in both modes and phase 6's engine in packed
             exact and packed prism (these two on its first 8 layers,
-            ``LLAMA_TICK_DEPTH``: the script's time limit), under the
-            same checks and traces.
+            ``TICK_DEPTH``: the script's time limit), under the same
+            checks and traces.
             The static and engine decode steps take the decode kernel's
             tile route (a group of 8, no row map), the packed ticks the
             row route; the launch counts are held per path.
@@ -205,8 +205,9 @@ Phases, one JSON line each:
             top-8 of SwiGLU d_ff 1024 at capacity factor 1.25, untied head
             over 50304), f32 weights from torch.Generator seed 0 on the
             card, at the main path's shapes: phase 4's static pairings,
-            phase 5's chunked and packed paths in both modes and phase
-            6's engine runs (paged).  Capacity counts per routing group
+            then phase 5's chunked and packed paths in both modes and
+            phase 6's engine runs (paged) on its first 8 layers
+            (``TICK_DEPTH``, as phase 9).  Capacity counts per routing group
             (a prefill shard; a decode step's, chunk call's or packed
             tick's tokens), so every run is held to its backend='plain'
             twin: the counted and timed run records its routing (no
@@ -216,15 +217,39 @@ Phases, one JSON line each:
             check``), and the logits compare under the path tolerance.
 12. path    Gemma 7B at full width and depth (28 layers, d 3072, 16 heads
             of 256, GeGLU d_ff 24576, sqrt(d) input scaling, tied head
-            over 256000), the same paths under phases 4-6's references.
+            over 256000), the same paths under phases 4-6's references
+            (the tick and engine paths on its first 8 layers).
             Before both, phase 3 checks and times the three kernels at
             their layouts (``check_family``): attention PRISM and
             Voltage, segment means and the augment at D 2048 and 3072,
             the decode kernel's static, chunk (a folded group of 64; at
             head dim 256 the split tile kernel), packed and paged layouts
             and a poisoned page.
+13. path    the paper's encoders at full width and depth, f32 weights
+            from torch.Generator seed 0 on the card, classifying through
+            ``setup_encoder`` / ``runtime.serve.encode`` over P = 4
+            sequence shards, attention non-causal, the class head on the
+            CLS row: BERT-base (12 layers, d 768, 12 heads of 64, 2
+            classes) on B 32 x 512 token ids in Voltage, PRISM at CR 4 (L
+            32) and at CR 128 (L 1, the paper's headline setting);
+            ViT-B/16 (1000 classes) on B 64 x 197 stub patch embeddings
+            through ``frontend_proj``, split 49/49/49/50 by Alg. 1 (each
+            shard padded to 50 rows), in Voltage and PRISM at CR 4 (L
+            12).  Voltage is held to the plain full forward, PRISM to
+            the same run with backend='plain', each within 1e-4 of the
+            reference's largest |logit| with the classes equal where its
+            top-2 gap is clear; the counters are zeroed before each run:
+            attention once a layer, segment means once a PRISM layer (0
+            in Voltage), the decode kernel never; then five more timed
+            calls and a trace of one.  The phase runs in a child process
+            of the script (``ENCODERS_ARG``): ~1,000 s into one process
+            the profiler dropped part of an encode window in every try.
+            Before both, phase 3 checks and
+            times attention non-causal at every run's shapes and the
+            augment at each PRISM layout, and sweeps the augment's
+            uneven split (``check_encoder_kernels``).
    total    the script's seconds so far.
-13. kernels one line listing every kernel with its numbers: ``ms`` is
+14. kernels one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -246,7 +271,9 @@ Phases, one JSON line each:
             its launches on phase 9's paths; each row's ``gemma`` the
             same at Gemma 3 1B's layouts (head dim 256, D 1152) and its
             launches on phase 10's paths; ``olmoe`` and ``gemma7b`` the
-            same at phases 11 and 12's layouts and paths.
+            same at phases 11 and 12's layouts and paths; ``bert`` and
+            ``vit`` at phase 13's (the decode kernel has none) with the
+            launches there.
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -416,39 +443,94 @@ class Timer:
         return self(lambda: tiny.add_(1))
 
 
+# the filler launches inside every trace, before and after the traced
+# work (``torch.cuda._sleep``: ATen's spin_kernel), left out of every
+# analysis.  The profiler drops the first device records of a trace,
+# more of them the older the process: none 8 s after a process's first
+# trace, 5 at 84 s (one a 15 s), about 35 of a path window eleven
+# minutes in (PERF.md §6).  The count is raised to twice the most a
+# trace lost plus 16 and doubled after each short trace, up to
+# FILLERS_MAX, and kept for the rest of the process.
+FILLER_KERNEL = "spin_kernel"
+FILLER_CYCLES = 1000
+FILLERS = {"n": 64}
+FILLERS_MAX = 8192
+# the host range around the traced work (a ``record_function``; a
+# device-side copy of it is no kernel)
+WINDOW_MARK = "chip_smoke.window"
+
+
 def device_events(prof):
-    """The device activities of a profile, in start order."""
+    """The device activities of a profile, in start order, without the
+    fillers and the window's mark."""
     from torch.autograd import DeviceType
     return sorted((e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA),
+                   if e.device_type == DeviceType.CUDA
+                   and FILLER_KERNEL not in e.name
+                   and e.name != WINDOW_MARK),
                   key=lambda e: e.time_range.start)
 
 
+def fillers_lost(prof, n):
+    """How many of the ``n`` fillers launched before and after the traced
+    work have no record in the profile: (before, after); None when the
+    work left no device record to tell them apart."""
+    from torch.autograd import DeviceType
+    events = device_events(prof)
+    if not events:
+        return None
+    first, last = events[0].time_range.start, events[-1].time_range.start
+    spins = [e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and FILLER_KERNEL in e.name]
+    return (n - sum(t < first for t in spins),
+            n - sum(t > last for t in spins))
+
+
 def trace_device(torch, fn, complete=None, tries=12, why=None):
-    """torch.profiler over ``fn()`` on the CPU and the card.  A trace that
+    """torch.profiler over ``fn()`` on the CPU and the card, between
+    ``FILLERS`` filler kernels before and as many after.  A trace that
     recorded no device activity, or that ``complete(prof)`` finds short
     of what ``fn`` launched, is taken again, up to ``tries`` times, after
     a pause that grows each time: the profiler's device tracing on the
     card now and then comes back empty or holding only part of a call,
     up to three traces in a row (six in a row once, for a one-second
-    Yi-6B prefill).  The error names each try's device record count and
+    Yi-6B prefill).  The returned profile carries ``trace_info``: the
+    tries taken, the fillers and how many of them were lost.  The error
+    names each try's device record count and lost fillers and
     ``why(prof)`` of the last try."""
     import time
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def fill(n):
+        for _ in range(n):
+            torch.cuda._sleep(FILLER_CYCLES)
+        torch.cuda.synchronize()
     seen = []
     for i in range(tries):
         time.sleep(0.25 * i)
         torch.cuda.synchronize()
+        n = FILLERS["n"]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+            fill(n)
+            with record_function(WINDOW_MARK):
+                fn()
+                torch.cuda.synchronize()
+            fill(n)
         events = device_events(prof)
+        lost = fillers_lost(prof, n)
+        if lost is not None:
+            FILLERS["n"] = min(max(n, 2 * max(lost) + 16), FILLERS_MAX)
         if events and (complete is None or complete(prof)):
+            prof.trace_info = {"tries": i + 1, "fillers": n,
+                               "fillers_lost": lost}
             return prof
-        seen.append(len(events))
+        FILLERS["n"] = min(2 * FILLERS["n"], FILLERS_MAX)
+        seen.append((len(events), lost))
     raise RuntimeError(f"the profiler recorded no or an incomplete device "
-                       f"trace in {tries} tries (device records: {seen}"
+                       f"trace in {tries} tries (device records and lost "
+                       f"fillers (before, after): {seen}"
                        f"{'' if why is None else '; ' + why(prof)})")
 
 
@@ -487,10 +569,17 @@ def trace_window(torch, fn):
         raw = None if raw is None else by_kind(
             e.name() for e in raw.events()
             if e.device_type() == DeviceType.CUDA)
-        names = sorted({e.name[:120] for e in device_events(prof)
+        events = device_events(prof)
+        names = sorted({e.name[:120] for e in events
                         if kernel_kind(e.name) in TOL})
+        # each of the port's kernels' records: its index among the
+        # window's device records and its start (ms after the first)
+        t0 = events[0].time_range.start if events else 0
+        at = {name: [(i, round((e.time_range.start - t0) / 1e3, 3))
+                     for i, e in enumerate(events)
+                     if kernel_kind(e.name) == name] for name in TOL}
         return (f"launched {counted}, traced {traced(prof)}, raw records "
-                f"{raw}: {names}")
+                f"{raw}: {names}; of {len(events)} records, at {at}")
     return trace_device(torch, run, complete, why=why)
 
 
@@ -556,9 +645,10 @@ class Checker:
 # ---------------------------------------------------------------------------
 
 def attention_inputs(torch, ctx_mode, seed=0, arch=ARCH, prompt=PROMPT,
-                     kind="attn"):
+                     kind="attn", batch=BATCH, cr=CR):
     """A path's prefill-attention inputs: q/k/v at ``arch``'s widths
-    (GPT-2 small for the main path) and a ``prompt``-token prompt,
+    (GPT-2 small for the main path), ``batch`` sequences of ``prompt``
+    tokens (an encoder's may split unevenly over the shards: Alg. 1),
     metadata from the port's own sharded context for a block of
     ``kind`` (``attn_local``: the window augment, in either mode)."""
     from repro_torch.configs import get_config
@@ -567,18 +657,18 @@ def attention_inputs(torch, ctx_mode, seed=0, arch=ARCH, prompt=PROMPT,
     from repro_torch.sharding.context import ShardedPrismContext
     cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    n_loc, L = prompt // SHARDS, int(prompt // (CR * SHARDS))
+    L = int(prompt // (cr * SHARDS))
     ctx = ShardedPrismContext(PrismConfig(P=SHARDS, L=L, mode=ctx_mode),
-                              n_shards=SHARDS, backend="plain")
-    x = torch.randn(BATCH * SHARDS, n_loc, cfg.d_model, device="cuda",
-                    generator=gen)
+                              n_shards=SHARDS, backend="plain", n=prompt)
+    x = ctx.shard(torch.randn(batch, prompt, cfg.d_model, device="cuda",
+                              generator=gen))
     _, akv = ctx.augment(x, attn_spec(cfg, kind))
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     m = akv.x_hat.shape[1]
 
     def rnd(*shape):
         return 0.5 * torch.randn(*shape, device="cuda", generator=gen)
-    q = rnd(BATCH * SHARDS, n_loc, hq, hd)
+    q = rnd(x.shape[0], x.shape[1], hq, hd)
     k = rnd(akv.x_hat.shape[0], m, hkv, hd)
     v = rnd(akv.x_hat.shape[0], m, hkv, hd)
     g = akv.g if akv.g is not None else torch.ones(m, device="cuda")
@@ -586,40 +676,51 @@ def attention_inputs(torch, ctx_mode, seed=0, arch=ARCH, prompt=PROMPT,
 
 
 def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
-                   prompt=PROMPT, kind="attn"):
+                   prompt=PROMPT, kind="attn", args=None, causal=True):
     """The prefill kernel at a path's shapes in one exchange (a block of
-    ``kind``: a local one with its window): checked by ``both``, then the
-    kernel (event pair and profiler), its plain version, the entry point,
-    the library call and the bound."""
+    ``kind``: a local one with its window; ``args``: inputs built by the
+    caller, ``attention_inputs``' by default; ``causal`` False for an
+    encoder): checked by ``both``, then the kernel (event pair and
+    profiler), its plain version, the entry point, the library call and
+    the bound.  The bound counts the live pairs of the real query rows
+    (a pad row of an uneven split, position -1, is discarded)."""
     from repro_torch.configs import get_config
     from repro_torch.core.attention import log_repeats
     from repro_torch.core.masks import visibility
     from repro_torch.kernels.ops import prism_attention_op
     from repro_torch.kernels.prism_attention import (
         prism_attention_reference, prism_flash_attention)
-    args = attention_inputs(torch, mode, arch=arch, prompt=prompt, kind=kind)
+    if args is None:
+        args = attention_inputs(torch, mode, arch=arch, prompt=prompt,
+                                kind=kind)
     window = get_config(arch).window if kind == "attn_local" else None
-    both(args, f"{tag}/{mode}/{kind}", window=window)
+    both(args, f"{tag}/{mode}/{kind}", window=window, causal=causal)
     q, k, v, g, lo, hi, row = args
     p = row.shape[0] if row.dim() == 2 else 1
     lg = log_repeats(g).reshape(-1, k.shape[1]).expand(p, -1)
     vis = visibility(row, lo.reshape(-1, k.shape[1]).expand(p, -1),
                      hi.reshape(-1, k.shape[1]).expand(p, -1),
-                     causal=True, window=window) & (lg > -1e29)[:, None, :]
-    pairs = int(vis.sum()) * (q.shape[0] // p) * q.shape[2]
+                     causal=causal, window=window) & (
+                         lg > -1e29)[:, None, :]
+    real = (row.reshape(p, -1) >= 0)[:, :, None]
+    pairs = int((vis & real).sum()) * (q.shape[0] // p) * q.shape[2]
     flops = 4 * q.shape[-1] * pairs          # QK^T and PV, 2 per FMA
     b_ms, b_by = bound_ms(nbytes(q, k, v, lg, lo, hi, row) +
                           nbytes(q), flops, F32_3XTF32_FLOP_PER_S)
     # the library yardstick: SDPA with log g and the mask folded into
-    # a float mask (K/V expanded to the query batch for voltage, and to
-    # the query heads for GQA)
+    # a float mask, or with no mask where every column is visible and
+    # g = 1 (an encoder's Voltage); K/V expanded to the query batch for
+    # voltage, and to the query heads for GQA
     rep, grp = q.shape[0] // k.shape[0], q.shape[2] // k.shape[2]
     qs = q.transpose(1, 2).contiguous()
     ks, vs = (t.repeat_interleave(rep, 0).repeat_interleave(grp, 2)
               .transpose(1, 2).contiguous() for t in (k, v))
-    bias = torch.where(vis, lg[:, None, :], torch.full_like(
-        lg[:, None, :], -1e30))
-    bias = bias.repeat(q.shape[0] // p, 1, 1)[:, None].contiguous()
+    if bool(vis.all()) and bool((lg == 0).all()):
+        bias = None
+    else:
+        bias = torch.where(vis, lg[:, None, :], torch.full_like(
+            lg[:, None, :], -1e30))
+        bias = bias.repeat(q.shape[0] // p, 1, 1)[:, None].contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # the kernel and its plain version on the (P, M) / (P, Nq)
     # metadata the entry point hands them; the entry point's own
@@ -629,7 +730,7 @@ def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
              lo.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
              hi.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
              row.reshape(p, -1).to(i32).contiguous())
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
     try:
         lib_ms = timer(lambda: sdpa(qs, ks, vs, attn_mask=bias))
         lib_note = None
@@ -646,7 +747,8 @@ def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
         "library_ms": lib_ms, "library_note": lib_note,
         "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
         "shape": {"q": list(q.shape), "k": list(k.shape),
-                  "window": window}}
+                  "window": window, "causal": causal,
+                  "library_mask": bias is not None}}
 
 
 def attention_checker(chk, key=None):
@@ -1385,6 +1487,123 @@ def check_family(torch, chk, timer, arch, tag, seed):
     return out
 
 
+# phase 13's encoders: arch -> (key in the kernels line, batch, tokens,
+# the runs' (exchange, CR)); P = SHARDS.  ViT's 197 tokens split
+# 49/49/49/50 (Alg. 1), padded to 50 rows a shard
+ENCODERS = {"bert-base": ("bert", 32, 512, (("voltage", CR), ("prism", CR),
+                                            ("prism", 128.0))),
+            "vit-b16": ("vit", 64, 197, (("voltage", CR), ("prism", CR)))}
+
+
+def encoder_run_key(mode, cr):
+    return mode if mode == "voltage" else f"{mode}-cr{cr:g}"
+
+
+def check_encoder_kernels(torch, chk, timer):
+    """Phase 3 at the encoders' layouts (phase 13's), ``check_family``'s
+    sibling without the decode part (encoders do not decode): the
+    prefill kernel non-causal at each run's shapes (BERT-base PRISM at
+    CR 4 and 128, Voltage; ViT-B/16 PRISM and Voltage over the uneven
+    split), the augment at each PRISM layout (ViT's means over 49 real
+    rows of three shards and 50 of the last) and a ragged sweep of the
+    uneven split.  Errors are filed under ``<kernel>/<key>``."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, (key, batch, n, runs) in ENCODERS.items():
+        both = attention_checker(chk, key=f"prism_flash_attention/{key}")
+        att = {}
+        for mode, cr in runs:
+            run = encoder_run_key(mode, cr)
+            args = attention_inputs(torch, mode, arch=arch, prompt=n,
+                                    batch=batch, cr=cr, seed=23)
+            att[run] = attention_main(torch, timer, both, mode, arch=arch,
+                                      tag=f"{key}/{run}", args=args,
+                                      causal=False)
+        means = {encoder_run_key(mode, cr): encoder_augment(
+            torch, chk, timer, get_config(arch).d_model, batch, n,
+            int(n // (cr * SHARDS)), key)
+            for mode, cr in runs if mode == "prism"}
+        out[key] = {"attention": att, "segment_means": means}
+    encoder_augment_sweep(torch, chk)
+    return out
+
+
+def encoder_augment(torch, chk, timer, d, batch, n, L, key):
+    """The augment at an encoder's PRISM layout: ``batch`` sequences of
+    ``n`` tokens over the shards (the P - 1 first with n // P real rows,
+    the last with the rest, each padded to the last's), checked against
+    its plain version, then timed: kernel, plain, bound (x read once,
+    x_hat written once) and, where the split is even, the library chain
+    of a segment mean (``mean(2)``), expand and cat."""
+    from repro_torch.kernels.segment_means import prism_augment_op
+    name = "segment_means"
+    s, r = divmod(n, SHARDS)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    x = torch.randn(batch * SHARDS, s + r, d, device="cuda", generator=gen)
+    kw = dict(L=L, n_shards=SHARDS, n_real=s)
+    got = prism_augment_op(x, backend="kernel", **kw)
+    chk.close(name, got, prism_augment_op(x, backend="plain", **kw),
+              f"{key}/augment/n{n}/L{L}", key=f"{name}/{key}")
+    chk.cases[name] += 1
+    if not torch.equal(got[:, :s + r], x):
+        raise AssertionError(f"{name} [{key}]: the local rows are not "
+                             "copied exactly")
+    b_ms, b_by = bound_ms(nbytes(x, got), batch * n * d)
+    out = {"ms": timer(lambda: prism_augment_op(x, backend="kernel", **kw)),
+           "device_ms": timer.device(lambda: prism_augment_op(
+               x, backend="kernel", **kw)),
+           "plain_ms": timer(lambda: prism_augment_op(
+               x, backend="plain", **kw), iters=10),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "shape": {"x": list(x.shape), "L": L, "P": SHARDS,
+                     "n_real": s, "n": n}}
+    if r == 0 and s % L == 0:
+        m = SHARDS * L
+
+        def chain():
+            z = x.view(batch * SHARDS, L, s // L, d).mean(2)
+            z = z.reshape(batch, m, d)[:, None].expand(
+                -1, SHARDS, m, d).reshape(batch * SHARDS, m, d)
+            return torch.cat([x, z], dim=1)
+        out["library_ms"] = timer(chain)
+        out["library_note"] = "mean(2) over a reshape, expand, cat"
+    else:
+        out["library_note"] = ("no PyTorch call takes the uneven split's "
+                               "segments")
+    return out
+
+
+def encoder_augment_sweep(torch, chk):
+    """The augment's uneven split over ragged cases, f32 and bf16: (B·P,
+    n_loc, D, L, P, n_real) with L = 1 and L = n_real, D 33 and 5, P 1, 2
+    and 4, pad rows of 1 to 5, and a base off 16-byte alignment."""
+    from repro_torch.kernels.segment_means import prism_augment_op
+    name = "segment_means"
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases = [(8, 50, 768, 12, 4, 49), (8, 50, 768, 1, 4, 49),
+             (8, 50, 768, 49, 4, 49), (6, 17, 33, 4, 2, 13),
+             (4, 9, 5, 3, 4, 6), (3, 20, 768, 5, 1, 15),
+             (4, 67, 768, 16, 2, 65), (8, 130, 64, 32, 4, 128)]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "" if dtype == torch.float32 else "/bf16"
+        for case in cases + [None]:
+            bp, n, d, L, p, n_real = case or cases[0]
+            flat = torch.randn(bp * n * d + 1, device="cuda",
+                               generator=gen).to(dtype)
+            x = (flat[1:] if case is None else flat[:-1]).view(bp, n, d)
+            kw = dict(L=L, n_shards=p, n_real=n_real)
+            got = prism_augment_op(x, backend="kernel", **kw)
+            want = prism_augment_op(x, backend="plain", **kw)
+            what = ("uneven/misaligned" if case is None else
+                    f"uneven/bp{bp}/n{n}/d{d}/L{L}/P{p}/real{n_real}")
+            chk.close(name, got, want, what + tag, key=name + tag,
+                      tol=None if not tag else TOL_BF16)
+            chk.cases[name] += 1
+            if not torch.equal(got[:, :n], x):
+                raise AssertionError(f"{name} [{what}{tag}]: the local "
+                                     "rows are not copied exactly")
+
+
 PAGE_COLS = 4                        # the engine's default page: 16 tokens
 SPARE_PAGES = 32                     # pool pages that no row maps
 
@@ -1810,7 +2029,8 @@ def device_breakdown(prof, n_steps: int) -> dict:
     return {"span_ms": span * ms, "busy_ms": busy * ms,
             "idle_share": 1.0 - busy / span, "kernels": len(spans) / n_steps,
             "by_kind_ms": {k: v * ms for k, v in sorted(
-                by_kind.items(), key=lambda kv: -kv[1])}}
+                by_kind.items(), key=lambda kv: -kv[1])},
+            "trace": getattr(prof, "trace_info", None)}
 
 
 def profile(torch, run) -> dict:
@@ -3541,10 +3761,18 @@ TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
 
 # the engine runs of phase 9: packed exact and packed prism
 LLAMA_ENGINE_RUNS = (("packed", "exact"), ("packed", "prism"))
-# phase 9's tick and engine paths serve Yi-6B's first 8 of 32 layers
-# (widths full; its static paths run all 32): at full depth the whole
-# script took 1,105 s of its 1,200 s limit on an H100 (PERF.md §4)
-LLAMA_TICK_DEPTH = 8
+# phases 9, 11 and 12's tick and engine paths serve the first 8 layers
+# of Yi-6B (of 32), OLMoE-1B-7B (of 16) and Gemma 7B (of 28); widths
+# full, their static paths at full depth.  With Yi's alone cut the whole
+# script took 1,118 s of its 1,200 s limit on an H100 (PERF.md §4)
+TICK_DEPTH = 8
+
+
+def cut_depth(cfg, params):
+    """``cfg`` and ``params`` cut to their first ``TICK_DEPTH`` layers."""
+    n = TICK_DEPTH
+    return (replace(cfg, n_layers=n, blocks=cfg.block_kinds[:n]),
+            {**params, "layers": params["layers"][:n]})
 
 
 def drive_llama(torch):
@@ -3552,7 +3780,7 @@ def drive_llama(torch):
     of 128, SwiGLU, RMSNorm, RoPE, untied head), f32 weights from
     torch.Generator seed 0 on the card, through phase 4's static paths
     at full depth, then phase 5's tick paths and phase 6's engine
-    (packed exact and prism) on its first ``LLAMA_TICK_DEPTH`` layers,
+    (packed exact and prism) on its first ``TICK_DEPTH`` layers,
     at the same shapes and under the same checks.  Returns the launches
     of each path, keyed ``yi-6b/...``."""
     from repro_torch.configs import get_config
@@ -3568,9 +3796,7 @@ def drive_llama(torch):
          decode_route_static=("tile" if static_tile(cfg) else "row"))
     by_path = {f"{LLAMA}/static/{mode}": r["launches"]
                for mode, r in drive_path(torch, params, LLAMA).items()}
-    n = LLAMA_TICK_DEPTH
-    cut = replace(cfg, n_layers=n, blocks=cfg.block_kinds[:n])
-    params = {**params, "layers": params["layers"][:n]}
+    cut, params = cut_depth(cfg, params)
     by_path.update({f"{LLAMA}/{k}": v for k, v in
                     drive_ticks(torch, params, LLAMA, cut).items()})
     launches, _ = drive_engine(torch, params, LLAMA, LLAMA_ENGINE_RUNS,
@@ -3683,8 +3909,9 @@ def drive_family(torch, arch):
     qk-norm, SwiGLU, untied head over 50304) or phase 12 (Gemma 7B: 28
     layers, d 3072, 16 heads of 256, GeGLU d_ff 24576, sqrt(d) input
     scaling, tied head over 256000): f32 weights from torch.Generator
-    seed 0 on the card, through phase 4's static pairings, phase 5's tick
-    paths and phase 6's engine runs at their shapes (B 8, prompt 512, 64
+    seed 0 on the card, through phase 4's static pairings at full depth,
+    then phase 5's tick paths and phase 6's engine runs on its first
+    ``TICK_DEPTH`` layers, at their shapes (B 8, prompt 512, 64
     generated, P 4, CR 4).  OLMoE's runs are each held to their
     backend='plain' twin under the routing rule (``replay_check``),
     Gemma 7B's to phase 4-6's references.  Returns the launches of each
@@ -3712,12 +3939,179 @@ def drive_family(torch, arch):
          decode_route_static=("tile" if static_tile(cfg) else "row"))
     by_path = {f"{arch}/static/{mode}": r["launches"]
                for mode, r in drive_path(torch, params, arch).items()}
+    cut, params = cut_depth(cfg, params)
     by_path.update({f"{arch}/{k}": v for k, v in
-                    drive_ticks(torch, params, arch).items()})
-    launches, _ = drive_engine(torch, params, arch, ENGINE_RUNS)
+                    drive_ticks(torch, params, arch, cut).items()})
+    launches, _ = drive_engine(torch, params, arch, ENGINE_RUNS, cut)
     by_path.update({f"{arch}/{k}": v for k, v in launches.items()})
     emit("phase", name=arch, seconds=time.perf_counter() - t0)
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the paper's encoders, BERT-base and ViT-B/16
+# ---------------------------------------------------------------------------
+
+# the timed encode calls after the counted one (CUDA events each)
+ENCODE_REPEATS = 5
+
+
+def classes_agree(torch, logits, ref):
+    """The argmax classes of logits (B, C) against the reference's,
+    wherever its top-2 gap is clear; returns (checked, total)."""
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > TOKEN_GAP * float(ref.abs().max())
+    if (logits.argmax(-1)[clear] != ref.argmax(-1)[clear]).any():
+        raise AssertionError("classes differ where the reference's top-2 "
+                             "gap is clear")
+    return int(clear.sum()), clear.numel()
+
+
+def drive_encoders(torch):
+    """Phase 13: BERT-base (B 32 x 512 token ids) and ViT-B/16 (B 64 x
+    197 stub patch embeddings, split 49/49/49/50) at full width and
+    depth, f32 weights from torch.Generator seed 0 on the card, through
+    ``repro_torch.launch.serve.setup_encoder`` (``runtime.serve.encode``)
+    over P = 4 shards, in each of ``ENCODERS``' runs: Voltage held to the
+    plain full forward, PRISM to the same run with backend='plain'; the
+    launch counters zeroed just before the counted run and read just
+    after (attention once a layer, segment means once a PRISM layer,
+    the decode kernel never); then the time of ``ENCODE_REPEATS`` more
+    calls and a trace of one.  Returns the launches of each run, keyed
+    ``<arch>/encode/<run>``."""
+    import time
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.serve import setup_encoder
+    from repro_torch.models import transformer as T
+    by_path = {}
+    for arch, (key, batch, n, runs) in ENCODERS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+        n_params = sum(t.numel() for t in _leaves(params))
+        s, r = divmod(n, SHARDS)
+        emit("model", arch=arch, params=n_params, weight_bytes=4 * n_params,
+             layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+             head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+             classes=cfg.num_classes, frontend=cfg.frontend, batch=batch,
+             tokens=n, split=[s] * (SHARDS - 1) + [s + r])
+        for mode, cr in runs:
+            name = encoder_run_key(mode, cr)
+            run = setup_encoder(arch, batch=batch, n=n, seq_shards=SHARDS,
+                                prefill=mode, cr=cr, device="cuda",
+                                params=params)
+            if [run.cfg.n_layers, run.cfg.d_model, run.cfg.n_heads] != [
+                    cfg.n_layers, cfg.d_model, cfg.n_heads]:  # full size
+                raise AssertionError(f"{arch}: not at full size")
+            run.run()                                        # warm-up
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            classes, logits, times = run.run()
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            path = f"{arch}/encode/{name}"
+            check_launches(path, counts, {
+                "prism_flash_attention": cfg.n_layers,
+                "prism_flash_attention.window": 0,
+                "segment_means": cfg.n_layers if mode == "prism" else 0,
+                "flash_decode_stats": 0})
+            if tuple(logits.shape) != (batch, cfg.num_classes) or not bool(
+                    torch.isfinite(logits).all()):
+                raise AssertionError(f"{path}: logits {tuple(logits.shape)}"
+                                     " not finite or of the wrong shape")
+            x = {"tokens": run.tokens} if run.tokens is not None else {
+                "embeds": run.embeds}
+            if mode == "voltage":
+                with torch.no_grad():
+                    ref = T.forward(cfg, params, **x)
+                ref_name = "plain full forward"
+            else:
+                plain = setup_encoder(arch, batch=batch, n=n,
+                                      seq_shards=SHARDS, prefill=mode, cr=cr,
+                                      device="cuda", params=params,
+                                      backend="plain")
+                ref = plain.run()[1]
+                ref_name = "backend='plain' run"
+            err = rel_err(logits, ref)
+            if err > PATH_REL_TOL:
+                raise AssertionError(f"{path}: logits rel err {err:.3e} vs "
+                                     f"the {ref_name} > {PATH_REL_TOL}")
+            checked, total = classes_agree(torch, logits, ref)
+            repeats = [run.run()[2]["encode_ms"]
+                       for _ in range(ENCODE_REPEATS)]
+            L = run.prism.landmarks(n) if mode == "prism" else None
+            emit("path", arch=arch, mode="encode", exchange=mode, cr=cr,
+                 L=L, batch=batch, tokens=n, shards=SHARDS,
+                 encode_ms=times["encode_ms"], encode_ms_repeats=repeats,
+                 encode_ms_median=statistics.median(repeats),
+                 sequences_per_s=batch / (statistics.median(repeats) / 1e3),
+                 clock=times["clock"], launches=counts,
+                 logits_rel_err=err, reference=ref_name, tol=PATH_REL_TOL,
+                 classes_checked=checked, classes_total=total,
+                 classes_head=classes[:8].tolist())
+            emit("trace", arch=arch, mode="encode", exchange=mode, cr=cr,
+                 encode=device_breakdown(trace_window(torch, run.run), 1))
+            by_path[path] = counts
+            del logits, ref
+        del params
+        torch.cuda.empty_cache()
+        emit("phase", name=arch, seconds=time.perf_counter() - t0)
+    return by_path
+
+
+# the argument that makes this script run phase 13 alone, in a process
+# of its own (``drive_encoders_apart``)
+ENCODERS_ARG = "--phase13-child"
+
+
+def drive_encoders_apart():
+    """Phase 13 in a child process of this script (``ENCODERS_ARG``),
+    its lines passed on and its last one, the launches of each run,
+    returned.  Late in this long process the profiler dropped about 65
+    of an encode window's 724 device records (one attention launch) in
+    all 12 tries, though the same window was whole in a fresh process
+    (PERF.md §6)."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        ENCODERS_ARG], capture_output=True, text=True,
+                       timeout=900)
+    sys.stderr.write(r.stderr[-20000:])
+    lines = r.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if r.returncode != 0 or not lines:
+        print("\n".join(lines[-1:]), flush=True)
+        raise RuntimeError(f"phase 13's process exited {r.returncode}")
+    return json.loads(lines[-1])["encoder_launches"]
+
+
+def encoders_child(torch) -> int:
+    """Phase 13 alone (``ENCODERS_ARG``): the last line is the launches
+    of each run."""
+    from repro_torch.device import resolve_device
+    resolve_device("cuda")                      # full-f32 matmuls, no TF32
+    by_path = drive_encoders(torch)
+    print(json.dumps({"encoder_launches": by_path}), flush=True)
+    return 0
+
+
+def encoder_row(name, t, chk, key):
+    """A kernel's numbers at an encoder's layouts (``check_encoder_
+    kernels``): per run the kernel's times, its plain version's, the
+    bound and the library call's; the largest error there and its share
+    of the tolerance.  The decode kernel has no encoder layout."""
+    pick = lambda t: {k: t[k] for k in TIME_KEYS + (  # noqa: E731
+        "library_note", "shape") if k in t}
+    if name == "prism_flash_attention":
+        out = {run: pick(tm) for run, tm in t["attention"].items()}
+    elif name == "segment_means":
+        out = {run: pick(tm) for run, tm in t["segment_means"].items()}
+    else:
+        return {"note": "encoders do not decode"}
+    out["max_abs_err"] = chk.max_err.get(f"{name}/{key}", 0.0)
+    out["tol_share"] = chk.tol_share.get(f"{name}/{key}", 0.0)
+    return out
 
 
 def _leaves(tree):
@@ -3738,6 +4132,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == [ENCODERS_ARG]:
+        return encoders_child(torch)
     from repro_torch.kernels import build
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as T
@@ -3766,11 +4162,12 @@ def main() -> int:
     t_fam = {MOE: check_family(torch, chk, timer, MOE, "olmoe", 17),
              GEMMA7: check_family(torch, chk, timer, GEMMA7, "gemma7b",
                                   19)}
+    t_enc = check_encoder_kernels(torch, chk, timer)
     emit("kernel", max_abs_err=chk.max_err, tol_share=chk.tol_share,
          worst_case=chk.worst, tol=TOL, cases=chk.cases,
          floor_ms=timer.floor(), attention=t_attn, segment_means=t_means,
          decode=t_dec, hd128=t_128, hd256=t_256, olmoe=t_fam[MOE],
-         gemma7b=t_fam[GEMMA7])
+         gemma7b=t_fam[GEMMA7], encoders=t_enc)
 
     t_phase = [t_start]
 
@@ -3802,6 +4199,8 @@ def main() -> int:
     for arch in (MOE, GEMMA7):       # each model's weights freed after it
         torch.cuda.empty_cache()
         by_path.update(drive_family(torch, arch))
+    torch.cuda.empty_cache()
+    by_path.update(drive_encoders_apart())
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -3913,6 +4312,14 @@ def main() -> int:
                 for sub in ("mq", "paged"):
                     row[tag]["launches_" + sub] = sum(
                         by_path[p].get(f"{name}.{sub}", 0) for p in paths)
+        # the encoders' layouts, with their launches on phase 13's paths
+        for arch, (key, *_) in ENCODERS.items():
+            paths = [p for p in by_path if p.startswith(arch + "/")]
+            row[key] = encoder_row(name, t_enc[key], chk, key)
+            row[key]["launches"] = sum(by_path[p].get(name, 0)
+                                       for p in paths)
+            row[key]["launches_by_path"] = {p: by_path[p].get(name, 0)
+                                            for p in paths}
         rows.append(row)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -13,6 +13,9 @@ _REGISTRY = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     # 480 B parameters fit on no card: served at its reduced size only
     "arctic-480b": "arctic_480b",
+    # the paper's encoders: classification over sequence shards, no decode
+    "bert-base": "bert_base",
+    "vit-b16": "vit_b16",
 }
 
 

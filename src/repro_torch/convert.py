@@ -10,8 +10,9 @@ The reference stores layers as ``{"scan": [u stacked trees], "tail":
 [...]}`` (``ModelConfig.scan_split``): layer ``i·u + j`` of the scanned
 part is slice ``i`` of ``scan[j]``, and the ``tail`` layers follow.  The
 port keeps one dict per layer.  Dense weights stay ``(d_in, d_out)``, a
-tied head stays ``embed.table`` and an untied one is ``lm_head``, so
-every leaf is a plain copy.  A MoE block's stacked expert leaves
+tied head stays ``embed.table`` and an untied one is ``lm_head``, an
+encoder's class head is ``head`` and ViT's patch projection
+``frontend_proj``, so every leaf is a plain copy.  A MoE block's stacked expert leaves
 ``(E, d_in, d_out)`` are ``(n_units, E, ...)`` under the scan, and come
 across slice by slice like every other leaf.
 """
@@ -50,10 +51,10 @@ def from_jax_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
         raise ValueError(f"{len(layers)} layers in the tree, config has "
                          f"{cfg.n_layers}")
     params = {"layers": layers,
-              "final_norm": _tensors(tree["final_norm"], device),
-              "embed": _tensors(tree["embed"], device)}
-    # learned positions and an untied head only where the model has them
-    for name in ("pos_embed", "lm_head"):
+              "final_norm": _tensors(tree["final_norm"], device)}
+    # a vocabulary, learned positions, an untied head, an encoder's class
+    # head and a stub frontend's projection only where the model has them
+    for name in ("embed", "pos_embed", "lm_head", "head", "frontend_proj"):
         if name in tree:
             params[name] = _tensors(tree[name], device)
     return params

@@ -17,6 +17,11 @@
 //                     every shard of sequence b, shard-major.  Each block
 //                     copies its segment's rows of x[r] into x_hat[r] and
 //                     writes their mean into all P rows of sequence b.
+//                     Alg. 1's uneven split: every shard but the last
+//                     holds n_real <= N real rows, padded to N; its
+//                     segments are cut from, and averaged over, those
+//                     rows alone, while its pad rows are still copied
+//                     (n_real = N is the even split).
 //
 // What bounds it on an H100: memory.  Every input element is read once
 // and every output element written once: (R*N*D + R*L*D) elements for
@@ -125,20 +130,23 @@ struct Unit<__nv_bfloat16, true> {       // 8 bf16 in a uint4
 };
 
 // Block (r, l) of a 1-D grid of R * L blocks: the means of segment l of
-// x[r] go to rows (r / P) * P + q, q < P, column out_off + (r % P) * L + l
-// of out (R, out_rows, D); with COPY, rows [start, end) of x[r] go to the
-// same rows of out[r].
+// x[r], rows [start, end) of its n_r real rows, go to rows (r / P) * P +
+// q, q < P, column out_off + (r % P) * L + l of out (R, out_rows, D);
+// with COPY, rows [start, stop) of x[r] go to the same rows of out[r]:
+// the segment's, and after a shard's last segment its pad rows up to N.
 template <typename T, bool VEC, bool COPY>
 __global__ void __launch_bounds__(MAX_THREADS) segment_means_kernel(
     const T* __restrict__ x, T* __restrict__ out, int N, int L, int D,
-    int P, int out_rows, int out_off) {
+    int P, int out_rows, int out_off, int n_real) {
   using U = Unit<T, VEC>;
   using Raw = typename U::Raw;
   const int r = blockIdx.x / L;
   const int l = blockIdx.x % L;
-  const int s = N / L;
+  const int n_r = (r % P == P - 1) ? N : n_real;  // the shard's real rows
+  const int s = n_r / L;
   const int start = l * s;
-  const int end = (l == L - 1) ? N : start + s;
+  const int end = (l == L - 1) ? n_r : start + s;
+  const int stop = (COPY && l == L - 1) ? N : end;  // rows read
   const int cols = D / U::W;                      // units per feature row
   const Raw* xr = reinterpret_cast<const Raw*>(x) + (size_t)r * N * cols;
   Raw* o = reinterpret_cast<Raw*>(out);
@@ -150,15 +158,15 @@ __global__ void __launch_bounds__(MAX_THREADS) segment_means_kernel(
     float acc[U::W];
 #pragma unroll
     for (int k = 0; k < U::W; ++k) acc[k] = 0.f;
-    for (int i = start; i < end; i += CHUNK) {
+    for (int i = start; i < stop; i += CHUNK) {
       Raw v[CHUNK];
 #pragma unroll
       for (int u = 0; u < CHUNK; ++u)
-        if (i + u < end) v[u] = xr[(size_t)(i + u) * cols + c];
+        if (i + u < stop) v[u] = xr[(size_t)(i + u) * cols + c];
       if (COPY) {
 #pragma unroll
         for (int u = 0; u < CHUNK; ++u)
-          if (i + u < end) orow[(size_t)(i + u) * cols + c] = v[u];
+          if (i + u < stop) orow[(size_t)(i + u) * cols + c] = v[u];
       }
 #pragma unroll
       for (int u = 0; u < CHUNK; ++u)
@@ -175,9 +183,10 @@ __global__ void __launch_bounds__(MAX_THREADS) segment_means_kernel(
 
 template <typename T, bool COPY>
 int launch(const void* x, void* out, int R, int N, int L, int D, int P,
-           void* stream) {
-  if (R < 1 || D < 1 || L < 1 || L > N || P < 1 || R % P ||
-      (long long)R * L > INT_MAX || (long long)P * L > INT_MAX - N)
+           int n_real, void* stream) {
+  if (R < 1 || D < 1 || L < 1 || L > n_real || n_real > N || P < 1 ||
+      R % P || (long long)R * L > INT_MAX ||
+      (long long)P * L > INT_MAX - N)
     return (int)cudaErrorInvalidValue;
   constexpr int W = Unit<T, true>::W;
   const bool vec = D % W == 0 &&
@@ -192,10 +201,10 @@ int launch(const void* x, void* out, int R, int N, int L, int D, int P,
   auto st = static_cast<cudaStream_t>(stream);
   if (vec)
     segment_means_kernel<T, true, COPY><<<R * L, threads, 0, st>>>(
-        xp, op, N, L, D, P, out_rows, out_off);
+        xp, op, N, L, D, P, out_rows, out_off, n_real);
   else
     segment_means_kernel<T, false, COPY><<<R * L, threads, 0, st>>>(
-        xp, op, N, L, D, P, out_rows, out_off);
+        xp, op, N, L, D, P, out_rows, out_off, n_real);
   return (int)cudaGetLastError();
 }
 
@@ -204,21 +213,25 @@ int launch(const void* x, void* out, int R, int N, int L, int D, int P,
 // x (B, N, D) -> out (B, L, D)
 extern "C" int segment_means_f32(const void* x, void* out, int B, int N,
                                  int L, int D, void* stream) {
-  return launch<float, false>(x, out, B, N, L, D, 1, stream);
+  return launch<float, false>(x, out, B, N, L, D, 1, N, stream);
 }
 
 extern "C" int segment_means_bf16(const void* x, void* out, int B, int N,
                                   int L, int D, void* stream) {
-  return launch<__nv_bfloat16, false>(x, out, B, N, L, D, 1, stream);
+  return launch<__nv_bfloat16, false>(x, out, B, N, L, D, 1, N, stream);
 }
 
-// x (B*P, N, D) -> x_hat (B*P, N + P*L, D)
+// x (B*P, N, D) -> x_hat (B*P, N + P*L, D); every shard but the last
+// has n_real real rows
 extern "C" int prism_augment_f32(const void* x, void* x_hat, int BP, int N,
-                                 int L, int D, int P, void* stream) {
-  return launch<float, true>(x, x_hat, BP, N, L, D, P, stream);
+                                 int L, int D, int P, int n_real,
+                                 void* stream) {
+  return launch<float, true>(x, x_hat, BP, N, L, D, P, n_real, stream);
 }
 
 extern "C" int prism_augment_bf16(const void* x, void* x_hat, int BP, int N,
-                                  int L, int D, int P, void* stream) {
-  return launch<__nv_bfloat16, true>(x, x_hat, BP, N, L, D, P, stream);
+                                  int L, int D, int P, int n_real,
+                                  void* stream) {
+  return launch<__nv_bfloat16, true>(x, x_hat, BP, N, L, D, P, n_real,
+                                     stream);
 }

@@ -54,6 +54,14 @@ exactly in both modes and captures the means over real tokens);
         --engine --requests 16 --rate 4 --batch 8 --prompt-len 512 \
         --gen 64
 
+    # the paper's encoders classify a seeded batch over P sequence shards
+    # (no decode, no engine): BERT-base on 512 token ids, ViT-B/16 on 197
+    # stub patch embeddings, split 49/49/49/50 by Alg. 1
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch bert-base \
+        --batch 32 --seq-shards 4 --prefill prism --cr 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch vit-b16 \
+        --batch 64 --seq-shards 4 --prefill voltage
+
 Weights are random, drawn from ``torch.Generator`` seeded with
 ``--seed``; ``--reduced`` takes the architecture's smoke-test size.
 Runs on CUDA unless ``--device cpu`` is given; without a card it raises.
@@ -61,18 +69,23 @@ Runs on CUDA unless ``--device cpu`` is given; without a card it raises.
 from __future__ import annotations
 
 import argparse
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..configs import get_config
-from ..core.protocol import PrismConfig
+from ..core.protocol import PrismConfig, partition_bounds
 from ..device import resolve_device
 from ..models import transformer as T
 from ..models.config import ModelConfig
-from ..runtime.serve import (ServeHParams, ServeLayout, generate,
+from ..models.transformer import is_encoder
+from ..runtime.serve import (ServeHParams, ServeLayout, encode, generate,
                              make_layout)
+
+# ViT-B/16's tokens: 14 x 14 patches of a 224-pixel image, plus CLS
+VIT_TOKENS = 197
 
 
 @dataclass
@@ -119,6 +132,100 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
         1, cfg.vocab_size, size=(batch, n)), device=dev)
     return StaticServe(cfg, params, prompts, prism, lay, hp, gen)
+
+
+@dataclass
+class EncodeRun:
+    """Everything one encoder classification run needs: token ids, or a
+    stub frontend's embeddings."""
+    cfg: ModelConfig
+    params: dict
+    tokens: torch.Tensor | None      # (B, N) int64
+    embeds: torch.Tensor | None      # (B, N, D) f32
+    prism: PrismConfig
+    n_shards: int
+    hp: ServeHParams
+
+    def run(self):
+        """-> (classes (B,), logits (B, num_classes) f32, times):
+        ``times['encode_ms']`` from CUDA events on a card, from the host
+        clock on the CPU (``times['clock']``)."""
+        x = self.tokens if self.tokens is not None else self.embeds
+        if x.is_cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        else:
+            t0 = time.perf_counter()
+        logits = encode(self.cfg, self.params, self.tokens,
+                        embeds=self.embeds, prism=self.prism,
+                        n_shards=self.n_shards, hp=self.hp)
+        if x.is_cuda:
+            ev[1].record()
+            torch.cuda.synchronize(x.device)
+            ms, clock = ev[0].elapsed_time(ev[1]), "cuda_events"
+        else:
+            ms, clock = 1e3 * (time.perf_counter() - t0), "host"
+        return logits.argmax(dim=-1), logits, {"encode_ms": ms,
+                                               "clock": clock}
+
+
+def default_len(cfg: ModelConfig) -> int:
+    """An encoder's sequence length: ViT's 197 tokens for a patch
+    frontend, else its position table's (BERT's 512)."""
+    return VIT_TOKENS if cfg.frontend else cfg.max_seq
+
+
+def setup_encoder(arch: str, *, batch: int = 8, n: int | None = None,
+                  seq_shards: int = 4, prefill: str = "voltage",
+                  cr: float = 4.0, device: str = "cuda", seed: int = 0,
+                  backend: str = "auto", params: dict | None = None,
+                  reduced: bool = False) -> EncodeRun:
+    """Build an encoder run on a seeded batch of ``n`` tokens (default
+    ``default_len`` of the full config): token ids from
+    ``np.random.default_rng(seed)``, or for a frontend model embeddings
+    from a seeded ``torch.Generator`` normal.  ``n`` need not be a
+    multiple of ``seq_shards`` (Alg. 1's uneven split).  ``params``
+    reuses weights already built."""
+    dev = resolve_device(device)
+    full = get_config(arch)
+    cfg = full.reduced() if reduced else full
+    n = default_len(full) if n is None else n
+    if params is None:
+        params = T.init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    tokens = embeds = None
+    if cfg.frontend:
+        embeds = torch.randn(batch, n, cfg.d_model, device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(seed))
+    else:
+        tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+            1, cfg.vocab_size, size=(batch, n)), device=dev)
+    return EncodeRun(cfg, params, tokens, embeds,
+                     PrismConfig(P=seq_shards, cr=cr, mode=prefill),
+                     seq_shards, ServeHParams(backend=backend))
+
+
+def run_encoder(args) -> None:
+    """An encoder (``--arch bert-base|vit-b16``): one classification of
+    a seeded batch; prints the classes and the time."""
+    run = setup_encoder(args.arch, batch=args.batch, n=args.prompt_len,
+                        seq_shards=args.seq_shards,
+                        prefill=args.prefill or "voltage", cr=args.cr,
+                        device=args.device, seed=args.seed,
+                        reduced=args.reduced)
+    classes, logits, times = run.run()
+    x = run.tokens if run.tokens is not None else run.embeds
+    b, n = x.shape[:2]
+    split = "/".join(str(size)
+                     for _, size in partition_bounds(n, run.n_shards))
+    what = ("L " + str(run.prism.landmarks(n)) if run.prism.mode == "prism"
+            else "full exchange")
+    print(f"[encode] {run.cfg.name} {run.prism.mode} ({what}): {b}x{n} "
+          f"over shards of {split} tokens, {times['encode_ms']:.2f} ms "
+          f"({times['clock']})")
+    print(f"[encode] classes of {run.cfg.num_classes} (first 16 rows): "
+          f"{classes[:16].cpu().tolist()}")
 
 
 def poisson_trace(n_requests: int, rate: float, prefill_len: int,
@@ -255,17 +362,21 @@ def main(argv=None):
                     help="the architecture's smoke-test size")
     ap.add_argument("--batch", type=int, default=8,
                     help="static batch size / engine slot count")
-    ap.add_argument("--prompt-len", type=int, default=64,
-                    help="static prompt length / engine prefill length")
-    ap.add_argument("--gen", type=int, default=16,
-                    help="tokens generated per sequence / request")
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="static prompt length / engine prefill length "
+                         "(default 64); an encoder's tokens (default: "
+                         "BERT 512, ViT 197)")
+    ap.add_argument("--gen", type=int, default=None,
+                    help="tokens generated per sequence / request "
+                         "(default 16; an encoder generates none)")
     ap.add_argument("--seq-shards", type=int, default=4)
     ap.add_argument("--decode-mode", default="exact",
                     choices=("exact", "prism"))
     ap.add_argument("--prefill", default=None,
                     choices=("voltage", "prism"),
-                    help="[static] the prefill exchange (default: voltage "
-                         "for exact decode, prism for prism decode)")
+                    help="[static, encoder] the prefill exchange "
+                         "(default: voltage for exact decode and for an "
+                         "encoder, prism for prism decode)")
     ap.add_argument("--cr", type=float, default=4.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
@@ -336,6 +447,14 @@ def main(argv=None):
                          "opportunity (an engine tick with work; default "
                          "6)")
     args = ap.parse_args(argv)
+    if is_encoder(get_config(args.arch)):
+        if args.engine or args.gen is not None:
+            ap.error(f"{args.arch} is an encoder: it classifies, with no "
+                     "--engine and no --gen")
+        run_encoder(args)
+        return
+    args.prompt_len = 64 if args.prompt_len is None else args.prompt_len
+    args.gen = 16 if args.gen is None else args.gen
     if args.engine:
         run_engine(args)
         return

@@ -1,10 +1,12 @@
 """Transformer stack: ``init(cfg, generator, device)`` builds a parameter
 dict, ``forward(cfg, params, tokens)`` runs it under a ``SeqContext``.
 
-Parameters: {"layers": [per-layer dicts], "embed": {"table"},
-"final_norm": {...}}, plus "pos_embed": {"table"} for learned positions
-and "lm_head": {"w"} for an untied head — the reference's stacked
-``scan``/``tail`` layout unstacked into one dict per layer
+Parameters: {"layers": [per-layer dicts], "final_norm": {...}}, plus
+"embed": {"table"} where the model has a vocabulary, "pos_embed":
+{"table"} for learned positions, "lm_head": {"w"} for an untied head,
+"head": {"w", "b"} for an encoder's classes and "frontend_proj": {"w"}
+for a stub frontend — the reference's stacked ``scan``/``tail`` layout
+unstacked into one dict per layer
 (``convert.from_jax_numpy``).  The ``attn``, ``attn_local`` and ``moe``
 block kinds are ported: GPT-2's pieces (learned positions, LayerNorm,
 GELU, tied head), the Llama family's (RoPE, RMSNorm, SwiGLU, GQA, untied
@@ -13,6 +15,11 @@ theta for each kind, qk-norm, GeGLU, MQA, sqrt(d) input scaling) and
 Mixture-of-Experts blocks (``models/moe.py``: global attention, then
 routed experts, with arctic's dense residual MLP where the model has
 one).
+
+Encoders (``num_classes``: BERT, ViT) attend without a causal mask and
+return the class head's logits on the CLS row (global position 0); a
+``patch_stub`` frontend (ViT) takes stub patch embeddings through
+``frontend_proj`` in place of tokens, and such a model has no vocabulary.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from ..device import resolve_device
 
 
 BLOCK_KINDS = ("attn", "attn_local", "moe")
+FRONTENDS = (None, "patch_stub")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -39,14 +47,34 @@ def check_supported(cfg: ModelConfig) -> None:
             or cfg.norm_kind not in NORM_KINDS
             or cfg.mlp_kind not in MLP_KINDS
             or cfg.parallel_block or cfg.logit_softcap
-            or cfg.frontend or cfg.num_classes or cfg.prefix_len
+            or cfg.frontend not in FRONTENDS or cfg.prefix_len
+            or not (cfg.vocab_size or cfg.num_classes)
             or ("moe" in cfg.block_kinds
                 and not (cfg.n_experts and cfg.top_k and cfg.expert_d_ff))):
         raise NotImplementedError(
-            f"{cfg.name}: only decoders of {'/'.join(BLOCK_KINDS)} blocks "
-            f"with learned or rotary positions, {'/'.join(NORM_KINDS)} and "
-            f"{'/'.join(MLP_KINDS)} are ported (block kinds {bad}, pos "
-            f"{cfg.pos!r}, norm {cfg.norm_kind!r}, mlp {cfg.mlp_kind!r})")
+            f"{cfg.name}: only decoders and classifying encoders of "
+            f"{'/'.join(BLOCK_KINDS)} blocks with learned or rotary "
+            f"positions, {'/'.join(NORM_KINDS)} and {'/'.join(MLP_KINDS)} "
+            f"are ported, with no frontend or a patch stub (block kinds "
+            f"{bad}, pos {cfg.pos!r}, norm {cfg.norm_kind!r}, mlp "
+            f"{cfg.mlp_kind!r}, frontend {cfg.frontend!r}, prefix_len "
+            f"{cfg.prefix_len})")
+
+
+def is_encoder(cfg: ModelConfig) -> bool:
+    """A classifying or bidirectional model: prefill only, no decode."""
+    return bool(cfg.num_classes) or not cfg.causal
+
+
+def check_decoder(cfg: ModelConfig, what: str) -> None:
+    """Raise for an encoder on a path that decodes: it has no causal
+    cache to extend and no vocabulary head (``runtime.serve.encode``
+    serves it)."""
+    if is_encoder(cfg):
+        raise ValueError(
+            f"{what} serves causal decoders only; arch {cfg.name!r} is an "
+            f"encoder (causal={cfg.causal}, num_classes={cfg.num_classes}):"
+            f" runtime.serve.encode classifies with it")
 
 
 def attn_spec(cfg: ModelConfig, kind: str = "attn") -> AttnSpec:
@@ -89,15 +117,24 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
         "layers": [block_init(cfg, kind, generator, device)
                    for kind in cfg.block_kinds],
         "final_norm": norm_init(cfg.d_model, cfg.norm_kind, device),
-        "embed": embedding_init(generator, cfg.vocab_size, cfg.d_model,
-                                device),
     }
+    if cfg.vocab_size:
+        params["embed"] = embedding_init(generator, cfg.vocab_size,
+                                         cfg.d_model, device)
     if cfg.pos == "learned":
         params["pos_embed"] = embedding_init(generator, cfg.max_seq,
                                              cfg.d_model, device)
-    if not cfg.tie_embeddings:
+    if cfg.vocab_size and not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model,
                                        cfg.vocab_size, device=device)
+    if cfg.num_classes:
+        params["head"] = dense_init(generator, cfg.d_model, cfg.num_classes,
+                                    device=device, bias=True)
+    if cfg.frontend:
+        # the stub modality projector: a square linear from the
+        # frontend's embedding space into the backbone
+        params["frontend_proj"] = dense_init(generator, cfg.d_model,
+                                             cfg.d_model, device=device)
     return params
 
 
@@ -139,12 +176,23 @@ def embed_scale(cfg: ModelConfig, x):
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
 
 
-def embed_inputs(cfg: ModelConfig, params, tokens, pos_start: int = 0):
-    """tokens (B, N) -> x (B, N, D): token embeddings (scaled by
-    sqrt(d_model) where the model says so), plus the learned position
-    embeddings where the model has them (RoPE rotates q and k in the
-    attention layers instead)."""
-    x = embed_scale(cfg, embed(params["embed"], tokens))
+def embed_inputs(cfg: ModelConfig, params, tokens=None, pos_start: int = 0,
+                 *, embeds=None):
+    """tokens (B, N) or stub-frontend embeds (B, N, D) -> x (B, N, D):
+    token embeddings, or the embeds through ``frontend_proj`` where the
+    model has a frontend (ViT's patches); scaled by sqrt(d_model) where
+    the model says so, plus the learned position embeddings where the
+    model has them (RoPE rotates q and k in the attention layers
+    instead).  The reference's VLM prefix, embeds written over the first
+    tokens, is not ported: both inputs at once raise."""
+    if (tokens is None) == (embeds is None):
+        raise ValueError("embed_inputs takes tokens or embeds, one of them")
+    if tokens is not None:
+        x = embed(params["embed"], tokens)
+    else:
+        x = (dense(params["frontend_proj"], embeds) if cfg.frontend
+             else embeds)
+    x = embed_scale(cfg, x)
     if cfg.pos != "learned":
         return x
     n = x.shape[1]
@@ -160,16 +208,26 @@ def head(cfg: ModelConfig, params, x):
     return dense(params["lm_head"], x)
 
 
-def forward(cfg: ModelConfig, params, tokens, *,
+def classify(cfg: ModelConfig, params, cls):
+    """An encoder's class head on the CLS rows cls (B, D), final norm
+    first -> (B, num_classes)."""
+    return dense(params["head"],
+                 norm(params["final_norm"], cls, cfg.norm_kind))
+
+
+def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
             ctx: SeqContext | None = None, start: int = 0, routing=None):
-    """tokens (B, N) -> logits (B, N - start, V) of positions start.. (the
-    head over the tail only: at a large vocabulary the whole (B, N, V)
-    would dwarf the rest).  A ``moe`` block routes all B·N tokens as one
-    group."""
+    """tokens (B, N) or stub-frontend embeds (B, N, D) -> logits (B,
+    N - start, V) of positions start.. (the head over the tail only: at a
+    large vocabulary the whole (B, N, V) would dwarf the rest); for an
+    encoder (``num_classes``) the class logits (B, num_classes) of the
+    CLS row.  A ``moe`` block routes all B·N tokens as one group."""
     check_supported(cfg)
     ctx = ctx or FullContext(prefix_len=cfg.prefix_len)
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, embeds=embeds)
     for kind, p in zip(cfg.block_kinds, params["layers"]):
         x = block_apply(cfg, kind, p, x, ctx, routing)
+    if cfg.num_classes:
+        return classify(cfg, params, x[:, 0])
     return head(cfg, params,
                 norm(params["final_norm"], x[:, start:], cfg.norm_kind))

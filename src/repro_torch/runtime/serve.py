@@ -63,8 +63,9 @@ from ..models.context import SeqContext
 from ..models.layers import (AttnSpec, attn_output, attn_project_kv,
                              attn_project_q, embed, norm)
 from ..models.moe import RoutingLog
-from ..models.transformer import (attn_spec, check_supported, embed_inputs,
-                                  embed_scale, ffn, head)
+from ..models.transformer import (attn_spec, check_decoder, check_supported,
+                                  classify, embed_inputs, embed_scale, ffn,
+                                  head)
 from ..sharding.context import ShardedPrismContext, means_columns
 from .paging import KVCache, PrefixCache
 
@@ -221,11 +222,10 @@ def _prefill_attention(q, k, v, akv, spec: AttnSpec, cfg: ModelConfig,
         backend=hp.backend)
 
 
-def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
-                 hp: ServeHParams, prism_augment: bool, shapes: dict):
-    """Attention sublayer over x (B·P, n_loc, D) that also captures this
-    layer's decode cache, whose leaves have ``shapes``
-    (``layer_cache_shape``)."""
+def sharded_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx,
+                 hp: ServeHParams):
+    """Attention sublayer over x (B·P, n_loc, D), every shard in one
+    launch: -> (output (B·P, n_loc, D), k, v, the augmented view)."""
     xq, akv = ctx.augment(x, spec)
     xq_n = norm(p["ln1"], xq, cfg.norm_kind)
     xh_n = norm(p["ln1"], akv.x_hat, cfg.norm_kind)
@@ -233,6 +233,15 @@ def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
     k, v = attn_project_kv(p["attn"], spec, xh_n, akv.col_pos)
     o = attn_output(p["attn"], _prefill_attention(q, k, v, akv, spec, cfg,
                                                   hp))
+    return o, k, v, akv
+
+
+def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
+                 hp: ServeHParams, prism_augment: bool, shapes: dict):
+    """Attention sublayer over x (B·P, n_loc, D) that also captures this
+    layer's decode cache, whose leaves have ``shapes``
+    (``layer_cache_shape``)."""
+    o, k, v, akv = sharded_attn(p, spec, cfg, x, ctx, hp)
 
     bp, n_loc, d = x.shape
     P = lay.n_seq
@@ -299,6 +308,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     ``prism.mode`` picks the exchange: 'prism' (Segment-Means) or
     'voltage' (full)."""
     check_supported(cfg)
+    check_decoder(cfg, "prefill")
     b, n = tokens.shape
     P = lay.n_seq
     if n != lay.prefill_len:
@@ -320,6 +330,36 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
         x = x + ffn(cfg, kind, p, x, ctx, hp.routing)
         cache.append(c)
     return lm_head(cfg, params, ctx.last_shard(x[:, -1])), cache
+
+
+def encode(cfg: ModelConfig, params, tokens=None, *, embeds=None,
+           prism: PrismConfig, n_shards: int, hp: ServeHParams):
+    """An encoder's classification over ``n_shards`` sequence shards:
+    tokens (B, N) or stub-frontend embeds (B, N, D) -> class logits
+    (B, num_classes) f32.
+
+    The layer loop is ``prefill``'s (attention through the prefill kernel,
+    here without the causal mask, then the feed-forward) with no cache
+    capture; then the final norm and the class head on the CLS row,
+    global position 0, which shard 0 holds first.  N need not be a
+    multiple of P: Alg. 1's last shard takes the remainder
+    (``ShardedPrismContext.shard``).  ``prism.mode`` picks the exchange:
+    'prism' (Segment-Means, L from ``prism.cr`` or ``prism.L``) or
+    'voltage' (full)."""
+    check_supported(cfg)
+    if not cfg.num_classes:
+        raise ValueError(f"encode classifies; arch {cfg.name!r} has no "
+                         "class head (num_classes 0)")
+    x = embed_inputs(cfg, params, tokens, embeds=embeds)
+    b, n, _ = x.shape
+    ctx = ShardedPrismContext(prism, n_shards=n_shards, backend=hp.backend,
+                              n=n)
+    x = ctx.shard(x)
+    for kind, p in zip(cfg.block_kinds, params["layers"]):
+        x = x + sharded_attn(p, attn_spec(cfg, kind), cfg, x, ctx, hp)[0]
+        x = x + ffn(cfg, kind, p, x, ctx, hp.routing)
+    cls = x.view(b, n_shards, *x.shape[1:])[:, 0, 0]
+    return classify(cfg, params, cls).float()
 
 
 # --------------------------------------------------------------------------
@@ -614,6 +654,7 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
     exact mode from ``rep``, one {"kz", "vz", "gz"} dict a layer (the
     assembled standby replica), in prism mode from the cache's own state
     rows.  It requires the paged cache."""
+    check_decoder(cfg, "serve_step")
     slot, owner, col_pos = _decode_cols(lay, pos)
     valid = col_pos[None] <= pos[:, None, None]              # (B, P, cap_l)
     wr_owner = owner
@@ -654,6 +695,7 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor, *, gen: int,
     (gen, B, V), times): tokens[:, i] is the argmax of logits[i];
     ``times`` holds prefill_ms and decode_ms_per_token, from CUDA events
     on a card and from the host clock on the CPU (``times['clock']``)."""
+    check_decoder(cfg, "generate")
     b, n = prompts.shape
     on_card = prompts.is_cuda
     if on_card:

@@ -45,7 +45,8 @@ from ..kernels.decode_attention import chunk_softmax_stats
 from ..models.config import ModelConfig
 from ..models.layers import (attn_output, attn_project_kv, attn_project_q,
                              norm)
-from ..models.transformer import attn_spec, check_supported, ffn
+from ..models.transformer import (attn_spec, check_decoder, check_supported,
+                                  ffn)
 from ..sharding.context import means_columns
 from .serve import (DECODE_MOE_CTX, ServeHParams, ServeLayout, _combine_exact,
                     _decode_cols, _write_kv, decode_attention, embed_tokens,
@@ -141,6 +142,7 @@ def check_tick_kinds(cfg: ModelConfig, program: str) -> None:
     chunk or a packed tick does not address, as the reference's
     ``make_chunk_prefill_step`` / ``make_packed_step`` refuse it."""
     check_supported(cfg)
+    check_decoder(cfg, program)
     for kind in cfg.block_kinds:
         if kind not in ("attn", "moe"):
             raise ValueError(

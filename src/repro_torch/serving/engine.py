@@ -83,7 +83,7 @@ import torch
 
 from ..core.protocol import PrismConfig
 from ..models.config import ModelConfig
-from ..models.transformer import check_supported
+from ..models.transformer import check_decoder, check_supported
 from ..runtime.faults import FaultInjector, FaultPlan
 from ..runtime.offload import KVStore
 from ..runtime.paging import AdmitPlan, make_paged_layout
@@ -241,10 +241,15 @@ class ServingEngine:
                 f"snapshot admission path (the static serve path serves "
                 f"attn_local): ROADMAP queue 1, item 12")
         if cfg.arch_type == "vlm" or cfg.frontend:
+            # the reference engine's words, then where the port stands
             raise ValueError(
-                f"the port's engine serves token prompts only; arch "
-                f"{cfg.name!r} (frontend={cfg.frontend!r}) needs "
-                "embedding inputs: ROADMAP queue 1, item 12")
+                f"ServingEngine serves token prompts only; arch "
+                f"{cfg.name!r} (arch_type={cfg.arch_type!r}, "
+                f"frontend={cfg.frontend!r}) needs embedding inputs: "
+                "ROADMAP queue 1, item 12")
+        # where the reference would serve BERT as a decoder (ROADMAP queue
+        # 3): an encoder classifies through runtime.serve.encode
+        check_decoder(cfg, "ServingEngine")
         check_supported(cfg)
         self.cfg, self.params, self.config = cfg, params, config
         self.device = params["embed"]["table"].device

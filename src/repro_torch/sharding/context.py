@@ -16,6 +16,15 @@ activations are (B·P, n_loc, D), batch row ``b·P + p`` holding shard
     ``shard_map`` does (``expert_groups``); its ``all_to_all`` pair is
     the exchange every context has (``SeqContext.expert_exchange``).
 
+Alg. 1's uneven split (an encoder's N not a multiple of P, as ViT's 197
+tokens): the P - 1 first shards hold s = N // P rows and the last s + r,
+each padded to n_loc = s + r, so the batch-folded layout and one
+attention launch a layer stay.  A pad row is a query whose output is
+discarded (position -1); a pad column is dead (g = 0); a shard's means
+are over its real rows, with its own Eq. 8 segment sizes; Voltage's
+x_hat is the N real rows.  ``n`` (the real length) arms it; r = 0 is the
+even split, unchanged.
+
 Exchanges:
   * PRISM:   every shard's (B, L, D) segment means, gathered — the own
              shard's means included but neutralized with g = 0
@@ -45,50 +54,70 @@ from ..models.layers import AttnSpec
 
 
 class MeansColumns(NamedTuple):
-    """Position metadata of the PRISM exchange, for one (P, n_loc, L)."""
+    """Position metadata of the PRISM exchange, for one (P, n_loc, L) and
+    the last shard's real rows."""
     lo: torch.Tensor        # (P·L,) int32 first position of each mean
     hi: torch.Tensor        # (P·L,) int32 last position of each mean
     g: torch.Tensor         # (P, P·L) f32 repeat counts, own shard's 0
     sizes: torch.Tensor     # (P·L,) f32 segment sizes
-    col_lo: torch.Tensor    # (P, n_loc + P·L) int32 x_hat's columns:
-    col_hi: torch.Tensor    #   the shard's own rows, then the means
-    col_g: torch.Tensor     # (P, n_loc + P·L) f32
+    col_lo: torch.Tensor    # (P, n_last + P·L) int32 x_hat's columns:
+    col_hi: torch.Tensor    #   the shard's own rows (pad rows -1), then
+                            #   the means
+    col_g: torch.Tensor     # (P, n_last + P·L) f32, pad rows 0
     mid: torch.Tensor       # (P·L,) f32 each mean's RoPE position, the
                             #   midpoint (lo + hi) / 2 of its segment
-    col_pos: torch.Tensor   # (P, n_loc + P·L) f32 x_hat's RoPE positions
+    col_pos: torch.Tensor   # (P, n_last + P·L) f32 x_hat's RoPE positions
+
+
+def _shard_rows_np(n_shards: int, n_loc: int, n_last: int) -> np.ndarray:
+    """(P, n_last) global position of every shard's rows: shard p's real
+    rows start at p·n_loc; the pad rows of a shorter shard are -1."""
+    j = np.arange(n_last)[None, :]
+    p = np.arange(n_shards)[:, None]
+    size = np.where(p == n_shards - 1, n_last, n_loc)
+    return np.where(j < size, p * n_loc + j, -1)
 
 
 @functools.lru_cache(maxsize=16)
-def shard_rows(n_shards: int, n_loc: int, device: torch.device):
-    """(P, n_loc) global position of every shard's rows."""
-    return (torch.arange(n_shards, device=device)[:, None] * n_loc
-            + torch.arange(n_loc, device=device))
+def shard_rows(n_shards: int, n_loc: int, device: torch.device,
+               n_last: int | None = None):
+    """(P, n_last) global position of every shard's rows, -1 for a pad
+    row: the P - 1 first shards hold n_loc real rows, the last
+    ``n_last`` (default n_loc, the even split)."""
+    n_last = n_loc if n_last is None else n_last
+    return torch.as_tensor(_shard_rows_np(n_shards, n_loc, n_last),
+                           device=device)
 
 
 @functools.lru_cache(maxsize=16)
-def means_columns(n_shards: int, n_loc: int, L: int,
-                  device: torch.device) -> MeansColumns:
+def means_columns(n_shards: int, n_loc: int, L: int, device: torch.device,
+                  n_last: int | None = None) -> MeansColumns:
     """The gathered means columns, shard-major: position ranges, per-shard
     repeat counts g where a shard's own means get g = 0 (its exact columns
     are present), the segment sizes and midpoints (a mean's RoPE
     position); and the same for every column of the PRISM x_hat, the
-    shard's own rows first.  Built once per shape and
-    device: a host-to-device copy or a concatenation per layer would
-    stall the card."""
-    lo0, hi0 = segment_bounds(n_loc, L)
-    offs = np.repeat(np.arange(n_shards) * n_loc, L)
+    shard's own rows first (a pad row dead, g = 0).  The P - 1 first
+    shards hold n_loc rows, the last ``n_last`` (default n_loc), each cut
+    into its own Eq. 8 segments.  Built once per shape and device: a
+    host-to-device copy or a concatenation per layer would stall the
+    card."""
+    n_last = n_loc if n_last is None else n_last
+    parts = [segment_bounds(n_loc if q < n_shards - 1 else n_last, L,
+                            offset=q * n_loc) for q in range(n_shards)]
+    lo = np.concatenate([b[0] for b in parts])
+    hi = np.concatenate([b[1] for b in parts])
     shard_of = np.repeat(np.arange(n_shards), L)
-    sizes = np.tile(segment_sizes(n_loc, L), n_shards).astype(np.float32)
+    sizes = np.concatenate(
+        [segment_sizes(n_loc, L)] * (n_shards - 1)
+        + [segment_sizes(n_last, L)]).astype(np.float32)
     g = np.where(shard_of[None, :] == np.arange(n_shards)[:, None],
                  np.float32(0.0), sizes[None, :])
-    lo = np.tile(lo0, n_shards) + offs
-    hi = np.tile(hi0, n_shards) + offs
-    rows = np.arange(n_shards * n_loc).reshape(n_shards, n_loc)
+    rows = _shard_rows_np(n_shards, n_loc, n_last)
     col_lo = np.concatenate([rows, np.broadcast_to(lo, (n_shards, lo.size))],
                             axis=1)
     col_hi = np.concatenate([rows, np.broadcast_to(hi, (n_shards, hi.size))],
                             axis=1)
-    col_g = np.concatenate([np.ones_like(rows, dtype=np.float32), g], axis=1)
+    col_g = np.concatenate([(rows >= 0).astype(np.float32), g], axis=1)
     mid = (lo + hi) / 2.0
     col_pos = np.concatenate(
         [rows, np.broadcast_to(mid, (n_shards, mid.size))], axis=1)
@@ -125,33 +154,73 @@ def window_columns(n_shards: int, n_loc: int, hops: int,
 
 class ShardedPrismContext(SeqContext):
     def __init__(self, cfg: PrismConfig, *, n_shards: int,
-                 backend: str = "auto"):
+                 backend: str = "auto", n: int | None = None):
+        """``n``: the sequence's real length where it may split unevenly
+        (Alg. 1; ``shard`` lays it out); None: P·n_loc, the even split."""
         # bind Eq. 16's P to the shard count
         self.cfg = cfg.with_(P=n_shards) if cfg.P != n_shards else cfg
         self.P = n_shards
         self.backend = backend
+        self.n = n
+
+    def split(self, n_loc: int) -> tuple[int, int]:
+        """(real rows of each of the P - 1 first shards, the sequence's
+        real length) for the padded shard width ``n_loc``."""
+        if self.n is None:
+            return n_loc, self.P * n_loc
+        s, r = divmod(self.n, self.P)
+        if s == 0 or s + r != n_loc:
+            raise ValueError(f"N={self.n} over P={self.P} shards pads to "
+                             f"{s + r} rows a shard, got {n_loc}")
+        return s, self.n
+
+    def shard(self, x):
+        """x (B, N, D) -> (B·P, n_loc, D) under Alg. 1 (``partition_
+        bounds``): shard p's rows [p·s, p·s + size_p) at the top of batch
+        row b·P + p, the P - 1 first shards zero-padded to the last one's
+        s + r rows.  With r = 0 it is a view."""
+        b, n, d = x.shape
+        s, r = divmod(n, self.P)
+        if s == 0:
+            raise ValueError(f"cannot split N={n} into P={self.P} "
+                             "partitions")
+        if not r:
+            return x.reshape(b * self.P, s, d)
+        head = x[:, :n - s - r].reshape(b, self.P - 1, s, d)
+        return torch.cat([F.pad(head, (0, 0, 0, r)),
+                          x[:, None, n - s - r:]], dim=1).reshape(
+            b * self.P, s + r, d)
 
     def augment(self, x, spec: AttnSpec):
         """x (B·P, n_loc, D) -> (x, AugmentedKV) with per-shard (P, ·)
-        metadata.  Voltage's x_hat is (B, N, D), shared by the P shards;
-        PRISM's is (B·P, n_loc + P·L, D), local block first; a window
-        layer's (B·P, (hops + 1)·n_loc, D), local block last, in either
-        mode."""
+        metadata.  Voltage's x_hat is (B, N, D), the real rows, shared by
+        the P shards; PRISM's is (B·P, n_loc + P·L, D), local block
+        first; a window layer's (B·P, (hops + 1)·n_loc, D), local block
+        last, in either mode (even split only)."""
         n_loc = x.shape[1]
-        row_pos = shard_rows(self.P, n_loc, x.device)       # (P, n_loc)
+        s, n = self.split(n_loc)
+        row_pos = shard_rows(self.P, s, x.device, n_loc)     # (P, n_loc)
         if spec.window is not None:
+            if s != n_loc:
+                raise NotImplementedError("sliding-window layers take the "
+                                          "even split only")
             return self._augment_window(x, spec.window, n_loc, row_pos)
         if self.cfg.mode == "voltage":
-            return self._augment_voltage(x, n_loc, row_pos)
+            return self._augment_voltage(x, s, n, row_pos)
         if self.cfg.mode != "prism":
             raise NotImplementedError(f"mode {self.cfg.mode!r} is not "
                                       "ported yet")
-        return self._augment_prism(x, n_loc, row_pos)
+        return self._augment_prism(x, s, n, row_pos)
 
-    def _augment_voltage(self, x, n_loc, row_pos):
-        bp, _, d = x.shape
-        n = self.P * n_loc
-        x_hat = x.reshape(bp // self.P, n, d)         # the all-gather
+    def _augment_voltage(self, x, s, n, row_pos):
+        bp, n_loc, d = x.shape
+        b = bp // self.P
+        if s == n_loc:
+            x_hat = x.reshape(b, n, d)                # the all-gather
+        else:                                         # the real rows only
+            xs = x.view(b, self.P, n_loc, d)
+            x_hat = torch.cat([xs[:, :-1, :s].reshape(b, n - n_loc, d),
+                               xs[:, -1]], dim=1)
         col = torch.arange(n, device=x.device)
         return x, AugmentedKV(x_hat, None, None, row_pos, col,
                               col_lo=col, col_hi=col)
@@ -179,17 +248,21 @@ class ShardedPrismContext(SeqContext):
     def gather_means(self, x, L: int):
         """Every shard's L segment means of x (B·P, n_loc, D), gathered
         shard-major: (B, P·L, D).  Computed by the segment-means kernel
-        on a card."""
-        bp, _, d = x.shape
+        on a card (even split only)."""
+        bp, n_loc, d = x.shape
+        if self.split(n_loc)[0] != n_loc:
+            raise NotImplementedError("the means cache takes the even "
+                                      "split only")
         z = segment_means_op(x, L=L, backend=self.backend)   # (B·P, L, D)
         return z.reshape(bp // self.P, self.P * L, d)
 
-    def _augment_prism(self, x, n_loc, row_pos):
-        L = self.cfg.landmarks(self.P * n_loc)
+    def _augment_prism(self, x, s, n, row_pos):
+        n_loc = x.shape[1]
+        L = self.cfg.landmarks(n)          # Eq. 16 over the real length
         # one launch: (B·P, n_loc + P·L, D), the local block first
-        x_hat = prism_augment_op(x, L=L, n_shards=self.P,
+        x_hat = prism_augment_op(x, L=L, n_shards=self.P, n_real=s,
                                  backend=self.backend)
-        cols = means_columns(self.P, n_loc, L, x.device)
+        cols = means_columns(self.P, s, L, x.device, n_loc)
         # g = 0 columns need no mask entry: log g = -1e30 already removes
         # them, so (col_lo, col_hi) alone reproduce the Eq. 17 mask
         return x, AugmentedKV(x_hat, cols.col_g, None, row_pos,
@@ -201,6 +274,9 @@ class ShardedPrismContext(SeqContext):
         sequence, sequence-major (the order of the reference's per-device
         (B, n_loc) block), and the inverse."""
         bp, n_loc, d = x.shape
+        if self.split(n_loc)[0] != n_loc:    # pad rows would take capacity
+            raise NotImplementedError("expert routing groups take the "
+                                      "even split only")
         b = bp // self.P
         xg = x.view(b, self.P, n_loc, d).transpose(0, 1).reshape(
             self.P, b * n_loc, d)

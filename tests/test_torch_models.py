@@ -112,23 +112,26 @@ def test_layers_match_reference():
 
 def test_unported_configs_raise():
     with pytest.raises(KeyError, match="not ported"):
-        get_config("bert-base")
+        get_config("paligemma-3b")
     cfg = get_config("gpt2-small")
     import dataclasses
     # RoPE, RMSNorm and SwiGLU (the Llama family), qk-norm, GeGLU, local
-    # layers and embed_scale (Gemma 3), MoE blocks (OLMoE, arctic) are
-    # ported; sinusoidal positions, the ReLU MLP, logit soft-capping,
-    # parallel blocks and Mamba blocks are not
+    # layers and embed_scale (Gemma 3), MoE blocks (OLMoE, arctic), an
+    # encoder's class head and ViT's patch stub are ported; sinusoidal
+    # positions, the ReLU MLP, logit soft-capping, parallel blocks, Mamba
+    # blocks, the SigLIP stub and a VLM prefix are not
     for over in (dict(pos="sincos"), dict(mlp_kind="relu"),
                  dict(logit_softcap=30.0), dict(parallel_block=True),
-                 dict(blocks=("mamba",) * cfg.n_layers)):
+                 dict(blocks=("mamba",) * cfg.n_layers),
+                 dict(frontend="siglip_stub"), dict(prefix_len=16)):
         with pytest.raises(NotImplementedError):
             TT.check_supported(dataclasses.replace(cfg, **over))
     for over in (dict(qk_norm=True), dict(mlp_kind="geglu"),
                  dict(embed_scale=True),
                  dict(blocks=("attn_local", "attn") * 6, window=64),
                  dict(blocks=("moe",) * cfg.n_layers, n_experts=4, top_k=2,
-                      expert_d_ff=64)):
+                      expert_d_ff=64),
+                 dict(num_classes=2), dict(frontend="patch_stub")):
         TT.check_supported(dataclasses.replace(cfg, **over))
     with pytest.raises(NotImplementedError):
         TL.mlp({}, torch.zeros(2), "relu")

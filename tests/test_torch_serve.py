@@ -247,7 +247,8 @@ def test_prism_decode_differs_from_exact(port_runs):
 def test_device_breakdown_merges_overlapping_kernels():
     """The trace summary chip_smoke.py prints: busy time merges
     overlapping kernels, idle is the rest of the span, kernels are
-    classed by name; host events are ignored."""
+    classed by name; host events and a path trace's warm-up launch
+    (ATen's spin kernel) are ignored."""
     from types import SimpleNamespace as NS
 
     from torch.autograd import DeviceType
@@ -266,6 +267,8 @@ def test_device_breakdown_merges_overlapping_kernels():
     class Prof:
         def events(self):
             return [ev("aten::mm", 0, 100, DeviceType.CPU),
+                    ev("at::cuda::(anonymous namespace)::spin_kernel(long)",
+                       -60, -50),
                     ev("ampere_sgemm_128x64", 0, 10),
                     ev("prism_attention_kernel<64>", 5, 20),
                     ev("decode_stats_kernel<64>", 30, 40),
@@ -281,6 +284,45 @@ def test_device_breakdown_merges_overlapping_kernels():
         "flash_decode_stats": 5e-3, "elementwise": 5e-3})
     with pytest.raises(RuntimeError, match="no device activity"):
         _device_breakdown(NS(events=lambda: []), 1)
+
+
+def test_trace_fillers_and_window_mark():
+    """A trace's fillers (spin kernels before and after the traced work)
+    and the host mark around the work (nor a device-side copy of it) are
+    no kernels of the work; the fillers without a record are counted on
+    each side of the work's first and last kernel."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "..", "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    mark = chip_smoke.WINDOW_MARK
+    spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+
+    def ev(name, t0, t1, dev=DeviceType.CUDA):
+        return NS(name=name, device_type=dev,
+                  time_range=NS(start=t0, end=t1))
+
+    def prof(before, after):
+        return NS(events=lambda: (
+            [ev(spin, t, t + 1) for t in range(before)]
+            + [ev(mark, 100, 200, DeviceType.CPU), ev(mark, 100, 200),
+               ev("prism_attention_kernel<64>", 110, 120),
+               ev("ampere_sgemm_128x64", 100, 110)]
+            + [ev(spin, 300 + t, 301 + t) for t in range(after)]))
+
+    whole = prof(4, 4)
+    assert [e.name for e in chip_smoke.device_events(whole)] == [
+        "ampere_sgemm_128x64", "prism_attention_kernel<64>"]
+    assert chip_smoke.device_breakdown(whole, 1)["kernels"] == 2.0
+    assert chip_smoke.fillers_lost(whole, 4) == (0, 0)
+    assert chip_smoke.fillers_lost(prof(1, 4), 4) == (3, 0)
+    assert chip_smoke.fillers_lost(prof(4, 2), 4) == (0, 2)
+    assert chip_smoke.fillers_lost(NS(events=lambda: []), 4) is None
 
 
 if __name__ == "__main__":
