@@ -174,15 +174,15 @@ Phases, one JSON line each:
             paged run, in turns with the continuous engine (continuous,
             gang, gang, continuous); wall and tokens/s of each.
             Every run drains leak-free.
-9. path     the Llama family: Yi-6B at full width and depth (32 layers,
-            d 4096, 32 query heads over 4 KV heads of 128, SwiGLU d_ff
-            11008, RMSNorm, RoPE theta 5e6, untied head, vocab 64000),
-            f32 weights from torch.Generator seed 0 on the card, at the
-            same shapes: phase 4's static pairings, phase 5's chunked and
-            packed paths in both modes and phase 6's engine in packed
-            exact and packed prism (these two on its first 8 layers,
-            ``TICK_DEPTH``: the script's time limit), under the same
-            checks and traces.
+9. path     the Llama family: Yi-6B at full width (of 32 layers, d 4096,
+            32 query heads over 4 KV heads of 128, SwiGLU d_ff 11008,
+            RMSNorm, RoPE theta 5e6, untied head, vocab 64000), f32
+            weights from torch.Generator seed 0 on the card, at the same
+            shapes: phase 4's static pairings on its first 16 layers
+            (``STATIC_DEPTH``), phase 5's chunked and packed paths in
+            both modes and phase 6's engine in packed exact and packed
+            prism on its first 8 (``TICK_DEPTH``), cut for the script's
+            time limit, under the same checks and traces.
             The static and engine decode steps take the decode kernel's
             tile route (a group of 8, no row map), the packed ticks the
             row route; the launch counts are held per path.
@@ -215,10 +215,11 @@ Phases, one JSON line each:
             it; a token the twin would route otherwise must have a
             router margin under ROUTE_MARGIN in both runs (``replay_
             check``), and the logits compare under the path tolerance.
-12. path    Gemma 7B at full width and depth (28 layers, d 3072, 16 heads
-            of 256, GeGLU d_ff 24576, sqrt(d) input scaling, tied head
-            over 256000), the same paths under phases 4-6's references
-            (the tick and engine paths on its first 8 layers).
+12. path    Gemma 7B at full width (of 28 layers, d 3072, 16 heads of
+            256, GeGLU d_ff 24576, sqrt(d) input scaling, tied head over
+            256000), the same paths under phases 4-6's references (the
+            static path on its first 14 layers, ``STATIC_DEPTH``, the
+            tick and engine paths on its first 8).
             Before both, phase 3 checks and times the three kernels at
             their layouts (``check_family``): attention PRISM and
             Voltage, segment means and the augment at D 2048 and 3072,
@@ -242,14 +243,45 @@ Phases, one JSON line each:
             attention once a layer, segment means once a PRISM layer (0
             in Voltage), the decode kernel never; then five more timed
             calls and a trace of one.  The phase runs in a child process
-            of the script (``ENCODERS_ARG``): ~1,000 s into one process
-            the profiler dropped part of an encode window in every try.
-            Before both, phase 3 checks and
+            of the script (``CHILD_ARG``, as phases 14 and 15 do): ~1,000
+            s into one process the profiler dropped part of an encode
+            window in every try.  Before both, phase 3 checks and
             times attention non-causal at every run's shapes and the
             augment at each PRISM layout, and sweeps the augment's
             uneven split (``check_encoder_kernels``).
+14. path    PaliGemma 3B at full width and depth (18 layers, d 2048, 8
+            query heads over 1 KV head of 256, GeGLU d_ff 16384, sqrt(d)
+            input scaling, tied head over 257216), f32 weights from
+            torch.Generator seed 0 on the card, B 8, prompt 512 whose
+            first 256 positions are a stub image (seeded embeddings
+            through ``frontend_proj``, attended bidirectionally), 64
+            generated, P 4, CR 4, through the static path in three
+            pairings, under phase 10's checks: voltage + exact held to
+            the plain full forward with the image; attention 18 a
+            prefill, segment means 18 where a pairing captures means,
+            the decode kernel's tile route 18 a step.  The tick
+            programs and the engine take token prompts only and refuse
+            it, as the reference's engine does.
+15. path    Command-R 35B at full width (d 8192, 64 query heads over 8
+            KV heads of 128, the parallel block, LayerNorm, SwiGLU d_ff
+            22528, RoPE theta 8e6, tied head over 256000), f32 weights
+            from torch.Generator seed 0 on the card: its first 16
+            layers (``STATIC_DEPTH``; 40 are 121 GB) through phase
+            4's static pairings, its first 8 (``TICK_DEPTH``) through
+            phase 5's tick paths and phase 6's engine runs, under phases
+            4-6's references.  Before both, phase 3 checks and times the
+            three kernels at their layouts (``check_family``): attention
+            at hd 256 with the image prefix, and with its end swept
+            (``PREFIX_ENDS``: on a tile boundary, inside a 32-column
+            tile, inside a shard and a means segment, two whole shards,
+            past them), and at hd 128 over 8 groups of 8; segment means
+            and the augment at D 2048 and 8192 (a misaligned base
+            included); the decode kernel at PaliGemma's static layouts
+            (a group of 8 at hd 256: the split tile route) and at
+            Command-R's static, chunk, packed and paged ones and a
+            poisoned page.
    total    the script's seconds so far.
-14. kernels one line listing every kernel with its numbers: ``ms`` is
+16. kernels one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -270,8 +302,9 @@ Phases, one JSON line each:
             its numbers at Yi-6B's layouts (head dim 128, D 4096) and
             its launches on phase 9's paths; each row's ``gemma`` the
             same at Gemma 3 1B's layouts (head dim 256, D 1152) and its
-            launches on phase 10's paths; ``olmoe`` and ``gemma7b`` the
-            same at phases 11 and 12's layouts and paths; ``bert`` and
+            launches on phase 10's paths; ``olmoe``, ``gemma7b``,
+            ``paligemma`` and ``commandr`` the same at phases 11, 12, 14
+            and 15's layouts and paths; ``bert`` and
             ``vit`` at phase 13's (the decode kernel has none) with the
             launches there.
 
@@ -303,7 +336,7 @@ F32_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
 # main path: GPT-2 small, B = 8, prompt 512, 64 generated, P = 4, CR 4
 ARCH, BATCH, PROMPT, GEN, SHARDS, CR = "gpt2-small", 8, 512, 64, 4, 4.0
 # phase 9: the Llama family (RoPE, RMSNorm, SwiGLU, GQA 8:1, head dim
-# 128, untied head) at full width and depth, at the same shapes
+# 128, untied head) at full width, at the same shapes
 LLAMA = "yi-6b"
 # phase 10: Gemma 3 1B (sliding-window local layers 5:1 with global ones,
 # qk-norm, GeGLU, MQA, head dim 256, tied head over 262144) at full width
@@ -314,6 +347,18 @@ GEMMA, GEMMA_PROMPT = "gemma3-1b", 2048
 # factor 1.25, MHA at head dim 128); phase 12: Gemma 7B (MHA at head dim
 # 256, GeGLU); both at full width and depth, at the main path's shapes
 MOE, GEMMA7 = "olmoe-1b-7b", "gemma-7b"
+# phase 14: PaliGemma 3B (a stub SigLIP image of 256 embeddings over the
+# first prompt positions, attended bidirectionally; 8 query heads over 1
+# KV head of 256) at full width and depth on the static path (the tick
+# programs and the engine take token prompts only); phase 15: Command-R
+# 35B (the parallel block, d 8192, 64 query heads over 8 KV heads of
+# 128) at full width, its static path on its first 16 layers
+# (``STATIC_DEPTH``: 40 layers of f32 weights are 121 GB)
+PALI, CMDR = "paligemma-3b", "command-r-35b"
+# phase 3's families (``check_family``): arch -> (key in the kernels
+# line and the phase-3 error keys, generator seed)
+FAMILY_TAGS = {MOE: ("olmoe", 17), GEMMA7: ("gemma7b", 19),
+               PALI: ("paligemma", 23), CMDR: ("commandr", 29)}
 # the static prefill / decode pairings: phase 4's two, and Gemma's third
 PAIRINGS = (("voltage", "exact"), ("prism", "prism"))
 GEMMA_PAIRINGS = PAIRINGS + (("voltage", "prism"),)
@@ -676,14 +721,16 @@ def attention_inputs(torch, ctx_mode, seed=0, arch=ARCH, prompt=PROMPT,
 
 
 def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
-                   prompt=PROMPT, kind="attn", args=None, causal=True):
+                   prompt=PROMPT, kind="attn", args=None, causal=True,
+                   prefix_len=0):
     """The prefill kernel at a path's shapes in one exchange (a block of
     ``kind``: a local one with its window; ``args``: inputs built by the
     caller, ``attention_inputs``' by default; ``causal`` False for an
-    encoder): checked by ``both``, then the kernel (event pair and
-    profiler), its plain version, the entry point, the library call and
-    the bound.  The bound counts the live pairs of the real query rows
-    (a pad row of an uneven split, position -1, is discarded)."""
+    encoder; ``prefix_len`` a vlm's image prefix): checked by ``both``,
+    then the kernel (event pair and profiler), its plain version, the
+    entry point, the library call and the bound.  The bound counts the
+    live pairs of the real query rows (a pad row of an uneven split,
+    position -1, is discarded)."""
     from repro_torch.configs import get_config
     from repro_torch.core.attention import log_repeats
     from repro_torch.core.masks import visibility
@@ -694,13 +741,15 @@ def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
         args = attention_inputs(torch, mode, arch=arch, prompt=prompt,
                                 kind=kind)
     window = get_config(arch).window if kind == "attn_local" else None
-    both(args, f"{tag}/{mode}/{kind}", window=window, causal=causal)
+    both(args, f"{tag}/{mode}/{kind}", window=window, causal=causal,
+         prefix_len=prefix_len)
     q, k, v, g, lo, hi, row = args
     p = row.shape[0] if row.dim() == 2 else 1
     lg = log_repeats(g).reshape(-1, k.shape[1]).expand(p, -1)
     vis = visibility(row, lo.reshape(-1, k.shape[1]).expand(p, -1),
                      hi.reshape(-1, k.shape[1]).expand(p, -1),
-                     causal=causal, window=window) & (
+                     causal=causal, prefix_len=prefix_len,
+                     window=window) & (
                          lg > -1e29)[:, None, :]
     real = (row.reshape(p, -1) >= 0)[:, :, None]
     pairs = int((vis & real).sum()) * (q.shape[0] // p) * q.shape[2]
@@ -730,7 +779,7 @@ def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
              lo.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
              hi.reshape(-1, k.shape[1]).expand(p, -1).to(i32).contiguous(),
              row.reshape(p, -1).to(i32).contiguous())
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
     try:
         lib_ms = timer(lambda: sdpa(qs, ks, vs, attn_mask=bias))
         lib_note = None
@@ -748,6 +797,7 @@ def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
         "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
         "shape": {"q": list(q.shape), "k": list(k.shape),
                   "window": window, "causal": causal,
+                  "prefix_len": prefix_len,
                   "library_mask": bias is not None}}
 
 
@@ -1431,26 +1481,33 @@ def check_head_dim_256(torch, chk, timer):
 
 
 def check_family(torch, chk, timer, arch, tag, seed):
-    """Phase 3 at a family's own layouts (Yi-6B's, and phases 11 and
-    12's: OLMoE's 16 heads of 128 and D 2048, Gemma 7B's 16 heads of 256
-    and D 3072): prefill attention at its PRISM and Voltage shapes;
-    segment means and the augment at its width; the decode kernel at its
-    static decode (exact and prism, no row map: the route the rule
-    names, the other on the same inputs, both timed), its chunk layout
-    (the C = 64 queries folded into the head axis: the tile route, at
-    head dim 256 ``decode_stats_mq_split_kernel``), its packed layouts
-    through the row map, each again over the page pool, and a poisoned
-    page.  Errors are filed under ``<kernel>/<tag>``."""
+    """Phase 3 at a family's own layouts (Yi-6B's, and phases 11, 12, 14
+    and 15's: OLMoE's 16 heads of 128 and D 2048, Gemma 7B's 16 heads of
+    256 and D 3072, PaliGemma's 8 query heads over 1 KV head of 256 and
+    D 2048, Command-R's 64 query heads over 8 of 128 and D 8192):
+    prefill attention at its PRISM and Voltage shapes (a vlm's with its
+    image prefix, then ``prefix_cases``); segment means and the augment
+    at its width; the decode kernel at its static decode (exact and
+    prism, no row map: the route the rule names, the other on the same
+    inputs, both timed); where the family runs the tick programs (not a
+    vlm: they take token prompts only), its chunk layout (the C = 64
+    queries folded into the head axis: the tile route, at head dim 256
+    ``decode_stats_mq_split_kernel``), its packed layouts through the row
+    map, each again over the page pool, and a poisoned page.  Errors are
+    filed under ``<kernel>/<tag>``."""
     from repro_torch.configs import get_config
+    cfg = get_config(arch)
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(seed)
     both = attention_checker(chk, key=f"prism_flash_attention/{tag}")
     out["attention"] = {mode: attention_main(torch, timer, both, mode,
-                                             arch=arch, tag=tag)
+                                             arch=arch, tag=tag,
+                                             prefix_len=cfg.prefix_len)
                         for mode in ("prism", "voltage")}
+    if cfg.prefix_len:
+        prefix_cases(torch, both, arch, tag)
     out["segment_means"] = check_segment_means(
-        torch, chk, timer, d=get_config(arch).d_model,
-        key=f"segment_means/{tag}")
+        torch, chk, timer, d=cfg.d_model, key=f"segment_means/{tag}")
     key = f"flash_decode_stats/{tag}"
     by_route = {"row": 0, "tile": 0}
     both = decode_checker(torch, chk, by_route, key=key)
@@ -1461,6 +1518,10 @@ def check_family(torch, chk, timer, arch, tag, seed):
         times[mode] = time_decode(torch, timer, args, scale)
         times[mode].update(time_routes(torch, timer, args, scale))
         dec_args[mode] = args
+    times["cases_by_route"] = by_route
+    out["decode"] = times
+    if cfg.arch_type == "vlm":
+        return out
     chunk, packed, packed_prism, rows, scale = tick_layout_inputs(
         torch, gen, arch=arch)
     for name in ("off0", "off448", "staggered"):
@@ -1482,9 +1543,29 @@ def check_family(torch, chk, timer, arch, tag, seed):
         "decode_prism": (dec_args["prism"], None),
         "packed": (packed, rows), "chunk": (chunk["off448"], None)},
         scale, key=key)
-    times["cases_by_route"] = by_route
-    out["decode"] = times
     return out
+
+
+# where a vlm's image prefix ends, as placed against its path's layout
+# (prompt 512 over 4 shards of 128 rows, PRISM means of 4 rows; the
+# kernel's query tiles are 64 rows, its column tiles 32): on a tile
+# boundary inside shard 0, inside a 32-column tile, inside shard 1, on
+# the shard boundary after two whole shards (PaliGemma's 256), inside
+# shard 2; each end but 64 and 256 inside a means segment
+PREFIX_ENDS = (64, 50, 202, 256, 301)
+
+
+def prefix_cases(torch, both, arch, tag):
+    """The attention kernel at a vlm's PRISM and Voltage shapes with the
+    image prefix ending at each of ``PREFIX_ENDS``: a column wholly
+    inside the prefix is visible to every row (a tile past the query
+    rows must not be skipped), a means column whose segment reaches past
+    the prefix takes the causal rule."""
+    for mode in ("prism", "voltage"):
+        args = attention_inputs(torch, mode, seed=5, arch=arch)
+        for end in PREFIX_ENDS:
+            both(args, f"{tag}/{mode}/prefix{end}", causal=True,
+                 prefix_len=end)
 
 
 # phase 13's encoders: arch -> (key in the kernels line, batch, tokens,
@@ -2045,7 +2126,7 @@ def profile(torch, run) -> dict:
 
     def pre():
         state["out"] = prefill(run.cfg, run.params, run.prompts, run.prism,
-                               run.lay, run.hp)
+                               run.lay, run.hp, run.embeds)
 
     def dec():
         logits, cache = state["out"]
@@ -2154,35 +2235,48 @@ def static_tile(cfg) -> bool:
     return decode_route(cfg.n_heads, cfg.n_kv_heads, True) == "tile"
 
 
-def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS):
+def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
+               cfg=None):
     """The static path in each (prefill, decode) pairing, keyed by the
     decode mode (by 'prefill+decode' for a pairing other than the mode's
-    own): exact decode held to the plain full forward, prism decode to
-    the same run with backend='plain'.  A model with MoE blocks holds
-    every pairing to its backend='plain' twin under ``replay_check``:
-    the counted run records its routing (``RoutingLog`` launches
-    nothing)."""
+    own): exact decode held to the plain full forward (a vlm's with its
+    image), prism decode to the same run with backend='plain'.  A model
+    with MoE blocks holds every pairing to its backend='plain' twin
+    under ``replay_check``: the counted run records its routing
+    (``RoutingLog`` launches nothing).  ``cfg`` (default ``arch``'s)
+    serves a config cut in depth, ``params`` its layers; the widths are
+    checked against ``arch``'s full config."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.serve import setup
     from repro_torch.models import transformer as T
     from repro_torch.models.moe import RoutingLog
-    arch_cfg = get_config(arch)
+    full = get_config(arch)
+    arch_cfg = cfg or full
     n_layers = arch_cfg.n_layers
     n_local = arch_cfg.block_kinds.count("attn_local")
     moe = "moe" in arch_cfg.block_kinds
+    width = ("d_model", "n_heads", "n_kv_heads", "hd", "d_ff", "vocab_size",
+             "n_experts", "top_k", "expert_d_ff", "prefix_len")
+    got = [getattr(arch_cfg, f) for f in width]
+    if got != [getattr(full, f) for f in width] or len(
+            params["layers"]) != n_layers:                  # full width
+        raise AssertionError(f"{arch}: {dict(zip(width, got))}, "
+                             f"{len(params['layers'])} layers of weights "
+                             f"for {n_layers}")
+
+    def static(mode, prefill_mode, backend="auto"):
+        run = setup(arch, batch=BATCH, prompt_len=prompt, gen=GEN,
+                    seq_shards=SHARDS, decode_mode=mode, cr=CR,
+                    device="cuda", params=params, backend=backend,
+                    prefill=prefill_mode)
+        run.cfg = arch_cfg
+        return run
     results = {}
     for prefill_mode, mode in pairings:
         key = (mode if (prefill_mode, mode) in PAIRINGS
                else f"{prefill_mode}+{mode}")
-        run = setup(arch, batch=BATCH, prompt_len=prompt, gen=GEN,
-                    seq_shards=SHARDS, decode_mode=mode, cr=CR,
-                    device="cuda", params=params, prefill=prefill_mode)
-        width = ("n_layers", "d_model", "n_heads", "n_kv_heads", "hd",
-                 "d_ff", "vocab_size", "n_experts", "top_k", "expert_d_ff")
-        got = [getattr(run.cfg, f) for f in width]
-        if got != [getattr(arch_cfg, f) for f in width]:   # full size
-            raise AssertionError(f"{arch}/{mode}: {dict(zip(width, got))}")
+        run = static(mode, prefill_mode)
         run.run()                                    # warm-up
         if moe:                 # the counted run records its routing
             hp = run.hp
@@ -2211,10 +2305,7 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS):
                                  "not finite or of the wrong shape")
         extra = {}
         if moe:
-            plain = setup(arch, batch=BATCH, prompt_len=prompt, gen=GEN,
-                          seq_shards=SHARDS, decode_mode=mode, cr=CR,
-                          device="cuda", params=params, backend="plain",
-                          prefill=prefill_mode)
+            plain = static(mode, prefill_mode, "plain")
             plain.hp = replace(plain.hp, routing=RoutingLog(replay=rec))
             _, ref, _ = plain.run(forced=tokens[:, :-1])
             extra["routing"] = replay_check(torch, rec, plain.hp.routing,
@@ -2226,15 +2317,13 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS):
             # tokens covers every step (the head over those steps only)
             seq = torch.cat([run.prompts, tokens[:, :-1]], dim=1)
             with torch.no_grad():
-                full = T.forward(run.cfg, params, seq, start=prompt - 1)
-            ref = full.transpose(0, 1)                        # (gen, B, V)
-            del full
+                fwd = T.forward(run.cfg, params, seq, embeds=run.embeds,
+                                start=prompt - 1)
+            ref = fwd.transpose(0, 1)                         # (gen, B, V)
+            del fwd
             ref_name = "plain full forward"
         else:
-            plain = setup(arch, batch=BATCH, prompt_len=prompt, gen=GEN,
-                          seq_shards=SHARDS, decode_mode=mode, cr=CR,
-                          device="cuda", params=params, backend="plain",
-                          prefill=prefill_mode)
+            plain = static(mode, prefill_mode, "plain")
             _, ref, _ = plain.run(forced=tokens[:, :-1])
             ref_name = "backend='plain' run"
         err = rel_err(logits, ref)
@@ -2256,6 +2345,7 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS):
             "tokens_total": total, **extra}
         emit("path", arch=arch, mode=mode, prefill=prefill_mode,
              batch=BATCH, prompt=prompt, gen=GEN, shards=SHARDS, cr=CR,
+             layers=n_layers, prefix_len=arch_cfg.prefix_len,
              **results[key])
         # where the time goes: a torch.profiler trace of one prefill and
         # a few decode steps, after the counted run
@@ -3752,7 +3842,7 @@ def drive_phase8(torch, params, phase6):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the Llama family (Yi-6B) at full width and depth
+# phases 9-12, 14 and 15: the families after GPT-2
 # ---------------------------------------------------------------------------
 
 TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3761,11 +3851,16 @@ TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
 
 # the engine runs of phase 9: packed exact and packed prism
 LLAMA_ENGINE_RUNS = (("packed", "exact"), ("packed", "prism"))
-# phases 9, 11 and 12's tick and engine paths serve the first 8 layers
-# of Yi-6B (of 32), OLMoE-1B-7B (of 16) and Gemma 7B (of 28); widths
-# full, their static paths at full depth.  With Yi's alone cut the whole
-# script took 1,118 s of its 1,200 s limit on an H100 (PERF.md §4)
+# phases 9, 11, 12 and 15's tick and engine paths serve the first 8
+# layers of Yi-6B (of 32), OLMoE-1B-7B (of 16), Gemma 7B (of 28) and
+# Command-R (of 40); widths full.  With Yi's alone cut the whole script
+# took 1,118 s of its 1,200 s limit on an H100 (PERF.md §4)
 TICK_DEPTH = 8
+# the static paths served on their first layers only, all widths full:
+# Command-R's 40 layers of f32 weights are 121 GB, 16 are 53.5 GB; Yi-6B
+# and Gemma 7B are cut so that phases 14 and 15 fit the script's time
+# (PERF.md §4); every other static path runs at full depth
+STATIC_DEPTH = {LLAMA: 16, GEMMA7: 14, CMDR: 16}
 
 
 def cut_depth(cfg, params):
@@ -3773,36 +3868,6 @@ def cut_depth(cfg, params):
     n = TICK_DEPTH
     return (replace(cfg, n_layers=n, blocks=cfg.block_kinds[:n]),
             {**params, "layers": params["layers"][:n]})
-
-
-def drive_llama(torch):
-    """Phase 9: Yi-6B (32 layers, d 4096, 32 query heads over 4 KV heads
-    of 128, SwiGLU, RMSNorm, RoPE, untied head), f32 weights from
-    torch.Generator seed 0 on the card, through phase 4's static paths
-    at full depth, then phase 5's tick paths and phase 6's engine
-    (packed exact and prism) on its first ``TICK_DEPTH`` layers,
-    at the same shapes and under the same checks.  Returns the launches
-    of each path, keyed ``yi-6b/...``."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import transformer as T
-    cfg = get_config(LLAMA)
-    params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
-                    "cuda")
-    n_params = sum(t.numel() for t in _leaves(params))
-    emit("model", arch=LLAMA, params=n_params,
-         weight_bytes=4 * n_params, layers=cfg.n_layers,
-         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-         head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
-         decode_route_static=("tile" if static_tile(cfg) else "row"))
-    by_path = {f"{LLAMA}/static/{mode}": r["launches"]
-               for mode, r in drive_path(torch, params, LLAMA).items()}
-    cut, params = cut_depth(cfg, params)
-    by_path.update({f"{LLAMA}/{k}": v for k, v in
-                    drive_ticks(torch, params, LLAMA, cut).items()})
-    launches, _ = drive_engine(torch, params, LLAMA, LLAMA_ENGINE_RUNS,
-                               cut)
-    by_path.update({f"{LLAMA}/{k}": v for k, v in launches.items()})
-    return by_path
 
 
 def gemma_row(name, t_256, chk):
@@ -3838,38 +3903,42 @@ def gemma_row(name, t_256, chk):
     return out
 
 
-def drive_gemma(torch):
-    """Phase 10: Gemma 3 1B (26 layers, 22 sliding-window local and 4
+def drive_static(torch, arch, prompt=PROMPT):
+    """A family the reference serves on the static path alone, at full
+    width and depth through its three pairings at B 8, ``prompt``, 64
+    generated, P 4, CR 4, f32 weights from torch.Generator seed 0 on the
+    card: phase 10, Gemma 3 1B (26 layers, 22 sliding-window local and 4
     global, d 1152, 4 query heads over 1 KV head of 256, qk-norm, GeGLU
     d_ff 6912, sqrt(d) input scaling, two RoPE thetas, tied head over
-    262144), f32 weights from torch.Generator seed 0 on the card, through
-    the static path in its three pairings at B 8, prompt 2048, 64
-    generated, P 4, CR 4 (the reference serves the kind on the static
-    path alone).  Returns the launches of each path, keyed
-    ``gemma3-1b/static/...``."""
+    262144; prompt 2048), whose ring caches the tick programs and the
+    engine refuse; phase 14, PaliGemma 3B (18 layers, d 2048, 8 query
+    heads over 1 KV head of 256, GeGLU d_ff 16384, tied head over 257216,
+    a stub image of 256 embeddings over the first prompt positions,
+    attended bidirectionally), whose image they cannot take.  Returns
+    the launches of each path, keyed ``<arch>/static/...``."""
     import time
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     t0 = time.perf_counter()
-    cfg = get_config(GEMMA)
+    cfg = get_config(arch)
     params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                     "cuda")
     n_params = sum(t.numel() for t in _leaves(params))
-    emit("model", arch=GEMMA, params=n_params, weight_bytes=4 * n_params,
+    emit("model", arch=arch, params=n_params, weight_bytes=4 * n_params,
          layers=cfg.n_layers, local_layers=cfg.block_kinds.count(
-             "attn_local"), window=cfg.window, d_model=cfg.d_model,
-         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-         d_ff=cfg.d_ff, vocab=cfg.vocab_size, prompt=GEMMA_PROMPT,
+             "attn_local"), window=cfg.window, prefix_len=cfg.prefix_len,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size, prompt=prompt,
          decode_route_static=("tile" if static_tile(cfg) else "row"))
-    by_path = {f"{GEMMA}/static/{key}": r["launches"]
-               for key, r in drive_path(torch, params, GEMMA, GEMMA_PROMPT,
+    by_path = {f"{arch}/static/{key}": r["launches"]
+               for key, r in drive_path(torch, params, arch, prompt,
                                         GEMMA_PAIRINGS).items()}
-    emit("phase", name=GEMMA, seconds=time.perf_counter() - t0)
+    emit("phase", name=arch, seconds=time.perf_counter() - t0)
     return by_path
 
 
 # ---------------------------------------------------------------------------
-# phases 11 and 12: Mixture-of-Experts (OLMoE-1B-7B), then Gemma 7B
+# phases 9, 11, 12 and 15: the families served on every path
 # ---------------------------------------------------------------------------
 
 def family_row(name, t, chk, tag):
@@ -3890,37 +3959,48 @@ def family_row(name, t, chk, tag):
                "bf16_device_ms": tm["bf16_device_ms"], "shape": tm["shape"]}
     else:
         d = t["decode"]
+        # a vlm's family has its static layouts alone (no tick path)
         out = {tag_: pick(d[tag_]) for tag_ in ("exact", "prism", "chunk",
-                                                "packed", "packed_prism")}
+                                                "packed", "packed_prism")
+               if tag_ in d}
         for mode in ("exact", "prism"):            # both routes
             out[mode].update({k: d[mode][k] for k in (
                 "tile_ms", "tile_device_ms", "row_ms", "row_device_ms")})
-        out["paged"] = {k: pick(v) for k, v in d["paged"].items()}
-        out["poisoned"] = d["poisoned"]
+        if "paged" in d:
+            out["paged"] = {k: pick(v) for k, v in d["paged"].items()}
+            out["poisoned"] = d["poisoned"]
         out["cases_by_route"] = d["cases_by_route"]
     out["max_abs_err"] = chk.max_err.get(f"{name}/{tag}", 0.0)
     out["tol_share"] = chk.tol_share.get(f"{name}/{tag}", 0.0)
     return out
 
 
-def drive_family(torch, arch):
-    """Phase 11 (OLMoE-1B-7B: 16 layers of MoE blocks, d 2048, 16 heads
-    of 128, 64 experts top-8 of d_ff 1024 at capacity factor 1.25,
-    qk-norm, SwiGLU, untied head over 50304) or phase 12 (Gemma 7B: 28
-    layers, d 3072, 16 heads of 256, GeGLU d_ff 24576, sqrt(d) input
-    scaling, tied head over 256000): f32 weights from torch.Generator
-    seed 0 on the card, through phase 4's static pairings at full depth,
-    then phase 5's tick paths and phase 6's engine runs on its first
-    ``TICK_DEPTH`` layers, at their shapes (B 8, prompt 512, 64
-    generated, P 4, CR 4).  OLMoE's runs are each held to their
-    backend='plain' twin under the routing rule (``replay_check``),
-    Gemma 7B's to phase 4-6's references.  Returns the launches of each
-    path, keyed ``<arch>/...``."""
+def drive_family(torch, arch, engine_runs=ENGINE_RUNS):
+    """Phase 9 (Yi-6B: 32 layers, d 4096, 32 query heads over 4 KV heads
+    of 128, SwiGLU, RMSNorm, RoPE, untied head), 11 (OLMoE-1B-7B: 16
+    layers of MoE blocks, d 2048, 16 heads of 128, 64 experts top-8 of
+    d_ff 1024 at capacity factor 1.25, qk-norm, SwiGLU, untied head over
+    50304), 12 (Gemma 7B: 28 layers, d 3072, 16 heads of 256, GeGLU d_ff
+    24576, sqrt(d) input scaling, tied head over 256000) or 15
+    (Command-R 35B: 40 layers, d 8192, 64 query heads over 8 KV heads of
+    128, the parallel block, LayerNorm, SwiGLU d_ff 22528, RoPE theta
+    8e6, tied head over 256000): f32 weights from torch.Generator seed 0
+    on the card, through phase 4's static pairings at full depth or on
+    the first ``STATIC_DEPTH`` layers (only those built), then phase 5's
+    tick paths and phase 6's ``engine_runs`` on the first ``TICK_DEPTH``
+    layers, at their shapes (B 8, prompt 512, 64 generated, P 4, CR 4).
+    OLMoE's runs are each held to their backend='plain' twin under the
+    routing rule (``replay_check``), the others to phase 4-6's
+    references.  Returns the launches of each path, keyed
+    ``<arch>/...``."""
     import time
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     t0 = time.perf_counter()
     cfg = get_config(arch)
+    if arch in STATIC_DEPTH:
+        n = STATIC_DEPTH[arch]
+        cfg = replace(cfg, n_layers=n, blocks=cfg.block_kinds[:n])
     params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                     "cuda")
     n_params = sum(t.numel() for t in _leaves(params))
@@ -3933,16 +4013,18 @@ def drive_family(torch, arch):
                    capacity_factor=cfg.capacity_factor,
                    expert_bytes_per_step=expert_bytes)
     emit("model", arch=arch, params=n_params, weight_bytes=4 * n_params,
-         layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+         layers=cfg.n_layers, layers_of=get_config(arch).n_layers,
+         tick_layers=TICK_DEPTH, d_model=cfg.d_model, heads=cfg.n_heads,
          kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, d_ff=cfg.d_ff,
-         vocab=cfg.vocab_size, **moe,
+         vocab=cfg.vocab_size, parallel_block=cfg.parallel_block, **moe,
          decode_route_static=("tile" if static_tile(cfg) else "row"))
     by_path = {f"{arch}/static/{mode}": r["launches"]
-               for mode, r in drive_path(torch, params, arch).items()}
+               for mode, r in drive_path(torch, params, arch,
+                                         cfg=cfg).items()}
     cut, params = cut_depth(cfg, params)
     by_path.update({f"{arch}/{k}": v for k, v in
                     drive_ticks(torch, params, arch, cut).items()})
-    launches, _ = drive_engine(torch, params, arch, ENGINE_RUNS, cut)
+    launches, _ = drive_engine(torch, params, arch, engine_runs, cut)
     by_path.update({f"{arch}/{k}": v for k, v in launches.items()})
     emit("phase", name=arch, seconds=time.perf_counter() - t0)
     return by_path
@@ -4061,38 +4143,50 @@ def drive_encoders(torch):
     return by_path
 
 
-# the argument that makes this script run phase 13 alone, in a process
-# of its own (``drive_encoders_apart``)
-ENCODERS_ARG = "--phase13-child"
+# the argument that makes this script run its late phases, named after
+# it (keys of ``child_phases``), in a process of its own (``drive_apart``)
+CHILD_ARG = "--phase-child"
 
 
-def drive_encoders_apart():
-    """Phase 13 in a child process of this script (``ENCODERS_ARG``),
+def drive_apart(phases):
+    """Late phases in one child process of this script (``CHILD_ARG``),
     its lines passed on and its last one, the launches of each run,
-    returned.  Late in this long process the profiler dropped about 65
-    of an encode window's 724 device records (one attention launch) in
-    all 12 tries, though the same window was whole in a fresh process
-    (PERF.md §6)."""
+    returned.  Late in this long process the profiler dropped part of a
+    window's device records in every try (phase 13: about 65 of an
+    encode window's 724, one attention launch; the same window was whole
+    in a fresh process, PERF.md §6)."""
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        ENCODERS_ARG], capture_output=True, text=True,
-                       timeout=900)
+                        CHILD_ARG, *phases], capture_output=True,
+                       text=True, timeout=900)
     sys.stderr.write(r.stderr[-20000:])
     lines = r.stdout.splitlines()
     for line in lines[:-1]:
         print(line, flush=True)
     if r.returncode != 0 or not lines:
         print("\n".join(lines[-1:]), flush=True)
-        raise RuntimeError(f"phase 13's process exited {r.returncode}")
-    return json.loads(lines[-1])["encoder_launches"]
+        raise RuntimeError(f"the process of {phases} exited "
+                           f"{r.returncode}")
+    return json.loads(lines[-1])["launches"]
 
 
-def encoders_child(torch) -> int:
-    """Phase 13 alone (``ENCODERS_ARG``): the last line is the launches
-    of each run."""
+def child_phases():
+    """The phases ``drive_apart`` runs, by name: 13, the encoders; 14,
+    PaliGemma 3B on the static path; 15, Command-R 35B."""
+    return {"encoders": drive_encoders,
+            PALI: lambda torch: drive_static(torch, PALI),
+            CMDR: lambda torch: drive_family(torch, CMDR)}
+
+
+def phase_child(torch, phases) -> int:
+    """``phases`` in turn (``CHILD_ARG``), each model's weights freed
+    before the next: the last line is the launches of each run."""
     from repro_torch.device import resolve_device
     resolve_device("cuda")                      # full-f32 matmuls, no TF32
-    by_path = drive_encoders(torch)
-    print(json.dumps({"encoder_launches": by_path}), flush=True)
+    by_path = {}
+    for phase in phases:
+        torch.cuda.empty_cache()
+        by_path.update(child_phases()[phase](torch))
+    print(json.dumps({"launches": by_path}), flush=True)
     return 0
 
 
@@ -4132,8 +4226,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:] == [ENCODERS_ARG]:
-        return encoders_child(torch)
+    if sys.argv[1:2] == [CHILD_ARG]:
+        return phase_child(torch, sys.argv[2:])
     from repro_torch.kernels import build
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as T
@@ -4159,15 +4253,15 @@ def main() -> int:
     t_dec = check_decode(torch, chk, timer)
     t_128 = check_head_dim_128(torch, chk, timer)
     t_256 = check_head_dim_256(torch, chk, timer)
-    t_fam = {MOE: check_family(torch, chk, timer, MOE, "olmoe", 17),
-             GEMMA7: check_family(torch, chk, timer, GEMMA7, "gemma7b",
-                                  19)}
+    t_fam = {arch: check_family(torch, chk, timer, arch, tag, seed)
+             for arch, (tag, seed) in FAMILY_TAGS.items()}
     t_enc = check_encoder_kernels(torch, chk, timer)
     emit("kernel", max_abs_err=chk.max_err, tol_share=chk.tol_share,
          worst_case=chk.worst, tol=TOL, cases=chk.cases,
          floor_ms=timer.floor(), attention=t_attn, segment_means=t_means,
-         decode=t_dec, hd128=t_128, hd256=t_256, olmoe=t_fam[MOE],
-         gemma7b=t_fam[GEMMA7], encoders=t_enc)
+         decode=t_dec, hd128=t_128, hd256=t_256,
+         **{tag: t_fam[arch] for arch, (tag, _) in FAMILY_TAGS.items()},
+         encoders=t_enc)
 
     t_phase = [t_start]
 
@@ -4192,15 +4286,14 @@ def main() -> int:
     phase_done("phase8")
     del params, engine_runs                     # GPT-2's weights and runs
     torch.cuda.empty_cache()
-    by_path.update(drive_llama(torch))
-    phase_done(LLAMA)
+    by_path.update(drive_family(torch, LLAMA, LLAMA_ENGINE_RUNS))
     torch.cuda.empty_cache()
-    by_path.update(drive_gemma(torch))
+    by_path.update(drive_static(torch, GEMMA, GEMMA_PROMPT))
     for arch in (MOE, GEMMA7):       # each model's weights freed after it
         torch.cuda.empty_cache()
         by_path.update(drive_family(torch, arch))
-    torch.cuda.empty_cache()
-    by_path.update(drive_encoders_apart())
+    torch.cuda.empty_cache()            # the child needs the card's memory
+    by_path.update(drive_apart(("encoders", PALI, CMDR)))  # phases 13-15
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -4299,9 +4392,9 @@ def main() -> int:
         if name == "prism_flash_attention":
             row["gemma"]["launches_window"] = sum(
                 by_path[p].get(name + ".window", 0) for p in gemma)
-        # OLMoE-1B-7B's and Gemma 7B's layouts, with their launches on
-        # phases 11 and 12's paths
-        for arch, tag in ((MOE, "olmoe"), (GEMMA7, "gemma7b")):
+        # OLMoE-1B-7B's, Gemma 7B's, PaliGemma's and Command-R's layouts,
+        # with their launches on phases 11, 12, 14 and 15's paths
+        for arch, (tag, _) in FAMILY_TAGS.items():
             paths = [p for p in by_path if p.startswith(arch + "/")]
             row[tag] = family_row(name, t_fam[arch], chk, tag)
             row[tag]["launches"] = sum(by_path[p].get(name, 0)

@@ -11,6 +11,10 @@ _REGISTRY = {
     "gemma3-1b": "gemma3_1b",
     "gemma-7b": "gemma_7b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    # a stub SigLIP image prefix, attended bidirectionally
+    "paligemma-3b": "paligemma_3b",
+    # the parallel attention + MLP block
+    "command-r-35b": "command_r_35b",
     # 480 B parameters fit on no card: served at its reduced size only
     "arctic-480b": "arctic_480b",
     # the paper's encoders: classification over sequence shards, no decode

@@ -11,8 +11,10 @@ The reference stores layers as ``{"scan": [u stacked trees], "tail":
 part is slice ``i`` of ``scan[j]``, and the ``tail`` layers follow.  The
 port keeps one dict per layer.  Dense weights stay ``(d_in, d_out)``, a
 tied head stays ``embed.table`` and an untied one is ``lm_head``, an
-encoder's class head is ``head`` and ViT's patch projection
-``frontend_proj``, so every leaf is a plain copy.  A MoE block's stacked expert leaves
+encoder's class head is ``head`` and a stub frontend's projection (ViT's
+patches, PaliGemma's image) ``frontend_proj``; a parallel block
+(Command-R) has no ``ln2`` on either side, so every leaf is a plain
+copy.  A MoE block's stacked expert leaves
 ``(E, d_in, d_out)`` are ``(n_units, E, ...)`` under the scan, and come
 across slice by slice like every other leaf.
 """

@@ -54,6 +54,18 @@ exactly in both modes and captures the means over real tokens);
         --engine --requests 16 --rate 4 --batch 8 --prompt-len 512 \
         --gen 64
 
+    # PaliGemma 3B (a stub SigLIP image prefix of 256 embeddings over the
+    # first prompt positions, attended bidirectionally): the static path
+    # only (the engine and the tick programs take token prompts only);
+    # Command-R 35B (the parallel attention + MLP block): every path, at
+    # a depth the card holds (40 layers of f32 are 121 GB)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+        --batch 8 --prompt-len 512 --gen 64 --seq-shards 4 \
+        --decode-mode prism
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch command-r-35b \
+        --reduced --engine --device cpu --requests 6 --rate 50 --batch 4 \
+        --prompt-len 32 --gen 6
+
     # the paper's encoders classify a seeded batch over P sequence shards
     # (no decode, no engine): BERT-base on 512 token ids, ViT-B/16 on 197
     # stub patch embeddings, split 49/49/49/50 by Alg. 1
@@ -98,12 +110,13 @@ class StaticServe:
     lay: ServeLayout
     hp: ServeHParams
     gen: int
+    embeds: torch.Tensor | None = None   # a vlm's image (B, prefix, D)
 
     def run(self, forced: torch.Tensor | None = None):
         """-> (tokens (B, gen), logits (gen, B, V), times)."""
         return generate(self.cfg, self.params, self.prompts, gen=self.gen,
                         prism=self.prism, lay=self.lay, hp=self.hp,
-                        forced=forced)
+                        forced=forced, embeds=self.embeds)
 
 
 def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
@@ -115,7 +128,10 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
     the cache capacity up to multiples of the shard count, as the
     reference launcher does.  ``params`` reuses weights already built.
     ``prefill`` ('voltage' | 'prism') picks the prefill exchange; by
-    default the decode mode's pairing (exact: voltage, prism: PRISM)."""
+    default the decode mode's pairing (exact: voltage, prism: PRISM).  A
+    vlm (PaliGemma) also gets stub image embeddings (B, prefix_len, D),
+    a seeded ``torch.Generator`` normal, over its first prompt
+    positions."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduced else cfg
@@ -131,7 +147,15 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
                         dev)
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
         1, cfg.vocab_size, size=(batch, n)), device=dev)
-    return StaticServe(cfg, params, prompts, prism, lay, hp, gen)
+    embeds = None
+    if cfg.arch_type == "vlm":
+        if n < cfg.prefix_len:
+            raise ValueError(f"{arch}: a prompt of {n} tokens cannot hold "
+                             f"the image prefix of {cfg.prefix_len}")
+        embeds = torch.randn(batch, cfg.prefix_len, cfg.d_model, device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(seed))
+    return StaticServe(cfg, params, prompts, prism, lay, hp, gen, embeds)
 
 
 @dataclass
@@ -465,8 +489,10 @@ def main(argv=None):
                 prefill=args.prefill)
     tokens, _, times = run.run()
     b, n = run.prompts.shape
+    image = ("" if run.embeds is None
+             else f" (image prefix {run.embeds.shape[1]})")
     print(f"[serve] {run.cfg.name} {run.prism.mode}+{args.decode_mode}: "
-          f"prefill {b}x{n} "
+          f"prefill {b}x{n}{image} "
           f"{times['prefill_ms']:.2f} ms, decode "
           f"{times['decode_ms_per_token']:.3f} ms/token over "
           f"{args.gen - 1} steps ({times['clock']})")

@@ -11,10 +11,17 @@ unstacked into one dict per layer
 block kinds are ported: GPT-2's pieces (learned positions, LayerNorm,
 GELU, tied head), the Llama family's (RoPE, RMSNorm, SwiGLU, GQA, untied
 head), Gemma's (sliding-window local layers beside global ones, a RoPE
-theta for each kind, qk-norm, GeGLU, MQA, sqrt(d) input scaling) and
+theta for each kind, qk-norm, GeGLU, MQA, sqrt(d) input scaling),
 Mixture-of-Experts blocks (``models/moe.py``: global attention, then
 routed experts, with arctic's dense residual MLP where the model has
-one).
+one) and Command-R's parallel block (attention and MLP both read the
+one normed input: x + attn(ln1 x) + mlp(ln1 x), no ``ln2``;
+``block_residual``, which every serving path calls).
+
+A VLM (PaliGemma) takes tokens and a ``siglip_stub`` frontend's image
+embeddings: the embeddings go through ``frontend_proj`` and overwrite
+the first ``prefix_len`` token positions, which attend bidirectionally
+(the prefix-LM rule of ``core.masks.visibility``).
 
 Encoders (``num_classes``: BERT, ViT) attend without a causal mask and
 return the class head's logits on the CLS row (global position 0); a
@@ -37,7 +44,7 @@ from ..device import resolve_device
 
 
 BLOCK_KINDS = ("attn", "attn_local", "moe")
-FRONTENDS = (None, "patch_stub")
+FRONTENDS = (None, "patch_stub", "siglip_stub")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -46,19 +53,23 @@ def check_supported(cfg: ModelConfig) -> None:
     if (bad or cfg.pos not in ("learned", "rope")
             or cfg.norm_kind not in NORM_KINDS
             or cfg.mlp_kind not in MLP_KINDS
-            or cfg.parallel_block or cfg.logit_softcap
-            or cfg.frontend not in FRONTENDS or cfg.prefix_len
+            or cfg.logit_softcap or cfg.frontend not in FRONTENDS
+            or (cfg.prefix_len and cfg.arch_type != "vlm")
+            or (cfg.parallel_block and "moe" in cfg.block_kinds)
             or not (cfg.vocab_size or cfg.num_classes)
             or ("moe" in cfg.block_kinds
                 and not (cfg.n_experts and cfg.top_k and cfg.expert_d_ff))):
         raise NotImplementedError(
             f"{cfg.name}: only decoders and classifying encoders of "
-            f"{'/'.join(BLOCK_KINDS)} blocks with learned or rotary "
-            f"positions, {'/'.join(NORM_KINDS)} and {'/'.join(MLP_KINDS)} "
-            f"are ported, with no frontend or a patch stub (block kinds "
-            f"{bad}, pos {cfg.pos!r}, norm {cfg.norm_kind!r}, mlp "
-            f"{cfg.mlp_kind!r}, frontend {cfg.frontend!r}, prefix_len "
-            f"{cfg.prefix_len})")
+            f"{'/'.join(BLOCK_KINDS)} blocks (a parallel block of "
+            f"attention kinds only) with learned or rotary positions, "
+            f"{'/'.join(NORM_KINDS)} and {'/'.join(MLP_KINDS)} are ported, "
+            f"with no frontend, a patch stub or a SigLIP stub, and an image "
+            f"prefix on a vlm only (block kinds {bad}, pos {cfg.pos!r}, "
+            f"norm {cfg.norm_kind!r}, mlp {cfg.mlp_kind!r}, softcap "
+            f"{cfg.logit_softcap}, frontend {cfg.frontend!r}, prefix_len "
+            f"{cfg.prefix_len}, arch_type {cfg.arch_type!r}, parallel_block "
+            f"{cfg.parallel_block})")
 
 
 def is_encoder(cfg: ModelConfig) -> bool:
@@ -94,8 +105,9 @@ def attn_spec(cfg: ModelConfig, kind: str = "attn") -> AttnSpec:
 
 def block_init(cfg: ModelConfig, kind: str, gen: torch.Generator, device):
     p = {"ln1": norm_init(cfg.d_model, cfg.norm_kind, device),
-         "attn": attn_init(gen, attn_spec(cfg, kind), device),
-         "ln2": norm_init(cfg.d_model, cfg.norm_kind, device)}
+         "attn": attn_init(gen, attn_spec(cfg, kind), device)}
+    if not cfg.parallel_block:          # a parallel block has one norm
+        p["ln2"] = norm_init(cfg.d_model, cfg.norm_kind, device)
     if kind == "moe":
         p["moe"] = moe_init(gen, cfg.d_model, cfg.n_experts,
                             cfg.expert_d_ff, cfg.mlp_kind, device=device,
@@ -140,7 +152,8 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
 
 def attn_sublayer(p, x, ctx: SeqContext, spec: AttnSpec, cfg: ModelConfig):
     """Attention through the SeqContext protocol: the receiving side norms
-    the augmented matrix it attends over."""
+    the augmented matrix it attends over.  Returns (output, the normed
+    query rows), the latter for a parallel block's MLP."""
     xq, akv = ctx.augment(x, spec)
     xq_n = norm(p["ln1"], xq, cfg.norm_kind)
     xh_n = norm(p["ln1"], akv.x_hat, cfg.norm_kind)
@@ -148,24 +161,32 @@ def attn_sublayer(p, x, ctx: SeqContext, spec: AttnSpec, cfg: ModelConfig):
     k, v = attn_project_kv(p["attn"], spec, xh_n, akv.col_pos)
     o = prism_attention(q, k, v, g=akv.g, mask=akv.mask,
                         block=cfg.attn_block)
-    return ctx.finalize(attn_output(p["attn"], o))
+    return ctx.finalize(attn_output(p["attn"], o)), xq_n
 
 
-def ffn(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext, routing=None):
-    """A block's feed-forward on its normed input: the MLP, or for a
-    ``moe`` block the experts, routed in ``ctx``'s groups (``routing``:
-    the checks' ``RoutingLog``)."""
+def block_residual(cfg: ModelConfig, kind: str, p, x, o, xn,
+                   ctx: SeqContext, routing=None):
+    """The rest of a block once its attention sublayer gave ``o`` from
+    the normed rows ``xn``, on every path (the forward, prefill, decode,
+    a chunk call, a packed tick): sequential, x + o, then the
+    feed-forward on norm(ln2, x + o): the MLP, or for a ``moe`` block
+    the experts, routed in ``ctx``'s groups (``routing``: the checks'
+    ``RoutingLog``); parallel (Command-R), x + (o + mlp(xn)), both
+    branches off the one norm, as the reference sums them."""
+    if cfg.parallel_block:
+        return x + (o + mlp(p["mlp"], xn, cfg.mlp_kind))
+    x = x + o
     h = norm(p["ln2"], x, cfg.norm_kind)
     if kind == "moe":
-        return moe_apply(p["moe"], h, cfg, ctx, routing=routing)[0]
-    return mlp(p["mlp"], h, cfg.mlp_kind)
+        return x + moe_apply(p["moe"], h, cfg, ctx, routing=routing)[0]
+    return x + mlp(p["mlp"], h, cfg.mlp_kind)
 
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext,
                 routing=None):
     """One residual ``attn``, ``attn_local`` or ``moe`` block."""
-    x = x + attn_sublayer(p, x, ctx, attn_spec(cfg, kind), cfg)
-    return x + ffn(cfg, kind, p, x, ctx, routing)
+    o, xn = attn_sublayer(p, x, ctx, attn_spec(cfg, kind), cfg)
+    return block_residual(cfg, kind, p, x, o, xn, ctx, routing)
 
 
 def embed_scale(cfg: ModelConfig, x):
@@ -183,12 +204,27 @@ def embed_inputs(cfg: ModelConfig, params, tokens=None, pos_start: int = 0,
     model has a frontend (ViT's patches); scaled by sqrt(d_model) where
     the model says so, plus the learned position embeddings where the
     model has them (RoPE rotates q and k in the attention layers
-    instead).  The reference's VLM prefix, embeds written over the first
-    tokens, is not ported: both inputs at once raise."""
-    if (tokens is None) == (embeds is None):
-        raise ValueError("embed_inputs takes tokens or embeds, one of them")
+    instead).  A vlm takes both: the image embeds (B, prefix_len, D)
+    through ``frontend_proj`` overwrite the first ``prefix_len`` token
+    positions (tokens there are placeholders), and the scaling applies
+    after, to the image rows too, as in the reference."""
+    if (tokens is None and embeds is None) or (
+            tokens is not None and embeds is not None
+            and cfg.arch_type != "vlm"):
+        raise ValueError("embed_inputs takes tokens or embeds, one of them "
+                         "(both together are a vlm's input: its image "
+                         "prefix)")
     if tokens is not None:
         x = embed(params["embed"], tokens)
+        if embeds is not None:
+            if (embeds.shape[1] != cfg.prefix_len
+                    or tokens.shape[1] < cfg.prefix_len):
+                raise ValueError(
+                    f"{cfg.name}: image embeds of {embeds.shape[1]} rows "
+                    f"for a prefix of {cfg.prefix_len} in a sequence of "
+                    f"{tokens.shape[1]}")
+            fe = dense(params["frontend_proj"], embeds).to(x.dtype)
+            x = torch.cat([fe, x[:, cfg.prefix_len:]], dim=1)
     else:
         x = (dense(params["frontend_proj"], embeds) if cfg.frontend
              else embeds)
@@ -217,7 +253,8 @@ def classify(cfg: ModelConfig, params, cls):
 
 def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
             ctx: SeqContext | None = None, start: int = 0, routing=None):
-    """tokens (B, N) or stub-frontend embeds (B, N, D) -> logits (B,
+    """tokens (B, N), stub-frontend embeds (B, N, D) or a vlm's tokens
+    with its image embeds (B, prefix_len, D) -> logits (B,
     N - start, V) of positions start.. (the head over the tail only: at a
     large vocabulary the whole (B, N, V) would dwarf the rest); for an
     encoder (``num_classes``) the class logits (B, num_classes) of the

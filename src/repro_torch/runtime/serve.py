@@ -63,9 +63,9 @@ from ..models.context import SeqContext
 from ..models.layers import (AttnSpec, attn_output, attn_project_kv,
                              attn_project_q, embed, norm)
 from ..models.moe import RoutingLog
-from ..models.transformer import (attn_spec, check_decoder, check_supported,
-                                  classify, embed_inputs, embed_scale, ffn,
-                                  head)
+from ..models.transformer import (attn_spec, block_residual, check_decoder,
+                                  check_supported, classify, embed_inputs,
+                                  embed_scale, head)
 from ..sharding.context import ShardedPrismContext, means_columns
 from .paging import KVCache, PrefixCache
 
@@ -225,7 +225,8 @@ def _prefill_attention(q, k, v, akv, spec: AttnSpec, cfg: ModelConfig,
 def sharded_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx,
                  hp: ServeHParams):
     """Attention sublayer over x (B·P, n_loc, D), every shard in one
-    launch: -> (output (B·P, n_loc, D), k, v, the augmented view)."""
+    launch: -> (output (B·P, n_loc, D), k, v, the augmented view, the
+    normed local rows (a parallel block's MLP reads them))."""
     xq, akv = ctx.augment(x, spec)
     xq_n = norm(p["ln1"], xq, cfg.norm_kind)
     xh_n = norm(p["ln1"], akv.x_hat, cfg.norm_kind)
@@ -233,22 +234,23 @@ def sharded_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx,
     k, v = attn_project_kv(p["attn"], spec, xh_n, akv.col_pos)
     o = attn_output(p["attn"], _prefill_attention(q, k, v, akv, spec, cfg,
                                                   hp))
-    return o, k, v, akv
+    return o, k, v, akv, xq_n
 
 
 def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
                  hp: ServeHParams, prism_augment: bool, shapes: dict):
     """Attention sublayer over x (B·P, n_loc, D) that also captures this
     layer's decode cache, whose leaves have ``shapes``
-    (``layer_cache_shape``)."""
-    o, k, v, akv = sharded_attn(p, spec, cfg, x, ctx, hp)
+    (``layer_cache_shape``).  Returns (output, cache, the normed local
+    rows)."""
+    o, k, v, akv, xq_n = sharded_attn(p, spec, cfg, x, ctx, hp)
 
     bp, n_loc, d = x.shape
     P = lay.n_seq
     b = bp // P
     hkv, hd = k.shape[2:]
     if spec.window is not None:
-        return ctx.finalize(o), ring_capture(k, v, b, lay, shapes)
+        return ctx.finalize(o), ring_capture(k, v, b, lay, shapes), xq_n
     # prism: the local block comes first in every shard's K/V; voltage: K/V
     # is the full sequence, whose shard-p slice is batch row b·P + p
     k_loc = k[:, :n_loc] if prism_augment else k.reshape(bp, n_loc, hkv, hd)
@@ -279,7 +281,7 @@ def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
         cache["kz"], cache["vz"] = kz, vz
         cache["gz"] = sizes[None].expand(b, m).contiguous()
         cache["zsum"] = z_all.float() * sizes[None, :, None]
-    return ctx.finalize(o), cache
+    return ctx.finalize(o), cache, xq_n
 
 
 def ring_capture(k, v, b: int, lay: ServeLayout, shapes: dict) -> dict:
@@ -302,11 +304,16 @@ def ring_capture(k, v, b: int, lay: ServeLayout, shapes: dict) -> dict:
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
-            prism: PrismConfig, lay: ServeLayout, hp: ServeHParams):
+            prism: PrismConfig, lay: ServeLayout, hp: ServeHParams,
+            embeds: torch.Tensor | None = None):
     """tokens (B, n0) -> (last-token logits (B, V) f32, decode cache).
 
     ``prism.mode`` picks the exchange: 'prism' (Segment-Means) or
-    'voltage' (full)."""
+    'voltage' (full).  A vlm's image embeds (B, prefix_len, D) overwrite
+    the first prefix_len positions (``embed_inputs``, over the whole
+    sequence before it is cut into shards: the reference's overwrite of
+    each shard's rows by global position), and the prefix attends
+    bidirectionally in the kernel (``cfg.prefix_len``)."""
     check_supported(cfg)
     check_decoder(cfg, "prefill")
     b, n = tokens.shape
@@ -319,15 +326,15 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
                             else prism.L)
     ctx = ShardedPrismContext(prism_cfg, n_shards=P, backend=hp.backend)
     prism_augment = prism_cfg.mode == "prism"
-    x = embed_inputs(cfg, params, tokens).reshape(b * P, n_loc, cfg.d_model)
+    x = embed_inputs(cfg, params, tokens, embeds=embeds).reshape(
+        b * P, n_loc, cfg.d_model)
     cache = []
     for kind, p in zip(cfg.block_kinds, params["layers"]):
-        o, c = prefill_attn(p, attn_spec(cfg, kind), cfg, x, ctx, lay, hp,
-                            prism_augment,
-                            layer_cache_shape(cfg, lay, b, hp, kind=kind))
-        x = x + o
+        o, c, xn = prefill_attn(p, attn_spec(cfg, kind), cfg, x, ctx, lay,
+                                hp, prism_augment,
+                                layer_cache_shape(cfg, lay, b, hp, kind=kind))
         # a moe block routes each shard's tokens as a group (ctx's groups)
-        x = x + ffn(cfg, kind, p, x, ctx, hp.routing)
+        x = block_residual(cfg, kind, p, x, o, xn, ctx, hp.routing)
         cache.append(c)
     return lm_head(cfg, params, ctx.last_shard(x[:, -1])), cache
 
@@ -356,8 +363,9 @@ def encode(cfg: ModelConfig, params, tokens=None, *, embeds=None,
                               n=n)
     x = ctx.shard(x)
     for kind, p in zip(cfg.block_kinds, params["layers"]):
-        x = x + sharded_attn(p, attn_spec(cfg, kind), cfg, x, ctx, hp)[0]
-        x = x + ffn(cfg, kind, p, x, ctx, hp.routing)
+        o, _, _, _, xn = sharded_attn(p, attn_spec(cfg, kind), cfg, x, ctx,
+                                      hp)
+        x = block_residual(cfg, kind, p, x, o, xn, ctx, hp.routing)
     cls = x.view(b, n_shards, *x.shape[1:])[:, 0, 0]
     return classify(cfg, params, cls).float()
 
@@ -566,8 +574,9 @@ def ring_cols(w: int, window: int, pos):
 def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
                 lay: ServeLayout, hp: ServeHParams, cols, lost=None,
                 rep=None):
-    """x (B,1,D), pos (B,) -> out (B,1,D); writes this token's K/V into
-    the layer cache ``c`` in place.  ``cols`` = (write plan, owner,
+    """x (B,1,D), pos (B,) -> (out (B,1,D), the normed input x (a
+    parallel block's MLP reads it)); writes this token's K/V into the
+    layer cache ``c`` in place.  ``cols`` = (write plan, owner,
     valid, page map, state map, state rows), all made once a step; the
     last three are None for a dense cache.  A sliding-window layer's
     ``cols`` is its ring's (``ring_cols``): the ring is one column set,
@@ -611,7 +620,7 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
     else:
         out = decode_attention(q, c["k"], c["v"], valid, scale,
                                pages=page_map, backend=hp.backend)
-    return attn_output(p["attn"], out)
+    return attn_output(p["attn"], out), xn
 
 
 def block_decode(cfg: ModelConfig, kind: str, p, x, c, pos,
@@ -620,9 +629,10 @@ def block_decode(cfg: ModelConfig, kind: str, p, x, c, pos,
     """One residual ``attn``, ``attn_local`` or ``moe`` block,
     single-token decode (a moe block routes the step's B tokens as one
     group)."""
-    x = x + attn_decode(p, attn_spec(cfg, kind), cfg, x, c, pos, lay, hp,
+    o, xn = attn_decode(p, attn_spec(cfg, kind), cfg, x, c, pos, lay, hp,
                         cols, lost, rep)
-    return x + ffn(cfg, kind, p, x, DECODE_MOE_CTX, hp.routing)
+    return block_residual(cfg, kind, p, x, o, xn, DECODE_MOE_CTX,
+                          hp.routing)
 
 
 def embed_tokens(cfg: ModelConfig, params, token, pos):
@@ -687,8 +697,10 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
 
 def generate(cfg: ModelConfig, params, prompts: torch.Tensor, *, gen: int,
              prism: PrismConfig, lay: ServeLayout, hp: ServeHParams,
-             forced: torch.Tensor | None = None):
-    """Prefill, then ``gen - 1`` greedy decode steps.
+             forced: torch.Tensor | None = None,
+             embeds: torch.Tensor | None = None):
+    """Prefill (a vlm's image ``embeds`` over its prefix), then ``gen -
+    1`` greedy decode steps.
 
     ``forced`` (B, gen - 1) teacher-forces the decoded tokens instead of
     feeding back the argmax.  Returns (tokens (B, gen), logits
@@ -705,7 +717,7 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor, *, gen: int,
         stamps = []
         mark = [lambda: stamps.append(time.perf_counter())] * 3
     mark[0]()
-    logits, cache = prefill(cfg, params, prompts, prism, lay, hp)
+    logits, cache = prefill(cfg, params, prompts, prism, lay, hp, embeds)
     mark[1]()
     out = [logits]
     for i in range(gen - 1):

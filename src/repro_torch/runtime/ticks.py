@@ -45,8 +45,8 @@ from ..kernels.decode_attention import chunk_softmax_stats
 from ..models.config import ModelConfig
 from ..models.layers import (attn_output, attn_project_kv, attn_project_q,
                              norm)
-from ..models.transformer import (attn_spec, check_decoder, check_supported,
-                                  ffn)
+from ..models.transformer import (attn_spec, block_residual, check_decoder,
+                                  check_supported)
 from ..sharding.context import means_columns
 from .serve import (DECODE_MOE_CTX, ServeHParams, ServeLayout, _combine_exact,
                     _decode_cols, _write_kv, decode_attention, embed_tokens,
@@ -140,9 +140,18 @@ def check_tick_kinds(cfg: ModelConfig, program: str) -> None:
     """Raise unless every block has a position-addressed attention cache:
     a sliding-window layer's ring holds the last W positions, which a
     chunk or a packed tick does not address, as the reference's
-    ``make_chunk_prefill_step`` / ``make_packed_step`` refuse it."""
+    ``make_chunk_prefill_step`` / ``make_packed_step`` refuse it.  Also
+    raise for a model whose prompt carries embeddings (a frontend, an
+    image prefix): the programs take tokens only.  The reference's would
+    run such a model on its placeholder tokens and drop the image; the
+    port refuses it in its engine's words (ROADMAP queue 3)."""
     check_supported(cfg)
     check_decoder(cfg, program)
+    if cfg.arch_type == "vlm" or cfg.frontend or cfg.prefix_len:
+        raise ValueError(
+            f"{program} serves token prompts only; arch {cfg.name!r} "
+            f"(arch_type={cfg.arch_type!r}, frontend={cfg.frontend!r}) "
+            f"needs embedding inputs")
     for kind in cfg.block_kinds:
         if kind not in ("attn", "moe"):
             raise ValueError(
@@ -203,8 +212,8 @@ def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
             inc = torch.einsum("bcm,bcd->bmd", seg, x.float())
             _capture_means(p, spec, cfg, cc, inc, cnt, restart, act,
                            cols.mid, splan)
-        x = x + attn_output(p["attn"], o)
-        x = x + ffn(cfg, kind, p, x, DECODE_MOE_CTX, hp.routing)
+        x = block_residual(cfg, kind, p, x, attn_output(p["attn"], o), xn,
+                           DECODE_MOE_CTX, hp.routing)
     return cache
 
 
@@ -312,8 +321,8 @@ def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
             inc = torch.einsum("btm,td->bmd", seg, x[:, 0].float())
             _capture_means(p, spec, cfg, c, inc, cnt, restart, act,
                            cols.mid, splan)
-        x = x + attn_output(p["attn"], o)
-        x = x + ffn(cfg, kind, p, x, DECODE_MOE_CTX, hp.routing)
+        x = block_residual(cfg, kind, p, x, attn_output(p["attn"], o), xn,
+                           DECODE_MOE_CTX, hp.routing)
     return lm_head(cfg, params, x[:min(b, x.shape[0]), 0]), cache
 
 

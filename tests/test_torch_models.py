@@ -112,18 +112,21 @@ def test_layers_match_reference():
 
 def test_unported_configs_raise():
     with pytest.raises(KeyError, match="not ported"):
-        get_config("paligemma-3b")
+        get_config("musicgen-medium")
     cfg = get_config("gpt2-small")
     import dataclasses
     # RoPE, RMSNorm and SwiGLU (the Llama family), qk-norm, GeGLU, local
     # layers and embed_scale (Gemma 3), MoE blocks (OLMoE, arctic), an
-    # encoder's class head and ViT's patch stub are ported; sinusoidal
-    # positions, the ReLU MLP, logit soft-capping, parallel blocks, Mamba
-    # blocks, the SigLIP stub and a VLM prefix are not
+    # encoder's class head, ViT's patch stub, Command-R's parallel block
+    # and PaliGemma's SigLIP stub and image prefix (a vlm's) are ported;
+    # sinusoidal positions, the ReLU MLP, logit soft-capping, Mamba
+    # blocks, a prefix outside a vlm and a parallel MoE block are not
     for over in (dict(pos="sincos"), dict(mlp_kind="relu"),
-                 dict(logit_softcap=30.0), dict(parallel_block=True),
+                 dict(logit_softcap=30.0),
                  dict(blocks=("mamba",) * cfg.n_layers),
-                 dict(frontend="siglip_stub"), dict(prefix_len=16)):
+                 dict(prefix_len=16),
+                 dict(blocks=("moe",) * cfg.n_layers, n_experts=4, top_k=2,
+                      expert_d_ff=64, parallel_block=True)):
         with pytest.raises(NotImplementedError):
             TT.check_supported(dataclasses.replace(cfg, **over))
     for over in (dict(qk_norm=True), dict(mlp_kind="geglu"),
@@ -131,10 +134,27 @@ def test_unported_configs_raise():
                  dict(blocks=("attn_local", "attn") * 6, window=64),
                  dict(blocks=("moe",) * cfg.n_layers, n_experts=4, top_k=2,
                       expert_d_ff=64),
-                 dict(num_classes=2), dict(frontend="patch_stub")):
+                 dict(num_classes=2), dict(frontend="patch_stub"),
+                 dict(parallel_block=True), dict(frontend="siglip_stub"),
+                 dict(arch_type="vlm", frontend="siglip_stub",
+                      prefix_len=16)):
         TT.check_supported(dataclasses.replace(cfg, **over))
     with pytest.raises(NotImplementedError):
         TL.mlp({}, torch.zeros(2), "relu")
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "xlstm-1.3b",
+                                  "zamba2-2.7b"])
+def test_reference_families_left_are_refused(arch):
+    """The reference's families still to port, their configs as they
+    stand there: sinusoidal positions and the EnCodec stub (MusicGen),
+    mLSTM / sLSTM blocks (xLSTM), Mamba and shared attention blocks
+    (Zamba2)."""
+    from repro_torch.models.config import ModelConfig
+    ref = j_get_config(arch)
+    fields = {f: getattr(ref, f) for f in ref.__dataclass_fields__}
+    with pytest.raises(NotImplementedError):
+        TT.check_supported(ModelConfig(**fields))
 
 
 def test_init_is_seeded():
