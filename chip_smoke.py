@@ -197,17 +197,17 @@ Phases, one JSON line each:
             the plain full forward), PRISM + prism and voltage + prism
             (each held to the same run with backend='plain'), under phase
             4's checks and traces; every prefill launches the attention
-            kernel once a layer (22 of them windowed), segment means
+            kernel once a layer (10 of them windowed), segment means
             once a global layer where it captures means, and every decode
             step the decode kernel's tile route once a layer.
-11. path    Mixture-of-Experts: OLMoE-1B-7B at full width and depth (16
-            MoE layers, d 2048, 16 heads of 128, qk-norm, 64 experts
+11. path    Mixture-of-Experts: OLMoE-1B-7B at full width (of 16 MoE
+            layers, d 2048, 16 heads of 128, qk-norm, 64 experts
             top-8 of SwiGLU d_ff 1024 at capacity factor 1.25, untied head
             over 50304), f32 weights from torch.Generator seed 0 on the
-            card, at the main path's shapes: phase 4's static pairings,
-            then phase 5's chunked and packed paths in both modes and
-            phase 6's engine runs (paged) on its first 8 layers
-            (``TICK_DEPTH``, as phase 9).  Capacity counts per routing group
+            card, at the main path's shapes on its first 8 layers: phase
+            4's static pairings (``STATIC_DEPTH``), then phase 5's
+            chunked and packed paths in both modes and phase 6's engine
+            runs (paged) (``TICK_DEPTH``, as phase 9).  Capacity counts per routing group
             (a prefill shard; a decode step's, chunk call's or packed
             tick's tokens), so every run is held to its backend='plain'
             twin: the counted and timed run records its routing (no
@@ -265,10 +265,10 @@ Phases, one JSON line each:
 15. path    Command-R 35B at full width (d 8192, 64 query heads over 8
             KV heads of 128, the parallel block, LayerNorm, SwiGLU d_ff
             22528, RoPE theta 8e6, tied head over 256000), f32 weights
-            from torch.Generator seed 0 on the card: its first 16
-            layers (``STATIC_DEPTH``; 40 are 121 GB) through phase
-            4's static pairings, its first 8 (``TICK_DEPTH``) through
-            phase 5's tick paths and phase 6's engine runs, under phases
+            from torch.Generator seed 0 on the card: its first 8
+            layers (``STATIC_DEPTH``, ``TICK_DEPTH``; 40 are 121 GB)
+            through phase 4's static pairings, phase 5's tick paths and
+            phase 6's engine runs, under phases
             4-6's references.  Before both, phase 3 checks and times the
             three kernels at their layouts (``check_family``): attention
             at hd 256 with the image prefix, and with its end swept
@@ -280,8 +280,50 @@ Phases, one JSON line each:
             (a group of 8 at hd 256: the split tile route) and at
             Command-R's static, chunk, packed and paged ones and a
             poisoned page.
+16. path    MusicGen-medium at full width (d 1536, 24 heads of 64,
+            GELU d_ff 6144, LayerNorm, sinusoidal positions, untied head
+            over 2048 codes), f32 weights from torch.Generator seed 0 on
+            the card, its first 16 of 48 layers (``STATIC_DEPTH``), B 8,
+            a prompt of 512 seeded frame embeddings (the EnCodec stub,
+            through ``frontend_proj``), 64 codes generated, P 4, CR 4,
+            through the static path in three pairings: voltage + exact
+            held to the plain full forward over the frames' rows
+            (``embed_inputs``) and the fed codes' rows (``embed_tokens``)
+            under ``FullContext`` (``audio_rows``), the prism pairings
+            to their backend='plain' twins; attention 16 a prefill,
+            segment means 16 where a pairing captures means, the decode
+            kernel's row route (a group of 1) 16 a step.  The tick
+            programs and the engine take token prompts only and refuse
+            it.  Phase 3 checks its layouts first (``check_family``):
+            attention PRISM and Voltage at 24 heads of 64, segment means
+            and the augment at D 1536, the decode kernel's static exact
+            and prism layouts.
+17. path    xLSTM 1.3B at full width on its first 24 of 48 layers
+            (``STATIC_DEPTH``: three whole 8-layer units of 7 mLSTM and
+            1 sLSTM; at 48 the phase took 77 s), d 2048, 4 heads, the
+            mLSTM's of 1,024 with a state of (8, 4, 1024, 1025) f32 a
+            layer, untied head over 50304, f32 weights from
+            torch.Generator seed 0 on the card, at the main path's
+            shapes, voltage + exact only (no layer reads the exchange or
+            the means cache): the mLSTM hands its state across the 4
+            shards in chunks of 128, the sLSTM scans the gathered
+            sequence, each decode step updates the states in place.
+            Held (``recurrent_check``) to a float64 witness: every
+            cell's output at all 576 positions (prefill and decode rows,
+            teacher-forced) to the cell's float64 full-sequence form on
+            the same inputs, its prefill rows and its decode rows each
+            within 4 times the plain f32 cell's own distance to that
+            form; the logits to the float64 full forward over 576 tokens
+            in chunks of 64 (``XLSTM_REF_CHUNK``) within the larger of
+            1e-4 and 4 times the distance of two plain f32 forwards
+            (chunks of 64 and 32) to it (the random-weight model
+            amplifies f32 rounding with depth), and the tokens equal
+            where its top-2 gap is clear; none of the three kernels
+            launches.  Phases 9-12 run in one
+            child process of the script, 13-17 in another
+            (``drive_apart``, ``CHILD_ARG``).
    total    the script's seconds so far.
-16. kernels one line listing every kernel with its numbers: ``ms`` is
+18. kernels one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -303,8 +345,9 @@ Phases, one JSON line each:
             its launches on phase 9's paths; each row's ``gemma`` the
             same at Gemma 3 1B's layouts (head dim 256, D 1152) and its
             launches on phase 10's paths; ``olmoe``, ``gemma7b``,
-            ``paligemma`` and ``commandr`` the same at phases 11, 12, 14
-            and 15's layouts and paths; ``bert`` and
+            ``paligemma``, ``commandr`` and ``musicgen`` the same at
+            phases 11, 12, 14, 15 and 16's layouts and paths; ``xlstm``
+            its launches on phase 17's path (none); ``bert`` and
             ``vit`` at phase 13's (the decode kernel has none) with the
             launches there.
 
@@ -352,13 +395,32 @@ MOE, GEMMA7 = "olmoe-1b-7b", "gemma-7b"
 # KV head of 256) at full width and depth on the static path (the tick
 # programs and the engine take token prompts only); phase 15: Command-R
 # 35B (the parallel block, d 8192, 64 query heads over 8 KV heads of
-# 128) at full width, its static path on its first 16 layers
+# 128) at full width, its static path on its first 8 layers
 # (``STATIC_DEPTH``: 40 layers of f32 weights are 121 GB)
 PALI, CMDR = "paligemma-3b", "command-r-35b"
+# phase 16: MusicGen-medium (a stub EnCodec prompt of frame embeddings,
+# sinusoidal positions, 24 heads of 64, an untied head over 2048 codes)
+# at full width on the static path, on its first 16 of 48 layers
+# (``STATIC_DEPTH``); phase 17: xLSTM 1.3B (42 mLSTM and 6 sLSTM blocks,
+# no attention) at full width on its first 24 layers, voltage + exact
+# only: no layer reads the exchange or the means cache
+MUSICGEN, XLSTM = "musicgen-medium", "xlstm-1.3b"
+# the chunk of xLSTM's plain full forward over prompt + generated tokens
+# (576 rows: a multiple of 64, not of the serving chunk of 128)
+XLSTM_REF_CHUNK = 64
+# xLSTM's limits (``recurrent_check``): the path, another f32 order of
+# the same sums (chunks of 128 and a hand-off across 4 shards in the
+# prefill, one step a token in decode), may lie at most this many times
+# as far from the float64 witness as plain f32 does: each cell's prefill
+# rows and decode rows as far as the plain f32 cell's (chunks of 64) on
+# the same inputs, the logits as the farther of two plain f32 forwards
+# (chunks of 64 and 32), the logits never held closer than PATH_REL_TOL
+F32_ORDER_FACTOR = 4
 # phase 3's families (``check_family``): arch -> (key in the kernels
 # line and the phase-3 error keys, generator seed)
 FAMILY_TAGS = {MOE: ("olmoe", 17), GEMMA7: ("gemma7b", 19),
-               PALI: ("paligemma", 23), CMDR: ("commandr", 29)}
+               PALI: ("paligemma", 23), CMDR: ("commandr", 29),
+               MUSICGEN: ("musicgen", 31)}
 # the static prefill / decode pairings: phase 4's two, and Gemma's third
 PAIRINGS = (("voltage", "exact"), ("prism", "prism"))
 GEMMA_PAIRINGS = PAIRINGS + (("voltage", "prism"),)
@@ -1481,16 +1543,18 @@ def check_head_dim_256(torch, chk, timer):
 
 
 def check_family(torch, chk, timer, arch, tag, seed):
-    """Phase 3 at a family's own layouts (Yi-6B's, and phases 11, 12, 14
-    and 15's: OLMoE's 16 heads of 128 and D 2048, Gemma 7B's 16 heads of
-    256 and D 3072, PaliGemma's 8 query heads over 1 KV head of 256 and
-    D 2048, Command-R's 64 query heads over 8 of 128 and D 8192):
+    """Phase 3 at a family's own layouts (Yi-6B's, and phases 11, 12, 14,
+    15 and 16's: OLMoE's 16 heads of 128 and D 2048, Gemma 7B's 16 heads
+    of 256 and D 3072, PaliGemma's 8 query heads over 1 KV head of 256
+    and D 2048, Command-R's 64 query heads over 8 of 128 and D 8192,
+    MusicGen's 24 heads of 64 (group 1: the decode kernel's row route)
+    and D 1536):
     prefill attention at its PRISM and Voltage shapes (a vlm's with its
     image prefix, then ``prefix_cases``); segment means and the augment
     at its width; the decode kernel at its static decode (exact and
     prism, no row map: the route the rule names, the other on the same
-    inputs, both timed); where the family runs the tick programs (not a
-    vlm: they take token prompts only), its chunk layout (the C = 64
+    inputs, both timed); where the family runs the tick programs (no
+    frontend: they take token prompts only), its chunk layout (the C = 64
     queries folded into the head axis: the tile route, at head dim 256
     ``decode_stats_mq_split_kernel``), its packed layouts through the row
     map, each again over the page pool, and a poisoned page.  Errors are
@@ -1520,7 +1584,7 @@ def check_family(torch, chk, timer, arch, tag, seed):
         dec_args[mode] = args
     times["cases_by_route"] = by_route
     out["decode"] = times
-    if cfg.arch_type == "vlm":
+    if cfg.frontend:                    # a vlm's image, an audio prompt
         return out
     chunk, packed, packed_prism, rows, scale = tick_layout_inputs(
         torch, gen, arch=arch)
@@ -2121,7 +2185,8 @@ def profile(torch, run) -> dict:
     The profiler's own overhead stretches the spans; the kernel times are
     the card's."""
     from repro_torch.runtime.serve import prefill, serve_step
-    b, n = run.prompts.shape
+    first = run.prompts if run.prompts is not None else run.embeds
+    b, n = first.shape[:2]
     state = {}
 
     def pre():
@@ -2132,7 +2197,7 @@ def profile(torch, run) -> dict:
         logits, cache = state["out"]
         for i in range(TRACED_STEPS):
             pos = torch.full((b,), n + i, dtype=torch.long,
-                             device=run.prompts.device)
+                             device=first.device)
             logits, cache = serve_step(run.cfg, run.params, cache,
                                        logits.argmax(dim=-1), pos, run.lay,
                                        run.hp)
@@ -2235,12 +2300,140 @@ def static_tile(cfg) -> bool:
     return decode_route(cfg.n_heads, cfg.n_kv_heads, True) == "tile"
 
 
+def as_f64(tree):
+    """A copy of a weight tree in float64."""
+    if isinstance(tree, dict):
+        return {k: as_f64(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [as_f64(v) for v in tree]
+    return tree.double()
+
+
+def recurrent_check(torch, run, tokens, logits):
+    """The exact static path of a model of recurrent blocks (xLSTM):
+    (err, limit, the float64 reference logits (gen, B, V), extras).
+
+    A random-weight xLSTM amplifies an f32 rounding difference with
+    depth, so two plain f32 forwards that only group the chunks otherwise
+    already differ by more than ``PATH_REL_TOL``.  The witness is the
+    plain full forward in float64 over the prompt and every fed token
+    (576 rows, chunks of ``XLSTM_REF_CHUNK``).  Gated: (1) every layer's
+    cell output (the mLSTM or sLSTM, before the residual add) at every
+    position, the prefill's rows and 64 decode steps teacher-forced on
+    ``tokens`` in a second run whose cells are recorded, against the
+    cell's float64 full-sequence form on the same inputs: the prefill's
+    rows and the decode steps' rows each within ``F32_ORDER_FACTOR``
+    times the plain f32 cell's own distance there (some prefill rows of
+    the plain f32 cell lie near 1e-4 of the largest output: the cell's
+    conditioning, not the port's); (2) the counted run's logits against
+    the float64 forward, within the larger of ``PATH_REL_TOL`` and
+    ``F32_ORDER_FACTOR`` times the distance of the plain f32 forwards
+    (chunks of 64 and 32) to it.  The caller holds the greedy tokens to
+    the float64 forward where its top-2 gap is clear.  Errors are
+    relative to the witness's largest |value|, per layer (all rows, the
+    prefill's, the decode steps')."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.context import FullContext
+    from repro_torch.runtime import serve as S
+    cfg, params = run.cfg, run.params
+    b, n = run.prompts.shape
+    names = ("mlstm_apply", "slstm_apply", "mlstm_decode", "slstm_decode")
+    cells = {name: getattr(T, name) for name in names}
+    calls = []
+
+    def recorded(fn):
+        def cell(p, x, *a, **kw):
+            out = fn(p, x, *a, **kw)
+            calls.append((x, out[0] if isinstance(out, tuple) else out))
+            return out
+        return cell
+
+    def full_cell(kind, p, x):
+        kw = {"chunk": XLSTM_REF_CHUNK} if kind == "mlstm" else {}
+        return cells[f"{kind}_apply"](p["cell"], x, heads=cfg.n_ssm_heads,
+                                      ctx=FullContext(), **kw)
+    with torch.no_grad():
+        for name in names:
+            setattr(T, name, recorded(cells[name]))
+        try:                # positions 0 .. n + GEN - 1, every token fed
+            S.generate(cfg, params, run.prompts, gen=GEN + 1,
+                       prism=run.prism, lay=run.lay, hp=run.hp,
+                       forced=tokens)
+        finally:
+            for name in names:
+                setattr(T, name, cells[name])
+        params64 = as_f64(params)
+        layer_errs, plain_errs = [], []
+        for i, (kind, p) in enumerate(zip(cfg.block_kinds,
+                                          params["layers"])):
+            mine = calls[i::cfg.n_layers]
+            x, y = (torch.cat([mine[0][j].reshape(b, n, -1)]
+                              + [c[j] for c in mine[1:]], dim=1)
+                    for j in (0, 1))
+            y64 = full_cell(kind, params64["layers"][i], x.double())
+            scale = float(y64.abs().max())
+
+            def parts(got):     # all rows, the prefill's, the decode's
+                e = (got.double() - y64).abs().amax(dim=(0, 2)) / scale
+                return [float(e.max()), float(e[:n].max()),
+                        float(e[n:].max())]
+            layer_errs.append(parts(y))
+            plain_errs.append(parts(full_cell(kind, p, x)))
+            del x, y, y64
+        del calls
+        bad = [(i, rows) for i, (mine, base) in enumerate(zip(layer_errs,
+                                                              plain_errs))
+               for rows, e, e0 in (("prefill", mine[1], base[1]),
+                                   ("decode", mine[2], base[2]))
+               if e > F32_ORDER_FACTOR * e0]
+        if bad:
+            raise AssertionError(
+                f"{cfg.name}: a cell's output is more than "
+                f"{F32_ORDER_FACTOR} times as far from its float64 form as "
+                f"the plain f32 cell's (layer, rows) {bad}; by layer (all, "
+                f"prefill, decode rows), the path's {layer_errs}, the plain "
+                f"f32 cell's {plain_errs}")
+        seq = torch.cat([run.prompts, tokens], dim=1)
+
+        def fwd(tree, chunk):
+            return T.forward(cfg, tree, seq, start=n - 1, chunk=chunk)[
+                :, :GEN].transpose(0, 1)                     # (gen, B, V)
+        ref = fwd(params64, XLSTM_REF_CHUNK)
+        del params64
+        plain = [rel_err(fwd(params, c), ref)
+                 for c in (XLSTM_REF_CHUNK, XLSTM_REF_CHUNK // 2)]
+    limit = max(PATH_REL_TOL, F32_ORDER_FACTOR * max(plain))
+    extra = {"layer_rel_err_max": max(e[0] for e in layer_errs),
+             # by layer: all rows, the prefill's, the decode steps'
+             "layer_rel_err": layer_errs,
+             "layer_plain_f32_rel_err": plain_errs,
+             "plain_f32_rel_err": plain, "limit_factor": F32_ORDER_FACTOR,
+             "positions": n + GEN}
+    return rel_err(logits, ref), limit, ref, extra
+
+
+def audio_rows(torch, run, codes):
+    """An audio prompt's rows for the plain full forward: the frames
+    through ``embed_inputs`` (positions 0 .. n - 1), then ``codes`` (B,
+    t) through the decode step's ``embed_tokens`` at positions n, n + 1,
+    ... (B, n + t, D)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serve import embed_tokens
+    n, t = run.embeds.shape[1], codes.shape[1]
+    pos = torch.arange(n, n + t, device=codes.device).expand(
+        codes.shape[0], t)
+    return torch.cat([T.embed_inputs(run.cfg, run.params, embeds=run.embeds),
+                      embed_tokens(run.cfg, run.params, codes, pos)], dim=1)
+
+
 def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
                cfg=None):
     """The static path in each (prefill, decode) pairing, keyed by the
     decode mode (by 'prefill+decode' for a pairing other than the mode's
     own): exact decode held to the plain full forward (a vlm's with its
-    image), prism decode to the same run with backend='plain'.  A model
+    image; an audio model's over its frames and the codes fed after them,
+    ``audio_rows``; xLSTM's in float64, ``recurrent_check``), prism
+    decode to the same run with backend='plain'.  A model
     with MoE blocks holds every pairing to its backend='plain' twin
     under ``replay_check``: the counted run records its routing
     (``RoutingLog`` launches nothing).  ``cfg`` (default ``arch``'s)
@@ -2255,9 +2448,13 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
     arch_cfg = cfg or full
     n_layers = arch_cfg.n_layers
     n_local = arch_cfg.block_kinds.count("attn_local")
+    # the layers with attention (xLSTM's recurrent blocks have none)
+    n_attn = sum(k not in T.RECURRENT_KINDS for k in arch_cfg.block_kinds)
+    recurrent = n_attn < n_layers
     moe = "moe" in arch_cfg.block_kinds
     width = ("d_model", "n_heads", "n_kv_heads", "hd", "d_ff", "vocab_size",
-             "n_experts", "top_k", "expert_d_ff", "prefix_len")
+             "n_experts", "top_k", "expert_d_ff", "prefix_len",
+             "n_ssm_heads", "ssm_expand", "frontend", "pos")
     got = [getattr(arch_cfg, f) for f in width]
     if got != [getattr(full, f) for f in width] or len(
             params["layers"]) != n_layers:                  # full width
@@ -2289,13 +2486,13 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
         if moe:
             rec, run.hp = run.hp.routing, hp
         check_launches(f"{arch}/static/{key}", counts, {
-            "prism_flash_attention": n_layers,
+            "prism_flash_attention": n_attn,
             "prism_flash_attention.window": n_local,
             # a prefill that captures means: once a global layer
-            "segment_means": (n_layers - n_local) if mode == "prism"
+            "segment_means": (n_attn - n_local) if mode == "prism"
             else 0,
-            "flash_decode_stats": n_layers * (GEN - 1),
-            "flash_decode_stats.mq": (n_layers * (GEN - 1)
+            "flash_decode_stats": n_attn * (GEN - 1),
+            "flash_decode_stats.mq": (n_attn * (GEN - 1)
                                       if static_tile(arch_cfg) else 0),
             "flash_decode_stats.paged": 0})
         vocab = run.cfg.vocab_size
@@ -2312,13 +2509,25 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
                                             f"{arch}/static/{key}")
             del rec
             ref_name = "backend='plain' run replaying the routing"
+        elif mode == "exact" and recurrent:
+            err, tol, ref, extra = recurrent_check(torch, run, tokens,
+                                                   logits)
+            ref_name = ("the float64 plain full forward; each cell against "
+                        "its float64 form on the path's own inputs")
         elif mode == "exact":
             # teacher-forced: one causal forward over prompt + generated
-            # tokens covers every step (the head over those steps only)
-            seq = torch.cat([run.prompts, tokens[:, :-1]], dim=1)
+            # tokens covers every step (the head over those steps only);
+            # an audio prompt's frames, then the codes fed after them
             with torch.no_grad():
-                fwd = T.forward(run.cfg, params, seq, embeds=run.embeds,
-                                start=prompt - 1)
+                if run.prompts is None:
+                    fwd = T.forward_embedded(
+                        run.cfg, params,
+                        audio_rows(torch, run, tokens[:, :-1]),
+                        start=prompt - 1)
+                else:
+                    seq = torch.cat([run.prompts, tokens[:, :-1]], dim=1)
+                    fwd = T.forward(run.cfg, params, seq, embeds=run.embeds,
+                                    start=prompt - 1)
             ref = fwd.transpose(0, 1)                         # (gen, B, V)
             del fwd
             ref_name = "plain full forward"
@@ -2326,10 +2535,11 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
             plain = static(mode, prefill_mode, "plain")
             _, ref, _ = plain.run(forced=tokens[:, :-1])
             ref_name = "backend='plain' run"
-        err = rel_err(logits, ref)
-        if err > PATH_REL_TOL:
+        if not (mode == "exact" and recurrent):
+            err, tol = rel_err(logits, ref), PATH_REL_TOL
+        if err > tol:
             raise AssertionError(f"{key}: logits rel err {err:.3e} vs the "
-                                 f"{ref_name} > {PATH_REL_TOL}")
+                                 f"{ref_name} > {tol:.3e}")
         checked, total = tokens_agree(torch, tokens, ref)
         decode_s = times["decode_ms_per_token"] / 1e3
         results[key] = {
@@ -2341,7 +2551,7 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
                  * (GEN - 1)) / 1e3),
             "clock": times["clock"], "launches": counts,
             "logits_rel_err": err, "reference": ref_name,
-            "tol": PATH_REL_TOL, "tokens_checked": checked,
+            "tol": tol, "tokens_checked": checked,
             "tokens_total": total, **extra}
         emit("path", arch=arch, mode=mode, prefill=prefill_mode,
              batch=BATCH, prompt=prompt, gen=GEN, shards=SHARDS, cr=CR,
@@ -3842,7 +4052,7 @@ def drive_phase8(torch, params, phase6):
 
 
 # ---------------------------------------------------------------------------
-# phases 9-12, 14 and 15: the families after GPT-2
+# phases 9-12 and 14-17: the families after GPT-2
 # ---------------------------------------------------------------------------
 
 TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3857,10 +4067,12 @@ LLAMA_ENGINE_RUNS = (("packed", "exact"), ("packed", "prism"))
 # took 1,118 s of its 1,200 s limit on an H100 (PERF.md §4)
 TICK_DEPTH = 8
 # the static paths served on their first layers only, all widths full:
-# Command-R's 40 layers of f32 weights are 121 GB, 16 are 53.5 GB; Yi-6B
-# and Gemma 7B are cut so that phases 14 and 15 fit the script's time
-# (PERF.md §4); every other static path runs at full depth
-STATIC_DEPTH = {LLAMA: 16, GEMMA7: 14, CMDR: 16}
+# Command-R's 40 layers of f32 weights are 121 GB; Yi-6B and Gemma 7B are
+# cut so that phases 14 and 15 fit the script's time, Command-R and OLMoE
+# so that phases 16 and 17 do, xLSTM under its phase's 45 s rule (PERF.md
+# §4); every other static path runs at full depth
+STATIC_DEPTH = {LLAMA: 16, GEMMA7: 14, CMDR: 8, MOE: 8, MUSICGEN: 16,
+                XLSTM: 24}
 
 
 def cut_depth(cfg, params):
@@ -3903,36 +4115,69 @@ def gemma_row(name, t_256, chk):
     return out
 
 
-def drive_static(torch, arch, prompt=PROMPT):
+def state_bytes(cfg) -> int:
+    """The f32 decode states of a model's recurrent layers at the path's
+    batch (xLSTM: 134 MB an mLSTM layer)."""
+    from repro_torch.runtime import serve as S
+    hp = S.ServeHParams()
+    lay = S.make_layout(SHARDS, PROMPT + GEN, hp, prefill_len=PROMPT)
+    return sum(4 * math.prod(S.layer_cache_shape(cfg, lay, BATCH, hp,
+                                                 kind=k)["s"])
+               for k in cfg.block_kinds if k in ("mlstm", "slstm"))
+
+
+def drive_static(torch, arch, prompt=PROMPT, pairings=GEMMA_PAIRINGS):
     """A family the reference serves on the static path alone, at full
-    width and depth through its three pairings at B 8, ``prompt``, 64
+    width through ``pairings`` (by default three) at B 8, ``prompt``, 64
     generated, P 4, CR 4, f32 weights from torch.Generator seed 0 on the
-    card: phase 10, Gemma 3 1B (26 layers, 22 sliding-window local and 4
-    global, d 1152, 4 query heads over 1 KV head of 256, qk-norm, GeGLU
-    d_ff 6912, sqrt(d) input scaling, two RoPE thetas, tied head over
-    262144; prompt 2048), whose ring caches the tick programs and the
-    engine refuse; phase 14, PaliGemma 3B (18 layers, d 2048, 8 query
-    heads over 1 KV head of 256, GeGLU d_ff 16384, tied head over 257216,
-    a stub image of 256 embeddings over the first prompt positions,
-    attended bidirectionally), whose image they cannot take.  Returns
-    the launches of each path, keyed ``<arch>/static/...``."""
+    card, at full depth or on its first ``STATIC_DEPTH`` layers (only
+    those built): phase 10, Gemma 3 1B (26 layers, 22 sliding-window
+    local and 4 global, d 1152, 4 query heads over 1 KV head of 256,
+    qk-norm, GeGLU d_ff 6912, sqrt(d) input scaling, two RoPE thetas,
+    tied head over 262144; prompt 2048), whose ring caches the tick
+    programs and the engine refuse; phase 14, PaliGemma 3B (18 layers, d
+    2048, 8 query heads over 1 KV head of 256, GeGLU d_ff 16384, tied
+    head over 257216, a stub image of 256 embeddings over the first
+    prompt positions, attended bidirectionally), whose image they cannot
+    take; phase 16, MusicGen-medium (48 layers, d 1536, 24 heads of 64,
+    GELU d_ff 6144, LayerNorm, sinusoidal positions, untied head over
+    2048 codes, a prompt of seeded frame embeddings through
+    ``frontend_proj``), whose frames they cannot take; phase 17, xLSTM
+    1.3B (42 mLSTM and 6 sLSTM blocks, d 2048, 4 heads, the mLSTM's of
+    1,024, untied head over 50304; voltage + exact alone), whose
+    recurrent states they do not address.  Returns the launches of each
+    path, keyed ``<arch>/static/...``."""
     import time
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = full
+    if arch in STATIC_DEPTH:
+        n = STATIC_DEPTH[arch]
+        cfg = replace(cfg, n_layers=n, blocks=cfg.block_kinds[:n])
     params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                     "cuda")
     n_params = sum(t.numel() for t in _leaves(params))
+    kinds = cfg.block_kinds
+    recurrent = {}
+    if "mlstm" in kinds or "slstm" in kinds:
+        recurrent = dict(
+            mlstm_layers=kinds.count("mlstm"),
+            slstm_layers=kinds.count("slstm"), ssm_heads=cfg.n_ssm_heads,
+            ssm_expand=cfg.ssm_expand, ssm_chunk=128,
+            reference_chunk=XLSTM_REF_CHUNK, state_bytes=state_bytes(cfg))
     emit("model", arch=arch, params=n_params, weight_bytes=4 * n_params,
-         layers=cfg.n_layers, local_layers=cfg.block_kinds.count(
-             "attn_local"), window=cfg.window, prefix_len=cfg.prefix_len,
+         layers=cfg.n_layers, layers_of=full.n_layers,
+         local_layers=kinds.count("attn_local"), window=cfg.window,
+         prefix_len=cfg.prefix_len, frontend=cfg.frontend, pos=cfg.pos,
          d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
          head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size, prompt=prompt,
-         decode_route_static=("tile" if static_tile(cfg) else "row"))
+         decode_route_static=("tile" if static_tile(cfg) else "row"),
+         **recurrent)
     by_path = {f"{arch}/static/{key}": r["launches"]
                for key, r in drive_path(torch, params, arch, prompt,
-                                        GEMMA_PAIRINGS).items()}
+                                        pairings, cfg=cfg).items()}
     emit("phase", name=arch, seconds=time.perf_counter() - t0)
     return by_path
 
@@ -4154,7 +4399,12 @@ def drive_apart(phases):
     returned.  Late in this long process the profiler dropped part of a
     window's device records in every try (phase 13: about 65 of an
     encode window's 724, one attention launch; the same window was whole
-    in a fresh process, PERF.md §6)."""
+    in a fresh process, PERF.md §6), and the fillers that absorb those
+    losses grow with the process's age: in one run on an H100 with
+    phases 9-12 in the script's process they reached ``FILLERS_MAX`` a
+    trace there, against at most 1,184 with those phases in a child.
+    That run was slow from its first phase on, so it does not show how
+    much time the child saves (PERF.md §4)."""
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
                         CHILD_ARG, *phases], capture_output=True,
                        text=True, timeout=900)
@@ -4170,11 +4420,22 @@ def drive_apart(phases):
 
 
 def child_phases():
-    """The phases ``drive_apart`` runs, by name: 13, the encoders; 14,
-    PaliGemma 3B on the static path; 15, Command-R 35B."""
-    return {"encoders": drive_encoders,
+    """The phases ``drive_apart`` runs, by name: 9, Yi-6B; 10, Gemma 3
+    1B on the static path; 11, OLMoE-1B-7B; 12, Gemma 7B; 13, the
+    encoders; 14, PaliGemma 3B on the static path; 15, Command-R 35B;
+    16, MusicGen-medium on the static path; 17, xLSTM 1.3B on the static
+    path, voltage + exact."""
+    return {LLAMA: lambda torch: drive_family(torch, LLAMA,
+                                              LLAMA_ENGINE_RUNS),
+            GEMMA: lambda torch: drive_static(torch, GEMMA, GEMMA_PROMPT),
+            MOE: lambda torch: drive_family(torch, MOE),
+            GEMMA7: lambda torch: drive_family(torch, GEMMA7),
+            "encoders": drive_encoders,
             PALI: lambda torch: drive_static(torch, PALI),
-            CMDR: lambda torch: drive_family(torch, CMDR)}
+            CMDR: lambda torch: drive_family(torch, CMDR),
+            MUSICGEN: lambda torch: drive_static(torch, MUSICGEN),
+            XLSTM: lambda torch: drive_static(torch, XLSTM,
+                                              pairings=PAIRINGS[:1])}
 
 
 def phase_child(torch, phases) -> int:
@@ -4285,15 +4546,10 @@ def main() -> int:
     by_path.update(drive_phase8(torch, params, engine_runs))
     phase_done("phase8")
     del params, engine_runs                     # GPT-2's weights and runs
-    torch.cuda.empty_cache()
-    by_path.update(drive_family(torch, LLAMA, LLAMA_ENGINE_RUNS))
-    torch.cuda.empty_cache()
-    by_path.update(drive_static(torch, GEMMA, GEMMA_PROMPT))
-    for arch in (MOE, GEMMA7):       # each model's weights freed after it
-        torch.cuda.empty_cache()
-        by_path.update(drive_family(torch, arch))
-    torch.cuda.empty_cache()            # the child needs the card's memory
-    by_path.update(drive_apart(("encoders", PALI, CMDR)))  # phases 13-15
+    torch.cuda.empty_cache()           # the children need the card's memory
+    by_path.update(drive_apart((LLAMA, GEMMA, MOE, GEMMA7)))  # phases 9-12
+    by_path.update(drive_apart(("encoders", PALI, CMDR, MUSICGEN,
+                                XLSTM)))                      # phases 13-17
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -4392,8 +4648,9 @@ def main() -> int:
         if name == "prism_flash_attention":
             row["gemma"]["launches_window"] = sum(
                 by_path[p].get(name + ".window", 0) for p in gemma)
-        # OLMoE-1B-7B's, Gemma 7B's, PaliGemma's and Command-R's layouts,
-        # with their launches on phases 11, 12, 14 and 15's paths
+        # OLMoE-1B-7B's, Gemma 7B's, PaliGemma's, Command-R's and
+        # MusicGen's layouts, with their launches on phases 11, 12, 14, 15
+        # and 16's paths
         for arch, (tag, _) in FAMILY_TAGS.items():
             paths = [p for p in by_path if p.startswith(arch + "/")]
             row[tag] = family_row(name, t_fam[arch], chk, tag)
@@ -4405,6 +4662,12 @@ def main() -> int:
                 for sub in ("mq", "paged"):
                     row[tag]["launches_" + sub] = sum(
                         by_path[p].get(f"{name}.{sub}", 0) for p in paths)
+        # xLSTM's path has no attention layer: no launch of any kernel
+        paths = [p for p in by_path if p.startswith(XLSTM + "/")]
+        row["xlstm"] = {"launches": sum(by_path[p].get(name, 0)
+                                        for p in paths),
+                        "launches_by_path": {p: by_path[p].get(name, 0)
+                                             for p in paths}}
         # the encoders' layouts, with their launches on phase 13's paths
         for arch, (key, *_) in ENCODERS.items():
             paths = [p for p in by_path if p.startswith(arch + "/")]

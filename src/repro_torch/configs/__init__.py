@@ -15,6 +15,10 @@ _REGISTRY = {
     "paligemma-3b": "paligemma_3b",
     # the parallel attention + MLP block
     "command-r-35b": "command_r_35b",
+    # a stub EnCodec frame prompt, sinusoidal positions
+    "musicgen-medium": "musicgen_medium",
+    # mLSTM and sLSTM blocks (7:1), the state handed across shards
+    "xlstm-1.3b": "xlstm_1_3b",
     # 480 B parameters fit on no card: served at its reduced size only
     "arctic-480b": "arctic_480b",
     # the paper's encoders: classification over sequence shards, no decode

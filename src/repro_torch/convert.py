@@ -16,7 +16,10 @@ patches, PaliGemma's image) ``frontend_proj``; a parallel block
 (Command-R) has no ``ln2`` on either side, so every leaf is a plain
 copy.  A MoE block's stacked expert leaves
 ``(E, d_in, d_out)`` are ``(n_units, E, ...)`` under the scan, and come
-across slice by slice like every other leaf.
+across slice by slice like every other leaf, and so do the recurrent
+cells' (xLSTM's ``mlstm`` / ``slstm`` blocks, ``{"ln", "cell"}``; the
+sLSTM's raw recurrent blocks ``r`` (4, H, hd, hd)), over xLSTM's 8-layer
+unit of 7 mLSTM and 1 sLSTM (``scan_split`` (8, 6, 0)).
 """
 from __future__ import annotations
 

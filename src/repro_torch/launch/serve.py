@@ -66,6 +66,17 @@ exactly in both modes and captures the means over real tokens);
         --reduced --engine --device cpu --requests 6 --rate 50 --batch 4 \
         --prompt-len 32 --gen 6
 
+    # MusicGen-medium (a stub EnCodec prompt: 512 seeded frame embeddings
+    # through ``frontend_proj``, sinusoidal positions; 64 codes of 2048
+    # generated) and xLSTM 1.3B (42 mLSTM and 6 sLSTM blocks, the state
+    # handed across the shards): the static path only (the tick programs
+    # and the engine refuse both)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch musicgen-medium --batch 8 --prompt-len 512 --gen 64 \
+        --seq-shards 4 --decode-mode prism
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+        --batch 8 --prompt-len 512 --gen 64 --seq-shards 4
+
     # the paper's encoders classify a seeded batch over P sequence shards
     # (no decode, no engine): BERT-base on 512 token ids, ViT-B/16 on 197
     # stub patch embeddings, split 49/49/49/50 by Alg. 1
@@ -105,12 +116,13 @@ class StaticServe:
     """Everything one static-batch run needs."""
     cfg: ModelConfig
     params: dict
-    prompts: torch.Tensor            # (B, n) int64
+    prompts: torch.Tensor | None     # (B, n) int64; None: audio frames
     prism: PrismConfig
     lay: ServeLayout
     hp: ServeHParams
     gen: int
-    embeds: torch.Tensor | None = None   # a vlm's image (B, prefix, D)
+    # a vlm's image (B, prefix, D), an audio model's frames (B, n, D)
+    embeds: torch.Tensor | None = None
 
     def run(self, forced: torch.Tensor | None = None):
         """-> (tokens (B, gen), logits (gen, B, V), times)."""
@@ -131,7 +143,8 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
     default the decode mode's pairing (exact: voltage, prism: PRISM).  A
     vlm (PaliGemma) also gets stub image embeddings (B, prefix_len, D),
     a seeded ``torch.Generator`` normal, over its first prompt
-    positions."""
+    positions; an audio model (MusicGen) a prompt of stub frame
+    embeddings (B, n, D) drawn the same way, and no token ids."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduced else cfg
@@ -148,7 +161,12 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
         1, cfg.vocab_size, size=(batch, n)), device=dev)
     embeds = None
-    if cfg.arch_type == "vlm":
+    if cfg.arch_type == "audio":
+        prompts = None
+        embeds = torch.randn(batch, n, cfg.d_model, device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(seed))
+    elif cfg.arch_type == "vlm":
         if n < cfg.prefix_len:
             raise ValueError(f"{arch}: a prompt of {n} tokens cannot hold "
                              f"the image prefix of {cfg.prefix_len}")
@@ -488,8 +506,9 @@ def main(argv=None):
                 device=args.device, seed=args.seed, reduced=args.reduced,
                 prefill=args.prefill)
     tokens, _, times = run.run()
-    b, n = run.prompts.shape
+    b, n = tokens.shape[0], run.lay.prefill_len
     image = ("" if run.embeds is None
+             else f" (frames {run.embeds.shape[1]})" if run.prompts is None
              else f" (image prefix {run.embeds.shape[1]})")
     print(f"[serve] {run.cfg.name} {run.prism.mode}+{args.decode_mode}: "
           f"prefill {b}x{n}{image} "

@@ -21,7 +21,7 @@ class ModelConfig:
     blocks: tuple = ()             # () => ('attn',) * n_layers
     mlp_kind: str = "swiglu"
     norm_kind: str = "rmsnorm"
-    pos: str = "rope"              # rope | learned | none
+    pos: str = "rope"              # rope | learned | sincos | none
     rope_theta: float = 10000.0
     rope_theta_local: float = 10000.0   # gemma3 dual-theta
     causal: bool = True

@@ -1,8 +1,15 @@
-"""SeqContext: how a model's attention layers see the sequence.
+"""SeqContext: how a model's sequence-mixing layers see the sequence.
 
     xq, akv = ctx.augment(x, spec)     # query source + augmented K/V view
     ... attention(xq ..., akv.x_hat ..., akv.g, akv.mask) ...
     out = ctx.finalize(out)            # back to the caller's layout
+
+for linear-recurrence layers (the mLSTM) and the sequential sLSTM:
+
+    s0 = ctx.state_handoff(log_a_tot, u_tot)   # state entering the shard
+    x_full = ctx.gather_sequence(x)            # the whole sequence (sLSTM)
+    y = ctx.take_local(y_full)                 # back to the shard's rows
+    s = ctx.last_shard(s_end)                  # the sequence's end state
 
 and for Mixture-of-Experts layers:
 
@@ -43,6 +50,26 @@ class SeqContext:
 
     def finalize(self, out):
         return out
+
+    # ---- recurrent layers: the state handoff and the sequence ------------
+    def state_handoff(self, log_a_tot, u_tot):
+        """The state entering this executor's span for a linear recurrence
+        S' = a·S + u, whose span the totals ``log_a_tot`` (B, H) and
+        ``u_tot`` (B, H, dk, dv) summarise.  One executor owns the whole
+        sequence, so nothing comes in: zeros."""
+        return torch.zeros_like(u_tot)
+
+    def gather_sequence(self, x):
+        """The whole sequence (B, N, D) (the sLSTM's scan)."""
+        return x
+
+    def take_local(self, y_full):
+        """Inverse of ``gather_sequence``: this executor's rows."""
+        return y_full
+
+    def last_shard(self, x):
+        """The value of the executor that holds the sequence's end."""
+        return x
 
     # ---- MoE: routing groups and the expert exchange ---------------------
     def expert_groups(self, x):

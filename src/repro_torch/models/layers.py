@@ -59,19 +59,26 @@ def norm_init(d: int, kind: str, device):
     return p
 
 
+def at_least_f32(x):
+    """x in f32, or as it is where it is f64: the f32 steps of the
+    reference (norms, gates, the sLSTM scan) keep a float64 forward in
+    float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def norm(p, x, kind: str = "layernorm", eps: float = 1e-6):
-    """LayerNorm or RMSNorm (no bias), computed in f32 with the
-    reference's eps of 1e-6."""
+    """LayerNorm or RMSNorm (no bias), computed in f32 (f64 for f64
+    rows) with the reference's eps of 1e-6."""
     if kind not in NORM_KINDS:
         raise NotImplementedError(f"norm kind {kind!r} is not ported yet")
-    xf = x.float()
+    xf = at_least_f32(x)
     if kind == "rmsnorm":
         y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-        return (y * p["scale"].float()).to(x.dtype)
+        return (y * p["scale"].to(xf.dtype)).to(x.dtype)
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float() + p["bias"].float()
+    y = y * p["scale"].to(xf.dtype) + p["bias"].to(xf.dtype)
     return y.to(x.dtype)
 
 

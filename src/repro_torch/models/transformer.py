@@ -27,8 +27,17 @@ Encoders (``num_classes``: BERT, ViT) attend without a causal mask and
 return the class head's logits on the CLS row (global position 0); a
 ``patch_stub`` frontend (ViT) takes stub patch embeddings through
 ``frontend_proj`` in place of tokens, and such a model has no vocabulary.
+
+Audio (MusicGen): an ``encodec_stub`` frontend's frame embeddings are the
+whole prompt, through ``frontend_proj``, with parameter-free sinusoidal
+positions (``sincos_embed``); the generated codes go through ``embed``.
+
+Recurrent blocks (xLSTM, ``models/ssm.py``): ``mlstm`` and ``slstm``,
+each {"ln", "cell"}, x + cell(norm(ln, x)), with no feed-forward.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,33 +48,38 @@ from .layers import (MLP_KINDS, NORM_KINDS, AttnSpec, attn_init,
                      dense_init, embed, embedding_init, mlp, mlp_init, norm,
                      norm_init)
 from .moe import moe_apply, moe_init
+from .ssm import (mlstm_apply, mlstm_decode, mlstm_init, slstm_apply,
+                  slstm_decode, slstm_init)
 from ..core.attention import prism_attention
 from ..device import resolve_device
 
 
-BLOCK_KINDS = ("attn", "attn_local", "moe")
-FRONTENDS = (None, "patch_stub", "siglip_stub")
+RECURRENT_KINDS = ("mlstm", "slstm")
+BLOCK_KINDS = ("attn", "attn_local", "moe") + RECURRENT_KINDS
+FRONTENDS = (None, "patch_stub", "siglip_stub", "encodec_stub")
+POSITIONS = ("learned", "rope", "sincos", "none")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a configuration the port does not run yet."""
     bad = sorted(set(cfg.block_kinds) - set(BLOCK_KINDS))
-    if (bad or cfg.pos not in ("learned", "rope")
+    if (bad or cfg.pos not in POSITIONS
             or cfg.norm_kind not in NORM_KINDS
             or cfg.mlp_kind not in MLP_KINDS
             or cfg.logit_softcap or cfg.frontend not in FRONTENDS
             or (cfg.prefix_len and cfg.arch_type != "vlm")
-            or (cfg.parallel_block and "moe" in cfg.block_kinds)
+            or (cfg.parallel_block and not set(cfg.block_kinds)
+                <= {"attn", "attn_local"})
             or not (cfg.vocab_size or cfg.num_classes)
             or ("moe" in cfg.block_kinds
                 and not (cfg.n_experts and cfg.top_k and cfg.expert_d_ff))):
         raise NotImplementedError(
             f"{cfg.name}: only decoders and classifying encoders of "
             f"{'/'.join(BLOCK_KINDS)} blocks (a parallel block of "
-            f"attention kinds only) with learned or rotary positions, "
+            f"attention kinds only) with {'/'.join(POSITIONS)} positions, "
             f"{'/'.join(NORM_KINDS)} and {'/'.join(MLP_KINDS)} are ported, "
-            f"with no frontend, a patch stub or a SigLIP stub, and an image "
-            f"prefix on a vlm only (block kinds {bad}, pos {cfg.pos!r}, "
+            f"with no frontend, a patch, SigLIP or EnCodec stub, and an "
+            f"image prefix on a vlm only (block kinds {bad}, pos {cfg.pos!r}, "
             f"norm {cfg.norm_kind!r}, mlp {cfg.mlp_kind!r}, softcap "
             f"{cfg.logit_softcap}, frontend {cfg.frontend!r}, prefix_len "
             f"{cfg.prefix_len}, arch_type {cfg.arch_type!r}, parallel_block "
@@ -104,6 +118,14 @@ def attn_spec(cfg: ModelConfig, kind: str = "attn") -> AttnSpec:
 
 
 def block_init(cfg: ModelConfig, kind: str, gen: torch.Generator, device):
+    if kind == "mlstm":
+        return {"ln": norm_init(cfg.d_model, cfg.norm_kind, device),
+                "cell": mlstm_init(gen, cfg.d_model, cfg.n_ssm_heads,
+                                   cfg.ssm_expand, device)}
+    if kind == "slstm":
+        return {"ln": norm_init(cfg.d_model, cfg.norm_kind, device),
+                "cell": slstm_init(gen, cfg.d_model, cfg.n_ssm_heads,
+                                   device)}
     p = {"ln1": norm_init(cfg.d_model, cfg.norm_kind, device),
          "attn": attn_init(gen, attn_spec(cfg, kind), device)}
     if not cfg.parallel_block:          # a parallel block has one norm
@@ -183,10 +205,38 @@ def block_residual(cfg: ModelConfig, kind: str, p, x, o, xn,
 
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext,
-                routing=None):
-    """One residual ``attn``, ``attn_local`` or ``moe`` block."""
+                routing=None, chunk: int = 128):
+    """One residual block; ``chunk`` is a recurrent block's."""
+    if kind in RECURRENT_KINDS:
+        return recurrent_block(cfg, kind, p, x, ctx, chunk=chunk)
     o, xn = attn_sublayer(p, x, ctx, attn_spec(cfg, kind), cfg)
     return block_residual(cfg, kind, p, x, o, xn, ctx, routing)
+
+
+def recurrent_block(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext, *,
+                    chunk: int = 128, return_state: bool = False):
+    """A residual ``mlstm`` or ``slstm`` block, x + cell(norm(ln, x)) (the
+    mLSTM chunked by ``chunk``); with ``return_state`` also the cell's
+    state after the sequence's last token, the decode cache."""
+    h = norm(p["ln"], x, cfg.norm_kind)
+    if kind == "mlstm":
+        out = mlstm_apply(p["cell"], h, heads=cfg.n_ssm_heads, ctx=ctx,
+                          chunk=chunk, return_state=return_state)
+    else:
+        out = slstm_apply(p["cell"], h, heads=cfg.n_ssm_heads, ctx=ctx,
+                          return_state=return_state)
+    if return_state:
+        return x + out[0], out[1]
+    return x + out
+
+
+def recurrent_decode(cfg: ModelConfig, kind: str, p, x, state):
+    """One token through a recurrent block: x (B, 1, D); ``state``, the
+    cell's cache leaf, is updated in place."""
+    step = mlstm_decode if kind == "mlstm" else slstm_decode
+    y, _ = step(p["cell"], norm(p["ln"], x, cfg.norm_kind), state,
+                heads=cfg.n_ssm_heads)
+    return x + y
 
 
 def embed_scale(cfg: ModelConfig, x):
@@ -202,9 +252,11 @@ def embed_inputs(cfg: ModelConfig, params, tokens=None, pos_start: int = 0,
     """tokens (B, N) or stub-frontend embeds (B, N, D) -> x (B, N, D):
     token embeddings, or the embeds through ``frontend_proj`` where the
     model has a frontend (ViT's patches); scaled by sqrt(d_model) where
-    the model says so, plus the learned position embeddings where the
-    model has them (RoPE rotates q and k in the attention layers
-    instead).  A vlm takes both: the image embeds (B, prefix_len, D)
+    the model says so, plus the learned position embeddings or the
+    sinusoidal positions where the model has them (RoPE rotates q and k
+    in the attention layers instead; xLSTM has none).  An audio model's
+    frames (MusicGen's EnCodec stub) are its whole input.  A vlm takes
+    both: the image embeds (B, prefix_len, D)
     through ``frontend_proj`` overwrite the first ``prefix_len`` token
     positions (tokens there are placeholders), and the scaling applies
     after, to the image rows too, as in the reference."""
@@ -229,11 +281,32 @@ def embed_inputs(cfg: ModelConfig, params, tokens=None, pos_start: int = 0,
         x = (dense(params["frontend_proj"], embeds) if cfg.frontend
              else embeds)
     x = embed_scale(cfg, x)
-    if cfg.pos != "learned":
-        return x
     n = x.shape[1]
-    return x + params["pos_embed"]["table"][pos_start:pos_start + n].to(
-        x.dtype)
+    if cfg.pos == "learned":
+        return x + params["pos_embed"]["table"][pos_start:pos_start + n].to(
+            x.dtype)
+    if cfg.pos == "sincos":
+        return x + sincos_embed(n, cfg.d_model, pos_start, x.device).to(
+            x.dtype)
+    return x
+
+
+def sincos(pos, d: int):
+    """Parameter-free sinusoidal positions: pos (...) -> (..., d) f32,
+    sin over the first half, cos over the second, frequencies
+    10000^(-j / (d/2)) (MusicGen; the reference's ``sincos_embed``)."""
+    half = d // 2
+    freq = torch.exp(torch.tensor(-math.log(10000.0), dtype=torch.float32)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=pos.device) / half)
+    ang = pos.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sincos_embed(n: int, d: int, start: int = 0, device=None):
+    """The sinusoidal positions of positions start .. start + n - 1:
+    (n, d) f32."""
+    return sincos(torch.arange(n, device=device) + start, d)
 
 
 def head(cfg: ModelConfig, params, x):
@@ -252,18 +325,31 @@ def classify(cfg: ModelConfig, params, cls):
 
 
 def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
-            ctx: SeqContext | None = None, start: int = 0, routing=None):
+            ctx: SeqContext | None = None, start: int = 0, routing=None,
+            chunk: int = 128):
     """tokens (B, N), stub-frontend embeds (B, N, D) or a vlm's tokens
     with its image embeds (B, prefix_len, D) -> logits (B,
     N - start, V) of positions start.. (the head over the tail only: at a
     large vocabulary the whole (B, N, V) would dwarf the rest); for an
     encoder (``num_classes``) the class logits (B, num_classes) of the
-    CLS row.  A ``moe`` block routes all B·N tokens as one group."""
+    CLS row.  A ``moe`` block routes all B·N tokens as one group; an
+    ``mlstm`` block runs in chunks of ``chunk`` (N a multiple of it)."""
     check_supported(cfg)
+    return forward_embedded(cfg, params,
+                            embed_inputs(cfg, params, tokens, embeds=embeds),
+                            ctx=ctx, start=start, routing=routing,
+                            chunk=chunk)
+
+
+def forward_embedded(cfg: ModelConfig, params, x, *,
+                     ctx: SeqContext | None = None, start: int = 0,
+                     routing=None, chunk: int = 128):
+    """``forward`` from rows already embedded, x (B, N, D): the layers,
+    the final norm and the head (MusicGen's reference over its frames
+    and the codes fed after them)."""
     ctx = ctx or FullContext(prefix_len=cfg.prefix_len)
-    x = embed_inputs(cfg, params, tokens, embeds=embeds)
     for kind, p in zip(cfg.block_kinds, params["layers"]):
-        x = block_apply(cfg, kind, p, x, ctx, routing)
+        x = block_apply(cfg, kind, p, x, ctx, routing, chunk)
     if cfg.num_classes:
         return classify(cfg, params, x[:, 0])
     return head(cfg, params,

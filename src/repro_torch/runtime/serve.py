@@ -35,6 +35,19 @@ every shard as one column set: exact in both decode modes, as the
 reference's static path serves them.  The paged cache, the tick
 programs and the engine refuse the kind, as the reference's do.
 
+Recurrent blocks (xLSTM's ``mlstm`` / ``slstm``) keep their state
+after the last position, {"s"}: the mLSTM's (B, H, hd, hd + 1) f32
+matrix memory with its normaliser column, the sLSTM's (B, 3, H, hd) f32
+(c, n, h); prefill captures it (``ctx.last_shard``: the mLSTM's state
+handed across the shards, the sLSTM's scan over the gathered sequence),
+a decode step updates it in place, in either decode mode.  The paged
+cache, the tick programs and the engine refuse the kinds, as the
+reference's do.
+
+An audio model (MusicGen) prefills from frame embeddings (B, n0, D)
+alone, through ``frontend_proj`` with sinusoidal positions; its decode
+steps feed the generated codes through ``embed``.
+
 A Mixture-of-Experts block (``moe``) has a global-attention cache; its
 experts route in groups that count capacity (``models/moe.py``): in
 prefill each sequence shard's B·n_loc tokens (the sharded context's
@@ -63,9 +76,11 @@ from ..models.context import SeqContext
 from ..models.layers import (AttnSpec, attn_output, attn_project_kv,
                              attn_project_q, embed, norm)
 from ..models.moe import RoutingLog
-from ..models.transformer import (attn_spec, block_residual, check_decoder,
+from ..models.transformer import (RECURRENT_KINDS, attn_spec,
+                                  block_residual, check_decoder,
                                   check_supported, classify, embed_inputs,
-                                  embed_scale, head)
+                                  embed_scale, head, recurrent_block,
+                                  recurrent_decode, sincos)
 from ..sharding.context import ShardedPrismContext, means_columns
 from .paging import KVCache, PrefixCache
 
@@ -78,6 +93,7 @@ class ServeHParams:
     # the reference's tensor-parallel decode over a data axis (expert-TP
     # for MoE blocks): multi-card work, refused
     decode_tp: bool = False
+    ssm_chunk: int = 128             # an mLSTM prefill's chunk length
     # the checks' record or replay of the MoE routing decisions
     routing: RoutingLog | None = field(default=None, compare=False,
                                        repr=False)
@@ -167,15 +183,22 @@ def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
     maps: a sink for the writes of the slots a call does not advance
     (where the reference drops them out of range).  A sliding-window
     layer (``kind`` 'attn_local') has the ring k, v (B, W, Hkv, hd) alone,
-    in either decode mode, and no paged form."""
+    in either decode mode, and no paged form; a recurrent one its state
+    s: the mLSTM's (B, H, hd, hd + 1), the sLSTM's (B, 3, H, hd)."""
     hkv, hd = cfg.n_kv_heads, cfg.hd
+    if kind in ("attn_local",) + RECURRENT_KINDS and paging is not None:
+        raise ValueError(f"paged caches support position-addressed "
+                         f"attention kinds only (got block kind {kind!r})")
     if kind == "attn_local":
-        if paging is not None:
-            raise ValueError("paged caches support position-addressed "
-                             "attention kinds only (got block kind "
-                             "'attn_local')")
         ring = (batch, ring_width(cfg, lay), hkv, hd)
         return {"k": ring, "v": ring}
+    if kind == "mlstm":
+        h = cfg.n_ssm_heads
+        hdm = cfg.d_model * cfg.ssm_expand // h
+        return {"s": (batch, h, hdm, hdm + 1)}
+    if kind == "slstm":
+        h = cfg.n_ssm_heads
+        return {"s": (batch, 3, h, cfg.d_model // h)}
     if paging is None:
         kv = (batch, lay.n_seq, lay.cap_l, hkv, hd)
         rows = batch
@@ -303,7 +326,7 @@ def ring_capture(k, v, b: int, lay: ServeLayout, shapes: dict) -> dict:
     return cache
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
             prism: PrismConfig, lay: ServeLayout, hp: ServeHParams,
             embeds: torch.Tensor | None = None):
     """tokens (B, n0) -> (last-token logits (B, V) f32, decode cache).
@@ -313,10 +336,13 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     the first prefix_len positions (``embed_inputs``, over the whole
     sequence before it is cut into shards: the reference's overwrite of
     each shard's rows by global position), and the prefix attends
-    bidirectionally in the kernel (``cfg.prefix_len``)."""
+    bidirectionally in the kernel (``cfg.prefix_len``).  An audio model
+    takes ``tokens=None`` and its frames, embeds (B, n0, D).  A recurrent
+    block hands its state across the shards and keeps the sequence's end
+    state (its mLSTM in chunks of ``hp.ssm_chunk``)."""
     check_supported(cfg)
     check_decoder(cfg, "prefill")
-    b, n = tokens.shape
+    b, n = (tokens if tokens is not None else embeds).shape[:2]
     P = lay.n_seq
     if n != lay.prefill_len:
         raise ValueError(f"prompt length {n} != layout prefill_len "
@@ -330,6 +356,11 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
         b * P, n_loc, cfg.d_model)
     cache = []
     for kind, p in zip(cfg.block_kinds, params["layers"]):
+        if kind in RECURRENT_KINDS:
+            x, s = recurrent_block(cfg, kind, p, x, ctx, chunk=hp.ssm_chunk,
+                                   return_state=True)
+            cache.append({"s": s.contiguous()})
+            continue
         o, c, xn = prefill_attn(p, attn_spec(cfg, kind), cfg, x, ctx, lay,
                                 hp, prism_augment,
                                 layer_cache_shape(cfg, lay, b, hp, kind=kind))
@@ -626,9 +657,11 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
 def block_decode(cfg: ModelConfig, kind: str, p, x, c, pos,
                  lay: ServeLayout, hp: ServeHParams, cols, lost=None,
                  rep=None):
-    """One residual ``attn``, ``attn_local`` or ``moe`` block,
-    single-token decode (a moe block routes the step's B tokens as one
-    group)."""
+    """One residual block, single-token decode (a moe block routes the
+    step's B tokens as one group; a recurrent block updates its state in
+    place)."""
+    if kind in RECURRENT_KINDS:
+        return recurrent_decode(cfg, kind, p, x, c["s"])
     o, xn = attn_decode(p, attn_spec(cfg, kind), cfg, x, c, pos, lay, hp,
                         cols, lost, rep)
     return block_residual(cfg, kind, p, x, o, xn, DECODE_MOE_CTX,
@@ -637,12 +670,14 @@ def block_decode(cfg: ModelConfig, kind: str, p, x, c, pos,
 
 def embed_tokens(cfg: ModelConfig, params, token, pos):
     """token (B, T), pos (B, T) -> x (B, T, D), scaled by sqrt(d_model)
-    where the model says so, with learned positions per request and per
-    token where the model has them (a RoPE model rotates q and k at
-    ``pos`` in its attention layers instead).  A dead
+    where the model says so, with learned or sinusoidal positions per
+    request and per token where the model has them (a RoPE model rotates
+    q and k at ``pos`` in its attention layers instead).  A dead
     entry (pos = -1) still embeds (its position clamped) but never
     reaches the cache."""
     x = embed_scale(cfg, embed(params["embed"], token))
+    if cfg.pos == "sincos":
+        return x + sincos(pos, cfg.d_model).to(x.dtype)
     if cfg.pos != "learned":
         return x
     tbl = params["pos_embed"]["table"]
@@ -695,12 +730,13 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
     return lm_head(cfg, params, x[:, 0]), cache
 
 
-def generate(cfg: ModelConfig, params, prompts: torch.Tensor, *, gen: int,
-             prism: PrismConfig, lay: ServeLayout, hp: ServeHParams,
-             forced: torch.Tensor | None = None,
+def generate(cfg: ModelConfig, params, prompts: torch.Tensor | None, *,
+             gen: int, prism: PrismConfig, lay: ServeLayout,
+             hp: ServeHParams, forced: torch.Tensor | None = None,
              embeds: torch.Tensor | None = None):
-    """Prefill (a vlm's image ``embeds`` over its prefix), then ``gen -
-    1`` greedy decode steps.
+    """Prefill (a vlm's image ``embeds`` over its prefix; an audio
+    model's frames ``embeds`` (B, n0, D) with ``prompts`` None), then
+    ``gen - 1`` greedy decode steps.
 
     ``forced`` (B, gen - 1) teacher-forces the decoded tokens instead of
     feeding back the argmax.  Returns (tokens (B, gen), logits
@@ -708,8 +744,9 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor, *, gen: int,
     ``times`` holds prefill_ms and decode_ms_per_token, from CUDA events
     on a card and from the host clock on the CPU (``times['clock']``)."""
     check_decoder(cfg, "generate")
-    b, n = prompts.shape
-    on_card = prompts.is_cuda
+    first = prompts if prompts is not None else embeds
+    b, n = first.shape[:2]
+    on_card = first.is_cuda
     if on_card:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         mark = [e.record for e in ev]
@@ -723,13 +760,13 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor, *, gen: int,
     for i in range(gen - 1):
         tok = out[-1].argmax(dim=-1) if forced is None else forced[:, i]
         pos = torch.full((b,), n + i, dtype=torch.long,
-                         device=prompts.device)
+                         device=first.device)
         logits, cache = serve_step(cfg, params, cache, tok, pos, lay, hp)
         out.append(logits)
     mark[2]()
     logits = torch.stack(out)
     if on_card:
-        torch.cuda.synchronize(prompts.device)
+        torch.cuda.synchronize(first.device)
         t_pre, t_dec = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
         clock = "cuda_events"
     else:

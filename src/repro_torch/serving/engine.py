@@ -233,13 +233,14 @@ class ServingEngine:
         other = sorted(set(cfg.block_kinds) - {"attn", "moe"})
         if other:
             # as the reference's engine: admission relies on a cache
-            # addressed purely by global position, and the ring of a
-            # sliding-window layer (attn_local) holds the padded tail
+            # addressed purely by global position; the ring of a
+            # sliding-window layer (attn_local) holds the padded tail, and
+            # a recurrent state (mlstm, slstm) would take in the pad tokens
             raise ValueError(
                 f"the port's engine serves global-attention and moe blocks "
                 f"only; arch {cfg.name!r} has {other}, which need a state-"
                 f"snapshot admission path (the static serve path serves "
-                f"attn_local): ROADMAP queue 1, item 12")
+                f"attn_local, mlstm and slstm): ROADMAP queue 1, item 12")
         if cfg.arch_type == "vlm" or cfg.frontend:
             # the reference engine's words, then where the port stands
             raise ValueError(

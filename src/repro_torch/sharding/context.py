@@ -35,7 +35,14 @@ Exchanges:
              mode: the previous ``hops`` shards' rows as a halo before
              the shard's own (the reference's ring ``ppermute``), halo
              columns before position 0 dead (g = 0); the kernel applies
-             the window from the positions.
+             the window from the positions;
+  * state:   an mLSTM layer's constant-size handoff: each shard's span
+             totals (log a, U), gathered, and the exclusive prefix
+             S <- exp(log a_p)·S + u_p over the P shards of a sequence
+             (the reference's ``all_gather`` and scan);
+  * sLSTM:   the whole sequence, (B·P, n_loc, D) viewed as (B, N, D),
+             and back (the reference's full-sequence gather).
+The recurrent layers take the even split only.
 """
 from __future__ import annotations
 
@@ -287,3 +294,37 @@ class ShardedPrismContext(SeqContext):
         """Value held by the shard owning the END of the sequence:
         x (B·P, ...) -> (B, ...)."""
         return x.reshape(-1, self.P, *x.shape[1:])[:, self.P - 1]
+
+    def _even_only(self, what: str) -> None:
+        """Raise for Alg. 1's uneven split: a recurrent layer's state
+        would run through the pad rows."""
+        if self.n is not None and self.n % self.P:
+            raise NotImplementedError(
+                f"{what} takes the even split only (N={self.n} over "
+                f"P={self.P} shards)")
+
+    def state_handoff(self, log_a_tot, u_tot):
+        """The state entering each shard: log_a_tot (B·P, H) and u_tot
+        (B·P, H, dk, dv), each shard's span totals -> (B·P, H, dk, dv),
+        the exclusive prefix S <- exp(log a_p)·S + u_p over the shards of
+        each sequence, zeros for shard 0."""
+        self._even_only("the recurrent state handoff")
+        la = log_a_tot.reshape(-1, self.P, *log_a_tot.shape[1:])
+        u = u_tot.reshape(-1, self.P, *u_tot.shape[1:])
+        s, prefix = torch.zeros_like(u[:, 0]), []
+        for p in range(self.P):
+            prefix.append(s)
+            s = la[:, p].exp()[..., None, None] * s + u[:, p]
+        return torch.stack(prefix, dim=1).reshape(u_tot.shape)
+
+    def gather_sequence(self, x):
+        """x (B·P, n_loc, D) -> the whole sequences (B, P·n_loc, D)."""
+        self._even_only("gather_sequence")
+        bp, n_loc = x.shape[:2]
+        return x.reshape(bp // self.P, self.P * n_loc, *x.shape[2:])
+
+    def take_local(self, y_full):
+        """y_full (B, N, D) -> each shard's rows (B·P, N / P, D)."""
+        self._even_only("take_local")
+        b, n = y_full.shape[:2]
+        return y_full.reshape(b * self.P, n // self.P, *y_full.shape[2:])

@@ -112,16 +112,17 @@ def test_layers_match_reference():
 
 def test_unported_configs_raise():
     with pytest.raises(KeyError, match="not ported"):
-        get_config("musicgen-medium")
+        get_config("zamba2-2.7b")
     cfg = get_config("gpt2-small")
     import dataclasses
     # RoPE, RMSNorm and SwiGLU (the Llama family), qk-norm, GeGLU, local
     # layers and embed_scale (Gemma 3), MoE blocks (OLMoE, arctic), an
-    # encoder's class head, ViT's patch stub, Command-R's parallel block
-    # and PaliGemma's SigLIP stub and image prefix (a vlm's) are ported;
-    # sinusoidal positions, the ReLU MLP, logit soft-capping, Mamba
-    # blocks, a prefix outside a vlm and a parallel MoE block are not
-    for over in (dict(pos="sincos"), dict(mlp_kind="relu"),
+    # encoder's class head, ViT's patch stub, Command-R's parallel block,
+    # PaliGemma's SigLIP stub and image prefix (a vlm's), MusicGen's
+    # sinusoidal positions and EnCodec stub and xLSTM's mLSTM / sLSTM
+    # blocks are ported; the ReLU MLP, logit soft-capping, Mamba blocks,
+    # a prefix outside a vlm and a parallel MoE block are not
+    for over in (dict(mlp_kind="relu"),
                  dict(logit_softcap=30.0),
                  dict(blocks=("mamba",) * cfg.n_layers),
                  dict(prefix_len=16),
@@ -137,7 +138,9 @@ def test_unported_configs_raise():
                  dict(num_classes=2), dict(frontend="patch_stub"),
                  dict(parallel_block=True), dict(frontend="siglip_stub"),
                  dict(arch_type="vlm", frontend="siglip_stub",
-                      prefix_len=16)):
+                      prefix_len=16),
+                 dict(pos="sincos"),
+                 dict(blocks=("mlstm", "slstm") * 6, pos="none")):
         TT.check_supported(dataclasses.replace(cfg, **over))
     with pytest.raises(NotImplementedError):
         TL.mlp({}, torch.zeros(2), "relu")
@@ -146,15 +149,20 @@ def test_unported_configs_raise():
 @pytest.mark.parametrize("arch", ["musicgen-medium", "xlstm-1.3b",
                                   "zamba2-2.7b"])
 def test_reference_families_left_are_refused(arch):
-    """The reference's families still to port, their configs as they
-    stand there: sinusoidal positions and the EnCodec stub (MusicGen),
-    mLSTM / sLSTM blocks (xLSTM), Mamba and shared attention blocks
-    (Zamba2)."""
+    """The reference's last families, their configs as they stand there:
+    MusicGen (sinusoidal positions, the EnCodec stub) and xLSTM (mLSTM /
+    sLSTM blocks) are accepted, and are the port's own configs; Zamba2
+    (Mamba and shared attention blocks) is still refused."""
     from repro_torch.models.config import ModelConfig
     ref = j_get_config(arch)
     fields = {f: getattr(ref, f) for f in ref.__dataclass_fields__}
-    with pytest.raises(NotImplementedError):
-        TT.check_supported(ModelConfig(**fields))
+    cfg = ModelConfig(**fields)
+    if arch == "zamba2-2.7b":
+        with pytest.raises(NotImplementedError):
+            TT.check_supported(cfg)
+        return
+    TT.check_supported(cfg)
+    assert cfg == get_config(arch)
 
 
 def test_init_is_seeded():
