@@ -178,7 +178,7 @@ Phases, one JSON line each:
             32 query heads over 4 KV heads of 128, SwiGLU d_ff 11008,
             RMSNorm, RoPE theta 5e6, untied head, vocab 64000), f32
             weights from torch.Generator seed 0 on the card, at the same
-            shapes: phase 4's static pairings on its first 16 layers
+            shapes: phase 4's static pairings on its first 8 layers
             (``STATIC_DEPTH``), phase 5's chunked and packed paths in
             both modes and phase 6's engine in packed exact and packed
             prism on its first 8 (``TICK_DEPTH``), cut for the script's
@@ -218,8 +218,8 @@ Phases, one JSON line each:
 12. path    Gemma 7B at full width (of 28 layers, d 3072, 16 heads of
             256, GeGLU d_ff 24576, sqrt(d) input scaling, tied head over
             256000), the same paths under phases 4-6's references (the
-            static path on its first 14 layers, ``STATIC_DEPTH``, the
-            tick and engine paths on its first 8).
+            static path on its first 8 layers, ``STATIC_DEPTH``, as the
+            tick and engine paths).
             Before both, phase 3 checks and times the three kernels at
             their layouts (``check_family``): attention PRISM and
             Voltage, segment means and the augment at D 2048 and 3072,
@@ -319,11 +319,36 @@ Phases, one JSON line each:
             (chunks of 64 and 32) to it (the random-weight model
             amplifies f32 rounding with depth), and the tokens equal
             where its top-2 gap is clear; none of the three kernels
-            launches.  Phases 9-12 run in one
-            child process of the script, 13-17 in another
+            launches.
+18. path    Zamba2 2.7B at full width on its first 24 of 54 layers
+            (``STATIC_DEPTH``: four whole 6-layer units, 20 Mamba2
+            blocks, d_in 5120, 32 SSM heads of 160, d_state 64, conv 4,
+            and at every 6th layer the one shared attention + MLP block,
+            32 heads of 80 (MHA), GELU d_ff 10240, over 4 caches of its
+            own; RMSNorm, RoPE, untied head over 32000), f32 weights from
+            torch.Generator seed 0 on the card, at the main path's
+            shapes, through the static path in three pairings: each
+            Mamba2 conv takes the previous shard's last 3 rows
+            (``prev_tail``), its state is handed across the 4 shards in
+            chunks of 128, each decode step updates state and conv tail
+            in place.  Voltage + exact is held by ``recurrent_check`` to
+            the float64 witness, as xLSTM (two plain f32 forwards lie
+            2.0e-3 apart at 54 layers: PERF.md §2), the prism pairings to
+            their backend='plain' twins run again in float64
+            (``plain_witness``: within the larger of 1e-4 and 4 times the
+            f32 twin's distance to it); tokens equal where the witness's
+            top-2 gap exceeds both ``TOKEN_GAP`` and twice the logits'
+            own error.  Attention once a shared layer a prefill, segment
+            means as often where a pairing augments or captures means,
+            the decode kernel's row route (a group of 1) once a shared
+            layer a step, none on the tile route.  Phase 3 checks its layouts first (``check_family``):
+            attention PRISM and Voltage at 32 heads of 80, segment means
+            and the augment at D 2560, the decode kernel's static exact
+            and prism layouts on both routes.  Phases 9-12 run in one
+            child process of the script, 13-17 in another, 18 in a third
             (``drive_apart``, ``CHILD_ARG``).
    total    the script's seconds so far.
-18. kernels one line listing every kernel with its numbers: ``ms`` is
+19. kernels one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -345,8 +370,9 @@ Phases, one JSON line each:
             its launches on phase 9's paths; each row's ``gemma`` the
             same at Gemma 3 1B's layouts (head dim 256, D 1152) and its
             launches on phase 10's paths; ``olmoe``, ``gemma7b``,
-            ``paligemma``, ``commandr`` and ``musicgen`` the same at
-            phases 11, 12, 14, 15 and 16's layouts and paths; ``xlstm``
+            ``paligemma``, ``commandr``, ``musicgen`` and ``zamba2`` the
+            same at phases 11, 12, 14, 15, 16 and 18's layouts and paths
+            (Zamba2's at head dim 80 and D 2560); ``xlstm``
             its launches on phase 17's path (none); ``bert`` and
             ``vit`` at phase 13's (the decode kernel has none) with the
             launches there.
@@ -405,8 +431,13 @@ PALI, CMDR = "paligemma-3b", "command-r-35b"
 # no attention) at full width on its first 24 layers, voltage + exact
 # only: no layer reads the exchange or the means cache
 MUSICGEN, XLSTM = "musicgen-medium", "xlstm-1.3b"
-# the chunk of xLSTM's plain full forward over prompt + generated tokens
-# (576 rows: a multiple of 64, not of the serving chunk of 128)
+# phase 18: Zamba2 2.7B (45 Mamba2 blocks and 9 shared attention + MLP
+# layers over one weight set, 32 heads of 80, MHA) at full width on the
+# static path in three pairings (``STATIC_DEPTH``)
+ZAMBA = "zamba2-2.7b"
+# the chunk of a recurrent model's plain full forward over prompt +
+# generated tokens (xLSTM's, Zamba2's; 576 rows: a multiple of 64, not of
+# the serving chunk of 128)
 XLSTM_REF_CHUNK = 64
 # xLSTM's limits (``recurrent_check``): the path, another f32 order of
 # the same sums (chunks of 128 and a hand-off across 4 shards in the
@@ -420,7 +451,7 @@ F32_ORDER_FACTOR = 4
 # line and the phase-3 error keys, generator seed)
 FAMILY_TAGS = {MOE: ("olmoe", 17), GEMMA7: ("gemma7b", 19),
                PALI: ("paligemma", 23), CMDR: ("commandr", 29),
-               MUSICGEN: ("musicgen", 31)}
+               MUSICGEN: ("musicgen", 31), ZAMBA: ("zamba2", 37)}
 # the static prefill / decode pairings: phase 4's two, and Gemma's third
 PAIRINGS = (("voltage", "exact"), ("prism", "prism"))
 GEMMA_PAIRINGS = PAIRINGS + (("voltage", "prism"),)
@@ -595,8 +626,11 @@ def fillers_lost(prof, n):
 
 
 def trace_device(torch, fn, complete=None, tries=12, why=None):
-    """torch.profiler over ``fn()`` on the CPU and the card, between
-    ``FILLERS`` filler kernels before and as many after.  A trace that
+    """torch.profiler over ``fn()``'s device activity, between
+    ``FILLERS`` filler kernels before and as many after.  No host
+    activity is recorded: nothing reads it, and parsing it took most of
+    a trace's time (phase 18 on an H100: 15.0 and 18.3 s a pairing's two
+    windows with it, 7.2 and 6.5 s without; PERF.md §6).  A trace that
     recorded no device activity, or that ``complete(prof)`` finds short
     of what ``fn`` launched, is taken again, up to ``tries`` times, after
     a pause that grows each time: the profiler's device tracing on the
@@ -618,8 +652,7 @@ def trace_device(torch, fn, complete=None, tries=12, why=None):
         time.sleep(0.25 * i)
         torch.cuda.synchronize()
         n = FILLERS["n"]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fill(n)
             with record_function(WINDOW_MARK):
                 fn()
@@ -1544,22 +1577,24 @@ def check_head_dim_256(torch, chk, timer):
 
 def check_family(torch, chk, timer, arch, tag, seed):
     """Phase 3 at a family's own layouts (Yi-6B's, and phases 11, 12, 14,
-    15 and 16's: OLMoE's 16 heads of 128 and D 2048, Gemma 7B's 16 heads
-    of 256 and D 3072, PaliGemma's 8 query heads over 1 KV head of 256
-    and D 2048, Command-R's 64 query heads over 8 of 128 and D 8192,
+    15, 16 and 18's: OLMoE's 16 heads of 128 and D 2048, Gemma 7B's 16
+    heads of 256 and D 3072, PaliGemma's 8 query heads over 1 KV head of
+    256 and D 2048, Command-R's 64 query heads over 8 of 128 and D 8192,
     MusicGen's 24 heads of 64 (group 1: the decode kernel's row route)
-    and D 1536):
+    and D 1536, Zamba2's 32 heads of 80 (group 1) and D 2560):
     prefill attention at its PRISM and Voltage shapes (a vlm's with its
     image prefix, then ``prefix_cases``); segment means and the augment
     at its width; the decode kernel at its static decode (exact and
     prism, no row map: the route the rule names, the other on the same
-    inputs, both timed); where the family runs the tick programs (no
-    frontend: they take token prompts only), its chunk layout (the C = 64
+    inputs, both timed); where the family runs the tick programs (token
+    prompts and position-addressed caches only: no frontend, no
+    recurrent block), its chunk layout (the C = 64
     queries folded into the head axis: the tile route, at head dim 256
     ``decode_stats_mq_split_kernel``), its packed layouts through the row
     map, each again over the page pool, and a poisoned page.  Errors are
     filed under ``<kernel>/<tag>``."""
     from repro_torch.configs import get_config
+    from repro_torch.runtime.ticks import check_tick_kinds
     cfg = get_config(arch)
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1584,7 +1619,9 @@ def check_family(torch, chk, timer, arch, tag, seed):
         dec_args[mode] = args
     times["cases_by_route"] = by_route
     out["decode"] = times
-    if cfg.frontend:                    # a vlm's image, an audio prompt
+    try:
+        check_tick_kinds(cfg, "the tick programs")
+    except ValueError:   # a vlm's image, an audio prompt, Zamba2's blocks
         return out
     chunk, packed, packed_prism, rows, scale = tick_layout_inputs(
         torch, gen, arch=arch)
@@ -2216,11 +2253,16 @@ def rel_err(got, want):
                  / want.double().abs().max().clamp(min=1e-6))
 
 
-def tokens_agree(torch, tokens, ref_logits):
+def tokens_agree(torch, tokens, ref_logits, err=0.0):
     """tokens (B, gen) vs the argmax of ref_logits (gen, B, V) wherever
-    the reference's top-2 gap is clear; returns (checked, total)."""
+    the reference's top-2 gap is clear: over ``TOKEN_GAP`` of its largest
+    |logit|, and over twice the logits' measured error ``err`` (the same
+    share), which could flip a closer pair.  Under ``PATH_REL_TOL`` the
+    second never binds; it does for a model held to a float64 witness
+    whose plain f32 forwards lie further apart (Zamba2).  Returns
+    (checked, total)."""
     top2 = ref_logits.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > TOKEN_GAP * float(
+    clear = (top2[..., 0] - top2[..., 1]) > max(TOKEN_GAP, 2 * err) * float(
         ref_logits.abs().max())
     want = ref_logits.argmax(-1)
     got = tokens.T
@@ -2309,19 +2351,27 @@ def as_f64(tree):
     return tree.double()
 
 
+# a recurrent layer's cell: its prefill and its decode step, by block kind
+CELLS = {"mlstm": ("mlstm_apply", "mlstm_decode"),
+         "slstm": ("slstm_apply", "slstm_decode"),
+         "mamba": ("mamba2_apply", "mamba2_decode")}
+
+
 def recurrent_check(torch, run, tokens, logits):
-    """The exact static path of a model of recurrent blocks (xLSTM):
+    """The exact static path of a model of recurrent blocks (xLSTM;
+    Zamba2, whose Mamba2 blocks sit between shared attention layers):
     (err, limit, the float64 reference logits (gen, B, V), extras).
 
-    A random-weight xLSTM amplifies an f32 rounding difference with
-    depth, so two plain f32 forwards that only group the chunks otherwise
-    already differ by more than ``PATH_REL_TOL``.  The witness is the
+    A random-weight xLSTM or Zamba2 amplifies an f32 rounding difference
+    with depth, so two plain f32 forwards that only group the chunks
+    otherwise already differ by more than ``PATH_REL_TOL``.  The witness is the
     plain full forward in float64 over the prompt and every fed token
     (576 rows, chunks of ``XLSTM_REF_CHUNK``).  Gated: (1) every layer's
     cell output (the mLSTM or sLSTM, before the residual add) at every
     position, the prefill's rows and 64 decode steps teacher-forced on
     ``tokens`` in a second run whose cells are recorded, against the
-    cell's float64 full-sequence form on the same inputs: the prefill's
+    cell's float64 full-sequence form on the same inputs (an attention
+    layer holds no cell and is checked end to end only): the prefill's
     rows and the decode steps' rows each within ``F32_ORDER_FACTOR``
     times the plain f32 cell's own distance there (some prefill rows of
     the plain f32 cell lie near 1e-4 of the largest output: the cell's
@@ -2337,8 +2387,10 @@ def recurrent_check(torch, run, tokens, logits):
     from repro_torch.runtime import serve as S
     cfg, params = run.cfg, run.params
     b, n = run.prompts.shape
-    names = ("mlstm_apply", "slstm_apply", "mlstm_decode", "slstm_decode")
+    names = [name for pair in CELLS.values() for name in pair]
     cells = {name: getattr(T, name) for name in names}
+    rec = [(i, kind, p) for i, (kind, p) in enumerate(zip(
+        cfg.block_kinds, params["layers"])) if kind in CELLS]
     calls = []
 
     def recorded(fn):
@@ -2349,9 +2401,12 @@ def recurrent_check(torch, run, tokens, logits):
         return cell
 
     def full_cell(kind, p, x):
-        kw = {"chunk": XLSTM_REF_CHUNK} if kind == "mlstm" else {}
-        return cells[f"{kind}_apply"](p["cell"], x, heads=cfg.n_ssm_heads,
-                                      ctx=FullContext(), **kw)
+        kw = {"chunk": XLSTM_REF_CHUNK} if kind != "slstm" else {}
+        if kind == "mamba":
+            kw.update(d_state=cfg.ssm_state, expand=cfg.ssm_expand,
+                      conv=cfg.ssm_conv)
+        return cells[CELLS[kind][0]](p["cell"], x, heads=cfg.n_ssm_heads,
+                                     ctx=FullContext(), **kw)
     with torch.no_grad():
         for name in names:
             setattr(T, name, recorded(cells[name]))
@@ -2364,9 +2419,8 @@ def recurrent_check(torch, run, tokens, logits):
                 setattr(T, name, cells[name])
         params64 = as_f64(params)
         layer_errs, plain_errs = [], []
-        for i, (kind, p) in enumerate(zip(cfg.block_kinds,
-                                          params["layers"])):
-            mine = calls[i::cfg.n_layers]
+        for r, (i, kind, p) in enumerate(rec):
+            mine = calls[r::len(rec)]
             x, y = (torch.cat([mine[0][j].reshape(b, n, -1)]
                               + [c[j] for c in mine[1:]], dim=1)
                     for j in (0, 1))
@@ -2381,8 +2435,8 @@ def recurrent_check(torch, run, tokens, logits):
             plain_errs.append(parts(full_cell(kind, p, x)))
             del x, y, y64
         del calls
-        bad = [(i, rows) for i, (mine, base) in enumerate(zip(layer_errs,
-                                                              plain_errs))
+        bad = [(i, rows) for (i, _, _), mine, base in zip(rec, layer_errs,
+                                                          plain_errs)
                for rows, e, e0 in (("prefill", mine[1], base[1]),
                                    ("decode", mine[2], base[2]))
                if e > F32_ORDER_FACTOR * e0]
@@ -2404,12 +2458,40 @@ def recurrent_check(torch, run, tokens, logits):
                  for c in (XLSTM_REF_CHUNK, XLSTM_REF_CHUNK // 2)]
     limit = max(PATH_REL_TOL, F32_ORDER_FACTOR * max(plain))
     extra = {"layer_rel_err_max": max(e[0] for e in layer_errs),
-             # by layer: all rows, the prefill's, the decode steps'
+             # by recurrent layer (``cell_layers``): all rows, the
+             # prefill's, the decode steps'
+             "cell_layers": [i for i, _, _ in rec],
              "layer_rel_err": layer_errs,
              "layer_plain_f32_rel_err": plain_errs,
              "plain_f32_rel_err": plain, "limit_factor": F32_ORDER_FACTOR,
              "positions": n + GEN}
     return rel_err(logits, ref), limit, ref, extra
+
+
+def plain_witness(torch, plain, tokens, logits, plain_logits):
+    """A prism pairing of a model of recurrent blocks (Zamba2): (err,
+    limit, the witness's logits (gen, B, V), extras).  The kernel run and
+    its backend='plain' twin ``plain`` (whose logits are
+    ``plain_logits``) compute the same sums in two f32 orders, which a
+    random-weight Zamba2 amplifies with depth past ``PATH_REL_TOL``
+    (voltage + prism 1.5e-4 apart at 54 layers).  So, as
+    ``recurrent_check`` holds the exact pairing, the witness is the twin
+    run in float64 (its weights in float64; the plain versions keep
+    float64 rows float64), teacher-forced on ``tokens``, and the run's
+    logits lie within the larger of ``PATH_REL_TOL`` and
+    ``F32_ORDER_FACTOR`` times the f32 twin's distance to it."""
+    params = plain.params
+    plain.params = as_f64(params)
+    try:
+        with torch.no_grad():
+            _, ref, _ = plain.run(forced=tokens[:, :-1])
+    finally:
+        plain.params = params
+    twin = rel_err(plain_logits, ref)
+    limit = max(PATH_REL_TOL, F32_ORDER_FACTOR * twin)
+    return rel_err(logits, ref), limit, ref, {
+        "plain_f32_rel_err": twin, "limit_factor": F32_ORDER_FACTOR,
+        "plain_twin_rel_err": rel_err(logits, plain_logits)}
 
 
 def audio_rows(torch, run, codes):
@@ -2439,6 +2521,7 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
     (``RoutingLog`` launches nothing).  ``cfg`` (default ``arch``'s)
     serves a config cut in depth, ``params`` its layers; the widths are
     checked against ``arch``'s full config."""
+    import time
     from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.serve import setup
@@ -2473,6 +2556,7 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
     for prefill_mode, mode in pairings:
         key = (mode if (prefill_mode, mode) in PAIRINGS
                else f"{prefill_mode}+{mode}")
+        t0 = time.perf_counter()
         run = static(mode, prefill_mode)
         run.run()                                    # warm-up
         if moe:                 # the counted run records its routing
@@ -2483,6 +2567,7 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
         tokens, logits, times = run.run()
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
+        t_runs = time.perf_counter() - t0
         if moe:
             rec, run.hp = run.hp.routing, hp
         check_launches(f"{arch}/static/{key}", counts, {
@@ -2535,12 +2620,16 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
             plain = static(mode, prefill_mode, "plain")
             _, ref, _ = plain.run(forced=tokens[:, :-1])
             ref_name = "backend='plain' run"
-        if not (mode == "exact" and recurrent):
+            if recurrent:
+                err, tol, ref, extra = plain_witness(torch, plain, tokens,
+                                                     logits, ref)
+                ref_name = "the backend='plain' twin in float64"
+        if not recurrent:
             err, tol = rel_err(logits, ref), PATH_REL_TOL
         if err > tol:
             raise AssertionError(f"{key}: logits rel err {err:.3e} vs the "
                                  f"{ref_name} > {tol:.3e}")
-        checked, total = tokens_agree(torch, tokens, ref)
+        checked, total = tokens_agree(torch, tokens, ref, err)
         decode_s = times["decode_ms_per_token"] / 1e3
         results[key] = {
             "prefill_ms": times["prefill_ms"],
@@ -2552,15 +2641,22 @@ def drive_path(torch, params, arch=ARCH, prompt=PROMPT, pairings=PAIRINGS,
             "clock": times["clock"], "launches": counts,
             "logits_rel_err": err, "reference": ref_name,
             "tol": tol, "tokens_checked": checked,
-            "tokens_total": total, **extra}
+            "tokens_total": total,
+            "token_gap": max(TOKEN_GAP, 2 * err),
+            # host seconds: the warm-up and counted runs, the checks
+            "seconds": {"runs": t_runs,
+                        "check": time.perf_counter() - t0 - t_runs},
+            **extra}
         emit("path", arch=arch, mode=mode, prefill=prefill_mode,
              batch=BATCH, prompt=prompt, gen=GEN, shards=SHARDS, cr=CR,
              layers=n_layers, prefix_len=arch_cfg.prefix_len,
              **results[key])
         # where the time goes: a torch.profiler trace of one prefill and
         # a few decode steps, after the counted run
+        t0 = time.perf_counter()
+        trace = profile(torch, run)
         emit("trace", arch=arch, mode=mode, exchange=prefill_mode,
-             **profile(torch, run))
+             seconds=time.perf_counter() - t0, **trace)
         del logits, ref
     return results
 
@@ -4067,12 +4163,13 @@ LLAMA_ENGINE_RUNS = (("packed", "exact"), ("packed", "prism"))
 # took 1,118 s of its 1,200 s limit on an H100 (PERF.md §4)
 TICK_DEPTH = 8
 # the static paths served on their first layers only, all widths full:
-# Command-R's 40 layers of f32 weights are 121 GB; Yi-6B and Gemma 7B are
-# cut so that phases 14 and 15 fit the script's time, Command-R and OLMoE
-# so that phases 16 and 17 do, xLSTM under its phase's 45 s rule (PERF.md
-# §4); every other static path runs at full depth
-STATIC_DEPTH = {LLAMA: 16, GEMMA7: 14, CMDR: 8, MOE: 8, MUSICGEN: 16,
-                XLSTM: 24}
+# Command-R's 40 layers of f32 weights are 121 GB; Yi-6B, Gemma 7B and
+# Zamba2 (whole 6-layer units) are cut so that phase 18 fits the
+# script's time (1,214.9 s on an H100 at 16, 14 and 54 layers), Command-R
+# and OLMoE so that phases 16 and 17 do, xLSTM under its phase's 45 s
+# rule (PERF.md §4); every other static path runs at full depth
+STATIC_DEPTH = {LLAMA: 8, GEMMA7: 8, CMDR: 8, MOE: 8, MUSICGEN: 16,
+                XLSTM: 24, ZAMBA: 24}
 
 
 def cut_depth(cfg, params):
@@ -4117,13 +4214,15 @@ def gemma_row(name, t_256, chk):
 
 def state_bytes(cfg) -> int:
     """The f32 decode states of a model's recurrent layers at the path's
-    batch (xLSTM: 134 MB an mLSTM layer)."""
+    batch (xLSTM: 134 MB an mLSTM layer; Zamba2: 10.5 MB a Mamba2 layer
+    and its conv tail)."""
     from repro_torch.runtime import serve as S
     hp = S.ServeHParams()
     lay = S.make_layout(SHARDS, PROMPT + GEN, hp, prefill_len=PROMPT)
-    return sum(4 * math.prod(S.layer_cache_shape(cfg, lay, BATCH, hp,
-                                                 kind=k)["s"])
-               for k in cfg.block_kinds if k in ("mlstm", "slstm"))
+    return sum(4 * math.prod(shape)
+               for k in cfg.block_kinds if k in CELLS
+               for shape in S.layer_cache_shape(cfg, lay, BATCH, hp,
+                                                kind=k).values())
 
 
 def drive_static(torch, arch, prompt=PROMPT, pairings=GEMMA_PAIRINGS):
@@ -4145,8 +4244,11 @@ def drive_static(torch, arch, prompt=PROMPT, pairings=GEMMA_PAIRINGS):
     ``frontend_proj``), whose frames they cannot take; phase 17, xLSTM
     1.3B (42 mLSTM and 6 sLSTM blocks, d 2048, 4 heads, the mLSTM's of
     1,024, untied head over 50304; voltage + exact alone), whose
-    recurrent states they do not address.  Returns the launches of each
-    path, keyed ``<arch>/static/...``."""
+    recurrent states they do not address; phase 18, Zamba2 2.7B (of 54
+    layers, 45 Mamba2 blocks, d 2560, and 9 layers of one shared
+    attention + MLP block, 32 heads of 80, untied head over 32000), the
+    same.  Returns
+    the launches of each path, keyed ``<arch>/static/...``."""
     import time
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
@@ -4161,12 +4263,18 @@ def drive_static(torch, arch, prompt=PROMPT, pairings=GEMMA_PAIRINGS):
     n_params = sum(t.numel() for t in _leaves(params))
     kinds = cfg.block_kinds
     recurrent = {}
-    if "mlstm" in kinds or "slstm" in kinds:
+    if set(kinds) & set(CELLS):
         recurrent = dict(
             mlstm_layers=kinds.count("mlstm"),
-            slstm_layers=kinds.count("slstm"), ssm_heads=cfg.n_ssm_heads,
-            ssm_expand=cfg.ssm_expand, ssm_chunk=128,
+            slstm_layers=kinds.count("slstm"),
+            mamba_layers=kinds.count("mamba"),
+            shared_attn_layers=kinds.count("shared_attn"),
+            ssm_heads=cfg.n_ssm_heads, ssm_expand=cfg.ssm_expand,
+            ssm_state=cfg.ssm_state, ssm_chunk=128,
             reference_chunk=XLSTM_REF_CHUNK, state_bytes=state_bytes(cfg))
+        if "shared" in params:
+            recurrent["shared_params"] = sum(
+                t.numel() for t in _leaves(params["shared"]))
     emit("model", arch=arch, params=n_params, weight_bytes=4 * n_params,
          layers=cfg.n_layers, layers_of=full.n_layers,
          local_layers=kinds.count("attn_local"), window=cfg.window,
@@ -4424,7 +4532,7 @@ def child_phases():
     1B on the static path; 11, OLMoE-1B-7B; 12, Gemma 7B; 13, the
     encoders; 14, PaliGemma 3B on the static path; 15, Command-R 35B;
     16, MusicGen-medium on the static path; 17, xLSTM 1.3B on the static
-    path, voltage + exact."""
+    path, voltage + exact; 18, Zamba2 2.7B on the static path."""
     return {LLAMA: lambda torch: drive_family(torch, LLAMA,
                                               LLAMA_ENGINE_RUNS),
             GEMMA: lambda torch: drive_static(torch, GEMMA, GEMMA_PROMPT),
@@ -4435,7 +4543,8 @@ def child_phases():
             CMDR: lambda torch: drive_family(torch, CMDR),
             MUSICGEN: lambda torch: drive_static(torch, MUSICGEN),
             XLSTM: lambda torch: drive_static(torch, XLSTM,
-                                              pairings=PAIRINGS[:1])}
+                                              pairings=PAIRINGS[:1]),
+            ZAMBA: lambda torch: drive_static(torch, ZAMBA)}
 
 
 def phase_child(torch, phases) -> int:
@@ -4550,6 +4659,7 @@ def main() -> int:
     by_path.update(drive_apart((LLAMA, GEMMA, MOE, GEMMA7)))  # phases 9-12
     by_path.update(drive_apart(("encoders", PALI, CMDR, MUSICGEN,
                                 XLSTM)))                      # phases 13-17
+    by_path.update(drive_apart((ZAMBA,)))                     # phase 18
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -4648,9 +4758,9 @@ def main() -> int:
         if name == "prism_flash_attention":
             row["gemma"]["launches_window"] = sum(
                 by_path[p].get(name + ".window", 0) for p in gemma)
-        # OLMoE-1B-7B's, Gemma 7B's, PaliGemma's, Command-R's and
-        # MusicGen's layouts, with their launches on phases 11, 12, 14, 15
-        # and 16's paths
+        # OLMoE-1B-7B's, Gemma 7B's, PaliGemma's, Command-R's, MusicGen's
+        # and Zamba2's layouts, with their launches on phases 11, 12, 14,
+        # 15, 16 and 18's paths
         for arch, (tag, _) in FAMILY_TAGS.items():
             paths = [p for p in by_path if p.startswith(arch + "/")]
             row[tag] = family_row(name, t_fam[arch], chk, tag)

@@ -19,6 +19,9 @@ _REGISTRY = {
     "musicgen-medium": "musicgen_medium",
     # mLSTM and sLSTM blocks (7:1), the state handed across shards
     "xlstm-1.3b": "xlstm_1_3b",
+    # Mamba2 blocks (the conv halo and the state handed across shards)
+    # and one shared attention + MLP block over every 6th layer
+    "zamba2-2.7b": "zamba2_2_7b",
     # 480 B parameters fit on no card: served at its reduced size only
     "arctic-480b": "arctic_480b",
     # the paper's encoders: classification over sequence shards, no decode

@@ -19,7 +19,11 @@ copy.  A MoE block's stacked expert leaves
 across slice by slice like every other leaf, and so do the recurrent
 cells' (xLSTM's ``mlstm`` / ``slstm`` blocks, ``{"ln", "cell"}``; the
 sLSTM's raw recurrent blocks ``r`` (4, H, hd, hd)), over xLSTM's 8-layer
-unit of 7 mLSTM and 1 sLSTM (``scan_split`` (8, 6, 0)).
+unit of 7 mLSTM and 1 sLSTM (``scan_split`` (8, 6, 0)), and Zamba2's
+Mamba2 cells (``in``, ``conv``, ``a_log``, ``dt_bias``, ``d_skip``,
+``ynorm``, ``out``) over its 6-layer unit of 5 ``mamba`` and 1
+``shared_attn`` (``scan_split`` (6, 9, 0)).  A ``shared_attn`` layer is
+``{}`` on both sides; the one weight set it reads is ``shared``.
 """
 from __future__ import annotations
 
@@ -58,8 +62,10 @@ def from_jax_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     params = {"layers": layers,
               "final_norm": _tensors(tree["final_norm"], device)}
     # a vocabulary, learned positions, an untied head, an encoder's class
-    # head and a stub frontend's projection only where the model has them
-    for name in ("embed", "pos_embed", "lm_head", "head", "frontend_proj"):
+    # head, a stub frontend's projection and Zamba2's shared block only
+    # where the model has them
+    for name in ("embed", "pos_embed", "lm_head", "head", "frontend_proj",
+                 "shared"):
         if name in tree:
             params[name] = _tensors(tree[name], device)
     return params

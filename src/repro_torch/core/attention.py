@@ -21,6 +21,13 @@ import torch
 from .masks import NEG_INF
 
 
+def at_least_f32(x):
+    """x in f32, or as it is where it is f64: the f32 steps of the
+    reference (norms, gates, softmax logits) keep a float64 forward in
+    float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _gqa_logits(q: torch.Tensor, k: torch.Tensor, scale: float
                 ) -> torch.Tensor:
     """(B, Hq, Nq, M) attention logits with KV-head grouping."""
@@ -59,7 +66,7 @@ def scaling_softmax(
     mask: torch.Tensor | None,         # bool, broadcastable; True = attend
 ) -> torch.Tensor:
     """Stable softmax of ``logits + log g`` with masking (Eq. 14)."""
-    x = logits.float()
+    x = at_least_f32(logits)
     if log_g is not None:
         x = x + log_g.float()
     if mask is not None:

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .attention import at_least_f32
+
 
 def segment_sizes(n_p: int, L: int) -> np.ndarray:
     """Per-segment token counts ``n_l`` (paper Eq. 8): [s]*(L-1) + [s+r]."""
@@ -48,11 +50,12 @@ def segment_fill_counts(lo: torch.Tensor, hi: torch.Tensor,
 
 def segment_means(x: torch.Tensor, L: int) -> torch.Tensor:
     """Compress ``x (..., N_p, D)`` to ``(..., L, D)`` segment means,
-    accumulated in f32 and returned in ``x``'s dtype."""
+    accumulated in f32 (f64 for f64 rows) and returned in ``x``'s
+    dtype."""
     n_p = x.shape[-2]
     if not 1 <= L <= n_p:
         raise ValueError(f"need 1 <= L <= N_p, got L={L}, N_p={n_p}")
-    xf = x.float()
+    xf = at_least_f32(x)
     s = n_p // L
     if L == 1:
         return xf.mean(dim=-2, keepdim=True).to(x.dtype)

@@ -48,24 +48,24 @@
 // map, the row route for the rest (one token a row, packed tokens
 // through the row map).
 //
-// The row route (decode_stats_kernel): one block of 4 warps per (row, KV
-// head, tile of up to 32 query heads of its group), so GPT-2's path
-// runs 12 x 32 blocks in both modes, about three per SM.  A half-warp
-// holds one K or V row, each lane HD / 64 float4s of it (lane l float4s
-// l, l + 16, ...), two rows at a time a warp: 16 columns per pass at head
-// dim 64, 8 at 128.  A warp first reads its columns' `valid` / log g,
-// then issues the 16-byte K and V loads of every live column of the pass
-// at once into registers, so 8 KB per warp are in flight at either head
-// dim; a dead column (`valid` false or log g <= -1e30 / 2) is never
-// loaded.  Every warp then computes the scores of the tile's query heads
-// over its columns, keeping a running (m, l, acc) per head in shared
-// memory, and the four warps' partials are merged in warp order:
-// deterministic, one launch per call.  A warp that met no live column
-// holds (-inf, 0, 0) and drops out of the merge.  A group of more than
-// 32 heads takes more blocks, each of which reads the KV head's columns
-// again (from L2), so any group size launches with at most 35 KB of
-// shared memory at head dim 64 and 68 KB at 128 (above 48 KB the limit
-// is raised once per device).
+// The row route (decode_stats_kernel): one block of 4 warps per (row, KV head,
+// tile of up to 32 query heads of its group), so GPT-2's path runs 12 x 32
+// blocks in both modes, about three per SM.  A half-warp holds one K or V row,
+// each lane HD / 64 float4s of it (lane l float4s l, l + 16, ...), two rows at
+// a time a warp: 16 columns per pass at head dim 64, 8 at 80 and 128.  At 80 a
+// row is 20 float4s: lanes 0-3 hold two and the others one, their second left
+// zero.  A warp first reads its columns' `valid` / log g, then starts the
+// 16-byte K and V loads of every live column of the pass at once into
+// registers, so 8 KB per warp are in flight at either head dim; a dead column
+// (`valid` false or log g <= -1e30 / 2) is never loaded.  Every warp then
+// computes the scores of the tile's query heads over its columns, keeping a
+// running (m, l, acc) per head in shared memory, and the four warps' partials
+// are merged in warp order: deterministic, one launch per call.  A warp that
+// met no live column holds (-inf, 0, 0) and drops out of the merge.  A group of
+// more than 32 heads takes more blocks, each of which reads the KV head's
+// columns again (from L2), so any group size launches with at most 35 KB of
+// shared memory at head dim 64 and 68 KB at 128 (above 48 KB the limit is
+// raised once per device).
 //
 // Splitting a row's columns over a cluster of up to 4 blocks, merged over
 // distributed shared memory, was measured 13% slower at the main path's
@@ -123,6 +123,10 @@
 //   warp: right, and slow.  Yi's static decode (32 rows of 144 columns,
 //   4 KV heads) moves 19.5 MB, a bound of 0.0058 ms; the tile route
 //   takes 0.025 ms there, the row route 0.032 (chip_smoke.py, H100).
+// - Head dim 80 (Zamba2 2.7B: MHA, so its decode takes the row route;
+//   the tile route is built and checked at 80 all the same): hd 128's
+//   kernel with KS = 10, QK^T as a chain of 8 k-steps and one of 2,
+//   strides 84 and 88 (conflict-free: banks 20g + t and 24t + g).
 // - Head dim 256 (Gemma 3 1B: a group of 4 query heads over 1 KV head,
 //   static decode over the global layers' cache and the local layers'
 //   ring).  A 64-row tile does not fit there (a 134 KB ring plus 128 KB
@@ -189,9 +193,14 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
     int NZROWS, float scale) {
   // a half-warp holds one row as 16 x VEC float4s: lane hl holds
   // float4s hl, hl + 16, ... (head dim 256: 4 of them, 2 columns a
-  // half-warp a pass)
-  static_assert(HD % 64 == 0 && HD <= 256, "head dim");
-  constexpr int VEC = HD / 64;          // float4s of a row a lane holds
+  // half-warp a pass).  At head dim 80 a row is 20 float4s: every lane
+  // holds float4 hl, and lanes 0-3 also hl + 16; the other lanes' second
+  // float4 stays zero (never loaded, never stored), so the dot products,
+  // the shuffles and the merge are as at the other head dims
+  static_assert(HD % 16 == 0 && HD <= 256, "head dim");
+  constexpr int F4 = HD / 4;            // float4s of a row
+  constexpr int VEC = (F4 + 15) / 16;   // float4s of a row a lane holds
+  constexpr bool RAGGED = F4 % 16 != 0; // some lanes hold VEC - 1
   constexpr int HC = 8 / VEC;           // columns a half-warp takes a pass
   constexpr int WCOLS = 2 * HC;         // columns per warp per pass
   constexpr int UNIT = NW * WCOLS;      // columns per block per pass
@@ -211,6 +220,9 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
   const int zr = zrows != nullptr ? min(max(zrows[r], 0), NZROWS - 1) : r;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int half = lane >> 4, hl = lane & 15;
+  // the lane's float4s u < nvec are in the row (all of them unless a
+  // row's float4s are not a multiple of 16)
+  const int nvec = (F4 - hl + 15) / 16;
   const int n_cols = M + (kz != nullptr ? MZ : 0);
   const int h0 = kvh * grp + g0;        // the block's first query head
   // column c's page is floor((c + 0.5) / PC) in f32: exact for c < 2^21
@@ -272,8 +284,10 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
             reinterpret_cast<const float4*>((c < M ? v : vz) + off) + hl;
 #pragma unroll
         for (int u = 0; u < VEC; ++u) {
-          kr[i][u] = __ldg(ks + 16 * u);
-          vr[i][u] = __ldg(vs + 16 * u);
+          if (!RAGGED || u < nvec) {
+            kr[i][u] = __ldg(ks + 16 * u);
+            vr[i][u] = __ldg(vs + 16 * u);
+          }
         }
       }
     }
@@ -281,7 +295,8 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
       float4 q4[VEC];
 #pragma unroll
       for (int u = 0; u < VEC; ++u)
-        q4[u] = __ldg(qg + g * (HD / 4) + hl + 16 * u);
+        q4[u] = !RAGGED || u < nvec ? __ldg(qg + g * F4 + hl + 16 * u)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
       float s[HC];
       float mx = -INFINITY;
 #pragma unroll
@@ -339,13 +354,15 @@ __global__ void __launch_bounds__(NT) decode_stats_kernel(
       if (half == 0) {
 #pragma unroll
         for (int u = 0; u < VEC; ++u) {
-          float4* acc = reinterpret_cast<float4*>(part) + hl + 16 * u;
-          float4 r = *acc;
-          r.x = fmaf(r.x, corr, a[u].x);
-          r.y = fmaf(r.y, corr, a[u].y);
-          r.z = fmaf(r.z, corr, a[u].z);
-          r.w = fmaf(r.w, corr, a[u].w);
-          *acc = r;
+          if (!RAGGED || u < nvec) {
+            float4* acc = reinterpret_cast<float4*>(part) + hl + 16 * u;
+            float4 r = *acc;
+            r.x = fmaf(r.x, corr, a[u].x);
+            r.y = fmaf(r.y, corr, a[u].y);
+            r.z = fmaf(r.z, corr, a[u].z);
+            r.w = fmaf(r.w, corr, a[u].w);
+            *acc = r;
+          }
         }
       }
       if (lane == 0) {
@@ -644,7 +661,8 @@ __global__ void __launch_bounds__(NT, mq_min_blocks(HD))
     if constexpr (KS <= QK_CHAIN) {
       qk_3xtf32<0, KS, NJ, LDK>(sc, my_q, sK, g, t);
     } else {                            // two chains, added in f32
-      static_assert(KS == 2 * QK_CHAIN, "head dim");
+      // hd 128: 8 + 8 k-steps; hd 80: 8 + 2
+      static_assert(KS <= 2 * QK_CHAIN, "head dim");
       float part[NJ][4];
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -1045,14 +1063,16 @@ int launch_tile(Args... args) {
 
 }  // namespace
 
-// one head dim per ported model family (GPT-2: 64; Llama, Yi-6B: 128;
-// Gemma 3 1B: 256): fn(std::integral_constant<int, HD>) for the call's
-// head dim
+// one head dim per ported model family (GPT-2: 64; Zamba2 2.7B: 80;
+// Llama, Yi-6B: 128; Gemma 3 1B: 256): fn(std::integral_constant<int,
+// HD>) for the call's head dim
 template <typename Fn>
 int by_head_dim(int hd, Fn fn) {
   switch (hd) {
     case 64:
       return fn(std::integral_constant<int, 64>{});
+    case 80:
+      return fn(std::integral_constant<int, 80>{});
     case 128:
       return fn(std::integral_constant<int, 128>{});
     case 256:

@@ -55,6 +55,13 @@
 //   heads) a PRISM layer is bound by its 168 MB (0.050 ms) and a Voltage
 //   layer by 17 GFLOP (0.104 ms); this runs 6.9x and 5.9x above that,
 //   1.4-1.5x faster than SDPA (chip_smoke.py, H100).
+// - Head dim 80 (Zamba2 2.7B: 32 heads, MHA).  The hd-128 layout with
+//   KS = 10 k-steps: QK^T runs as a chain of 8 and one of 2, each in its
+//   own accumulator; strides 84 and 88 floats keep the fragment loads
+//   conflict-free (banks 20g + t for K, 24t + g for V, distinct over a
+//   warp).  About 85 KB of shared memory a block (a two-stage ring of
+//   32 x (84 + 88) floats and 40 KB of Q's parts); built for one block
+//   an SM, as hd 128.
 // - Head dim 256 (Gemma 3 1B: 4 query heads over 1 KV head).  Neither
 //   the hd-128 tile nor its accumulator fits there: two ring stages of
 //   32 x (260 + 264) floats and 128 KB of Q's parked parts are 263 KB
@@ -343,7 +350,8 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
           for (int e = 0; e < 4; ++e) sc[j][e] += part[j][e];
       }
     } else {                            // two chains, added in f32
-      static_assert(KS == 2 * QK_CHAIN, "head dim");
+      // hd 128: 8 + 8 k-steps; hd 80: 8 + 2
+      static_assert(KS <= 2 * QK_CHAIN, "head dim");
       float part[NJ][4];
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -483,11 +491,15 @@ extern "C" int prism_attention_f32(
   const auto* rp = static_cast<const int*>(row_pos);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  // one head dim per ported model family (GPT-2: 64; Llama, Yi-6B: 128;
-  // Gemma 3 1B: 256)
+  // one head dim per ported model family (GPT-2: 64; Zamba2 2.7B: 80;
+  // Llama, Yi-6B: 128; Gemma 3 1B: 256)
   switch (hd) {
     case 64:
       return launch<64>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv,
+                        rep, P, causal, prefix_len, has_window, window,
+                        scale, st);
+    case 80:
+      return launch<80>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv,
                         rep, P, causal, prefix_len, has_window, window,
                         scale, st);
     case 128:

@@ -43,11 +43,11 @@ import ctypes
 import torch
 
 from .dispatch import check_tensor, launch, use_kernel
-from ..core.attention import _gqa_logits, _gqa_output
+from ..core.attention import _gqa_logits, _gqa_output, at_least_f32
 from ..core.masks import NEG_INF
 
 NEG = NEG_INF
-HEAD_DIMS = (64, 128, 256)  # head dims csrc/decode_attention.cu builds
+HEAD_DIMS = (64, 80, 128, 256)  # head dims csrc/decode_attention.cu builds
 
 _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_void_p])
@@ -62,14 +62,15 @@ _TILE_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
 def partial_softmax_stats(q, k, v, bias, scale):
     """Softmax partial stats over one column set.  q (B,1,Hq,hd);
     k,v (B,M,Hkv,hd); bias (B,M) additive logits (NEG = dead column).
-    Returns m, l: (B,Hq,1,1) f32 and acc: (B,1,Hq,hd) f32."""
-    s = _gqa_logits(q, k, scale).float()                  # (B,Hq,1,M)
+    Returns m, l: (B,Hq,1,1) f32 and acc: (B,1,Hq,hd) f32 (f64 for f64
+    inputs)."""
+    s = at_least_f32(_gqa_logits(q, k, scale))                  # (B,Hq,1,M)
     s = s + bias[:, None, None, :].float()
     m_p = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m_p)
     p = torch.where(s > NEG / 2, p, torch.zeros_like(p))  # all-dead -> l=0
     l_p = p.sum(dim=-1, keepdim=True)
-    acc_p = _gqa_output(p.to(v.dtype), v).float()
+    acc_p = at_least_f32(_gqa_output(p.to(v.dtype), v))
     return m_p, l_p, acc_p
 
 
@@ -92,14 +93,15 @@ def chunk_softmax_stats(q, k, v, bias, scale):
     """Multi-query softmax partial stats with a per-query additive bias:
     the intra-chunk pass of chunked prefill and of a packed tick.
     q (B,C,Hq,hd); k,v (B,M,Hkv,hd); bias (B,C,M) (NEG = dead column).
-    Returns m, l: (B,Hq,C,1) f32 and acc: (B,C,Hq,hd) f32."""
-    s = _gqa_logits(q, k, scale).float()                  # (B,Hq,C,M)
+    Returns m, l: (B,Hq,C,1) f32 and acc: (B,C,Hq,hd) f32 (f64 for f64
+    inputs)."""
+    s = at_least_f32(_gqa_logits(q, k, scale))                  # (B,Hq,C,M)
     s = s + bias[:, None].float()
     m_p = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m_p)
     p = torch.where(s > NEG / 2, p, torch.zeros_like(p))  # all-dead -> l=0
     l_p = p.sum(dim=-1, keepdim=True)
-    acc_p = _gqa_output(p.to(v.dtype), v).float()
+    acc_p = at_least_f32(_gqa_output(p.to(v.dtype), v))
     return m_p, l_p, acc_p
 
 

@@ -22,11 +22,11 @@ import ctypes
 import torch
 
 from .dispatch import check_tensor, launch
-from ..core.attention import _gqa_logits, _gqa_output
+from ..core.attention import _gqa_logits, _gqa_output, at_least_f32
 from ..core.masks import NEG_INF, visibility
 
 NEG = NEG_INF
-HEAD_DIMS = (64, 128, 256)  # head dims csrc/prism_attention.cu builds
+HEAD_DIMS = (64, 80, 128, 256)  # head dims csrc/prism_attention.cu builds
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
              + [ctypes.c_float, ctypes.c_void_p])
@@ -61,7 +61,7 @@ def prism_attention_reference(q, k, v, log_g, col_lo, col_hi, row_pos, *,
     if bk != b:
         k = k.repeat_interleave(b // bk, dim=0)
         v = v.repeat_interleave(b // bk, dim=0)
-    s = _gqa_logits(q, k, scale).float().view(b // p, p, hq, nq, m)
+    s = at_least_f32(_gqa_logits(q, k, scale)).view(b // p, p, hq, nq, m)
     s = s + log_g.float()[None, :, None, None, :]
     vis = visibility(row_pos, col_lo, col_hi, causal=causal,
                      prefix_len=prefix_len, window=window)[None, :, None]

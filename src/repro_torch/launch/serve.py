@@ -77,6 +77,14 @@ exactly in both modes and captures the means over real tokens);
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
         --batch 8 --prompt-len 512 --gen 64 --seq-shards 4
 
+    # Zamba2 2.7B (45 Mamba2 blocks, the conv halo and the state handed
+    # across the shards, and one shared attention + MLP block over 9
+    # layers, 32 heads of 80): the static path only (the tick programs,
+    # the paged cache and the engine refuse the Mamba2 state)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --batch 8 --prompt-len 512 --gen 64 --seq-shards 4 \
+        --decode-mode prism
+
     # the paper's encoders classify a seeded batch over P sequence shards
     # (no decode, no engine): BERT-base on 512 token ids, ViT-B/16 on 197
     # stub patch embeddings, split 49/49/49/50 by Alg. 1

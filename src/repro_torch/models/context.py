@@ -4,9 +4,11 @@
     ... attention(xq ..., akv.x_hat ..., akv.g, akv.mask) ...
     out = ctx.finalize(out)            # back to the caller's layout
 
-for linear-recurrence layers (the mLSTM) and the sequential sLSTM:
+for linear-recurrence layers (the mLSTM, Mamba2) and the sequential
+sLSTM:
 
     s0 = ctx.state_handoff(log_a_tot, u_tot)   # state entering the shard
+    halo = ctx.prev_tail(x, size)              # Mamba2's causal-conv halo
     x_full = ctx.gather_sequence(x)            # the whole sequence (sLSTM)
     y = ctx.take_local(y_full)                 # back to the shard's rows
     s = ctx.last_shard(s_end)                  # the sequence's end state
@@ -58,6 +60,13 @@ class SeqContext:
         ``u_tot`` (B, H, dk, dv) summarise.  One executor owns the whole
         sequence, so nothing comes in: zeros."""
         return torch.zeros_like(u_tot)
+
+    def prev_tail(self, x, size: int):
+        """The last ``size`` rows of the span before this executor's: the
+        halo of a causal convolution (Mamba2's).  One executor owns the
+        whole sequence, so it starts at the true start: zeros (B, size,
+        C)."""
+        return x.new_zeros(x.shape[:-2] + (size,) + x.shape[-1:])
 
     def gather_sequence(self, x):
         """The whole sequence (B, N, D) (the sLSTM's scan)."""

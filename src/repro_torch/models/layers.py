@@ -13,6 +13,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..core.attention import at_least_f32
+
 
 # --------------------------------------------------------------------------
 # primitives
@@ -59,13 +61,6 @@ def norm_init(d: int, kind: str, device):
     return p
 
 
-def at_least_f32(x):
-    """x in f32, or as it is where it is f64: the f32 steps of the
-    reference (norms, gates, the sLSTM scan) keep a float64 forward in
-    float64."""
-    return x if x.dtype == torch.float64 else x.float()
-
-
 def norm(p, x, kind: str = "layernorm", eps: float = 1e-6):
     """LayerNorm or RMSNorm (no bias), computed in f32 (f64 for f64
     rows) with the reference's eps of 1e-6."""
@@ -90,11 +85,11 @@ def rope(x, pos, *, theta: float = 10000.0):
     """Rotary position embedding over split halves, as the reference's.
     x (..., n, H, hd), pos (n,) or (..., n), int or float: a PRISM
     segment-mean column takes its segment's midpoint, which may be
-    fractional.  The angle is computed in f32."""
+    fractional.  The angle is computed in f32 (f64 for f64 rows)."""
     half = x.shape[-1] // 2
-    freq = theta ** (-torch.arange(half, dtype=torch.float32,
-                                   device=x.device) / half)
-    angle = (pos.float()[..., :, None] * freq)[..., :, None, :]
+    dt = at_least_f32(x).dtype
+    freq = theta ** (-torch.arange(half, dtype=dt, device=x.device) / half)
+    angle = (pos.to(dt)[..., :, None] * freq)[..., :, None, :]
     cos, sin = torch.cos(angle), torch.sin(angle)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],

@@ -1,4 +1,5 @@
-"""Recurrent sequence mixers of xLSTM [arXiv:2405.04517]: mLSTM and sLSTM.
+"""Recurrent sequence mixers: xLSTM's mLSTM and sLSTM [arXiv:2405.04517]
+and Zamba2's Mamba2 / SSD block [arXiv:2411.15242].
 
 The mLSTM's linear recurrence
 
@@ -19,6 +20,14 @@ Gates, as in the reference: sigmoid input and forget gates (log-sigmoid
 decays), not xLSTM's exponential gating with its stabiliser; the chunked
 math is the same, the gate range narrower.  The decode steps update the
 state leaf in place.
+
+Mamba2 is the same recurrence with keys B and queries C shared by every
+head (``expand``, no copy), the input gate dt = softplus(dt_pre +
+dt_bias) and the decay log f = -dt·exp(a_log), after a causal depthwise
+convolution whose first rows need the previous shard's last ones
+(``ctx.prev_tail``).  Its decode cache is the state and the conv's tail
+of pre-convolution rows, {"s" (B, H, d_state, hd), "tail" (B, conv - 1,
+d_in)}, both updated in place by a decode step.
 """
 from __future__ import annotations
 
@@ -234,3 +243,107 @@ def slstm_decode(p, x, state, *, heads: int):
     state.copy_(torch.stack(carry, dim=1))
     h = norm(p["hnorm"], h.reshape(b, d).to(x.dtype), "rmsnorm")
     return dense(p["down"], h)[:, None], state
+
+
+# --------------------------------------------------------------------------
+# Mamba2 / SSD (zamba2)
+# --------------------------------------------------------------------------
+
+def mamba2_init(gen: torch.Generator, d: int, heads: int, d_state: int,
+                expand: int, conv: int, device):
+    d_in = d * expand
+    return {
+        # fused in-proj: [z (d_in), x (d_in), B (d_state), C (d_state),
+        # dt (H)]
+        "in": dense_init(gen, d, 2 * d_in + 2 * d_state + heads,
+                         device=device),
+        "conv": _normal(gen, (conv, d_in), conv ** -0.5, device),
+        "a_log": torch.zeros(heads, device=device),   # A = -exp(0) = -1
+        "dt_bias": torch.zeros(heads, device=device),
+        "d_skip": torch.ones(heads, device=device),
+        "ynorm": norm_init(d_in, "rmsnorm", device),
+        "out": dense_init(gen, d_in, d, device=device),
+    }
+
+
+def _mamba_proj_split(p, x, d_in: int, d_state: int):
+    """x (..., D) -> z, xc (..., d_in), B, C (..., d_state), dt_pre
+    (..., H): views of the fused in-projection."""
+    proj = dense(p["in"], x)
+    return proj.split([d_in, d_in, d_state, d_state,
+                       proj.shape[-1] - 2 * d_in - 2 * d_state], dim=-1)
+
+
+def _mamba_dt(p, dt_pre):
+    """The input gate dt = softplus(dt_pre + dt_bias) and the decay
+    log f = -dt·exp(a_log) <= 0, f32 (f64 in a float64 forward)."""
+    dt_pre = at_least_f32(dt_pre)
+    dt = F.softplus(dt_pre + p["dt_bias"].to(dt_pre.dtype))
+    return dt, -dt * p["a_log"].to(dt.dtype).exp()
+
+
+def _mamba_out(p, y, v, z):
+    """The skip, the SiLU gate, the RMSNorm and the out-projection: y, v
+    (..., H, hd), z (..., d_in) -> (..., D)."""
+    y = y + v * p["d_skip"].to(v.dtype)[:, None]
+    y = y.reshape(z.shape) * F.silu(z)
+    return dense(p["out"], norm(p["ynorm"], y, "rmsnorm"))
+
+
+def mamba2_apply(p, x, *, heads: int, d_state: int, expand: int,
+                 conv: int, ctx, chunk: int = 128,
+                 return_state: bool = False):
+    """x (B, N, D) -> y (B, N, D), and with ``return_state`` the decode
+    cache {"s": (B, H, d_state, hd) after the sequence's last token,
+    "tail": its last conv - 1 pre-convolution rows (B, conv - 1, d_in)},
+    both the last shard's (``ctx.last_shard``)."""
+    b, n, d = x.shape
+    d_in = d * expand
+    z, xc, bmat, cmat, dt_pre = _mamba_proj_split(p, x, d_in, d_state)
+    # causal depthwise conv; the halo comes from the previous shard
+    xc_pad = torch.cat([ctx.prev_tail(xc, conv - 1), xc], dim=1)
+    kern = p["conv"].to(xc.dtype)
+    xc = F.silu(sum(xc_pad[:, i:i + n] * kern[i] for i in range(conv)))
+    dt, log_f = _mamba_dt(p, dt_pre)                     # (B, N, H)
+    v = xc.reshape(b, n, heads, d_in // heads)
+    # B and C are shared by the heads: broadcast views, no copy
+    k = bmat[:, :, None, :].expand(b, n, heads, d_state)
+    q = cmat[:, :, None, :].expand(b, n, heads, d_state)
+    y = chunked_linear_attention(q, k, v, log_f, dt, chunk=chunk, ctx=ctx,
+                                 return_state=return_state)
+    if return_state:
+        y, state = y
+    out = _mamba_out(p, y, v, z)
+    if return_state:
+        return out, {"s": state,
+                     "tail": ctx.last_shard(xc_pad[:, n:])}
+    return out
+
+
+def mamba2_decode(p, x, cache, *, heads: int, d_state: int, expand: int,
+                  conv: int):
+    """One token: x (B, 1, D), cache {"s": (B, H, d_state, hd) f32,
+    "tail": (B, conv - 1, d_in)} -> (y (B, 1, D), cache).  Both leaves
+    are updated in place: the tail shifts by the new pre-convolution
+    row, S = f·S + dt·B vᵀ."""
+    b, _, d = x.shape
+    d_in = d * expand
+    hd = d_in // heads
+    z, xc, bmat, cmat, dt_pre = _mamba_proj_split(p, x[:, 0], d_in,
+                                                  d_state)
+    tail, state = cache["tail"], cache["s"]
+    window = torch.cat([tail, xc[:, None].to(tail.dtype)], dim=1)
+    xc = F.silu(torch.einsum("bcd,cd->bd", window.to(xc.dtype),
+                             p["conv"].to(xc.dtype)))
+    tail.copy_(window[:, 1:])
+    dt, log_f = _mamba_dt(p, dt_pre)                     # (B, H)
+    v = xc.reshape(b, heads, hd)
+    s = state.view(b * heads, d_state, hd)
+    state.mul_(log_f.exp()[..., None, None].to(state.dtype))
+    s.baddbmm_(bmat[:, None, :, None].expand(b, heads, d_state, 1)
+               .reshape(b * heads, d_state, 1).to(s.dtype),
+               (v * dt[..., None].to(v.dtype)).reshape(b * heads, 1, hd)
+               .to(s.dtype))
+    y = torch.bmm(cmat[:, None, None, :].expand(b, heads, 1, d_state)
+                  .reshape(b * heads, 1, d_state), s.to(cmat.dtype))
+    return _mamba_out(p, y.view(b, heads, hd), v, z)[:, None], cache

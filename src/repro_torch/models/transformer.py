@@ -32,8 +32,12 @@ Audio (MusicGen): an ``encodec_stub`` frontend's frame embeddings are the
 whole prompt, through ``frontend_proj``, with parameter-free sinusoidal
 positions (``sincos_embed``); the generated codes go through ``embed``.
 
-Recurrent blocks (xLSTM, ``models/ssm.py``): ``mlstm`` and ``slstm``,
-each {"ln", "cell"}, x + cell(norm(ln, x)), with no feed-forward.
+Recurrent blocks (``models/ssm.py``): xLSTM's ``mlstm`` and ``slstm``
+and Zamba2's ``mamba``, each {"ln", "cell"}, x + cell(norm(ln, x)), with
+no feed-forward.  Zamba2's ``shared_attn`` layers hold no weights of
+their own ({}): each is an attention + MLP block over the one shared
+weight set ``params["shared"]`` ({ln1, attn, ln2, mlp}, built once), with
+a cache of its own on the serving paths (``layer_blocks``).
 """
 from __future__ import annotations
 
@@ -48,14 +52,15 @@ from .layers import (MLP_KINDS, NORM_KINDS, AttnSpec, attn_init,
                      dense_init, embed, embedding_init, mlp, mlp_init, norm,
                      norm_init)
 from .moe import moe_apply, moe_init
-from .ssm import (mlstm_apply, mlstm_decode, mlstm_init, slstm_apply,
-                  slstm_decode, slstm_init)
+from .ssm import (mamba2_apply, mamba2_decode, mamba2_init, mlstm_apply,
+                  mlstm_decode, mlstm_init, slstm_apply, slstm_decode,
+                  slstm_init)
 from ..core.attention import prism_attention
 from ..device import resolve_device
 
 
-RECURRENT_KINDS = ("mlstm", "slstm")
-BLOCK_KINDS = ("attn", "attn_local", "moe") + RECURRENT_KINDS
+RECURRENT_KINDS = ("mlstm", "slstm", "mamba")
+BLOCK_KINDS = ("attn", "attn_local", "moe", "shared_attn") + RECURRENT_KINDS
 FRONTENDS = (None, "patch_stub", "siglip_stub", "encodec_stub")
 POSITIONS = ("learned", "rope", "sincos", "none")
 
@@ -71,6 +76,8 @@ def check_supported(cfg: ModelConfig) -> None:
             or (cfg.parallel_block and not set(cfg.block_kinds)
                 <= {"attn", "attn_local"})
             or not (cfg.vocab_size or cfg.num_classes)
+            or ("mamba" in cfg.block_kinds and not cfg.ssm_state)
+            or ("shared_attn" in cfg.block_kinds and not cfg.d_ff)
             or ("moe" in cfg.block_kinds
                 and not (cfg.n_experts and cfg.top_k and cfg.expert_d_ff))):
         raise NotImplementedError(
@@ -126,6 +133,13 @@ def block_init(cfg: ModelConfig, kind: str, gen: torch.Generator, device):
         return {"ln": norm_init(cfg.d_model, cfg.norm_kind, device),
                 "cell": slstm_init(gen, cfg.d_model, cfg.n_ssm_heads,
                                    device)}
+    if kind == "mamba":
+        return {"ln": norm_init(cfg.d_model, cfg.norm_kind, device),
+                "cell": mamba2_init(gen, cfg.d_model, cfg.n_ssm_heads,
+                                    cfg.ssm_state, cfg.ssm_expand,
+                                    cfg.ssm_conv, device)}
+    if kind == "shared_attn":
+        return {}              # the layer reads params["shared"]
     p = {"ln1": norm_init(cfg.d_model, cfg.norm_kind, device),
          "attn": attn_init(gen, attn_spec(cfg, kind), device)}
     if not cfg.parallel_block:          # a parallel block has one norm
@@ -152,6 +166,10 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
                    for kind in cfg.block_kinds],
         "final_norm": norm_init(cfg.d_model, cfg.norm_kind, device),
     }
+    if "shared_attn" in cfg.block_kinds:
+        # Zamba2's one attention + MLP block, read by every shared_attn
+        # layer
+        params["shared"] = block_init(cfg, "attn", generator, device)
     if cfg.vocab_size:
         params["embed"] = embedding_init(generator, cfg.vocab_size,
                                          cfg.d_model, device)
@@ -215,28 +233,53 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext,
 
 def recurrent_block(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext, *,
                     chunk: int = 128, return_state: bool = False):
-    """A residual ``mlstm`` or ``slstm`` block, x + cell(norm(ln, x)) (the
-    mLSTM chunked by ``chunk``); with ``return_state`` also the cell's
-    state after the sequence's last token, the decode cache."""
+    """A residual ``mlstm``, ``slstm`` or ``mamba`` block, x + cell(norm(ln,
+    x)) (the mLSTM's and Mamba2's recurrence chunked by ``chunk``); with
+    ``return_state`` also the cell's decode cache after the sequence's
+    last token: {"s"}, Mamba2's {"s", "tail"}, copies of their own (the
+    decode steps update them in place)."""
     h = norm(p["ln"], x, cfg.norm_kind)
+    heads = cfg.n_ssm_heads
     if kind == "mlstm":
-        out = mlstm_apply(p["cell"], h, heads=cfg.n_ssm_heads, ctx=ctx,
-                          chunk=chunk, return_state=return_state)
-    else:
-        out = slstm_apply(p["cell"], h, heads=cfg.n_ssm_heads, ctx=ctx,
+        out = mlstm_apply(p["cell"], h, heads=heads, ctx=ctx, chunk=chunk,
                           return_state=return_state)
-    if return_state:
-        return x + out[0], out[1]
-    return x + out
+    elif kind == "mamba":
+        out = mamba2_apply(p["cell"], h, heads=heads, d_state=cfg.ssm_state,
+                           expand=cfg.ssm_expand, conv=cfg.ssm_conv, ctx=ctx,
+                           chunk=chunk, return_state=return_state)
+    else:
+        out = slstm_apply(p["cell"], h, heads=heads, ctx=ctx,
+                          return_state=return_state)
+    if not return_state:
+        return x + out
+    y, state = out
+    cache = state if kind == "mamba" else {"s": state}
+    return x + y, {k: t.clone(memory_format=torch.contiguous_format)
+                   for k, t in cache.items()}
 
 
-def recurrent_decode(cfg: ModelConfig, kind: str, p, x, state):
-    """One token through a recurrent block: x (B, 1, D); ``state``, the
-    cell's cache leaf, is updated in place."""
-    step = mlstm_decode if kind == "mlstm" else slstm_decode
-    y, _ = step(p["cell"], norm(p["ln"], x, cfg.norm_kind), state,
-                heads=cfg.n_ssm_heads)
+def recurrent_decode(cfg: ModelConfig, kind: str, p, x, cache):
+    """One token through a recurrent block: x (B, 1, D); ``cache``, the
+    cell's cache leaves, is updated in place."""
+    h = norm(p["ln"], x, cfg.norm_kind)
+    if kind == "mamba":
+        y, _ = mamba2_decode(p["cell"], h, cache, heads=cfg.n_ssm_heads,
+                             d_state=cfg.ssm_state, expand=cfg.ssm_expand,
+                             conv=cfg.ssm_conv)
+    else:
+        step = mlstm_decode if kind == "mlstm" else slstm_decode
+        y, _ = step(p["cell"], h, cache["s"], heads=cfg.n_ssm_heads)
     return x + y
+
+
+def layer_blocks(cfg: ModelConfig, params):
+    """Each layer's (block kind, parameters) in depth order.  A
+    ``shared_attn`` layer (Zamba2) is an ``attn`` block over the one
+    shared weight set ``params["shared"]``: every path serves it as
+    attention, with a cache of its own."""
+    shared = params.get("shared")
+    for kind, p in zip(cfg.block_kinds, params["layers"]):
+        yield ("attn", shared) if kind == "shared_attn" else (kind, p)
 
 
 def embed_scale(cfg: ModelConfig, x):
@@ -333,7 +376,8 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     large vocabulary the whole (B, N, V) would dwarf the rest); for an
     encoder (``num_classes``) the class logits (B, num_classes) of the
     CLS row.  A ``moe`` block routes all B·N tokens as one group; an
-    ``mlstm`` block runs in chunks of ``chunk`` (N a multiple of it)."""
+    ``mlstm`` or ``mamba`` block runs in chunks of ``chunk`` (N a multiple
+    of it)."""
     check_supported(cfg)
     return forward_embedded(cfg, params,
                             embed_inputs(cfg, params, tokens, embeds=embeds),
@@ -348,7 +392,7 @@ def forward_embedded(cfg: ModelConfig, params, x, *,
     the final norm and the head (MusicGen's reference over its frames
     and the codes fed after them)."""
     ctx = ctx or FullContext(prefix_len=cfg.prefix_len)
-    for kind, p in zip(cfg.block_kinds, params["layers"]):
+    for kind, p in layer_blocks(cfg, params):
         x = block_apply(cfg, kind, p, x, ctx, routing, chunk)
     if cfg.num_classes:
         return classify(cfg, params, x[:, 0])

@@ -35,14 +35,18 @@ every shard as one column set: exact in both decode modes, as the
 reference's static path serves them.  The paged cache, the tick
 programs and the engine refuse the kind, as the reference's do.
 
-Recurrent blocks (xLSTM's ``mlstm`` / ``slstm``) keep their state
-after the last position, {"s"}: the mLSTM's (B, H, hd, hd + 1) f32
-matrix memory with its normaliser column, the sLSTM's (B, 3, H, hd) f32
-(c, n, h); prefill captures it (``ctx.last_shard``: the mLSTM's state
-handed across the shards, the sLSTM's scan over the gathered sequence),
-a decode step updates it in place, in either decode mode.  The paged
-cache, the tick programs and the engine refuse the kinds, as the
-reference's do.
+Recurrent blocks (xLSTM's ``mlstm`` / ``slstm``, Zamba2's ``mamba``)
+keep their state after the last position, {"s"}: the mLSTM's (B, H, hd,
+hd + 1) f32 matrix memory with its normaliser column, the sLSTM's (B, 3,
+H, hd) f32 (c, n, h), Mamba2's (B, H, d_state, hd) f32 beside its conv's
+last pre-convolution rows "tail" (B, conv - 1, d_in); prefill captures
+them (``ctx.last_shard``: the state handed across the shards, the
+sLSTM's scan over the gathered sequence, the conv's halo from the
+previous shard), a decode step updates them in place, in either decode
+mode.  Zamba2's ``shared_attn`` layers are attention over one shared
+weight set, each with a cache of its own (``transformer.layer_blocks``).
+The paged cache, the tick programs and the engine refuse the recurrent
+kinds, as the reference's do.
 
 An audio model (MusicGen) prefills from frame embeddings (B, n0, D)
 alone, through ``frontend_proj`` with sinusoidal positions; its decode
@@ -79,8 +83,8 @@ from ..models.moe import RoutingLog
 from ..models.transformer import (RECURRENT_KINDS, attn_spec,
                                   block_residual, check_decoder,
                                   check_supported, classify, embed_inputs,
-                                  embed_scale, head, recurrent_block,
-                                  recurrent_decode, sincos)
+                                  embed_scale, head, layer_blocks,
+                                  recurrent_block, recurrent_decode, sincos)
 from ..sharding.context import ShardedPrismContext, means_columns
 from .paging import KVCache, PrefixCache
 
@@ -184,7 +188,9 @@ def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
     (where the reference drops them out of range).  A sliding-window
     layer (``kind`` 'attn_local') has the ring k, v (B, W, Hkv, hd) alone,
     in either decode mode, and no paged form; a recurrent one its state
-    s: the mLSTM's (B, H, hd, hd + 1), the sLSTM's (B, 3, H, hd)."""
+    s: the mLSTM's (B, H, hd, hd + 1), the sLSTM's (B, 3, H, hd), Mamba2's
+    (B, H, d_state, hd) with its conv's tail (B, conv - 1, d_in).  A
+    ``shared_attn`` layer has the attention leaves of its own."""
     hkv, hd = cfg.n_kv_heads, cfg.hd
     if kind in ("attn_local",) + RECURRENT_KINDS and paging is not None:
         raise ValueError(f"paged caches support position-addressed "
@@ -199,6 +205,10 @@ def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
     if kind == "slstm":
         h = cfg.n_ssm_heads
         return {"s": (batch, 3, h, cfg.d_model // h)}
+    if kind == "mamba":
+        h, d_in = cfg.n_ssm_heads, cfg.d_model * cfg.ssm_expand
+        return {"s": (batch, h, cfg.ssm_state, d_in // h),
+                "tail": (batch, cfg.ssm_conv - 1, d_in)}
     if paging is None:
         kv = (batch, lay.n_seq, lay.cap_l, hkv, hd)
         rows = batch
@@ -339,7 +349,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
     bidirectionally in the kernel (``cfg.prefix_len``).  An audio model
     takes ``tokens=None`` and its frames, embeds (B, n0, D).  A recurrent
     block hands its state across the shards and keeps the sequence's end
-    state (its mLSTM in chunks of ``hp.ssm_chunk``)."""
+    state (an mLSTM or Mamba2 recurrence in chunks of ``hp.ssm_chunk``;
+    Mamba2's conv takes the previous shard's rows as its halo)."""
     check_supported(cfg)
     check_decoder(cfg, "prefill")
     b, n = (tokens if tokens is not None else embeds).shape[:2]
@@ -355,11 +366,11 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
     x = embed_inputs(cfg, params, tokens, embeds=embeds).reshape(
         b * P, n_loc, cfg.d_model)
     cache = []
-    for kind, p in zip(cfg.block_kinds, params["layers"]):
+    for kind, p in layer_blocks(cfg, params):
         if kind in RECURRENT_KINDS:
-            x, s = recurrent_block(cfg, kind, p, x, ctx, chunk=hp.ssm_chunk,
+            x, c = recurrent_block(cfg, kind, p, x, ctx, chunk=hp.ssm_chunk,
                                    return_state=True)
-            cache.append({"s": s.contiguous()})
+            cache.append(c)
             continue
         o, c, xn = prefill_attn(p, attn_spec(cfg, kind), cfg, x, ctx, lay,
                                 hp, prism_augment,
@@ -393,7 +404,7 @@ def encode(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     ctx = ShardedPrismContext(prism, n_shards=n_shards, backend=hp.backend,
                               n=n)
     x = ctx.shard(x)
-    for kind, p in zip(cfg.block_kinds, params["layers"]):
+    for kind, p in layer_blocks(cfg, params):
         o, _, _, _, xn = sharded_attn(p, attn_spec(cfg, kind), cfg, x, ctx,
                                       hp)
         x = block_residual(cfg, kind, p, x, o, xn, ctx, hp.routing)
@@ -661,7 +672,7 @@ def block_decode(cfg: ModelConfig, kind: str, p, x, c, pos,
     step's B tokens as one group; a recurrent block updates its state in
     place)."""
     if kind in RECURRENT_KINDS:
-        return recurrent_decode(cfg, kind, p, x, c["s"])
+        return recurrent_decode(cfg, kind, p, x, c)
     o, xn = attn_decode(p, attn_spec(cfg, kind), cfg, x, c, pos, lay, hp,
                         cols, lost, rep)
     return block_residual(cfg, kind, p, x, o, xn, DECODE_MOE_CTX,
@@ -719,11 +730,11 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
                        page_map),
             owner, valid, page_map, state_map,
             None if glob is None else state_rows(glob, state_map))
-    kinds = cfg.block_kinds
     ring = (ring_cols(ring_width(cfg, lay), cfg.window, pos)
-            if "attn_local" in kinds else None)
+            if "attn_local" in cfg.block_kinds else None)
     x = embed_tokens(cfg, params, token[:, None], pos[:, None])
-    for i, (kind, p, c) in enumerate(zip(kinds, params["layers"], cache)):
+    for i, ((kind, p), c) in enumerate(zip(layer_blocks(cfg, params),
+                                           cache)):
         x = block_decode(cfg, kind, p, x, c, pos, lay, hp,
                          ring if kind == "attn_local" else cols, lost,
                          None if rep is None else rep[i])

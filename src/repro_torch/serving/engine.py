@@ -65,9 +65,9 @@ Robustness, as the reference serves it:
   * gang admission (``gang=True``): the static-batching baseline.
 
 ``serving/streaming.py`` wraps the engine in the double-buffered
-streaming loop.  Other block kinds and frontends are not served yet
-(ROADMAP queue 1, item 12); the engine refuses them with a
-``ValueError`` that names the item.
+streaming loop.  Other block kinds and frontends are served on the
+static path alone, as the reference's engine refuses them too; the
+engine refuses them with a ``ValueError`` (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -235,19 +235,21 @@ class ServingEngine:
             # as the reference's engine: admission relies on a cache
             # addressed purely by global position; the ring of a
             # sliding-window layer (attn_local) holds the padded tail, and
-            # a recurrent state (mlstm, slstm) would take in the pad tokens
+            # a recurrent state (mlstm, slstm, mamba) would take in the
+            # pad tokens
             raise ValueError(
                 f"the port's engine serves global-attention and moe blocks "
                 f"only; arch {cfg.name!r} has {other}, which need a state-"
                 f"snapshot admission path (the static serve path serves "
-                f"attn_local, mlstm and slstm): ROADMAP queue 1, item 12")
+                f"attn_local, mlstm, slstm, mamba and shared_attn): ROADMAP "
+                f"queue 3")
         if cfg.arch_type == "vlm" or cfg.frontend:
             # the reference engine's words, then where the port stands
             raise ValueError(
                 f"ServingEngine serves token prompts only; arch "
                 f"{cfg.name!r} (arch_type={cfg.arch_type!r}, "
                 f"frontend={cfg.frontend!r}) needs embedding inputs: "
-                "ROADMAP queue 1, item 12")
+                "ROADMAP queue 3")
         # where the reference would serve BERT as a decoder (ROADMAP queue
         # 3): an encoder classifies through runtime.serve.encode
         check_decoder(cfg, "ServingEngine")

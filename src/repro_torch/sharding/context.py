@@ -41,7 +41,10 @@ Exchanges:
              S <- exp(log a_p)·S + u_p over the P shards of a sequence
              (the reference's ``all_gather`` and scan);
   * sLSTM:   the whole sequence, (B·P, n_loc, D) viewed as (B, N, D),
-             and back (the reference's full-sequence gather).
+             and back (the reference's full-sequence gather);
+  * halo:    a Mamba2 layer's causal conv: each shard takes the last
+             rows of the shard before it, zeros for shard 0 (the
+             reference's ``ppermute`` one shard on).
 The recurrent layers take the even split only.
 """
 from __future__ import annotations
@@ -316,6 +319,17 @@ class ShardedPrismContext(SeqContext):
             prefix.append(s)
             s = la[:, p].exp()[..., None, None] * s + u[:, p]
         return torch.stack(prefix, dim=1).reshape(u_tot.shape)
+
+    def prev_tail(self, x, size: int):
+        """x (B·P, n_loc, C) -> (B·P, size, C): shard p's halo is the last
+        ``size`` rows of shard p - 1 of its sequence, zeros for shard 0
+        (the reference's ``ppermute`` to the next shard)."""
+        self._even_only("prev_tail")
+        bp, n_loc = x.shape[:2]
+        xs = x.reshape(bp // self.P, self.P, n_loc, *x.shape[2:])
+        tail = xs[:, :self.P - 1, n_loc - size:]
+        return torch.cat([torch.zeros_like(xs[:, :1, :size]), tail],
+                         dim=1).reshape(bp, size, *x.shape[2:])
 
     def gather_sequence(self, x):
         """x (B·P, n_loc, D) -> the whole sequences (B, P·n_loc, D)."""

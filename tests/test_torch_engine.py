@@ -279,8 +279,9 @@ def test_engine_config_validation_and_defaults():
     """The reference's normalisation and refusals (offload needs the
     paged cache, faults a FaultPlan, the restart and retry bounds), the
     padded flush on the dense cache and a plan with ``shard_loss`` taken,
-    and a ValueError that names the ROADMAP item for each part this port
-    does not serve yet (other block kinds and frontends)."""
+    and a ValueError that points at ROADMAP queue 3 for each part the
+    engine does not serve, as the reference's does not (other block kinds,
+    Mamba2's included, and frontends)."""
     import dataclasses
     from repro_torch.runtime.serve import ServeHParams
     from repro_torch.serving import EngineConfig, ServingEngine
@@ -318,11 +319,12 @@ def test_engine_config_validation_and_defaults():
     assert eng.layout.placement == "rr"
     assert pg.span * pg.pages_per_row == eng.layout.cap
     assert pg.n_seq == P and pg.n_pages == 2 * pg.pages_per_row
-    for kind, item in (("mlstm", "item 12"), ("attn_local", "item 12")):
-        other = dataclasses.replace(c, blocks=(kind, "attn"))
+    for kind, item in (("mlstm", "queue 3"), ("attn_local", "queue 3"),
+                       ("mamba", "queue 3")):
+        other = dataclasses.replace(c, blocks=(kind, "attn"), ssm_state=16)
         with pytest.raises(ValueError, match=item):
             ServingEngine(other, params, EngineConfig(**base), n_seq=P)
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(ValueError, match="queue 3"):
         ServingEngine(dataclasses.replace(c, frontend="siglip_stub"),
                       params, EngineConfig(**base), n_seq=P)
     with pytest.raises(ValueError, match="capacity"):

@@ -530,7 +530,7 @@ def test_engine_refuses_local_layers(port):
     from repro_torch.runtime.serve import ServeHParams
     from repro_torch.serving import EngineConfig, ServingEngine
     cfg, params = port
-    with pytest.raises(ValueError, match="attn_local.*item 12"):
+    with pytest.raises(ValueError, match="attn_local.*queue 3"):
         ServingEngine(cfg, params, EngineConfig(
             n_slots=B, prefill_len=N, max_cache=CAP, hp=ServeHParams()),
             n_seq=P)

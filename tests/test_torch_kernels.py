@@ -296,6 +296,24 @@ def test_attention_3xtf32_tiles_match_plain(causal, window, shuffle):
     assert shuffle or skipped > 0
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_3xtf32_tiles_match_plain_at_head_dim_80(causal):
+    """The prefill kernel's 3xTF32 arithmetic and tile skipping at head
+    dim 80 (Zamba2: 10 k-steps of QK^T, 10 n-tiles of PV) within the
+    kernel-vs-plain tolerance of the f32 plain version, Nq 130 over M
+    200, off the 64-row and 32-column tiles."""
+    q, k, v, g, lo, hi, row = attention_case(2, 130, 150, 50, 4, 4, 80,
+                                             seed=22)
+    log_g = torch.where(T(g) > 0, T(g).log(), torch.tensor(NEG_INF))
+    got, _ = _attention_3xtf32(T(q), T(k), T(v), log_g, T(lo), T(hi),
+                               T(row), causal=causal, window=None)
+    want = prism_attention_reference(T(q), T(k), T(v), log_g[None],
+                                     T(lo)[None], T(hi)[None], T(row)[None],
+                                     causal=causal)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                               rtol=2e-4)
+
+
 # ---------------------------------------------------------------------
 # segment means
 # ---------------------------------------------------------------------
@@ -764,6 +782,46 @@ def test_decode_3xtf32_tiles_match_plain_at_head_dim_128(means):
         b, -1, 32).any(-1)).sum()) if means else 0)
 
 
+@pytest.mark.parametrize("means", [False, True])
+def test_decode_3xtf32_tiles_match_plain_at_head_dim_80(means):
+    """The tile route's arithmetic at head dim 80 (Zamba2's 32 heads of
+    80, MHA: its decode takes the row route, and the tile route is built
+    and checked on the same layout): QK^T's 10 k-steps as a chain of 8
+    and one of 2 added in f32, the rest as at head dim 64, within the
+    decode kernel's (1e-5, 1e-5) tolerance of the f32 plain version; 2
+    rows of 4 shards of cap_l 144 at the last decode step, 4 heads of a
+    group of 1, with means: the prism layout's 128 columns."""
+    from repro_torch.core.attention import log_repeats
+    from repro_torch.runtime.serve import (ServeHParams, _decode_cols,
+                                           make_layout, prism_gz)
+    n_seq, hkv, hd = 4, 4, 80
+    assert TD.decode_route(hkv, hkv, True) == "row"
+    lay = make_layout(n_seq, 576, ServeHParams(decode_mode="prism",
+                                               means_cr=4.0),
+                      prefill_len=512)
+    pos = torch.full((2,), 574)
+    _, _, col_pos = _decode_cols(lay, pos)
+    valid = (col_pos[None] <= pos[:, None, None]).reshape(-1, lay.cap_l)
+    b = valid.shape[0]
+    rng = np.random.default_rng(80)
+
+    def rnd(*shape):
+        return T((0.5 * rng.standard_normal(shape)).astype(np.float32))
+    args = [rnd(2, 1, hkv, hd), rnd(b, lay.cap_l, hkv, hd),
+            rnd(b, lay.cap_l, hkv, hd), valid]
+    if means:
+        cols = means_columns(n_seq, lay.n_loc0, lay.L, torch.device("cpu"))
+        m = n_seq * lay.L
+        log_gz = log_repeats(prism_gz(cols, cols.sizes, pos)).reshape(b, m)
+        args += [log_gz, rnd(2, m, hkv, hd), rnd(2, m, hkv, hd)]
+    scale = hd ** -0.5
+    got, _ = _decode_3xtf32(*args, scale=scale)
+    want = TD.decode_stats_reference(*args, scale=scale)
+    for g, w, name in zip(got, want, ("m", "l", "acc")):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
 @pytest.mark.parametrize("layout", ["global", "global_prism", "ring"])
 def test_decode_3xtf32_tiles_match_plain_at_head_dim_256(layout):
     """The tile route's arithmetic at Gemma 3 1B's static decode (4 query
@@ -1038,12 +1096,12 @@ def _c_params(lib, entry):
     return [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256, 96])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256, 96])
 def test_wrappers_take_head_dims_64_and_128(monkeypatch, hd):
     """The prefill kernel and both decode routes take head dim 64
-    (GPT-2), 128 (the Llama family) and 256 (Gemma 3) and pass it to
-    their C entry as ``hd``; any other head dim raises before a
-    launch."""
+    (GPT-2), 80 (Zamba2), 128 (the Llama family) and 256 (Gemma 3) and
+    pass it to their C entry as ``hd``; any other head dim raises before
+    a launch."""
     import contextlib
     import types
     from repro_torch.kernels import prism_attention as TP
@@ -1062,7 +1120,7 @@ def test_wrappers_take_head_dims_64_and_128(monkeypatch, hd):
     for mod in (TD, TP):
         monkeypatch.setattr(mod, "check_tensor", lambda *a, **k: None)
     dispatch.LAUNCHES.clear()
-    assert TP.HEAD_DIMS == TD.HEAD_DIMS == (64, 128, 256)
+    assert TP.HEAD_DIMS == TD.HEAD_DIMS == (64, 80, 128, 256)
     q, k, v, g, lo, hi, row = attention_case(2, 8, 8, 4, 8, 2, hd)
     meta = (T(np.log(g))[None], T(lo)[None], T(hi)[None], T(row)[None])
     c_row = decode_case(2, 8, 2, 2, hd)                  # group 1: row
@@ -1075,7 +1133,7 @@ def test_wrappers_take_head_dims_64_and_128(monkeypatch, hd):
         lambda: TD.flash_decode_stats(
             *[T(c_tile[n]) for n in ("q", "k", "v", "valid")],
             scale=c_tile["scale"])]
-    if hd not in (64, 128, 256):
+    if hd not in (64, 80, 128, 256):
         for call in launches:
             with pytest.raises(ValueError, match=f"head dim {hd} not in"):
                 call()

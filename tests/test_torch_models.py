@@ -112,16 +112,17 @@ def test_layers_match_reference():
 
 def test_unported_configs_raise():
     with pytest.raises(KeyError, match="not ported"):
-        get_config("zamba2-2.7b")
+        get_config("mamba-codestral-7b")
     cfg = get_config("gpt2-small")
     import dataclasses
     # RoPE, RMSNorm and SwiGLU (the Llama family), qk-norm, GeGLU, local
     # layers and embed_scale (Gemma 3), MoE blocks (OLMoE, arctic), an
     # encoder's class head, ViT's patch stub, Command-R's parallel block,
     # PaliGemma's SigLIP stub and image prefix (a vlm's), MusicGen's
-    # sinusoidal positions and EnCodec stub and xLSTM's mLSTM / sLSTM
-    # blocks are ported; the ReLU MLP, logit soft-capping, Mamba blocks,
-    # a prefix outside a vlm and a parallel MoE block are not
+    # sinusoidal positions and EnCodec stub, xLSTM's mLSTM / sLSTM blocks
+    # and Zamba2's Mamba2 and shared attention blocks are ported; the ReLU
+    # MLP, logit soft-capping, Mamba blocks without a state size, a prefix
+    # outside a vlm and a parallel MoE block are not
     for over in (dict(mlp_kind="relu"),
                  dict(logit_softcap=30.0),
                  dict(blocks=("mamba",) * cfg.n_layers),
@@ -140,7 +141,9 @@ def test_unported_configs_raise():
                  dict(arch_type="vlm", frontend="siglip_stub",
                       prefix_len=16),
                  dict(pos="sincos"),
-                 dict(blocks=("mlstm", "slstm") * 6, pos="none")):
+                 dict(blocks=("mlstm", "slstm") * 6, pos="none"),
+                 dict(blocks=("mamba",) * cfg.n_layers, ssm_state=16),
+                 dict(blocks=("mamba", "shared_attn") * 6, ssm_state=16)):
         TT.check_supported(dataclasses.replace(cfg, **over))
     with pytest.raises(NotImplementedError):
         TL.mlp({}, torch.zeros(2), "relu")
@@ -150,17 +153,13 @@ def test_unported_configs_raise():
                                   "zamba2-2.7b"])
 def test_reference_families_left_are_refused(arch):
     """The reference's last families, their configs as they stand there:
-    MusicGen (sinusoidal positions, the EnCodec stub) and xLSTM (mLSTM /
-    sLSTM blocks) are accepted, and are the port's own configs; Zamba2
-    (Mamba and shared attention blocks) is still refused."""
+    MusicGen (sinusoidal positions, the EnCodec stub), xLSTM (mLSTM /
+    sLSTM blocks) and Zamba2 (Mamba2 and shared attention blocks) are
+    accepted, and are the port's own configs, field for field."""
     from repro_torch.models.config import ModelConfig
     ref = j_get_config(arch)
     fields = {f: getattr(ref, f) for f in ref.__dataclass_fields__}
     cfg = ModelConfig(**fields)
-    if arch == "zamba2-2.7b":
-        with pytest.raises(NotImplementedError):
-            TT.check_supported(cfg)
-        return
     TT.check_supported(cfg)
     assert cfg == get_config(arch)
 

@@ -570,8 +570,8 @@ def test_position_addressed_programs_refuse_xlstm(port, program):
     hp = ServeHParams()
     lay = make_layout(P, 36, hp, prefill_len=32)
     t = torch.zeros(4, dtype=torch.long)
-    words = {"engine": "static serve path serves attn_local, mlstm and "
-                       "slstm",
+    words = {"engine": "static serve path serves attn_local, mlstm, "
+                       "slstm, mamba and shared_attn",
              "launcher": "static serve path serves",
              "chunk": "block kind 'mlstm'", "packed": "block kind 'mlstm'",
              "paged": "block kind 'slstm'"}[program]
