@@ -73,6 +73,13 @@ Phases, one JSON line each:
             both decode routes at the chunk layout and, for the
             crossover, at its cache rows with folded groups of 1, 2, 4,
             8, 16, 32, 40, 64 and 128 query heads a KV head.
+            Then the attention kernel at head dim 32, the accuracy
+            protocol's char-LM (``check_charlm_kernels``: 4 heads of 32,
+            B 16 x 120 at CR 4 over P 2, 3 and 4 in prism, prism_nodup
+            and voltage; duplicate runs prism's columns), each layout
+            checked and timed, and the means kernel's two entries at
+            its D 128 for every (P, CR) the protocol scores, timed at
+            CR 4.
             Times are event pairs (``ms``, over a floor of about 5 us,
             ``floor_ms``) and, for the kernels, the profiler's kernel
             durations (``device_ms``).
@@ -148,8 +155,8 @@ Phases, one JSON line each:
             (a) ``stream``: ``StreamingEngine`` (double-buffered, tick
             N+1 dispatched before tick N's tokens are home; inputs in one
             non-blocking copy from pinned memory, the (8, 4) result array
-            the one copy home) in packed exact and prism, overlap on and
-            off in turns (on, off, off, on): tokens equal to phase 6's
+            the one copy home) in packed exact and prism, overlap on,
+            then off: tokens equal to phase 6's
             synchronous paged run (a
             request may part only at a near-tie), every stream delivering
             its tokens; wall s, tokens/s, TTFT, ITL p50/p99 and
@@ -171,8 +178,8 @@ Phases, one JSON line each:
             ``prism_flash_attention`` launches once a layer a flush,
             ``segment_means`` too in prism mode; ms per flush.  (d)
             ``gang``: gang admission in packed exact, held to phase 6's
-            paged run, in turns with the continuous engine (continuous,
-            gang, gang, continuous); wall and tokens/s of each.
+            paged run, after the continuous engine (continuous, then
+            gang); wall and tokens/s of each.
             Every run drains leak-free.
 9. path     the Llama family: Yi-6B at full width (of 32 layers, d 4096,
             32 query heads over 4 KV heads of 128, SwiGLU d_ff 11008,
@@ -181,7 +188,7 @@ Phases, one JSON line each:
             shapes: phase 4's static pairings on its first 8 layers
             (``STATIC_DEPTH``), phase 5's chunked and packed paths in
             both modes and phase 6's engine in packed exact and packed
-            prism on its first 8 (``TICK_DEPTH``), cut for the script's
+            prism on its first 4 (``TICK_DEPTH``), cut for the script's
             time limit, under the same checks and traces.
             The static and engine decode steps take the decode kernel's
             tile route (a group of 8, no row map), the packed ticks the
@@ -204,10 +211,10 @@ Phases, one JSON line each:
             layers, d 2048, 16 heads of 128, qk-norm, 64 experts
             top-8 of SwiGLU d_ff 1024 at capacity factor 1.25, untied head
             over 50304), f32 weights from torch.Generator seed 0 on the
-            card, at the main path's shapes on its first 8 layers: phase
-            4's static pairings (``STATIC_DEPTH``), then phase 5's
+            card, at the main path's shapes: phase 4's static pairings
+            on its first 8 layers (``STATIC_DEPTH``), then phase 5's
             chunked and packed paths in both modes and phase 6's engine
-            runs (paged) (``TICK_DEPTH``, as phase 9).  Capacity counts per routing group
+            runs (paged) on its first 4 (``TICK_DEPTH``, as phase 9).  Capacity counts per routing group
             (a prefill shard; a decode step's, chunk call's or packed
             tick's tokens), so every run is held to its backend='plain'
             twin: the counted and timed run records its routing (no
@@ -218,8 +225,8 @@ Phases, one JSON line each:
 12. path    Gemma 7B at full width (of 28 layers, d 3072, 16 heads of
             256, GeGLU d_ff 24576, sqrt(d) input scaling, tied head over
             256000), the same paths under phases 4-6's references (the
-            static path on its first 8 layers, ``STATIC_DEPTH``, as the
-            tick and engine paths).
+            static path on its first 8 layers, ``STATIC_DEPTH``, the
+            tick and engine paths on 4, ``TICK_DEPTH``).
             Before both, phase 3 checks and times the three kernels at
             their layouts (``check_family``): attention PRISM and
             Voltage, segment means and the augment at D 2048 and 3072,
@@ -266,9 +273,9 @@ Phases, one JSON line each:
             KV heads of 128, the parallel block, LayerNorm, SwiGLU d_ff
             22528, RoPE theta 8e6, tied head over 256000), f32 weights
             from torch.Generator seed 0 on the card: its first 8
-            layers (``STATIC_DEPTH``, ``TICK_DEPTH``; 40 are 121 GB)
-            through phase 4's static pairings, phase 5's tick paths and
-            phase 6's engine runs, under phases
+            layers (``STATIC_DEPTH``; 40 are 121 GB) through phase 4's
+            static pairings, its first 4 (``TICK_DEPTH``) through phase
+            5's tick paths and phase 6's engine runs, under phases
             4-6's references.  Before both, phase 3 checks and times the
             three kernels at their layouts (``check_family``): attention
             at hd 256 with the image prefix, and with its end swept
@@ -347,8 +354,36 @@ Phases, one JSON line each:
             and prism layouts on both routes.  Phases 9-12 run in one
             child process of the script, 13-17 in another, 18 in a third
             (``drive_apart``, ``CHILD_ARG``).
+19. path    training and the accuracy path, in a fourth child process.
+            (a) ``train``: GPT-2 small at full width and depth through
+            ``repro_torch.launch.train``'s code (f32 weights from
+            torch.Generator seed 0, B 8 x 512 of the reference's
+            synthetic character corpus, P 4, CR 4, prism, lr 3e-4 with
+            a warm-up of 3, remat on, 30 steps): step 0's loss and
+            every gradient leaf held to the same step in float64 (the
+            plain path, parameters cast on the card) within the
+            reference runner's 2e-4 and 5e-3 of max(1e-6, the leaf's
+            largest |grad|); a step whose context takes
+            backend='auto' must raise (a kernel under autograd) before
+            any launch; the 30 steps launch none of the three kernels
+            and take the loss below 0.7 x the first; ms a step (CUDA
+            events, median over steps 5-29), tokens/s, peak memory; a
+            trace of one step; a checkpoint round trip in the
+            reference's layout (bit-equal parameters, equal loss);
+            ``score`` through the kernels within 1e-4 of
+            backend='plain', attention and segment means once a layer.
+            (b) ``train/charlm``: benchmarks/accuracy_vs_cr.py's
+            protocol (``CharLM``: its char-LM, corpora and seeds; 400
+            steps at lr 3e-3, the loss below 0.7 x the first; bits per
+            character single, at CR 1 for P 2, 3, 4 within 5e-3 of
+            single, CR 2, 4, 8 at P 2 and 3 with the trend reported,
+            Table II's prism against prism_nodup at CR 4, and at P 3, CR
+            8 before and after 150 steps of fine-tuning under
+            SimulatedContext), every bpc scored under SimulatedContext
+            and through the kernels (``score``), the two within 1e-4 of
+            the largest |logit| and 1e-4 bits; one line per setting.
    total    the script's seconds so far.
-19. kernels one line listing every kernel with its numbers: ``ms`` is
+20. kernels one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -375,7 +410,10 @@ Phases, one JSON line each:
             (Zamba2's at head dim 80 and D 2560); ``xlstm``
             its launches on phase 17's path (none); ``bert`` and
             ``vit`` at phase 13's (the decode kernel has none) with the
-            launches there.
+            launches there; ``charlm`` the attention kernel's and the
+            means kernel's numbers at phase 3's char-LM layouts, and
+            ``train`` each kernel's
+            launches on phase 19's runs (none in the train steps).
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -3799,8 +3837,9 @@ def stream_window(torch, cfg, params, mode, overlap, prompts):
 
 def drive_streaming(torch, cfg, params, prompts, phase6, card):
     """(a): the trace through ``StreamingEngine`` in packed exact and prism,
-    overlap on and off in turns (on, off, off, on: host time moves a lot
-    between runs); tokens held to phase 6's synchronous paged run; then
+    overlap on, then off (two turns: the script's time limit; host time
+    moves between runs, PERF.md §4); tokens held to phase 6's synchronous
+    paged run; then
     a profiled window of each.  On the overlapped path no host
     synchronisation may happen inside a window but the reconcile's event
     wait (the card's sync debug mode names any other); returns the
@@ -3811,7 +3850,7 @@ def drive_streaming(torch, cfg, params, prompts, phase6, card):
     launches, syncs = {}, {}
     for mode in ("exact", "prism"):
         windows = {}
-        for turn, overlap in enumerate((True, False, False, True)):
+        for turn, overlap in enumerate((True, False)):
             tag = "overlap" if overlap else "sync"
             path = f"stream/{mode}/{tag}/{1 + turn // 2}"
             eng = ServingEngine(cfg, params, engine_config(mode),
@@ -4091,15 +4130,16 @@ def drive_padded(torch, cfg, params, prompts, card):
 
 def drive_gang(torch, cfg, params, prompts, phase6, card):
     """(d): gang admission (static batching) in packed exact, 8 requests
-    into the empty pool, the next 8 once all of them finished, in turns
-    with the continuous engine (continuous, gang, gang, continuous: host
-    time moves a lot between runs); every run's tokens and logits held to
+    into the empty pool, the next 8 once all of them finished, after the
+    continuous engine (continuous, then gang: two turns, the script's time
+    limit; host time moves between runs); every run's tokens and logits
+    held to
     phase 6's continuous paged run; wall time and tokens/s of each."""
     import time
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.serving import ServingEngine
     launches = {}
-    for turn, gang in enumerate((False, True, True, False)):
+    for turn, gang in enumerate((False, True)):
         path = f"{'gang' if gang else 'continuous'}/exact/{1 + turn // 2}"
         eng = ServingEngine(cfg, params, engine_config("exact", gang=gang),
                             n_seq=SHARDS)
@@ -4157,11 +4197,11 @@ TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
 
 # the engine runs of phase 9: packed exact and packed prism
 LLAMA_ENGINE_RUNS = (("packed", "exact"), ("packed", "prism"))
-# phases 9, 11, 12 and 15's tick and engine paths serve the first 8
+# phases 9, 11, 12 and 15's tick and engine paths serve the first 4
 # layers of Yi-6B (of 32), OLMoE-1B-7B (of 16), Gemma 7B (of 28) and
-# Command-R (of 40); widths full.  With Yi's alone cut the whole script
-# took 1,118 s of its 1,200 s limit on an H100 (PERF.md §4)
-TICK_DEPTH = 8
+# Command-R (of 40); widths full.  At 8 the whole script with phase 19
+# took 1,289 s of its 1,200 s limit on a slow host (PERF.md §4)
+TICK_DEPTH = 4
 # the static paths served on their first layers only, all widths full:
 # Command-R's 40 layers of f32 weights are 121 GB; Yi-6B, Gemma 7B and
 # Zamba2 (whole 6-layer units) are cut so that phase 18 fits the
@@ -4496,6 +4536,409 @@ def drive_encoders(torch):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training and the accuracy path
+# ---------------------------------------------------------------------------
+
+# (a) GPT-2 small at full width and depth: the launcher's steps at the
+# main path's B 8 x 512 over P 4, CR 4, prism, lr 3e-4 (warm-up 3)
+TRAIN_STEPS, TRAIN_LR = 30, 3e-4
+# steps 5.. of the run are timed (the first ones allocate and warm up)
+TRAIN_TIMED_FROM = 5
+# step 0 against the same step in float64 (the plain path, parameters and
+# inputs cast on the card): the reference runner's limits
+# (tests/shard_equiv_runner.py): the loss absolutely, each gradient leaf
+# over max(1e-6, its largest |grad|)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 2e-4, 5e-3
+# the rule benchmarks/accuracy_vs_cr.py holds its own training to
+TRAIN_FALL = 0.7
+# (b) the accuracy protocol of benchmarks/accuracy_vs_cr.py: its char-LM
+# (4 layers, d 128, 4 heads of 32), SEQ 120 (a multiple of P 2, 3, 4),
+# BATCH 16, 400 steps at lr 3e-3, 8 held-out batches; CR 1 within 5e-3 of
+# the single-device bpc; the CR trend monotonic within 2e-2; 150 steps of
+# fine-tuning at P 3, CR 8, lr 1e-3
+CHAR_SEQ, CHAR_BATCH = 120, 16
+CHAR_STEPS, CHAR_LR, CHAR_FT_STEPS, CHAR_FT_LR = 400, 3e-3, 150, 1e-3
+CR1_TOL, TREND_SLACK = 5e-3, 2e-2
+# where set, the directory phase 19 saves the trained char-LM to (the
+# reference's checkpoint layout, before fine-tuning), for the reference's
+# own protocol to score on the CPU: ``python tests/test_torch_train.py
+# --table2 DIR``
+CHARLM_KEEP_ENV = "CHIP_SMOKE_CHARLM_DIR"
+# a bpc scored through the kernels (``score``) against the same under
+# SimulatedContext: the logits within PATH_REL_TOL of the largest
+# |logit|, the bpc within this many bits
+BPC_TOL = 1e-4
+
+
+def char_lm_config():
+    """The accuracy protocol's char-LM (benchmarks/accuracy_vs_cr.py)."""
+    from repro_torch.data.pipeline import CharTokenizer
+    from repro_torch.models.config import ModelConfig
+    return ModelConfig(
+        name="char-lm", arch_type="dense", n_layers=4, d_model=128,
+        n_heads=4, n_kv_heads=4, head_dim=32, d_ff=256,
+        vocab_size=CharTokenizer().vocab, mlp_kind="gelu",
+        norm_kind="rmsnorm", pos="rope", tie_embeddings=True)
+
+
+class CharLM:
+    """The harness of benchmarks/accuracy_vs_cr.py on the port: its
+    corpora, seeds and char-LM, trained under FullContext (or a
+    SimulatedContext to fine-tune) with AdamW (weight decay 0.01, clip
+    1.0, a constant lr); bits per character on its 8 held-out batches,
+    teacher-forced, under the port's SimulatedContext (``bpc``, the
+    reference's protocol) or through ``score`` over sequence shards
+    (``bpc_scored``).  ``seq``, ``batch`` and the corpora's lengths shrink
+    for the CPU tests."""
+
+    def __init__(self, torch, device, *, seq=CHAR_SEQ, batch=CHAR_BATCH,
+                 train_chars=200_000, held_chars=20_000, n_eval=8):
+        from repro_torch.data.pipeline import (CharTokenizer, lm_batches,
+                                               synthetic_text)
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import adamw_init
+        self.torch, self.device = torch, device
+        tok = CharTokenizer()
+        self.train_it = lm_batches(tok.encode(synthetic_text(train_chars, 1)),
+                                   batch=batch, seq=seq, seed=0)
+        held = lm_batches(tok.encode(synthetic_text(held_chars, 2)),
+                          batch=batch, seq=seq, seed=9)
+        self.eval_batches = [tuple(torch.as_tensor(a, device=device).long()
+                                   for a in next(held))
+                             for _ in range(n_eval)]
+        self.cfg = char_lm_config()
+        self.params = T.init(self.cfg, torch.Generator(
+            device=device).manual_seed(0), device)
+        self.opt = adamw_init(self.params)
+
+    def logits(self, params, x, prism=None):
+        from repro_torch.models import transformer as T
+        from repro_torch.models.context import SimulatedContext
+        ctx = SimulatedContext(prism) if prism is not None else None
+        return T.forward(self.cfg, params, x, ctx=ctx, chunk=8)
+
+    def train(self, steps, prism=None, lr=CHAR_LR):
+        """-> (first loss, last loss, the losses)."""
+        from repro_torch.optim import adamw_update, clip_by_global_norm
+        from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+        from repro_torch.runtime.losses import softmax_xent
+        torch = self.torch
+        losses = []
+        for _ in range(steps):
+            x, y = (torch.as_tensor(a, device=self.device).long()
+                    for a in next(self.train_it))
+            leaves = [t.detach().requires_grad_(True)
+                      for t in tree_leaves(self.params)]
+            p = tree_unflatten(self.params, leaves)
+            loss = softmax_xent(self.logits(p, x, prism), y)
+            grads = tree_unflatten(self.params,
+                                   torch.autograd.grad(loss, leaves))
+            grads, _ = clip_by_global_norm(grads, 1.0)
+            self.params, self.opt = adamw_update(
+                self.params, grads, self.opt, lr=lr, weight_decay=0.01)
+            losses.append(loss.detach())
+        losses = [float(v) for v in losses]
+        return losses[0], losses[-1], losses
+
+    def bpc(self, prism=None):
+        """-> (bpc, the logits of every held-out batch) under the port's
+        SimulatedContext (FullContext without ``prism``)."""
+        from repro_torch.runtime.losses import softmax_xent
+        with self.torch.no_grad():
+            logits = [self.logits(self.params, x, prism)
+                      for x, _ in self.eval_batches]
+        nll = sum(float(softmax_xent(lg, y))
+                  for lg, (_, y) in zip(logits, self.eval_batches))
+        return nll / len(logits) / math.log(2), logits
+
+    def bpc_scored(self, prism=None, backend="auto"):
+        """-> (bpc, logits) through ``score`` over ``prism.P`` shards (one
+        shard, 'single', without ``prism``)."""
+        from repro_torch.core.protocol import PrismConfig
+        from repro_torch.runtime.losses import softmax_xent
+        from repro_torch.runtime.serve import ServeHParams, score
+        prism = prism or PrismConfig(P=1, mode="single")
+        hp = ServeHParams(backend=backend)
+        logits = [score(self.cfg, self.params, x, prism=prism,
+                        n_shards=prism.P, hp=hp)
+                  for x, _ in self.eval_batches]
+        nll = sum(float(softmax_xent(lg, y))
+                  for lg, (_, y) in zip(logits, self.eval_batches))
+        return nll / len(logits) / math.log(2), logits
+
+
+def tree_err(got, want):
+    """The largest gradient error over the leaves of two trees, each leaf's
+    over max(1e-6, its largest |want|) (the reference runner's rule),
+    and the leaf it is at."""
+    from repro_torch.checkpoint.io import flatten
+    worst, at = 0.0, None
+    g, w = flatten(got), flatten(want)
+    for key in w:
+        a, b = g[key].astype("float64"), w[key].astype("float64")
+        err = float(abs(a - b).max() / max(1e-6, float(abs(b).max())))
+        if err > worst:
+            worst, at = err, key
+    return worst, at
+
+
+def train_gpt2(torch, card):
+    """(a): GPT-2 small at full width and depth through the launcher's
+    code (``setup``, ``corpus_batches``, its step): step 0 held to
+    float64, 30 steps timed and traced, the loss falling, no kernel
+    launched, a kernel run under autograd refused; a checkpoint round
+    trip; ``score`` through the kernels held to its plain version.
+    Returns the launches of each run."""
+    import tempfile
+    import time
+    from repro_torch.checkpoint.io import (latest_step, restore_checkpoint,
+                                           save_checkpoint)
+    from repro_torch.convert import from_jax_numpy, to_jax_numpy
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch import train as TL
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.runtime.losses import softmax_xent
+    from repro_torch.runtime.serve import ServeHParams, score
+    from repro_torch.runtime.train import loss_and_grads, to_batch
+    from repro_torch.sharding.context import ShardedPrismContext
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    run = TL.setup(ARCH, seq_shards=SHARDS, mode="prism", cr=CR,
+                   lr=TRAIN_LR, steps=TRAIN_STEPS, device=dev, seed=0)
+    cfg = run.cfg
+    # the launcher's first batch, drawn again below by its own iterator
+    x0, y0 = next(TL.corpus_batches(BATCH, PROMPT))
+    batch0 = to_batch({"tokens": x0, "labels": y0}, dev)
+    ctx = ShardedPrismContext(run.prism, n_shards=SHARDS, backend="plain")
+    nll, _, grads = loss_and_grads(cfg, run.params, batch0, ctx, run.hp)
+    p64 = tree_map(lambda t: t.double(), run.params)
+    nll64, _, grads64 = loss_and_grads(cfg, p64, batch0, ctx, run.hp)
+    loss_err = abs(float(nll) - float(nll64))
+    grad_err, grad_at = tree_err(grads, grads64)
+    if loss_err > TRAIN_LOSS_TOL or grad_err > TRAIN_GRAD_TOL:
+        raise AssertionError(
+            f"train/gpt2: step 0 against float64: loss {loss_err:.3e} "
+            f"(limit {TRAIN_LOSS_TOL}), gradient {grad_err:.3e} at "
+            f"{grad_at} (limit {TRAIN_GRAD_TOL})")
+    del p64, grads64, grads
+    torch.cuda.empty_cache()
+
+    # a kernel under autograd: the context's backend='auto' must raise
+    auto = ShardedPrismContext(run.prism, n_shards=SHARDS, backend="auto")
+    LAUNCHES.clear()
+    try:
+        loss_and_grads(cfg, run.params, batch0, auto, run.hp)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        refused = str(e).splitlines()[0]
+    else:
+        raise AssertionError("train/gpt2: a train step with "
+                             "backend='auto' ran on the card")
+    if sum(LAUNCHES.values()):
+        raise AssertionError(f"train/gpt2: the refused step launched "
+                             f"{dict(LAUNCHES)}")
+
+    # the launcher's steps, the first on the batch held to float64
+    events, inner = [], run.step
+
+    def timed(params, opt, batch):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = inner(params, opt, batch)
+        e.record()
+        events.append((s, e))
+        return out
+    run.step = timed
+    lines = []
+    batches = TL.corpus_batches(BATCH, PROMPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    w0 = time.perf_counter()
+    hist = TL.train(run, batches, TRAIN_STEPS, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    step_counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    run.step = inner
+    for ln in lines:
+        print(ln, flush=True)
+    if any(step_counts.get(name, 0) for name in TOL):
+        raise AssertionError(f"train/gpt2: the train steps launched "
+                             f"{step_counts}")
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(v) for v in losses) or not (
+            losses[-1] < TRAIN_FALL * losses[0]):
+        raise AssertionError(f"train/gpt2: the loss went {losses[0]:.4f} "
+                             f"-> {losses[-1]:.4f} (must fall below "
+                             f"{TRAIN_FALL} x the first)")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    ms = statistics.median(step_ms[TRAIN_TIMED_FROM:])
+    x, y = next(batches)
+    trace = device_breakdown(trace_window(torch, lambda: run.step(
+        run.params, run.opt, {"tokens": x, "labels": y})), 1)
+    emit("path", path="train", arch=ARCH, card=card, batch=BATCH,
+         seq=PROMPT, shards=SHARDS, cr=CR, mode="prism", steps=TRAIN_STEPS,
+         lr=TRAIN_LR, warmup=run.hp.warmup, remat=run.hp.remat,
+         ms_per_step=ms, step_ms=step_ms,
+         tokens_per_s=BATCH * PROMPT / (ms / 1e3), wall_s=wall,
+         peak_memory_bytes=peak, loss_first=losses[0], loss_last=losses[-1],
+         losses=losses, gnorm=[h["gnorm"] for h in hist],
+         lr_by_step=[h["lr"] for h in hist],
+         f64={"loss_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
+              "grad_err": grad_err, "grad_at": grad_at,
+              "grad_tol": TRAIN_GRAD_TOL},
+         refused_under_autograd=refused, launches=step_counts)
+    emit("trace", path="train", arch=ARCH, card=card, step=trace)
+
+    # a checkpoint round trip in the reference's layout
+    ref = ServeHParams(backend="plain")
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, TRAIN_STEPS, to_jax_numpy(cfg, run.params))
+        tree = restore_checkpoint(d, latest_step(d),
+                                  to_jax_numpy(cfg, run.params))
+    back = from_jax_numpy(cfg, tree, device=dev)
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                 tree_leaves(run.params))):
+        raise AssertionError("train/gpt2: the restored parameters differ")
+    xs, ys = (torch.as_tensor(a, device=dev).long() for a in next(batches))
+    with torch.no_grad():
+        kw = dict(prism=run.prism, n_shards=SHARDS)
+        LAUNCHES.clear()
+        got = score(cfg, run.params, xs, hp=ServeHParams(), **kw)
+        score_counts = dict(LAUNCHES)
+        want = score(cfg, run.params, xs, hp=ref, **kw)
+        restored = score(cfg, back, xs, hp=ref, **kw)
+    check_launches("train/gpt2/score", score_counts,
+                   {"prism_flash_attention": cfg.n_layers,
+                    "segment_means": cfg.n_layers,
+                    "flash_decode_stats": 0})
+    err = rel_err(got, want)
+    loss_k, loss_p = (float(softmax_xent(t, ys)) for t in (got, want))
+    if err > PATH_REL_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"train/gpt2/score: logits {err:.3e} from "
+                             f"backend='plain' (limit {PATH_REL_TOL})")
+    if float(softmax_xent(restored, ys)) != loss_p:
+        raise AssertionError("train/gpt2: the restored parameters score "
+                             "another loss")
+    emit("path", path="train/score", arch=ARCH, card=card, batch=BATCH,
+         seq=PROMPT, rel_err=err, tol=PATH_REL_TOL, loss_kernels=loss_k,
+         loss_plain=loss_p, checkpoint="bit-equal, loss equal",
+         launches=score_counts, seconds=time.perf_counter() - t0)
+    del run, back, got, want, restored
+    torch.cuda.empty_cache()
+    return {"train/gpt2/steps": step_counts,
+            "train/gpt2/score": score_counts}
+
+
+def char_setting(torch, h, card, name, prism, launches, need_means):
+    """One bpc of the protocol, scored twice: under SimulatedContext and
+    through the kernels (``score``); held to each other, one ``path``
+    line; returns the SimulatedContext bpc."""
+    from repro_torch.kernels.dispatch import LAUNCHES
+    bpc, sim = h.bpc(prism)
+    LAUNCHES.clear()
+    with torch.no_grad():
+        bpc_k, kern = h.bpc_scored(prism)
+    counts = dict(LAUNCHES)
+    n = len(h.eval_batches) * h.cfg.n_layers
+    check_launches(f"train/charlm/{name}", counts, {
+        "prism_flash_attention": n,
+        "segment_means": n if need_means else 0, "flash_decode_stats": 0})
+    err = max(rel_err(a, b) for a, b in zip(kern, sim))
+    if err > PATH_REL_TOL or abs(bpc_k - bpc) > BPC_TOL:
+        raise AssertionError(
+            f"train/charlm/{name}: score through the kernels {err:.3e} "
+            f"from SimulatedContext (limit {PATH_REL_TOL}), bpc {bpc_k:.6f} "
+            f"against {bpc:.6f} (limit {BPC_TOL})")
+    launches[f"train/charlm/{name}"] = counts
+    emit("path", path="train/charlm", setting=name, card=card,
+         mode=None if prism is None else prism.mode,
+         P=1 if prism is None else prism.P,
+         cr=None if prism is None else prism.cr,
+         L=None if prism is None else prism.landmarks(CHAR_SEQ),
+         bpc=bpc, bpc_scored=bpc_k, bpc_diff=bpc_k - bpc, rel_err=err,
+         tol=PATH_REL_TOL, bpc_tol=BPC_TOL, launches=counts)
+    return bpc
+
+
+def train_char_lm(torch, card):
+    """(b): benchmarks/accuracy_vs_cr.py's protocol on the card.  Returns
+    the launches of each scored setting."""
+    import time
+    from repro_torch.core.protocol import PrismConfig
+    t0 = time.perf_counter()
+    h = CharLM(torch, torch.device("cuda"))
+    first, last, _ = h.train(CHAR_STEPS)
+    if not last < TRAIN_FALL * first:
+        raise AssertionError(f"train/charlm: the char-LM failed to train "
+                             f"({first:.4f} -> {last:.4f})")
+    emit("path", path="train/charlm", setting="train", card=card,
+         steps=CHAR_STEPS, lr=CHAR_LR, loss_first=first, loss_last=last,
+         seconds=time.perf_counter() - t0)
+    if os.environ.get(CHARLM_KEEP_ENV):
+        from repro_torch.checkpoint.io import save_checkpoint
+        from repro_torch.convert import to_jax_numpy
+        save_checkpoint(os.environ[CHARLM_KEEP_ENV], CHAR_STEPS,
+                        to_jax_numpy(h.cfg, h.params))
+    launches = {}
+    base = char_setting(torch, h, card, "single", None, launches, False)
+    cr1 = {}
+    for p in (2, 3, 4):
+        cr1[p] = char_setting(torch, h, card, f"P{p}-CR1",
+                              PrismConfig(P=p, L=CHAR_SEQ // p), launches,
+                              True)
+        if abs(cr1[p] - base) > CR1_TOL:
+            raise AssertionError(f"train/charlm: P {p} at CR 1 gives bpc "
+                                 f"{cr1[p]:.5f}, single {base:.5f}")
+    trend_ok, sweep = True, {}
+    for p in (2, 3):
+        prev = base
+        for cr in (2, 4, 8):
+            b = char_setting(torch, h, card, f"P{p}-CR{cr}",
+                             PrismConfig(P=p, cr=float(cr)), launches, True)
+            sweep[f"P{p}-CR{cr}"] = b
+            trend_ok &= b >= prev - TREND_SLACK
+            prev = b
+    table2 = {}
+    for p in (2, 3):
+        nodup = char_setting(torch, h, card, f"P{p}-CR4-nodup",
+                             PrismConfig(P=p, cr=4.0, mode="prism_nodup"),
+                             launches, True)
+        table2[f"P{p}-CR4"] = {"duplicated": sweep[f"P{p}-CR4"],
+                               "nodup": nodup,
+                               "dup_better": sweep[f"P{p}-CR4"] <= nodup}
+    hard = PrismConfig(P=3, cr=8.0)
+    before = sweep["P3-CR8"]
+    ft_first, ft_last, _ = h.train(CHAR_FT_STEPS, prism=hard, lr=CHAR_FT_LR)
+    after = char_setting(torch, h, card, "P3-CR8-finetuned", hard, launches,
+                         True)
+    emit("path", path="train/charlm", setting="summary", card=card,
+         bpc_single=base, cr1=cr1, sweep=sweep,
+         monotonic_degradation=trend_ok, trend_slack=TREND_SLACK,
+         table2=table2, finetune={"before": before, "after": after,
+                                  "recovered": after < before,
+                                  "loss_first": ft_first,
+                                  "loss_last": ft_last},
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
+def drive_train(torch):
+    """Phase 19: training and the accuracy path, (a) GPT-2 small, (b) the
+    char-LM protocol."""
+    import time
+    t0 = time.perf_counter()
+    card = nvidia_smi()
+    launches = train_gpt2(torch, card)
+    launches.update(train_char_lm(torch, card))
+    emit("phase", name="train", seconds=time.perf_counter() - t0)
+    return launches
+
+
 # the argument that makes this script run its late phases, named after
 # it (keys of ``child_phases``), in a process of its own (``drive_apart``)
 CHILD_ARG = "--phase-child"
@@ -4532,7 +4975,8 @@ def child_phases():
     1B on the static path; 11, OLMoE-1B-7B; 12, Gemma 7B; 13, the
     encoders; 14, PaliGemma 3B on the static path; 15, Command-R 35B;
     16, MusicGen-medium on the static path; 17, xLSTM 1.3B on the static
-    path, voltage + exact; 18, Zamba2 2.7B on the static path."""
+    path, voltage + exact; 18, Zamba2 2.7B on the static path; 19,
+    training and the accuracy path."""
     return {LLAMA: lambda torch: drive_family(torch, LLAMA,
                                               LLAMA_ENGINE_RUNS),
             GEMMA: lambda torch: drive_static(torch, GEMMA, GEMMA_PROMPT),
@@ -4544,7 +4988,8 @@ def child_phases():
             MUSICGEN: lambda torch: drive_static(torch, MUSICGEN),
             XLSTM: lambda torch: drive_static(torch, XLSTM,
                                               pairings=PAIRINGS[:1]),
-            ZAMBA: lambda torch: drive_static(torch, ZAMBA)}
+            ZAMBA: lambda torch: drive_static(torch, ZAMBA),
+            "train": drive_train}
 
 
 def phase_child(torch, phases) -> int:
@@ -4558,6 +5003,129 @@ def phase_child(torch, phases) -> int:
         by_path.update(child_phases()[phase](torch))
     print(json.dumps({"launches": by_path}), flush=True)
     return 0
+
+
+# phase 3 at the accuracy protocol's layouts: its char-LM's attention
+# (4 heads of 32) over B 16 x 120 at CR 4, P 2, 3, 4, in the modes its
+# scoring runs (duplicate runs prism's columns: ``ShardedPrismContext``);
+# its segment means and fused augment (D 128) at every (P, CR) it scores
+CHAR_MODES = ("prism", "prism_nodup", "voltage")
+CHAR_SETTINGS = ((2, (1, 2, 4, 8)), (3, (1, 2, 4, 8)), (4, (1, 4)))
+
+
+def check_charlm_kernels(torch, chk, timer):
+    """The prefill kernel at head dim 32 (``attention_main``'s numbers),
+    errors filed under ``prism_flash_attention/hd32``; the means kernel's
+    two entries at D 128 (``charlm_means``), under ``segment_means/
+    charlm``.  -> {"attention": {"P{p}/{mode}": times}, "segment_means":
+    {"P{p}/CR4": times}}."""
+    from repro_torch.core.protocol import PrismConfig
+    from repro_torch.models.transformer import attn_spec
+    from repro_torch.sharding.context import ShardedPrismContext
+    cfg = char_lm_config()
+    both = attention_checker(chk, key="prism_flash_attention/hd32")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    out = {}
+    for p in (2, 3, 4):
+        for mode in CHAR_MODES:
+            ctx = ShardedPrismContext(PrismConfig(P=p, cr=4.0, mode=mode),
+                                      n_shards=p, backend="plain")
+            x = ctx.shard(torch.randn(CHAR_BATCH, CHAR_SEQ, cfg.d_model,
+                                      device="cuda", generator=gen))
+            _, akv = ctx.augment(x, attn_spec(cfg))
+            m = akv.x_hat.shape[1]
+
+            def rnd(*shape):
+                return 0.5 * torch.randn(*shape, device="cuda",
+                                         generator=gen)
+            q = rnd(x.shape[0], x.shape[1], cfg.n_heads, cfg.hd)
+            k = rnd(akv.x_hat.shape[0], m, cfg.n_kv_heads, cfg.hd)
+            v = rnd(akv.x_hat.shape[0], m, cfg.n_kv_heads, cfg.hd)
+            g = akv.g if akv.g is not None else torch.ones(m, device="cuda")
+            out[f"P{p}/{mode}"] = attention_main(
+                torch, timer, both, mode, tag=f"charlm/P{p}",
+                args=(q, k, v, g, akv.col_lo, akv.col_hi, akv.row_pos))
+    return {"attention": out,
+            "segment_means": charlm_means(torch, chk, timer, gen)}
+
+
+def charlm_means(torch, chk, timer, gen):
+    """Both entries of csrc/segment_means.cu at the char-LM's rows, x
+    (B·P, 120 / P, 128): the means and the fused augment against their
+    plain versions at every (P, CR) the protocol scores (L from
+    ``PrismConfig.landmarks``: 120 / P at CR 1); timed at CR 4.  The
+    library yardstick is ``mean(2)`` (and the expand-and-cat chain after
+    it) where the segments are even, else none."""
+    from repro_torch.core.protocol import PrismConfig
+    from repro_torch.kernels.segment_means import (prism_augment_op,
+                                                   segment_means_op)
+    name, key = "segment_means", "segment_means/charlm"
+    d = char_lm_config().d_model
+    out = {}
+    for p, crs in CHAR_SETTINGS:
+        n_loc = CHAR_SEQ // p
+        x = torch.randn(CHAR_BATCH * p, n_loc, d, device="cuda",
+                        generator=gen)
+        for cr in crs:
+            L = PrismConfig(P=p, cr=float(cr)).landmarks(CHAR_SEQ)
+            calls = {
+                "": lambda: segment_means_op(x, L=L, backend="kernel"),
+                "plain_": lambda: segment_means_op(x, L=L, backend="plain"),
+                "augment_": lambda: prism_augment_op(
+                    x, L=L, n_shards=p, backend="kernel"),
+                "augment_plain_": lambda: prism_augment_op(
+                    x, L=L, n_shards=p, backend="plain")}
+            for tag in ("", "augment_"):
+                case = f"charlm/P{p}/CR{cr}/L{L}/{tag or 'means_'}"
+                chk.close(name, calls[tag](), calls[tag + "plain_"](),
+                          case, key=key)
+                chk.cases[name] += 1
+            if cr != 4:
+                continue
+            b = x.shape[0]
+            if n_loc % L == 0:
+                s = n_loc // L
+
+                def chain():
+                    z = x.view(b, L, s, d).mean(2).reshape(b // p, p * L, d)
+                    z = z[:, None].expand(-1, p, -1, -1).reshape(b, p * L, d)
+                    return torch.cat([x, z], dim=1)
+                calls["library_"] = lambda: x.view(b, L, s, d).mean(2)
+                calls["augment_library_"] = chain
+            t = {}
+            for tag, fn in calls.items():
+                t[tag + "ms"] = timer(fn)
+                if "plain" not in tag and "library" not in tag:
+                    t[tag + "device_ms"] = timer.device(fn)
+            t.setdefault("library_ms", None)
+            t.setdefault("augment_library_ms", None)
+            t["bound_ms"], t["bound_by"] = bound_ms(
+                nbytes(x) + b * L * d * 4, x.numel())
+            t["augment_bound_ms"], t["augment_bound_by"] = bound_ms(
+                nbytes(x) + b * (n_loc + p * L) * d * 4, x.numel())
+            t["shape"] = {"x": list(x.shape), "L": L, "P": p}
+            out[f"P{p}/CR{cr}"] = t
+    return out
+
+
+def charlm_row(name, t, chk):
+    """A kernel's numbers at the char-LM's layouts (phase 3): the
+    attention kernel's per head-dim-32 layout, or the means kernel's per
+    P at CR 4; the largest error over every checked case and its share
+    of the tolerance."""
+    pick = lambda t: {k: t[k] for k in TIME_KEYS + (  # noqa: E731
+        "library_note", "shape") if k in t}
+    if name == "prism_flash_attention":
+        out = {layout: pick(tm) for layout, tm in t["attention"].items()}
+        key = name + "/hd32"
+    elif name == "segment_means":
+        out = {layout: dict(tm) for layout, tm in t["segment_means"].items()}
+        key = name + "/charlm"
+    else:
+        return {"note": "the char-LM's scoring does not decode"}
+    out["max_abs_err"] = chk.max_err.get(key, 0.0)
+    out["tol_share"] = chk.tol_share.get(key, 0.0)
+    return out
 
 
 def encoder_row(name, t, chk, key):
@@ -4618,6 +5186,9 @@ def main() -> int:
 
     timer = Timer(torch)
     chk = Checker(torch)
+    # the hd-32 layouts first: their dozen small cases each take a device
+    # trace, which costs more as the process ages (PERF.md §4)
+    t_char = check_charlm_kernels(torch, chk, timer)
     t_attn = check_attention(torch, chk, timer)
     t_means = check_segment_means(torch, chk, timer)
     t_dec = check_decode(torch, chk, timer)
@@ -4631,7 +5202,7 @@ def main() -> int:
          floor_ms=timer.floor(), attention=t_attn, segment_means=t_means,
          decode=t_dec, hd128=t_128, hd256=t_256,
          **{tag: t_fam[arch] for arch, (tag, _) in FAMILY_TAGS.items()},
-         encoders=t_enc)
+         encoders=t_enc, charlm=t_char)
 
     t_phase = [t_start]
 
@@ -4660,6 +5231,7 @@ def main() -> int:
     by_path.update(drive_apart(("encoders", PALI, CMDR, MUSICGEN,
                                 XLSTM)))                      # phases 13-17
     by_path.update(drive_apart((ZAMBA,)))                     # phase 18
+    by_path.update(drive_apart(("train",)))                   # phase 19
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -4786,6 +5358,14 @@ def main() -> int:
                                        for p in paths)
             row[key]["launches_by_path"] = {p: by_path[p].get(name, 0)
                                             for p in paths}
+        # the char-LM's layouts (head dim 32), and the launches on phase
+        # 19's runs: none in GPT-2's train steps, the scoring's
+        paths = [p for p in by_path if p.startswith("train/")]
+        row["charlm"] = charlm_row(name, t_char, chk)
+        row["train"] = {"launches": sum(by_path[p].get(name, 0)
+                                        for p in paths),
+                        "launches_by_path": {p: by_path[p].get(name, 0)
+                                             for p in paths}}
         rows.append(row)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)

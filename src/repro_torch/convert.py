@@ -69,3 +69,34 @@ def from_jax_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
         if name in tree:
             params[name] = _tensors(tree[name], device)
     return params
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def _stack(trees):
+    """Per-layer dicts of one structure -> one dict of arrays stacked on
+    a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees)
+
+
+def to_jax_numpy(cfg: ModelConfig, params: dict) -> dict:
+    """The inverse of ``from_jax_numpy``: the port's parameters -> the
+    reference's numpy tree, layer ``i·u + j`` of the scanned part
+    stacked as slice ``i`` of ``scan[j]`` and the ``tail`` layers after
+    (``ModelConfig.scan_split``).  Leaves keep their dtype."""
+    u, n_units, n_tail = cfg.scan_split
+    layers = [_numpy(p) for p in params["layers"]]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers in the parameters, config "
+                         f"has {cfg.n_layers}")
+    tree = {k: _numpy(v) for k, v in params.items() if k != "layers"}
+    tree["scan"] = [_stack(layers[j:n_units * u:u]) for j in range(u)]
+    tree["tail"] = layers[n_units * u:]
+    return tree

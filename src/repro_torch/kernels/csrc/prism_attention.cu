@@ -55,6 +55,10 @@
 //   heads) a PRISM layer is bound by its 168 MB (0.050 ms) and a Voltage
 //   layer by 17 GFLOP (0.104 ms); this runs 6.9x and 5.9x above that,
 //   1.4-1.5x faster than SDPA (chip_smoke.py, H100).
+// - Head dim 32 (the accuracy protocol's char-LM: 4 heads of 32).  The
+//   hd-64 layout at KS = 4 k-steps, one QK^T chain; strides 36 and 40
+//   floats give hd 64's banks (4g + t for K, 8t + g for V); built for
+//   three blocks an SM, as hd 64.
 // - Head dim 80 (Zamba2 2.7B: 32 heads, MHA).  The hd-128 layout with
 //   KS = 10 k-steps: QK^T runs as a chain of 8 and one of 2, each in its
 //   own accumulator; strides 84 and 88 floats keep the fragment loads
@@ -144,8 +148,8 @@ __device__ __forceinline__ bool visible(int lo, int hi, int r, int causal,
   return vis;
 }
 
-// blocks an SM the kernel is built for: three at head dim 64; one at
-// 128 and 256, whose shared memory admits no second
+// blocks an SM the kernel is built for: three at head dims 32 and 64;
+// one at 80, 128 and 256, whose shared memory admits no second
 constexpr int min_blocks(int hd) { return hd <= 64 ? 3 : 1; }
 
 template <int HD>
@@ -491,9 +495,14 @@ extern "C" int prism_attention_f32(
   const auto* rp = static_cast<const int*>(row_pos);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  // one head dim per ported model family (GPT-2: 64; Zamba2 2.7B: 80;
-  // Llama, Yi-6B: 128; Gemma 3 1B: 256)
+  // one head dim per ported model family (the accuracy protocol's
+  // char-LM: 32; GPT-2: 64; Zamba2 2.7B: 80; Llama, Yi-6B: 128; Gemma 3
+  // 1B: 256)
   switch (hd) {
+    case 32:
+      return launch<32>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv,
+                        rep, P, causal, prefix_len, has_window, window,
+                        scale, st);
     case 64:
       return launch<64>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv,
                         rep, P, causal, prefix_len, has_window, window,

@@ -312,6 +312,6 @@ def decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *, scale,
     """Partial stats from the kernel (CUDA tensors) or the plain version
     (CPU tensors, or ``backend='plain'``)."""
     kw = dict(scale=scale, rows=rows, pages=pages, zrows=zrows)
-    if use_kernel(backend, k):
+    if use_kernel(backend, k, q, v, kz, vz):
         return flash_decode_stats(q, k, v, valid, log_gz, kz, vz, **kw)
     return decode_stats_reference(q, k, v, valid, log_gz, kz, vz, **kw)

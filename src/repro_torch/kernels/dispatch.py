@@ -14,6 +14,12 @@ There is deliberately no environment override: nothing on the main
 path can reach the plain version on a card except by passing
 ``backend="plain"``.
 
+The kernels have no backward: a kernel's output has no ``grad_fn``.  So
+a call that would go to a kernel while autograd records (grad mode on
+and some input requiring grad) raises instead of silently cutting the
+gradient; a training forward passes ``backend="plain"``.  Nothing falls
+through to the plain version.
+
 ``LAUNCHES`` counts kernel launches by kernel name.  ``launch`` adds
 one right after a kernel launched, and nowhere else, so a run can show
 that the main path went through every kernel.  Every wrapper launches
@@ -34,8 +40,10 @@ BACKENDS = ("auto", "kernel", "plain")
 LAUNCHES: collections.Counter = collections.Counter()
 
 
-def use_kernel(backend: str, t: torch.Tensor) -> bool:
-    """Whether the call on tensor ``t`` goes to the CUDA kernel."""
+def use_kernel(backend: str, t: torch.Tensor, *inputs) -> bool:
+    """Whether the call on tensor ``t`` (and its other tensor ``inputs``)
+    goes to the CUDA kernel; raises where a kernel would run under
+    autograd."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     if backend == "plain":
@@ -43,6 +51,14 @@ def use_kernel(backend: str, t: torch.Tensor) -> bool:
     if backend == "kernel" and not t.is_cuda:
         raise RuntimeError(
             f"backend='kernel' needs a CUDA tensor, got one on {t.device}")
+    if t.is_cuda and torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad
+            for a in (t, *inputs)):
+        raise RuntimeError(
+            "a CUDA kernel was called on tensors that require grad with "
+            "grad mode on: the kernels have no backward, so the gradient "
+            "through this call would be lost; pass backend='plain' for a "
+            "forward that is differentiated")
     return t.is_cuda
 
 

@@ -48,6 +48,6 @@ def prism_attention_op(
             _per_shard(row_pos, torch.int32, p))
     kw = dict(causal=causal, prefix_len=prefix_len, window=window,
               scale=scale)
-    if use_kernel(backend, q):
+    if use_kernel(backend, q, k, v):
         return prism_flash_attention(*args, **kw)
     return prism_attention_reference(*args, **kw)

@@ -26,7 +26,7 @@ from ..core.attention import _gqa_logits, _gqa_output, at_least_f32
 from ..core.masks import NEG_INF, visibility
 
 NEG = NEG_INF
-HEAD_DIMS = (64, 80, 128, 256)  # head dims csrc/prism_attention.cu builds
+HEAD_DIMS = (32, 64, 80, 128, 256)  # head dims csrc/prism_attention.cu builds
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
              + [ctypes.c_float, ctypes.c_void_p])

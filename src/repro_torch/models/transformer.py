@@ -201,34 +201,47 @@ def attn_sublayer(p, x, ctx: SeqContext, spec: AttnSpec, cfg: ModelConfig):
     k, v = attn_project_kv(p["attn"], spec, xh_n, akv.col_pos)
     o = prism_attention(q, k, v, g=akv.g, mask=akv.mask,
                         block=cfg.attn_block)
-    return ctx.finalize(attn_output(p["attn"], o)), xq_n
+    return ctx.finalize(attn_output(p["attn"], o)), ctx.finalize(xq_n)
 
 
 def block_residual(cfg: ModelConfig, kind: str, p, x, o, xn,
-                   ctx: SeqContext, routing=None):
+                   ctx: SeqContext, routing=None, *, aux: bool = False):
     """The rest of a block once its attention sublayer gave ``o`` from
     the normed rows ``xn``, on every path (the forward, prefill, decode,
-    a chunk call, a packed tick): sequential, x + o, then the
-    feed-forward on norm(ln2, x + o): the MLP, or for a ``moe`` block
+    a chunk call, a packed tick, a train step): sequential, x + o, then
+    the feed-forward on norm(ln2, x + o): the MLP, or for a ``moe`` block
     the experts, routed in ``ctx``'s groups (``routing``: the checks'
     ``RoutingLog``); parallel (Command-R), x + (o + mlp(xn)), both
-    branches off the one norm, as the reference sums them."""
+    branches off the one norm, as the reference sums them.  With ``aux``
+    -> (x, the block's load-balance loss: the mean over the routing
+    groups of their Switch losses, 0 for a block without experts)."""
+    loss = None
     if cfg.parallel_block:
-        return x + (o + mlp(p["mlp"], xn, cfg.mlp_kind))
-    x = x + o
-    h = norm(p["ln2"], x, cfg.norm_kind)
-    if kind == "moe":
-        return x + moe_apply(p["moe"], h, cfg, ctx, routing=routing)[0]
-    return x + mlp(p["mlp"], h, cfg.mlp_kind)
+        x = x + (o + mlp(p["mlp"], xn, cfg.mlp_kind))
+    else:
+        x = x + o
+        h = norm(p["ln2"], x, cfg.norm_kind)
+        if kind == "moe":
+            y, loss = moe_apply(p["moe"], h, cfg, ctx, routing=routing,
+                                aux=aux)
+            x = x + y
+        else:
+            x = x + mlp(p["mlp"], h, cfg.mlp_kind)
+    if not aux:
+        return x
+    return x, (x.new_zeros((), dtype=torch.float32) if loss is None
+               else loss.float().mean())
 
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext,
-                routing=None, chunk: int = 128):
-    """One residual block; ``chunk`` is a recurrent block's."""
+                routing=None, chunk: int = 128, *, aux: bool = False):
+    """One residual block; ``chunk`` is a recurrent block's; with ``aux``
+    -> (x, its load-balance loss) (``block_residual``)."""
     if kind in RECURRENT_KINDS:
-        return recurrent_block(cfg, kind, p, x, ctx, chunk=chunk)
+        x = recurrent_block(cfg, kind, p, x, ctx, chunk=chunk)
+        return (x, x.new_zeros((), dtype=torch.float32)) if aux else x
     o, xn = attn_sublayer(p, x, ctx, attn_spec(cfg, kind), cfg)
-    return block_residual(cfg, kind, p, x, o, xn, ctx, routing)
+    return block_residual(cfg, kind, p, x, o, xn, ctx, routing, aux=aux)
 
 
 def recurrent_block(cfg: ModelConfig, kind: str, p, x, ctx: SeqContext, *,
@@ -369,32 +382,39 @@ def classify(cfg: ModelConfig, params, cls):
 
 def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
             ctx: SeqContext | None = None, start: int = 0, routing=None,
-            chunk: int = 128):
+            chunk: int = 128, aux: bool = False):
     """tokens (B, N), stub-frontend embeds (B, N, D) or a vlm's tokens
     with its image embeds (B, prefix_len, D) -> logits (B,
     N - start, V) of positions start.. (the head over the tail only: at a
     large vocabulary the whole (B, N, V) would dwarf the rest); for an
     encoder (``num_classes``) the class logits (B, num_classes) of the
-    CLS row.  A ``moe`` block routes all B·N tokens as one group; an
-    ``mlstm`` or ``mamba`` block runs in chunks of ``chunk`` (N a multiple
-    of it)."""
+    CLS row.  A ``moe`` block routes in ``ctx``'s groups (all B·N tokens
+    as one by default); an ``mlstm`` or ``mamba`` block runs in chunks of
+    ``chunk`` (N a multiple of it).  With ``aux`` -> (logits, the MoE
+    load-balance loss summed over the blocks, f32; 0 without experts),
+    the reference's ``aux["moe_aux"]``."""
     check_supported(cfg)
     return forward_embedded(cfg, params,
                             embed_inputs(cfg, params, tokens, embeds=embeds),
                             ctx=ctx, start=start, routing=routing,
-                            chunk=chunk)
+                            chunk=chunk, aux=aux)
 
 
 def forward_embedded(cfg: ModelConfig, params, x, *,
                      ctx: SeqContext | None = None, start: int = 0,
-                     routing=None, chunk: int = 128):
+                     routing=None, chunk: int = 128, aux: bool = False):
     """``forward`` from rows already embedded, x (B, N, D): the layers,
     the final norm and the head (MusicGen's reference over its frames
     and the codes fed after them)."""
     ctx = ctx or FullContext(prefix_len=cfg.prefix_len)
+    total = x.new_zeros((), dtype=torch.float32)
     for kind, p in layer_blocks(cfg, params):
-        x = block_apply(cfg, kind, p, x, ctx, routing, chunk)
+        out = block_apply(cfg, kind, p, x, ctx, routing, chunk, aux=aux)
+        x, total = (out[0], total + out[1]) if aux else (out, total)
     if cfg.num_classes:
-        return classify(cfg, params, x[:, 0])
-    return head(cfg, params,
-                norm(params["final_norm"], x[:, start:], cfg.norm_kind))
+        logits = classify(cfg, params, x[:, 0])
+    else:
+        logits = head(cfg, params,
+                      norm(params["final_norm"], x[:, start:],
+                           cfg.norm_kind))
+    return (logits, total) if aux else logits

@@ -21,9 +21,10 @@ engine's seams:
   ``tick_delay``       ``ServingEngine.step``: the whole tick does
                        nothing (a stalled device, a dropped heartbeat).
   ``shard_loss``       one sequence shard's KV becomes unreadable (the
-                       degraded mesh).  The port's engine does not serve
-                       it yet (ROADMAP queue 1, item 11) and refuses a
-                       plan that enables it.
+                       degraded mesh).  ``ServingEngine`` arms its
+                       ``MeansReplica`` for it and serves through the
+                       loss: the lost shard's columns come from the
+                       replicated means (``runtime/replica.py``).
   ===================  ==================================================
 
 Every decision is a pure function of ``(seed, kind, op index)``: the

@@ -70,6 +70,7 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.utils.checkpoint
 
 from ..core.attention import log_repeats
 from ..core.protocol import PrismConfig
@@ -381,6 +382,63 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
     return lm_head(cfg, params, ctx.last_shard(x[:, -1])), cache
 
 
+def sharded_block(cfg: ModelConfig, kind: str, p, x, ctx, hp: ServeHParams,
+                  aux: bool = False):
+    """One block over x (B·P, n_loc, D): attention through the prefill
+    kernel or its plain version (``hp.backend``), then the rest of the
+    block (``block_residual``; with ``aux`` -> (x, its load-balance
+    loss)); a recurrent block through the context's state handoff."""
+    if kind in RECURRENT_KINDS:
+        x = recurrent_block(cfg, kind, p, x, ctx, chunk=hp.ssm_chunk)
+        return (x, x.new_zeros((), dtype=torch.float32)) if aux else x
+    o, _, _, _, xn = sharded_attn(p, attn_spec(cfg, kind), cfg, x, ctx, hp)
+    return block_residual(cfg, kind, p, x, o, xn, ctx, hp.routing, aux=aux)
+
+
+def sharded_layers(cfg: ModelConfig, params, x, ctx, hp: ServeHParams, *,
+                   aux: bool = False, remat: bool = False):
+    """Every layer over x (B·P, n_loc, D) with no cache capture: the layer
+    loop of ``encode``, ``score`` and the train step's forward.  With
+    ``aux`` -> (x, the load-balance loss summed over the blocks); with
+    ``remat`` each layer is recomputed in the backward pass
+    (``torch.utils.checkpoint``, one call a layer)."""
+    total = x.new_zeros((), dtype=torch.float32)
+    for kind, p in layer_blocks(cfg, params):
+        if remat:
+            out = torch.utils.checkpoint.checkpoint(
+                sharded_block, cfg, kind, p, x, ctx, hp, aux,
+                use_reentrant=False)
+        else:
+            out = sharded_block(cfg, kind, p, x, ctx, hp, aux)
+        x, total = (out[0], total + out[1]) if aux else (out, total)
+    return (x, total) if aux else x
+
+
+def score(cfg: ModelConfig, params, tokens=None, *, embeds=None,
+          prism: PrismConfig, n_shards: int, hp: ServeHParams):
+    """Teacher-forced logits of every position of a causal decoder over
+    ``n_shards`` sequence shards: tokens (B, N) (or a vlm's tokens and
+    image, an audio model's frames) -> (B, N, V) f32, N a multiple of the
+    shard count.  ``prefill``'s layer loop with no cache capture and the
+    head over every row, under ``torch.no_grad``: attention through the
+    prefill kernel, the means through the segment-means kernel on a card
+    (``hp.backend``).  What the reference's ``T.forward`` under its
+    ``SimulatedContext`` computes, for the accuracy protocol's bits per
+    character."""
+    check_supported(cfg)
+    check_decoder(cfg, "score")
+    with torch.no_grad():
+        x = embed_inputs(cfg, params, tokens, embeds=embeds)
+        b, n, _ = x.shape
+        if n % n_shards:
+            raise ValueError(f"score takes N a multiple of the shard count,"
+                             f" got N={n} over {n_shards}")
+        ctx = ShardedPrismContext(prism, n_shards=n_shards,
+                                  backend=hp.backend)
+        x = sharded_layers(cfg, params, ctx.shard(x), ctx, hp)
+        return lm_head(cfg, params, x).reshape(b, n, -1)
+
+
 def encode(cfg: ModelConfig, params, tokens=None, *, embeds=None,
            prism: PrismConfig, n_shards: int, hp: ServeHParams):
     """An encoder's classification over ``n_shards`` sequence shards:
@@ -403,11 +461,7 @@ def encode(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     b, n, _ = x.shape
     ctx = ShardedPrismContext(prism, n_shards=n_shards, backend=hp.backend,
                               n=n)
-    x = ctx.shard(x)
-    for kind, p in layer_blocks(cfg, params):
-        o, _, _, _, xn = sharded_attn(p, attn_spec(cfg, kind), cfg, x, ctx,
-                                      hp)
-        x = block_residual(cfg, kind, p, x, o, xn, ctx, hp.routing)
+    x = sharded_layers(cfg, params, ctx.shard(x), ctx, hp)
     cls = x.view(b, n_shards, *x.shape[1:])[:, 0, 0]
     return classify(cfg, params, cls).float()
 

@@ -29,8 +29,18 @@ Exchanges:
   * PRISM:   every shard's (B, L, D) segment means, gathered — the own
              shard's means included but neutralized with g = 0
              (paper Eq. 6 with static shapes);
-  * Voltage: the full sequence, shared by all shards (the K/V of the
-             full sequence is computed once and read by every shard);
+  * prism_nodup: the same columns with g = 1 on the other shards'
+             means (Table II's 'No' column);
+  * duplicate (Table II's ablation, Eq. 11's Y_p: each other shard's
+             means repeated over their segments' sizes): PRISM's
+             columns, since g = the segment sizes gives the repeated
+             rows' softmax exactly (Eq. 12-15), as in the reference and
+             ``SimulatedContext``; ``device_views`` keeps the explicit
+             rows as the oracle;
+  * Voltage, and 'single' (no partition: every shard attends over the
+             whole sequence, which is the unpartitioned result): the
+             full sequence, shared by all shards (the K/V of the full
+             sequence is computed once and read by every shard);
   * window:  a sliding-window layer (Gemma 3's local layers) in either
              mode: the previous ``hops`` shards' rows as a halo before
              the shard's own (the reference's ring ``ppermute``), halo
@@ -215,11 +225,8 @@ class ShardedPrismContext(SeqContext):
                 raise NotImplementedError("sliding-window layers take the "
                                           "even split only")
             return self._augment_window(x, spec.window, n_loc, row_pos)
-        if self.cfg.mode == "voltage":
+        if self.cfg.mode in ("voltage", "single"):
             return self._augment_voltage(x, s, n, row_pos)
-        if self.cfg.mode != "prism":
-            raise NotImplementedError(f"mode {self.cfg.mode!r} is not "
-                                      "ported yet")
         return self._augment_prism(x, s, n, row_pos)
 
     def _augment_voltage(self, x, s, n, row_pos):
@@ -267,17 +274,21 @@ class ShardedPrismContext(SeqContext):
         return z.reshape(bp // self.P, self.P * L, d)
 
     def _augment_prism(self, x, s, n, row_pos):
+        """PRISM and duplicate, or prism_nodup: the same columns, g = 1
+        on the other shards' means."""
         n_loc = x.shape[1]
         L = self.cfg.landmarks(n)          # Eq. 16 over the real length
         # one launch: (B·P, n_loc + P·L, D), the local block first
         x_hat = prism_augment_op(x, L=L, n_shards=self.P, n_real=s,
                                  backend=self.backend)
         cols = means_columns(self.P, s, L, x.device, n_loc)
+        g = cols.col_g
+        if self.cfg.mode == "prism_nodup":
+            g = (g > 0).float()
         # g = 0 columns need no mask entry: log g = -1e30 already removes
         # them, so (col_lo, col_hi) alone reproduce the Eq. 17 mask
-        return x, AugmentedKV(x_hat, cols.col_g, None, row_pos,
-                              cols.col_pos, col_lo=cols.col_lo,
-                              col_hi=cols.col_hi)
+        return x, AugmentedKV(x_hat, g, None, row_pos, cols.col_pos,
+                              col_lo=cols.col_lo, col_hi=cols.col_hi)
 
     def expert_groups(self, x):
         """x (B·P, n_loc, D) -> (P, B·n_loc, D): shard p's tokens of every

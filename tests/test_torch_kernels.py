@@ -1096,12 +1096,13 @@ def _c_params(lib, entry):
     return [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
 
 
-@pytest.mark.parametrize("hd", [64, 80, 128, 256, 96])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256, 96])
 def test_wrappers_take_head_dims_64_and_128(monkeypatch, hd):
-    """The prefill kernel and both decode routes take head dim 64
-    (GPT-2), 80 (Zamba2), 128 (the Llama family) and 256 (Gemma 3) and
-    pass it to their C entry as ``hd``; any other head dim raises before
-    a launch."""
+    """The prefill kernel takes head dim 32 (the accuracy protocol's
+    char-LM), 64 (GPT-2), 80 (Zamba2), 128 (the Llama family) and 256
+    (Gemma 3), both decode routes all of them but 32, and each passes
+    it to its C entry as ``hd``; any other head dim raises before a
+    launch."""
     import contextlib
     import types
     from repro_torch.kernels import prism_attention as TP
@@ -1120,30 +1121,35 @@ def test_wrappers_take_head_dims_64_and_128(monkeypatch, hd):
     for mod in (TD, TP):
         monkeypatch.setattr(mod, "check_tensor", lambda *a, **k: None)
     dispatch.LAUNCHES.clear()
-    assert TP.HEAD_DIMS == TD.HEAD_DIMS == (64, 80, 128, 256)
+    assert TP.HEAD_DIMS == (32, 64, 80, 128, 256)
+    assert TD.HEAD_DIMS == (64, 80, 128, 256)
     q, k, v, g, lo, hi, row = attention_case(2, 8, 8, 4, 8, 2, hd)
     meta = (T(np.log(g))[None], T(lo)[None], T(hi)[None], T(row)[None])
     c_row = decode_case(2, 8, 2, 2, hd)                  # group 1: row
     c_tile = decode_case(2, 8, 8, 1, hd)                 # group 8: tile
     launches = [
-        lambda: prism_flash_attention(T(q), T(k), T(v), *meta, causal=True),
-        lambda: TD.flash_decode_stats(
-            *[T(c_row[n]) for n in ("q", "k", "v", "valid")],
-            scale=c_row["scale"]),
-        lambda: TD.flash_decode_stats(
-            *[T(c_tile[n]) for n in ("q", "k", "v", "valid")],
-            scale=c_tile["scale"])]
-    if hd not in (64, 80, 128, 256):
-        for call in launches:
+        (TP.HEAD_DIMS, "prism_attention_f32",
+         lambda: prism_flash_attention(T(q), T(k), T(v), *meta,
+                                       causal=True)),
+        (TD.HEAD_DIMS, "flash_decode_stats_f32",
+         lambda: TD.flash_decode_stats(
+             *[T(c_row[n]) for n in ("q", "k", "v", "valid")],
+             scale=c_row["scale"])),
+        (TD.HEAD_DIMS, "flash_decode_stats_mq_f32",
+         lambda: TD.flash_decode_stats(
+             *[T(c_tile[n]) for n in ("q", "k", "v", "valid")],
+             scale=c_tile["scale"]))]
+    taken = []
+    for dims, entry, call in launches:
+        if hd in dims:
+            call()
+            taken.append(entry)
+        else:
+            n_before = sum(dispatch.LAUNCHES.values())
             with pytest.raises(ValueError, match=f"head dim {hd} not in"):
                 call()
-        assert calls == [] and sum(dispatch.LAUNCHES.values()) == 0
-        return
-    for call in launches:
-        call()
-    assert [entry for _, entry, _ in calls] == [
-        "prism_attention_f32", "flash_decode_stats_f32",
-        "flash_decode_stats_mq_f32"]
+            assert sum(dispatch.LAUNCHES.values()) == n_before
+    assert [entry for _, entry, _ in calls] == taken
     for lib, entry, args in calls:
         assert args[_c_params(lib, entry).index("hd")] == hd, entry
     dispatch.LAUNCHES.clear()
