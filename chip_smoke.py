@@ -305,9 +305,10 @@ Phases, one JSON line each:
             attention PRISM and Voltage at 24 heads of 64, segment means
             and the augment at D 1536, the decode kernel's static exact
             and prism layouts.
-17. path    xLSTM 1.3B at full width on its first 24 of 48 layers
-            (``STATIC_DEPTH``: three whole 8-layer units of 7 mLSTM and
-            1 sLSTM; at 48 the phase took 77 s), d 2048, 4 heads, the
+17. path    xLSTM 1.3B at full width on its first 12 of 48 layers
+            (``STATIC_DEPTH``: one whole 8-layer unit of 7 mLSTM and 1
+            sLSTM, then 4 mLSTM; at 48 the phase took 77 s, at 24 29.5
+            s), d 2048, 4 heads, the
             mLSTM's of 1,024 with a state of (8, 4, 1024, 1025) f32 a
             layer, untied head over 50304, f32 weights from
             torch.Generator seed 0 on the card, at the main path's
@@ -327,11 +328,11 @@ Phases, one JSON line each:
             amplifies f32 rounding with depth), and the tokens equal
             where its top-2 gap is clear; none of the three kernels
             launches.
-18. path    Zamba2 2.7B at full width on its first 24 of 54 layers
-            (``STATIC_DEPTH``: four whole 6-layer units, 20 Mamba2
+18. path    Zamba2 2.7B at full width on its first 12 of 54 layers
+            (``STATIC_DEPTH``: two whole 6-layer units, 10 Mamba2
             blocks, d_in 5120, 32 SSM heads of 160, d_state 64, conv 4,
             and at every 6th layer the one shared attention + MLP block,
-            32 heads of 80 (MHA), GELU d_ff 10240, over 4 caches of its
+            32 heads of 80 (MHA), GELU d_ff 10240, over 2 caches of its
             own; RMSNorm, RoPE, untied head over 32000), f32 weights from
             torch.Generator seed 0 on the card, at the main path's
             shapes, through the static path in three pairings: each
@@ -382,8 +383,37 @@ Phases, one JSON line each:
             SimulatedContext), every bpc scored under SimulatedContext
             and through the kernels (``score``), the two within 1e-4 of
             the largest |logit| and 1e-4 bits; one line per setting.
+20. mesh    serving over a mesh of ranks, in a fifth child process: 4
+            ranks, one process each, all on cuda:0 over the ``gloo``
+            backend (NCCL refuses two ranks on one card), spawned by
+            ``launch/mesh.py::spawn``; each rank runs
+            ``launch.serve.mesh_rank`` (``setup``'s run: whole weights
+            from torch.Generator seed 0, cut to its shards; the FSDP
+            layers gathered as they are reached).  (a) GPT-2 small at full width
+            and depth on a (1, 4) mesh: B 8, prompt 512, cap 576, P 4, CR
+            4 (L 32), 16 decode steps, voltage + exact, prism + prism and
+            voltage + prism; (b) the same on a (2, 2) mesh, 4 sequences a
+            data rank, P 2, prism + prism, 8 steps; (c) Yi-6B at full
+            width on its first 8 layers (``STATIC_DEPTH``) on a (1, 4)
+            mesh with ``decode_tp``: attention TP over 32 heads, FFN TP
+            over 11,008, the vocab-parallel embedding and head over
+            64,000 rows, prism prefill, exact decode, 8 steps.  Each run
+            is teacher-forced on the folded one-process path's greedy
+            tokens (``setup``'s run: the same weights and kernels, on the
+            card; (c)'s without decode_tp) and held to its logits within 1e-4 of
+            their largest |logit|, with the rank's own greedy tokens
+            equal where the top-2 gap is clear.  On every rank: every
+            weight and output on cuda:0; the three kernels each launched
+            (``LAUNCHES``, zeroed before each run; their sums go to the
+            kernels line under ``mesh/...``); a prefill's exchange bytes
+            (the rank's ``Meter``) equal to B_loc x
+            ``comm_elements_per_device_per_layer`` x 4 a layer.  Prints
+            each rank's bytes by class, prefill ms and decode ms a token (CUDA events on the rank's stream),
+            marked as 4 gloo ranks on one card: not a multi-card time;
+            then each rank's host-clock ms of one collective of a GPT-2
+            decode step's (a layer's FSDP gather, a combine psum).
    total    the script's seconds so far.
-20. kernels one line listing every kernel with its numbers: ``ms`` is
+21. kernels one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
             against the plain version over phase 3, ``launches`` its
             launches over every path (``launches_by_path``); the
@@ -413,7 +443,8 @@ Phases, one JSON line each:
             launches there; ``charlm`` the attention kernel's and the
             means kernel's numbers at phase 3's char-LM layouts, and
             ``train`` each kernel's
-            launches on phase 19's runs (none in the train steps).
+            launches on phase 19's runs (none in the train steps);
+            ``mesh`` each kernel's launches over phase 20's ranks.
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -4209,7 +4240,7 @@ TICK_DEPTH = 4
 # and OLMoE so that phases 16 and 17 do, xLSTM under its phase's 45 s
 # rule (PERF.md §4); every other static path runs at full depth
 STATIC_DEPTH = {LLAMA: 8, GEMMA7: 8, CMDR: 8, MOE: 8, MUSICGEN: 16,
-                XLSTM: 24, ZAMBA: 24}
+                XLSTM: 12, ZAMBA: 12}
 
 
 def cut_depth(cfg, params):
@@ -4939,6 +4970,202 @@ def drive_train(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: serving over a mesh of ranks
+# ---------------------------------------------------------------------------
+
+# (name, arch, mesh shape, decode steps, pairings, decode_tp, depth)
+MESH_RUNS = (
+    ("gpt2-1x4", ARCH, (1, 4), 16, GEMMA_PAIRINGS, False, None),
+    ("gpt2-2x2", ARCH, (2, 2), 8, (("prism", "prism"),), False, None),
+    ("yi-tp-1x4", LLAMA, (1, 4), 8, (("prism", "exact"),), True,
+     STATIC_DEPTH[LLAMA]),
+)
+MESH_CAP = PROMPT + GEN               # phase 4's cache, 576
+MESH_NOTE = ("4 gloo ranks on one card (cuda:0), collectives through the "
+             "host: not a multi-card time")
+# each run's kernels: prefill attention and the decode kernel always,
+# segment means where the pairing gathers means
+MESH_KERNELS = ("prism_flash_attention", "flash_decode_stats")
+# f32 elements a rank holds of the collectives a GPT-2 decode step makes
+# on each of its 12 layers over the (1, 4) mesh: the layer's FSDP gather
+# (7,077,888 weights over 4 ranks) and a combine psum (B 8 x 12 x 64)
+MESH_COLLECTIVES = {"gather_layer": 7_077_888 // 4,
+                    "psum_small": BATCH * 12 * 64}
+
+
+def time_collectives(torch, mesh, iters=10):
+    """Host-clock ms of one collective over the mesh's ``model`` group at
+    ``MESH_COLLECTIVES``' sizes: the median of ``iters`` calls after two,
+    the card synchronised around each (every rank calls in turn)."""
+    import time
+    from repro_torch.sharding import comm
+    grp = mesh.group("model")
+    x = {k: torch.randn(n, device=mesh.device)
+         for k, n in MESH_COLLECTIVES.items()}
+    calls = {"gather_layer": lambda: comm.all_gather(
+                 x["gather_layer"], grp, "param_gather"),
+             "psum_small": lambda: comm.psum(x["psum_small"], grp,
+                                             "combine")}
+    out = {}
+    for name, fn in calls.items():
+        times = []
+        for _ in range(iters + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[name + "_ms"] = statistics.median(times[2:])
+    return out
+
+
+def mesh_fold(arch, shape, steps, pairing, depth):
+    """The folded one-process path of a mesh run on the card (``setup``'s
+    run, as ``mesh_rank``'s): the same weights, prompts, shapes, layout P
+    and kernels -> (tokens (B, gen), logits (gen, B, V)) on the host."""
+    from repro_torch.launch.serve import setup
+    from repro_torch.runtime.serve import seq_shards
+    p = seq_shards(dict(zip(("data", "model"), shape)), BATCH)
+    run = setup(arch, batch=BATCH, prompt_len=PROMPT, gen=steps + 1,
+                seq_shards=p, decode_mode=pairing[1], prefill=pairing[0],
+                cr=CR, cap=MESH_CAP, n_layers=depth)
+    tokens, logits, _ = run.run()
+    return tokens.cpu(), logits.cpu()
+
+
+def mesh_rank_run(mesh, runs, fold_path):
+    """One rank of phase 20: every run through ``mesh_rank``, (b) on a
+    (2, 2) mesh over the same ranks, each teacher-forced on the fold's
+    tokens and held to its logits; -> per run its errors, tokens checked,
+    launches, meter, times and where its tensors live."""
+    import torch
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import mesh_rank
+    from repro_torch.runtime.serve import batch_rows
+    from repro_torch.sharding.rules import tree_paths
+    folds = torch.load(fold_path, weights_only=False)
+    meshes = {mesh.shape: mesh}
+    out = {}
+    for name, arch, shape, steps, pairings, tp, depth in runs:
+        if shape not in meshes:
+            meshes[shape] = Mesh(shape, backend=mesh.backend, device="cuda")
+        m = meshes[shape]
+        for pairing in pairings:
+            key = f"{name}/{pairing[0]}-{pairing[1]}"
+            ref_tokens, ref_logits = folds[key]
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            r = mesh_rank(m, arch, batch=BATCH, prompt_len=PROMPT,
+                          gen=steps + 1, decode_mode=pairing[1],
+                          prefill=pairing[0], cr=CR, decode_tp=tp,
+                          n_layers=depth, cap=MESH_CAP,
+                          forced=ref_tokens[:, :-1].cuda())
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            lay = r["lay"]
+            want = batch_rows(ref_logits.transpose(0, 1), lay,
+                              m).transpose(0, 1)
+            got = r["logits"].cpu()
+            err = rel_err(got, want)
+            checked = tokens_agree(torch, got.argmax(-1).T, want)
+            places = {str(t.device) for tree in (r["mp"], r["dp"])
+                      if tree is not None
+                      for _, t in tree_paths(tree.params)}
+            places |= {str(r["logits"].device), str(r["tokens"].device),
+                       str(m.device)}
+            out[key] = {"rel_err": err, "tokens_checked": checked,
+                        "launches": launches, "meter": r["meter"],
+                        "times": r["times"], "devices": sorted(places),
+                        "coords": m.coords, "b_loc": got.shape[1],
+                        "n_seq": lay.n_seq, "L": lay.L}
+            del r
+            torch.cuda.empty_cache()
+    out["collectives"] = time_collectives(torch, mesh)
+    return out
+
+
+def drive_mesh(torch):
+    """Phase 20: the three mesh runs against their folds (see the module
+    docstring).  Returns the launches of each run, summed over the
+    ranks, keyed ``mesh/<run>/<pairing>``."""
+    import tempfile
+    import time
+    from repro_torch.configs import get_config
+    from repro_torch.core.protocol import (
+        PrismConfig, comm_elements_per_device_per_layer)
+    from repro_torch.launch.mesh import MESH_TIMEOUT, spawn
+    t0 = time.perf_counter()
+    card = nvidia_smi()
+    folds = {}
+    for name, arch, shape, steps, pairings, tp, depth in MESH_RUNS:
+        for pairing in pairings:
+            folds[f"{name}/{pairing[0]}-{pairing[1]}"] = mesh_fold(
+                arch, shape, steps, pairing, depth)
+            torch.cuda.empty_cache()
+    t_fold = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        fold_path = os.path.join(tmp, "folds.pt")
+        torch.save(folds, fold_path)
+        t1 = time.perf_counter()
+        ranks = spawn(mesh_rank_run, 1, 4, backend="gloo", device="cuda",
+                      timeout=MESH_TIMEOUT, args=(MESH_RUNS, fold_path))
+        t_ranks = time.perf_counter() - t1
+    by_path = {}
+    for name, arch, shape, steps, pairings, tp, depth in MESH_RUNS:
+        cfg = get_config(arch)
+        n_layers = depth or cfg.n_layers
+        for pairing in pairings:
+            key = f"{name}/{pairing[0]}-{pairing[1]}"
+            runs = [r[key] for r in ranks]
+            need = MESH_KERNELS + (("segment_means",) if "prism" in pairing
+                                   else ())
+            for rank, run in enumerate(runs):
+                if run["devices"] != ["cuda:0"]:
+                    raise AssertionError(f"{key} rank {rank}: tensors on "
+                                         f"{run['devices']}")
+                if run["rel_err"] > PATH_REL_TOL:
+                    raise AssertionError(f"{key} rank {rank}: logits "
+                                         f"{run['rel_err']} from the fold")
+                missing = [k for k in need if not run["launches"].get(k)]
+                if missing:
+                    raise AssertionError(f"{key} rank {rank}: {missing} "
+                                         "never launched")
+                prism = PrismConfig(P=run["n_seq"], cr=CR, mode=pairing[0])
+                elems = comm_elements_per_device_per_layer(
+                    PROMPT, cfg.d_model, prism)
+                if pairing == ("voltage", "prism"):    # the means captured
+                    elems += (run["n_seq"] - 1) * run["L"] * cfg.d_model
+                want = run["b_loc"] * elems * 4 * n_layers
+                got = run["meter"]["sent"]["exchange"]
+                if got != want:
+                    raise AssertionError(f"{key} rank {rank}: exchange "
+                                         f"{got} bytes, protocol {want}")
+            by_path[f"mesh/{key}"] = {
+                k: sum(r["launches"].get(k, 0) for r in runs)
+                for k in set().union(*(r["launches"] for r in runs))}
+            emit("path", name=f"mesh/{key}", arch=arch, mesh=list(shape),
+                 decode_tp=tp, layers=n_layers, batch=BATCH, prompt=PROMPT,
+                 cap=MESH_CAP, steps=steps, n_seq=runs[0]["n_seq"],
+                 rel_err=max(r["rel_err"] for r in runs),
+                 tokens_checked=[r["tokens_checked"] for r in runs],
+                 launches=[r["launches"] for r in runs],
+                 exchange_bytes=[r["meter"]["sent"]["exchange"]
+                                 for r in runs],
+                 sent=[r["meter"]["sent"] for r in runs],
+                 prefill_ms=[r["times"]["prefill_ms"] for r in runs],
+                 decode_ms_per_token=[r["times"]["decode_ms_per_token"]
+                                      for r in runs],
+                 clock=runs[0]["times"]["clock"], note=MESH_NOTE,
+                 nvidia_smi=card)
+    emit("phase", name="mesh", seconds=time.perf_counter() - t0,
+         fold_seconds=t_fold, ranks_seconds=t_ranks, backend="gloo",
+         ranks=4, device="cuda:0", collectives=MESH_COLLECTIVES,
+         collective_ms=[r["collectives"] for r in ranks], note=MESH_NOTE)
+    return by_path
+
+
 # the argument that makes this script run its late phases, named after
 # it (keys of ``child_phases``), in a process of its own (``drive_apart``)
 CHILD_ARG = "--phase-child"
@@ -4976,7 +5203,7 @@ def child_phases():
     encoders; 14, PaliGemma 3B on the static path; 15, Command-R 35B;
     16, MusicGen-medium on the static path; 17, xLSTM 1.3B on the static
     path, voltage + exact; 18, Zamba2 2.7B on the static path; 19,
-    training and the accuracy path."""
+    training and the accuracy path; 20, serving over a mesh of ranks."""
     return {LLAMA: lambda torch: drive_family(torch, LLAMA,
                                               LLAMA_ENGINE_RUNS),
             GEMMA: lambda torch: drive_static(torch, GEMMA, GEMMA_PROMPT),
@@ -4989,7 +5216,8 @@ def child_phases():
             XLSTM: lambda torch: drive_static(torch, XLSTM,
                                               pairings=PAIRINGS[:1]),
             ZAMBA: lambda torch: drive_static(torch, ZAMBA),
-            "train": drive_train}
+            "train": drive_train,
+            "mesh": drive_mesh}
 
 
 def phase_child(torch, phases) -> int:
@@ -5232,6 +5460,7 @@ def main() -> int:
                                 XLSTM)))                      # phases 13-17
     by_path.update(drive_apart((ZAMBA,)))                     # phase 18
     by_path.update(drive_apart(("train",)))                   # phase 19
+    by_path.update(drive_apart(("mesh",)))                    # phase 20
 
     main_t = {"prism_flash_attention": t_attn["prism"],
               "segment_means": t_means,
@@ -5366,6 +5595,12 @@ def main() -> int:
                                         for p in paths),
                         "launches_by_path": {p: by_path[p].get(name, 0)
                                              for p in paths}}
+        # phase 20's runs over a mesh of 4 ranks, summed over the ranks
+        paths = [p for p in by_path if p.startswith("mesh/")]
+        row["mesh"] = {"launches": sum(by_path[p].get(name, 0)
+                                       for p in paths),
+                       "launches_by_path": {p: by_path[p].get(name, 0)
+                                            for p in paths}}
         rows.append(row)
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -33,17 +33,38 @@ import torch
 from .device import resolve_device
 from .models.config import ModelConfig
 from .models.transformer import check_supported
+from .sharding.rules import local_shard, tree_map
 
 
-def _tensors(tree, device, index=None):
-    """Nested dict of numpy arrays -> nested dict of f32 tensors (taking
-    slice ``index`` of the leading axis when given)."""
+def _map(tree, leaf, index=None):
+    """Nested dict of leaves -> the same dict of ``leaf(a, index)``."""
     if isinstance(tree, dict):
-        return {k: _tensors(v, device, index) for k, v in tree.items()}
-    a = np.asarray(tree)
-    if index is not None:
-        a = a[index]
-    return torch.tensor(a, dtype=torch.float32, device=device)
+        return {k: _map(v, leaf, index) for k, v in tree.items()}
+    return leaf(tree, index)
+
+
+def port_layout(cfg: ModelConfig, tree: dict, leaf) -> dict:
+    """The reference's tree (``scan``/``tail``) in the port's layout, one
+    dict a layer: each leaf ``a`` becomes ``leaf(a, i)``, ``i`` the slice
+    of a scanned layer's leading axis, None for the others.  The one
+    path map of ``from_jax_numpy``, of the rules' check against the
+    reference's, and of any tree of the reference's structure."""
+    u, n_units, n_tail = cfg.scan_split
+    layers = [_map(tree["scan"][j], leaf, index=i)
+              for i in range(n_units) for j in range(u)]
+    layers += [_map(t, leaf) for t in tree.get("tail", [])[:n_tail]]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers in the tree, config has "
+                         f"{cfg.n_layers}")
+    out = {"layers": layers, "final_norm": _map(tree["final_norm"], leaf)}
+    # a vocabulary, learned positions, an untied head, an encoder's class
+    # head, a stub frontend's projection and Zamba2's shared block only
+    # where the model has them
+    for name in ("embed", "pos_embed", "lm_head", "head", "frontend_proj",
+                 "shared"):
+        if name in tree:
+            out[name] = _map(tree[name], leaf)
+    return out
 
 
 def from_jax_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
@@ -52,23 +73,21 @@ def from_jax_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     without a card."""
     check_supported(cfg)
     device = resolve_device(device)
-    u, n_units, n_tail = cfg.scan_split
-    layers = [_tensors(tree["scan"][j], device, index=i)
-              for i in range(n_units) for j in range(u)]
-    layers += [_tensors(t, device) for t in tree.get("tail", [])[:n_tail]]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers in the tree, config has "
-                         f"{cfg.n_layers}")
-    params = {"layers": layers,
-              "final_norm": _tensors(tree["final_norm"], device)}
-    # a vocabulary, learned positions, an untied head, an encoder's class
-    # head, a stub frontend's projection and Zamba2's shared block only
-    # where the model has them
-    for name in ("embed", "pos_embed", "lm_head", "head", "frontend_proj",
-                 "shared"):
-        if name in tree:
-            params[name] = _tensors(tree[name], device)
-    return params
+
+    def leaf(a, index):
+        a = np.asarray(a)
+        return torch.tensor(a if index is None else a[index],
+                            dtype=torch.float32, device=device)
+    return port_layout(cfg, tree, leaf)
+
+
+def shard_params(params: dict, rules: dict, mesh) -> dict:
+    """This rank's local parameters: each leaf of the port's whole tree
+    ``params`` cut to its block under its rule (``sharding.rules.
+    local_shard``) on the mesh's device; ``rules`` matches the tree
+    (``rules.param_specs`` or ``rules.decode_param_specs``)."""
+    return tree_map(lambda t, r: local_shard(t, r, mesh).to(mesh.device),
+                    params, rules)
 
 
 def _numpy(tree):

@@ -93,6 +93,20 @@ exactly in both modes and captures the means over real tokens);
     PYTHONPATH=src python -m repro_torch.launch.serve --arch vit-b16 \
         --batch 64 --seq-shards 4 --prefill voltage
 
+    # over a (data, model) mesh of ranks, one process each (the
+    # reference's --mesh DxM): the batch over data where it divides, the
+    # sequence over model (else over every axis), FSDP weights gathered
+    # a layer at a time; --decode-tp keeps the decode tensor-parallel.
+    # gloo runs any number of ranks on one card or on the CPU, nccl one
+    # rank a card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
+        --reduced --batch 8 --prompt-len 64 --gen 6 --mesh 1x4 \
+        --backend gloo --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+        --reduced --batch 8 --prompt-len 64 --gen 6 --mesh 2x2 \
+        --backend gloo --device cpu --decode-mode exact --prefill prism \
+        --decode-tp
+
 Weights are random, drawn from ``torch.Generator`` seeded with
 ``--seed``; ``--reduced`` takes the architecture's smoke-test size.
 Runs on CUDA unless ``--device cpu`` is given; without a card it raises.
@@ -101,7 +115,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -112,8 +126,9 @@ from ..device import resolve_device
 from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..models.transformer import is_encoder
-from ..runtime.serve import (ServeHParams, ServeLayout, encode, generate,
-                             make_layout)
+from ..launch.mesh import MESH_TIMEOUT, spawn
+from ..runtime.serve import (MeshParams, ServeHParams, ServeLayout, encode,
+                             generate, make_layout, mesh_params, seq_shards)
 
 # ViT-B/16's tokens: 14 x 14 patches of a 224-pixel image, plus CLS
 VIT_TOKENS = 197
@@ -131,22 +146,28 @@ class StaticServe:
     gen: int
     # a vlm's image (B, prefix, D), an audio model's frames (B, n, D)
     embeds: torch.Tensor | None = None
+    # a mesh rank's decode-TP cut of the weights (``mesh_rank``)
+    decode_params: MeshParams | None = None
 
     def run(self, forced: torch.Tensor | None = None):
         """-> (tokens (B, gen), logits (gen, B, V), times)."""
         return generate(self.cfg, self.params, self.prompts, gen=self.gen,
                         prism=self.prism, lay=self.lay, hp=self.hp,
-                        forced=forced, embeds=self.embeds)
+                        forced=forced, embeds=self.embeds,
+                        decode_params=self.decode_params)
 
 
 def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
           gen: int = 16, seq_shards: int = 4, decode_mode: str = "exact",
           cr: float = 4.0, device: str = "cuda", seed: int = 0,
           backend: str = "auto", params: dict | None = None,
-          reduced: bool = False, prefill: str | None = None) -> StaticServe:
+          reduced: bool = False, prefill: str | None = None,
+          cap: int | None = None,
+          n_layers: int | None = None) -> StaticServe:
     """Build a static-batch run: the prompt length is rounded down and
-    the cache capacity up to multiples of the shard count, as the
-    reference launcher does.  ``params`` reuses weights already built.
+    the cache capacity (by default prompt + gen) up to multiples of the
+    shard count, as the reference launcher does.  ``params`` reuses
+    weights already built; ``n_layers`` keeps the first layers only.
     ``prefill`` ('voltage' | 'prism') picks the prefill exchange; by
     default the decode mode's pairing (exact: voltage, prism: PRISM).  A
     vlm (PaliGemma) also gets stub image embeddings (B, prefix_len, D),
@@ -156,8 +177,12 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
     dev = resolve_device(device)
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduced else cfg
+    if n_layers is not None:
+        cfg = replace(cfg, n_layers=n_layers,
+                      blocks=cfg.block_kinds[:n_layers])
     n = prompt_len - prompt_len % seq_shards
-    cap = n + gen + (-(n + gen)) % seq_shards
+    cap = n + gen if cap is None else cap
+    cap += -cap % seq_shards
     hp = ServeHParams(decode_mode=decode_mode, means_cr=cr, backend=backend)
     if prefill is None:
         prefill = "prism" if decode_mode == "prism" else "voltage"
@@ -182,6 +207,66 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
                              generator=torch.Generator(
                                  device=dev).manual_seed(seed))
     return StaticServe(cfg, params, prompts, prism, lay, hp, gen, embeds)
+
+
+def mesh_rank(mesh, arch: str, *, batch: int, decode_tp: bool = False,
+              forced: torch.Tensor | None = None, **opts) -> dict:
+    """One rank of a static-batch run over ``mesh`` (``spawn``'s ``fn``):
+    ``setup``'s run (``opts`` are its arguments) at the mesh's sequence
+    shards on the rank's device, laid out over the mesh, its whole
+    weights cut to the rank's shards (``mesh_params``; the decode-TP cut
+    too with ``decode_tp``), then ``generate``.  ``forced`` (B, gen - 1)
+    teacher-forces the decoded tokens.  -> the rank's tokens (B_loc,
+    gen) and logits (gen, B_loc, V) on its device, its times, its meter,
+    its coordinates and the layout."""
+    run = setup(arch, batch=batch, seq_shards=seq_shards(mesh, batch),
+                device=mesh.device, **opts)
+    hp = replace(run.hp, decode_tp=decode_tp)
+    lay = make_layout(mesh, run.lay.cap, hp,
+                      prefill_len=run.lay.prefill_len, batch=batch)
+    mp = mesh_params(run.cfg, run.params, mesh)
+    dp = (mesh_params(run.cfg, run.params, mesh, decode_tp=True)
+          if decode_tp else None)
+    run = replace(run, params=mp, lay=lay, hp=hp, decode_params=dp)
+    mesh.meter.reset()
+    tokens, logits, times = run.run(forced)
+    return {"tokens": tokens, "logits": logits, "times": times,
+            "meter": mesh.meter.snapshot(), "coords": mesh.coords,
+            "lay": lay, "mp": mp, "dp": dp}
+
+
+def _mesh_rank_report(mesh, args: dict) -> dict:
+    """``mesh_rank`` for the launcher: what the parent prints, on the
+    host."""
+    out = mesh_rank(mesh, **args)
+    return {"tokens": out["tokens"].cpu(), "times": out["times"],
+            "meter": out["meter"], "coords": out["coords"],
+            "lay": out["lay"]}
+
+
+def run_mesh(args) -> None:
+    """``--mesh DxM``: one rank a mesh position (``launch/mesh.py::
+    spawn``); rank 0's tokens and times printed, and every rank's
+    meter."""
+    data, model = (int(v) for v in args.mesh.split("x"))
+    opts = dict(arch=args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                gen=args.gen, decode_mode=args.decode_mode,
+                prefill=args.prefill, cr=args.cr, seed=args.seed,
+                reduced=args.reduced, decode_tp=args.decode_tp)
+    ranks = spawn(_mesh_rank_report, data, model, backend=args.backend,
+                  device=args.device, timeout=MESH_TIMEOUT, args=(opts,))
+    first = ranks[0]
+    lay, times = first["lay"], first["times"]
+    print(f"[serve] {args.arch} on a {data}x{model} mesh of {args.backend} "
+          f"ranks ({args.device}): batch over {lay.ba or 'none'}, sequence "
+          f"over {lay.seq_axes} (P={lay.n_seq}); rank 0: prefill "
+          f"{times['prefill_ms']:.2f} ms, decode "
+          f"{times['decode_ms_per_token']:.3f} ms/token ({times['clock']})")
+    print("[serve] rank 0's generated token ids (first 2 rows):")
+    print(first["tokens"][:2].numpy())
+    for r, res in enumerate(ranks):
+        print(f"[meter] rank {r} {res['coords']}: bytes sent "
+              f"{res['meter']['sent']}")
 
 
 @dataclass
@@ -419,7 +504,18 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=None,
                     help="tokens generated per sequence / request "
                          "(default 16; an encoder generates none)")
-    ap.add_argument("--seq-shards", type=int, default=4)
+    ap.add_argument("--seq-shards", type=int, default=4,
+                    help="sequence shards folded into one process")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="[static] a (data, model) mesh of ranks, one "
+                         "process each, in place of --seq-shards")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="[mesh] torch.distributed backend: gloo (any "
+                         "number of ranks a card, or the CPU) or nccl "
+                         "(one rank a card)")
+    ap.add_argument("--decode-tp", action="store_true",
+                    help="[mesh] tensor-parallel decode over the model "
+                         "axis (exact decode)")
     ap.add_argument("--decode-mode", default="exact",
                     choices=("exact", "prism"))
     ap.add_argument("--prefill", default=None,
@@ -505,6 +601,16 @@ def main(argv=None):
         return
     args.prompt_len = 64 if args.prompt_len is None else args.prompt_len
     args.gen = 16 if args.gen is None else args.gen
+    if args.mesh is not None:
+        if args.engine:
+            ap.error("--mesh serves the static batch: the engine runs in "
+                     "one process (ROADMAP queue 1, item 18)")
+        if args.backend is None:
+            ap.error("--mesh needs --backend gloo or nccl")
+        run_mesh(args)
+        return
+    if args.decode_tp:
+        ap.error("--decode-tp takes a --mesh")
     if args.engine:
         run_engine(args)
         return

@@ -63,30 +63,55 @@ The paged cache (``runtime/paging.py``): the layer cache is a page pool
 rows; ``serve_step`` and the tick programs take the per-slot page map
 (B, ppr) and state map (B,), write through them and read the pool in
 place (the decode kernel's page table).
+
+Over a mesh of ranks (``launch/mesh.py``), as the reference's
+``make_prefill_step`` / ``make_serve_step`` run under ``shard_map``:
+``prefill``, ``serve_step`` and ``generate`` take a rank's
+``MeshParams`` (its local parameters and their rules) and a layout from
+``make_layout(mesh, ...)``.  The batch splits over ``data`` where it
+divides, else the sequence over every axis (the reference's
+``_layout_axes``); the sequence over ``model``, one shard a rank, so the
+cache's shard axis holds the rank's own (``ServeLayout.held``).  Each
+layer's parameters are gathered on use (``rules.gather_tree``); a
+vocab-sharded table embeds by a masked take and a psum over ``model``,
+and its logits come back sharded (``gather_logits``).  The exact combine
+is a ``pmax``, then one ``psum`` of the rescaled (l, acc), over the
+sequence group, the prism owner select a psum of the owner-masked
+outputs.  With ``decode_tp`` the decode keeps the Megatron layout
+(``rules.decode_param_specs``): column-parallel wq and up/gate, a head
+gather of q, row-parallel wo and down, one activation psum each, no
+parameter gather.  A mesh serves ``attn`` blocks of token prompts; the
+ticks, the paged cache, the engine and the degraded step refuse it.
 """
 from __future__ import annotations
 
+import math
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import torch
 import torch.utils.checkpoint
 
+from ..convert import from_jax_numpy, shard_params
 from ..core.attention import log_repeats
 from ..core.protocol import PrismConfig
 from ..kernels.decode_attention import decode_stats
 from ..kernels.ops import prism_attention_op
+from ..launch.mesh import Mesh, batch_axes, mesh_axes
 from ..models.config import ModelConfig
 from ..models.context import SeqContext
 from ..models.layers import (AttnSpec, attn_output, attn_project_kv,
-                             attn_project_q, embed, norm)
+                             attn_project_q, dense, embed, mlp, norm)
 from ..models.moe import RoutingLog
 from ..models.transformer import (RECURRENT_KINDS, attn_spec,
                                   block_residual, check_decoder,
                                   check_supported, classify, embed_inputs,
                                   embed_scale, head, layer_blocks,
                                   recurrent_block, recurrent_decode, sincos)
+from ..sharding import comm
 from ..sharding.context import ShardedPrismContext, means_columns
+from ..sharding.rules import (decode_param_specs, gather_tree, param_specs,
+                              tp_flags)
 from .paging import KVCache, PrefixCache
 
 
@@ -95,20 +120,13 @@ class ServeHParams:
     decode_mode: str = "exact"       # 'exact' | 'prism'
     means_cr: float = 16.0           # CR for the prism decode means cache
     backend: str = "auto"            # kernel dispatch: 'auto'|'kernel'|'plain'
-    # the reference's tensor-parallel decode over a data axis (expert-TP
-    # for MoE blocks): multi-card work, refused
+    # the reference's tensor-parallel decode over the mesh's model axis
+    # (``check_mesh_serving``; expert-TP for MoE blocks is not ported)
     decode_tp: bool = False
     ssm_chunk: int = 128             # an mLSTM prefill's chunk length
     # the checks' record or replay of the MoE routing decisions
     routing: RoutingLog | None = field(default=None, compare=False,
                                        repr=False)
-
-    def __post_init__(self):
-        if self.decode_tp:
-            raise NotImplementedError(
-                "decode_tp (tensor-parallel decode, expert-TP for MoE "
-                "blocks) needs more than one card: ROADMAP queue 1, "
-                "item 15")
 
 
 # the expert exchange of a decode step, a chunk call or a packed tick
@@ -116,6 +134,164 @@ class ServeHParams:
 # decode_tp's): all of the call's tokens are one routing group, as the
 # reference's all_to_all over tokens every shard holds gives
 DECODE_MOE_CTX = SeqContext()
+
+
+# --------------------------------------------------------------------------
+# the mesh
+# --------------------------------------------------------------------------
+
+# where what a mesh does not serve yet is to come
+MESH_MOE = "ROADMAP queue 1, item 16"
+MESH_KINDS_LATER = "ROADMAP queue 1, item 17"
+MESH_ENGINE_LATER = "ROADMAP queue 1, item 18"
+
+
+@dataclass(frozen=True)
+class MeshParams:
+    """One rank's parameters on a mesh: ``params`` the local tree, each
+    leaf its block under ``rules`` (``mesh_params``); ``decode_tp``:
+    cut by the decode-TP rules."""
+    mesh: Mesh
+    rules: dict
+    params: dict
+    decode_tp: bool = False
+
+
+def mesh_params(cfg: ModelConfig, params: dict, mesh: Mesh, *,
+                decode_tp: bool = False) -> MeshParams:
+    """This rank's ``MeshParams`` from the whole parameters (the port's
+    tree, or the reference's numpy tree): the FSDP rules of prefill and
+    of the FSDP decode (``rules.param_specs``), or the decode-TP rules
+    (``rules.decode_param_specs``).  Rules are computed on the port's
+    tree, so a reference tree is carried across first."""
+    if "scan" in params:
+        params = from_jax_numpy(cfg, params, device=mesh.device)
+    rules = (decode_param_specs(params, mesh, cfg.vocab_size, cfg)
+             if decode_tp else param_specs(params, mesh, cfg.vocab_size))
+    return MeshParams(mesh, rules, shard_params(params, rules, mesh),
+                      decode_tp)
+
+
+def check_mesh_serving(cfg: ModelConfig, hp: ServeHParams, mesh) -> None:
+    """Raise for what a mesh of ranks does not serve yet, and for
+    ``decode_tp`` off a mesh whose ``model`` axis is over 1.  ``mesh``: a
+    ``Mesh``, its axis sizes, or None (the fold)."""
+    if hp.decode_tp:
+        _check_tp_axis(mesh)
+        if "moe" in cfg.block_kinds:
+            raise NotImplementedError(
+                "decode_tp over MoE blocks (expert-TP, the reference's "
+                f"DecodeMoeCtx(tp=True)): {MESH_MOE}")
+        if hp.decode_mode != "exact":
+            raise ValueError(
+                "decode_tp decodes exactly: the reference's attn_decode_tp "
+                "reads no means cache; take decode_mode='exact'")
+    if mesh is None:
+        return
+    kinds = set(cfg.block_kinds)
+    if "moe" in kinds:
+        raise NotImplementedError("MoE expert parallelism (all_to_all) on a "
+                                  f"mesh: {MESH_MOE}")
+    if kinds != {"attn"} or cfg.frontend or cfg.prefix_len:
+        raise NotImplementedError(
+            f"a mesh serves attn blocks of token prompts (blocks "
+            f"{sorted(kinds)}, frontend {cfg.frontend!r}): "
+            f"{MESH_KINDS_LATER}")
+
+
+def _check_tp_axis(mesh) -> None:
+    if mesh is None or mesh_axes(mesh).get("model", 1) <= 1:
+        raise NotImplementedError("decode_tp (tensor-parallel decode) needs "
+                                  "a mesh whose model axis is over 1")
+
+
+def refuse_mesh(what: str, *things) -> None:
+    """Raise if any of ``things`` (parameters, a layout) is a mesh's:
+    ``what`` runs in one process only."""
+    for t in things:
+        if isinstance(t, MeshParams) or getattr(t, "seq_axes", ()):
+            raise NotImplementedError(f"{what} on a mesh of ranks: "
+                                      f"{MESH_ENGINE_LATER}")
+
+
+def layout_axes(mesh, batch: int) -> tuple:
+    """(batch axes, sequence axes) of a mesh layout: ``model`` shards the
+    sequence when the batch divides over the batch axes; otherwise (the
+    long_500k case, B = 1) the batch is replicated and the sequence
+    shards over every axis (the reference's ``_layout_axes``)."""
+    axes = mesh_axes(mesh)
+    ba = batch_axes(mesh)
+    if batch % math.prod(axes[a] for a in ba) == 0:
+        return ba, ("model",)
+    return (), tuple(axes)
+
+
+def seq_shards(mesh, batch: int) -> int:
+    """The sequence shards of ``make_layout`` for (mesh, batch): prompt
+    and cache lengths must be multiples of it."""
+    axes = mesh_axes(mesh)
+    return math.prod(axes[a] for a in layout_axes(mesh, batch)[1])
+
+
+def _mesh(params):
+    """The rank's mesh of ``MeshParams``, None for whole parameters."""
+    return params.mesh if isinstance(params, MeshParams) else None
+
+
+def _tree(params):
+    """The parameter tree a layer reads: the local tree on a mesh."""
+    return params.params if isinstance(params, MeshParams) else params
+
+
+def _layers(cfg: ModelConfig, params):
+    """Each layer's (kind, parameters), gathered on a mesh (FSDP) as the
+    layer is reached."""
+    if not isinstance(params, MeshParams):
+        yield from layer_blocks(cfg, params)
+        return
+    for (kind, p), (_, r) in zip(layer_blocks(cfg, params.params),
+                                 layer_blocks(cfg, params.rules)):
+        yield kind, gather_tree(p, r, params.mesh)
+
+
+def batch_rows(t, lay, mesh):
+    """This rank's rows of a whole-batch tensor: its block over the batch
+    axes, all of them where the batch is replicated."""
+    if mesh is None or not lay.ba:
+        return t
+    grp = mesh.group(lay.ba)
+    n = t.shape[0] // grp.size
+    return t[grp.index * n:(grp.index + 1) * n]
+
+
+def vocab_lookup(params, tokens):
+    """The embedding rows of ``tokens``; a vocab-sharded table (a
+    ``MeshParams`` whose table rule is ``vocab``) looks up its own rows,
+    zeros for the others, and psums over ``model``."""
+    tree = _tree(params)
+    table = tree["embed"]["table"]
+    if (not isinstance(params, MeshParams)
+            or params.rules["embed"]["table"].kind != "vocab"):
+        return embed(tree["embed"], tokens)
+    mg = params.mesh.group("model")
+    v_loc = table.shape[0]
+    t = tokens - mg.index * v_loc
+    ok = (t >= 0) & (t < v_loc)
+    e = table[t.clamp(0, v_loc - 1)]
+    return comm.psum(torch.where(ok[..., None], e, torch.zeros_like(e)), mg,
+                     "tp")
+
+
+def gather_logits(logits, params):
+    """Logits over the whole vocabulary: a vocab-sharded head's (the
+    rule of the tied table or of ``lm_head``), gathered over ``model``."""
+    if not isinstance(params, MeshParams):
+        return logits
+    r = params.rules
+    rule = r["embed"]["table"] if "lm_head" not in r else r["lm_head"]["w"]
+    if rule.kind != "vocab":
+        return logits
+    return comm.all_gather(logits, params.mesh.group("model"), "tp", dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -131,15 +307,36 @@ class ServeLayout:
     prefill_len: int                 # tokens laid down by prefill (n0)
     L: int                           # segment means per shard (prism cache)
     placement: str = "aligned"       # 'aligned' | 'rr' (paged exact)
+    ba: tuple = ()                   # mesh axes of the batch
+    seq_axes: tuple = ()             # mesh axes of the sequence; () folded
 
     @property
     def n_loc0(self) -> int:
         return self.prefill_len // self.n_seq
 
+    @property
+    def held(self) -> int:
+        """The shards a process holds: all P folded, its own on a mesh."""
+        return 1 if self.seq_axes else self.n_seq
 
-def make_layout(n_seq: int, cap: int, hp: ServeHParams,
+
+def make_layout(shards, cap: int, hp: ServeHParams,
                 prefill_len: int | None = None,
-                placement: str = "aligned") -> ServeLayout:
+                placement: str = "aligned", *,
+                batch: int | None = None) -> ServeLayout:
+    """The layout of ``shards`` sequence shards folded into one process,
+    or, with a ``Mesh`` and the whole ``batch``, of the mesh's ranks
+    (``layout_axes``)."""
+    ba, seq = (), ()
+    if isinstance(shards, Mesh):
+        if batch is None:
+            raise ValueError("a mesh layout needs the whole batch")
+        ba, seq = layout_axes(shards, batch)
+        n_seq = shards.size(seq)
+    else:
+        n_seq = shards
+        if hp.decode_tp:
+            _check_tp_axis(None)
     n0 = cap if prefill_len is None else prefill_len
     if cap % n_seq or n0 % n_seq or n0 > cap:
         raise ValueError(f"cap={cap} and prefill_len={n0} must be "
@@ -148,7 +345,7 @@ def make_layout(n_seq: int, cap: int, hp: ServeHParams,
         raise ValueError(f"placement {placement!r} not in ('aligned', 'rr')")
     L = max(1, int(n0 // (hp.means_cr * n_seq)))
     L = min(L, n0 // n_seq)
-    return ServeLayout(n_seq, cap, cap // n_seq, n0, L, placement)
+    return ServeLayout(n_seq, cap, cap // n_seq, n0, L, placement, ba, seq)
 
 
 def paged_placement(hp: ServeHParams, paging) -> str:
@@ -179,10 +376,11 @@ def ring_width(cfg: ModelConfig, lay: ServeLayout) -> int:
 def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
                       hp: ServeHParams, paging=None,
                       kind: str = "attn") -> dict:
-    """Per-layer cache leaves: k, v (B, P, cap_l, Hkv, hd); prism mode
-    adds the means K/V kz, vz (B, P·L, Hkv, hd), their per-request
-    repeat counts gz (B, P·L) and the per-segment activation sums
-    zsum (B, P·L, D).  With ``paging`` (a ``PagedLayout``) k, v are the
+    """Per-layer cache leaves: k, v (B, P, cap_l, Hkv, hd) (on a mesh
+    the rank's batch rows and its one shard, (B, 1, cap_l, Hkv, hd));
+    prism mode adds the means K/V kz, vz (B, P·L, Hkv, hd), their
+    per-request repeat counts gz (B, P·L) and the per-segment activation
+    sums zsum (B, P·L, D).  With ``paging`` (a ``PagedLayout``) k, v are the
     page pool (n_pages, P, pc, Hkv, hd) and the prism leaves have one
     row per state page in place of the batch, and one more that no slot
     maps: a sink for the writes of the slots a call does not advance
@@ -211,7 +409,7 @@ def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
         return {"s": (batch, h, cfg.ssm_state, d_in // h),
                 "tail": (batch, cfg.ssm_conv - 1, d_in)}
     if paging is None:
-        kv = (batch, lay.n_seq, lay.cap_l, hkv, hd)
+        kv = (batch, lay.held, lay.cap_l, hkv, hd)
         rows = batch
     else:
         kv = (paging.n_pages, lay.n_seq, paging.page_cols, hkv, hd)
@@ -232,7 +430,8 @@ def make_kv_cache(cfg: ModelConfig, lay: ServeLayout, batch: int,
     """The engine's one cache object: zero-filled device storage in a
     ``KVCache`` (paged: the pools, a ``PageTable`` and, if asked, a
     ``PrefixCache``; dense, ``paging=None``: the rowset of ``batch``
-    rows)."""
+    rows).  One process's: a mesh layout is refused."""
+    refuse_mesh("the engine's cache (KVCache)", lay)
     kv = KVCache(storage=init_cache(cfg, lay, batch, hp, device, paging),
                  layout=lay, paging=paging)
     if paging is not None and prefix_cache:
@@ -280,23 +479,23 @@ def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
     o, k, v, akv, xq_n = sharded_attn(p, spec, cfg, x, ctx, hp)
 
     bp, n_loc, d = x.shape
-    P = lay.n_seq
+    P = lay.held                        # the shards this process holds
     b = bp // P
     hkv, hd = k.shape[2:]
     if spec.window is not None:
         return ctx.finalize(o), ring_capture(k, v, b, lay, shapes), xq_n
     # prism: the local block comes first in every shard's K/V; voltage: K/V
     # is the full sequence, whose shard-p slice is batch row b·P + p
-    k_loc = k[:, :n_loc] if prism_augment else k.reshape(bp, n_loc, hkv, hd)
-    v_loc = v[:, :n_loc] if prism_augment else v.reshape(bp, n_loc, hkv, hd)
+    k_loc = k[:, :n_loc] if prism_augment else ctx.take_local(k)
+    v_loc = v[:, :n_loc] if prism_augment else ctx.take_local(v)
     cache = {}
     for name, t in (("k", k_loc), ("v", v_loc)):
         c = torch.zeros(shapes[name], dtype=t.dtype, device=t.device)
         c[:, :, :n_loc] = t.reshape(b, P, n_loc, hkv, hd)
         cache[name] = c
     if hp.decode_mode == "prism":
-        m = P * lay.L
-        means = means_columns(P, n_loc, lay.L, x.device)
+        m = lay.n_seq * lay.L
+        means = means_columns(lay.n_seq, n_loc, lay.L, x.device)
         if prism_augment:
             # the means columns follow the local block, equal on all shards
             def means_cols(t):
@@ -351,9 +550,16 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
     takes ``tokens=None`` and its frames, embeds (B, n0, D).  A recurrent
     block hands its state across the shards and keeps the sequence's end
     state (an mLSTM or Mamba2 recurrence in chunks of ``hp.ssm_chunk``;
-    Mamba2's conv takes the previous shard's rows as its halo)."""
+    Mamba2's conv takes the previous shard's rows as its halo).
+
+    On a mesh (``params`` a rank's ``MeshParams``, ``lay`` the mesh's):
+    ``tokens`` is the whole batch, and the rank answers for its batch rows
+    (B_loc, V) over its vocab shard (``gather_logits``) with the cache of
+    its rows and sequence shard."""
     check_supported(cfg)
     check_decoder(cfg, "prefill")
+    mesh = _mesh(params)
+    _check_on_mesh(cfg, hp, mesh, lay)
     b, n = (tokens if tokens is not None else embeds).shape[:2]
     P = lay.n_seq
     if n != lay.prefill_len:
@@ -362,12 +568,17 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
     n_loc = n // P
     prism_cfg = prism.with_(P=P, L=lay.L if hp.decode_mode == "prism"
                             else prism.L)
-    ctx = ShardedPrismContext(prism_cfg, n_shards=P, backend=hp.backend)
+    ctx = ShardedPrismContext(prism_cfg, n_shards=P, backend=hp.backend,
+                              mesh=mesh, seq_axes=lay.seq_axes)
     prism_augment = prism_cfg.mode == "prism"
-    x = embed_inputs(cfg, params, tokens, embeds=embeds).reshape(
-        b * P, n_loc, cfg.d_model)
+    if mesh is None:
+        x = embed_inputs(cfg, params, tokens, embeds=embeds).reshape(
+            b * P, n_loc, cfg.d_model)
+    else:
+        x = _embed_shard(cfg, params, batch_rows(tokens, lay, mesh), lay)
+        b = x.shape[0]
     cache = []
-    for kind, p in layer_blocks(cfg, params):
+    for kind, p in _layers(cfg, params):
         if kind in RECURRENT_KINDS:
             x, c = recurrent_block(cfg, kind, p, x, ctx, chunk=hp.ssm_chunk,
                                    return_state=True)
@@ -379,7 +590,46 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
         # a moe block routes each shard's tokens as a group (ctx's groups)
         x = block_residual(cfg, kind, p, x, o, xn, ctx, hp.routing)
         cache.append(c)
-    return lm_head(cfg, params, ctx.last_shard(x[:, -1])), cache
+    return lm_head(cfg, _tree(params), ctx.last_shard(x[:, -1])), cache
+
+
+def _check_on_mesh(cfg: ModelConfig, hp: ServeHParams, mesh, lay) -> None:
+    """Raise unless parameters and layout agree on the mesh, and for
+    what a mesh does not serve."""
+    if (mesh is None) != (not lay.seq_axes):
+        raise ValueError("a mesh's parameters (MeshParams) take a mesh's "
+                         "layout (make_layout(mesh, ...)), and only they do")
+    check_mesh_serving(cfg, hp, mesh)
+
+
+def _embed_shard(cfg: ModelConfig, mp: MeshParams, tokens, lay):
+    """The rank's rows of the prompt's embedding: tokens (B_loc, N) ->
+    (B_loc, n_loc, D) at positions [start, start + n_loc).  A
+    vocab-sharded table looks up the rows of the rank's ``model`` group
+    (a contiguous block of the sequence) and keeps its own after the
+    psum; learned positions come from the gathered table."""
+    seq = mp.mesh.group(lay.seq_axes)
+    n_loc = tokens.shape[1] // seq.size
+    start = seq.index * n_loc
+    # the lookups' outputs follow their indices' strides: the token
+    # blocks are copied contiguous, as the kernels take the rows
+    if mp.rules["embed"]["table"].kind == "vocab":
+        mg = mp.mesh.group("model")
+        first = start - mg.index * n_loc
+        x = vocab_lookup(mp, tokens[:, first:first + mg.size * n_loc]
+                         .contiguous())
+        x = x[:, mg.index * n_loc:(mg.index + 1) * n_loc].contiguous()
+    else:
+        x = vocab_lookup(mp, tokens[:, start:start + n_loc].contiguous())
+    x = embed_scale(cfg, x)
+    if cfg.pos == "learned":
+        tbl = gather_tree(mp.params["pos_embed"], mp.rules["pos_embed"],
+                          mp.mesh)["table"]
+        return x + tbl[start:start + n_loc].to(x.dtype)
+    if cfg.pos == "sincos":
+        return x + sincos(torch.arange(n_loc, device=x.device) + start,
+                          cfg.d_model).to(x.dtype)
+    return x
 
 
 def sharded_block(cfg: ModelConfig, kind: str, p, x, ctx, hp: ServeHParams,
@@ -470,12 +720,13 @@ def encode(cfg: ModelConfig, params, tokens=None, *, embeds=None,
 # decode
 # --------------------------------------------------------------------------
 
-def _decode_cols(lay: ServeLayout, pos: torch.Tensor):
+def _decode_cols(lay: ServeLayout, pos: torch.Tensor, shard0: int = 0):
     """(write slot (..., P), owner (..., P), col_pos (P, cap_l)) for the
     positions ``pos`` of any shape under the layout's placement (-1 =
-    dead entry: owner False on every shard)."""
+    dead entry: owner False on every shard); P the shards held, from
+    ``shard0`` (a mesh rank's sequence index) on."""
     n0, n_loc0, n_seq = lay.prefill_len, lay.n_loc0, lay.n_seq
-    idx = torch.arange(n_seq, device=pos.device)                 # (P,)
+    idx = shard0 + torch.arange(lay.held, device=pos.device)     # (P,)
     if lay.placement == "rr":
         slot = (pos // n_seq)[..., None].expand(*pos.shape, n_seq)
         owner = (((pos % n_seq)[..., None] == idx) & (slot >= 0)
@@ -547,17 +798,26 @@ def state_rows(c, state_map):
     return state_map.long().clamp(0, c["gz"].shape[0] - 2)
 
 
-def _combine_exact(m_p, l_p, acc_p):
+def _combine_exact(m_p, l_p, acc_p, seq=None):
     """Cross-shard flash-softmax combine over the shard axis (dim 1) for
     Nq queries: m, l (B, P, Hq, Nq), acc (B, P, Nq, Hq, hd) ->
     (B, Nq, Hq, hd).  Any disjoint column sets combine the same way (the
     chunked and packed ticks add their intra-tick columns as one more
     entry of the axis).  Sets with no valid column (m = NEG) cancel via
-    corr = 0."""
+    corr = 0.  ``seq`` (a mesh's sequence group) extends the axis over
+    its ranks: the reference's ``pmax``, then one ``psum`` of the
+    rescaled (l, acc)."""
     m_g = m_p.amax(dim=1, keepdim=True)
+    if seq is not None:
+        m_g = comm.pmax(m_g, seq, "combine")
     corr = torch.exp(m_p - m_g)                                  # (B,P,Hq,Nq)
     l_c = (l_p * corr).sum(dim=1)                                # (B,Hq,Nq)
     acc_c = (acc_p * corr.transpose(2, 3)[..., None]).sum(dim=1)
+    if seq is not None:
+        both = comm.psum(torch.cat([l_c.flatten(), acc_c.flatten()]), seq,
+                         "combine")
+        l_c = both[:l_c.numel()].view_as(l_c)
+        acc_c = both[l_c.numel():].view_as(acc_c)
     return acc_c / torch.clamp(l_c, min=1e-30).transpose(1, 2)[..., None]
 
 
@@ -584,7 +844,7 @@ def shard_stats(q, k, v, valid, scale, *, log_gz=None, kz=None, vz=None,
 
 def decode_attention(q, k, v, valid, scale, *, gz=None, kz=None, vz=None,
                      owner=None, mode="exact", rows=None, pages=None,
-                     zrows=None, backend="auto"):
+                     zrows=None, backend="auto", seq=None):
     """Per-token decode attention over the shard-stacked cache.
 
     q (Bq,1,Hq,hd); k, v (R,P,M,Hkv,hd) or the page pool with ``pages``
@@ -592,7 +852,9 @@ def decode_attention(q, k, v, valid, scale, *, gz=None, kz=None, vz=None,
     query rows to cache rows (None: the identity).  Prism extras: gz
     (Bq,P,m) per-row, per-shard means repeat counts (0 = dead column),
     kz/vz (R,m,Hkv,hd) or the state pool with ``zrows``, owner (Bq,P)
-    bool.  Returns (Bq,1,Hq,hd)."""
+    bool.  ``seq``: a mesh's sequence group, whose ranks hold the other
+    shards (the combine and the owner select run over it).  Returns
+    (Bq,1,Hq,hd)."""
     log_gz = log_repeats(gz) if kz is not None else None
     m_p, l_p, acc_p = shard_stats(q, k, v, valid, scale, log_gz=log_gz,
                                   kz=kz, vz=vz, rows=rows, pages=pages,
@@ -604,8 +866,10 @@ def decode_attention(q, k, v, valid, scale, *, gz=None, kz=None, vz=None,
         out = acc_p / torch.clamp(l_p, min=1e-30).transpose(2, 3)[..., None]
         out = torch.where(owner[:, :, None, None, None], out,
                           torch.zeros_like(out)).sum(dim=1)
+        if seq is not None:
+            out = comm.psum(out, seq, "combine")
     else:
-        out = _combine_exact(m_p, l_p, acc_p)
+        out = _combine_exact(m_p, l_p, acc_p, seq)
     return out.to(v.dtype)
 
 
@@ -669,7 +933,7 @@ def ring_cols(w: int, window: int, pos):
 
 def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
                 lay: ServeLayout, hp: ServeHParams, cols, lost=None,
-                rep=None):
+                rep=None, seq=None):
     """x (B,1,D), pos (B,) -> (out (B,1,D), the normed input x (a
     parallel block's MLP reads it)); writes this token's K/V into the
     layer cache ``c`` in place.  ``cols`` = (write plan, owner,
@@ -684,7 +948,10 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
     the standby replica ``rep`` ({"kz" (B,m,Hkv,hd), "vz", "gz" (B,m)},
     ``MeansReplica.assemble``) on the lost shard's own lane only, so the
     shard combine counts each mean once; in prism mode the means the
-    state rows already hold, the lost shard's own gate opened."""
+    state rows already hold, the lost shard's own gate opened.
+
+    ``seq``: a mesh's sequence group; the layer cache holds the rank's
+    shard, combined over the group's ranks."""
     if spec.window is not None:
         plan, valid = cols                           # the ring's
     else:
@@ -702,12 +969,14 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
     elif hp.decode_mode == "prism" and "kz" in c:
         # repeat counts ride in the cache (the state pool when paged)
         means = means_columns(lay.n_seq, lay.n_loc0, lay.L, x.device)
+        if seq is not None:              # the rank's shard's repeat counts
+            means = means._replace(g=means.g[seq.index:seq.index + 1])
         cnt = c["gz"] if sr is None else c["gz"][sr]
         gz = prism_gz(means, cnt, pos, lost)                 # (B, P, m)
         out = decode_attention(q, c["k"], c["v"], valid, scale, gz=gz,
                                kz=c["kz"], vz=c["vz"], owner=owner,
                                mode="prism", pages=page_map, zrows=state_map,
-                               backend=hp.backend)
+                               backend=hp.backend, seq=seq)
     elif rep is not None:
         gz = replica_gz(rep["gz"], lost)                         # (B, P, m)
         out = decode_attention(q, c["k"], c["v"], valid, scale, gz=gz,
@@ -715,20 +984,71 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
                                backend=hp.backend)
     else:
         out = decode_attention(q, c["k"], c["v"], valid, scale,
-                               pages=page_map, backend=hp.backend)
+                               pages=page_map, backend=hp.backend, seq=seq)
     return attn_output(p["attn"], out), xn
+
+
+def mlp_tp(p, x, kind: str, mg):
+    """The feed-forward over column-parallel up/gate and row-parallel
+    down (the rank's d_ff slice): one psum of the partial outputs over
+    the ``model`` group ``mg``."""
+    return comm.psum(mlp(p, x, kind), mg, "tp")
+
+
+def attn_decode_tp(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
+                   lay: ServeLayout, hp: ServeHParams, cols, seq, tp):
+    """Tensor-parallel single-token attention, exact decode: with
+    attention TP the rank projects its Hq / tp heads through its columns
+    of wq, gathers every head over ``model`` (flash-decode needs them all
+    against its sequence shard), attends, and projects its own heads'
+    output through its rows of wo, psummed; wk / wv are whole.  ``tp`` =
+    (attention TP, FFN TP, the ``model`` group).  -> (out (B,1,D), the
+    normed input)."""
+    attn_tp, _, mg = tp
+    plan, _, valid = cols[:3]
+    xn = norm(p["ln1"], x, cfg.norm_kind)
+    rp = pos[:, None]
+    b = x.shape[0]
+    hq_loc = spec.n_heads // mg.size
+    if attn_tp:
+        q = attn_project_q(p["attn"], replace(spec, n_heads=hq_loc), xn, rp)
+        q = comm.all_gather(q, mg, "tp", dim=2)
+    else:
+        q = attn_project_q(p["attn"], spec, xn, rp)
+    k_new, v_new = attn_project_kv(p["attn"], spec, xn, rp)
+    _write_kv(c["k"], k_new[:, 0], plan)
+    _write_kv(c["v"], v_new[:, 0], plan)
+    out = decode_attention(q, c["k"], c["v"], valid, spec.head_dim ** -0.5,
+                           backend=hp.backend, seq=seq)
+    if not attn_tp:
+        return attn_output(p["attn"], out), xn
+    own = out[:, :, mg.index * hq_loc:(mg.index + 1) * hq_loc]
+    o = dense(p["attn"]["wo"], own.reshape(b, 1, -1))
+    return comm.psum(o, mg, "tp"), xn
 
 
 def block_decode(cfg: ModelConfig, kind: str, p, x, c, pos,
                  lay: ServeLayout, hp: ServeHParams, cols, lost=None,
-                 rep=None):
+                 rep=None, seq=None, tp=None):
     """One residual block, single-token decode (a moe block routes the
     step's B tokens as one group; a recurrent block updates its state in
-    place)."""
+    place).  ``seq``: a mesh's sequence group; ``tp``: decode_tp's
+    (attention TP, FFN TP, ``model`` group)."""
     if kind in RECURRENT_KINDS:
         return recurrent_decode(cfg, kind, p, x, c)
+    if tp is not None:
+        o, xn = attn_decode_tp(p, attn_spec(cfg, kind), cfg, x, c, pos, lay,
+                               hp, cols, seq, tp)
+
+        def ffn(h):
+            return (mlp_tp(p["mlp"], h, cfg.mlp_kind, tp[2]) if tp[1]
+                    else mlp(p["mlp"], h, cfg.mlp_kind))
+        if cfg.parallel_block:
+            return x + (o + ffn(xn))
+        x = x + o
+        return x + ffn(norm(p["ln2"], x, cfg.norm_kind))
     o, xn = attn_decode(p, attn_spec(cfg, kind), cfg, x, c, pos, lay, hp,
-                        cols, lost, rep)
+                        cols, lost, rep, seq)
     return block_residual(cfg, kind, p, x, o, xn, DECODE_MOE_CTX,
                           hp.routing)
 
@@ -739,13 +1059,18 @@ def embed_tokens(cfg: ModelConfig, params, token, pos):
     request and per token where the model has them (a RoPE model rotates
     q and k at ``pos`` in its attention layers instead).  A dead
     entry (pos = -1) still embeds (its position clamped) but never
-    reaches the cache."""
-    x = embed_scale(cfg, embed(params["embed"], token))
+    reaches the cache.  On a mesh (``MeshParams``) a vocab-sharded table
+    looks up by ``vocab_lookup`` and learned positions are gathered."""
+    x = embed_scale(cfg, vocab_lookup(params, token))
     if cfg.pos == "sincos":
         return x + sincos(pos, cfg.d_model).to(x.dtype)
     if cfg.pos != "learned":
         return x
-    tbl = params["pos_embed"]["table"]
+    if isinstance(params, MeshParams):
+        tbl = gather_tree(params.params["pos_embed"],
+                          params.rules["pos_embed"], params.mesh)["table"]
+    else:
+        tbl = params["pos_embed"]["table"]
     return x + tbl[torch.clamp(pos, 0, tbl.shape[0] - 1)].to(x.dtype)
 
 
@@ -763,9 +1088,29 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
     positions are served by Segment-Means columns (``attn_decode``): in
     exact mode from ``rep``, one {"kz", "vz", "gz"} dict a layer (the
     assembled standby replica), in prism mode from the cache's own state
-    rows.  It requires the paged cache."""
+    rows.  It requires the paged cache.
+
+    On a mesh (``params`` a rank's ``MeshParams``) token and pos are the
+    rank's batch rows, and the logits its vocab shard
+    (``gather_logits``); with ``hp.decode_tp`` the parameters are the
+    decode-TP rules' (``mesh_params(decode_tp=True)``)."""
     check_decoder(cfg, "serve_step")
-    slot, owner, col_pos = _decode_cols(lay, pos)
+    mesh = _mesh(params)
+    _check_on_mesh(cfg, hp, mesh, lay)
+    seq = tp = None
+    if mesh is not None:
+        if page_map is not None or lost is not None:
+            raise NotImplementedError("the paged cache and the degraded "
+                                      f"step on a mesh: {MESH_ENGINE_LATER}")
+        seq = mesh.group(lay.seq_axes)
+        if hp.decode_tp != params.decode_tp:
+            raise ValueError("decode_tp takes the decode-TP rules' "
+                             "parameters (mesh_params(decode_tp=True)), "
+                             "and only it does")
+        if hp.decode_tp:
+            tp = (*tp_flags(cfg, mesh), mesh.group("model"))
+    slot, owner, col_pos = _decode_cols(lay, pos,
+                                        0 if seq is None else seq.index)
     valid = col_pos[None] <= pos[:, None, None]              # (B, P, cap_l)
     wr_owner = owner
     if lost is not None:
@@ -780,25 +1125,25 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
     rows = torch.arange(pos.shape[0], device=pos.device)
     # the prism state rows, from a global layer (a local one has none)
     glob = next((c for c in cache if "kz" in c), None)
-    cols = (write_plan(rows, slot, wr_owner, lay.n_seq, lay.cap_l,
+    cols = (write_plan(rows, slot, wr_owner, lay.held, lay.cap_l,
                        page_map),
             owner, valid, page_map, state_map,
             None if glob is None else state_rows(glob, state_map))
     ring = (ring_cols(ring_width(cfg, lay), cfg.window, pos)
             if "attn_local" in cfg.block_kinds else None)
     x = embed_tokens(cfg, params, token[:, None], pos[:, None])
-    for i, ((kind, p), c) in enumerate(zip(layer_blocks(cfg, params),
-                                           cache)):
+    for i, ((kind, p), c) in enumerate(zip(_layers(cfg, params), cache)):
         x = block_decode(cfg, kind, p, x, c, pos, lay, hp,
                          ring if kind == "attn_local" else cols, lost,
-                         None if rep is None else rep[i])
-    return lm_head(cfg, params, x[:, 0]), cache
+                         None if rep is None else rep[i], seq, tp)
+    return lm_head(cfg, _tree(params), x[:, 0]), cache
 
 
 def generate(cfg: ModelConfig, params, prompts: torch.Tensor | None, *,
              gen: int, prism: PrismConfig, lay: ServeLayout,
              hp: ServeHParams, forced: torch.Tensor | None = None,
-             embeds: torch.Tensor | None = None):
+             embeds: torch.Tensor | None = None,
+             decode_params: MeshParams | None = None):
     """Prefill (a vlm's image ``embeds`` over its prefix; an audio
     model's frames ``embeds`` (B, n0, D) with ``prompts`` None), then
     ``gen - 1`` greedy decode steps.
@@ -807,10 +1152,21 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor | None, *,
     feeding back the argmax.  Returns (tokens (B, gen), logits
     (gen, B, V), times): tokens[:, i] is the argmax of logits[i];
     ``times`` holds prefill_ms and decode_ms_per_token, from CUDA events
-    on a card and from the host clock on the CPU (``times['clock']``)."""
+    on a card and from the host clock on the CPU (``times['clock']``).
+
+    On a mesh (``params`` a rank's ``MeshParams``) the prompts and
+    ``forced`` are the whole batch and the rank returns its batch rows,
+    the logits gathered over the vocabulary before the greedy pick;
+    ``decode_params`` are the decode steps' (the decode-TP rules' with
+    ``hp.decode_tp``; by default ``params``)."""
     check_decoder(cfg, "generate")
+    mesh = _mesh(params)
+    step_params = params if decode_params is None else decode_params
     first = prompts if prompts is not None else embeds
-    b, n = first.shape[:2]
+    n = first.shape[1]
+    if forced is not None:
+        forced = batch_rows(forced, lay, mesh)
+    b = batch_rows(first, lay, mesh).shape[0]
     on_card = first.is_cuda
     if on_card:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -820,14 +1176,15 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor | None, *,
         mark = [lambda: stamps.append(time.perf_counter())] * 3
     mark[0]()
     logits, cache = prefill(cfg, params, prompts, prism, lay, hp, embeds)
+    out = [gather_logits(logits, params)]
     mark[1]()
-    out = [logits]
     for i in range(gen - 1):
         tok = out[-1].argmax(dim=-1) if forced is None else forced[:, i]
         pos = torch.full((b,), n + i, dtype=torch.long,
                          device=first.device)
-        logits, cache = serve_step(cfg, params, cache, tok, pos, lay, hp)
-        out.append(logits)
+        logits, cache = serve_step(cfg, step_params, cache, tok, pos, lay,
+                                   hp)
+        out.append(gather_logits(logits, step_params))
     mark[2]()
     logits = torch.stack(out)
     if on_card:

@@ -50,7 +50,8 @@ from ..models.transformer import (attn_spec, block_residual, check_decoder,
 from ..sharding.context import means_columns
 from .serve import (DECODE_MOE_CTX, ServeHParams, ServeLayout, _combine_exact,
                     _decode_cols, _write_kv, decode_attention, embed_tokens,
-                    lm_head, prism_gz, shard_stats, state_rows, write_plan)
+                    lm_head, prism_gz, refuse_mesh, shard_stats, state_rows,
+                    write_plan)
 
 
 def _with_self(prior, self_stats):
@@ -169,6 +170,7 @@ def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
     takes page_map (B, ppr) and state_map (B,) int32.  Updates and
     returns ``cache``; no logits (see the module docstring's rewind)."""
     check_tick_kinds(cfg, "chunked prefill")
+    refuse_mesh("chunked prefill", params, lay)
     b, c = tokens.shape
     j = torch.arange(c, device=tokens.device)
     alive = (off[:, None] >= 0) & (j[None, :] < nreal[:, None])   # (B, C)
@@ -256,6 +258,7 @@ def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
     Returns (logits (min(B, T), V) f32, cache), the cache updated in
     place."""
     check_tick_kinds(cfg, "packed serving")
+    refuse_mesh("packed serving", params, lay)
     b = (cache[0]["k"].shape[0] if page_map is None
          else page_map.shape[0])
     dev = tokens.device

@@ -89,7 +89,8 @@ from ..runtime.offload import KVStore
 from ..runtime.paging import AdmitPlan, make_paged_layout
 from ..runtime.replica import MeansReplica
 from ..runtime.serve import (ServeHParams, make_kv_cache, make_layout,
-                             paged_placement, prefill, serve_step)
+                             paged_placement, prefill, refuse_mesh,
+                             serve_step)
 from ..runtime.ticks import chunk_prefill_step, packed_step
 from .sampling import SamplingParams, sample_token
 from .scheduler import EngineStats, FifoScheduler, Request, RequestState
@@ -230,6 +231,8 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params, config: EngineConfig, *,
                  n_seq: int = 4, clock=time.monotonic):
+        # one process's engine: its streaming loop and degraded step too
+        refuse_mesh("the serving engine", params)
         other = sorted(set(cfg.block_kinds) - {"attn", "moe"})
         if other:
             # as the reference's engine: admission relies on a cache

@@ -56,6 +56,18 @@ Exchanges:
              rows of the shard before it, zeros for shard 0 (the
              reference's ``ppermute`` one shard on).
 The recurrent layers take the even split only.
+
+On a mesh of ranks (``mesh=``, ``launch/mesh.py``) each rank holds one
+shard of its sequences, (B, n_loc, D): the folded shard axis is the
+rank's own, so the per-shard metadata is the row of the rank's sequence
+index over ``seq_axes`` (the reference's ``_index``), a gather is
+``comm.all_gather`` over that group and ``last_shard`` a broadcast from
+its last rank.  The PRISM exchange is the rank's means from the
+segment-means kernel, gathered, after its own rows (the fused augment
+reads every shard's rows, which one rank does not hold); Voltage's is
+the gathered sequence.  The serving exchanges, ``prism`` and
+``voltage`` over the even split, are what a mesh runs: the other
+layers' exchanges, the Table II modes and the uneven split raise.
 """
 from __future__ import annotations
 
@@ -71,6 +83,11 @@ from ..core.segment_means import segment_bounds, segment_sizes
 from ..kernels.segment_means import prism_augment_op, segment_means_op
 from ..models.context import AugmentedKV, SeqContext
 from ..models.layers import AttnSpec
+from . import comm
+
+# the exchanges a mesh of ranks runs, and where the others are to come
+MESH_MODES = ("prism", "voltage")
+MESH_LATER = "ROADMAP queue 1, item 17"
 
 
 class MeansColumns(NamedTuple):
@@ -174,14 +191,47 @@ def window_columns(n_shards: int, n_loc: int, hops: int,
 
 class ShardedPrismContext(SeqContext):
     def __init__(self, cfg: PrismConfig, *, n_shards: int,
-                 backend: str = "auto", n: int | None = None):
+                 backend: str = "auto", n: int | None = None, mesh=None,
+                 seq_axes: tuple = ("model",)):
         """``n``: the sequence's real length where it may split unevenly
-        (Alg. 1; ``shard`` lays it out); None: P·n_loc, the even split."""
+        (Alg. 1; ``shard`` lays it out); None: P·n_loc, the even split.
+        ``mesh``: this rank's ``Mesh``, whose ``seq_axes`` carry the
+        n_shards sequence shards, one a rank; None: the P shards folded
+        into the batch axis of one process."""
         # bind Eq. 16's P to the shard count
         self.cfg = cfg.with_(P=n_shards) if cfg.P != n_shards else cfg
         self.P = n_shards
         self.backend = backend
         self.n = n
+        self.group = None
+        if mesh is not None:
+            if self.cfg.mode not in MESH_MODES or n is not None:
+                raise NotImplementedError(
+                    f"a mesh runs the {'/'.join(MESH_MODES)} exchanges over "
+                    f"the even split (mode {self.cfg.mode!r}, n={n}): "
+                    f"{MESH_LATER}")
+            self.group = mesh.group(seq_axes)
+            if self.group.size != n_shards:
+                raise ValueError(f"{n_shards} shards over {seq_axes} of "
+                                 f"{self.group.size} ranks")
+
+    def _fold_only(self, what: str) -> None:
+        """Raise on a mesh for an exchange only the fold runs yet."""
+        if self.group is not None:
+            raise NotImplementedError(f"{what} on a mesh of ranks: "
+                                      f"{MESH_LATER}")
+
+    def _local(self, t):
+        """The rank's row of per-shard (P, ...) metadata on a mesh, (1,
+        ...); every row in the fold."""
+        if self.group is None:
+            return t
+        i = self.group.index
+        return t[i:i + 1]
+
+    def _gather(self, x):
+        """Every rank's x over the sequence group, stacked (P, ...)."""
+        return comm.all_gather(x, self.group, "exchange")
 
     def split(self, n_loc: int) -> tuple[int, int]:
         """(real rows of each of the P - 1 first shards, the sequence's
@@ -219,8 +269,9 @@ class ShardedPrismContext(SeqContext):
         last, in either mode (even split only)."""
         n_loc = x.shape[1]
         s, n = self.split(n_loc)
-        row_pos = shard_rows(self.P, s, x.device, n_loc)     # (P, n_loc)
+        row_pos = self._local(shard_rows(self.P, s, x.device, n_loc))
         if spec.window is not None:
+            self._fold_only("a sliding-window layer's ring halo")
             if s != n_loc:
                 raise NotImplementedError("sliding-window layers take the "
                                           "even split only")
@@ -232,7 +283,9 @@ class ShardedPrismContext(SeqContext):
     def _augment_voltage(self, x, s, n, row_pos):
         bp, n_loc, d = x.shape
         b = bp // self.P
-        if s == n_loc:
+        if self.group is not None:          # every rank's rows, gathered
+            x_hat = self._gather(x).transpose(0, 1).reshape(bp, n, d)
+        elif s == n_loc:
             x_hat = x.reshape(b, n, d)                # the all-gather
         else:                                         # the real rows only
             xs = x.view(b, self.P, n_loc, d)
@@ -270,7 +323,10 @@ class ShardedPrismContext(SeqContext):
         if self.split(n_loc)[0] != n_loc:
             raise NotImplementedError("the means cache takes the even "
                                       "split only")
-        z = segment_means_op(x, L=L, backend=self.backend)   # (B·P, L, D)
+        z = segment_means_op(x.contiguous(), L=L,
+                             backend=self.backend)           # (B·P, L, D)
+        if self.group is not None:          # the rank's means, gathered
+            return self._gather(z).transpose(0, 1).reshape(bp, self.P * L, d)
         return z.reshape(bp // self.P, self.P * L, d)
 
     def _augment_prism(self, x, s, n, row_pos):
@@ -278,22 +334,29 @@ class ShardedPrismContext(SeqContext):
         on the other shards' means."""
         n_loc = x.shape[1]
         L = self.cfg.landmarks(n)          # Eq. 16 over the real length
-        # one launch: (B·P, n_loc + P·L, D), the local block first
-        x_hat = prism_augment_op(x, L=L, n_shards=self.P, n_real=s,
-                                 backend=self.backend)
+        if self.group is not None:
+            # the means kernel, the exchange, then the concat
+            x_hat = torch.cat([x, self.gather_means(x, L)], dim=1)
+        else:
+            # one launch: (B·P, n_loc + P·L, D), the local block first
+            x_hat = prism_augment_op(x, L=L, n_shards=self.P, n_real=s,
+                                     backend=self.backend)
         cols = means_columns(self.P, s, L, x.device, n_loc)
-        g = cols.col_g
+        g = self._local(cols.col_g)
         if self.cfg.mode == "prism_nodup":
             g = (g > 0).float()
         # g = 0 columns need no mask entry: log g = -1e30 already removes
         # them, so (col_lo, col_hi) alone reproduce the Eq. 17 mask
-        return x, AugmentedKV(x_hat, g, None, row_pos, cols.col_pos,
-                              col_lo=cols.col_lo, col_hi=cols.col_hi)
+        return x, AugmentedKV(x_hat, g, None, row_pos,
+                              self._local(cols.col_pos),
+                              col_lo=self._local(cols.col_lo),
+                              col_hi=self._local(cols.col_hi))
 
     def expert_groups(self, x):
         """x (B·P, n_loc, D) -> (P, B·n_loc, D): shard p's tokens of every
         sequence, sequence-major (the order of the reference's per-device
         (B, n_loc) block), and the inverse."""
+        self._fold_only("expert routing groups (the all_to_all)")
         bp, n_loc, d = x.shape
         if self.split(n_loc)[0] != n_loc:    # pad rows would take capacity
             raise NotImplementedError("expert routing groups take the "
@@ -306,7 +369,10 @@ class ShardedPrismContext(SeqContext):
 
     def last_shard(self, x):
         """Value held by the shard owning the END of the sequence:
-        x (B·P, ...) -> (B, ...)."""
+        x (B·P, ...) -> (B, ...); on a mesh the last rank's, on every
+        rank."""
+        if self.group is not None:
+            return comm.last_shard(x, self.group, "combine")
         return x.reshape(-1, self.P, *x.shape[1:])[:, self.P - 1]
 
     def _even_only(self, what: str) -> None:
@@ -322,6 +388,7 @@ class ShardedPrismContext(SeqContext):
         (B·P, H, dk, dv), each shard's span totals -> (B·P, H, dk, dv),
         the exclusive prefix S <- exp(log a_p)·S + u_p over the shards of
         each sequence, zeros for shard 0."""
+        self._fold_only("the recurrent state handoff")
         self._even_only("the recurrent state handoff")
         la = log_a_tot.reshape(-1, self.P, *log_a_tot.shape[1:])
         u = u_tot.reshape(-1, self.P, *u_tot.shape[1:])
@@ -335,6 +402,7 @@ class ShardedPrismContext(SeqContext):
         """x (B·P, n_loc, C) -> (B·P, size, C): shard p's halo is the last
         ``size`` rows of shard p - 1 of its sequence, zeros for shard 0
         (the reference's ``ppermute`` to the next shard)."""
+        self._fold_only("the Mamba2 conv halo")
         self._even_only("prev_tail")
         bp, n_loc = x.shape[:2]
         xs = x.reshape(bp // self.P, self.P, n_loc, *x.shape[2:])
@@ -344,12 +412,17 @@ class ShardedPrismContext(SeqContext):
 
     def gather_sequence(self, x):
         """x (B·P, n_loc, D) -> the whole sequences (B, P·n_loc, D)."""
+        self._fold_only("the sLSTM's sequence gather")
         self._even_only("gather_sequence")
         bp, n_loc = x.shape[:2]
         return x.reshape(bp // self.P, self.P * n_loc, *x.shape[2:])
 
     def take_local(self, y_full):
-        """y_full (B, N, D) -> each shard's rows (B·P, N / P, D)."""
+        """y_full (B, N, D) -> each shard's rows (B·P, N / P, D); on a
+        mesh the rank's own."""
         self._even_only("take_local")
+        if self.group is not None:
+            n_loc = y_full.shape[1] // self.P
+            return y_full[:, self.group.index * n_loc:][:, :n_loc]
         b, n = y_full.shape[:2]
         return y_full.reshape(b * self.P, n // self.P, *y_full.shape[2:])

@@ -637,9 +637,21 @@ def test_routing_log_replays_decisions():
 
 
 def test_decode_tp_is_refused():
-    from repro_torch.runtime.serve import ServeHParams
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ServeHParams(decode_tp=True)
+    """decode_tp takes a mesh whose model axis is over 1 (the fold's
+    layout refuses it), and no MoE block on one: expert-TP is a later
+    item of ROADMAP queue 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.serve import (ServeHParams, check_mesh_serving,
+                                           make_layout)
+    hp = ServeHParams(decode_tp=True)
+    with pytest.raises(NotImplementedError, match="model axis"):
+        make_layout(4, 64, hp, prefill_len=32)
+    with pytest.raises(NotImplementedError, match="model axis"):
+        check_mesh_serving(get_config("gpt2-small"), hp,
+                           {"data": 4, "model": 1})
+    with pytest.raises(NotImplementedError, match="expert-TP.*item 16"):
+        check_mesh_serving(get_config("olmoe-1b-7b"), hp,
+                           {"data": 1, "model": 4})
 
 
 # --------------------------------------------------------------------------
