@@ -193,8 +193,9 @@ Phases, one JSON line each:
             The static and engine decode steps take the decode kernel's
             tile route (a group of 8, no row map), the packed ticks the
             row route; the launch counts are held per path.
-10. path    Gemma 3 1B at full width and depth (26 layers, 22 of them
-            sliding-window local layers of window 512 and 4 global, d
+10. path    Gemma 3 1B at full width on its first 12 of 26 layers
+            (``STATIC_DEPTH``: two whole units of 5 sliding-window
+            local layers of window 512 and 1 global; of 22 and 4), d
             1152, 4 query heads over 1 KV head of 256, qk-norm, GeGLU
             d_ff 6912, RoPE thetas 1e4 local and 1e6 global, sqrt(d)
             input scaling, tied head over 262144), f32 weights from
@@ -212,7 +213,7 @@ Phases, one JSON line each:
             top-8 of SwiGLU d_ff 1024 at capacity factor 1.25, untied head
             over 50304), f32 weights from torch.Generator seed 0 on the
             card, at the main path's shapes: phase 4's static pairings
-            on its first 8 layers (``STATIC_DEPTH``), then phase 5's
+            on its first 4 layers (``STATIC_DEPTH``), then phase 5's
             chunked and packed paths in both modes and phase 6's engine
             runs (paged) on its first 4 (``TICK_DEPTH``, as phase 9).  Capacity counts per routing group
             (a prefill shard; a decode step's, chunk call's or packed
@@ -256,7 +257,8 @@ Phases, one JSON line each:
             times attention non-causal at every run's shapes and the
             augment at each PRISM layout, and sweeps the augment's
             uneven split (``check_encoder_kernels``).
-14. path    PaliGemma 3B at full width and depth (18 layers, d 2048, 8
+14. path    PaliGemma 3B at full width on its first 9 of 18 layers
+            (``STATIC_DEPTH``), d 2048, 8
             query heads over 1 KV head of 256, GeGLU d_ff 16384, sqrt(d)
             input scaling, tied head over 257216), f32 weights from
             torch.Generator seed 0 on the card, B 8, prompt 512 whose
@@ -264,15 +266,15 @@ Phases, one JSON line each:
             through ``frontend_proj``, attended bidirectionally), 64
             generated, P 4, CR 4, through the static path in three
             pairings, under phase 10's checks: voltage + exact held to
-            the plain full forward with the image; attention 18 a
-            prefill, segment means 18 where a pairing captures means,
-            the decode kernel's tile route 18 a step.  The tick
+            the plain full forward with the image; attention 9 a
+            prefill, segment means 9 where a pairing captures means,
+            the decode kernel's tile route 9 a step.  The tick
             programs and the engine take token prompts only and refuse
             it, as the reference's engine does.
 15. path    Command-R 35B at full width (d 8192, 64 query heads over 8
             KV heads of 128, the parallel block, LayerNorm, SwiGLU d_ff
             22528, RoPE theta 8e6, tied head over 256000), f32 weights
-            from torch.Generator seed 0 on the card: its first 8
+            from torch.Generator seed 0 on the card: its first 4
             layers (``STATIC_DEPTH``; 40 are 121 GB) through phase 4's
             static pairings, its first 4 (``TICK_DEPTH``) through phase
             5's tick paths and phase 6's engine runs, under phases
@@ -290,7 +292,7 @@ Phases, one JSON line each:
 16. path    MusicGen-medium at full width (d 1536, 24 heads of 64,
             GELU d_ff 6144, LayerNorm, sinusoidal positions, untied head
             over 2048 codes), f32 weights from torch.Generator seed 0 on
-            the card, its first 16 of 48 layers (``STATIC_DEPTH``), B 8,
+            the card, its first 8 of 48 layers (``STATIC_DEPTH``), B 8,
             a prompt of 512 seeded frame embeddings (the EnCodec stub,
             through ``frontend_proj``), 64 codes generated, P 4, CR 4,
             through the static path in three pairings: voltage + exact
@@ -389,26 +391,55 @@ Phases, one JSON line each:
             ``launch/mesh.py::spawn``; each rank runs
             ``launch.serve.mesh_rank`` (``setup``'s run: whole weights
             from torch.Generator seed 0, cut to its shards; the FSDP
-            layers gathered as they are reached).  (a) GPT-2 small at full width
-            and depth on a (1, 4) mesh: B 8, prompt 512, cap 576, P 4, CR
-            4 (L 32), 16 decode steps, voltage + exact, prism + prism and
-            voltage + prism; (b) the same on a (2, 2) mesh, 4 sequences a
-            data rank, P 2, prism + prism, 8 steps; (c) Yi-6B at full
-            width on its first 8 layers (``STATIC_DEPTH``) on a (1, 4)
-            mesh with ``decode_tp``: attention TP over 32 heads, FFN TP
-            over 11,008, the vocab-parallel embedding and head over
-            64,000 rows, prism prefill, exact decode, 8 steps.  Each run
-            is teacher-forced on the folded one-process path's greedy
-            tokens (``setup``'s run: the same weights and kernels, on the
-            card; (c)'s without decode_tp) and held to its logits within 1e-4 of
-            their largest |logit|, with the rank's own greedy tokens
-            equal where the top-2 gap is clear.  On every rank: every
-            weight and output on cuda:0; the three kernels each launched
-            (``LAUNCHES``, zeroed before each run; their sums go to the
-            kernels line under ``mesh/...``); a prefill's exchange bytes
-            (the rank's ``Meter``) equal to B_loc x
-            ``comm_elements_per_device_per_layer`` x 4 a layer.  Prints
-            each rank's bytes by class, prefill ms and decode ms a token (CUDA events on the rank's stream),
+            layers gathered as they are reached), every run at B 8, CR 4,
+            cap prompt + 64.  (a) GPT-2 small at full width and depth on
+            a (1, 4) mesh: prompt 512, P 4 (L 32), 16 decode steps,
+            voltage + exact, prism + prism and voltage + prism; (b) the
+            same on a (2, 2) mesh, 4 sequences a data rank, P 2, prism +
+            prism, 8 steps; (c) Yi-6B at full width on its first 8
+            layers (``STATIC_DEPTH``) on a (1, 4) mesh with
+            ``decode_tp``: attention TP over 32 heads, FFN TP over
+            11,008, the vocab-parallel embedding and head over 64,000
+            rows, prism prefill, exact decode, 8 steps.  Then at full
+            width, ``MESH_STEPS`` (4) steps each: (d) OLMoE-1B-7B's
+            first 4 layers on (1, 4), prism + prism: 16 experts a
+            rank, the dispatch and return an all_to_all pair over
+            ``model``; (e) the same on (2, 2)
+            with ``decode_tp``, prism + exact: expert-TP, each expert's
+            d_ff of 1,024 over ``data``; (f) Gemma 3 1B's first 6 layers
+            (5 local, 1 global) on (1, 4), prompt 2048 (512 a shard, one
+            window), prism + prism: the ring halo, windowed launches,
+            the ring decoded alike on every rank; (g) Zamba2 2.7B's
+            first 6-layer unit (5 Mamba2, 1 shared), prism + prism: the
+            conv halo, the state handoff, hd-80 attention; (h) xLSTM
+            1.3B's first 8-layer unit (7 mLSTM, 1 sLSTM), voltage +
+            exact: the state handoff, the sLSTM's gathered sequence; (i)
+            PaliGemma 3B's first 4 layers (image prefix 256 across the
+            shards) and MusicGen-medium's first 4 (512 frames), prism +
+            prism.  Each run is teacher-forced on the folded one-process
+            path's greedy tokens (``setup``'s run: the same weights and
+            kernels, on the card; (c)'s and (e)'s without decode_tp) and
+            held to its logits within 1e-4 of their largest |logit|,
+            with the rank's own greedy tokens equal where the top-2 gap
+            is clear.  A MoE rank routes its own tokens, so (e)'s fold
+            runs each data rank's 4 sequences alone at P 2; each rank
+            replays its fold's routing, a token's own top-k differing
+            only under ``ROUTE_MARGIN`` (``replay_check``).  (g) and (h)
+            sum in another f32 order than their folds, which depth
+            amplifies: each is held to a float64 witness (the plain full
+            forward for (h), the plain twin for (g)), within max(1e-4,
+            ``F32_ORDER_FACTOR`` x the fold's distance to it).  On every
+            rank: every weight and output on cuda:0; each kernel of the
+            path launched (``LAUNCHES``, zeroed before each run; (h)
+            launches none; their sums go to the kernels line under
+            ``mesh/...``); the bytes the protocol fixes (``mesh_bytes``):
+            a prefill's exchange, B_loc x
+            ``comm_elements_per_device_per_layer`` x 4 a global layer
+            and a local layer's one-hop halo of (B_loc, n_loc, D) from
+            every rank but the last; a MoE layer's ``expert`` bytes,
+            (M - 1) / M of the (E, cap, D) buffer each way, in prefill
+            and in every step.  Prints each rank's bytes by class, prefill
+            ms and decode ms a token (CUDA events on the rank's stream),
             marked as 4 gloo ranks on one card: not a multi-card time;
             then each rank's host-clock ms of one collective of a GPT-2
             decode step's (a layer's FSDP gather, a combine psum).
@@ -478,7 +509,7 @@ ARCH, BATCH, PROMPT, GEN, SHARDS, CR = "gpt2-small", 8, 512, 64, 4, 4.0
 LLAMA = "yi-6b"
 # phase 10: Gemma 3 1B (sliding-window local layers 5:1 with global ones,
 # qk-norm, GeGLU, MQA, head dim 256, tied head over 262144) at full width
-# and depth; its prompt is 2048, so that each of the P shards holds a
+# on its first 12 layers; its prompt is 2048, so that each shard holds a
 # window of 512 (the reference's window prefill needs one a shard)
 GEMMA, GEMMA_PROMPT = "gemma3-1b", 2048
 # phase 11: Mixture-of-Experts, OLMoE-1B-7B (64 experts top-8, capacity
@@ -487,15 +518,15 @@ GEMMA, GEMMA_PROMPT = "gemma3-1b", 2048
 MOE, GEMMA7 = "olmoe-1b-7b", "gemma-7b"
 # phase 14: PaliGemma 3B (a stub SigLIP image of 256 embeddings over the
 # first prompt positions, attended bidirectionally; 8 query heads over 1
-# KV head of 256) at full width and depth on the static path (the tick
+# KV head of 256) at full width on 9 layers on the static path (the tick
 # programs and the engine take token prompts only); phase 15: Command-R
 # 35B (the parallel block, d 8192, 64 query heads over 8 KV heads of
-# 128) at full width, its static path on its first 8 layers
+# 128) at full width, its static path on its first 4 layers
 # (``STATIC_DEPTH``: 40 layers of f32 weights are 121 GB)
 PALI, CMDR = "paligemma-3b", "command-r-35b"
 # phase 16: MusicGen-medium (a stub EnCodec prompt of frame embeddings,
 # sinusoidal positions, 24 heads of 64, an untied head over 2048 codes)
-# at full width on the static path, on its first 16 of 48 layers
+# at full width on the static path, on its first 8 of 48 layers
 # (``STATIC_DEPTH``); phase 17: xLSTM 1.3B (42 mLSTM and 6 sLSTM blocks,
 # no attention) at full width on its first 24 layers, voltage + exact
 # only: no layer reads the exchange or the means cache
@@ -4237,10 +4268,13 @@ TICK_DEPTH = 4
 # Command-R's 40 layers of f32 weights are 121 GB; Yi-6B, Gemma 7B and
 # Zamba2 (whole 6-layer units) are cut so that phase 18 fits the
 # script's time (1,214.9 s on an H100 at 16, 14 and 54 layers), Command-R
-# and OLMoE so that phases 16 and 17 do, xLSTM under its phase's 45 s
+# and OLMoE so that phases 16 and 17 do (8), then 8 -> 4 so that phase
+# 20's runs (d)-(i) do, MusicGen 16 -> 8 after them (``MESH_STEPS``),
+# then Gemma 3 26 -> 12 and PaliGemma 18 -> 9 (the script took 1,172.6
+# s of its 1,200 on the slowest host seen), xLSTM under its phase's 45 s
 # rule (PERF.md §4); every other static path runs at full depth
-STATIC_DEPTH = {LLAMA: 8, GEMMA7: 8, CMDR: 8, MOE: 8, MUSICGEN: 16,
-                XLSTM: 12, ZAMBA: 12}
+STATIC_DEPTH = {LLAMA: 8, GEMMA7: 8, CMDR: 4, MOE: 4, MUSICGEN: 8,
+                XLSTM: 12, ZAMBA: 12, GEMMA: 12, PALI: 9}
 
 
 def cut_depth(cfg, params):
@@ -4974,18 +5008,44 @@ def drive_train(torch):
 # phase 20: serving over a mesh of ranks
 # ---------------------------------------------------------------------------
 
-# (name, arch, mesh shape, decode steps, pairings, decode_tp, depth)
+# (name, arch, mesh shape, decode steps, pairings, decode_tp, depth,
+# prompt): (a)-(c) GPT-2 and Yi-6B (attention blocks); (d) OLMoE's
+# expert all_to_all pair, 16 experts a rank; (e) expert-TP over data;
+# (f) Gemma 3's ring halo (its first 6 layers: 5 local, 1 global; 512
+# rows a shard, one window); (g) Zamba2's conv halo and state handoff
+# (one 6-layer unit: 5 Mamba2, 1 shared); (h) xLSTM's state handoff and
+# sLSTM gather (one 8-layer unit: 7 mLSTM, 1 sLSTM); (i) PaliGemma's
+# image prefix across the shards and MusicGen's frame prompt.  (d)-(i)
+# decode ``MESH_STEPS``: 8 put the whole script at 1,034.7 s of its
+# 1,200 (target 1,080) on an H100 whose host was not the slowest seen
+# (PERF.md §4), so they take 4, then MusicGen's static path 8 layers
+MESH_STEPS = 4
 MESH_RUNS = (
-    ("gpt2-1x4", ARCH, (1, 4), 16, GEMMA_PAIRINGS, False, None),
-    ("gpt2-2x2", ARCH, (2, 2), 8, (("prism", "prism"),), False, None),
+    ("gpt2-1x4", ARCH, (1, 4), 16, GEMMA_PAIRINGS, False, None, PROMPT),
+    ("gpt2-2x2", ARCH, (2, 2), 8, (("prism", "prism"),), False, None,
+     PROMPT),
     ("yi-tp-1x4", LLAMA, (1, 4), 8, (("prism", "exact"),), True,
-     STATIC_DEPTH[LLAMA]),
+     STATIC_DEPTH[LLAMA], PROMPT),
+    ("olmoe-1x4", MOE, (1, 4), MESH_STEPS, (("prism", "prism"),), False,
+     4, PROMPT),
+    ("olmoe-tp-2x2", MOE, (2, 2), MESH_STEPS, (("prism", "exact"),), True,
+     4, PROMPT),
+    ("gemma3-1x4", GEMMA, (1, 4), MESH_STEPS, (("prism", "prism"),),
+     False, 6, GEMMA_PROMPT),
+    ("zamba2-1x4", ZAMBA, (1, 4), MESH_STEPS, (("prism", "prism"),),
+     False, 6, PROMPT),
+    ("xlstm-1x4", XLSTM, (1, 4), MESH_STEPS, (("voltage", "exact"),),
+     False, 8, PROMPT),
+    ("paligemma-1x4", PALI, (1, 4), MESH_STEPS, (("prism", "prism"),),
+     False, 4, PROMPT),
+    ("musicgen-1x4", MUSICGEN, (1, 4), MESH_STEPS, (("prism", "prism"),),
+     False, 4, PROMPT),
 )
-MESH_CAP = PROMPT + GEN               # phase 4's cache, 576
 MESH_NOTE = ("4 gloo ranks on one card (cuda:0), collectives through the "
              "host: not a multi-card time")
 # each run's kernels: prefill attention and the decode kernel always,
-# segment means where the pairing gathers means
+# segment means where the pairing gathers means; a model of recurrent
+# blocks alone (xLSTM) launches none
 MESH_KERNELS = ("prism_flash_attention", "flash_decode_stats")
 # f32 elements a rank holds of the collectives a GPT-2 decode step makes
 # on each of its 12 layers over the (1, 4) mesh: the layer's FSDP gather
@@ -5020,89 +5080,219 @@ def time_collectives(torch, mesh, iters=10):
     return out
 
 
-def mesh_fold(arch, shape, steps, pairing, depth):
+def mesh_fold(torch, arch, shape, steps, pairing, depth, prompt):
     """The folded one-process path of a mesh run on the card (``setup``'s
     run, as ``mesh_rank``'s): the same weights, prompts, shapes, layout P
-    and kernels -> (tokens (B, gen), logits (gen, B, V)) on the host."""
+    and kernels -> {"tokens" (B, gen), "logits" (gen, B, V)} on the host.
+    A MoE model's routing groups are a rank's tokens, so its fold runs
+    each data rank's batch rows alone (the whole batch on a (1, P) mesh,
+    whose P shards are the ranks' groups) and records their routing
+    ("routing": one list of calls a data rank) for the ranks to replay.
+    A model of recurrent blocks sums its rows in another f32 order than a
+    rank, which depth amplifies: its fold adds a float64 witness
+    ("witness"; the exact pairing's is the plain full forward, another's
+    the same run with backend='plain', teacher-forced on the fold's
+    tokens) and the fold's distance to it ("fold_err")."""
+    import torch.nn.functional as F
     from repro_torch.launch.serve import setup
-    from repro_torch.runtime.serve import seq_shards
-    p = seq_shards(dict(zip(("data", "model"), shape)), BATCH)
-    run = setup(arch, batch=BATCH, prompt_len=PROMPT, gen=steps + 1,
-                seq_shards=p, decode_mode=pairing[1], prefill=pairing[0],
-                cr=CR, cap=MESH_CAP, n_layers=depth)
-    tokens, logits, _ = run.run()
-    return tokens.cpu(), logits.cpu()
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import RoutingLog
+    from repro_torch.runtime.serve import layout_axes, seq_shards
+    axes = dict(zip(("data", "model"), shape))
+    run = setup(arch, batch=BATCH, prompt_len=prompt, gen=steps + 1,
+                seq_shards=seq_shards(axes, BATCH), decode_mode=pairing[1],
+                prefill=pairing[0], cr=CR, cap=prompt + GEN, n_layers=depth)
+    if "moe" not in run.cfg.block_kinds:
+        tokens, logits, _ = run.run()
+        out = {"tokens": tokens, "logits": logits}
+    else:
+        groups = shape[0] if layout_axes(axes, BATCH)[0] else 1
+        parts, out = [], {"routing": []}
+        for rows in torch.arange(BATCH, device=run.prompts.device).chunk(
+                groups):
+            log = RoutingLog()
+            parts.append(replace(run, prompts=run.prompts[rows],
+                                 hp=replace(run.hp, routing=log)).run())
+            out["routing"].append([{"idx": c["idx"].cpu(),
+                                    "logits": c["logits"].cpu(),
+                                    "cap": c["cap"]} for c in log.calls])
+        out["tokens"] = torch.cat([t for t, _, _ in parts])
+        out["logits"] = torch.cat([g for _, g, _ in parts], dim=1)
+    if set(run.cfg.block_kinds) & set(CELLS):
+        params64 = as_f64(run.params)
+        with torch.no_grad():
+            if pairing == ("voltage", "exact"):
+                # the exact path's witness is the full forward (an sLSTM
+                # decode step keeps f32) in chunks of XLSTM_REF_CHUNK, as
+                # ``recurrent_check``'s, over prompt and fed tokens padded
+                # to a whole chunk (the causal rows before the pad do not
+                # see it)
+                seq = torch.cat([run.prompts, out["tokens"][:, :-1]], dim=1)
+                seq = F.pad(seq, (0, -seq.shape[1] % XLSTM_REF_CHUNK))
+                n = run.prompts.shape[1]
+                ref = T.forward(run.cfg, params64, seq, start=n - 1,
+                                chunk=XLSTM_REF_CHUNK)[:, :steps + 1]
+                ref = ref.transpose(0, 1)
+            else:
+                _, ref, _ = replace(run, params=params64, hp=replace(
+                    run.hp, backend="plain")).run(
+                        forced=out["tokens"][:, :-1])
+        out["witness"] = ref.cpu()
+        out["fold_err"] = rel_err(out["logits"], ref)
+        del params64
+    return {k: v.cpu() if hasattr(v, "cpu") else v for k, v in out.items()}
+
+
+def replay_log(torch, calls, index, device):
+    """A rank's replay of its data rank's fold routing ``calls``: a
+    prefill call's groups are the fold's P shards, of which the rank
+    routes the one at its sequence ``index``; a decode step's one group
+    is the rank's whole batch."""
+    from repro_torch.models.moe import RoutingLog
+    log = RoutingLog()
+    for c in calls:
+        pick = (slice(index, index + 1) if c["idx"].shape[0] > 1
+                else slice(None))
+        log.calls.append({"idx": c["idx"][pick].to(device),
+                          "logits": c["logits"][pick].to(device),
+                          "cap": c["cap"]})
+    return log
 
 
 def mesh_rank_run(mesh, runs, fold_path):
-    """One rank of phase 20: every run through ``mesh_rank``, (b) on a
-    (2, 2) mesh over the same ranks, each teacher-forced on the fold's
-    tokens and held to its logits; -> per run its errors, tokens checked,
-    launches, meter, times and where its tensors live."""
+    """One rank of phase 20: every run through ``mesh_rank``, the (2, 2)
+    runs on one mesh of the same ranks, each teacher-forced on the fold's
+    tokens and held to its logits (a MoE run replaying the fold's
+    routing, ``replay_check``; a recurrent model's to the float64
+    witness) -> per run its error and limit, tokens checked, launches,
+    meter, times and where its tensors live."""
     import torch
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.serve import mesh_rank
-    from repro_torch.runtime.serve import batch_rows
+    from repro_torch.models.moe import RoutingLog
+    from repro_torch.runtime.serve import batch_rows, layout_axes
     from repro_torch.sharding.rules import tree_paths
     folds = torch.load(fold_path, weights_only=False)
     meshes = {mesh.shape: mesh}
     out = {}
-    for name, arch, shape, steps, pairings, tp, depth in runs:
+    for name, arch, shape, steps, pairings, tp, depth, prompt in runs:
         if shape not in meshes:
             meshes[shape] = Mesh(shape, backend=mesh.backend, device="cuda")
         m = meshes[shape]
+        ba, seq_axes = layout_axes(m, BATCH)
         for pairing in pairings:
             key = f"{name}/{pairing[0]}-{pairing[1]}"
-            ref_tokens, ref_logits = folds[key]
+            fold = folds[key]
+            routing = replay = None
+            if "routing" in fold:
+                replay = replay_log(
+                    torch, fold["routing"][m.group(ba).index if ba else 0],
+                    m.group(seq_axes).index, m.device)
+                routing = RoutingLog(replay=replay)
             torch.cuda.synchronize()
             LAUNCHES.clear()
-            r = mesh_rank(m, arch, batch=BATCH, prompt_len=PROMPT,
+            r = mesh_rank(m, arch, batch=BATCH, prompt_len=prompt,
                           gen=steps + 1, decode_mode=pairing[1],
                           prefill=pairing[0], cr=CR, decode_tp=tp,
-                          n_layers=depth, cap=MESH_CAP,
-                          forced=ref_tokens[:, :-1].cuda())
+                          n_layers=depth, cap=prompt + GEN,
+                          forced=fold["tokens"][:, :-1].cuda(),
+                          routing=routing)
             torch.cuda.synchronize()
             launches = dict(LAUNCHES)
             lay = r["lay"]
-            want = batch_rows(ref_logits.transpose(0, 1), lay,
-                              m).transpose(0, 1)
             got = r["logits"].cpu()
-            err = rel_err(got, want)
-            checked = tokens_agree(torch, got.argmax(-1).T, want)
+
+            def rows(logits):
+                return batch_rows(logits.transpose(0, 1), lay,
+                                  m).transpose(0, 1)
+            want = rows(fold["logits"])
+            res = {"fold_rel_err": rel_err(got, want), "limit": PATH_REL_TOL}
+            if "witness" in fold:
+                want = rows(fold["witness"])
+                res.update(witness_rel_err=rel_err(got, want),
+                           fold_witness_rel_err=fold["fold_err"],
+                           limit=max(PATH_REL_TOL,
+                                     F32_ORDER_FACTOR * fold["fold_err"]))
+            res["rel_err"] = rel_err(got, want)
+            res["tokens_checked"] = tokens_agree(
+                torch, got.argmax(-1).T, want,
+                res["rel_err"] if "witness" in fold else 0.0)
+            if replay is not None:
+                res["routing"] = replay_check(torch, replay, routing, key)
             places = {str(t.device) for tree in (r["mp"], r["dp"])
                       if tree is not None
                       for _, t in tree_paths(tree.params)}
             places |= {str(r["logits"].device), str(r["tokens"].device),
                        str(m.device)}
-            out[key] = {"rel_err": err, "tokens_checked": checked,
-                        "launches": launches, "meter": r["meter"],
-                        "times": r["times"], "devices": sorted(places),
-                        "coords": m.coords, "b_loc": got.shape[1],
-                        "n_seq": lay.n_seq, "L": lay.L}
-            del r
+            res.update(launches=launches, meter=r["meter"],
+                       times=r["times"], devices=sorted(places),
+                       coords=m.coords, b_loc=got.shape[1],
+                       n_seq=lay.n_seq, L=lay.L)
+            out[key] = res
+            del r, routing, replay
             torch.cuda.empty_cache()
     out["collectives"] = time_collectives(torch, mesh)
     return out
 
 
+def mesh_bytes(cfg, run, shape, pairing, tp, prompt, steps):
+    """The bytes by class a rank of a run on a mesh of ``shape`` (batch
+    over data, sequence over model) must send, exactly, where the
+    protocol fixes them: {class: (after prefill, in all or None)}, or
+    None.  The prefill's ``exchange``: a global attention layer's B_loc
+    x ``comm_elements_per_device_per_layer`` x 4 (a Voltage prefill for
+    prism decode gathers the means too); a local layer's ring halo, one
+    hop of the rank's (B_loc, n_loc, D) f32 rows, sent by every rank but
+    the last (Gemma 3).  A MoE layer's ``expert`` all_to_all pair: (M -
+    1) / M of the (E, cap, D) f32 buffer each way over the M ranks of
+    ``model``, at the capacity of the rank's B_loc·n_loc prefill tokens
+    and of a step's B_loc; with expert-TP a step also gathers the
+    received slots over ``data`` and psums their partials there."""
+    from repro_torch.core.protocol import (
+        PrismConfig, comm_elements_per_device_per_layer)
+    from repro_torch.models.moe import capacity
+    if not set(cfg.block_kinds) <= {"attn", "attn_local", "moe"}:
+        return None
+    p, b, d = run["n_seq"], run["b_loc"], cfg.d_model
+    elems = comm_elements_per_device_per_layer(
+        prompt, d, PrismConfig(P=p, cr=CR, mode=pairing[0]))
+    if pairing == ("voltage", "prism"):              # the means captured
+        elems += (p - 1) * run["L"] * d
+    n_local = cfg.block_kinds.count("attn_local")
+    last = run["coords"]["model"] == p - 1
+    halo = 0 if last else b * (prompt // p) * d * 4
+    out = {"exchange": ((cfg.n_layers - n_local) * b * elems * 4
+                        + n_local * halo, None)}
+    if "moe" in cfg.block_kinds:
+        data, m, e = shape[0], shape[1], cfg.n_experts
+
+        def buf(tokens):
+            return e * capacity(tokens, cfg.top_k, e,
+                                cfg.capacity_factor) * d * 4
+        pre = cfg.n_layers * 2 * (m - 1) * buf(b * prompt // p) // m
+        step = 2 * (m - 1) * buf(b) // m
+        if tp:
+            step += 3 * (data - 1) * buf(b)
+        out["expert"] = (pre, pre + steps * cfg.n_layers * step)
+    return out
+
+
 def drive_mesh(torch):
-    """Phase 20: the three mesh runs against their folds (see the module
+    """Phase 20: the mesh runs against their folds (see the module
     docstring).  Returns the launches of each run, summed over the
     ranks, keyed ``mesh/<run>/<pairing>``."""
     import tempfile
     import time
     from repro_torch.configs import get_config
-    from repro_torch.core.protocol import (
-        PrismConfig, comm_elements_per_device_per_layer)
     from repro_torch.launch.mesh import MESH_TIMEOUT, spawn
     t0 = time.perf_counter()
     card = nvidia_smi()
     folds = {}
-    for name, arch, shape, steps, pairings, tp, depth in MESH_RUNS:
+    for name, arch, shape, steps, pairings, tp, depth, prompt in MESH_RUNS:
         for pairing in pairings:
             folds[f"{name}/{pairing[0]}-{pairing[1]}"] = mesh_fold(
-                arch, shape, steps, pairing, depth)
+                torch, arch, shape, steps, pairing, depth, prompt)
             torch.cuda.empty_cache()
     t_fold = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
@@ -5113,52 +5303,70 @@ def drive_mesh(torch):
                       timeout=MESH_TIMEOUT, args=(MESH_RUNS, fold_path))
         t_ranks = time.perf_counter() - t1
     by_path = {}
-    for name, arch, shape, steps, pairings, tp, depth in MESH_RUNS:
+    for name, arch, shape, steps, pairings, tp, depth, prompt in MESH_RUNS:
         cfg = get_config(arch)
-        n_layers = depth or cfg.n_layers
+        if depth:
+            cfg = replace(cfg, n_layers=depth,
+                          blocks=cfg.block_kinds[:depth])
         for pairing in pairings:
             key = f"{name}/{pairing[0]}-{pairing[1]}"
             runs = [r[key] for r in ranks]
-            need = MESH_KERNELS + (("segment_means",) if "prism" in pairing
-                                   else ())
+            need = () if set(cfg.block_kinds) <= set(CELLS) else (
+                MESH_KERNELS + (("segment_means",) if "prism" in pairing
+                                else ()))
+            sent = []
             for rank, run in enumerate(runs):
                 if run["devices"] != ["cuda:0"]:
                     raise AssertionError(f"{key} rank {rank}: tensors on "
                                          f"{run['devices']}")
-                if run["rel_err"] > PATH_REL_TOL:
-                    raise AssertionError(f"{key} rank {rank}: logits "
-                                         f"{run['rel_err']} from the fold")
+                if run["rel_err"] > run["limit"]:
+                    ref = "witness" if "witness_rel_err" in run else "fold"
+                    raise AssertionError(
+                        f"{key} rank {rank}: logits {run['rel_err']} from "
+                        f"the {ref}, limit {run['limit']}")
                 missing = [k for k in need if not run["launches"].get(k)]
                 if missing:
                     raise AssertionError(f"{key} rank {rank}: {missing} "
                                          "never launched")
-                prism = PrismConfig(P=run["n_seq"], cr=CR, mode=pairing[0])
-                elems = comm_elements_per_device_per_layer(
-                    PROMPT, cfg.d_model, prism)
-                if pairing == ("voltage", "prism"):    # the means captured
-                    elems += (run["n_seq"] - 1) * run["L"] * cfg.d_model
-                want = run["b_loc"] * elems * 4 * n_layers
-                got = run["meter"]["sent"]["exchange"]
-                if got != want:
-                    raise AssertionError(f"{key} rank {rank}: exchange "
-                                         f"{got} bytes, protocol {want}")
+                if not need and any(run["launches"].values()):
+                    raise AssertionError(f"{key} rank {rank}: launched "
+                                         f"{run['launches']}, the path "
+                                         "holds no kernel")
+                want = mesh_bytes(cfg, run, shape, pairing, tp, prompt,
+                                  steps)
+                after = run["times"]["sent_after_prefill"]
+                for cls, (pre, total) in (want or {}).items():
+                    if after[cls] != pre or (
+                            total is not None
+                            and run["meter"]["sent"][cls] != total):
+                        raise AssertionError(
+                            f"{key} rank {rank}: {cls} bytes "
+                            f"{after[cls]} after prefill, "
+                            f"{run['meter']['sent'][cls]} in all; the "
+                            f"protocol's {pre}, {total}")
+                sent.append(after)
             by_path[f"mesh/{key}"] = {
                 k: sum(r["launches"].get(k, 0) for r in runs)
                 for k in set().union(*(r["launches"] for r in runs))}
+            extra = {k: [r[k] for r in runs] for k in (
+                "fold_rel_err", "witness_rel_err", "fold_witness_rel_err",
+                "routing") if k in runs[0]}
             emit("path", name=f"mesh/{key}", arch=arch, mesh=list(shape),
-                 decode_tp=tp, layers=n_layers, batch=BATCH, prompt=PROMPT,
-                 cap=MESH_CAP, steps=steps, n_seq=runs[0]["n_seq"],
+                 decode_tp=tp, layers=cfg.n_layers, batch=BATCH,
+                 prompt=prompt, cap=prompt + GEN, steps=steps,
+                 n_seq=runs[0]["n_seq"],
                  rel_err=max(r["rel_err"] for r in runs),
+                 limit=runs[0]["limit"],
                  tokens_checked=[r["tokens_checked"] for r in runs],
                  launches=[r["launches"] for r in runs],
-                 exchange_bytes=[r["meter"]["sent"]["exchange"]
-                                 for r in runs],
+                 exchange_bytes=[s["exchange"] for s in sent],
+                 sent_after_prefill=sent,
                  sent=[r["meter"]["sent"] for r in runs],
                  prefill_ms=[r["times"]["prefill_ms"] for r in runs],
                  decode_ms_per_token=[r["times"]["decode_ms_per_token"]
                                       for r in runs],
                  clock=runs[0]["times"]["clock"], note=MESH_NOTE,
-                 nvidia_smi=card)
+                 nvidia_smi=card, **extra)
     emit("phase", name="mesh", seconds=time.perf_counter() - t0,
          fold_seconds=t_fold, ranks_seconds=t_ranks, backend="gloo",
          ranks=4, device="cuda:0", collectives=MESH_COLLECTIVES,

@@ -11,9 +11,10 @@ Every mesh position is one process (``launch/mesh.py::spawn``) over the
 CPU.  On a 2x4 mesh the batch of 8 splits over ``data`` and each
 prompt's 64 tokens over ``model`` (P = 4); each layer's weights are
 gathered as it is reached, and each rank reports the bytes it sent.
-GPT-2 small at its reduced size; Gemma 3's sliding-window layers, which
-the JAX example serves, are not served over a mesh yet.  Without a card
-``--device cuda`` (the default) raises.
+Gemma 3 1B at its reduced size, as the JAX example serves it: a
+sliding-window layer's halo comes from the previous rank and its ring is
+decoded alike on every rank; ``--arch`` takes any decoder of the
+registry.  Without a card ``--device cuda`` (the default) raises.
 """
 import argparse
 import os
@@ -44,7 +45,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mesh", default="2x4", metavar="DxM")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--arch", default="gpt2-small")
+    ap.add_argument("--arch", default="gemma3-1b")
     args = ap.parse_args()
     from repro_torch.launch.mesh import MESH_TIMEOUT, spawn
     data, model = (int(v) for v in args.mesh.split("x"))

@@ -96,9 +96,11 @@ exactly in both modes and captures the means over real tokens);
     # over a (data, model) mesh of ranks, one process each (the
     # reference's --mesh DxM): the batch over data where it divides, the
     # sequence over model (else over every axis), FSDP weights gathered
-    # a layer at a time; --decode-tp keeps the decode tensor-parallel.
-    # gloo runs any number of ranks on one card or on the CPU, nccl one
-    # rank a card
+    # a layer at a time, a MoE layer's experts over model (all_to_all);
+    # --decode-tp keeps the decode tensor-parallel (expert-TP over data
+    # for experts).  Every decoder family serves: window layers, recurrent
+    # blocks, an image prefix or frames.  gloo runs any number of ranks
+    # on one card or on the CPU, nccl one rank a card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
         --reduced --batch 8 --prompt-len 64 --gen 6 --mesh 1x4 \
         --backend gloo --device cpu
@@ -106,6 +108,12 @@ exactly in both modes and captures the means over real tokens);
         --reduced --batch 8 --prompt-len 64 --gen 6 --mesh 2x2 \
         --backend gloo --device cpu --decode-mode exact --prefill prism \
         --decode-tp
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --reduced --batch 8 --prompt-len 64 --gen 6 --mesh 1x4 \
+        --backend gloo --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --batch 8 --prompt-len 2048 --gen 8 --mesh 1x4 --backend gloo \
+        --decode-mode prism
 
 Weights are random, drawn from ``torch.Generator`` seeded with
 ``--seed``; ``--reduced`` takes the architecture's smoke-test size.
@@ -125,6 +133,7 @@ from ..core.protocol import PrismConfig, partition_bounds
 from ..device import resolve_device
 from ..models import transformer as T
 from ..models.config import ModelConfig
+from ..models.moe import RoutingLog
 from ..models.transformer import is_encoder
 from ..launch.mesh import MESH_TIMEOUT, spawn
 from ..runtime.serve import (MeshParams, ServeHParams, ServeLayout, encode,
@@ -210,18 +219,20 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
 
 
 def mesh_rank(mesh, arch: str, *, batch: int, decode_tp: bool = False,
-              forced: torch.Tensor | None = None, **opts) -> dict:
+              forced: torch.Tensor | None = None,
+              routing: RoutingLog | None = None, **opts) -> dict:
     """One rank of a static-batch run over ``mesh`` (``spawn``'s ``fn``):
     ``setup``'s run (``opts`` are its arguments) at the mesh's sequence
     shards on the rank's device, laid out over the mesh, its whole
     weights cut to the rank's shards (``mesh_params``; the decode-TP cut
     too with ``decode_tp``), then ``generate``.  ``forced`` (B, gen - 1)
-    teacher-forces the decoded tokens.  -> the rank's tokens (B_loc,
-    gen) and logits (gen, B_loc, V) on its device, its times, its meter,
-    its coordinates and the layout."""
+    teacher-forces the decoded tokens; ``routing`` (checks only) records
+    or replays a MoE model's routing.  -> the rank's tokens (B_loc, gen)
+    and logits (gen, B_loc, V) on its device, its times, its meter, its
+    coordinates and the layout."""
     run = setup(arch, batch=batch, seq_shards=seq_shards(mesh, batch),
                 device=mesh.device, **opts)
-    hp = replace(run.hp, decode_tp=decode_tp)
+    hp = replace(run.hp, decode_tp=decode_tp, routing=routing)
     lay = make_layout(mesh, run.lay.cap, hp,
                       prefill_len=run.lay.prefill_len, batch=batch)
     mp = mesh_params(run.cfg, run.params, mesh)
@@ -515,7 +526,7 @@ def main(argv=None):
                          "(one rank a card)")
     ap.add_argument("--decode-tp", action="store_true",
                     help="[mesh] tensor-parallel decode over the model "
-                         "axis (exact decode)")
+                         "axis, expert-TP over data (exact decode)")
     ap.add_argument("--decode-mode", default="exact",
                     choices=("exact", "prism"))
     ap.add_argument("--prefill", default=None,

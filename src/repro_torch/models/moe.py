@@ -13,7 +13,10 @@ sequence shards each route their own tokens, a decode step, chunk or
 packed tick routes all of its tokens as one group.  Every group's
 experts run in one batched product over the stacked (E, ...) weights,
 the groups' slots side by side (``SeqContext.expert_exchange``, the
-reference's ``all_to_all`` pair).
+reference's ``all_to_all`` pair).  On a mesh of ranks a rank's own
+tokens are its one group, ``p["experts"]`` holds its E / M experts, and
+its (E, cap, D) buffer reaches them by the tiled ``all_to_all`` pair
+over ``model`` (``sharding/context.py::expert_all_to_all``).
 
 A dropped entry never indexes out of range: the dispatch skips it and
 the combine reads a clamped slot and *selects* zero.  Where every value

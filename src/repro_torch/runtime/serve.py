@@ -56,7 +56,7 @@ A Mixture-of-Experts block (``moe``) has a global-attention cache; its
 experts route in groups that count capacity (``models/moe.py``): in
 prefill each sequence shard's B·n_loc tokens (the sharded context's
 groups, as the reference's ``shard_map``), in a decode step all B tokens
-(``DECODE_MOE_CTX``).
+(``DECODE_MOE_CTX``; on a mesh ``MeshMoeCtx``).
 
 The paged cache (``runtime/paging.py``): the layer cache is a page pool
 (n_pages, P, pc, Hkv, hd) with, in prism mode, a state pool of means
@@ -80,8 +80,16 @@ sequence group, the prism owner select a psum of the owner-masked
 outputs.  With ``decode_tp`` the decode keeps the Megatron layout
 (``rules.decode_param_specs``): column-parallel wq and up/gate, a head
 gather of q, row-parallel wo and down, one activation psum each, no
-parameter gather.  A mesh serves ``attn`` blocks of token prompts; the
-ticks, the paged cache, the engine and the degraded step refuse it.
+parameter gather.  A MoE layer's experts live E / M a rank over
+``model`` and exchange the routed tokens by an ``all_to_all`` pair
+(``MeshMoeCtx``); with ``decode_tp`` each expert's d_ff is also cut over
+``data`` (expert-TP: the tokens gathered over ``data``, the down
+partials psummed).  A sliding-window layer's ring and a recurrent
+layer's state are replicated over the sequence ranks: prefill captures
+the last shard's (``ctx.last_shard``), and every rank's decode updates
+its copy alike.  A vlm's image and an audio model's frames come in
+whole and each rank embeds the rows of its positions.  The ticks, the
+paged cache, the engine and the degraded step refuse a mesh.
 """
 from __future__ import annotations
 
@@ -109,7 +117,8 @@ from ..models.transformer import (RECURRENT_KINDS, attn_spec,
                                   embed_scale, head, layer_blocks,
                                   recurrent_block, recurrent_decode, sincos)
 from ..sharding import comm
-from ..sharding.context import ShardedPrismContext, means_columns
+from ..sharding.context import (ShardedPrismContext, expert_all_to_all,
+                                means_columns)
 from ..sharding.rules import (decode_param_specs, gather_tree, param_specs,
                               tp_flags)
 from .paging import KVCache, PrefixCache
@@ -120,8 +129,8 @@ class ServeHParams:
     decode_mode: str = "exact"       # 'exact' | 'prism'
     means_cr: float = 16.0           # CR for the prism decode means cache
     backend: str = "auto"            # kernel dispatch: 'auto'|'kernel'|'plain'
-    # the reference's tensor-parallel decode over the mesh's model axis
-    # (``check_mesh_serving``; expert-TP for MoE blocks is not ported)
+    # the reference's tensor-parallel decode over the mesh's model axis,
+    # expert-TP over data for MoE blocks (``check_mesh_serving``)
     decode_tp: bool = False
     ssm_chunk: int = 128             # an mLSTM prefill's chunk length
     # the checks' record or replay of the MoE routing decisions
@@ -129,11 +138,45 @@ class ServeHParams:
                                        repr=False)
 
 
-# the expert exchange of a decode step, a chunk call or a packed tick
-# (the reference's DecodeMoeCtx with tp=False; its expert-TP form is
-# decode_tp's): all of the call's tokens are one routing group, as the
+# the expert exchange of a decode step, a chunk call or a packed tick in
+# one process (the reference's DecodeMoeCtx with tp=False; on a mesh
+# ``MeshMoeCtx``): all of the call's tokens are one routing group, as the
 # reference's all_to_all over tokens every shard holds gives
 DECODE_MOE_CTX = SeqContext()
+
+
+class MeshMoeCtx(SeqContext):
+    """The expert exchange of a decode step on a mesh (the reference's
+    ``DecodeMoeCtx``): the rank's B_loc tokens are one routing group;
+    its (E, cap, D) buffer goes to the experts' ranks by the
+    ``all_to_all`` pair over ``model``.  With ``tp`` (expert-TP, the
+    decode-TP rules' ``expert_tp_col`` / ``expert_tp_row``) each expert's
+    d_ff is cut over ``data``: the received slots are gathered over
+    ``data``, every rank computes its d_ff slice's partials, which are
+    psummed over ``data``, and the rank's own slots go back.  With
+    ``dense_tp`` a dense residual MLP cut Megatron style over ``model``
+    (arctic's) psums its partials there."""
+
+    def __init__(self, mesh: Mesh, tp: bool = False,
+                 dense_tp: bool = False):
+        self.experts = mesh.group("model")
+        self.data = mesh.group("data") if tp else None
+        self.dense = self.experts if dense_tp else None
+
+    def expert_exchange(self, buf):
+        out, back = expert_all_to_all(buf, self.experts)
+        if self.data is None:
+            return out, back
+        n = out.shape[1]
+        own = slice(self.data.index * n, (self.data.index + 1) * n)
+        return (comm.all_gather(out, self.data, "expert", dim=1),
+                lambda y: back(y[:, own]))
+
+    def expert_reduce(self, y):
+        return y if self.data is None else comm.psum(y, self.data, "expert")
+
+    def ffn_reduce(self, y):
+        return y if self.dense is None else comm.psum(y, self.dense, "tp")
 
 
 # --------------------------------------------------------------------------
@@ -141,8 +184,6 @@ DECODE_MOE_CTX = SeqContext()
 # --------------------------------------------------------------------------
 
 # where what a mesh does not serve yet is to come
-MESH_MOE = "ROADMAP queue 1, item 16"
-MESH_KINDS_LATER = "ROADMAP queue 1, item 17"
 MESH_ENGINE_LATER = "ROADMAP queue 1, item 18"
 
 
@@ -173,30 +214,34 @@ def mesh_params(cfg: ModelConfig, params: dict, mesh: Mesh, *,
 
 
 def check_mesh_serving(cfg: ModelConfig, hp: ServeHParams, mesh) -> None:
-    """Raise for what a mesh of ranks does not serve yet, and for
-    ``decode_tp`` off a mesh whose ``model`` axis is over 1.  ``mesh``: a
-    ``Mesh``, its axis sizes, or None (the fold)."""
-    if hp.decode_tp:
-        _check_tp_axis(mesh)
-        if "moe" in cfg.block_kinds:
-            raise NotImplementedError(
-                "decode_tp over MoE blocks (expert-TP, the reference's "
-                f"DecodeMoeCtx(tp=True)): {MESH_MOE}")
-        if hp.decode_mode != "exact":
-            raise ValueError(
-                "decode_tp decodes exactly: the reference's attn_decode_tp "
-                "reads no means cache; take decode_mode='exact'")
-    if mesh is None:
+    """Raise for ``decode_tp`` where the reference's mesh cannot run it:
+    off a mesh whose ``model`` axis is over 1, in prism decode, or over
+    experts whose d_ff does not split over ``data`` (the decode-TP rule
+    would cut ``down/w`` across d_model, on which the reference's
+    expert-TP fails).  ``mesh``: a ``Mesh``, its axis sizes, or None (the
+    fold)."""
+    if not hp.decode_tp:
         return
-    kinds = set(cfg.block_kinds)
-    if "moe" in kinds:
-        raise NotImplementedError("MoE expert parallelism (all_to_all) on a "
-                                  f"mesh: {MESH_MOE}")
-    if kinds != {"attn"} or cfg.frontend or cfg.prefix_len:
+    _check_tp_axis(mesh)
+    if hp.decode_mode != "exact":
+        raise ValueError(
+            "decode_tp decodes exactly: the reference's attn_decode_tp "
+            "reads no means cache; take decode_mode='exact'")
+    cut = sorted(set(cfg.block_kinds) & {"attn_local", "mlstm", "slstm"})
+    if cut:
         raise NotImplementedError(
-            f"a mesh serves attn blocks of token prompts (blocks "
-            f"{sorted(kinds)}, frontend {cfg.frontend!r}): "
-            f"{MESH_KINDS_LATER}")
+            f"decode_tp over {cut} blocks: the decode-TP rules cut their "
+            "wq (or a cell's projections) column-parallel, which a ring or "
+            "a cell's decode does not read as such; the reference's "
+            "decode fails on them too")
+    data = mesh_axes(mesh).get("data", 1)
+    if "moe" in cfg.block_kinds and cfg.expert_d_ff % data:
+        raise NotImplementedError(
+            f"expert-TP cuts each expert's d_ff over data: d_ff "
+            f"{cfg.expert_d_ff} does not split over {data}, so the "
+            "decode-TP rule would cut the experts' down/w across d_model "
+            f"({cfg.d_model}), where the reference's DecodeMoeCtx(tp=True) "
+            "fails")
 
 
 def _check_tp_axis(mesh) -> None:
@@ -256,8 +301,8 @@ def _layers(cfg: ModelConfig, params):
 
 def batch_rows(t, lay, mesh):
     """This rank's rows of a whole-batch tensor: its block over the batch
-    axes, all of them where the batch is replicated."""
-    if mesh is None or not lay.ba:
+    axes, all of them where the batch is replicated (None: None)."""
+    if t is None or mesh is None or not lay.ba:
         return t
     grp = mesh.group(lay.ba)
     n = t.shape[0] // grp.size
@@ -483,7 +528,7 @@ def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
     b = bp // P
     hkv, hd = k.shape[2:]
     if spec.window is not None:
-        return ctx.finalize(o), ring_capture(k, v, b, lay, shapes), xq_n
+        return ctx.finalize(o), ring_capture(k, v, ctx, lay, shapes), xq_n
     # prism: the local block comes first in every shard's K/V; voltage: K/V
     # is the full sequence, whose shard-p slice is batch row b·P + p
     k_loc = k[:, :n_loc] if prism_augment else ctx.take_local(k)
@@ -517,21 +562,24 @@ def prefill_attn(p, spec: AttnSpec, cfg: ModelConfig, x, ctx, lay,
     return ctx.finalize(o), cache, xq_n
 
 
-def ring_capture(k, v, b: int, lay: ServeLayout, shapes: dict) -> dict:
+def ring_capture(k, v, ctx, lay: ServeLayout, shapes: dict) -> dict:
     """A sliding-window layer's ring cache after prefill: the last W
     prompt positions, position p in slot p % W (placed by the prompt
     length, where the reference's ``cap - W`` placement is right only
     when cap = n0 mod W).  k, v (B·P, m, Hkv, hd) hold each shard's own
-    rows last."""
-    n0, n_loc = lay.prefill_len, lay.n_loc0
+    rows last, after ``hops`` shards of halo, so the last shard's m
+    columns cover the last min(W, n0) positions: they are the ring,
+    taken by ``ctx.last_shard`` (on a mesh broadcast from the last rank,
+    so every sequence rank holds the same ring)."""
+    n0 = lay.prefill_len
     w = shapes["k"][1]
     first = max(0, n0 - w)
     slots = torch.arange(first, n0, device=k.device) % w
     cache = {}
     for name, t in (("k", k), ("v", v)):
-        seq = t[:, t.shape[1] - n_loc:].reshape(b, n0, *t.shape[2:])
+        tail = ctx.last_shard(t[:, t.shape[1] - (n0 - first):])
         c = torch.zeros(shapes[name], dtype=t.dtype, device=t.device)
-        c[:, slots] = seq[:, first:]
+        c[:, slots] = tail
         cache[name] = c
     return cache
 
@@ -553,9 +601,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
     Mamba2's conv takes the previous shard's rows as its halo).
 
     On a mesh (``params`` a rank's ``MeshParams``, ``lay`` the mesh's):
-    ``tokens`` is the whole batch, and the rank answers for its batch rows
-    (B_loc, V) over its vocab shard (``gather_logits``) with the cache of
-    its rows and sequence shard."""
+    ``tokens`` and ``embeds`` are the whole batch, and the rank answers for
+    its batch rows (B_loc, V) over its vocab shard (``gather_logits``)
+    with the cache of its rows and sequence shard."""
     check_supported(cfg)
     check_decoder(cfg, "prefill")
     mesh = _mesh(params)
@@ -575,7 +623,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
         x = embed_inputs(cfg, params, tokens, embeds=embeds).reshape(
             b * P, n_loc, cfg.d_model)
     else:
-        x = _embed_shard(cfg, params, batch_rows(tokens, lay, mesh), lay)
+        x = _embed_shard(cfg, params, batch_rows(tokens, lay, mesh), lay,
+                         batch_rows(embeds, lay, mesh))
         b = x.shape[0]
     cache = []
     for kind, p in _layers(cfg, params):
@@ -602,18 +651,25 @@ def _check_on_mesh(cfg: ModelConfig, hp: ServeHParams, mesh, lay) -> None:
     check_mesh_serving(cfg, hp, mesh)
 
 
-def _embed_shard(cfg: ModelConfig, mp: MeshParams, tokens, lay):
-    """The rank's rows of the prompt's embedding: tokens (B_loc, N) ->
-    (B_loc, n_loc, D) at positions [start, start + n_loc).  A
-    vocab-sharded table looks up the rows of the rank's ``model`` group
-    (a contiguous block of the sequence) and keeps its own after the
-    psum; learned positions come from the gathered table."""
+def _embed_shard(cfg: ModelConfig, mp: MeshParams, tokens, lay,
+                 embeds=None):
+    """The rank's rows of the prompt's embedding: tokens (B_loc, N), or
+    an audio model's frames (B_loc, N, D), -> (B_loc, n_loc, D) at
+    positions [start, start + n_loc).  A vocab-sharded table looks up the
+    rows of the rank's ``model`` group (a contiguous block of the
+    sequence) and keeps its own after the psum; a vlm's image (B_loc,
+    prefix_len, D), projected whole, overwrites the rank's positions below
+    the prefix (the reference's per-shard overwrite); learned positions
+    come from the gathered table, sinusoids at the rank's start."""
     seq = mp.mesh.group(lay.seq_axes)
-    n_loc = tokens.shape[1] // seq.size
+    n = (tokens if tokens is not None else embeds).shape[1]
+    n_loc = n // seq.size
     start = seq.index * n_loc
+    if tokens is None:                    # the frames are the prompt
+        x = dense(_frontend(mp), embeds[:, start:start + n_loc])
     # the lookups' outputs follow their indices' strides: the token
     # blocks are copied contiguous, as the kernels take the rows
-    if mp.rules["embed"]["table"].kind == "vocab":
+    elif mp.rules["embed"]["table"].kind == "vocab":
         mg = mp.mesh.group("model")
         first = start - mg.index * n_loc
         x = vocab_lookup(mp, tokens[:, first:first + mg.size * n_loc]
@@ -621,6 +677,10 @@ def _embed_shard(cfg: ModelConfig, mp: MeshParams, tokens, lay):
         x = x[:, mg.index * n_loc:(mg.index + 1) * n_loc].contiguous()
     else:
         x = vocab_lookup(mp, tokens[:, start:start + n_loc].contiguous())
+    if tokens is not None and embeds is not None:      # a vlm's image
+        fe = dense(_frontend(mp), embeds).to(x.dtype)
+        m = max(0, min(n_loc, cfg.prefix_len - start))
+        x = torch.cat([fe[:, start:start + m], x[:, m:]], dim=1)
     x = embed_scale(cfg, x)
     if cfg.pos == "learned":
         tbl = gather_tree(mp.params["pos_embed"], mp.rules["pos_embed"],
@@ -630,6 +690,12 @@ def _embed_shard(cfg: ModelConfig, mp: MeshParams, tokens, lay):
         return x + sincos(torch.arange(n_loc, device=x.device) + start,
                           cfg.d_model).to(x.dtype)
     return x
+
+
+def _frontend(mp: MeshParams):
+    """The stub frontend's projection, gathered."""
+    return gather_tree(mp.params["frontend_proj"], mp.rules["frontend_proj"],
+                       mp.mesh)
 
 
 def sharded_block(cfg: ModelConfig, kind: str, p, x, ctx, hp: ServeHParams,
@@ -1029,16 +1095,20 @@ def attn_decode_tp(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
 
 def block_decode(cfg: ModelConfig, kind: str, p, x, c, pos,
                  lay: ServeLayout, hp: ServeHParams, cols, lost=None,
-                 rep=None, seq=None, tp=None):
+                 rep=None, seq=None, tp=None, moe_ctx=DECODE_MOE_CTX):
     """One residual block, single-token decode (a moe block routes the
-    step's B tokens as one group; a recurrent block updates its state in
-    place).  ``seq``: a mesh's sequence group; ``tp``: decode_tp's
-    (attention TP, FFN TP, ``model`` group)."""
+    step's B tokens as one group, exchanged through ``moe_ctx``; a
+    recurrent block updates its state in place).  ``seq``: a mesh's
+    sequence group; ``tp``: decode_tp's (attention TP, FFN TP, ``model``
+    group)."""
     if kind in RECURRENT_KINDS:
         return recurrent_decode(cfg, kind, p, x, c)
     if tp is not None:
         o, xn = attn_decode_tp(p, attn_spec(cfg, kind), cfg, x, c, pos, lay,
                                hp, cols, seq, tp)
+        if kind == "moe":
+            return block_residual(cfg, kind, p, x, o, xn, moe_ctx,
+                                  hp.routing)
 
         def ffn(h):
             return (mlp_tp(p["mlp"], h, cfg.mlp_kind, tp[2]) if tp[1]
@@ -1049,8 +1119,7 @@ def block_decode(cfg: ModelConfig, kind: str, p, x, c, pos,
         return x + ffn(norm(p["ln2"], x, cfg.norm_kind))
     o, xn = attn_decode(p, attn_spec(cfg, kind), cfg, x, c, pos, lay, hp,
                         cols, lost, rep, seq)
-    return block_residual(cfg, kind, p, x, o, xn, DECODE_MOE_CTX,
-                          hp.routing)
+    return block_residual(cfg, kind, p, x, o, xn, moe_ctx, hp.routing)
 
 
 def embed_tokens(cfg: ModelConfig, params, token, pos):
@@ -1098,6 +1167,7 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
     mesh = _mesh(params)
     _check_on_mesh(cfg, hp, mesh, lay)
     seq = tp = None
+    moe_ctx = DECODE_MOE_CTX
     if mesh is not None:
         if page_map is not None or lost is not None:
             raise NotImplementedError("the paged cache and the degraded "
@@ -1109,6 +1179,8 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
                              "and only it does")
         if hp.decode_tp:
             tp = (*tp_flags(cfg, mesh), mesh.group("model"))
+        if "moe" in cfg.block_kinds:
+            moe_ctx = MeshMoeCtx(mesh, hp.decode_tp, _dense_tp(params))
     slot, owner, col_pos = _decode_cols(lay, pos,
                                         0 if seq is None else seq.index)
     valid = col_pos[None] <= pos[:, None, None]              # (B, P, cap_l)
@@ -1135,8 +1207,17 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
     for i, ((kind, p), c) in enumerate(zip(_layers(cfg, params), cache)):
         x = block_decode(cfg, kind, p, x, c, pos, lay, hp,
                          ring if kind == "attn_local" else cols, lost,
-                         None if rep is None else rep[i], seq, tp)
+                         None if rep is None else rep[i], seq, tp, moe_ctx)
     return lm_head(cfg, _tree(params), x[:, 0]), cache
+
+
+def _dense_tp(mp: MeshParams) -> bool:
+    """Whether the MoE layers' dense residual MLP (arctic's) is cut
+    Megatron style over ``model`` (the decode-TP rules' ``tp_row``
+    down), so that its partial outputs psum there."""
+    rule = next((r["moe"].get("dense_mlp") for r in mp.rules["layers"]
+                 if "moe" in r), None)
+    return rule is not None and rule["down"]["w"].kind == "tp_row"
 
 
 def generate(cfg: ModelConfig, params, prompts: torch.Tensor | None, *,
@@ -1158,7 +1239,9 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor | None, *,
     ``forced`` are the whole batch and the rank returns its batch rows,
     the logits gathered over the vocabulary before the greedy pick;
     ``decode_params`` are the decode steps' (the decode-TP rules' with
-    ``hp.decode_tp``; by default ``params``)."""
+    ``hp.decode_tp``; by default ``params``); ``times`` adds
+    ``sent_after_prefill``, the bytes by class the rank's ``Meter`` had
+    counted when the prefill ended."""
     check_decoder(cfg, "generate")
     mesh = _mesh(params)
     step_params = params if decode_params is None else decode_params
@@ -1178,6 +1261,7 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor | None, *,
     logits, cache = prefill(cfg, params, prompts, prism, lay, hp, embeds)
     out = [gather_logits(logits, params)]
     mark[1]()
+    sent = None if mesh is None else mesh.meter.snapshot()["sent"]
     for i in range(gen - 1):
         tok = out[-1].argmax(dim=-1) if forced is None else forced[:, i]
         pos = torch.full((b,), n + i, dtype=torch.long,
@@ -1197,4 +1281,6 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor | None, *,
         clock = "host"
     times = {"prefill_ms": t_pre,
              "decode_ms_per_token": t_dec / max(1, gen - 1), "clock": clock}
+    if sent is not None:
+        times["sent_after_prefill"] = sent
     return logits.argmax(dim=-1).T, logits, times

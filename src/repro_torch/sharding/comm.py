@@ -5,26 +5,43 @@ group of ranks of a mesh (``launch/mesh.py``).
     all_gather(x, grp, cls, dim=d)   # tiled along dim d
     psum(x, grp, cls), pmax(x, grp, cls)
     last_shard(x, grp, cls)          # the last rank's x, on every rank
+    all_to_all(x, grp, cls, split_dim=s, concat_dim=c)
+                                     # lax.all_to_all(tiled=True)
+    ppermute(x, grp, cls, shift=h)   # x to group index i + h; zeros in
 
-A group of one rank returns x (a gather: x with its new axis) and sends
-nothing.
+A group of one rank returns x (a gather: x with its new axis; a
+ppermute: zeros) and sends nothing.
 
 Every call names the class of traffic it carries, and the mesh's
 ``Meter`` adds up the bytes this rank sends under a ring algorithm:
 (n - 1)·|x| for a gather, 2·(n - 1)·|x| / n for a reduction, (n - 1)·|x|
-from the source of a broadcast.  The classes:
+from the source of a broadcast, (n - 1)·|x| / n for an all_to_all (a
+rank keeps its own block), |x| from each rank of a ppermute that has a
+receiver.  The classes:
 
   * ``exchange``      the prefill's exchange: Segment Means (PRISM) or
                       the partitions (Voltage), and the means a Voltage
-                      prefill captures for prism decode;
+                      prefill captures for prism decode; a window
+                      layer's ring halo, a recurrent layer's state
+                      handoff, Mamba2's conv halo, the sLSTM's gathered
+                      sequence;
   * ``combine``       the decode's cross-shard stats (pmax, psum), the
                       prism owner select, the last shard's rows;
   * ``param_gather``  the per-layer FSDP gathers;
   * ``tp``            the tensor-parallel activation psums and the q
-                      gather, the vocab-parallel lookup and logits.
+                      gather, the vocab-parallel lookup and logits;
+  * ``expert``        a MoE layer's dispatch and return (the all_to_all
+                      pair over ``model``), and expert-TP's token gather
+                      and partial sums over ``data``.
 
-``gloo`` takes CUDA tensors for all three collectives called here
-(all_gather, all_reduce, broadcast), passing them through the host.
+``gloo`` takes CUDA tensors for all_gather, all_reduce, broadcast and
+all_to_all_single, passing them through the host, but not for send and
+recv (its TCP pair writes the tensor's device pointer: "writev ... Bad
+address", on an H100 with torch 2.11).  So one fixed rule: a
+``ppermute`` of a CUDA tensor over a gloo group sends a host copy and
+receives into host memory, then copies the result to the tensor's
+device (``_stage_p2p``); it meters the same bytes.  Over nccl, or on the
+CPU, the tensors go as they are.
 """
 from __future__ import annotations
 
@@ -34,7 +51,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-CLASSES = ("exchange", "combine", "param_gather", "tp")
+CLASSES = ("exchange", "combine", "param_gather", "tp", "expert")
 
 
 class Meter:
@@ -120,3 +137,54 @@ def last_shard(x: torch.Tensor, grp: Group, cls: str) -> torch.Tensor:
     buf = x.clone(memory_format=torch.contiguous_format)
     dist.broadcast(buf, src=src, group=grp.pg)
     return buf
+
+
+def all_to_all(x: torch.Tensor, grp: Group, cls: str, *, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """The tiled ``lax.all_to_all``: x cut into n equal blocks along
+    ``split_dim``, block j sent to the group's rank j, and the blocks
+    received laid side by side along ``concat_dim`` in the order of
+    their senders."""
+    if grp.size == 1:
+        return x
+    n = grp.size
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+    _count(grp, cls, (n - 1) * x.numel() * x.element_size() // n)
+    src = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=grp.pg)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+def _stage_p2p(x: torch.Tensor, grp: Group) -> bool:
+    """The staging rule of ``ppermute``: a CUDA tensor over gloo."""
+    return x.is_cuda and dist.get_backend(grp.pg) == "gloo"
+
+
+def ppermute(x: torch.Tensor, grp: Group, cls: str, *,
+             shift: int) -> torch.Tensor:
+    """x sent to the group's index i + ``shift`` (shift >= 1); each rank
+    returns what the rank ``shift`` below it sent, zeros where there is
+    none (the first ``shift`` ranks), as ``lax.ppermute`` fills them.
+    Over gloo a CUDA tensor goes through host memory (``_stage_p2p``)."""
+    if shift < 1:
+        raise ValueError(f"ppermute shifts up by 1 or more, not {shift}")
+    i, n = grp.index, grp.size
+    host = n > 1 and _stage_p2p(x, grp)
+    out = torch.zeros(x.shape, dtype=x.dtype,
+                      device="cpu" if host else x.device)
+    ops = []
+    if i + shift < n:
+        _count(grp, cls, x.numel() * x.element_size())
+        src = x.cpu() if host else x.contiguous()
+        ops.append(dist.P2POp(dist.isend, src.contiguous(),
+                              grp.ranks[i + shift], grp.pg))
+    if i - shift >= 0:
+        ops.append(dist.P2POp(dist.irecv, out, grp.ranks[i - shift],
+                              grp.pg))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out.to(x.device) if host else out

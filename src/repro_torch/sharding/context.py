@@ -65,9 +65,17 @@ index over ``seq_axes`` (the reference's ``_index``), a gather is
 its last rank.  The PRISM exchange is the rank's means from the
 segment-means kernel, gathered, after its own rows (the fused augment
 reads every shard's rows, which one rank does not hold); Voltage's is
-the gathered sequence.  The serving exchanges, ``prism`` and
-``voltage`` over the even split, are what a mesh runs: the other
-layers' exchanges, the Table II modes and the uneven split raise.
+the gathered sequence.  The window halo is ``hops`` ``comm.ppermute``s
+over the sequence group (on the B 1 layout the group is the flattened
+(data, model) index, so one shift replaces the reference's minor/major
+pair); the state handoff gathers every rank's (log a, U) and runs the
+fold's scan; Mamba2's halo is a ``ppermute`` by one; the sLSTM's
+sequence an ``all_gather``.  A MoE layer routes the rank's own B·n_loc
+tokens as one group and exchanges them with the tiled ``all_to_all``
+pair over ``model``, the experts' axis.  The reference's mesh runs
+neither the Table II modes (its ``augment`` serves every non-Voltage
+mode as PRISM) nor Alg. 1's uneven split (``shard_map`` takes N a
+multiple of the shard count): a mesh refuses both.
 """
 from __future__ import annotations
 
@@ -85,9 +93,8 @@ from ..models.context import AugmentedKV, SeqContext
 from ..models.layers import AttnSpec
 from . import comm
 
-# the exchanges a mesh of ranks runs, and where the others are to come
+# the exchanges a mesh of ranks runs: the reference's mesh has no other
 MESH_MODES = ("prism", "voltage")
-MESH_LATER = "ROADMAP queue 1, item 17"
 
 
 class MeansColumns(NamedTuple):
@@ -203,23 +210,26 @@ class ShardedPrismContext(SeqContext):
         self.P = n_shards
         self.backend = backend
         self.n = n
-        self.group = None
+        self.group = self.experts = None
         if mesh is not None:
-            if self.cfg.mode not in MESH_MODES or n is not None:
+            if self.cfg.mode not in MESH_MODES:
                 raise NotImplementedError(
-                    f"a mesh runs the {'/'.join(MESH_MODES)} exchanges over "
-                    f"the even split (mode {self.cfg.mode!r}, n={n}): "
-                    f"{MESH_LATER}")
+                    f"a mesh runs the {'/'.join(MESH_MODES)} exchanges, "
+                    f"not {self.cfg.mode!r}: the reference's mesh serves "
+                    "every other mode as prism (the Table II modes run "
+                    "folded)")
+            if n is not None:
+                raise NotImplementedError(
+                    f"a mesh takes the even split, not N={n} over "
+                    f"{n_shards} shards: the reference's shard_map takes N "
+                    "a multiple of the shard count (Alg. 1's uneven split "
+                    "runs folded)")
             self.group = mesh.group(seq_axes)
+            # the experts' axis: the reference's all_to_all is over model
+            self.experts = mesh.group("model")
             if self.group.size != n_shards:
                 raise ValueError(f"{n_shards} shards over {seq_axes} of "
                                  f"{self.group.size} ranks")
-
-    def _fold_only(self, what: str) -> None:
-        """Raise on a mesh for an exchange only the fold runs yet."""
-        if self.group is not None:
-            raise NotImplementedError(f"{what} on a mesh of ranks: "
-                                      f"{MESH_LATER}")
 
     def _local(self, t):
         """The rank's row of per-shard (P, ...) metadata on a mesh, (1,
@@ -271,7 +281,6 @@ class ShardedPrismContext(SeqContext):
         s, n = self.split(n_loc)
         row_pos = self._local(shard_rows(self.P, s, x.device, n_loc))
         if spec.window is not None:
-            self._fold_only("a sliding-window layer's ring halo")
             if s != n_loc:
                 raise NotImplementedError("sliding-window layers take the "
                                           "even split only")
@@ -306,14 +315,21 @@ class ShardedPrismContext(SeqContext):
         rows."""
         bp, _, d = x.shape
         hops = self.window_hops(window, n_loc)
-        xs = x.view(bp // self.P, self.P, n_loc, d)
-        halo = [F.pad(xs[:, :self.P - h], (0, 0, 0, 0, h, 0))
-                for h in range(hops, 0, -1)]
-        x_hat = torch.cat(halo + [xs], dim=2).reshape(
-            bp, (hops + 1) * n_loc, d)
+        if self.group is not None:        # each hop one ppermute
+            x_hat = torch.cat([comm.ppermute(x, self.group, "exchange",
+                                             shift=h)
+                               for h in range(hops, 0, -1)] + [x], dim=1)
+        else:
+            xs = x.view(bp // self.P, self.P, n_loc, d)
+            halo = [F.pad(xs[:, :self.P - h], (0, 0, 0, 0, h, 0))
+                    for h in range(hops, 0, -1)]
+            x_hat = torch.cat(halo + [xs], dim=2).reshape(
+                bp, (hops + 1) * n_loc, d)
         cols = window_columns(self.P, n_loc, hops, x.device)
-        return x, AugmentedKV(x_hat, cols.g, None, row_pos, cols.pos,
-                              col_lo=cols.col, col_hi=cols.col)
+        return x, AugmentedKV(x_hat, self._local(cols.g), None, row_pos,
+                              self._local(cols.pos),
+                              col_lo=self._local(cols.col),
+                              col_hi=self._local(cols.col))
 
     def gather_means(self, x, L: int):
         """Every shard's L segment means of x (B·P, n_loc, D), gathered
@@ -355,17 +371,28 @@ class ShardedPrismContext(SeqContext):
     def expert_groups(self, x):
         """x (B·P, n_loc, D) -> (P, B·n_loc, D): shard p's tokens of every
         sequence, sequence-major (the order of the reference's per-device
-        (B, n_loc) block), and the inverse."""
-        self._fold_only("expert routing groups (the all_to_all)")
+        (B, n_loc) block), and the inverse; on a mesh the rank's own
+        (1, B·n_loc, D)."""
         bp, n_loc, d = x.shape
         if self.split(n_loc)[0] != n_loc:    # pad rows would take capacity
             raise NotImplementedError("expert routing groups take the "
                                       "even split only")
+        if self.group is not None:
+            return SeqContext.expert_groups(self, x)
         b = bp // self.P
         xg = x.view(b, self.P, n_loc, d).transpose(0, 1).reshape(
             self.P, b * n_loc, d)
         return xg, lambda y: y.view(self.P, b, n_loc, d).transpose(
             0, 1).reshape(bp, n_loc, d)
+
+    def expert_exchange(self, buf):
+        """(G, E, cap, D) -> (E, G·cap, D) folded; on a mesh the rank's
+        (1, E, cap, D) -> (E_local, M·cap, D) by the tiled all_to_all
+        over ``model``, the senders' slots model-rank-major (the fold's
+        group order on the (1, P) mesh), and back."""
+        if self.experts is None:
+            return SeqContext.expert_exchange(self, buf)
+        return expert_all_to_all(buf, self.experts)
 
     def last_shard(self, x):
         """Value held by the shard owning the END of the sequence:
@@ -387,34 +414,46 @@ class ShardedPrismContext(SeqContext):
         """The state entering each shard: log_a_tot (B·P, H) and u_tot
         (B·P, H, dk, dv), each shard's span totals -> (B·P, H, dk, dv),
         the exclusive prefix S <- exp(log a_p)·S + u_p over the shards of
-        each sequence, zeros for shard 0."""
-        self._fold_only("the recurrent state handoff")
+        each sequence, zeros for shard 0.  On a mesh every rank's totals
+        are gathered, the same scan runs, and the rank keeps its own
+        prefix (B, H, dk, dv)."""
         self._even_only("the recurrent state handoff")
-        la = log_a_tot.reshape(-1, self.P, *log_a_tot.shape[1:])
-        u = u_tot.reshape(-1, self.P, *u_tot.shape[1:])
+        if self.group is not None:
+            la = self._gather(log_a_tot).transpose(0, 1)    # (B, P, H)
+            u = self._gather(u_tot).transpose(0, 1)
+        else:
+            la = log_a_tot.reshape(-1, self.P, *log_a_tot.shape[1:])
+            u = u_tot.reshape(-1, self.P, *u_tot.shape[1:])
         s, prefix = torch.zeros_like(u[:, 0]), []
         for p in range(self.P):
             prefix.append(s)
             s = la[:, p].exp()[..., None, None] * s + u[:, p]
+        if self.group is not None:
+            return prefix[self.group.index]
         return torch.stack(prefix, dim=1).reshape(u_tot.shape)
 
     def prev_tail(self, x, size: int):
         """x (B·P, n_loc, C) -> (B·P, size, C): shard p's halo is the last
         ``size`` rows of shard p - 1 of its sequence, zeros for shard 0
         (the reference's ``ppermute`` to the next shard)."""
-        self._fold_only("the Mamba2 conv halo")
         self._even_only("prev_tail")
         bp, n_loc = x.shape[:2]
+        if self.group is not None:
+            return comm.ppermute(x[:, n_loc - size:], self.group,
+                                 "exchange", shift=1)
         xs = x.reshape(bp // self.P, self.P, n_loc, *x.shape[2:])
         tail = xs[:, :self.P - 1, n_loc - size:]
         return torch.cat([torch.zeros_like(xs[:, :1, :size]), tail],
                          dim=1).reshape(bp, size, *x.shape[2:])
 
     def gather_sequence(self, x):
-        """x (B·P, n_loc, D) -> the whole sequences (B, P·n_loc, D)."""
-        self._fold_only("the sLSTM's sequence gather")
+        """x (B·P, n_loc, D) -> the whole sequences (B, P·n_loc, D); on a
+        mesh every rank's rows, gathered."""
         self._even_only("gather_sequence")
         bp, n_loc = x.shape[:2]
+        if self.group is not None:
+            return self._gather(x).transpose(0, 1).reshape(
+                bp, self.P * n_loc, *x.shape[2:])
         return x.reshape(bp // self.P, self.P * n_loc, *x.shape[2:])
 
     def take_local(self, y_full):
@@ -426,3 +465,14 @@ class ShardedPrismContext(SeqContext):
             return y_full[:, self.group.index * n_loc:][:, :n_loc]
         b, n = y_full.shape[:2]
         return y_full.reshape(b * self.P, n // self.P, *y_full.shape[2:])
+
+
+def expert_all_to_all(buf, grp):
+    """A rank's dispatch buffer (1, E, cap, D) -> (E / M, M·cap, D) over
+    the ``model`` group ``grp`` of M ranks (the reference's tiled
+    ``all_to_all`` with split_axis 0, concat_axis 1): each rank keeps its
+    own E / M experts, with every sender's slots in sender order; and
+    the inverse for the outputs, -> (1, E, cap, D)."""
+    out = comm.all_to_all(buf[0], grp, "expert", split_dim=0, concat_dim=1)
+    return out, lambda y: comm.all_to_all(y, grp, "expert", split_dim=1,
+                                          concat_dim=0)[None]

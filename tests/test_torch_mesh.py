@@ -32,7 +32,8 @@ of both, where the split changes nothing an f32 logit can show.  The
 same spawns hold each
 collective of ``sharding/comm.py`` to the fold's reshape or reduction,
 the meter's exchange bytes to ``comm_elements_per_device_per_layer``,
-and the refusals of what a mesh does not serve yet.
+and the refusals of what a mesh does not serve (the other families:
+``test_torch_mesh_moe.py`` and ``test_torch_mesh_families.py``).
 """
 from __future__ import annotations
 
@@ -183,24 +184,15 @@ def _collectives(mesh):
 
 
 def _refusals(mesh, tree):
-    """What a mesh does not serve yet, each refusal's (type, message)."""
+    """What a (1, 4) mesh refuses, each refusal's (type, message)."""
     from repro_torch.configs import get_config
     from repro_torch.core.protocol import PrismConfig
-    from repro_torch.models import transformer as T
     from repro_torch.runtime import serve as S
     from repro_torch.runtime.ticks import packed_step
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.sharding.context import ShardedPrismContext
     hp = S.ServeHParams(means_cr=CR)
     out = {}
-    for arch in ("gemma3-1b", "xlstm-1.3b", "olmoe-1b-7b", "paligemma-3b"):
-        cfg = get_config(arch).reduced(d_model=128)
-        params = T.init(cfg, torch.Generator().manual_seed(0), "cpu")
-        mp = S.mesh_params(cfg, params, mesh)
-        lay = S.make_layout(mesh, 64, hp, prefill_len=N, batch=2)
-        out[arch] = _message(lambda: S.prefill(
-            cfg, mp, torch.ones(2, N, dtype=torch.long),
-            PrismConfig(P=4, cr=CR), lay, hp))
     cfg = get_config("gpt2-small").reduced(d_model=128)
     mp = S.mesh_params(cfg, tree, mesh)
     lay = S.make_layout(mesh, 64, hp, prefill_len=N, batch=2)
@@ -221,6 +213,24 @@ def _refusals(mesh, tree):
     out["tp_rules"] = _message(lambda: S.serve_step(
         cfg, mp, [], one, one, lay, S.ServeHParams(decode_tp=True)))
     return out
+
+
+def _expert_tp_refusal(mesh):
+    """On a (2, 2) mesh: reduced arctic's expert d_ff of 87 does not split
+    over ``data``, so expert-TP is refused, with the decode-TP rule's cut
+    of ``down/w`` across d_model named."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.protocol import PrismConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import serve as S
+    cfg = get_config("arctic-480b").reduced(d_model=128)
+    params = T.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    hp = S.ServeHParams(means_cr=CR, decode_tp=True)
+    lay = S.make_layout(mesh, 64, hp, prefill_len=N, batch=2)
+    return {"arctic-tp": _message(lambda: S.prefill(
+        cfg, S.mesh_params(cfg, params, mesh), torch.ones(2, N,
+                                                          dtype=torch.long),
+        PrismConfig(P=2, cr=CR), lay, hp))}
 
 
 def _forced_run(cfg, mesh, tree, b, pre, dec, tp):
@@ -258,16 +268,16 @@ def _forced_run(cfg, mesh, tree, b, pre, dec, tp):
 
 def _rank_main(mesh, trees):
     """One rank: every case of its mesh shape (a decode_tp case's
-    float64 twin too), then the collectives and (on the (1, 4) mesh) the
-    refusals."""
+    float64 twin too), then the collectives and the refusals of its
+    shape."""
     torch.set_num_threads(1)
     from repro_torch.configs import get_config
     from repro_torch.convert import from_jax_numpy
     from repro_torch.sharding.rules import tree_map
     shape = mesh.shape
     res = {"collectives": _collectives(mesh)}
-    if shape == (1, 4):
-        res["refusals"] = _refusals(mesh, trees["gpt2-small"])
+    res["refusals"] = (_refusals(mesh, trees["gpt2-small"])
+                       if shape == (1, 4) else _expert_tp_refusal(mesh))
     for case, (arch, cshape, b, pairings, tp) in CASES.items():
         if cshape != shape:
             continue
@@ -532,29 +542,29 @@ def test_nccl_refuses_two_ranks_on_one_card():
 
 
 REFUSED = {
-    "gemma3-1b": ("NotImplementedError", "item 17"),       # window layers
-    "xlstm-1.3b": ("NotImplementedError", "item 17"),      # recurrent
-    "olmoe-1b-7b": ("NotImplementedError", "item 16"),     # experts
-    "paligemma-3b": ("NotImplementedError", "item 17"),    # image prefix
     "kv_cache": ("NotImplementedError", "item 18"),
     "engine": ("NotImplementedError", "item 18"),
     "packed": ("NotImplementedError", "item 18"),
     "degraded": ("NotImplementedError", "item 18"),
-    "prism_nodup": ("NotImplementedError", "item 17"),
-    "duplicate": ("NotImplementedError", "item 17"),
-    "single": ("NotImplementedError", "item 17"),
-    "uneven": ("NotImplementedError", "item 17"),
+    "prism_nodup": ("NotImplementedError", "reference's mesh serves"),
+    "duplicate": ("NotImplementedError", "reference's mesh serves"),
+    "single": ("NotImplementedError", "reference's mesh serves"),
+    "uneven": ("NotImplementedError", "shard_map takes N a multiple"),
     "tp_rules": ("ValueError", "decode-TP rules"),
+    "arctic-tp": ("NotImplementedError", "down/w across d_model"),
 }
 
 
 @pytest.mark.parametrize("what", REFUSED)
 def test_mesh_refuses(mesh_runs, what):
-    """Window, recurrent and MoE blocks, an image prefix, the Table II
-    modes and Alg. 1's uneven split on a mesh; the engine's cache, the
-    engine, the tick programs and the degraded step; decode_tp over
-    FSDP-cut parameters: each raises and names where it is to come."""
-    got = mesh_runs[(1, 4)][0]["refusals"][what]
+    """The Table II modes and Alg. 1's uneven split on a mesh (the
+    reference's mesh has neither); the engine's cache, the engine, the
+    tick programs and the degraded step; decode_tp over FSDP-cut
+    parameters; expert-TP over an expert d_ff that does not split over
+    ``data`` (reduced arctic's 87 on (2, 2)): each raises and names why,
+    or where it is to come."""
+    got = next(r[0]["refusals"][what] for r in mesh_runs.values()
+               if what in r[0]["refusals"])
     kind, words = REFUSED[what]
     assert got is not None, what
     assert got[0] == kind and words in got[1], got

@@ -638,8 +638,10 @@ def test_routing_log_replays_decisions():
 
 def test_decode_tp_is_refused():
     """decode_tp takes a mesh whose model axis is over 1 (the fold's
-    layout refuses it), and no MoE block on one: expert-TP is a later
-    item of ROADMAP queue 1."""
+    layout refuses it); over MoE blocks (expert-TP) it takes an expert
+    d_ff that splits over ``data``, else the decode-TP rule would cut
+    ``down/w`` across d_model (reduced arctic's 87 on 2 data ranks, where
+    the reference fails); OLMoE's 1,024 serves."""
     from repro_torch.configs import get_config
     from repro_torch.runtime.serve import (ServeHParams, check_mesh_serving,
                                            make_layout)
@@ -649,9 +651,11 @@ def test_decode_tp_is_refused():
     with pytest.raises(NotImplementedError, match="model axis"):
         check_mesh_serving(get_config("gpt2-small"), hp,
                            {"data": 4, "model": 1})
-    with pytest.raises(NotImplementedError, match="expert-TP.*item 16"):
-        check_mesh_serving(get_config("olmoe-1b-7b"), hp,
-                           {"data": 1, "model": 4})
+    with pytest.raises(NotImplementedError, match="down/w across d_model"):
+        check_mesh_serving(get_config("arctic-480b").reduced(d_model=128),
+                           hp, {"data": 2, "model": 2})
+    check_mesh_serving(get_config("olmoe-1b-7b"), hp,
+                       {"data": 2, "model": 2})
 
 
 # --------------------------------------------------------------------------
