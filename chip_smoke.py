@@ -5018,13 +5018,15 @@ def drive_train(torch):
 # image prefix across the shards and MusicGen's frame prompt.  (d)-(i)
 # decode ``MESH_STEPS``: 8 put the whole script at 1,034.7 s of its
 # 1,200 (target 1,080) on an H100 whose host was not the slowest seen
-# (PERF.md §4), so they take 4, then MusicGen's static path 8 layers
+# (PERF.md §4), so they take 4, then MusicGen's static path 8 layers.
+# With run (j) the script took 1,157.4 s (PERF.md §4), so (a) decodes 8
+# steps (16 before), (b) and (c) ``MESH_STEPS`` (8 before)
 MESH_STEPS = 4
 MESH_RUNS = (
-    ("gpt2-1x4", ARCH, (1, 4), 16, GEMMA_PAIRINGS, False, None, PROMPT),
-    ("gpt2-2x2", ARCH, (2, 2), 8, (("prism", "prism"),), False, None,
-     PROMPT),
-    ("yi-tp-1x4", LLAMA, (1, 4), 8, (("prism", "exact"),), True,
+    ("gpt2-1x4", ARCH, (1, 4), 8, GEMMA_PAIRINGS, False, None, PROMPT),
+    ("gpt2-2x2", ARCH, (2, 2), MESH_STEPS, (("prism", "prism"),), False,
+     None, PROMPT),
+    ("yi-tp-1x4", LLAMA, (1, 4), MESH_STEPS, (("prism", "exact"),), True,
      STATIC_DEPTH[LLAMA], PROMPT),
     ("olmoe-1x4", MOE, (1, 4), MESH_STEPS, (("prism", "prism"),), False,
      4, PROMPT),
@@ -5052,6 +5054,237 @@ MESH_KERNELS = ("prism_flash_attention", "flash_decode_stats")
 # (7,077,888 weights over 4 ranks) and a combine psum (B 8 x 12 x 64)
 MESH_COLLECTIVES = {"gather_layer": 7_077_888 // 4,
                     "psum_small": BATCH * 12 * 64}
+
+
+# run (j): the serving engine over the ranks, GPT-2 small at full width
+# on its first 6 layers: 6 requests of 64-192 prompt tokens, 3 of them
+# (``MESH_ENGINE_SHARED``) behind one 64-token system prompt, 8 new
+# tokens each, 4 slots, 16-token pages, a token budget of 64, a clock
+# that stands still; (1, 4) packed exact with the prefix cache, (1, 4)
+# packed prism, (2, 2) chunked exact on the dense cache, each held to the
+# folded one-process engine at its sequence shards.  The trace had 8
+# requests; the script then took 1,157.4 s of its 1,200 (PERF.md §4)
+MESH_ENGINE_DEPTH = 6
+MESH_ENGINE = dict(n_slots=4, prefill_len=256, max_cache=272,
+                   token_budget=64, page_tokens=16)
+MESH_ENGINE_REQUESTS, MESH_ENGINE_NEW, MESH_ENGINE_SYSTEM = 6, 8, 64
+MESH_ENGINE_SHARED = (0, 4, 5)
+MESH_ENGINE_RUNS = (((1, 4), "packed", "exact", True),
+                    ((1, 4), "packed", "prism", True),
+                    ((2, 2), "chunked", "exact", False))
+# the most requests whose tokens may part from the fold's, each at a
+# step where the fold's top-2 gap is under TOKEN_GAP of its |logit|
+MESH_ENGINE_MAX_PARTED = 1
+# the schedule's stats a rank must share with the fold
+MESH_ENGINE_SCHEDULE = ("prefix_hits", "prefix_tokens_saved", "packed_ticks",
+                        "prefill_chunks", "prefill_tokens", "out_of_pages",
+                        "decode_steps")
+
+
+def mesh_engine_key(shape, prefill, mode, paged):
+    return (f"engine-{shape[0]}x{shape[1]}/{prefill}-{mode}-"
+            f"{'paged' if paged else 'dense'}")
+
+
+def mesh_engine_trace(vocab):
+    """Run (j)'s prompts from a seeded rng, 64-192 tokens; the requests
+    ``MESH_ENGINE_SHARED`` begin with one shared 64-token system prompt
+    (a page of their own past it)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    system = rng.integers(1, vocab, size=MESH_ENGINE_SYSTEM).tolist()
+    prompts = []
+    for i in range(MESH_ENGINE_REQUESTS):
+        n = int(rng.integers(MESH_ENGINE_SYSTEM, 3 * MESH_ENGINE_SYSTEM + 1))
+        if i in MESH_ENGINE_SHARED:
+            n = max(n, MESH_ENGINE_SYSTEM + 16)
+            prompts.append(system + rng.integers(
+                1, vocab, size=n - MESH_ENGINE_SYSTEM).tolist())
+        else:
+            prompts.append(rng.integers(1, vocab, size=n).tolist())
+    return prompts
+
+
+def mesh_engine_model(torch):
+    """GPT-2 small at full width on its first ``MESH_ENGINE_DEPTH``
+    layers, seeded weights on the card: (config, weights)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(ARCH)
+    cfg = replace(cfg, n_layers=MESH_ENGINE_DEPTH,
+                  blocks=cfg.block_kinds[:MESH_ENGINE_DEPTH])
+    return cfg, T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       "cuda")
+
+
+def mesh_engine(cfg, params, prefill, mode, paged, n_seq=None):
+    """Run (j)'s engine: ``params`` a rank's ``MeshParams``, or the whole
+    weights folded into one process over ``n_seq`` shards."""
+    from repro_torch.runtime.serve import ServeHParams
+    from repro_torch.serving import EngineConfig, ServingEngine
+    config = EngineConfig(hp=ServeHParams(decode_mode=mode, means_cr=CR),
+                          prefill_mode=prefill, paged=paged, **MESH_ENGINE)
+    kw = {} if n_seq is None else {"n_seq": n_seq}
+    return ServingEngine(cfg, params, config, clock=lambda: 0.0, **kw)
+
+
+def mesh_engine_fold(torch, shape, prefill, mode, paged):
+    """The folded engine of run (j) at the mesh's sequence shards, on the
+    card: its tokens by request, each decode row's top-2 gap and largest
+    |logit| by request, its schedule."""
+    from repro_torch.runtime.serve import seq_shards
+    cfg, params = mesh_engine_model(torch)
+    eng = mesh_engine(cfg, params, prefill, mode, paged, seq_shards(
+        dict(zip(("data", "model"), shape)), MESH_ENGINE["n_slots"]))
+    log = keep_logits(eng)
+    for prompt in mesh_engine_trace(cfg.vocab_size):
+        eng.submit(prompt, max_new_tokens=MESH_ENGINE_NEW)
+    out = eng.run()
+    rows = {}
+    for rid, kept in log.items():
+        top2 = torch.stack(kept).topk(2, dim=-1).values
+        rows[rid] = {"gap": (top2[:, 0] - top2[:, 1]).cpu().tolist(),
+                     "top": torch.stack(kept).abs().amax(-1).cpu().tolist()}
+    return {"tokens": out, "rows": rows,
+            "schedule": {k: eng.stats.summary()[k]
+                         for k in MESH_ENGINE_SCHEDULE},
+            "pages": eng.kv_cache.stats()}
+
+
+def tick_gather_bytes(mp, cfg) -> int:
+    """The ``param_gather`` bytes a rank sends in one tick of the engine:
+    every layer's FSDP gather (``rules.gather_tree``: over ``data``, then
+    an ``fsdp2d`` leaf's over ``model``) and the learned position table's,
+    from the rules and the rank's leaves."""
+    from repro_torch.models.transformer import layer_blocks
+    from repro_torch.sharding.rules import tree_paths
+    n_d, n_m = mp.mesh.size(("data",)), mp.mesh.size(("model",))
+    trees = [(p, r) for (_, p), (_, r) in zip(
+        layer_blocks(cfg, mp.params), layer_blocks(cfg, mp.rules))]
+    if cfg.pos == "learned":
+        trees.append((mp.params["pos_embed"], mp.rules["pos_embed"]))
+    total = 0
+    for local, rules in trees:
+        rule = dict(tree_paths(rules))
+        for path, t in tree_paths(local):
+            g = rule[path].gather_dim
+            if g is None:
+                continue
+            b = t.numel() * t.element_size()
+            total += (n_d - 1) * b
+            if isinstance(g, tuple):
+                total += (n_m - 1) * n_d * b
+    return total
+
+
+def mesh_engine_rank(torch, meshes, shape, prefill, mode, paged):
+    """One rank of one engine run of (j): its tokens, schedule, launches
+    (counters zeroed just before ``run``, read just after) and the ones
+    its ticks need (``engine_launches``), its meter, the param_gather
+    bytes a tick, wall time and ticks."""
+    import time
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.runtime.serve import mesh_params
+    m = meshes[shape]
+    cfg, params = mesh_engine_model(torch)
+    mp = mesh_params(cfg, params, m)
+    del params
+    eng = mesh_engine(cfg, mp, prefill, mode, paged)
+    for prompt in mesh_engine_trace(cfg.vocab_size):
+        eng.submit(prompt, max_new_tokens=MESH_ENGINE_NEW)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    m.meter.reset()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    s = eng.stats.summary()
+    ticks = s["decode_steps"] + s["packed_ticks"] + s["prefill_chunks"]
+    devices = {str(t.device) for c in eng.kv_cache.storage
+               for t in c.values()}
+    return {"tokens": out, "launches": launches,
+            "need": engine_launches(eng, paged, cfg.n_layers),
+            "schedule": {k: s[k] for k in MESH_ENGINE_SCHEDULE},
+            "pages": eng.kv_cache.stats(), "meter": m.meter.snapshot(),
+            "gather_per_tick": tick_gather_bytes(mp, cfg), "ticks": ticks,
+            "wall_s": wall, "ms_per_tick": 1e3 * wall / ticks,
+            "devices": sorted(devices | {str(m.device)}),
+            "coords": m.coords, "n_seq": eng.layout.n_seq}
+
+
+def parted(tokens, fold):
+    """The requests whose tokens part from the fold's -> {rid: (step, the
+    fold's top-2 gap there / its largest |logit|)}."""
+    out = {}
+    for rid, want in fold["tokens"].items():
+        got = tokens[rid]
+        k = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if k is None and len(got) == len(want):
+            continue
+        k = min(len(got), len(want)) if k is None else k
+        row = fold["rows"][rid]
+        out[rid] = (k, row["gap"][k] / row["top"][k]
+                    if k < len(row["gap"]) else None)
+    return out
+
+
+def check_mesh_engine(key, runs, fold, shape, prefill, mode, paged, card):
+    """Run (j)'s ranks against each other and the fold: every rank's
+    tokens equal, the fold's but where a request parts at a near-tie (at
+    most ``MESH_ENGINE_MAX_PARTED``), the fold's schedule and pages; on
+    every rank the launches its ticks need, tensors on cuda:0 and
+    ``param_gather`` exactly ticks x one tick's gathers.  Emits the path
+    line; returns the launches summed over the ranks."""
+    first = runs[0]
+    for rank, run in enumerate(runs):
+        if run["tokens"] != first["tokens"]:
+            raise AssertionError(f"{key} rank {rank}: tokens differ from "
+                                 "rank 0's")
+        if run["devices"] != ["cuda:0"]:
+            raise AssertionError(f"{key} rank {rank}: tensors on "
+                                 f"{run['devices']}")
+        if run["schedule"] != fold["schedule"] or (
+                run["pages"] != fold["pages"]):
+            raise AssertionError(f"{key} rank {rank}: schedule "
+                                 f"{run['schedule']}, pages {run['pages']}; "
+                                 f"the fold's {fold['schedule']}, "
+                                 f"{fold['pages']}")
+        check_launches(f"{key} rank {rank}", run["launches"], run["need"])
+        gathered = run["meter"]["sent"]["param_gather"]
+        if gathered != run["ticks"] * run["gather_per_tick"]:
+            raise AssertionError(f"{key} rank {rank}: param_gather "
+                                 f"{gathered} bytes over {run['ticks']} "
+                                 f"ticks of {run['gather_per_tick']}")
+    if len(first["tokens"]) != MESH_ENGINE_REQUESTS or any(
+            len(t) != MESH_ENGINE_NEW for t in first["tokens"].values()):
+        raise AssertionError(f"{key}: requests unfinished")
+    apart = parted(first["tokens"], fold)
+    for rid, (step, gap) in apart.items():
+        if gap is None or gap >= TOKEN_GAP:
+            raise AssertionError(f"{key}: request {rid} parts from the fold "
+                                 f"at step {step}, its top-2 gap {gap}")
+    if len(apart) > MESH_ENGINE_MAX_PARTED:
+        raise AssertionError(f"{key}: {len(apart)} requests part from the "
+                             "fold")
+    if mode == "exact" and paged and first["schedule"]["prefix_hits"] == 0:
+        raise AssertionError(f"{key}: no prefix hit")
+    emit("path", name=f"mesh/{key}", arch=ARCH, mesh=list(shape),
+         layers=MESH_ENGINE_DEPTH, prefill=prefill, mode=mode, paged=paged,
+         **MESH_ENGINE, requests=MESH_ENGINE_REQUESTS,
+         new_tokens=MESH_ENGINE_NEW, system_prompt=MESH_ENGINE_SYSTEM,
+         n_seq=first["n_seq"], parted_at_near_tie=apart,
+         schedule=first["schedule"], pages=first["pages"],
+         ticks=first["ticks"], gather_per_tick=first["gather_per_tick"],
+         wall_s=[r["wall_s"] for r in runs],
+         ms_per_tick=[r["ms_per_tick"] for r in runs],
+         launches=[r["launches"] for r in runs],
+         sent=[r["meter"]["sent"] for r in runs], clock="host",
+         note=MESH_NOTE, nvidia_smi=card)
+    return {k: sum(r["launches"].get(k, 0) for r in runs)
+            for k in set().union(*(r["launches"] for r in runs))}
 
 
 def time_collectives(torch, mesh, iters=10):
@@ -5159,13 +5392,14 @@ def replay_log(torch, calls, index, device):
     return log
 
 
-def mesh_rank_run(mesh, runs, fold_path):
+def mesh_rank_run(mesh, runs, fold_path, engine_runs=MESH_ENGINE_RUNS):
     """One rank of phase 20: every run through ``mesh_rank``, the (2, 2)
     runs on one mesh of the same ranks, each teacher-forced on the fold's
     tokens and held to its logits (a MoE run replaying the fold's
     routing, ``replay_check``; a recurrent model's to the float64
     witness) -> per run its error and limit, tokens checked, launches,
-    meter, times and where its tensors live."""
+    meter, times and where its tensors live; then run (j)'s engine runs
+    (``mesh_engine_rank``)."""
     import torch
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.mesh import Mesh
@@ -5232,6 +5466,12 @@ def mesh_rank_run(mesh, runs, fold_path):
             out[key] = res
             del r, routing, replay
             torch.cuda.empty_cache()
+    for shape, prefill, mode, paged in engine_runs:
+        if shape not in meshes:
+            meshes[shape] = Mesh(shape, backend=mesh.backend, device="cuda")
+        out[mesh_engine_key(shape, prefill, mode, paged)] = mesh_engine_rank(
+            torch, meshes, shape, prefill, mode, paged)
+        torch.cuda.empty_cache()
     out["collectives"] = time_collectives(torch, mesh)
     return out
 
@@ -5294,6 +5534,11 @@ def drive_mesh(torch):
             folds[f"{name}/{pairing[0]}-{pairing[1]}"] = mesh_fold(
                 torch, arch, shape, steps, pairing, depth, prompt)
             torch.cuda.empty_cache()
+    engine_folds = {}
+    for shape, prefill, mode, paged in MESH_ENGINE_RUNS:
+        engine_folds[mesh_engine_key(shape, prefill, mode, paged)] = (
+            mesh_engine_fold(torch, shape, prefill, mode, paged))
+        torch.cuda.empty_cache()
     t_fold = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         fold_path = os.path.join(tmp, "folds.pt")
@@ -5367,6 +5612,11 @@ def drive_mesh(torch):
                                       for r in runs],
                  clock=runs[0]["times"]["clock"], note=MESH_NOTE,
                  nvidia_smi=card, **extra)
+    for shape, prefill, mode, paged in MESH_ENGINE_RUNS:
+        key = mesh_engine_key(shape, prefill, mode, paged)
+        by_path[f"mesh/{key}"] = check_mesh_engine(
+            key, [r[key] for r in ranks], engine_folds[key], shape,
+            prefill, mode, paged, card)
     emit("phase", name="mesh", seconds=time.perf_counter() - t0,
          fold_seconds=t_fold, ranks_seconds=t_ranks, backend="gloo",
          ranks=4, device="cuda:0", collectives=MESH_COLLECTIVES,

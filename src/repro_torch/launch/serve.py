@@ -114,6 +114,12 @@ exactly in both modes and captures the means over real tokens);
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
         --batch 8 --prompt-len 2048 --gen 8 --mesh 1x4 --backend gloo \
         --decode-mode prism
+    # the engine over the mesh: every rank runs the same scheduler on the
+    # same logits, rank 0's clock; packed or chunked ticks, the paged or
+    # dense cache (no stream, offload, chaos, shard loss, gang or padded)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
+        --reduced --engine --requests 6 --rate 50 --batch 4 \
+        --prompt-len 32 --gen 6 --mesh 2x2 --backend gloo --device cpu
 
 Weights are random, drawn from ``torch.Generator`` seeded with
 ``--seed``; ``--reduced`` takes the architecture's smoke-test size.
@@ -135,7 +141,7 @@ from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..models.moe import RoutingLog
 from ..models.transformer import is_encoder
-from ..launch.mesh import MESH_TIMEOUT, spawn
+from ..launch.mesh import MESH_ENGINE_LATER, MESH_TIMEOUT, spawn
 from ..runtime.serve import (MeshParams, ServeHParams, ServeLayout, encode,
                              generate, make_layout, mesh_params, seq_shards)
 
@@ -404,24 +410,20 @@ def fault_plan(chaos, shard_loss, shard_loss_at):
             else FaultPlan.chaos(chaos, shard_loss=spec))
 
 
-def run_engine(args) -> None:
-    """``--engine``: the continuous-batching engine over a Poisson trace;
-    prints the engine's stats summary and, under ``--chaos`` or
-    ``--shard-loss``, checks that every request finished or failed and
-    that nothing leaked."""
-    from ..serving import (EngineConfig, SamplingParams, ServingEngine,
-                           StreamingEngine, serve_stream)
+def engine_setup(args, device, p: int):
+    """The run of ``--engine`` over ``p`` sequence shards on ``device``:
+    (config, seeded weights, engine config, the seeded Poisson trace's
+    requests as ``submit``'s keywords)."""
+    from ..serving import EngineConfig, SamplingParams
     faults = fault_plan(args.chaos, args.shard_loss, args.shard_loss_at)
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     cfg = cfg.reduced() if args.reduced else cfg
-    p = args.seq_shards
     n = args.prompt_len - args.prompt_len % p
     cap = n + args.gen                 # as the reference launcher does
     cap += -cap % p
     hp = ServeHParams(decode_mode=args.decode_mode, means_cr=args.cr)
-    params = T.init(cfg, torch.Generator(device=dev).manual_seed(args.seed),
-                    dev)
+    params = T.init(cfg, torch.Generator(device=device).manual_seed(
+        args.seed), device)
     ecfg = EngineConfig(
         n_slots=args.batch, prefill_len=n, max_cache=cap, hp=hp,
         gang=args.gang, chunk_len=args.chunk_len,
@@ -431,7 +433,6 @@ def run_engine(args) -> None:
         prefix_cache=False if args.no_prefix_cache else None,
         offload=args.offload, faults=faults,
         max_restarts=8 if faults is not None else 3)
-    eng = ServingEngine(cfg, params, ecfg, n_seq=p)
     reqs = [dict(prompt=prompt, max_new_tokens=args.gen, arrival=t,
                  priority=prio,
                  sampling=SamplingParams(temperature=args.temperature,
@@ -439,7 +440,34 @@ def run_engine(args) -> None:
             for i, (t, prompt, prio) in enumerate(poisson_trace(
                 args.requests, args.rate, n, cfg.vocab_size, args.seed,
                 args.priority))]
+    return cfg, params, ecfg, reqs
+
+
+def _engine_line(args, cfg, eng, dev, extras="") -> str:
     cache = "paged" if eng.kv_cache.paged else "dense"
+    admission = "gang (static)" if args.gang else "continuous"
+    return (f"[engine] {cfg.name} {args.decode_mode}, {args.requests} "
+            f"requests, Poisson rate {args.rate}/s, {args.batch} slots, "
+            f"{admission} admission, {args.prefill_mode} prefill, {cache} "
+            f"cache{extras}, on {dev}")
+
+
+def _print_stats(stats: dict) -> None:
+    for k, v in stats.items():
+        print(f"[engine] {k:22s} {v:.3f}" if isinstance(v, float)
+              else f"[engine] {k:22s} {v}")
+
+
+def run_engine(args) -> None:
+    """``--engine``: the continuous-batching engine over a Poisson trace;
+    prints the engine's stats summary and, under ``--chaos`` or
+    ``--shard-loss``, checks that every request finished or failed and
+    that nothing leaked."""
+    from ..serving import ServingEngine, StreamingEngine, serve_stream
+    dev = resolve_device(args.device)
+    cfg, params, ecfg, reqs = engine_setup(args, dev, args.seq_shards)
+    faults = ecfg.faults
+    eng = ServingEngine(cfg, params, ecfg, n_seq=args.seq_shards)
     extras = (f", {args.priority} priority classes"
               if args.priority > 1 else "")
     extras += ", host offload" if args.offload else ""
@@ -449,11 +477,7 @@ def run_engine(args) -> None:
                else "")
     extras += (", streaming" + (" (overlap off)" if args.no_overlap
                                 else " (overlap)") if args.stream else "")
-    admission = "gang (static)" if args.gang else "continuous"
-    print(f"[engine] {cfg.name} {args.decode_mode}, {args.requests} "
-          f"requests, Poisson rate {args.rate}/s, {args.batch} slots, "
-          f"{admission} admission, {args.prefill_mode} prefill, {cache} "
-          f"cache{extras}, on {dev}")
+    print(_engine_line(args, cfg, eng, dev, extras))
     if args.stream:
         import asyncio
         seng = StreamingEngine(eng, overlap=not args.no_overlap)
@@ -471,9 +495,7 @@ def run_engine(args) -> None:
         for kw in reqs:
             eng.submit(**kw)
         eng.run()
-    for k, v in {**eng.stats.summary(), **eng.kv_cache.stats()}.items():
-        print(f"[engine] {k:22s} {v:.3f}" if isinstance(v, float)
-              else f"[engine] {k:22s} {v}")
+    _print_stats({**eng.stats.summary(), **eng.kv_cache.stats()})
     if faults is None:
         return
     inj = eng._injector.stats()
@@ -501,6 +523,47 @@ def run_engine(args) -> None:
         assert s.shard_lost >= 1, "shard_loss never fired"
 
 
+def _mesh_engine_rank(mesh, args) -> dict:
+    """One rank of ``--engine --mesh``: ``engine_setup``'s run on the
+    rank's device, its weights cut to the rank's shards, the trace
+    through the SPMD engine -> its tokens by request, stats, meter,
+    coordinates and the engine's line, on the host."""
+    from ..serving import ServingEngine
+    cfg, params, ecfg, reqs = engine_setup(args, mesh.device,
+                                           seq_shards(mesh, args.batch))
+    eng = ServingEngine(cfg, mesh_params(cfg, params, mesh), ecfg)
+    del params
+    for kw in reqs:
+        eng.submit(**kw)
+    mesh.meter.reset()
+    results = eng.run()
+    return {"results": results, "meter": mesh.meter.snapshot(),
+            "stats": {**eng.stats.summary(), **eng.kv_cache.stats()},
+            "coords": mesh.coords, "lay": eng.layout,
+            "line": _engine_line(args, cfg, eng, mesh.device)}
+
+
+def run_mesh_engine(args) -> None:
+    """``--engine --mesh DxM``: the engine on every rank of the mesh; the
+    ranks' tokens must be equal; rank 0's stats printed, and every
+    rank's meter."""
+    data, model = (int(v) for v in args.mesh.split("x"))
+    ranks = spawn(_mesh_engine_rank, data, model, backend=args.backend,
+                  device=args.device, timeout=MESH_TIMEOUT, args=(args,))
+    first = ranks[0]
+    for r, res in enumerate(ranks[1:], 1):
+        if res["results"] != first["results"]:
+            raise RuntimeError(f"rank {r}'s tokens differ from rank 0's")
+    lay = first["lay"]
+    print(f"{first['line']}, over a {data}x{model} mesh of {args.backend} "
+          f"ranks: batch over {lay.ba or 'none'}, sequence over "
+          f"{lay.seq_axes} (P={lay.n_seq}); every rank's tokens equal")
+    _print_stats(first["stats"])
+    for r, res in enumerate(ranks):
+        print(f"[meter] rank {r} {res['coords']}: bytes sent "
+              f"{res['meter']['sent']}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="gpt2-small")
@@ -518,8 +581,8 @@ def main(argv=None):
     ap.add_argument("--seq-shards", type=int, default=4,
                     help="sequence shards folded into one process")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="[static] a (data, model) mesh of ranks, one "
-                         "process each, in place of --seq-shards")
+                    help="[static, engine] a (data, model) mesh of ranks, "
+                         "one process each, in place of --seq-shards")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
                     help="[mesh] torch.distributed backend: gloo (any "
                          "number of ranks a card, or the CPU) or nccl "
@@ -613,12 +676,20 @@ def main(argv=None):
     args.prompt_len = 64 if args.prompt_len is None else args.prompt_len
     args.gen = 16 if args.gen is None else args.gen
     if args.mesh is not None:
-        if args.engine:
-            ap.error("--mesh serves the static batch: the engine runs in "
-                     "one process (ROADMAP queue 1, item 18)")
         if args.backend is None:
             ap.error("--mesh needs --backend gloo or nccl")
-        run_mesh(args)
+        if not args.engine:
+            run_mesh(args)
+            return
+        later = [flag for flag, on in (
+            ("--stream", args.stream), ("--offload", args.offload),
+            ("--chaos", args.chaos is not None),
+            ("--shard-loss", args.shard_loss is not None),
+            ("--gang", args.gang),
+            ("--prefill-mode padded", args.prefill_mode == "padded")) if on]
+        if later:
+            ap.error(f"{', '.join(later)} over --mesh: {MESH_ENGINE_LATER}")
+        run_mesh_engine(args)
         return
     if args.decode_tp:
         ap.error("--decode-tp takes a --mesh")

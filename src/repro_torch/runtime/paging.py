@@ -27,6 +27,13 @@ pools with the ``plan -> reserve -> bind -> free`` lifecycle the engine
 drives.  Page ids follow the reference's allocation order (the free
 list pops from its end), so both hand out the same ids.
 
+On a mesh of ranks every rank holds the same host bookkeeping (page
+table, prefix cache, maps) over its own device storage: the rank's
+sequence shard of every page, or its block of the dense rows from
+``first_row`` on.  The copies, fills and zeroings below act on that
+storage alone; the moves to and from the host (``spill``, ``restore``,
+``extract_slot``, ``inject_slot``) refuse a mesh.
+
 The host offload tier, fault injection and snapshots move a slot's
 content: ``spill`` / ``restore`` and ``extract_slot`` / ``inject_slot``
 gather a slot's pages and state row to the host and scatter them back
@@ -46,6 +53,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from ..launch.mesh import MESH_ENGINE_LATER
 
 #: page id meaning "no page mapped" in the device page maps
 NO_PAGE = -1
@@ -265,6 +274,7 @@ class KVCache:
     _state_free: list = field(default_factory=list)
     _reserved: dict = field(default_factory=dict)    # key -> (pages, srow)
     cow_copies: int = 0                # pages forked private on write
+    first_row: int = 0                 # a mesh rank's first dense row
 
     def __post_init__(self):
         if self.paging is not None:
@@ -419,6 +429,7 @@ class KVCache:
         private) and the state row to the pool.  ``tokens`` is the
         covered-token count ``plan_restore`` reports.  Returns pages
         spilled."""
+        self._refuse_mesh("spill")
         pages = self.slot_pages.pop(slot)
         srow = self.slot_state.pop(slot)
         payload = (self._extract(pages, srow)
@@ -450,6 +461,7 @@ class KVCache:
         when the store dropped the entry between plan and bind: the pages
         stay bound (a restore plan is never smaller than a re-prefill
         plan), and the caller re-prefills into them."""
+        self._refuse_mesh("restore")
         ent = store.get(key, retries=retries, backoff_s=backoff_s,
                         consume=True)
         if ent is None:
@@ -464,6 +476,7 @@ class KVCache:
         """One live slot's footprint on the host: the snapshot's gather,
         as ``spill``'s but leaving the slot its pages.  None without
         device storage."""
+        self._refuse_mesh("extract_slot")
         if self.storage is None:
             return None
         return self._extract(self.slot_pages[slot], self.slot_state[slot])
@@ -471,9 +484,15 @@ class KVCache:
     def inject_slot(self, slot: int, payload) -> None:
         """Scatter a snapshot's footprint into the (fresh) pages and state
         row bound to ``slot``: the engine restore's path."""
+        self._refuse_mesh("inject_slot")
         if self.storage is None or payload is None:
             return
         self._inject(self.slot_pages[slot], self.slot_state[slot], payload)
+
+    def _refuse_mesh(self, what: str) -> None:
+        if getattr(self.layout, "seq_axes", ()):
+            raise NotImplementedError(f"KVCache.{what} on a mesh of ranks: "
+                                      f"{MESH_ENGINE_LATER}")
 
     # -- device copies -----------------------------------------------------
     def _index(self, ids) -> torch.Tensor:
@@ -558,10 +577,14 @@ class KVCache:
         return len(pages)
 
     def reset_row(self, row: int) -> None:
-        """Dense mode: zero one slot's row of every leaf."""
+        """Dense mode: zero one slot's row of every leaf (on a mesh rank,
+        where its block holds the row)."""
+        local = row - self.first_row
+        if not 0 <= local < self.storage[0]["k"].shape[0]:
+            return
         for c in self.storage:
             for t in c.values():
-                t[row].zero_()
+                t[local].zero_()
 
     def insert_row(self, src, src_row: int, dst_row: int) -> None:
         """Dense mode: copy row ``src_row`` of the cache ``src`` (a

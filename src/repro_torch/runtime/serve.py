@@ -88,8 +88,11 @@ partials psummed).  A sliding-window layer's ring and a recurrent
 layer's state are replicated over the sequence ranks: prefill captures
 the last shard's (``ctx.last_shard``), and every rank's decode updates
 its copy alike.  A vlm's image and an audio model's frames come in
-whole and each rank embeds the rows of its positions.  The ticks, the
-paged cache, the engine and the degraded step refuse a mesh.
+whole and each rank embeds the rows of its positions.  The paged cache
+serves a mesh too: its pool and state pool are replicated over the batch
+axes (every batch replica writes the same pages), each rank holding its
+sequence shard of every page, and ``serve_step`` takes every slot's
+token and position.  The degraded step refuses a mesh.
 """
 from __future__ import annotations
 
@@ -105,7 +108,7 @@ from ..core.attention import log_repeats
 from ..core.protocol import PrismConfig
 from ..kernels.decode_attention import decode_stats
 from ..kernels.ops import prism_attention_op
-from ..launch.mesh import Mesh, batch_axes, mesh_axes
+from ..launch.mesh import MESH_ENGINE_LATER, Mesh, batch_axes, mesh_axes
 from ..models.config import ModelConfig
 from ..models.context import SeqContext
 from ..models.layers import (AttnSpec, attn_output, attn_project_kv,
@@ -182,10 +185,6 @@ class MeshMoeCtx(SeqContext):
 # --------------------------------------------------------------------------
 # the mesh
 # --------------------------------------------------------------------------
-
-# where what a mesh does not serve yet is to come
-MESH_ENGINE_LATER = "ROADMAP queue 1, item 18"
-
 
 @dataclass(frozen=True)
 class MeshParams:
@@ -426,7 +425,8 @@ def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
     prism mode adds the means K/V kz, vz (B, P·L, Hkv, hd), their
     per-request repeat counts gz (B, P·L) and the per-segment activation
     sums zsum (B, P·L, D).  With ``paging`` (a ``PagedLayout``) k, v are the
-    page pool (n_pages, P, pc, Hkv, hd) and the prism leaves have one
+    page pool (n_pages, P, pc, Hkv, hd) (on a mesh the rank's shard of
+    every page, (n_pages, 1, pc, Hkv, hd)) and the prism leaves have one
     row per state page in place of the batch, and one more that no slot
     maps: a sink for the writes of the slots a call does not advance
     (where the reference drops them out of range).  A sliding-window
@@ -457,7 +457,7 @@ def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
         kv = (batch, lay.held, lay.cap_l, hkv, hd)
         rows = batch
     else:
-        kv = (paging.n_pages, lay.n_seq, paging.page_cols, hkv, hd)
+        kv = (paging.n_pages, lay.held, paging.page_cols, hkv, hd)
         rows = paging.n_state_pages + 1
     c = {"k": kv, "v": kv}
     if hp.decode_mode == "prism":
@@ -471,14 +471,22 @@ def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
 
 def make_kv_cache(cfg: ModelConfig, lay: ServeLayout, batch: int,
                   hp: ServeHParams, *, device, paging=None,
-                  prefix_cache: bool = False) -> KVCache:
+                  prefix_cache: bool = False, mesh=None) -> KVCache:
     """The engine's one cache object: zero-filled device storage in a
     ``KVCache`` (paged: the pools, a ``PageTable`` and, if asked, a
     ``PrefixCache``; dense, ``paging=None``: the rowset of ``batch``
-    rows).  One process's: a mesh layout is refused."""
-    refuse_mesh("the engine's cache (KVCache)", lay)
-    kv = KVCache(storage=init_cache(cfg, lay, batch, hp, device, paging),
-                 layout=lay, paging=paging)
+    rows).  With a mesh layout, this rank's storage on ``mesh``: the
+    pools replicated over the batch axes (the reference's specs), or its
+    block of the dense rows over them; every rank holds the same page
+    table and prefix cache, since page ids name the same span on every
+    rank."""
+    rows, first = batch, 0
+    if mesh is not None and paging is None and lay.ba:
+        grp = mesh.group(lay.ba)
+        rows = batch // grp.size
+        first = grp.index * rows
+    kv = KVCache(storage=init_cache(cfg, lay, rows, hp, device, paging),
+                 layout=lay, paging=paging, first_row=first)
     if paging is not None and prefix_cache:
         kv.prefix = PrefixCache(kv.table)
     return kv
@@ -1160,18 +1168,18 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
     rows.  It requires the paged cache.
 
     On a mesh (``params`` a rank's ``MeshParams``) token and pos are the
-    rank's batch rows, and the logits its vocab shard
+    rank's batch rows (a paged cache's: every slot's, as its pool is
+    replicated over the batch axes), and the logits its vocab shard
     (``gather_logits``); with ``hp.decode_tp`` the parameters are the
     decode-TP rules' (``mesh_params(decode_tp=True)``)."""
     check_decoder(cfg, "serve_step")
     mesh = _mesh(params)
     _check_on_mesh(cfg, hp, mesh, lay)
     seq = tp = None
-    moe_ctx = DECODE_MOE_CTX
     if mesh is not None:
-        if page_map is not None or lost is not None:
-            raise NotImplementedError("the paged cache and the degraded "
-                                      f"step on a mesh: {MESH_ENGINE_LATER}")
+        if lost is not None:
+            raise NotImplementedError("the degraded step on a mesh: "
+                                      f"{MESH_ENGINE_LATER}")
         seq = mesh.group(lay.seq_axes)
         if hp.decode_tp != params.decode_tp:
             raise ValueError("decode_tp takes the decode-TP rules' "
@@ -1179,8 +1187,7 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
                              "and only it does")
         if hp.decode_tp:
             tp = (*tp_flags(cfg, mesh), mesh.group("model"))
-        if "moe" in cfg.block_kinds:
-            moe_ctx = MeshMoeCtx(mesh, hp.decode_tp, _dense_tp(params))
+    moe_ctx = decode_moe_ctx(cfg, params, hp)
     slot, owner, col_pos = _decode_cols(lay, pos,
                                         0 if seq is None else seq.index)
     valid = col_pos[None] <= pos[:, None, None]              # (B, P, cap_l)
@@ -1209,6 +1216,15 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
                          ring if kind == "attn_local" else cols, lost,
                          None if rep is None else rep[i], seq, tp, moe_ctx)
     return lm_head(cfg, _tree(params), x[:, 0]), cache
+
+
+def decode_moe_ctx(cfg: ModelConfig, params, hp: ServeHParams):
+    """The expert exchange of a decode step or a tick: the call's tokens
+    as one routing group, on a mesh exchanged by ``MeshMoeCtx``."""
+    mesh = _mesh(params)
+    if mesh is None or "moe" not in cfg.block_kinds:
+        return DECODE_MOE_CTX
+    return MeshMoeCtx(mesh, hp.decode_tp, _dense_tp(params))
 
 
 def _dense_tp(mp: MeshParams) -> bool:

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the port's cache and tick
-programs, on one card.
+programs, on one card or over a mesh of ranks.
 
 Request lifecycle::
 
@@ -68,6 +68,22 @@ Robustness, as the reference serves it:
 streaming loop.  Other block kinds and frontends are served on the
 static path alone, as the reference's engine refuses them too; the
 engine refuses them with a ``ValueError`` (ROADMAP queue 3).
+
+Over a mesh of ranks (``params`` a rank's ``MeshParams``), as the
+reference's engine runs its programs under ``shard_map``: the layout is
+the mesh's (``seq_shards`` sequence shards), the cache the rank's
+(``make_kv_cache(mesh=)``), and the engine is SPMD: every rank runs the
+same scheduler, page table and host sampling on the same logits.  A
+rank's clock may disagree with another's, and two ranks that admit
+differently would enter different collectives and hang, so every
+reading of the clock on a mesh is rank 0's, broadcast (one 8-byte
+``engine`` collective).  On the dense cache a decode step's logits are
+the rank's batch rows, gathered over the batch axes (``engine``) so
+that every rank samples every slot.  The packed and chunked modes serve
+a mesh, on the paged and the dense cache, in both decode modes; the
+streaming loop, offload and preemption, snapshots, faults and the
+degraded step, the padded flush and gang admission refuse it
+(``MESH_ENGINE_LATER``).
 """
 from __future__ import annotations
 
@@ -88,10 +104,12 @@ from ..runtime.faults import FaultInjector, FaultPlan
 from ..runtime.offload import KVStore
 from ..runtime.paging import AdmitPlan, make_paged_layout
 from ..runtime.replica import MeansReplica
-from ..runtime.serve import (ServeHParams, make_kv_cache, make_layout,
-                             paged_placement, prefill, refuse_mesh,
-                             serve_step)
+from ..runtime.serve import (MESH_ENGINE_LATER, MeshParams, ServeHParams,
+                             batch_rows, gather_logits, make_kv_cache,
+                             make_layout, paged_placement, prefill,
+                             refuse_mesh, serve_step)
 from ..runtime.ticks import chunk_prefill_step, packed_step
+from ..sharding import comm
 from .sampling import SamplingParams, sample_token
 from .scheduler import EngineStats, FifoScheduler, Request, RequestState
 
@@ -223,16 +241,31 @@ class EngineSnapshot:
     has_deadlines: bool
 
 
+def _check_mesh_config(config: EngineConfig) -> None:
+    """Raise for what the engine does not serve over a mesh yet."""
+    later = [what for what, on in (
+        ("offload and preemption", config.offload),
+        ("fault injection and the degraded step",
+         config.faults is not None),
+        ("the padded flush", config.prefill_mode == "padded"),
+        ("gang admission", config.gang)) if on]
+    if later:
+        raise NotImplementedError(f"{', '.join(later)} on a mesh of ranks: "
+                                  f"{MESH_ENGINE_LATER}")
+
+
 class ServingEngine:
     """Multiplexes independent requests through a fixed pool of decode
     slots backed by one ``KVCache``.  ``n_seq`` is the number of
-    sequence shards (the reference's mesh 'model' axis); the engine runs
-    on the device of ``params``."""
+    sequence shards folded into one process (the reference's mesh
+    'model' axis); with a rank's ``MeshParams`` the mesh's layout sets
+    it.  The engine runs on the device of ``params``."""
 
     def __init__(self, cfg: ModelConfig, params, config: EngineConfig, *,
                  n_seq: int = 4, clock=time.monotonic):
-        # one process's engine: its streaming loop and degraded step too
-        refuse_mesh("the serving engine", params)
+        mesh = params.mesh if isinstance(params, MeshParams) else None
+        if mesh is not None:
+            _check_mesh_config(config)
         other = sorted(set(cfg.block_kinds) - {"attn", "moe"})
         if other:
             # as the reference's engine: admission relies on a cache
@@ -258,7 +291,9 @@ class ServingEngine:
         check_decoder(cfg, "ServingEngine")
         check_supported(cfg)
         self.cfg, self.params, self.config = cfg, params, config
-        self.device = params["embed"]["table"].device
+        self.mesh = mesh
+        self.device = (params["embed"]["table"].device if mesh is None
+                       else mesh.device)
         hp = config.hp
         self.n_slots, self.prefill_len = config.n_slots, config.prefill_len
         self.prefill_mode = config.prefill_mode
@@ -268,19 +303,23 @@ class ServingEngine:
 
         # the paged placement depends on the decode mode alone, so the
         # aligned base layout seeds the page-size derivation
-        base = make_layout(n_seq, config.max_cache, hp, config.prefill_len)
+        shards, batch = (n_seq, None) if mesh is None else (mesh,
+                                                            self.n_slots)
+        base = make_layout(shards, config.max_cache, hp, config.prefill_len,
+                           batch=batch)
         self._paging = (self._derive_paging(base, config)
                         if config.paged else None)
-        self.layout = make_layout(n_seq, config.max_cache, hp,
+        self.layout = make_layout(shards, config.max_cache, hp,
                                   config.prefill_len,
-                                  paged_placement(hp, self._paging))
+                                  paged_placement(hp, self._paging),
+                                  batch=batch)
         self._paged = self._paging is not None
         self._prefix_on = bool(config.prefix_cache) and self._paged
         # paged prism takes whole rows and shares no prefix
         self._full_row = self._paged and hp.decode_mode == "prism"
         self._kv = make_kv_cache(cfg, self.layout, self.n_slots, hp,
                                  device=self.device, paging=self._paging,
-                                 prefix_cache=self._prefix_on)
+                                 prefix_cache=self._prefix_on, mesh=mesh)
         self._sched = FifoScheduler(
             self.n_slots, decode_per_prefill=config.decode_per_prefill,
             gang=config.gang)
@@ -362,16 +401,25 @@ class ServingEngine:
 
     def _decode_program(self, tok, pos, maps, lost=None, rep=None):
         """``serve_step`` on device tensors (the streaming loop stages
-        its own)."""
-        return serve_step(self.cfg, self.params, self._kv.storage, tok, pos,
-                          self.layout, self._hp, *maps, lost=lost,
-                          rep=rep)[0]
+        its own) -> every slot's logits.  On a mesh's dense cache the
+        rank decodes its batch rows, gathered over the batch axes."""
+        dense = self.mesh is not None and not maps and self.layout.ba
+        if dense:
+            tok, pos = (batch_rows(t, self.layout, self.mesh)
+                        for t in (tok, pos))
+        logits = gather_logits(serve_step(
+            self.cfg, self.params, self._kv.storage, tok, pos, self.layout,
+            self._hp, *maps, lost=lost, rep=rep)[0], self.params)
+        if dense:
+            logits = comm.all_gather(logits, self.mesh.group(self.layout.ba),
+                                     "engine", dim=0)
+        return logits
 
     def _packed_program(self, tok, slot, pos, off, pre, maps):
         """``packed_step`` on device tensors."""
-        return packed_step(self.cfg, self.params, self._kv.storage, tok,
-                           slot, pos, off, pre, self.layout, self._hp,
-                           *maps)[0]
+        return gather_logits(packed_step(
+            self.cfg, self.params, self._kv.storage, tok, slot, pos, off,
+            pre, self.layout, self._hp, *maps)[0], self.params)
 
     def _decode_degraded(self, tok, pos):
         """The degraded decode step: the lost shards' mask and, in exact
@@ -401,9 +449,18 @@ class ServingEngine:
     # submission
     # ------------------------------------------------------------------
     def now(self) -> float:
+        """Engine-clock seconds since the first reading: on a mesh rank
+        0's reading, shared with every rank (``engine`` class), so that
+        every rank releases, admits and expires alike."""
+        t = self._clock()
+        if self.mesh is not None:
+            world = self.mesh.group(self.mesh.axis_names)
+            t = float(comm.broadcast(torch.tensor(
+                [t], dtype=torch.float64, device=self.device), world,
+                "engine")[0])
         if self._t0 is None:
-            self._t0 = self._clock()
-        return self._clock() - self._t0
+            self._t0 = t
+        return t - self._t0
 
     def submit(self, prompt, *, max_new_tokens: int, eos_id=None,
                sampling: SamplingParams = SamplingParams(),
@@ -1019,6 +1076,7 @@ class ServingEngine:
         sessions, the store's entries, the requests' sampler RNGs (in
         the deep-copied states), stats and the fault injector's place.
         Called between steps."""
+        refuse_mesh("the engine snapshot", self.params)
         if not self._paged:
             raise ValueError(
                 "snapshot requires the paged cache (paged=True): the "
@@ -1059,6 +1117,7 @@ class ServingEngine:
         payload; the page ids may differ, which the per-tick maps hide.
         The prefix cache starts cold (losing it costs prefill, never
         tokens).  The snapshot is not consumed."""
+        refuse_mesh("the engine restore", self.params)
         if not self._paged:
             raise ValueError("restore requires the paged cache")
         if self._next_rid or self._sched.active or self._sched.queued:

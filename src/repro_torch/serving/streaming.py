@@ -60,6 +60,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..runtime.serve import refuse_mesh
 from ..runtime.ticks import merge, pack
 from .engine import ServingEngine
 
@@ -201,6 +202,7 @@ class StreamingEngine:
 
     def __init__(self, engine: ServingEngine, *, overlap: bool = True,
                  depth: int = 2):
+        refuse_mesh("the streaming loop", engine.params)
         self._eng = engine
         self.depth = max(1, int(depth))
         # overlap needs the packed and decode programs and no fault plan

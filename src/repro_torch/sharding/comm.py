@@ -4,6 +4,7 @@ group of ranks of a mesh (``launch/mesh.py``).
     all_gather(x, grp, cls)          # (n, *x.shape): a new leading axis
     all_gather(x, grp, cls, dim=d)   # tiled along dim d
     psum(x, grp, cls), pmax(x, grp, cls)
+    broadcast(x, grp, cls, src=i)    # the x of group index i, on every rank
     last_shard(x, grp, cls)          # the last rank's x, on every rank
     all_to_all(x, grp, cls, split_dim=s, concat_dim=c)
                                      # lax.all_to_all(tiled=True)
@@ -32,7 +33,10 @@ receiver.  The classes:
                       gather, the vocab-parallel lookup and logits;
   * ``expert``        a MoE layer's dispatch and return (the all_to_all
                       pair over ``model``), and expert-TP's token gather
-                      and partial sums over ``data``.
+                      and partial sums over ``data``;
+  * ``engine``        the serving engine's agreement over its ranks:
+                      rank 0's clock reading, and a dense cache's decode
+                      logits gathered over the batch axes.
 
 ``gloo`` takes CUDA tensors for all_gather, all_reduce, broadcast and
 all_to_all_single, passing them through the host, but not for send and
@@ -51,7 +55,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-CLASSES = ("exchange", "combine", "param_gather", "tp", "expert")
+CLASSES = ("exchange", "combine", "param_gather", "tp", "expert", "engine")
 
 
 class Meter:
@@ -125,18 +129,23 @@ def pmax(x: torch.Tensor, grp: Group, cls: str) -> torch.Tensor:
     return _all_reduce(x, grp, cls, dist.ReduceOp.MAX)
 
 
+def broadcast(x: torch.Tensor, grp: Group, cls: str, *,
+              src: int = 0) -> torch.Tensor:
+    """The x of the group's index ``src``, on every rank."""
+    if grp.size == 1:
+        return x
+    if grp.index == src:
+        _count(grp, cls, (grp.size - 1) * x.numel() * x.element_size())
+    buf = x.clone(memory_format=torch.contiguous_format)
+    dist.broadcast(buf, src=grp.ranks[src], group=grp.pg)
+    return buf
+
+
 def last_shard(x: torch.Tensor, grp: Group, cls: str) -> torch.Tensor:
     """The x of the group's last rank, on every rank: the value of the
     shard that owns the end of the sequence (the reference's psum of a
     one-hot-masked value, as one broadcast)."""
-    if grp.size == 1:
-        return x
-    src = grp.ranks[-1]
-    if grp.index == grp.size - 1:
-        _count(grp, cls, (grp.size - 1) * x.numel() * x.element_size())
-    buf = x.clone(memory_format=torch.contiguous_format)
-    dist.broadcast(buf, src=src, group=grp.pg)
-    return buf
+    return broadcast(x, grp, cls, src=grp.size - 1)
 
 
 def all_to_all(x: torch.Tensor, grp: Group, cls: str, *, split_dim: int,

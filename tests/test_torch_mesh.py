@@ -33,7 +33,8 @@ same spawns hold each
 collective of ``sharding/comm.py`` to the fold's reshape or reduction,
 the meter's exchange bytes to ``comm_elements_per_device_per_layer``,
 and the refusals of what a mesh does not serve (the other families:
-``test_torch_mesh_moe.py`` and ``test_torch_mesh_families.py``).
+``test_torch_mesh_moe.py`` and ``test_torch_mesh_families.py``; the
+engine over a mesh: ``test_torch_mesh_engine.py``).
 """
 from __future__ import annotations
 
@@ -188,7 +189,8 @@ def _refusals(mesh, tree):
     from repro_torch.configs import get_config
     from repro_torch.core.protocol import PrismConfig
     from repro_torch.runtime import serve as S
-    from repro_torch.runtime.ticks import packed_step
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.serving import StreamingEngine
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.sharding.context import ShardedPrismContext
     hp = S.ServeHParams(means_cr=CR)
@@ -196,13 +198,14 @@ def _refusals(mesh, tree):
     cfg = get_config("gpt2-small").reduced(d_model=128)
     mp = S.mesh_params(cfg, tree, mesh)
     lay = S.make_layout(mesh, 64, hp, prefill_len=N, batch=2)
-    out["kv_cache"] = _message(lambda: S.make_kv_cache(
-        cfg, lay, 2, hp, device="cpu"))
-    out["engine"] = _message(lambda: ServingEngine(
-        cfg, mp, EngineConfig(n_slots=2, prefill_len=N, max_cache=64)))
+
+    def engine(**over):
+        return ServingEngine(cfg, mp, EngineConfig(
+            n_slots=2, prefill_len=N, max_cache=64, **over))
+    out["stream"] = _message(lambda: StreamingEngine(engine()))
+    out["offload"] = _message(lambda: engine(offload=True))
+    out["chaos"] = _message(lambda: engine(faults=FaultPlan.chaos(0)))
     one = torch.zeros(1, dtype=torch.long)
-    out["packed"] = _message(lambda: packed_step(
-        cfg, mp, [], one, one, one, one, one, lay, hp))
     out["degraded"] = _message(lambda: S.serve_step(
         cfg, mp, [], one, one, lay, hp, lost=torch.zeros(4)))
     for mode in ("prism_nodup", "duplicate", "single"):
@@ -542,9 +545,9 @@ def test_nccl_refuses_two_ranks_on_one_card():
 
 
 REFUSED = {
-    "kv_cache": ("NotImplementedError", "item 18"),
-    "engine": ("NotImplementedError", "item 18"),
-    "packed": ("NotImplementedError", "item 18"),
+    "stream": ("NotImplementedError", "item 18"),
+    "offload": ("NotImplementedError", "item 18"),
+    "chaos": ("NotImplementedError", "item 18"),
     "degraded": ("NotImplementedError", "item 18"),
     "prism_nodup": ("NotImplementedError", "reference's mesh serves"),
     "duplicate": ("NotImplementedError", "reference's mesh serves"),
@@ -558,8 +561,8 @@ REFUSED = {
 @pytest.mark.parametrize("what", REFUSED)
 def test_mesh_refuses(mesh_runs, what):
     """The Table II modes and Alg. 1's uneven split on a mesh (the
-    reference's mesh has neither); the engine's cache, the engine, the
-    tick programs and the degraded step; decode_tp over FSDP-cut
+    reference's mesh has neither); the engine's streaming loop, offload
+    tier, fault injection and the degraded step; decode_tp over FSDP-cut
     parameters; expert-TP over an expert d_ff that does not split over
     ``data`` (reduced arctic's 87 on (2, 2)): each raises and names why,
     or where it is to come."""
