@@ -188,7 +188,7 @@ Phases, one JSON line each:
             shapes: phase 4's static pairings on its first 8 layers
             (``STATIC_DEPTH``), phase 5's chunked and packed paths in
             both modes and phase 6's engine in packed exact and packed
-            prism on its first 4 (``TICK_DEPTH``), cut for the script's
+            prism on its first 3 (``TICK_DEPTH``), cut for the script's
             time limit, under the same checks and traces.
             The static and engine decode steps take the decode kernel's
             tile route (a group of 8, no row map), the packed ticks the
@@ -215,7 +215,7 @@ Phases, one JSON line each:
             card, at the main path's shapes: phase 4's static pairings
             on its first 4 layers (``STATIC_DEPTH``), then phase 5's
             chunked and packed paths in both modes and phase 6's engine
-            runs (paged) on its first 4 (``TICK_DEPTH``, as phase 9).  Capacity counts per routing group
+            runs (paged) on its first 3 (``TICK_DEPTH``, as phase 9).  Capacity counts per routing group
             (a prefill shard; a decode step's, chunk call's or packed
             tick's tokens), so every run is held to its backend='plain'
             twin: the counted and timed run records its routing (no
@@ -227,7 +227,7 @@ Phases, one JSON line each:
             256, GeGLU d_ff 24576, sqrt(d) input scaling, tied head over
             256000), the same paths under phases 4-6's references (the
             static path on its first 8 layers, ``STATIC_DEPTH``, the
-            tick and engine paths on 4, ``TICK_DEPTH``).
+            tick and engine paths on 3, ``TICK_DEPTH``).
             Before both, phase 3 checks and times the three kernels at
             their layouts (``check_family``): attention PRISM and
             Voltage, segment means and the augment at D 2048 and 3072,
@@ -276,7 +276,7 @@ Phases, one JSON line each:
             22528, RoPE theta 8e6, tied head over 256000), f32 weights
             from torch.Generator seed 0 on the card: its first 4
             layers (``STATIC_DEPTH``; 40 are 121 GB) through phase 4's
-            static pairings, its first 4 (``TICK_DEPTH``) through phase
+            static pairings, its first 3 (``TICK_DEPTH``) through phase
             5's tick paths and phase 6's engine runs, under phases
             4-6's references.  Before both, phase 3 checks and times the
             three kernels at their layouts (``check_family``): attention
@@ -4259,11 +4259,15 @@ TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
 
 # the engine runs of phase 9: packed exact and packed prism
 LLAMA_ENGINE_RUNS = (("packed", "exact"), ("packed", "prism"))
-# phases 9, 11, 12 and 15's tick and engine paths serve the first 4
+# phases 9, 11, 12 and 15's tick and engine paths serve the first 2
 # layers of Yi-6B (of 32), OLMoE-1B-7B (of 16), Gemma 7B (of 28) and
 # Command-R (of 40); widths full.  At 8 the whole script with phase 19
-# took 1,289 s of its 1,200 s limit on a slow host (PERF.md §4)
-TICK_DEPTH = 4
+# took 1,289 s of its 1,200 s limit on a slow host (PERF.md §4); at 4,
+# with phase 20's run (k), 1,095.8 s on an H100 (phases 9, 11, 12, 15
+# 54.0, 84.8, 60.7, 68.4 s; PERF.md §4), 15.8 s over its 1,080 s target;
+# at 2 they took 42.2, 44.9, 44.3, 46.2 s, 91 s less.  3 takes about
+# half that, the overrun's size with room for the host's spread
+TICK_DEPTH = 3
 # the static paths served on their first layers only, all widths full:
 # Command-R's 40 layers of f32 weights are 121 GB; Yi-6B, Gemma 7B and
 # Zamba2 (whole 6-layer units) are cut so that phase 18 fits the
@@ -5019,11 +5023,16 @@ def drive_train(torch):
 # decode ``MESH_STEPS``: 8 put the whole script at 1,034.7 s of its
 # 1,200 (target 1,080) on an H100 whose host was not the slowest seen
 # (PERF.md §4), so they take 4, then MusicGen's static path 8 layers.
-# With run (j) the script took 1,157.4 s (PERF.md §4), so (a) decodes 8
-# steps (16 before), (b) and (c) ``MESH_STEPS`` (8 before)
+# With run (j) the script took 1,157.4 s (PERF.md §4), so (a) decoded 8
+# steps (16 before), (b) and (c) ``MESH_STEPS`` (8 before).  With run
+# (k), (a) decodes ``MESH_STEPS`` too: at 8 its three pairings took
+# 4.2-4.5 s of decode a rank on an H100, and with this cut and (k)'s
+# trace cut to 4 requests the script still took 1,095.8 s, over its
+# 1,080 s target (PERF.md §4)
 MESH_STEPS = 4
 MESH_RUNS = (
-    ("gpt2-1x4", ARCH, (1, 4), 8, GEMMA_PAIRINGS, False, None, PROMPT),
+    ("gpt2-1x4", ARCH, (1, 4), MESH_STEPS, GEMMA_PAIRINGS, False, None,
+     PROMPT),
     ("gpt2-2x2", ARCH, (2, 2), MESH_STEPS, (("prism", "prism"),), False,
      None, PROMPT),
     ("yi-tp-1x4", LLAMA, (1, 4), MESH_STEPS, (("prism", "exact"),), True,
@@ -5057,14 +5066,17 @@ MESH_COLLECTIVES = {"gather_layer": 7_077_888 // 4,
 
 
 # run (j): the serving engine over the ranks, GPT-2 small at full width
-# on its first 6 layers: 6 requests of 64-192 prompt tokens, 3 of them
+# on its first 4 layers: 6 requests of 64-192 prompt tokens, 3 of them
 # (``MESH_ENGINE_SHARED``) behind one 64-token system prompt, 8 new
 # tokens each, 4 slots, 16-token pages, a token budget of 64, a clock
 # that stands still; (1, 4) packed exact with the prefix cache, (1, 4)
 # packed prism, (2, 2) chunked exact on the dense cache, each held to the
 # folded one-process engine at its sequence shards.  The trace had 8
-# requests; the script then took 1,157.4 s of its 1,200 (PERF.md §4)
-MESH_ENGINE_DEPTH = 6
+# requests; the script then took 1,157.4 s of its 1,200 (PERF.md §4).
+# Run (k) shares the model and the trace, so that both take one depth:
+# 6 layers before run (k) (run (j)'s engines 6.38 / 8.25 / 9.28 s on an
+# H100, PERF.md §6), 4 since
+MESH_ENGINE_DEPTH = 4
 MESH_ENGINE = dict(n_slots=4, prefill_len=256, max_cache=272,
                    token_budget=64, page_tokens=16)
 MESH_ENGINE_REQUESTS, MESH_ENGINE_NEW, MESH_ENGINE_SYSTEM = 6, 8, 64
@@ -5086,15 +5098,16 @@ def mesh_engine_key(shape, prefill, mode, paged):
             f"{'paged' if paged else 'dense'}")
 
 
-def mesh_engine_trace(vocab):
+def mesh_engine_trace(vocab, n=None):
     """Run (j)'s prompts from a seeded rng, 64-192 tokens; the requests
     ``MESH_ENGINE_SHARED`` begin with one shared 64-token system prompt
-    (a page of their own past it)."""
+    (a page of their own past it).  ``n``: the first n of them (default
+    ``MESH_ENGINE_REQUESTS``)."""
     import numpy as np
     rng = np.random.default_rng(1)
     system = rng.integers(1, vocab, size=MESH_ENGINE_SYSTEM).tolist()
     prompts = []
-    for i in range(MESH_ENGINE_REQUESTS):
+    for i in range(MESH_ENGINE_REQUESTS if n is None else n):
         n = int(rng.integers(MESH_ENGINE_SYSTEM, 3 * MESH_ENGINE_SYSTEM + 1))
         if i in MESH_ENGINE_SHARED:
             n = max(n, MESH_ENGINE_SYSTEM + 16)
@@ -5287,6 +5300,430 @@ def check_mesh_engine(key, runs, fold, shape, prefill, mode, paged, card):
             for k in set().union(*(r["launches"] for r in runs))}
 
 
+# run (k): the engine's robustness layers over the ranks, on run (j)'s
+# model and engine and the first ``MESH_ROBUST_REQUESTS`` of its trace,
+# each run held to the folded engine driven the same way: (name, mesh
+# shape, decode mode, drive).  "robust": the host
+# offload tier on, every fault kind but shard_loss at a fixed opportunity
+# (``ROBUST_FAULTS``), every request preempted by hand once it has a
+# token, a snapshot cut after ``MESH_ROBUST_SNAPSHOT`` steps and restored
+# into a fresh engine on the same ranks; "loss": shard
+# ``MESH_SHARD_LOST`` lost at the ``MESH_SHARD_LOSS_AT``-th opportunity,
+# its rank's pages of the live slots filled with NaN; "stream": the
+# streaming loop, overlap on; "padded": the padded flush on the dense
+# cache (the static prefill over the ranks: attention and, in prism, the
+# segment means once a layer a flush); "gang": gang admission
+MESH_ROBUST_RUNS = (("offload-exact", (1, 4), "exact", "robust"),
+                    ("offload-prism", (1, 4), "prism", "robust"),
+                    ("shard-loss-exact", (1, 4), "exact", "loss"),
+                    ("shard-loss-prism", (1, 4), "prism", "loss"),
+                    ("stream-prism", (1, 4), "prism", "stream"),
+                    ("padded-prism", (2, 2), "prism", "padded"),
+                    ("gang-exact", (1, 4), "exact", "gang"))
+MESH_ROBUST_SNAPSHOT = 10
+MESH_SHARD_LOSS_AT, MESH_SHARD_LOST = 10, 1
+# the first 4 of run (j)'s 6 requests: at 6 run (k) took 52.3 s of phase
+# 20 (its ranks 49.5 s, its folds 2.8 s) on an H100 (PERF.md §4), over
+# its 45 s
+MESH_ROBUST_REQUESTS = 4
+# the counters a rank of run (k) must share with its fold
+MESH_ROBUST_COUNTERS = MESH_ENGINE_SCHEDULE + (
+    "prefills", "preemptions", "spilled_pages", "restore_hits",
+    "restore_misses", "restarts", "quarantined", "failed_requests",
+    "faults_injected", "faults_by_kind", "shard_lost", "degraded_ticks")
+
+
+def mesh_robust_engine(cfg, params, mode, drive, n_seq=None):
+    """Run (k)'s engine for ``drive``: ``params`` a rank's ``MeshParams``,
+    or the whole weights folded into one process over ``n_seq``
+    shards."""
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec
+    from repro_torch.runtime.serve import ServeHParams
+    from repro_torch.serving import EngineConfig, ServingEngine
+    over = {"padded": dict(prefill_mode="padded"), "gang": dict(gang=True),
+            "robust": dict(offload=True, faults=FaultPlan(seed=0, **{
+                k: FaultSpec(at=v) for k, v in ROBUST_FAULTS.items()})),
+            "loss": dict(faults=FaultPlan(shard_loss=FaultSpec(
+                at=(MESH_SHARD_LOSS_AT,), shard=MESH_SHARD_LOST)))}
+    config = EngineConfig(hp=ServeHParams(decode_mode=mode, means_cr=CR),
+                          **MESH_ENGINE, **over.get(drive, {}))
+    kw = {} if n_seq is None else {"n_seq": n_seq}
+    return ServingEngine(cfg, params, config, clock=lambda: 0.0, **kw)
+
+
+def mesh_robust_drive(make, drive, vocab, on_engine):
+    """Run (k)'s trace through the engine ``make()`` builds (each engine
+    handed to ``on_engine`` first): under "stream" the streaming loop;
+    under "robust" step by step, every request preempted once it has a
+    token, the cut after ``MESH_ROBUST_SNAPSHOT`` steps restored into a
+    fresh engine that runs on.  Returns (the last engine, its results)."""
+    from repro_torch.serving import StreamingEngine
+    eng = make()
+    on_engine(eng)
+    prompts = mesh_engine_trace(vocab, MESH_ROBUST_REQUESTS)
+    if drive == "stream":
+        seng = StreamingEngine(eng, overlap=True)
+        for p in prompts:
+            seng.submit_stream(p, max_new_tokens=MESH_ENGINE_NEW)
+        return eng, seng.run_sync()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=MESH_ENGINE_NEW)
+    if drive != "robust":
+        return eng, eng.run()
+    hit, steps = set(), 0
+    while eng._sched.has_work:
+        eng.step()
+        steps += 1
+        for st in list(eng._sched.active.values()):
+            rid = st.req.rid
+            if (rid not in hit and not st.prefilling and st.generated
+                    and not st.finished()):
+                eng.preempt(rid)
+                hit.add(rid)
+        if steps == MESH_ROBUST_SNAPSHOT:
+            snap = eng.snapshot()
+            eng = make()
+            on_engine(eng)
+            eng.restore(snap)
+    return eng, eng.results()
+
+
+def robust_launches(eng, drive, n_layers):
+    """The launches a run of (k) needs of a rank (or the fold): the
+    decode kernel's of its ticks (``engine_launches``), one more a layer
+    a degraded tick; the padded flush's attention once a layer a flush,
+    its segment means too in prism mode, one dense decode launch a layer
+    a step."""
+    s = eng.stats
+    if drive == "padded":
+        n = n_layers * s.prefills
+        return {"prism_flash_attention": n,
+                "segment_means": (n if eng.config.hp.decode_mode == "prism"
+                                  else 0),
+                "flash_decode_stats": n_layers * s.decode_steps,
+                "flash_decode_stats.paged": 0, "flash_decode_stats.mq": 0}
+    need = engine_launches(eng, True, n_layers)
+    for name in ("flash_decode_stats", "flash_decode_stats.paged"):
+        need[name] += n_layers * s.degraded_ticks
+    return need
+
+
+def robust_counters(eng):
+    s = eng.stats.summary()
+    return {k: s[k] for k in MESH_ROBUST_COUNTERS}
+
+
+def keep_degraded(torch, eng):
+    """Wrap the engine's degraded step to keep, on the host, what it
+    served: each degraded tick's logits rows by (request, position,
+    token fed), and in exact mode the first assembled standby's kz/vz
+    columns of the lost shard and every column's counts -> the dict they
+    go to.  The recovery prefills every request again and throws those
+    ticks' tokens away, so only these show the degraded arithmetic."""
+    import numpy as np
+    kept = {"ticks": [], "standby": None}
+    degraded = eng._decode_degraded
+
+    def served(tok, pos):
+        logits = degraded(tok, pos)
+        rows = logits.cpu().numpy()
+        kept["ticks"].append({
+            (eng._sched.active[int(s)].req.rid, int(pos[s]), int(tok[s])):
+            rows[s] for s in np.flatnonzero(pos >= 0)})
+        rep = eng._replica._assembled
+        if kept["standby"] is None and rep is not None:
+            L, shard = eng.layout.L, min(eng._lost)
+            cols = slice(shard * L, (shard + 1) * L)
+            kept["standby"] = {
+                k: torch.stack([d[k][:, cols] for d in rep]).cpu().numpy()
+                for k in ("kz", "vz")}
+            kept["standby"]["gz"] = torch.stack(
+                [d["gz"] for d in rep]).cpu().numpy()
+        return logits
+    eng._decode_degraded = served
+    return kept
+
+
+def check_served(what, got, want, apart, lost):
+    """A rank's degraded ticks (``keep_degraded``) against the fold's:
+    as many ticks; every row of the first one whose request does not
+    part from the fold (``apart``) among the fold's, and wherever the
+    keys meet the rows within ``PATH_REL_TOL`` of the fold's largest
+    |logit|; on the lost rank (``lost``; exact mode) the standby's
+    columns of the lost shard, back from its ring neighbour, within
+    segment_means' ``TOL`` of the fold's cut, the counts equal ->
+    (rows compared, their largest |error|, the standby's)."""
+    import numpy as np
+    first = {k for k in got["ticks"][0] if k[0] not in apart} \
+        if got["ticks"] else set()
+    if (len(got["ticks"]) != len(want["ticks"]) or not first
+            or not first <= set(want["ticks"][0])):
+        raise AssertionError(f"{what}: degraded rows "
+                             f"{[sorted(t) for t in got['ticks']]}; the "
+                             f"fold's {[sorted(t) for t in want['ticks']]}")
+    n, err, top = 0, 0.0, 0.0
+    for g, w in zip(got["ticks"], want["ticks"]):
+        for k in set(g) & set(w):
+            n += 1
+            err = max(err, float(np.abs(g[k] - w[k]).max()))
+            top = max(top, float(np.abs(w[k]).max()))
+    if not err <= PATH_REL_TOL * top:
+        raise AssertionError(f"{what}: degraded rows {err} from the fold's, "
+                             f"its largest |logit| {top}")
+    if not lost or want["standby"] is None:
+        return n, err, None
+    g, w = got["standby"], want["standby"]
+    if g is None:
+        raise AssertionError(f"{what}: the lost rank served no standby")
+    atol, rtol = TOL["segment_means"]
+    std = max(float(np.abs(g[k] - w[k]).max()) for k in ("kz", "vz"))
+    if (not np.array_equal(g["gz"], w["gz"]) or not (w["gz"] > 0).any()
+            or any(not np.allclose(g[k], w[k], atol=atol, rtol=rtol)
+                   for k in ("kz", "vz"))):
+        raise AssertionError(f"{what}: the lost shard's standby {std} from "
+                             "the fold's cut")
+    return n, err, std
+
+
+def mesh_robust_fold(torch, shape, mode, drive):
+    """The folded engine of a run of (k) at the mesh's sequence shards,
+    driven alike, on the card: its tokens, the last ``MESH_ENGINE_NEW``
+    decode rows of each request (top-2 gap and largest |logit|; a
+    streamed run's from the synchronous fold, whose tokens are the
+    loop's), its counters; its launches and leaks checked."""
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.runtime.serve import seq_shards
+    cfg, params = mesh_engine_model(torch)
+    n_seq = seq_shards(dict(zip(("data", "model"), shape)),
+                       MESH_ENGINE["n_slots"])
+
+    def make():
+        return mesh_robust_engine(cfg, params, mode, drive, n_seq)
+    logs, served = [], []
+
+    def on_engine(e):
+        logs.append(keep_logits(e))
+        if drive == "loss":
+            served.append(keep_degraded(torch, e))
+    before = dict(LAUNCHES)
+    eng, out = mesh_robust_drive(make, drive, cfg.vocab_size, on_engine)
+    what = f"mesh/robust fold {shape} {mode} {drive}"
+    check_launches(what, {k: n - before.get(k, 0)
+                          for k, n in LAUNCHES.items()},
+                   robust_launches(eng, drive, cfg.n_layers))
+    if eng.kv_cache.paged:
+        check_drained(eng, what)
+    if drive == "stream":
+        sync = make()
+        logs = [keep_logits(sync)]
+        for p in mesh_engine_trace(cfg.vocab_size, MESH_ROBUST_REQUESTS):
+            sync.submit(p, max_new_tokens=MESH_ENGINE_NEW)
+        if sync.run() != out:
+            raise AssertionError(f"mesh/robust fold {drive}: the streamed "
+                                 "tokens differ from the synchronous ones")
+    kept = {}
+    for log in logs:
+        for rid, rows in log.items():
+            kept.setdefault(rid, []).extend(rows)
+    rows = {}
+    for rid, kept_rows in kept.items():
+        last = torch.stack(kept_rows[-MESH_ENGINE_NEW:])
+        top2 = last.topk(2, dim=-1).values
+        rows[rid] = {"gap": (top2[:, 0] - top2[:, 1]).cpu().tolist(),
+                     "top": last.abs().amax(-1).cpu().tolist()}
+    return {"tokens": out, "rows": rows, "counters": robust_counters(eng),
+            "failed": eng.failed(), "served": served[0] if served else None}
+
+
+def mesh_robust_rank(torch, meshes, shape, mode, drive):
+    """One rank of a run of (k): its tokens, digest of host decisions,
+    counters, launches (zeroed just before the drive, read just after)
+    and the ones its ticks need, its meter, the param_gather bytes a
+    tick, the replica's counters, wall time and ticks; under "loss" the
+    lost rank fills its pages of the live slots with NaN at the loss,
+    every degraded tick's logits must be finite, and what the degraded
+    ticks served is kept (``keep_degraded``)."""
+    import time
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.runtime.serve import mesh_params
+    m = meshes[shape]
+    cfg, params = mesh_engine_model(torch)
+    mp = mesh_params(cfg, params, m)
+    del params
+    finite, filled, engines, served = [], [], [], []
+
+    def on_engine(eng):
+        engines.append(eng)
+        if drive != "loss":
+            return
+        lose, degraded, kv = eng._lose_shard, eng._decode_degraded, \
+            eng.kv_cache
+
+        def lose_and_fill(shard):
+            lose(shard)
+            if m.coords["model"] == shard:
+                pages = sorted({p for s in eng._sched.active
+                                for p in kv.slot_pages[s]})
+                idx = torch.as_tensor(pages, device=m.device)
+                for c in kv.storage:
+                    for name in ("k", "v"):
+                        c[name][idx] = LOST_FILL
+                filled.append(len(pages))
+
+        def checked(tok, pos):
+            logits = degraded(tok, pos)
+            live = torch.as_tensor(pos >= 0, device=logits.device)
+            finite.append(bool(torch.isfinite(logits[live]).all()))
+            return logits
+        eng._lose_shard, eng._decode_degraded = lose_and_fill, checked
+        served.append(keep_degraded(torch, eng))
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    m.meter.reset()
+    t0 = time.perf_counter()
+    eng, out = mesh_robust_drive(
+        lambda: mesh_robust_engine(cfg, mp, mode, drive), drive,
+        cfg.vocab_size, on_engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    s = eng.stats
+    ticks = (s.decode_steps + s.packed_ticks + s.prefill_chunks
+             + s.degraded_ticks + s.prefills)
+    leak = None
+    try:
+        if eng.kv_cache.paged:
+            check_drained(eng, "rank")
+        elif sorted(eng._sched.free_slots) != list(range(eng.n_slots)):
+            raise AssertionError(f"slots {eng._sched.free_slots}")
+    except AssertionError as e:
+        leak = str(e)
+    devices = {str(t.device) for c in eng.kv_cache.storage
+               for t in c.values()}
+    return {"tokens": out, "trail": eng.trail, "failed": eng.failed(),
+            "counters": robust_counters(eng), "launches": launches,
+            "need": robust_launches(eng, drive, cfg.n_layers),
+            "meter": m.meter.snapshot(),
+            "gather_per_tick": tick_gather_bytes(mp, cfg), "ticks": ticks,
+            "replica": (engines[0]._replica.stats()
+                        if engines[0]._replica is not None else None),
+            "L": eng.layout.L, "finite": finite, "filled": filled,
+            "served": served[0] if served else None,
+            "leak": leak, "engines": len(engines), "wall_s": wall,
+            "ms_per_tick": 1e3 * wall / max(1, ticks),
+            "devices": sorted(devices | {str(m.device)}),
+            "coords": m.coords, "n_seq": eng.layout.n_seq}
+
+
+def check_mesh_robust(name, runs, fold, shape, mode, drive, card):
+    """A run of (k)'s ranks against each other and the fold: every
+    rank's digest of host decisions, then tokens, equal; the fold's
+    tokens but where a request parts at a near-tie (at most
+    ``MESH_ENGINE_MAX_PARTED``), its counters and failures; on every
+    rank the launches its ticks need, tensors on cuda:0, nothing leaked,
+    ``param_gather`` exactly ticks x one tick's, the ``replica`` bytes
+    exact (exact mode: each capture the rank's L columns of K and V of
+    every layer to its ring neighbour, the lost shard's host its copy of
+    every live slot back once; prism: none), the degraded ticks' logits
+    finite and held to the fold's, the lost rank's standby columns to
+    the fold's cut (``check_served``).  Emits the path line; returns the launches summed over the
+    ranks."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    key = f"mesh/robust-{name}"
+    first = runs[0]
+    for rank, run in enumerate(runs):
+        if run["trail"] != first["trail"]:
+            raise AssertionError(f"{key} rank {rank}: host decisions differ "
+                                 "from rank 0's")
+        if run["tokens"] != first["tokens"]:
+            raise AssertionError(f"{key} rank {rank}: tokens differ from "
+                                 "rank 0's")
+        if run["devices"] != ["cuda:0"] or run["leak"]:
+            raise AssertionError(f"{key} rank {rank}: tensors on "
+                                 f"{run['devices']}, leak {run['leak']}")
+        if run["counters"] != fold["counters"] or (
+                run["failed"] != fold["failed"]):
+            raise AssertionError(f"{key} rank {rank}: counters "
+                                 f"{run['counters']} {run['failed']}; the "
+                                 f"fold's {fold['counters']} "
+                                 f"{fold['failed']}")
+        check_launches(f"{key} rank {rank}", run["launches"], run["need"])
+        if not run["launches"].get("flash_decode_stats"):
+            raise AssertionError(f"{key} rank {rank}: no decode launch")
+        gathered = run["meter"]["sent"]["param_gather"]
+        if gathered != run["ticks"] * run["gather_per_tick"]:
+            raise AssertionError(f"{key} rank {rank}: param_gather "
+                                 f"{gathered} bytes over {run['ticks']} "
+                                 f"ticks of {run['gather_per_tick']}")
+        want = 0
+        if drive == "loss" and mode == "exact":
+            rep = run["replica"]
+            col = (MESH_ENGINE_DEPTH * 2 * run["L"] * cfg.n_kv_heads
+                   * cfg.hd * 4)
+            host = (MESH_SHARD_LOST + 1) % run["n_seq"]
+            want = col * (rep["captures"] + (
+                rep["returned"] if run["coords"]["model"] == host else 0))
+            if (run["coords"]["model"] == host) != (rep["returned"] > 0):
+                raise AssertionError(f"{key} rank {rank}: returned "
+                                     f"{rep['returned']} standbys")
+        if run["meter"]["sent"]["replica"] != want:
+            raise AssertionError(f"{key} rank {rank}: replica bytes "
+                                 f"{run['meter']['sent']['replica']}, "
+                                 f"reckoned {want}")
+        if drive == "loss" and (not run["finite"] or not all(run["finite"])
+                                or bool(run["filled"]) != (
+                                    run["coords"]["model"]
+                                    == MESH_SHARD_LOST)):
+            raise AssertionError(f"{key} rank {rank}: degraded logits "
+                                 f"finite {run['finite']}, NaN-filled "
+                                 f"pages {run['filled']}")
+    c = fold["counters"]
+    if drive == "robust":
+        unfired = [k for k in ROBUST_FAULTS if not c["faults_by_kind"].get(k)
+                   and not (k == "page_poison" and mode == "prism")]
+        if unfired or first["engines"] != 2 or c["preemptions"] < 1:
+            raise AssertionError(f"{key}: faults {c['faults_by_kind']}, "
+                                 f"{first['engines']} engines, "
+                                 f"{c['preemptions']} preemptions")
+    if drive == "loss" and (c["shard_lost"] != 1 or c["degraded_ticks"] < 1):
+        raise AssertionError(f"{key}: shard_lost {c['shard_lost']}, "
+                             f"degraded ticks {c['degraded_ticks']}")
+    done = set(first["tokens"]) | set(first["failed"])
+    if len(done) != MESH_ROBUST_REQUESTS:
+        raise AssertionError(f"{key}: requests unaccounted for")
+    apart = parted(first["tokens"], fold)
+    for rid, (step, gap) in apart.items():
+        if gap is None or gap >= TOKEN_GAP:
+            raise AssertionError(f"{key}: request {rid} parts from the fold "
+                                 f"at step {step}, its top-2 gap {gap}")
+    if len(apart) > MESH_ENGINE_MAX_PARTED:
+        raise AssertionError(f"{key}: {len(apart)} requests part from the "
+                             "fold")
+    served = [check_served(f"{key} rank {rank}", run["served"],
+                           fold["served"], apart,
+                           run["coords"]["model"] == MESH_SHARD_LOST)
+              for rank, run in enumerate(runs)] if drive == "loss" else None
+    emit("path", path=key, arch=ARCH, mesh=list(shape), mode=mode,
+         drive=drive, layers=MESH_ENGINE_DEPTH, **MESH_ENGINE,
+         requests=MESH_ROBUST_REQUESTS, new_tokens=MESH_ENGINE_NEW,
+         n_seq=first["n_seq"], parted_at_near_tie=apart,
+         counters=first["counters"], failed=first["failed"],
+         ticks=first["ticks"], gather_per_tick=first["gather_per_tick"],
+         replica=[r["replica"] for r in runs],
+         degraded_served=served, degraded_served_note=(
+             "per rank: (degraded rows held to the fold's, their largest "
+             "|error|, the lost shard's standby columns' largest |error| "
+             "on its rank)"),
+         wall_s=[r["wall_s"] for r in runs],
+         ms_per_tick=[r["ms_per_tick"] for r in runs],
+         launches=[r["launches"] for r in runs],
+         sent=[r["meter"]["sent"] for r in runs], clock="host",
+         note=MESH_NOTE, nvidia_smi=card)
+    return {k: sum(r["launches"].get(k, 0) for r in runs)
+            for k in set().union(*(r["launches"] for r in runs))}
+
+
 def time_collectives(torch, mesh, iters=10):
     """Host-clock ms of one collective over the mesh's ``model`` group at
     ``MESH_COLLECTIVES``' sizes: the median of ``iters`` calls after two,
@@ -5392,14 +5829,15 @@ def replay_log(torch, calls, index, device):
     return log
 
 
-def mesh_rank_run(mesh, runs, fold_path, engine_runs=MESH_ENGINE_RUNS):
+def mesh_rank_run(mesh, runs, fold_path, engine_runs=MESH_ENGINE_RUNS,
+                  robust_runs=MESH_ROBUST_RUNS):
     """One rank of phase 20: every run through ``mesh_rank``, the (2, 2)
     runs on one mesh of the same ranks, each teacher-forced on the fold's
     tokens and held to its logits (a MoE run replaying the fold's
     routing, ``replay_check``; a recurrent model's to the float64
     witness) -> per run its error and limit, tokens checked, launches,
     meter, times and where its tensors live; then run (j)'s engine runs
-    (``mesh_engine_rank``)."""
+    (``mesh_engine_rank``) and run (k)'s (``mesh_robust_rank``)."""
     import torch
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.mesh import Mesh
@@ -5472,6 +5910,12 @@ def mesh_rank_run(mesh, runs, fold_path, engine_runs=MESH_ENGINE_RUNS):
         out[mesh_engine_key(shape, prefill, mode, paged)] = mesh_engine_rank(
             torch, meshes, shape, prefill, mode, paged)
         torch.cuda.empty_cache()
+    for name, shape, mode, drive in robust_runs:
+        if shape not in meshes:
+            meshes[shape] = Mesh(shape, backend=mesh.backend, device="cuda")
+        out[f"robust-{name}"] = mesh_robust_rank(torch, meshes, shape, mode,
+                                                 drive)
+        torch.cuda.empty_cache()
     out["collectives"] = time_collectives(torch, mesh)
     return out
 
@@ -5539,6 +5983,12 @@ def drive_mesh(torch):
         engine_folds[mesh_engine_key(shape, prefill, mode, paged)] = (
             mesh_engine_fold(torch, shape, prefill, mode, paged))
         torch.cuda.empty_cache()
+    t_robust = time.perf_counter()
+    robust_folds = {}
+    for name, shape, mode, drive in MESH_ROBUST_RUNS:
+        robust_folds[name] = mesh_robust_fold(torch, shape, mode, drive)
+        torch.cuda.empty_cache()
+    t_robust = time.perf_counter() - t_robust
     t_fold = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         fold_path = os.path.join(tmp, "folds.pt")
@@ -5617,8 +6067,16 @@ def drive_mesh(torch):
         by_path[f"mesh/{key}"] = check_mesh_engine(
             key, [r[key] for r in ranks], engine_folds[key], shape,
             prefill, mode, paged, card)
+    for name, shape, mode, drive in MESH_ROBUST_RUNS:
+        by_path[f"mesh/robust-{name}"] = check_mesh_robust(
+            name, [r[f"robust-{name}"] for r in ranks], robust_folds[name],
+            shape, mode, drive, card)
+    robust_wall = sum(max(r[f"robust-{name}"]["wall_s"] for r in ranks)
+                      for name, _, _, _ in MESH_ROBUST_RUNS)
     emit("phase", name="mesh", seconds=time.perf_counter() - t0,
-         fold_seconds=t_fold, ranks_seconds=t_ranks, backend="gloo",
+         fold_seconds=t_fold, ranks_seconds=t_ranks,
+         robust_fold_seconds=t_robust, robust_rank_seconds=robust_wall,
+         backend="gloo",
          ranks=4, device="cuda:0", collectives=MESH_COLLECTIVES,
          collective_ms=[r["collectives"] for r in ranks], note=MESH_NOTE)
     return by_path

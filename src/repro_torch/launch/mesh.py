@@ -48,10 +48,6 @@ AXES = ("data", "model")
 BACKENDS = ("nccl", "gloo")
 #: seconds every rank of a served run must end within (``spawn``)
 MESH_TIMEOUT = 600.0
-#: where what a mesh does not serve yet is to come: the streaming loop,
-#: offload and preemption, snapshots, faults and the degraded step, the
-#: padded flush and gang admission
-MESH_ENGINE_LATER = "ROADMAP queue 1, item 18, its second part"
 
 
 def mesh_axes(mesh) -> dict:

@@ -115,11 +115,16 @@ exactly in both modes and captures the means over real tokens);
         --batch 8 --prompt-len 2048 --gen 8 --mesh 1x4 --backend gloo \
         --decode-mode prism
     # the engine over the mesh: every rank runs the same scheduler on the
-    # same logits, rank 0's clock; packed or chunked ticks, the paged or
-    # dense cache (no stream, offload, chaos, shard loss, gang or padded)
+    # same logits, rank 0's clock; packed, chunked or padded, the paged
+    # or dense cache, and every robustness layer: --stream, --offload,
+    # --chaos, --shard-loss (a 'model' index), --gang
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
         --reduced --engine --requests 6 --rate 50 --batch 4 \
         --prompt-len 32 --gen 6 --mesh 2x2 --backend gloo --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
+        --reduced --engine --requests 6 --rate 50 --batch 4 \
+        --prompt-len 32 --gen 6 --mesh 1x4 --backend gloo --device cpu \
+        --shard-loss 1 --shard-loss-at 6
 
 Weights are random, drawn from ``torch.Generator`` seeded with
 ``--seed``; ``--reduced`` takes the architecture's smoke-test size.
@@ -141,7 +146,7 @@ from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..models.moe import RoutingLog
 from ..models.transformer import is_encoder
-from ..launch.mesh import MESH_ENGINE_LATER, MESH_TIMEOUT, spawn
+from ..launch.mesh import MESH_TIMEOUT, spawn
 from ..runtime.serve import (MeshParams, ServeHParams, ServeLayout, encode,
                              generate, make_layout, mesh_params, seq_shards)
 
@@ -458,16 +463,7 @@ def _print_stats(stats: dict) -> None:
               else f"[engine] {k:22s} {v}")
 
 
-def run_engine(args) -> None:
-    """``--engine``: the continuous-batching engine over a Poisson trace;
-    prints the engine's stats summary and, under ``--chaos`` or
-    ``--shard-loss``, checks that every request finished or failed and
-    that nothing leaked."""
-    from ..serving import ServingEngine, StreamingEngine, serve_stream
-    dev = resolve_device(args.device)
-    cfg, params, ecfg, reqs = engine_setup(args, dev, args.seq_shards)
-    faults = ecfg.faults
-    eng = ServingEngine(cfg, params, ecfg, n_seq=args.seq_shards)
+def _engine_extras(args) -> str:
     extras = (f", {args.priority} priority classes"
               if args.priority > 1 else "")
     extras += ", host offload" if args.offload else ""
@@ -477,35 +473,45 @@ def run_engine(args) -> None:
                else "")
     extras += (", streaming" + (" (overlap off)" if args.no_overlap
                                 else " (overlap)") if args.stream else "")
-    print(_engine_line(args, cfg, eng, dev, extras))
-    if args.stream:
-        import asyncio
-        seng = StreamingEngine(eng, overlap=not args.no_overlap)
-        got = asyncio.run(serve_stream(seng, reqs))
-        fins = {}
-        for g in got.values():
-            fins[g["finished"]] = fins.get(g["finished"], 0) + 1
-        print(f"[stream] {len(got)} streams closed: "
-              + ", ".join(f"{k}={v}" for k, v in sorted(fins.items())))
-        itl = [dt for ds in seng.itl_samples().values() for dt in ds]
-        if itl:
-            print(f"[stream] itl_p50_s {float(np.percentile(itl, 50)):.4f}"
-                  f"  itl_p99_s {float(np.percentile(itl, 99)):.4f}")
-    else:
+    return extras
+
+
+def serve_trace(eng, args, reqs) -> list:
+    """The trace through ``eng``: the streaming loop's asyncio front-end
+    under ``--stream`` (the lines it prints returned), else ``run``."""
+    from ..serving import StreamingEngine, serve_stream
+    if not args.stream:
         for kw in reqs:
             eng.submit(**kw)
         eng.run()
-    _print_stats({**eng.stats.summary(), **eng.kv_cache.stats()})
-    if faults is None:
-        return
+        return []
+    import asyncio
+    seng = StreamingEngine(eng, overlap=not args.no_overlap)
+    got = asyncio.run(serve_stream(seng, reqs))
+    fins = {}
+    for g in got.values():
+        fins[g["finished"]] = fins.get(g["finished"], 0) + 1
+    lines = [f"[stream] {len(got)} streams closed: "
+             + ", ".join(f"{k}={v}" for k, v in sorted(fins.items()))]
+    itl = [dt for ds in seng.itl_samples().values() for dt in ds]
+    if itl:
+        lines.append(f"[stream] itl_p50_s {float(np.percentile(itl, 50)):.4f}"
+                     f"  itl_p99_s {float(np.percentile(itl, 99)):.4f}")
+    return lines
+
+
+def audit_engine(eng, args) -> list:
+    """Under a fault plan: every request finished or failed, the refcounts
+    hold, no slot holds pages, the store is empty, every slot is free
+    (raises otherwise); the lines to print."""
+    if eng.config.faults is None:
+        return []
     inj = eng._injector.stats()
     done, failed = len(eng.results()), eng.failed()
-    print(f"[chaos] injected {inj['injected']} over {inj['ops']} "
-          "opportunities")
-    print(f"[chaos] completed {done}/{args.requests}, failed "
-          f"{len(failed)} {sorted(failed.values())}")
-    # every request accounted for; the refcounts hold, no slot holds
-    # pages, the store is empty and every slot is back in the pool
+    lines = [f"[chaos] injected {inj['injected']} over {inj['ops']} "
+             "opportunities",
+             f"[chaos] completed {done}/{args.requests}, failed "
+             f"{len(failed)} {sorted(failed.values())}"]
     assert done + len(failed) == args.requests, (done, failed)
     kv = eng.kv_cache
     kv.check()
@@ -513,52 +519,85 @@ def run_engine(args) -> None:
     if eng.kv_store is not None:
         assert len(eng.kv_store) == 0, eng.kv_store.stats()
     assert sorted(eng._sched.free_slots) == list(range(args.batch))
-    print("[chaos] zero-leak audits OK")
+    lines.append("[chaos] zero-leak audits OK")
     if args.shard_loss is not None:
         s = eng.stats
         rep = eng._replica.stats() if eng._replica is not None else {}
-        print(f"[degraded] shard_lost {s.shard_lost} degraded_ticks "
-              f"{s.degraded_ticks} restarts {s.restarts} replica_captures "
-              f"{rep.get('captures', 0)}")
+        lines.append(f"[degraded] shard_lost {s.shard_lost} degraded_ticks "
+                     f"{s.degraded_ticks} restarts {s.restarts} "
+                     f"replica_captures {rep.get('captures', 0)}")
         assert s.shard_lost >= 1, "shard_loss never fired"
+    return lines
+
+
+def run_engine(args) -> None:
+    """``--engine``: the continuous-batching engine over a Poisson trace;
+    prints the engine's stats summary and, under ``--chaos`` or
+    ``--shard-loss``, checks that every request finished or failed and
+    that nothing leaked."""
+    from ..serving import ServingEngine
+    dev = resolve_device(args.device)
+    cfg, params, ecfg, reqs = engine_setup(args, dev, args.seq_shards)
+    eng = ServingEngine(cfg, params, ecfg, n_seq=args.seq_shards)
+    print(_engine_line(args, cfg, eng, dev, _engine_extras(args)))
+    for line in serve_trace(eng, args, reqs):
+        print(line)
+    _print_stats({**eng.stats.summary(), **eng.kv_cache.stats()})
+    for line in audit_engine(eng, args):
+        print(line)
+
+
+#: the robustness counters ``--engine --mesh`` prints of rank 0
+ROBUST_STATS = ("preemptions", "restore_hits", "faults_injected",
+                "shard_lost", "degraded_ticks")
 
 
 def _mesh_engine_rank(mesh, args) -> dict:
     """One rank of ``--engine --mesh``: ``engine_setup``'s run on the
     rank's device, its weights cut to the rank's shards, the trace
-    through the SPMD engine -> its tokens by request, stats, meter,
-    coordinates and the engine's line, on the host."""
+    through the SPMD engine (the streaming loop under ``--stream``),
+    audited under a fault plan -> its tokens by request, stats, the
+    engine's digest of its host decisions, meter, coordinates and the
+    lines to print, on the host."""
     from ..serving import ServingEngine
     cfg, params, ecfg, reqs = engine_setup(args, mesh.device,
                                            seq_shards(mesh, args.batch))
     eng = ServingEngine(cfg, mesh_params(cfg, params, mesh), ecfg)
     del params
-    for kw in reqs:
-        eng.submit(**kw)
     mesh.meter.reset()
-    results = eng.run()
-    return {"results": results, "meter": mesh.meter.snapshot(),
+    lines = serve_trace(eng, args, reqs)
+    lines += audit_engine(eng, args)
+    return {"results": eng.results(), "meter": mesh.meter.snapshot(),
             "stats": {**eng.stats.summary(), **eng.kv_cache.stats()},
-            "coords": mesh.coords, "lay": eng.layout,
-            "line": _engine_line(args, cfg, eng, mesh.device)}
+            "trail": eng.trail, "coords": mesh.coords, "lay": eng.layout,
+            "lines": lines, "line": _engine_line(args, cfg, eng, mesh.device,
+                                                 _engine_extras(args))}
 
 
 def run_mesh_engine(args) -> None:
     """``--engine --mesh DxM``: the engine on every rank of the mesh; the
-    ranks' tokens must be equal; rank 0's stats printed, and every
-    rank's meter."""
+    ranks' host decisions (``ServingEngine.trail``), then their tokens,
+    must be equal; rank 0's stats and robustness counters printed, and
+    every rank's meter."""
     data, model = (int(v) for v in args.mesh.split("x"))
     ranks = spawn(_mesh_engine_rank, data, model, backend=args.backend,
                   device=args.device, timeout=MESH_TIMEOUT, args=(args,))
     first = ranks[0]
     for r, res in enumerate(ranks[1:], 1):
+        if res["trail"] != first["trail"]:
+            raise RuntimeError(f"rank {r}'s host decisions differ from rank "
+                               "0's")
         if res["results"] != first["results"]:
             raise RuntimeError(f"rank {r}'s tokens differ from rank 0's")
     lay = first["lay"]
     print(f"{first['line']}, over a {data}x{model} mesh of {args.backend} "
           f"ranks: batch over {lay.ba or 'none'}, sequence over "
           f"{lay.seq_axes} (P={lay.n_seq}); every rank's tokens equal")
+    for line in first["lines"]:
+        print(line)
     _print_stats(first["stats"])
+    print("[robust] rank 0: " + ", ".join(
+        f"{k} {first['stats'][k]}" for k in ROBUST_STATS))
     for r, res in enumerate(ranks):
         print(f"[meter] rank {r} {res['coords']}: bytes sent "
               f"{res['meter']['sent']}")
@@ -681,14 +720,6 @@ def main(argv=None):
         if not args.engine:
             run_mesh(args)
             return
-        later = [flag for flag, on in (
-            ("--stream", args.stream), ("--offload", args.offload),
-            ("--chaos", args.chaos is not None),
-            ("--shard-loss", args.shard_loss is not None),
-            ("--gang", args.gang),
-            ("--prefill-mode padded", args.prefill_mode == "padded")) if on]
-        if later:
-            ap.error(f"{', '.join(later)} over --mesh: {MESH_ENGINE_LATER}")
         run_mesh_engine(args)
         return
     if args.decode_tp:

@@ -35,6 +35,7 @@ and restarts).
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, field, fields
 
 import numpy as np
@@ -126,9 +127,12 @@ class FaultInjector:
     opportunity; the injector counts opportunities per kind and decides
     deterministically from its own ``(seed, kind)``-keyed RNG stream —
     per-kind streams, so enabling one fault kind never perturbs the
-    schedule of another."""
+    schedule of another.  With ``trail=True`` (a mesh's engine) ``trail``
+    is a running digest of every draw (kind, opportunity, outcome, and
+    each ``pick``): the engines of a mesh's ranks, seeded alike and
+    consulted at the same seams, must keep equal trails."""
 
-    def __init__(self, plan: FaultPlan):
+    def __init__(self, plan: FaultPlan, trail: bool = False):
         self.plan = plan
         self._rngs = {k: np.random.default_rng(
             np.random.SeedSequence(entropy=plan.seed,
@@ -136,6 +140,13 @@ class FaultInjector:
             for i, k in enumerate(KINDS)}
         self.ops = {k: 0 for k in KINDS}        # opportunities seen
         self.injected = {k: 0 for k in KINDS}   # faults actually fired
+        self.trail = b""                        # digest of every draw
+        self._keep_trail = trail
+
+    def _note(self, *what) -> None:
+        if self._keep_trail:
+            self.trail = hashlib.sha256(self.trail
+                                        + repr(what).encode()).digest()
 
     def fire(self, kind: str) -> bool:
         """One injection opportunity for ``kind``; True = inject."""
@@ -151,13 +162,16 @@ class FaultInjector:
             hit = True
         if hit:
             self.injected[kind] += 1
+        self._note("fire", kind, i, hit)
         return hit
 
     def pick(self, kind: str, n: int) -> int:
         """Deterministic victim index in [0, n) for a fired fault
         (e.g. which decoding slot's page to poison)."""
         assert n >= 1
-        return int(self._rngs[kind].integers(n))
+        k = int(self._rngs[kind].integers(n))
+        self._note("pick", kind, n, k)
+        return k
 
     @property
     def total_injected(self) -> int:

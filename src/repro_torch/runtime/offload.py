@@ -18,7 +18,12 @@ re-prefill (``ServingEngine._restore_gate``), never as an error that
 could touch a neighbour slot.
 
 A copy of the reference's ``runtime/offload.py``; only ``_tree_bytes``
-differs, as the payload here is nested lists and dicts of tensors.
+differs, as the payload here is nested lists and dicts of tensors.  On a
+mesh of ranks each rank's store holds the rank's shard of a payload, and
+``put`` takes the whole payload's byte count from the caller
+(``KVCache.spill``), so that capacity, LRU evictions and ``stats()`` are
+the reference's, whose ``_tree_bytes`` counts the global array, and the
+same on every rank.
 """
 from __future__ import annotations
 
@@ -87,9 +92,15 @@ class KVStore:
         return self._injector is not None and self._injector.fire(kind)
 
     # -- write side ----------------------------------------------------
-    def put(self, key, n_pages: int, payload, *, tokens: int = 0) -> bool:
-        """Store a spilled entry; returns False when it was dropped."""
-        nbytes = _tree_bytes(payload) if payload is not None else int(n_pages)
+    def put(self, key, n_pages: int, payload, *, tokens: int = 0,
+            nbytes: int | None = None) -> bool:
+        """Store a spilled entry; returns False when it was dropped.
+        ``nbytes``: the payload's bytes where they are not its tensors'
+        (a mesh rank's shard of it); by default counted from them, or the
+        page count without a payload."""
+        if nbytes is None:
+            nbytes = (_tree_bytes(payload) if payload is not None
+                      else int(n_pages))
         if key in self._entries:
             self.drop(key)
         self.puts += 1

@@ -29,10 +29,13 @@ list pops from its end), so both hand out the same ids.
 
 On a mesh of ranks every rank holds the same host bookkeeping (page
 table, prefix cache, maps) over its own device storage: the rank's
-sequence shard of every page, or its block of the dense rows from
-``first_row`` on.  The copies, fills and zeroings below act on that
-storage alone; the moves to and from the host (``spill``, ``restore``,
-``extract_slot``, ``inject_slot``) refuse a mesh.
+sequence shard of every page (the prism state rows whole), or its block
+of the dense rows from ``first_row`` on.  The copies, fills, zeroings
+and the moves to and from the host (``spill``, ``restore``,
+``extract_slot``, ``inject_slot``) act on that storage alone: a rank's
+payload is its shard of the slot's pages and the whole state row, and
+the store counts the whole payload's bytes (``payload_bytes``), as the
+reference's does.
 
 The host offload tier, fault injection and snapshots move a slot's
 content: ``spill`` / ``restore`` and ``extract_slot`` / ``inject_slot``
@@ -53,8 +56,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-
-from ..launch.mesh import MESH_ENGINE_LATER
 
 #: page id meaning "no page mapped" in the device page maps
 NO_PAGE = -1
@@ -429,12 +430,12 @@ class KVCache:
         private) and the state row to the pool.  ``tokens`` is the
         covered-token count ``plan_restore`` reports.  Returns pages
         spilled."""
-        self._refuse_mesh("spill")
         pages = self.slot_pages.pop(slot)
         srow = self.slot_state.pop(slot)
         payload = (self._extract(pages, srow)
                    if self.storage is not None else None)
-        store.put(key, len(pages), payload, tokens=tokens)
+        store.put(key, len(pages), payload, tokens=tokens,
+                  nbytes=self.payload_bytes(payload))
         self.table.free(pages)
         self._state_free.append(srow)
         return len(pages)
@@ -461,7 +462,6 @@ class KVCache:
         when the store dropped the entry between plan and bind: the pages
         stay bound (a restore plan is never smaller than a re-prefill
         plan), and the caller re-prefills into them."""
-        self._refuse_mesh("restore")
         ent = store.get(key, retries=retries, backoff_s=backoff_s,
                         consume=True)
         if ent is None:
@@ -476,7 +476,6 @@ class KVCache:
         """One live slot's footprint on the host: the snapshot's gather,
         as ``spill``'s but leaving the slot its pages.  None without
         device storage."""
-        self._refuse_mesh("extract_slot")
         if self.storage is None:
             return None
         return self._extract(self.slot_pages[slot], self.slot_state[slot])
@@ -484,15 +483,21 @@ class KVCache:
     def inject_slot(self, slot: int, payload) -> None:
         """Scatter a snapshot's footprint into the (fresh) pages and state
         row bound to ``slot``: the engine restore's path."""
-        self._refuse_mesh("inject_slot")
         if self.storage is None or payload is None:
             return
         self._inject(self.slot_pages[slot], self.slot_state[slot], payload)
 
-    def _refuse_mesh(self, what: str) -> None:
-        if getattr(self.layout, "seq_axes", ()):
-            raise NotImplementedError(f"KVCache.{what} on a mesh of ranks: "
-                                      f"{MESH_ENGINE_LATER}")
+    def payload_bytes(self, payload) -> int | None:
+        """The bytes of the whole payload a rank's shard of it stands for:
+        its pages' K/V times the sequence shards the pool is cut over (a
+        mesh rank holds one), its state row once (every rank holds it
+        whole).  None without a payload (the store counts pages)."""
+        if payload is None:
+            return None
+        lay = self.layout
+        cut = lay.n_seq // lay.held if lay is not None else 1
+        return sum(t.nbytes * (cut if name in KV_LEAVES else 1)
+                   for layer in payload for name, t in layer.items())
 
     # -- device copies -----------------------------------------------------
     def _index(self, ids) -> torch.Tensor:
@@ -590,10 +595,14 @@ class KVCache:
         """Dense mode: copy row ``src_row`` of the cache ``src`` (a
         prefill's, with this cache's leaves and row shapes) into row
         ``dst_row`` of every leaf, in place: the padded admission's
-        splice."""
+        splice (on a mesh rank, where its block holds the row; ``src``
+        then holds every row)."""
+        local = dst_row - self.first_row
+        if not 0 <= local < self.storage[0]["k"].shape[0]:
+            return
         for c, s in zip(self.storage, src):
             for name, t in c.items():
-                t[dst_row].copy_(s[name][src_row])
+                t[local].copy_(s[name][src_row])
 
     # -- device-side maps --------------------------------------------------
     def page_map(self, n_slots: int) -> np.ndarray:

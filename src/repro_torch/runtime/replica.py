@@ -35,6 +35,20 @@ A replica never captures during a degraded window: the lost shard's
 memory is what the fault declared unreadable.  Recovery (every active
 slot prefilled again) drops every replica; captures resume on the
 rebuilt K/V.  A copy of the reference's ``runtime/replica.py``.
+
+Over a mesh of ranks (``seq``: the layout's sequence group), where the
+reference lets a shard's own device lanes stand in for the neighbour
+that would host its standby, the port ships it there: in exact mode
+each rank cuts its own shard's L means columns of the slot (every rank
+captures the same slot at the same tick) and sends them to its ring
+neighbour (s + 1) mod P with one ``comm.ppermute`` over the group, class
+``replica``; the rank hosts its lower neighbour's.  When shard s is
+lost its neighbour's copy goes back to rank s once (``comm.pass_to``),
+and rank s serves it on its lane, so the degraded step's arithmetic is
+the fold's and the lost rank's own K/V is never read.  The counts are
+the cut's, reckoned on every rank from the layout.  Prism mode moves no
+bytes: every rank holds the whole state pool, whose means are the
+standby.
 """
 from __future__ import annotations
 
@@ -44,6 +58,7 @@ import numpy as np
 import torch
 
 from ..core.segment_means import segment_sizes
+from ..sharding import comm
 
 
 def _seg_counts(k: int, L: int) -> np.ndarray:
@@ -120,6 +135,10 @@ class _SlotReplica:
     tick: int                          # engine tick of the capture
     layers: list = field(default_factory=list)   # per layer {kz, vz, gz}
     nbytes: int = 0
+    # on a mesh (exact mode): the hosted copy of the lower neighbour's
+    # columns, (layers, 2, L, Hkv, hd) kz and vz; ``layers`` then holds
+    # the counts of every shard alone
+    hosted: object = None
 
 
 class MeansReplica:
@@ -127,8 +146,10 @@ class MeansReplica:
     (see the module docstring), kept on the cache's device."""
 
     def __init__(self, cfg, lay, hp, paging, n_slots: int,
-                 refresh_every: int = 16):
+                 refresh_every: int = 16, seq=None):
         self.cfg, self.lay, self.hp = cfg, lay, hp
+        #: the layout's sequence group on a mesh (None folded)
+        self.seq = seq
         self.paging = paging
         self.n_slots = int(n_slots)
         self.refresh_every = max(1, int(refresh_every))
@@ -138,8 +159,10 @@ class MeansReplica:
         self.shard_of = np.repeat(np.arange(lay.n_seq), lay.L)
         self._slots: dict[int, _SlotReplica] = {}
         self._assembled = None
+        self._assembled_for = ()       # the lost shards it was built for
         self.captures = 0
         self.refreshes = 0
+        self.returned = 0              # slot standbys sent back at losses
 
     # -- capture -----------------------------------------------------------
     def has(self, slot: int, st) -> bool:
@@ -182,14 +205,18 @@ class MeansReplica:
         covered = int(st.pos) + 1
         if kv.storage is None:         # bookkeeping only
             return
+        hosted = None
         if self.hp.decode_mode == "prism":
             layers = self._copy_state(kv, slot)
+        elif self.seq is not None:
+            layers, hosted = self._cut_and_ship(kv, slot, covered)
         else:
             layers = self._cut_means(kv, slot, covered)
-        nbytes = int(sum(t.nbytes for d in layers for t in d.values()))
+        nbytes = (int(sum(t.nbytes for d in layers for t in d.values()))
+                  if hosted is None else hosted.nbytes)
         self._slots[slot] = _SlotReplica(
             rid=st.req.rid, epoch=st.epoch, covered=covered,
-            tick=int(tick_no), layers=layers, nbytes=nbytes)
+            tick=int(tick_no), layers=layers, nbytes=nbytes, hosted=hosted)
         self.captures += 1
         self._assembled = None
 
@@ -201,29 +228,46 @@ class MeansReplica:
 
     def _cut_means(self, kv, slot: int, covered: int) -> list:
         """Exact mode: the shard-major Segment-Means of the slot's roped
-        K/V pages, on the device: per layer one gather of the slot's
-        pages a leaf, laid shard-major, and one product with the cut's
-        0/1 matrix (``cut_weights``), then a division by the counts."""
+        K/V pages over the shards the cache holds (all P folded, the
+        rank's own on a mesh), on the device: per layer one gather of the
+        slot's pages a leaf, laid shard-major, and one product with the
+        held shards' block of the cut's 0/1 matrix (``cut_weights``),
+        then a division by the counts.  gz is every shard's counts."""
         pages = kv.slot_pages[slot]
-        pc, P = self.paging.page_cols, self.lay.n_seq
+        pc, L = self.paging.page_cols, self.lay.L
+        first, held = ((0, self.lay.n_seq) if self.seq is None
+                       else (self.seq.index, 1))
         n_cols = len(pages) * pc
         dev = kv.storage[0]["k"].device
         w, counts = cut_weights(self.lay, covered, n_cols)
-        w = torch.as_tensor(w, device=dev)
+        rows = slice(first * L, (first + held) * L)
+        w = torch.as_tensor(w[rows, first * n_cols:(first + held) * n_cols],
+                            device=dev)
         cnt = torch.as_tensor(counts, device=dev)
         idx = torch.as_tensor(pages, dtype=torch.long, device=dev)
-        div = torch.clamp(cnt, min=1.0)[:, None]
+        div = torch.clamp(cnt[rows], min=1.0)[:, None]
         out = []
         for c in kv.storage:
             d = {}
             for name, key in (("k", "kz"), ("v", "vz")):
-                x = c[name].index_select(0, idx)     # (n_pg, P, pc, H, hd)
+                x = c[name].index_select(0, idx)  # (n_pg, held, pc, H, hd)
                 hkv, hd = x.shape[-2:]
-                x = x.transpose(0, 1).reshape(P * n_cols, hkv * hd)
-                d[key] = ((w @ x) / div).view(self.m, hkv, hd)
+                x = x.transpose(0, 1).reshape(held * n_cols, hkv * hd)
+                d[key] = ((w @ x) / div).view(held * L, hkv, hd)
             d["gz"] = cnt.clone()
             out.append(d)
         return out
+
+    def _cut_and_ship(self, kv, slot: int, covered: int) -> tuple:
+        """Exact mode on a mesh: the rank's own shard's L columns of the
+        cut (``_cut_means``), sent to the ring neighbour; returns (every
+        shard's counts a layer, the lower neighbour's columns hosted
+        here)."""
+        own = self._cut_means(kv, slot, covered)
+        hosted = comm.ppermute(
+            torch.stack([torch.stack((d["kz"], d["vz"])) for d in own]),
+            self.seq, "replica", shift=1, ring=True)
+        return [{"gz": d["gz"]} for d in own], hosted
 
     # -- drop --------------------------------------------------------------
     def drop(self, slot: int) -> None:
@@ -244,11 +288,16 @@ class MeansReplica:
             m[int(s) % self.lay.n_seq] = 1.0
         return m
 
-    def assemble(self, device) -> list:
+    def assemble(self, device, lost=()) -> list:
         """One {"kz" (B, m, Hkv, hd), "vz", "gz" (B, m)} dict a layer, zero
         rows (gz = 0, dead columns) for slots with no standby.  Built
-        once per change of the replica set, then reused."""
-        if self._assembled is not None:
+        once per change of the replica set, then reused.  On a mesh the
+        ``lost`` shards' columns come back from their neighbours
+        (``_return``); every other column is zero there, which the
+        degraded step serves on no lane."""
+        shards = (tuple(sorted({int(s) % self.lay.n_seq for s in lost}))
+                  if self.seq is not None else ())
+        if self._assembled is not None and self._assembled_for == shards:
             return self._assembled
         cfg, b, m = self.cfg, self.n_slots, self.m
         hkv, hd = cfg.n_kv_heads, cfg.hd
@@ -259,16 +308,41 @@ class MeansReplica:
                  "gz": torch.zeros((b, m), device=device)}
             for slot, rep in self._slots.items():
                 for key in d:
-                    d[key][slot].copy_(rep.layers[i][key])
+                    if key in rep.layers[i]:
+                        d[key][slot].copy_(rep.layers[i][key])
             out.append(d)
-        self._assembled = out
+        for shard in shards:
+            self._return(out, shard)
+        self._assembled, self._assembled_for = out, shards
         return out
+
+    def _return(self, out: list, shard: int) -> None:
+        """A mesh's exact standby of ``shard``, sent back from the rank
+        that hosts it, (shard + 1) mod P, to the shard's rank: one
+        ``pass_to`` of every slot's copy, written into its columns."""
+        slots = sorted(self._slots)
+        if not slots:
+            return
+        grp, L = self.seq, self.lay.L
+        host = (shard + 1) % grp.size
+        copies = torch.stack([self._slots[s].hosted for s in slots])
+        got = comm.pass_to(copies, grp, "replica", src=host, dst=shard)
+        if grp.index == host and host != shard:
+            self.returned += len(slots)
+        if got is None:
+            return
+        cols = slice(shard * L, (shard + 1) * L)
+        for j, slot in enumerate(slots):
+            for i, d in enumerate(out):
+                d["kz"][slot, cols] = got[j, i, 0]
+                d["vz"][slot, cols] = got[j, i, 1]
 
     # -- introspection -----------------------------------------------------
     def stats(self) -> dict:
         return {"slots": len(self._slots),
                 "captures": self.captures,
                 "refreshes": self.refreshes,
+                "returned": self.returned,
                 "bytes": int(sum(r.nbytes for r in self._slots.values())),
                 "covered": {s: r.covered
                             for s, r in sorted(self._slots.items())}}

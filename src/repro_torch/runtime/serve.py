@@ -92,7 +92,13 @@ whole and each rank embeds the rows of its positions.  The paged cache
 serves a mesh too: its pool and state pool are replicated over the batch
 axes (every batch replica writes the same pages), each rank holding its
 sequence shard of every page, and ``serve_step`` takes every slot's
-token and position.  The degraded step refuses a mesh.
+token and position.  The degraded step serves a mesh whose sequence
+group is ``model``: the rank's lane is its index there; a lost rank's
+exact columns leave ``valid``, its writes are dropped, and its K/V is
+never read (the lane attends over a zero page in its place, which the
+masked columns make exact); in exact mode the standby columns of the
+lost shard come back to that rank from its ring neighbour
+(``runtime/replica.py``).
 """
 from __future__ import annotations
 
@@ -108,7 +114,7 @@ from ..core.attention import log_repeats
 from ..core.protocol import PrismConfig
 from ..kernels.decode_attention import decode_stats
 from ..kernels.ops import prism_attention_op
-from ..launch.mesh import MESH_ENGINE_LATER, Mesh, batch_axes, mesh_axes
+from ..launch.mesh import Mesh, batch_axes, mesh_axes
 from ..models.config import ModelConfig
 from ..models.context import SeqContext
 from ..models.layers import (AttnSpec, attn_output, attn_project_kv,
@@ -249,13 +255,21 @@ def _check_tp_axis(mesh) -> None:
                                   "a mesh whose model axis is over 1")
 
 
-def refuse_mesh(what: str, *things) -> None:
-    """Raise if any of ``things`` (parameters, a layout) is a mesh's:
-    ``what`` runs in one process only."""
-    for t in things:
-        if isinstance(t, MeshParams) or getattr(t, "seq_axes", ()):
-            raise NotImplementedError(f"{what} on a mesh of ranks: "
-                                      f"{MESH_ENGINE_LATER}")
+def check_degraded_mesh(lay, hp: ServeHParams) -> None:
+    """Raise for the degraded step where a mesh cannot serve it: a
+    sequence group other than ``model`` alone (the reference's degraded
+    runs are on (1, 4), its lost shard a ``model`` index, and a lane
+    over every axis would mix batch replicas into the shard ring), and
+    decode_tp (its attention reads no means)."""
+    if lay.seq_axes and tuple(lay.seq_axes) != ("model",):
+        raise NotImplementedError(
+            f"the degraded step over a sequence group of {lay.seq_axes}: "
+            "a lost shard is a 'model' index, and the standby ring runs "
+            "over 'model' alone; take a batch that divides the data axis")
+    if hp.decode_tp:
+        raise NotImplementedError(
+            "the degraded step under decode_tp: the tensor-parallel "
+            "attention reads no Segment-Means columns")
 
 
 def layout_axes(mesh, batch: int) -> tuple:
@@ -964,14 +978,17 @@ def prism_gz(cols, counts, pos, lost=None):
     return torch.where(live, cnt, torch.zeros_like(cnt))
 
 
-def replica_gz(counts, lost):
-    """The repeat counts (B, P, m) under which the degraded exact step's
-    shards see the standby replica's columns: ``counts`` (B, m) the
-    replica's, shard-major; each lost shard's lane sees its own columns,
-    and nothing else sees any, so the shard combine counts each mean
-    once."""
+def replica_gz(counts, lost, first: int = 0, held: int | None = None):
+    """The repeat counts (B, held, m) under which the degraded exact
+    step's shards see the standby replica's columns: ``counts`` (B, m)
+    the replica's, shard-major; each lost shard's lane sees its own
+    columns, and nothing else sees any, so the shard combine counts each
+    mean once.  The lanes are the shards held, ``first`` on (a mesh
+    rank's: its own); all P by default."""
     p, m = lost.shape[0], counts.shape[1]
-    lane = (torch.arange(p, device=counts.device)[:, None]
+    lanes = first + torch.arange(p if held is None else held,
+                                 device=counts.device)
+    lane = (lanes[:, None]
             == torch.arange(m, device=counts.device)[None, :] // (m // p))
     serve = lane & lost_columns(lost, m)[None, :]                # (P, m)
     return torch.where(serve[None], counts[:, None, :], 0.0)
@@ -1025,7 +1042,8 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
     state rows already hold, the lost shard's own gate opened.
 
     ``seq``: a mesh's sequence group; the layer cache holds the rank's
-    shard, combined over the group's ranks."""
+    shard, combined over the group's ranks.  A write plan of None writes
+    nothing (a lost rank's lane)."""
     if spec.window is not None:
         plan, valid = cols                           # the ring's
     else:
@@ -1035,8 +1053,9 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
     q = attn_project_q(p["attn"], spec, xn, rp)
     k_new, v_new = attn_project_kv(p["attn"], spec, xn, rp)
     scale = spec.head_dim ** -0.5
-    _write_kv(c["k"], k_new[:, 0], plan)
-    _write_kv(c["v"], v_new[:, 0], plan)
+    if plan is not None:
+        _write_kv(c["k"], k_new[:, 0], plan)
+        _write_kv(c["v"], v_new[:, 0], plan)
     if spec.window is not None:                  # the ring, one shard
         out = decode_attention(q, c["k"][:, None], c["v"][:, None], valid,
                                scale, backend=hp.backend)
@@ -1052,10 +1071,11 @@ def attn_decode(p, spec: AttnSpec, cfg: ModelConfig, x, c, pos,
                                mode="prism", pages=page_map, zrows=state_map,
                                backend=hp.backend, seq=seq)
     elif rep is not None:
-        gz = replica_gz(rep["gz"], lost)                         # (B, P, m)
+        gz = replica_gz(rep["gz"], lost, 0 if seq is None else seq.index,
+                        lay.held)                             # (B, P, m)
         out = decode_attention(q, c["k"], c["v"], valid, scale, gz=gz,
                                kz=rep["kz"], vz=rep["vz"], pages=page_map,
-                               backend=hp.backend)
+                               backend=hp.backend, seq=seq)
     else:
         out = decode_attention(q, c["k"], c["v"], valid, scale,
                                pages=page_map, backend=hp.backend, seq=seq)
@@ -1165,7 +1185,10 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
     positions are served by Segment-Means columns (``attn_decode``): in
     exact mode from ``rep``, one {"kz", "vz", "gz"} dict a layer (the
     assembled standby replica), in prism mode from the cache's own state
-    rows.  It requires the paged cache.
+    rows.  It requires the paged cache.  On a mesh ``lost`` and ``rep``
+    are the whole mesh's (P,) and (B, m): the rank's lane is its index in
+    the sequence group, and a lost rank reads a zero page in place of
+    its K/V and writes nothing.
 
     On a mesh (``params`` a rank's ``MeshParams``) token and pos are the
     rank's batch rows (a paged cache's: every slot's, as its pool is
@@ -1176,11 +1199,12 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
     mesh = _mesh(params)
     _check_on_mesh(cfg, hp, mesh, lay)
     seq = tp = None
+    blind = False                    # this rank's shard is lost
     if mesh is not None:
-        if lost is not None:
-            raise NotImplementedError("the degraded step on a mesh: "
-                                      f"{MESH_ENGINE_LATER}")
         seq = mesh.group(lay.seq_axes)
+        if lost is not None:
+            check_degraded_mesh(lay, hp)
+            blind = bool(lost[seq.index] > 0)
         if hp.decode_tp != params.decode_tp:
             raise ValueError("decode_tp takes the decode-TP rules' "
                              "parameters (mesh_params(decode_tp=True)), "
@@ -1199,19 +1223,25 @@ def serve_step(cfg: ModelConfig, params, cache, token, pos,
             raise ValueError("the degraded step takes the replica in exact "
                              "decode mode, and only there")
         dead = lost > 0                                          # (P,)
+        if seq is not None:
+            dead = dead[seq.index:seq.index + 1]
         wr_owner = owner & ~dead
         valid = valid & ~dead[None, :, None]
     rows = torch.arange(pos.shape[0], device=pos.device)
     # the prism state rows, from a global layer (a local one has none)
     glob = next((c for c in cache if "kz" in c), None)
-    cols = (write_plan(rows, slot, wr_owner, lay.held, lay.cap_l,
-                       page_map),
-            owner, valid, page_map, state_map,
+    plan = write_plan(rows, slot, wr_owner, lay.held, lay.cap_l, page_map)
+    if blind:              # the lane reads a zero page and writes nothing
+        plan, page_map = None, torch.zeros_like(page_map)
+    cols = (plan, owner, valid, page_map, state_map,
             None if glob is None else state_rows(glob, state_map))
     ring = (ring_cols(ring_width(cfg, lay), cfg.window, pos)
             if "attn_local" in cfg.block_kinds else None)
     x = embed_tokens(cfg, params, token[:, None], pos[:, None])
     for i, ((kind, p), c) in enumerate(zip(_layers(cfg, params), cache)):
+        if blind and "k" in c and kind != "attn_local":
+            blank = torch.zeros_like(c["k"][:1])
+            c = dict(c, k=blank, v=blank)
         x = block_decode(cfg, kind, p, x, c, pos, lay, hp,
                          ring if kind == "attn_local" else cols, lost,
                          None if rep is None else rep[i], seq, tp, moe_ctx)

@@ -79,15 +79,39 @@ differently would enter different collectives and hang, so every
 reading of the clock on a mesh is rank 0's, broadcast (one 8-byte
 ``engine`` collective).  On the dense cache a decode step's logits are
 the rank's batch rows, gathered over the batch axes (``engine``) so
-that every rank samples every slot.  The packed and chunked modes serve
-a mesh, on the paged and the dense cache, in both decode modes; the
-streaming loop, offload and preemption, snapshots, faults and the
-degraded step, the padded flush and gang admission refuse it
-(``MESH_ENGINE_LATER``).
+that every rank samples every slot.  Every mode serves a mesh, on the
+paged and the dense cache, in both decode modes, with its robustness
+layers:
+
+  * offload and preemption: a rank spills and restores its shard of a
+    slot's pages (and the whole state row); its store counts the whole
+    payload's bytes, so capacity and evictions are every rank's alike;
+  * faults: one injector a rank, seeded alike and consulted at the same
+    seams, so every rank draws the same faults; a poisoned page is the
+    page's shard on every rank;
+  * ``snapshot`` / ``restore``: each rank's snapshot holds its shard,
+    and a restore refuses one cut on another mesh shape or rank;
+  * the degraded step: the lost shard is a ``model`` index; its rank
+    keeps running its lane without reading its K/V, served by the
+    standby its ring neighbour hosts (``runtime/replica.py``);
+  * the padded flush: the static ``prefill`` over the mesh at decode
+    capacity, its rows gathered over the batch axes (``engine``) where a
+    slot's block differs from its batch row's;
+  * a client's ``cancel``, ``preempt``, ``suspend`` or ``resume`` takes
+    rank 0's request id (one ``engine`` broadcast), so every rank acts
+    on the same request at the same tick.
+
+On a mesh ``trail`` is a running digest of the host decisions after
+every tick (the tick's kind, the slots' requests, the page and state
+maps, the injector's draws, the store's outcomes, the counters, the
+lost shards): every rank's must be equal, and a desynchronised rank
+shows there before it hangs in a collective another rank never enters.
+One process keeps no digest.
 """
 from __future__ import annotations
 
 import copy
+import hashlib
 import heapq
 import math
 import time
@@ -104,10 +128,10 @@ from ..runtime.faults import FaultInjector, FaultPlan
 from ..runtime.offload import KVStore
 from ..runtime.paging import AdmitPlan, make_paged_layout
 from ..runtime.replica import MeansReplica
-from ..runtime.serve import (MESH_ENGINE_LATER, MeshParams, ServeHParams,
-                             batch_rows, gather_logits, make_kv_cache,
-                             make_layout, paged_placement, prefill,
-                             refuse_mesh, serve_step)
+from ..runtime.serve import (MeshParams, ServeHParams, batch_rows,
+                             check_degraded_mesh, gather_logits,
+                             make_kv_cache, make_layout, paged_placement,
+                             prefill, serve_step)
 from ..runtime.ticks import chunk_prefill_step, packed_step
 from ..sharding import comm
 from .sampling import SamplingParams, sample_token
@@ -239,19 +263,8 @@ class EngineSnapshot:
     decodes_since_prefill: int
     drain: bool
     has_deadlines: bool
-
-
-def _check_mesh_config(config: EngineConfig) -> None:
-    """Raise for what the engine does not serve over a mesh yet."""
-    later = [what for what, on in (
-        ("offload and preemption", config.offload),
-        ("fault injection and the degraded step",
-         config.faults is not None),
-        ("the padded flush", config.prefill_mode == "padded"),
-        ("gang admission", config.gang)) if on]
-    if later:
-        raise NotImplementedError(f"{', '.join(later)} on a mesh of ranks: "
-                                  f"{MESH_ENGINE_LATER}")
+    # the mesh shape and rank whose shard the payloads are (None folded)
+    mesh: tuple | None = None
 
 
 class ServingEngine:
@@ -264,8 +277,6 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, config: EngineConfig, *,
                  n_seq: int = 4, clock=time.monotonic):
         mesh = params.mesh if isinstance(params, MeshParams) else None
-        if mesh is not None:
-            _check_mesh_config(config)
         other = sorted(set(cfg.block_kinds) - {"attn", "moe"})
         if other:
             # as the reference's engine: admission relies on a cache
@@ -330,7 +341,8 @@ class ServingEngine:
         self._next_rid = 0
         self._t0 = None                # clock origin (first submit/run)
         # seeded chaos: one injector per engine, shared with the store
-        self._injector = (FaultInjector(config.faults)
+        self._injector = (FaultInjector(config.faults,
+                                        trail=mesh is not None)
                           if config.faults is not None else None)
         # host offload tier: spilled pages and prism state rows by rid
         self._store = (KVStore(capacity_bytes=config.offload_bytes,
@@ -351,9 +363,14 @@ class ServingEngine:
         self._degraded_left = 0        # means-served ticks before recovery
         if (self._injector is not None and self._paged
                 and config.faults.spec("shard_loss").enabled):
+            seq = None
+            if mesh is not None:
+                check_degraded_mesh(self.layout, hp)
+                seq = mesh.group(self.layout.seq_axes)
             self._replica = MeansReplica(
                 cfg, self.layout, hp, self._paging, self.n_slots,
-                refresh_every=config.replica_refresh)
+                refresh_every=config.replica_refresh, seq=seq)
+        self.trail = b""               # digest of the host decisions (mesh)
 
     @staticmethod
     def _derive_paging(base, config: EngineConfig):
@@ -424,7 +441,7 @@ class ServingEngine:
     def _decode_degraded(self, tok, pos):
         """The degraded decode step: the lost shards' mask and, in exact
         mode, the assembled standby replica."""
-        rep = (self._replica.assemble(self.device)
+        rep = (self._replica.assemble(self.device, self._lost)
                if self._hp.decode_mode == "exact" else None)
         return self._decode_program(
             self._tensor(tok), self._tensor(pos), self._maps(),
@@ -448,16 +465,31 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # submission
     # ------------------------------------------------------------------
+    def _shared(self, value, dtype):
+        """Rank 0's ``value`` on every rank of a mesh (one ``engine``
+        broadcast); ``value`` itself in one process."""
+        if self.mesh is None:
+            return value
+        world = self.mesh.group(self.mesh.axis_names)
+        return comm.broadcast(torch.tensor([value], dtype=dtype,
+                                           device=self.device), world,
+                              "engine")[0].item()
+
+    def _read_clock(self) -> float:
+        """The clock's reading: rank 0's on a mesh."""
+        return float(self._shared(self._clock(), torch.float64))
+
+    def _decide(self, rid: int) -> int:
+        """A client's choice of request (cancel, preempt, suspend,
+        resume): rank 0's on a mesh, so that every rank acts on the same
+        request at the same tick."""
+        return int(self._shared(int(rid), torch.int64))
+
     def now(self) -> float:
         """Engine-clock seconds since the first reading: on a mesh rank
         0's reading, shared with every rank (``engine`` class), so that
         every rank releases, admits and expires alike."""
-        t = self._clock()
-        if self.mesh is not None:
-            world = self.mesh.group(self.mesh.axis_names)
-            t = float(comm.broadcast(torch.tensor(
-                [t], dtype=torch.float64, device=self.device), world,
-                "engine")[0])
+        t = self._read_clock()
         if self._t0 is None:
             self._t0 = t
         return t - self._t0
@@ -551,6 +583,27 @@ class ServingEngine:
             self._replica.tick(self._kv, self._sched.decoding(),
                                self.stats.decode_steps
                                + self.stats.packed_ticks)
+        self._note(kind)
+
+    def _note(self, event: str) -> None:
+        """Fold the host decisions after ``event`` into ``trail`` (on a
+        mesh; one process has no ranks to hold it to)."""
+        if self.mesh is None:
+            return
+        kv, s = self._kv, self.stats
+        h = hashlib.sha256(self.trail)
+        h.update(repr((event, sorted((k, st.req.rid, st.pos, st.nprefilled)
+                                     for k, st in self._sched.active.items()),
+                       sorted(self._lost), s.preemptions, s.restore_hits,
+                       s.restore_misses, s.restarts, s.quarantined,
+                       s.failed_requests, s.degraded_ticks,
+                       None if self._store is None else self._store.stats(),
+                       None if self._injector is None
+                       else self._injector.trail)).encode())
+        if self._paged:
+            h.update(kv.page_map(self.n_slots).tobytes())
+            h.update(kv.state_map(self.n_slots).tobytes())
+        self.trail = h.digest()
 
     def _step_inner(self) -> str:
         sch = self._sched
@@ -1005,7 +1058,7 @@ class ServingEngine:
         """Preempt an active request into the host store; it queues for
         resume.  The tick preempts under priority pressure by itself;
         this is for tests, draining and outside policies."""
-        st = self._find_active(rid)
+        st = self._find_active(self._decide(rid))
         if st is None or self._store is None:
             return False
         self._spill(st, requeue=True)
@@ -1015,6 +1068,7 @@ class ServingEngine:
         """Move an idle session to the host tier without queueing it: it
         holds no slot and no pages until ``resume(rid)``; ``run()`` does
         not wait for it."""
+        rid = self._decide(rid)
         st = self._find_active(rid)
         if st is None or self._store is None:
             return False
@@ -1025,7 +1079,7 @@ class ServingEngine:
     def resume(self, rid: int) -> bool:
         """Queue a suspended session again; its cache restores through
         admission on a tick with room."""
-        st = self._suspended.pop(rid, None)
+        st = self._suspended.pop(self._decide(rid), None)
         if st is None:
             return False
         self._sched.push_resume(st)
@@ -1037,6 +1091,7 @@ class ServingEngine:
         holds, as the deadline sweep does (the prompt is never
         registered for prefix reuse).  An active request lands in
         ``failed()`` as 'cancelled'.  False if the rid is not live."""
+        rid = self._decide(rid)
         for i, (_, r, _) in enumerate(self._pending):
             if r == rid:
                 self._pending.pop(i)
@@ -1075,8 +1130,8 @@ class ServingEngine:
         the slot its pages), the queues, pending arrivals, suspended
         sessions, the store's entries, the requests' sampler RNGs (in
         the deep-copied states), stats and the fault injector's place.
-        Called between steps."""
-        refuse_mesh("the engine snapshot", self.params)
+        Called between steps.  On a mesh the payloads are the rank's
+        shard, and the snapshot names its mesh shape and rank."""
         if not self._paged:
             raise ValueError(
                 "snapshot requires the paged cache (paged=True): the "
@@ -1090,6 +1145,7 @@ class ServingEngine:
         active = [(slot, copy.deepcopy(st), self._kv.extract_slot(slot),
                    len(self._kv.slot_pages[slot]))
                   for slot, st in sorted(self._sched.active.items())]
+        self._note("snapshot")
         return EngineSnapshot(
             now=self.now(),
             next_rid=self._next_rid,
@@ -1108,7 +1164,13 @@ class ServingEngine:
             injector=copy.deepcopy(self._injector),
             decodes_since_prefill=self._sched._decodes_since_prefill,
             drain=self._sched.drain,
-            has_deadlines=self._has_deadlines)
+            has_deadlines=self._has_deadlines,
+            mesh=self._where())
+
+    def _where(self) -> tuple | None:
+        """(mesh shape, rank) of this engine, None in one process."""
+        return None if self.mesh is None else (self.mesh.shape,
+                                               self.mesh.rank)
 
     def restore(self, snap: EngineSnapshot) -> None:
         """Rebuild a snapshot's serving state in this engine, which must
@@ -1116,10 +1178,16 @@ class ServingEngine:
         slot reserves its page count through admission and takes its
         payload; the page ids may differ, which the per-tick maps hide.
         The prefix cache starts cold (losing it costs prefill, never
-        tokens).  The snapshot is not consumed."""
-        refuse_mesh("the engine restore", self.params)
+        tokens).  The snapshot is not consumed.  On a mesh each rank
+        restores its own snapshot: one cut on another mesh shape or rank
+        (or in one process) is refused."""
         if not self._paged:
             raise ValueError("restore requires the paged cache")
+        if snap.mesh != self._where():
+            raise ValueError(
+                f"a snapshot of (mesh shape, rank) {snap.mesh} restores "
+                f"into an engine of the same, not {self._where()}: its "
+                "payloads are that rank's shard")
         if self._next_rid or self._sched.active or self._sched.queued:
             raise ValueError("restore target must be a fresh engine")
         snap = copy.deepcopy(snap)     # keep the journal re-restorable
@@ -1155,7 +1223,7 @@ class ServingEngine:
                 self._store._injector = snap.injector
         # the clock resumes at the cut, so arrivals and deadlines keep
         # their meaning
-        self._t0 = self._clock() - snap.now
+        self._t0 = self._read_clock() - snap.now
 
     def failed(self) -> dict:
         """{rid: reason} of the requests the engine gave up on (deadline,
@@ -1282,6 +1350,13 @@ class ServingEngine:
         for i, st in enumerate(states):
             batch[i, :len(st.req.prompt)] = st.req.prompt
         fresh = self._prefill(batch)
+        if self.mesh is not None and self.layout.ba:
+            # the rank holds its block of the batch rows and of the
+            # slots, which need not be the same rows: every rank takes
+            # every row
+            grp = self.mesh.group(self.layout.ba)
+            fresh = [{k: comm.all_gather(t, grp, "engine", dim=0)
+                      for k, t in c.items()} for c in fresh]
         for i, st in enumerate(states):
             self._kv.insert_row(fresh, i, st.slot)
             st.begin_decode()

@@ -48,6 +48,15 @@ that move or free cache state (preemption, suspend, deadline expiry,
 snapshot, cancel) drain the pipeline first.  ``overlap`` alone decides
 whether the loop dispatches ahead, on the card and on the CPU.
 
+Over a mesh of ranks (an engine over a rank's ``MeshParams``) every
+rank runs this loop in step: the result pack is made from the logits
+``gather_logits`` gathered, so it is the same on every rank, and a
+cancel or preemption in flight takes rank 0's request
+(``ServingEngine._decide``) and is applied by every rank at the same
+tick.  Rank 0's streams are the user's; every rank's are equal to them.
+Over gloo a collective blocks the host until it completes, so the
+overlap has little host time to hide there.
+
 A copy of the reference's ``serving/streaming.py`` control flow.
 """
 from __future__ import annotations
@@ -60,7 +69,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..runtime.serve import refuse_mesh
 from ..runtime.ticks import merge, pack
 from .engine import ServingEngine
 
@@ -202,7 +210,6 @@ class StreamingEngine:
 
     def __init__(self, engine: ServingEngine, *, overlap: bool = True,
                  depth: int = 2):
-        refuse_mesh("the streaming loop", engine.params)
         self._eng = engine
         self.depth = max(1, int(depth))
         # overlap needs the packed and decode programs and no fault plan

@@ -9,16 +9,20 @@ group of ranks of a mesh (``launch/mesh.py``).
     all_to_all(x, grp, cls, split_dim=s, concat_dim=c)
                                      # lax.all_to_all(tiled=True)
     ppermute(x, grp, cls, shift=h)   # x to group index i + h; zeros in
+    ppermute(x, grp, cls, shift=h, ring=True)
+                                     # x to group index (i + h) mod n
+    pass_to(x, grp, cls, src=s, dst=d)
+                                     # group index s's x, on index d
 
 A group of one rank returns x (a gather: x with its new axis; a
-ppermute: zeros) and sends nothing.
+ppermute: zeros, a ring: x) and sends nothing.
 
 Every call names the class of traffic it carries, and the mesh's
 ``Meter`` adds up the bytes this rank sends under a ring algorithm:
 (n - 1)·|x| for a gather, 2·(n - 1)·|x| / n for a reduction, (n - 1)·|x|
 from the source of a broadcast, (n - 1)·|x| / n for an all_to_all (a
 rank keeps its own block), |x| from each rank of a ppermute that has a
-receiver.  The classes:
+receiver, |x| from the source of a ``pass_to``.  The classes:
 
   * ``exchange``      the prefill's exchange: Segment Means (PRISM) or
                       the partitions (Voltage), and the means a Voltage
@@ -35,8 +39,14 @@ receiver.  The classes:
                       pair over ``model``), and expert-TP's token gather
                       and partial sums over ``data``;
   * ``engine``        the serving engine's agreement over its ranks:
-                      rank 0's clock reading, and a dense cache's decode
-                      logits gathered over the batch axes.
+                      rank 0's clock reading and its choice of a request
+                      to cancel or preempt, a dense cache's decode
+                      logits and padded-flush rows gathered over the
+                      batch axes;
+  * ``replica``       the Segment-Means standby replicas of the degraded
+                      mesh: each rank's cut of its own shard sent to its
+                      ring neighbour at a capture, and the neighbour's
+                      copy sent back to the lost shard's rank at a loss.
 
 ``gloo`` takes CUDA tensors for all_gather, all_reduce, broadcast and
 all_to_all_single, passing them through the host, but not for send and
@@ -55,7 +65,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-CLASSES = ("exchange", "combine", "param_gather", "tp", "expert", "engine")
+CLASSES = ("exchange", "combine", "param_gather", "tp", "expert", "engine",
+           "replica")
 
 
 class Meter:
@@ -172,28 +183,58 @@ def _stage_p2p(x: torch.Tensor, grp: Group) -> bool:
     return x.is_cuda and dist.get_backend(grp.pg) == "gloo"
 
 
-def ppermute(x: torch.Tensor, grp: Group, cls: str, *,
-             shift: int) -> torch.Tensor:
-    """x sent to the group's index i + ``shift`` (shift >= 1); each rank
-    returns what the rank ``shift`` below it sent, zeros where there is
-    none (the first ``shift`` ranks), as ``lax.ppermute`` fills them.
-    Over gloo a CUDA tensor goes through host memory (``_stage_p2p``)."""
-    if shift < 1:
-        raise ValueError(f"ppermute shifts up by 1 or more, not {shift}")
-    i, n = grp.index, grp.size
-    host = n > 1 and _stage_p2p(x, grp)
+def _p2p(x: torch.Tensor, grp: Group, cls: str, to, frm) -> torch.Tensor:
+    """Send x to the group's index ``to`` and receive from ``frm`` (either
+    None): the received tensor, zeros where nothing comes.  Over gloo a
+    CUDA tensor goes through host memory (``_stage_p2p``)."""
+    host = _stage_p2p(x, grp)
     out = torch.zeros(x.shape, dtype=x.dtype,
                       device="cpu" if host else x.device)
     ops = []
-    if i + shift < n:
+    if to is not None:
         _count(grp, cls, x.numel() * x.element_size())
-        src = x.cpu() if host else x.contiguous()
-        ops.append(dist.P2POp(dist.isend, src.contiguous(),
-                              grp.ranks[i + shift], grp.pg))
-    if i - shift >= 0:
-        ops.append(dist.P2POp(dist.irecv, out, grp.ranks[i - shift],
+        src = x.cpu() if host else x
+        ops.append(dist.P2POp(dist.isend, src.contiguous(), grp.ranks[to],
                               grp.pg))
+    if frm is not None:
+        ops.append(dist.P2POp(dist.irecv, out, grp.ranks[frm], grp.pg))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return out.to(x.device) if host else out
+
+
+def ppermute(x: torch.Tensor, grp: Group, cls: str, *, shift: int,
+             ring: bool = False) -> torch.Tensor:
+    """x sent to the group's index i + ``shift`` (shift >= 1); each rank
+    returns what the rank ``shift`` below it sent, zeros where there is
+    none (the first ``shift`` ranks), as ``lax.ppermute`` fills them.
+    ``ring``: the indices wrap, x goes to (i + shift) mod n and every
+    rank receives.  Over gloo a CUDA tensor goes through host memory
+    (``_stage_p2p``)."""
+    if shift < 1:
+        raise ValueError(f"ppermute shifts up by 1 or more, not {shift}")
+    i, n = grp.index, grp.size
+    if ring:
+        if n == 1:
+            return x
+        return _p2p(x, grp, cls, (i + shift) % n, (i - shift) % n)
+    if n == 1:
+        return torch.zeros_like(x)
+    return _p2p(x, grp, cls, i + shift if i + shift < n else None,
+                i - shift if i - shift >= 0 else None)
+
+
+def pass_to(x: torch.Tensor, grp: Group, cls: str, *, src: int,
+            dst: int):
+    """The x of the group's index ``src``, on index ``dst`` (every rank
+    calls it with a tensor of one shape); every other rank gets None.
+    Over gloo a CUDA tensor goes through host memory."""
+    i = grp.index
+    if src == dst:
+        return x if i == dst else None
+    if i not in (src, dst):
+        return None
+    out = _p2p(x, grp, cls, dst if i == src else None,
+               src if i == dst else None)
+    return out if i == dst else None

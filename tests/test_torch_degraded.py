@@ -110,6 +110,77 @@ def _drive(eng, vocab):
             eng._replica.stats()["captures"], kinds)
 
 
+def _keep_degraded(eng, stacked):
+    """Wrap an engine's degraded tick (the reference's or the port's) to
+    keep what it served: each decoding slot's logits row by (rid,
+    position), and in exact mode the first assembled standby, its
+    layers stacked by ``stacked`` -> the dict they go to."""
+    kept = {"keys": [], "rows": [], "standby": None}
+    advance = eng._advance_degraded
+
+    def advanced(st, row, now):
+        kept["keys"].append((st.req.rid, st.pos))
+        kept["rows"].append(np.array(row, np.float32))
+        advance(st, row, now)
+    eng._advance_degraded = advanced
+    if eng.config.hp.decode_mode == "exact":
+        assemble = eng._replica.assemble
+
+        def assembled(*args, **kw):
+            rep = assemble(*args, **kw)
+            if kept["standby"] is None:
+                kept["standby"] = {k: np.array(v)
+                                   for k, v in stacked(rep).items()}
+            return rep
+        eng._replica.assemble = assembled
+    return kept
+
+
+def _port_standby(rep):
+    """The port's assembled standby, its layers stacked as the
+    reference's scan stack."""
+    return {k: torch.stack([d[k] for d in rep]).cpu()
+            for k in ("kz", "vz", "gz")}
+
+
+def _kept_arrays(kept):
+    """What ``_keep_degraded`` kept, as flat arrays."""
+    out = {"keys": np.asarray(kept["keys"], np.int64),
+           "rows": np.stack(kept["rows"])}
+    for k, v in (kept["standby"] or {}).items():
+        out[f"standby/{k}"] = v
+    return out
+
+
+def check_degraded(kept, ref, mode, shards=None, L=None):
+    """What a port engine's degraded ticks served against the reference
+    engine's: the same (rid, position) rows, their logits within (1e-5,
+    1e-5); in exact mode the standby's counts, and its kz/vz columns of
+    the ``shards`` it holds (of L columns each; all by default, a mesh's
+    lost rank its own shard's, which come back from the ring neighbour,
+    any other rank none) within (1e-5, 1e-5)."""
+    got = _kept_arrays(kept)
+    want = {k[len(mode) + 10:]: v for k, v in ref.items()
+            if k.startswith(f"{mode}/degraded/")}
+    assert len(got["keys"]) >= 1
+    np.testing.assert_array_equal(got["keys"], want["keys"])
+    np.testing.assert_allclose(got["rows"], want["rows"], atol=1e-5,
+                               rtol=1e-5, err_msg=f"{mode} degraded rows")
+    if mode != "exact":
+        assert kept["standby"] is None
+        return
+    np.testing.assert_array_equal(got["standby/gz"], want["standby/gz"])
+    blocks = ([slice(None)] if shards is None
+              else [slice(s * L, (s + 1) * L) for s in shards])
+    for cols in blocks:
+        assert (want["standby/gz"][:, :, cols] > 0).any()
+        for k in ("kz", "vz"):
+            np.testing.assert_allclose(
+                got[f"standby/{k}"][:, :, cols],
+                want[f"standby/{k}"][:, :, cols], atol=1e-5, rtol=1e-5,
+                err_msg=f"standby {k} {cols}")
+
+
 def jax_reference(out_path):
     """Child process: the reference's degraded step and engine on a
     (1, 4) mesh."""
@@ -162,12 +233,15 @@ def jax_reference(out_path):
             tk._flatten(cache["scan"][0], f"{mode}/step{k}", out)
             if k + 1 < STEPS:
                 tok = i32(forced[:, k])
-        # the engine under a shard loss
+        # the engine under a shard loss, what its degraded ticks served
         eng = ServingEngine(cfg, mesh, params, EngineConfig(
             hp=ServeHParams(decode_mode=mode, means_cr=CR, backend="jnp"),
             faults=FaultPlan(shard_loss=FaultSpec(at=(SHARD_AT,), shard=1)),
             **ENGINE), clock=lambda: 0.0)
+        kept = _keep_degraded(eng, lambda a: a["scan"][0])
         runs[mode] = _drive(eng, cfg.vocab_size)
+        out.update({f"{mode}/degraded/{k}": v
+                    for k, v in _kept_arrays(kept).items()})
     np.savez(out_path, runs=np.array(json.dumps(runs)), **out)
 
 
@@ -444,8 +518,10 @@ def test_engine_shard_loss_matches_reference(jax_ref, ref_params, mode):
     vocab = get_config("gpt2-small").reduced().vocab_size
     eng = _engine(ref_params, mode, _shard_loss())
     assert eng._replica is not None
+    kept = _keep_degraded(eng, _port_standby)
     got = _drive(eng, vocab)
     want = jax_ref["runs"][mode]
+    check_degraded(kept, jax_ref, mode)
     assert got[0] == want[0]
     assert got[1] == want[1]
     assert got[2] == want[2]

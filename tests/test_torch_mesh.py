@@ -161,6 +161,15 @@ def _message(fn):
     return None
 
 
+def _served(fn):
+    """("served", the words ``fn`` returns), or the (type name, message)
+    of what it raises: a call a mesh once refused, now served."""
+    try:
+        return "served", fn()
+    except (NotImplementedError, ValueError) as e:
+        return type(e).__name__, str(e)
+
+
 def _collectives(mesh):
     """Each collective over each group on rank-tagged inputs, with the
     meter's count of each call."""
@@ -185,11 +194,13 @@ def _collectives(mesh):
 
 
 def _refusals(mesh, tree):
-    """What a (1, 4) mesh refuses, each refusal's (type, message)."""
+    """What a (1, 4) mesh refuses, each refusal's (type, message), and
+    what it once refused and now serves (``_served``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.protocol import PrismConfig
     from repro_torch.runtime import serve as S
     from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.runtime.paging import make_paged_layout
     from repro_torch.serving import StreamingEngine
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.sharding.context import ShardedPrismContext
@@ -201,13 +212,57 @@ def _refusals(mesh, tree):
 
     def engine(**over):
         return ServingEngine(cfg, mp, EngineConfig(
-            n_slots=2, prefill_len=N, max_cache=64, **over))
-    out["stream"] = _message(lambda: StreamingEngine(engine()))
-    out["offload"] = _message(lambda: engine(offload=True))
-    out["chaos"] = _message(lambda: engine(faults=FaultPlan.chaos(0)))
+            n_slots=2, prefill_len=N, max_cache=64, **over),
+            clock=lambda: 0.0)
+
+    def stream():
+        seng = StreamingEngine(engine())
+        _, st = seng.submit_stream(list(range(1, 9)), max_new_tokens=2)
+        seng.run_sync()
+        return f"streamed {st.drain()} ({st.finished})"
+
+    def offload():
+        eng = engine(offload=True)
+        rid = eng.submit(list(range(1, 9)), max_new_tokens=3)
+        while not any(st.generated for st in eng._sched.active.values()):
+            eng.step()
+        eng.preempt(rid)
+        eng.run()
+        s = eng.stats
+        return f"preempted {s.preemptions}, restored {s.restore_hits}"
+
+    def chaos():
+        eng = engine(faults=FaultPlan.chaos(0))
+        for i in range(3):
+            eng.submit(list(range(1 + i, 9 + i)), max_new_tokens=3)
+        eng.run()
+        return (f"finished {len(eng.results())} + failed "
+                f"{len(eng.failed())} of 3")
+
+    def degraded():
+        # the degraded step on the rank's shard of a paged pool, shard 1
+        # lost, its standby columns zero (gz = 0)
+        paging = make_paged_layout(lay, page_tokens=16, n_pages=8,
+                                   n_slots=2)
+        cache = S.init_cache(cfg, lay, 2, hp, "cpu", paging)
+        pm = torch.arange(8, dtype=torch.int32).view(2, 4)
+        m = lay.n_seq * lay.L
+        rep = [{"kz": torch.zeros(2, m, cfg.n_kv_heads, cfg.hd),
+                "vz": torch.zeros(2, m, cfg.n_kv_heads, cfg.hd),
+                "gz": torch.zeros(2, m)} for _ in range(cfg.n_layers)]
+        tok = torch.ones(2, dtype=torch.long)
+        logits, _ = S.serve_step(cfg, mp, cache, tok, tok * 5, lay, hp,
+                                 pm, torch.arange(2, dtype=torch.int32),
+                                 lost=torch.tensor([0.0, 1.0, 0.0, 0.0]),
+                                 rep=rep)
+        logits = S.gather_logits(logits, mp)
+        return (f"finite logits {tuple(logits.shape)}: "
+                f"{bool(torch.isfinite(logits).all())}")
+    out["stream"] = _served(stream)
+    out["offload"] = _served(offload)
+    out["chaos"] = _served(chaos)
+    out["degraded"] = _served(degraded)
     one = torch.zeros(1, dtype=torch.long)
-    out["degraded"] = _message(lambda: S.serve_step(
-        cfg, mp, [], one, one, lay, hp, lost=torch.zeros(4)))
     for mode in ("prism_nodup", "duplicate", "single"):
         out[mode] = _message(lambda: ShardedPrismContext(
             PrismConfig(P=4, mode=mode), n_shards=4, mesh=mesh))
@@ -545,10 +600,11 @@ def test_nccl_refuses_two_ranks_on_one_card():
 
 
 REFUSED = {
-    "stream": ("NotImplementedError", "item 18"),
-    "offload": ("NotImplementedError", "item 18"),
-    "chaos": ("NotImplementedError", "item 18"),
-    "degraded": ("NotImplementedError", "item 18"),
+    # what a mesh once refused and now serves
+    "stream": ("served", "(length)"),
+    "offload": ("served", "preempted 1, restored 1"),
+    "chaos": ("served", "of 3"),
+    "degraded": ("served", "finite logits (2, 512): True"),
     "prism_nodup": ("NotImplementedError", "reference's mesh serves"),
     "duplicate": ("NotImplementedError", "reference's mesh serves"),
     "single": ("NotImplementedError", "reference's mesh serves"),
@@ -561,11 +617,14 @@ REFUSED = {
 @pytest.mark.parametrize("what", REFUSED)
 def test_mesh_refuses(mesh_runs, what):
     """The Table II modes and Alg. 1's uneven split on a mesh (the
-    reference's mesh has neither); the engine's streaming loop, offload
-    tier, fault injection and the degraded step; decode_tp over FSDP-cut
-    parameters; expert-TP over an expert d_ff that does not split over
-    ``data`` (reduced arctic's 87 on (2, 2)): each raises and names why,
-    or where it is to come."""
+    reference's mesh has neither); decode_tp over FSDP-cut parameters;
+    expert-TP over an expert d_ff that does not split over ``data``
+    (reduced arctic's 87 on (2, 2)): each raises and names why.  The
+    engine's streaming loop, offload tier and preemption, fault
+    injection and the degraded step, which a mesh once refused, serve:
+    a request streamed to its length, one preempted and restored, a
+    chaos run whose requests all finish or fail, the degraded step's
+    finite logits with shard 1 lost."""
     got = next(r[0]["refusals"][what] for r in mesh_runs.values()
                if what in r[0]["refusals"])
     kind, words = REFUSED[what]

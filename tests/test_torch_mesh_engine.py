@@ -28,9 +28,10 @@ every call and the packed logits.
 The port runs the same as four gloo ranks of one process each
 (``launch/mesh.py::spawn``, a deadline on every spawn), the weights cut
 by ``mesh_params`` from the reference's tree.  Each rank's tokens and
-schedule must be the reference's; a digest of every tick's plan (its
-kind, the vectors fed, the slots' requests, the page and state maps)
-must be the same on every rank; every rank's page accounting must hold;
+schedule must be the reference's; the engine's digest of the host
+decisions after every tick (``ServingEngine.trail``: the tick's kind,
+the slots' requests, the page and state maps) must be the same on every
+rank; every rank's page accounting must hold;
 each rank's cache leaves (its rows and sequence shard of the reference's
 global leaves) and the packed logits must match the reference's at
 ``test_torch_ticks.py``'s tolerances.  The port's folded one-process
@@ -40,7 +41,6 @@ The same spawns record what an engine on a mesh still refuses.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import json
 import os
 import subprocess
@@ -55,7 +55,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 import test_torch_engine as E  # noqa: E402
 import test_torch_ticks as K  # noqa: E402
-from test_torch_mesh import _message  # noqa: E402
+from test_torch_mesh import _message, _served  # noqa: E402
 
 CR = E.CR
 SHAPES = ((1, 4), (2, 2))
@@ -157,36 +157,14 @@ def _shape_key(shape):
 # what each rank runs
 # --------------------------------------------------------------------------
 
-def _record_plans(eng):
-    """Wrap the engine's tick calls to keep a digest of each one's plan:
-    its kind, the vectors it feeds, the slots' requests and, paged, the
-    page and state maps -> the list the digests go to."""
-    plans = []
-
-    def wrap(name):
-        call = getattr(eng, name)
-
-        def recorded(*vectors):
-            kv = eng.kv_cache
-            maps = ((kv.page_map(eng.n_slots), kv.state_map(eng.n_slots))
-                    if kv.paged else ())
-            h = hashlib.sha256(name.encode())
-            for a in (*vectors, *maps):
-                h.update(np.ascontiguousarray(a, np.int64).tobytes())
-            h.update(repr(sorted((s, st.req.rid) for s, st in
-                                 eng._sched.active.items())).encode())
-            plans.append(h.hexdigest())
-            return call(*vectors)
-        setattr(eng, name, recorded)
-    for name in ("_packed", "_decode", "_chunk"):
-        wrap(name)
-    return plans
-
-
 def _refusals(mp):
-    """What an engine on a (1, 4) mesh still refuses (the streaming loop,
+    """What an engine on a (1, 4) mesh still refuses (decode_tp in the
+    tick programs), and what it once refused and now serves
+    (``_served``): the padded flush, gang admission, a snapshot and its
+    restore, the cache's moves to and from the host (the streaming loop,
     offload and chaos: ``test_torch_mesh.py``)."""
     from repro_torch.configs import get_config
+    from repro_torch.runtime.offload import KVStore
     from repro_torch.runtime.serve import ServeHParams
     from repro_torch.serving import EngineConfig, ServingEngine
     cfg = config(get_config, "gpt2-small")
@@ -200,13 +178,34 @@ def _refusals(mp):
         eng.submit(list(range(1, 9)), max_new_tokens=2)
         eng.step()
         return eng
+
+    def finished(eng):
+        out = busy(eng).run()
+        return f"finished {len(out)} with {sum(map(len, out.values()))} tokens"
     eng = busy(engine())
-    return {"padded": _message(lambda: engine(prefill_mode="padded")),
-            "gang": _message(lambda: engine(gang=True)),
-            "snapshot": _message(eng.snapshot),
-            "restore": _message(lambda: engine().restore(None)),
-            "spill": _message(lambda: eng.kv_cache.spill(0, 0, None)),
-            "extract_slot": _message(lambda: eng.kv_cache.extract_slot(0)),
+    snap = eng.snapshot()
+    want = eng.run()
+
+    def restore():
+        fresh = engine()
+        fresh.restore(snap)
+        return f"restored, tokens equal: {fresh.run() == want}"
+
+    def spill():
+        e, store = busy(engine()), KVStore()
+        n = e.kv_cache.spill(0, 0, store)
+        return f"spilled {n} pages, {store.bytes_used} bytes"
+
+    def extract():
+        payload = busy(engine()).kv_cache.extract_slot(0)
+        return f"the rank's shard: k {tuple(payload[0]['k'].shape)}"
+    return {"padded": _served(lambda: finished(engine(prefill_mode="padded"))),
+            "gang": _served(lambda: finished(engine(gang=True))),
+            "snapshot": _served(lambda: f"{len(snap.active)} live slot, "
+                                        f"cut on {snap.mesh[0]}"),
+            "restore": _served(restore),
+            "spill": _served(spill),
+            "extract_slot": _served(extract),
             "decode_tp": _message(lambda: busy(engine(
                 hp=ServeHParams(decode_tp=True))))}
 
@@ -247,7 +246,7 @@ def _ticks(mesh, tree):
 
 def _rank_main(mesh, trees):
     """One rank: every engine cell of its mesh shape (its tokens,
-    schedule, plan digests, the shape of its cache, the page accounting
+    schedule, digest of host decisions, the shape of its cache, the page accounting
     checked), the tick programs and, on (1, 4), the refusals."""
     torch.set_num_threads(1)
     from repro_torch.configs import get_config
@@ -263,11 +262,14 @@ def _rank_main(mesh, trees):
         eng = ServingEngine(cfg, mps[arch], _engine_config(
             EngineConfig, ServeHParams, trace, mode, pre, paged),
             clock=lambda: 0.0)
-        plans = _record_plans(eng)
         tokens, schedule = E._drive(eng, trace, cfg.vocab_size)
+        st = eng.stats
         if paged:
             eng.kv_cache.check()
-        res[cell] = {"tokens": tokens, "schedule": schedule, "plans": plans,
+        res[cell] = {"tokens": tokens, "schedule": schedule,
+                     "trail": eng.trail,
+                     "ticks": st.packed_ticks + st.decode_steps
+                     + st.prefills,
                      "n_seq": eng.layout.n_seq,
                      "k_shape": tuple(eng.kv_cache.storage[0]["k"].shape)}
     res["ticks"] = _ticks(mesh, trees["gpt2-small"])
@@ -387,14 +389,15 @@ def test_engine_matches_reference(runs, cell):
 
 @pytest.mark.parametrize("cell", list(CELLS))
 def test_plans_agree_on_every_rank(runs, cell):
-    """A digest of every tick's plan (kind, vectors fed, the slots'
-    requests, page and state maps) is the same on every rank: the SPMD
+    """The engine's digest of the host decisions after every tick
+    (``ServingEngine.trail``: the tick's kind, the slots' requests, page
+    and state maps, the counters) is the same on every rank: the SPMD
     engine never lets two ranks enter different collectives."""
     _, ranks, _ = runs
     shape = CELLS[cell][1]
-    plans = [r[cell]["plans"] for r in ranks[shape]]
-    assert len(plans[0]) > 4
-    assert all(p == plans[0] for p in plans[1:])
+    got = [r[cell] for r in ranks[shape]]
+    assert got[0]["ticks"] > 4 and len(got[0]["trail"]) == 32
+    assert all(g["trail"] == got[0]["trail"] for g in got[1:])
 
 
 @pytest.mark.parametrize("cell", list(CELLS))
@@ -456,22 +459,28 @@ def test_packed_logits_match_reference(runs, shape):
 
 
 REFUSED = {
-    "padded": ("NotImplementedError", "item 18"),
-    "gang": ("NotImplementedError", "item 18"),
-    "snapshot": ("NotImplementedError", "item 18"),
-    "restore": ("NotImplementedError", "item 18"),
-    "spill": ("NotImplementedError", "item 18"),
-    "extract_slot": ("NotImplementedError", "item 18"),
+    # what a mesh once refused and now serves
+    "padded": ("served", "finished 1 with 2 tokens"),
+    "gang": ("served", "finished 1 with 2 tokens"),
+    "snapshot": ("served", "1 live slot, cut on (1, 4)"),
+    "restore": ("served", "tokens equal: True"),
+    # one page, 4 columns on the rank's shard (16 positions over 4
+    # ranks); the store counts the whole payload's bytes, every shard's:
+    # 2 layers x (k, v) x 4 shards x 4 columns x 4 heads x 32 x 4 bytes
+    "spill": ("served", "spilled 1 pages, 32768 bytes"),
+    "extract_slot": ("served", "k (1, 1, 4, 4, 32)"),
     "decode_tp": ("ValueError", "decode_tp"),
 }
 
 
 @pytest.mark.parametrize("what", REFUSED)
 def test_engine_on_a_mesh_refuses(runs, what):
-    """The padded flush, gang admission, snapshots and the cache's moves
-    to and from the host raise on a mesh and name ROADMAP's item; the
-    tick programs refuse decode_tp, as the reference's packed step
-    does."""
+    """The tick programs refuse decode_tp on a mesh, as the reference's
+    packed step does.  What a mesh once refused serves: the padded flush
+    and gang admission finish a request, a snapshot is cut on the rank
+    and restores into a fresh engine with the uninterrupted tokens, and
+    the cache spills and extracts the rank's shard of a slot's
+    pages."""
     _, ranks, _ = runs
     got = ranks[(1, 4)][0]["refusals"][what]
     kind, words = REFUSED[what]
@@ -481,9 +490,11 @@ def test_engine_on_a_mesh_refuses(runs, what):
 
 def test_launcher_engine_over_a_mesh(capsys):
     """``launch.serve --engine --mesh 1x4 --backend gloo``: every rank's
-    tokens equal (the launcher checks them), rank 0's stats and each
-    rank's meter printed; what the engine does not serve over a mesh yet
-    is refused before any rank starts, naming ROADMAP's item."""
+    host decisions and tokens equal (the launcher checks them), rank 0's
+    stats and robustness counters and each rank's meter printed; the
+    robustness flags serve over the mesh too: the streaming loop,
+    offload with two priority classes, a chaos run and a lost shard
+    (each audited for leaks), gang admission and the padded flush."""
     from repro_torch.launch.serve import main
     argv = ["--reduced", "--engine", "--device", "cpu", "--requests", "4",
             "--rate", "50", "--batch", "4", "--prompt-len", "32", "--gen",
@@ -495,11 +506,17 @@ def test_launcher_engine_over_a_mesh(capsys):
     stats = dict(line.split()[1:3] for line in out.splitlines()
                  if line.startswith("[engine] ") and len(line.split()) == 3)
     assert stats["requests"] == "4" and stats["failed_requests"] == "0"
-    for flag in (["--stream"], ["--offload"], ["--chaos", "0"], ["--gang"],
-                 ["--prefill-mode", "padded"]):
-        with pytest.raises(SystemExit):
-            main(argv + flag)
-        assert "item 18" in capsys.readouterr().err
+    for flag, words in ((["--stream"], "[stream] 4 streams closed"),
+                        (["--offload", "--priority", "2", "--n-pages", "18"],
+                         "[robust] rank 0: preemptions"),
+                        (["--chaos", "0"], "[chaos] zero-leak audits OK"),
+                        (["--shard-loss", "1", "--shard-loss-at", "4"],
+                         "[degraded] shard_lost 1"),
+                        (["--gang"], "gang (static) admission"),
+                        (["--prefill-mode", "padded"], "padded prefill")):
+        main(argv + flag)
+        out = capsys.readouterr().out
+        assert "every rank's tokens equal" in out and words in out, flag
 
 
 if __name__ == "__main__":

@@ -410,11 +410,12 @@ def jax_reference(out_path):
     out = {}
     _flatten(jax.tree.map(np.asarray, params), "params", out)
     hp = ServeHParams(decode_mode="exact", means_cr=CR, backend="jnp")
-    ref["engine"] = {}
+    ref["engine"], ref["engine_store"] = {}, {}
     for run in RUNS:
         eng = ServingEngine(cfg, mesh, params, EngineConfig(
             hp=hp, **_config_kw(run)), clock=lambda: 0.0)
         ref["engine"][run] = drive(eng, run, cfg.vocab_size)
+        ref["engine_store"][run] = eng.kv_store.stats()
         eng.kv_cache.check()
     np.savez(out_path, ref=np.array(json.dumps(ref)), **out)
 
