@@ -393,16 +393,15 @@ Phases, one JSON line each:
             from torch.Generator seed 0, cut to its shards; the FSDP
             layers gathered as they are reached), every run at B 8, CR 4,
             cap prompt + 64.  (a) GPT-2 small at full width and depth on
-            a (1, 4) mesh: prompt 512, P 4 (L 32), 16 decode steps,
-            voltage + exact, prism + prism and voltage + prism; (b) the
-            same on a (2, 2) mesh, 4 sequences a data rank, P 2, prism +
-            prism, 8 steps; (c) Yi-6B at full width on its first 8
-            layers (``STATIC_DEPTH``) on a (1, 4) mesh with
+            a (1, 4) mesh: prompt 512, P 4 (L 32), ``MESH_STEPS`` (3)
+            decode steps, voltage + exact, prism + prism and voltage +
+            prism; (b) the same on a (2, 2) mesh, 4 sequences a data
+            rank, P 2, prism + prism; (c) Yi-6B at full width on its
+            first 8 layers (``STATIC_DEPTH``) on a (1, 4) mesh with
             ``decode_tp``: attention TP over 32 heads, FFN TP over
             11,008, the vocab-parallel embedding and head over 64,000
-            rows, prism prefill, exact decode, 8 steps.  Then at full
-            width, ``MESH_STEPS`` (4) steps each: (d) OLMoE-1B-7B's
-            first 4 layers on (1, 4), prism + prism: 16 experts a
+            rows, prism prefill, exact decode.  Then at full width: (d)
+            OLMoE-1B-7B's first 4 layers on (1, 4), prism + prism: 16 experts a
             rank, the dispatch and return an all_to_all pair over
             ``model``; (e) the same on (2, 2)
             with ``decode_tp``, prism + exact: expert-TP, each expert's
@@ -442,7 +441,15 @@ Phases, one JSON line each:
             ms and decode ms a token (CUDA events on the rank's stream),
             marked as 4 gloo ranks on one card: not a multi-card time;
             then each rank's host-clock ms of one collective of a GPT-2
-            decode step's (a layer's FSDP gather, a combine psum).
+            decode step's (a layer's FSDP gather, a combine psum).  Runs
+            (j) and (k), the engine and its robustness layers over the
+            ranks, are set out at their constants; (l), the train step
+            over the ranks (``make_train_step(..., mesh=)``), at
+            ``MESH_TRAIN_SHAPES``: GPT-2's first 4 layers on (1, 4) and
+            (2, 2), each rank held to the one-card step, its bytes a
+            step by class equal to ``train_step_bytes``, ms a step and
+            peak memory printed, and the (1, 4) run's checkpoint served
+            through the three kernels.
    total    the script's seconds so far.
 21. kernels one line listing every kernel with its numbers: ``ms`` is
             the kernel's time and ``max_abs_err`` its largest error
@@ -4259,9 +4266,9 @@ TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
 
 # the engine runs of phase 9: packed exact and packed prism
 LLAMA_ENGINE_RUNS = (("packed", "exact"), ("packed", "prism"))
-# phases 9, 11, 12 and 15's tick and engine paths serve the first 2
-# layers of Yi-6B (of 32), OLMoE-1B-7B (of 16), Gemma 7B (of 28) and
-# Command-R (of 40); widths full.  At 8 the whole script with phase 19
+# phases 9, 11, 12 and 15's tick and engine paths serve the first
+# TICK_DEPTH layers of Yi-6B (of 32), OLMoE-1B-7B (of 16), Gemma 7B (of
+# 28) and Command-R (of 40); widths full.  At 8 the whole script with phase 19
 # took 1,289 s of its 1,200 s limit on a slow host (PERF.md §4); at 4,
 # with phase 20's run (k), 1,095.8 s on an H100 (phases 9, 11, 12, 15
 # 54.0, 84.8, 60.7, 68.4 s; PERF.md §4), 15.8 s over its 1,080 s target;
@@ -5028,8 +5035,11 @@ def drive_train(torch):
 # (k), (a) decodes ``MESH_STEPS`` too: at 8 its three pairings took
 # 4.2-4.5 s of decode a rank on an H100, and with this cut and (k)'s
 # trace cut to 4 requests the script still took 1,095.8 s, over its
-# 1,080 s target (PERF.md §4)
-MESH_STEPS = 4
+# 1,080 s target (PERF.md §4).  With run (l), the train step over the
+# ranks, the script's estimate on the slowest host seen was 1,091 s, so
+# 4 -> 3: one decode step of (a)-(i) took 11.8 s of rank time (PERF.md
+# §4)
+MESH_STEPS = 3
 MESH_RUNS = (
     ("gpt2-1x4", ARCH, (1, 4), MESH_STEPS, GEMMA_PAIRINGS, False, None,
      PROMPT),
@@ -5830,14 +5840,17 @@ def replay_log(torch, calls, index, device):
 
 
 def mesh_rank_run(mesh, runs, fold_path, engine_runs=MESH_ENGINE_RUNS,
-                  robust_runs=MESH_ROBUST_RUNS):
+                  robust_runs=MESH_ROBUST_RUNS, train_path=None,
+                  ckpt_dir=None):
     """One rank of phase 20: every run through ``mesh_rank``, the (2, 2)
     runs on one mesh of the same ranks, each teacher-forced on the fold's
     tokens and held to its logits (a MoE run replaying the fold's
     routing, ``replay_check``; a recurrent model's to the float64
     witness) -> per run its error and limit, tokens checked, launches,
     meter, times and where its tensors live; then run (j)'s engine runs
-    (``mesh_engine_rank``) and run (k)'s (``mesh_robust_rank``)."""
+    (``mesh_engine_rank``), run (k)'s (``mesh_robust_rank``) and run
+    (l)'s train steps (``mesh_train_rank``, its folds in
+    ``train_path``, the (1, 4) checkpoint written to ``ckpt_dir``)."""
     import torch
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.mesh import Mesh
@@ -5916,6 +5929,17 @@ def mesh_rank_run(mesh, runs, fold_path, engine_runs=MESH_ENGINE_RUNS,
         out[f"robust-{name}"] = mesh_robust_rank(torch, meshes, shape, mode,
                                                  drive)
         torch.cuda.empty_cache()
+    if train_path is not None:
+        train_folds = torch.load(train_path, weights_only=False)
+        for shape in MESH_TRAIN_SHAPES:
+            if shape not in meshes:
+                meshes[shape] = Mesh(shape, backend=mesh.backend,
+                                     device="cuda")
+            out[mesh_train_key(shape)] = mesh_train_rank(
+                torch, meshes[shape], shape, train_folds[shape],
+                ckpt_dir if shape == (1, 4) else None)
+            torch.cuda.empty_cache()
+        del train_folds
     out["collectives"] = time_collectives(torch, mesh)
     return out
 
@@ -5962,6 +5986,332 @@ def mesh_bytes(cfg, run, shape, pairing, tp, prompt, steps):
     return out
 
 
+# run (l): the train step over the ranks, GPT-2 small at full width on its
+# first ``MESH_ENGINE_DEPTH`` layers (run (j)'s, for the time limit): B 8 x
+# 512 from the synthetic corpus (the launcher's batches), prism at CR 4,
+# ``MESH_TRAIN_STEPS`` steps with the reference launcher's
+# hyper-parameters (lr 3e-4, warm-up 1 step, the cosine over 3), on (1,
+# 4) (P 4) and on (2, 2) (P 2, 4 sequences a data rank).  Each rank is
+# held to its fold, the one-card ``make_train_step`` at the same P over
+# the whole batch from the same weights: each step's loss within
+# ``MESH_TRAIN_LOSS_TOL`` of it (relative), gnorm within
+# ``MESH_TRAIN_GNORM_TOL``; the first step's gradient (m / 0.1, gathered
+# whole) and m and v after the last step within ``MESH_TRAIN_TREE_TOL``
+# of each leaf's largest |value| (updated parameters are not compared
+# elementwise: where a gradient is near 0, f32 noise can flip the sign of
+# Adam's first update).  Its bytes a step by class must equal
+# ``train_step_bytes``.  The (1, 4) run's checkpoint is then served on
+# one card (``launch.serve.setup(..., checkpoint=)``), prism prefill and
+# prism decode for ``MESH_TRAIN_GEN`` tokens through the three kernels,
+# held to the ``backend="plain"`` path within ``PATH_REL_TOL``
+MESH_TRAIN_SHAPES = ((1, 4), (2, 2))
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_LR = 3e-4
+MESH_TRAIN_LOSS_TOL = 1e-5
+MESH_TRAIN_GNORM_TOL = 1e-4
+MESH_TRAIN_TREE_TOL = 1e-4
+MESH_TRAIN_GEN = 8
+# the classes a train step's bytes are predicted in
+MESH_TRAIN_CLASSES = ("param_gather", "grad", "exchange", "tp")
+
+
+def mesh_train_key(shape) -> str:
+    return f"train-{shape[0]}x{shape[1]}"
+
+
+def mesh_train_setup(shape, **kw):
+    """``launch.train.setup``'s run of (l) at ``shape``: one card (the
+    fold, at P = the model size) or a rank (``mesh=``)."""
+    from repro_torch.launch import train as TL
+    return TL.setup(ARCH, seq_shards=shape[1], mode="prism", cr=CR,
+                    lr=MESH_TRAIN_LR, steps=MESH_TRAIN_STEPS, seed=0,
+                    n_layers=MESH_ENGINE_DEPTH, **kw)
+
+
+def train_step_bytes(cfg, params, shape, batch, seq, prism, hp) -> dict:
+    """The bytes a rank of a (data, model) mesh of ``shape`` sends in one
+    train step, by class, exactly, from the rules: for an attention-only
+    decoder with a tied table and learned or rotary positions.  Per
+    layer, the FSDP gather of its leaves (``gather_tree``: one gather
+    over ``data`` of the leaves it cuts, one over ``model`` of the
+    ``fsdp2d`` ones), twice under remat (``param_gather``), and its
+    reduce-scatter in the backward (``grad``); the exchange's gather of
+    the means (PRISM) or rows (Voltage), twice under remat, and its
+    reduce-scatter (``grad``).  A vocab-sharded table: the token ids'
+    gather (int64) and the lookup's psum_scatter (``tp``), whose
+    backward gathers (``grad``); each loss chunk's activation and label
+    gathers and its three psums (``tp``; the activations' reduce-scatter
+    and two psums in the backward, ``grad``).  The metrics' psum of two
+    f32 (``tp``), ``GradReduce``'s psum of each axis set's leaves and the
+    clip's norm psum (``grad``), and after AdamW each axis's gather of
+    the slices its m/v cut further (``param_gather``).  A gather of s
+    bytes over n ranks sends (n - 1)·s, a psum 2·(n - 1)·s / n, a
+    reduce-scatter of s (n - 1)·s / n."""
+    import math
+    from repro_torch.models.transformer import layer_blocks
+    from repro_torch.sharding.rules import (GradReduce, opt_state_specs,
+                                            param_specs, tree_paths)
+    if set(cfg.block_kinds) != {"attn"} or not cfg.tie_embeddings \
+            or cfg.pos not in ("learned", "rope"):
+        raise ValueError(f"{cfg.name}: train_step_bytes counts tied "
+                         "attention decoders only")
+    axes = dict(zip(("data", "model"), shape))
+    data, model = shape
+    world = data * model
+    rules = param_specs(params, axes, cfg.vocab_size)
+    b, n, d = batch // data, seq // model, cfg.d_model
+    out = dict.fromkeys(MESH_TRAIN_CLASSES, 0)
+
+    def gather(ranks, nbytes):
+        return (ranks - 1) * nbytes
+
+    def psum(ranks, nbytes):
+        return 2 * (ranks - 1) * nbytes // ranks
+
+    def local(t, rule):
+        return t.numel() // math.prod(axes[a] for a in rule.spec if a)
+
+    def tree_gather(p, r):
+        rs, ps = dict(tree_paths(r)), dict(tree_paths(p))
+        s_data = sum(local(ps[k], rs[k]) for k in rs
+                     if rs[k].gather_dim is not None)
+        s_model = sum(local(ps[k], rs[k]) * data for k in rs
+                      if isinstance(rs[k].gather_dim, tuple))
+        return gather(data, 4 * s_data) + gather(model, 4 * s_model)
+    remat = 2 if hp.remat else 1
+    exchange = gather(model, 4 * b * d * (
+        prism.with_(P=model).landmarks(seq) if prism.mode == "prism"
+        else n))
+    for (_, p), (_, r) in zip(layer_blocks(cfg, params),
+                              layer_blocks(cfg, rules)):
+        g = tree_gather(p, r)
+        out["param_gather"] += remat * g
+        out["grad"] += g + exchange
+        out["exchange"] += remat * exchange
+    if cfg.pos == "learned":
+        g = tree_gather(params["pos_embed"], rules["pos_embed"])
+        out["param_gather"] += g
+        out["grad"] += g
+    if rules["embed"]["table"].kind == "vocab":
+        out["tp"] += gather(model, 8 * b * n) + gather(model, 4 * b * n * d)
+        out["grad"] += gather(model, 4 * b * n * d)
+        chunks = min(hp.loss_chunks, n)
+        while n % chunks:
+            chunks -= 1
+        c = n // chunks
+        out["tp"] += chunks * (gather(model, 4 * b * c * d)
+                               + gather(model, 8 * b * c)
+                               + 3 * psum(model, 4 * b * model * c))
+        out["grad"] += chunks * (gather(model, 4 * b * c * d)
+                                 + 2 * psum(model, 4 * b * model * c))
+    out["tp"] += psum(world, 8)
+    red = dict(tree_paths(GradReduce.axes(rules, axes)))
+    sizes = {path: local(t, r) for (path, t), (_, r) in zip(
+        tree_paths(params), tree_paths(rules))}
+    for key in set(red.values()):
+        if key:
+            out["grad"] += psum(math.prod(axes[a] for a in key), 4 * sum(
+                s for path, s in sizes.items() if red[path] == key))
+    out["grad"] += psum(world, 4)
+    specs = dict(tree_paths(opt_state_specs(rules, params, axes,
+                                            cfg.scan_split)))
+    rule_of = dict(tree_paths(rules))
+    for ax in axes:
+        # a leaf's m/v cut over ``ax`` where its parameter is not
+        cut = [path for path, s in specs.items()
+               if ax in s and ax not in rule_of[path].spec]
+        out["param_gather"] += gather(axes[ax], 4 * sum(
+            sizes[path] // axes[ax] for path in cut))
+    return out
+
+
+def mesh_train_fold(torch, shape):
+    """The fold of (l) at ``shape``: the one-card step at P = the model
+    size over the whole batch, on the card -> its metrics a step, the
+    first step's gradient (m / 0.1) and m and v after the last step, on
+    the host, and the bytes a rank must send a step
+    (``train_step_bytes``)."""
+    from repro_torch.launch import train as TL
+    from repro_torch.optim.adamw import tree_map
+    run = mesh_train_setup(shape, device="cuda")
+    want = train_step_bytes(run.cfg, run.params, shape, BATCH, PROMPT,
+                            run.prism, run.hp)
+    batches = TL.corpus_batches(BATCH, PROMPT)
+    out = {"hist": [], "bytes": want}
+    for i in range(MESH_TRAIN_STEPS):
+        x, y = next(batches)
+        run.params, run.opt, m = run.step(run.params, run.opt,
+                                          {"tokens": x, "labels": y})
+        out["hist"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            out["grad"] = tree_map(lambda t: (t / 0.1).cpu(), run.opt["m"])
+    out["m"] = tree_map(lambda t: t.cpu(), run.opt["m"])
+    out["v"] = tree_map(lambda t: t.cpu(), run.opt["v"])
+    return out
+
+
+def tree_rel(got, want):
+    """The largest error over the leaves of two port trees, each leaf's
+    over max(1e-6, its largest |want|), and the leaf it is at; ``got``
+    on the card, ``want`` on the host."""
+    from repro_torch.sharding.rules import tree_paths
+    w = dict(tree_paths(want))
+    worst, at = 0.0, None
+    for path, t in tree_paths(got):
+        ref = w[path].to(t.device)
+        err = float((t - ref).abs().max()) / max(1e-6, float(
+            ref.abs().max()))
+        if err > worst:
+            worst, at = err, path
+    return worst, at
+
+
+def mesh_train_rank(torch, mesh, shape, fold, ckpt_dir):
+    """One rank of (l) at ``shape``: ``launch.train.setup``'s run on the
+    rank's block, ``MESH_TRAIN_STEPS`` steps of the launcher's batches,
+    each timed (CUDA events, the card synchronised) and metered; the
+    first step's gradient and the last step's m and v gathered whole and
+    held to the fold's; the (1, 4) run's checkpoint saved (rank 0
+    writes) -> metrics, bytes and ms a step, peak memory, errors, where
+    the tensors live, the launches, and the whole parameters' leaf sums
+    after the last step."""
+    import time
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch import train as TL
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.runtime.train import gather_train_state
+    from repro_torch.sharding.rules import tree_paths
+    t0 = time.perf_counter()
+    run = mesh_train_setup(shape, mesh=mesh)
+    layout = run.step.layout
+    batches = TL.corpus_batches(BATCH, PROMPT)
+    out = {"hist": [], "sent": [], "ms": [], "coords": mesh.coords}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    LAUNCHES.clear()
+    for i in range(MESH_TRAIN_STEPS):
+        x, y = next(batches)
+        mesh.meter.reset()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        run.params, run.opt, m = run.step(run.params, run.opt,
+                                          {"tokens": x, "labels": y})
+        ev[1].record()
+        torch.cuda.synchronize()
+        out["ms"].append(ev[0].elapsed_time(ev[1]))
+        out["sent"].append({k: mesh.meter.sent[k]
+                            for k in MESH_TRAIN_CLASSES})
+        out["hist"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            _, whole = gather_train_state(layout, run.params, run.opt)
+            out["grad_err"] = tree_rel(tree_map(lambda t: t / 0.1,
+                                                whole["m"]), fold["grad"])
+            del whole
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(mesh.device)
+    out["launches"] = dict(LAUNCHES)
+    params, opt = gather_train_state(layout, run.params, run.opt)
+    out["m_err"] = tree_rel(opt["m"], fold["m"])
+    out["v_err"] = tree_rel(opt["v"], fold["v"])
+    out["sums"] = {k: float(t.double().sum()) for k, t in tree_paths(params)}
+    out["devices"] = sorted({str(t.device) for tree in (run.params,
+                             run.opt["m"], run.opt["v"])
+                             for _, t in tree_paths(tree)})
+    if ckpt_dir is not None:
+        TL.save(run, ckpt_dir, MESH_TRAIN_STEPS)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_mesh_train(shape, runs, fold, card):
+    """(l)'s checks on every rank of ``shape`` (see its constants) and its
+    ``path`` line: bytes and ms a step, peak memory a rank."""
+    key = mesh_train_key(shape)
+    for rank, r in enumerate(runs):
+        if r["devices"] != ["cuda:0"]:
+            raise AssertionError(f"mesh/{key} rank {rank}: tensors on "
+                                 f"{r['devices']}")
+        if any(r["launches"].values()):
+            raise AssertionError(f"mesh/{key} rank {rank}: launched "
+                                 f"{r['launches']}, the step holds no "
+                                 "kernel")
+        for i, (h, f) in enumerate(zip(r["hist"], fold["hist"])):
+            if h != runs[0]["hist"][i]:
+                raise AssertionError(f"mesh/{key} step {i}: rank {rank}'s "
+                                     f"metrics {h} differ from rank 0's")
+            loss = abs(h["loss"] / f["loss"] - 1)
+            gnorm = abs(h["gnorm"] / f["gnorm"] - 1)
+            if loss > MESH_TRAIN_LOSS_TOL or gnorm > MESH_TRAIN_GNORM_TOL \
+                    or h["lr"] != f["lr"] or h["moe_aux"] != 0.0:
+                raise AssertionError(
+                    f"mesh/{key} rank {rank} step {i}: {h} against the "
+                    f"fold's {f} (loss {loss:.3e}, gnorm {gnorm:.3e})")
+            if r["sent"][i] != fold["bytes"]:
+                raise AssertionError(f"mesh/{key} rank {rank} step {i}: "
+                                     f"bytes {r['sent'][i]}, the rules' "
+                                     f"{fold['bytes']}")
+        for name in ("grad_err", "m_err", "v_err"):
+            if r[name][0] > MESH_TRAIN_TREE_TOL:
+                raise AssertionError(
+                    f"mesh/{key} rank {rank}: {name} {r[name][0]:.3e} at "
+                    f"{r[name][1]} (limit {MESH_TRAIN_TREE_TOL})")
+    emit("path", name=f"mesh/{key}", arch=ARCH, mesh=list(shape),
+         layers=MESH_ENGINE_DEPTH, batch=BATCH, seq=PROMPT, cr=CR,
+         mode="prism", steps=MESH_TRAIN_STEPS, lr=MESH_TRAIN_LR,
+         loss=[h["loss"] for h in runs[0]["hist"]],
+         fold_loss=[f["loss"] for f in fold["hist"]],
+         gnorm=[h["gnorm"] for h in runs[0]["hist"]],
+         fold_gnorm=[f["gnorm"] for f in fold["hist"]],
+         grad_err=[r["grad_err"][0] for r in runs],
+         m_err=[r["m_err"][0] for r in runs],
+         v_err=[r["v_err"][0] for r in runs], tol=MESH_TRAIN_TREE_TOL,
+         bytes_per_step=[r["sent"] for r in runs],
+         predicted_bytes=fold["bytes"], ms_per_step=[r["ms"] for r in runs],
+         peak_memory_bytes=[r["peak_memory_bytes"] for r in runs],
+         wall_s=[r["wall_s"] for r in runs], clock="cuda_events",
+         launches=[r["launches"] for r in runs], note=MESH_NOTE,
+         nvidia_smi=card)
+
+
+def serve_trained(torch, ckpt_dir, sums, card):
+    """(l)'s last step: the (1, 4) run's checkpoint served on one card
+    (``setup(..., checkpoint=)``), its parameters equal to the ranks'
+    (each leaf's sum), prism prefill and prism decode through the three
+    kernels, held to the ``backend="plain"`` path teacher-forced on its
+    tokens.  Returns the launches."""
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.serve import setup
+    from repro_torch.sharding.rules import tree_paths
+    run = setup(ARCH, batch=BATCH, prompt_len=PROMPT, gen=MESH_TRAIN_GEN,
+                seq_shards=SHARDS, decode_mode="prism", prefill="prism",
+                cr=CR, n_layers=MESH_ENGINE_DEPTH, checkpoint=ckpt_dir)
+    got = {k: float(t.double().sum()) for k, t in tree_paths(run.params)}
+    if got != sums:
+        raise AssertionError("mesh/train-serve: the restored parameters "
+                             "differ from the ranks' trained ones")
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    tokens, logits, times = run.run()
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    _, want, _ = replace(run, hp=replace(run.hp, backend="plain")).run(
+        forced=tokens[:, :-1])
+    err = rel_err(logits, want)
+    missing = [k for k in TOL if not counts.get(k)]
+    if missing or err > PATH_REL_TOL or not torch.isfinite(logits).all():
+        raise AssertionError(f"mesh/train-serve: logits {err:.3e} from "
+                             f"backend='plain' (limit {PATH_REL_TOL}); "
+                             f"{missing} never launched")
+    emit("path", name="mesh/train-serve", arch=ARCH,
+         layers=MESH_ENGINE_DEPTH, batch=BATCH, prompt=PROMPT,
+         gen=MESH_TRAIN_GEN, shards=SHARDS, pairing="prism-prism",
+         checkpoint_step=MESH_TRAIN_STEPS, rel_err=err, limit=PATH_REL_TOL,
+         prefill_ms=times["prefill_ms"],
+         decode_ms_per_token=times["decode_ms_per_token"],
+         clock=times["clock"], launches=counts, nvidia_smi=card)
+    return counts
+
+
 def drive_mesh(torch):
     """Phase 20: the mesh runs against their folds (see the module
     docstring).  Returns the launches of each run, summed over the
@@ -5972,7 +6322,7 @@ def drive_mesh(torch):
     from repro_torch.launch.mesh import MESH_TIMEOUT, spawn
     t0 = time.perf_counter()
     card = nvidia_smi()
-    folds = {}
+    folds, by_path = {}, {}
     for name, arch, shape, steps, pairings, tp, depth, prompt in MESH_RUNS:
         for pairing in pairings:
             folds[f"{name}/{pairing[0]}-{pairing[1]}"] = mesh_fold(
@@ -5989,15 +6339,35 @@ def drive_mesh(torch):
         robust_folds[name] = mesh_robust_fold(torch, shape, mode, drive)
         torch.cuda.empty_cache()
     t_robust = time.perf_counter() - t_robust
+    t_train = time.perf_counter()
+    train_folds = {}
+    for shape in MESH_TRAIN_SHAPES:
+        train_folds[shape] = mesh_train_fold(torch, shape)
+        torch.cuda.empty_cache()
+    t_train = time.perf_counter() - t_train
     t_fold = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         fold_path = os.path.join(tmp, "folds.pt")
         torch.save(folds, fold_path)
+        train_path = os.path.join(tmp, "train_folds.pt")
+        torch.save(train_folds, train_path)
+        ckpt_dir = os.path.join(tmp, "ckpt")
         t1 = time.perf_counter()
         ranks = spawn(mesh_rank_run, 1, 4, backend="gloo", device="cuda",
-                      timeout=MESH_TIMEOUT, args=(MESH_RUNS, fold_path))
+                      timeout=MESH_TIMEOUT,
+                      args=(MESH_RUNS, fold_path, MESH_ENGINE_RUNS,
+                            MESH_ROBUST_RUNS, train_path, ckpt_dir))
         t_ranks = time.perf_counter() - t1
-    by_path = {}
+        for shape in MESH_TRAIN_SHAPES:
+            check_mesh_train(shape, [r[mesh_train_key(shape)]
+                                     for r in ranks],
+                             train_folds[shape], card)
+            by_path[f"mesh/{mesh_train_key(shape)}"] = {}
+        del train_folds
+        t_serve = time.perf_counter()
+        by_path["mesh/train-serve"] = serve_trained(
+            torch, ckpt_dir, ranks[0][mesh_train_key((1, 4))]["sums"], card)
+        t_serve = time.perf_counter() - t_serve
     for name, arch, shape, steps, pairings, tp, depth, prompt in MESH_RUNS:
         cfg = get_config(arch)
         if depth:
@@ -6073,9 +6443,13 @@ def drive_mesh(torch):
             shape, mode, drive, card)
     robust_wall = sum(max(r[f"robust-{name}"]["wall_s"] for r in ranks)
                       for name, _, _, _ in MESH_ROBUST_RUNS)
+    train_wall = sum(max(r[mesh_train_key(shape)]["wall_s"] for r in ranks)
+                     for shape in MESH_TRAIN_SHAPES)
     emit("phase", name="mesh", seconds=time.perf_counter() - t0,
          fold_seconds=t_fold, ranks_seconds=t_ranks,
          robust_fold_seconds=t_robust, robust_rank_seconds=robust_wall,
+         train_fold_seconds=t_train, train_rank_seconds=train_wall,
+         train_serve_seconds=t_serve,
          backend="gloo",
          ranks=4, device="cuda:0", collectives=MESH_COLLECTIVES,
          collective_ms=[r["collectives"] for r in ranks], note=MESH_NOTE)

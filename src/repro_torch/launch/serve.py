@@ -126,9 +126,17 @@ exactly in both modes and captures the means over real tokens);
         --prompt-len 32 --gen 6 --mesh 1x4 --backend gloo --device cpu \
         --shard-loss 1 --shard-loss-at 6
 
+    # serve what a training run saved (the latest step of a checkpoint
+    # directory in the reference's layout, as ``launch/train.py
+    # --checkpoint`` writes it, alone or over a mesh)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
+        --reduced --batch 2 --prompt-len 32 --gen 8 --device cpu \
+        --checkpoint CKPT_DIR
+
 Weights are random, drawn from ``torch.Generator`` seeded with
-``--seed``; ``--reduced`` takes the architecture's smoke-test size.
-Runs on CUDA unless ``--device cpu`` is given; without a card it raises.
+``--seed``, unless ``--checkpoint`` restores them; ``--reduced`` takes
+the architecture's smoke-test size.  Runs on CUDA unless ``--device
+cpu`` is given; without a card it raises.
 """
 from __future__ import annotations
 
@@ -139,7 +147,9 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..checkpoint.io import latest_step, restore_checkpoint
 from ..configs import get_config
+from ..convert import from_jax_numpy, to_jax_numpy
 from ..core.protocol import PrismConfig, partition_bounds
 from ..device import resolve_device
 from ..models import transformer as T
@@ -177,17 +187,31 @@ class StaticServe:
                         decode_params=self.decode_params)
 
 
+def restore_params(cfg: ModelConfig, params: dict, checkpoint: str) -> dict:
+    """The latest step saved in ``checkpoint`` (the reference's layout,
+    ``checkpoint.io``), in place of ``params``, on their device: the
+    reference launcher's restore."""
+    step = latest_step(checkpoint)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {checkpoint!r}")
+    dev = next(iter(params["final_norm"].values())).device
+    return from_jax_numpy(cfg, restore_checkpoint(
+        checkpoint, step, to_jax_numpy(cfg, params)), device=dev)
+
+
 def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
           gen: int = 16, seq_shards: int = 4, decode_mode: str = "exact",
           cr: float = 4.0, device: str = "cuda", seed: int = 0,
           backend: str = "auto", params: dict | None = None,
           reduced: bool = False, prefill: str | None = None,
-          cap: int | None = None,
-          n_layers: int | None = None) -> StaticServe:
+          cap: int | None = None, n_layers: int | None = None,
+          checkpoint: str | None = None) -> StaticServe:
     """Build a static-batch run: the prompt length is rounded down and
     the cache capacity (by default prompt + gen) up to multiples of the
     shard count, as the reference launcher does.  ``params`` reuses
-    weights already built; ``n_layers`` keeps the first layers only.
+    weights already built; ``n_layers`` keeps the first layers only;
+    ``checkpoint`` restores the latest step saved in that directory
+    (``restore_params``).
     ``prefill`` ('voltage' | 'prism') picks the prefill exchange; by
     default the decode mode's pairing (exact: voltage, prism: PRISM).  A
     vlm (PaliGemma) also gets stub image embeddings (B, prefix_len, D),
@@ -211,6 +235,8 @@ def setup(arch: str = "gpt2-small", *, batch: int = 8, prompt_len: int = 64,
     if params is None:
         params = T.init(cfg, torch.Generator(device=dev).manual_seed(seed),
                         dev)
+    if checkpoint is not None:
+        params = restore_params(cfg, params, checkpoint)
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
         1, cfg.vocab_size, size=(batch, n)), device=dev)
     embeds = None
@@ -274,7 +300,8 @@ def run_mesh(args) -> None:
     opts = dict(arch=args.arch, batch=args.batch, prompt_len=args.prompt_len,
                 gen=args.gen, decode_mode=args.decode_mode,
                 prefill=args.prefill, cr=args.cr, seed=args.seed,
-                reduced=args.reduced, decode_tp=args.decode_tp)
+                reduced=args.reduced, decode_tp=args.decode_tp,
+                checkpoint=args.checkpoint)
     ranks = spawn(_mesh_rank_report, data, model, backend=args.backend,
                   device=args.device, timeout=MESH_TIMEOUT, args=(opts,))
     first = ranks[0]
@@ -429,6 +456,8 @@ def engine_setup(args, device, p: int):
     hp = ServeHParams(decode_mode=args.decode_mode, means_cr=args.cr)
     params = T.init(cfg, torch.Generator(device=device).manual_seed(
         args.seed), device)
+    if args.checkpoint is not None:
+        params = restore_params(cfg, params, args.checkpoint)
     ecfg = EngineConfig(
         n_slots=args.batch, prefill_len=n, max_cache=cap, hp=hp,
         gang=args.gang, chunk_len=args.chunk_len,
@@ -639,6 +668,10 @@ def main(argv=None):
     ap.add_argument("--cr", type=float, default=4.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint", default=None, metavar="DIR",
+                    help="[decoders] serve the latest step saved in DIR "
+                         "(the reference's layout) in place of the seeded "
+                         "weights")
     ap.add_argument("--engine", action="store_true",
                     help="continuous-batching engine over a Poisson trace")
     ap.add_argument("--requests", type=int, default=32,
@@ -707,9 +740,9 @@ def main(argv=None):
                          "6)")
     args = ap.parse_args(argv)
     if is_encoder(get_config(args.arch)):
-        if args.engine or args.gen is not None:
+        if args.engine or args.gen is not None or args.checkpoint:
             ap.error(f"{args.arch} is an encoder: it classifies, with no "
-                     "--engine and no --gen")
+                     "--engine, no --gen and no --checkpoint")
         run_encoder(args)
         return
     args.prompt_len = 64 if args.prompt_len is None else args.prompt_len
@@ -731,7 +764,7 @@ def main(argv=None):
                 gen=args.gen, seq_shards=args.seq_shards,
                 decode_mode=args.decode_mode, cr=args.cr,
                 device=args.device, seed=args.seed, reduced=args.reduced,
-                prefill=args.prefill)
+                prefill=args.prefill, checkpoint=args.checkpoint)
     tokens, _, times = run.run()
     b, n = tokens.shape[0], run.lay.prefill_len
     image = ("" if run.embeds is None

@@ -64,14 +64,17 @@ def cosine_schedule(step, *, base_lr: float, warmup: int, total: int,
     return base_lr * warm * cos
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, total=None):
     """-> (grads scaled to a global L2 norm of at most ``max_norm``, the
     norm before, a 0-d f32 tensor).  The leaves' squared sums and the
     scaling are batched over the leaves (``torch._foreach_*``): a few
-    launches, not a few per leaf."""
+    launches, not a few per leaf.  ``total``: over a mesh, the leaves'
+    squared sums (n_leaves,) -> the whole tree's (each leaf counted
+    once, however many ranks hold it); None: their sum."""
     leaves = [g.float() for g in tree_leaves(grads)]
     sq = torch._foreach_mul(leaves, leaves)
-    gn = torch.sqrt(torch.stack([t.sum() for t in sq]).sum())
+    sums = torch.stack([t.sum() for t in sq])
+    gn = torch.sqrt(sums.sum() if total is None else total(sums))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     scaled = torch._foreach_mul(tree_leaves(grads), scale)
     return tree_unflatten(grads, scaled), gn

@@ -428,9 +428,12 @@ class ShardedPrismContext(SeqContext):
         for p in range(self.P):
             prefix.append(s)
             s = la[:, p].exp()[..., None, None] * s + u[:, p]
+        prefix = torch.stack(prefix, dim=1)
         if self.group is not None:
-            return prefix[self.group.index]
-        return torch.stack(prefix, dim=1).reshape(u_tot.shape)
+            # indexed out of every prefix, so that the gathers' backward
+            # runs on every rank (rank 0's own prefix reads none of them)
+            return prefix[:, self.group.index]
+        return prefix.reshape(u_tot.shape)
 
     def prev_tail(self, x, size: int):
         """x (B·P, n_loc, C) -> (B·P, size, C): shard p's halo is the last

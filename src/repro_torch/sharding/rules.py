@@ -1,6 +1,7 @@
 """Parameter sharding rules over a mesh: the reference's
-``sharding/rules.py`` (its ``GradReduce`` and ``opt_state_specs`` belong
-to training and are not ported yet).
+``sharding/rules.py``, with the train step's ``GradReduce`` (the
+gradient psums each rule still needs) and ``opt_state_specs`` (AdamW's
+m and v cut over the axes a parameter leaves spare).
 
 Layout (the reference's DESIGN.md §4):
 
@@ -22,7 +23,11 @@ A rule's ``spec`` names the mesh axis of each dim (None: whole); a
 replicated leaf's is ().  The port keeps one dict a layer where the
 reference stacks its scanned layers: a layer leaf ``layers/<i>/...``
 takes the rule of the reference's sliced ``scan/<j>/...`` leaf, computed
-on its inner path and shape, with no leading depth dim.
+on its inner path and shape, with no leading depth dim.  The m/v specs
+are the one exception: the reference computes them on the stacked leaf
+(n_units, ...), whose size and depth dim they may take, so a scanned
+layer's m/v spec is the stacked leaf's, depth entry first
+(``opt_state_specs``).
 """
 from __future__ import annotations
 
@@ -146,6 +151,74 @@ def param_specs(params, mesh, vocab_size: int):
                                                vocab_size), params)
 
 
+class GradReduce:
+    """psum gradients over the axes each rule still needs: those whose
+    sum no gather's transpose (a reduce-scatter) has made."""
+
+    @staticmethod
+    def axes(rules, mesh):
+        """A tree of the axes each leaf's gradient is psummed over, in
+        the rule's order, those of the mesh only."""
+        names = set(mesh_axes(mesh))
+        return tree_map(lambda r: tuple(a for a in r.grad_reduce
+                                        if a in names), rules)
+
+    @staticmethod
+    def apply(grads, rules, mesh):
+        """The gradients psummed by rule, metered ``grad``: the leaves of
+        one axis set flattened into one psum."""
+        axes = dict(tree_paths(GradReduce.axes(rules, mesh)))
+        got = dict(tree_paths(grads))
+        for key in sorted(set(axes.values())):
+            paths = [p for p in got if axes[p] == key]
+            if not key or not paths:
+                continue
+            flat = comm.psum(torch.cat([got[p].reshape(-1) for p in paths]),
+                             mesh.group(key), "grad")
+            for p, part in zip(paths, flat.split(
+                    [got[p].numel() for p in paths])):
+                got[p] = part.view_as(got[p])
+        return _map_paths(lambda path, _: got[path], grads)
+
+
+def scanned_layers(scan_split) -> int:
+    """Layers of the reference's stacked scan (the rest are its tail):
+    u·n_units of ``ModelConfig.scan_split`` (u, n_units, n_tail)."""
+    u, n_units, _ = scan_split
+    return u * n_units
+
+
+def opt_state_specs(rules, params, mesh, scan_split=(1, 1, 0)):
+    """AdamW's m/v specs (the reference's ``opt_state_specs``): a leaf's
+    parameter spec, and over the first spare axis (``model`` where the
+    rule leaves it, then ``pod``) on the first whole dim it divides,
+    where the leaf holds at least ``_FSDP_MIN`` elements (ZeRO-style
+    optimizer-state sharding).  A layer of the reference's scan (the
+    first ``scanned_layers(scan_split)`` layers) is judged as its stacked
+    leaf (n_units, ...): its spec has the depth entry first."""
+    axes = mesh_axes(mesh)
+    n_units = scan_split[1]
+    n_scan = scanned_layers(scan_split)
+
+    def spec(path, t):
+        r = rule_of[path]
+        shape = tuple(t.shape)
+        pspec = tuple(r.spec) + (None,) * (len(shape) - len(r.spec))
+        if path.startswith("layers/") and int(path.split("/")[1]) < n_scan:
+            shape, pspec = (n_units,) + shape, (None,) + pspec
+        used = {a for a in pspec if a}
+        spare = [a for a in ("model", "pod") if a in axes and a not in used]
+        out = list(pspec)
+        for dim, size in enumerate(shape):
+            if out[dim] is None and spare and size % axes[spare[0]] == 0 \
+                    and int(np.prod(shape)) >= _FSDP_MIN:
+                out[dim] = spare.pop(0)
+                break
+        return tuple(out)
+    rule_of = dict(tree_paths(rules))
+    return _map_paths(spec, params)
+
+
 def _tile(xs, dims, grp):
     """Each x of ``xs`` tiled along its dim over ``grp``, in one
     collective: their shards flattened into one buffer."""
@@ -183,10 +256,16 @@ def gather_tree(local, rules, mesh):
 
 
 def local_shard(t: torch.Tensor, rule: ParamRule, mesh) -> torch.Tensor:
-    """This rank's block of the whole tensor ``t`` under ``rule``: each
-    dim named in its spec cut into the axis's size, at the rank's
-    coordinate; a copy of its own."""
-    for dim, ax in enumerate(rule.spec):
+    """This rank's block of the whole tensor ``t`` under ``rule``
+    (``cut`` by its spec)."""
+    return cut(t, rule.spec, mesh)
+
+
+def cut(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``spec``: each
+    dim named in it cut into the axis's size, at the rank's coordinate;
+    a copy of its own."""
+    for dim, ax in enumerate(spec):
         if ax is None:
             continue
         n = mesh.size((ax,))

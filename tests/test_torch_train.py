@@ -534,7 +534,7 @@ def test_forward_returns_moe_aux(arch):
 def test_train_step_refusals():
     cfg, *_ = model()
     prism = PP.PrismConfig(P=2)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="runs over a mesh"):
         make_train_step(cfg, prism, n_shards=2, device="cpu",
                         n_data=2)
     enc = get_config("bert-base").reduced()
