@@ -6,9 +6,11 @@
 Phases, one JSON line each:
 
 1. env      the card (nvidia-smi name and power limit), torch and CUDA.
-2. build    builds the three CUDA kernel libraries from ``src/repro_torch/
-            kernels/csrc`` (one nvcc each, in parallel); seconds per
-            library and the compiler's register / spill report.
+2. build    builds the five CUDA kernel libraries from ``src/repro_torch/
+            kernels/csrc`` (the three kernels, and the bf16 instances of
+            attention and decode in their own sources; one nvcc each, in
+            parallel); seconds per library and the compiler's register /
+            spill report.
 3. kernel   each kernel against its plain PyTorch version on the card, at
             the main path's shapes and over an edge sweep (ragged M and
             Nq, GQA groups 1/3/12 and a folded 64, dead rows, g = 0
@@ -80,6 +82,18 @@ Phases, one JSON line each:
             checked and timed, and the means kernel's two entries at
             its D 128 for every (P, CR) the protocol scores, timed at
             CR 4.
+            Then the bf16, mixed-dtype and head-dim 16 / 32 cases
+            (``check_bf16_kernels``): bf16 attention at head dims 16,
+            32, 64, 80, 128 and 256 over the edge sweep, f32 at 16; the
+            decode kernel over a bf16 cache at every head dim, on both
+            routes, with and without means, dense, paged and through a
+            row map; a bf16 query over an f32 cache at the engine's
+            layouts (packed, its prism pass, the chunk call; dense and
+            paged); f32 decode at 16 and 32.  bf16 holds to the
+            reference's own tolerance (``TOL_BF16_KERNEL``), the rest to
+            ``TOL``; each timed at a path's layout (GPT-2's, Yi-6B's,
+            Gemma 7B's; bf16 bytes and the bf16 tensor-core rate in the
+            bound; the library calls in bf16).
             Times are event pairs (``ms``, over a floor of about 5 us,
             ``floor_ms``) and, for the kernels, the profiler's kernel
             durations (``device_ms``).
@@ -356,7 +370,23 @@ Phases, one JSON line each:
             and the augment at D 2560, the decode kernel's static exact
             and prism layouts on both routes.  Phases 9-12 run in one
             child process of the script, 13-17 in another, 18 in a third
-            (``drive_apart``, ``CHILD_ARG``).
+            (``drive_apart``, ``CHILD_ARG``), with the bf16 phase after
+            it.
+bf16 path   the serving paths with bf16 weights (``drive_bf16``; init's
+            dtype, seed 0, full width): GPT-2 small at full depth on the
+            static path in both pairings and one engine run (packed,
+            prism, paged; its cache f32, as the reference's engine keeps
+            it), Yi-6B and Gemma 7B on their first ``BF16_DEPTH``
+            layers in both pairings.  Each run through the kernels is
+            held, over its first ``BF16_REF_STEPS`` steps teacher-
+            forced, to its bf16 plain twin and the f32 witness (the f32
+            plain path on the same weights widened): E(kernels) <= 1.5 x
+            E(plain) + 1e-3, E the largest |logits - witness| over the
+            largest |witness|; tokens equal the plain twin's where its
+            top-2 gap exceeds 2e-2 of its largest |logit|; the bf16
+            instances' launches (``.bf16``, ``.kv_bf16``) as the path
+            needs.  Prints prefill ms, decode ms a token and weight
+            bytes beside the same call's f32 weights' (descriptive).
 19. path    training and the accuracy path, in a fourth child process.
             (a) ``train``: GPT-2 small at full width and depth through
             ``repro_torch.launch.train``'s code (f32 weights from
@@ -482,7 +512,11 @@ Phases, one JSON line each:
             means kernel's numbers at phase 3's char-LM layouts, and
             ``train`` each kernel's
             launches on phase 19's runs (none in the train steps);
-            ``mesh`` each kernel's launches over phase 20's ranks.
+            ``mesh`` each kernel's launches over phase 20's ranks.  Then
+            a row for each new instance (``prism_flash_attention.bf16``,
+            ``.hd16``, ``flash_decode_stats.bf16``, ``.mixed``,
+            ``.hd16_32``) with its numbers at its main layout, every
+            layout's (``by_layout``) and its launches on the paths.
 
 Then the nvidia-smi line, and last the result line.  Any failed check
 raises, and the script exits non-zero without printing a result; so it
@@ -508,6 +542,7 @@ TF32_FLOP_PER_S = 495e12                # tensor cores, TF32
 # f32-accurate products on the tensor cores take three TF32 products
 # each (3xTF32), so the card's peak for them is a third of TF32's
 F32_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
+BF16_FLOP_PER_S = 989e12                # tensor cores, bf16, dense
 
 # main path: GPT-2 small, B = 8, prompt 512, 64 generated, P = 4, CR 4
 ARCH, BATCH, PROMPT, GEN, SHARDS, CR = "gpt2-small", 8, 512, 64, 4, 4.0
@@ -574,6 +609,16 @@ TOL = {"prism_flash_attention": (2e-5, 2e-4),
 # bf16 segment means (both sides sum in f32 and round once to bf16): one
 # bf16 rounding apart, 2^-7 of the value, beyond f32's sum-order error
 TOL_BF16 = (1e-5, 2.0 ** -7)
+# the bf16 attention and decode kernels against their plain versions:
+# the reference's own bf16 tolerance (tests/test_kernels.py:53-65).  The
+# plain versions round where the reference's plain path does (bf16
+# logits, p in bf16 before P V, a bf16 output), the kernels accumulate
+# in f32, so they part by bf16 roundings.  Decode holds l and m, and acc
+# normalised by l (the output each shard contributes, which the
+# reference's decode tests compare), since acc itself grows with the
+# live columns a row sums; a bf16 query over an f32 cache is exact in f32
+# and is held to TOL
+TOL_BF16_KERNEL = (2e-2, 1e-2)
 # end-to-end: max |logits - reference| / max |reference| over every step
 PATH_REL_TOL = 1e-4
 # greedy tokens must agree where the reference's top-2 gap exceeds this
@@ -876,14 +921,21 @@ class Checker:
             self.tol_share[key] = float(share.max())
             self.worst[key] = case
 
-    def stats(self, got, want, case, key=None):
-        """Decode stats: l and acc everywhere, m where the row is live."""
+    def stats(self, got, want, case, key=None, tol=None):
+        """Decode stats: l and acc everywhere, m where the row is live;
+        with ``tol`` (the bf16 cases) acc normalised by l, as
+        ``TOL_BF16_KERNEL`` says."""
         m_g, l_g, a_g = got
         m_w, l_w, a_w = want
-        self.close("flash_decode_stats", l_g, l_w, case + "/l", key=key)
-        self.close("flash_decode_stats", a_g, a_w, case + "/acc", key=key)
+        if tol is not None:
+            def norm(a, l):
+                return a / l.clamp(min=1e-30)[:, :, 0, 0][:, None, :, None]
+            a_g, a_w = norm(a_g, l_g), norm(a_w, l_w)
+        kw = dict(key=key, tol=tol)
+        self.close("flash_decode_stats", l_g, l_w, case + "/l", **kw)
+        self.close("flash_decode_stats", a_g, a_w, case + "/acc", **kw)
         self.close("flash_decode_stats", m_g, m_w, case + "/m",
-                   mask=l_w > 0, key=key)
+                   mask=l_w > 0, **kw)
         self.cases["flash_decode_stats"] += 1
 
 
@@ -924,7 +976,7 @@ def attention_inputs(torch, ctx_mode, seed=0, arch=ARCH, prompt=PROMPT,
 
 def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
                    prompt=PROMPT, kind="attn", args=None, causal=True,
-                   prefix_len=0):
+                   prefix_len=0, flop_per_s=F32_3XTF32_FLOP_PER_S):
     """The prefill kernel at a path's shapes in one exchange (a block of
     ``kind``: a local one with its window; ``args``: inputs built by the
     caller, ``attention_inputs``' by default; ``causal`` False for an
@@ -932,7 +984,8 @@ def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
     then the kernel (event pair and profiler), its plain version, the
     entry point, the library call and the bound.  The bound counts the
     live pairs of the real query rows (a pad row of an uneven split,
-    position -1, is discarded)."""
+    position -1, is discarded), its operations at ``flop_per_s`` (bf16
+    inputs: ``BF16_FLOP_PER_S``); the library call takes q's dtype."""
     from repro_torch.configs import get_config
     from repro_torch.core.attention import log_repeats
     from repro_torch.core.masks import visibility
@@ -957,7 +1010,7 @@ def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
     pairs = int((vis & real).sum()) * (q.shape[0] // p) * q.shape[2]
     flops = 4 * q.shape[-1] * pairs          # QK^T and PV, 2 per FMA
     b_ms, b_by = bound_ms(nbytes(q, k, v, lg, lo, hi, row) +
-                          nbytes(q), flops, F32_3XTF32_FLOP_PER_S)
+                          nbytes(q), flops, flop_per_s)
     # the library yardstick: SDPA with log g and the mask folded into
     # a float mask, or with no mask where every column is visible and
     # g = 1 (an encoder's Voltage); K/V expanded to the query batch for
@@ -971,7 +1024,8 @@ def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
     else:
         bias = torch.where(vis, lg[:, None, :], torch.full_like(
             lg[:, None, :], -1e30))
-        bias = bias.repeat(q.shape[0] // p, 1, 1)[:, None].contiguous()
+        bias = bias.repeat(q.shape[0] // p, 1, 1)[:, None].to(
+            q.dtype).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # the kernel and its plain version on the (P, M) / (P, Nq)
     # metadata the entry point hands them; the entry point's own
@@ -1003,29 +1057,34 @@ def attention_main(torch, timer, both, mode, arch=ARCH, tag="main",
                   "library_mask": bias is not None}}
 
 
-def attention_checker(chk, key=None):
+def attention_checker(chk, key=None, tol=None):
     """``both(args, case, **kw)``: the prefill kernel against its plain
     version through the entry point, the error filed under ``key``
-    (default the kernel's name)."""
+    (default the kernel's name) with its ``tol`` (default ``TOL``'s)."""
     from repro_torch.kernels.ops import prism_attention_op
     name = "prism_flash_attention"
 
     def both(args, case, **kw):
         got = prism_attention_op(*args, backend="kernel", **kw)
         want = prism_attention_op(*args, backend="plain", **kw)
-        chk.close(name, got, want, case, key=key)
+        if got.dtype != args[0].dtype:
+            raise AssertionError(f"{name} [{case}]: out {got.dtype} for q "
+                                 f"{args[0].dtype}")
+        chk.close(name, got, want, case, key=key, tol=tol)
         chk.cases[name] += 1
     return both
 
 
-def attention_groups(torch, both, gen, groups, hd):
+def attention_groups(torch, both, gen, groups, hd, dtype=None):
     """Ragged Nq (100) and M (97) at each (hq, hkv) of ``groups``: rows
-    that see nothing, g = 0 columns, causal off, window, prefix."""
+    that see nothing, g = 0 columns, causal off, window, prefix; q, k, v
+    in ``dtype`` (default f32)."""
+    dtype = dtype or torch.float32
     for hq, hkv in groups:
         b, nq, m = 2, 100, 97
-        q = 0.5 * torch.randn(b, nq, hq, hd, device="cuda", generator=gen)
-        k = 0.5 * torch.randn(b, m, hkv, hd, device="cuda", generator=gen)
-        v = 0.5 * torch.randn(b, m, hkv, hd, device="cuda", generator=gen)
+        q, k, v = (0.5 * torch.randn(*s, device="cuda", generator=gen).to(
+            dtype) for s in ((b, nq, hq, hd), (b, m, hkv, hd),
+                             (b, m, hkv, hd)))
         g = torch.randint(0, 5, (m,), device="cuda", generator=gen).float()
         lo = torch.randint(0, 120, (m,), device="cuda", generator=gen)
         hi = lo + torch.randint(0, 4, (m,), device="cuda", generator=gen)
@@ -1277,7 +1336,9 @@ def decode_bound(torch, q, k, valid, log_gz=None, kz=None, rows=None,
     column once per means row, q / valid / log g / the row map once, the
     stats written once; operations 4·hd per live (query head, column)
     pair, at the rate the card computes f32-accurate products on its
-    tensor cores (3xTF32), as the attention kernel's bound counts them:
+    tensor cores (3xTF32; a bf16 cache's bytes at 2 a value and its
+    products at the bf16 rate), as the attention kernel's bound counts
+    them:
     the least time the card could take, whatever this kernel's route.
     ``maps`` (a page table, a means-row map) are read once."""
     b, bq = valid.shape[0], q.shape[0]
@@ -1288,7 +1349,8 @@ def decode_bound(torch, q, k, valid, log_gz=None, kz=None, rows=None,
                  ).reshape(-1)
     kv_live = torch.zeros(k.shape[:2], device=q.device).index_add_(
         0, shard_row, valid.float()) > 0
-    n_bytes = (nbytes(q, valid) + 2 * int(kv_live.sum()) * hkv * hd * 4
+    n_bytes = (nbytes(q, valid)
+               + 2 * int(kv_live.sum()) * hkv * hd * k.element_size()
                + 4 * (2 * b * hq + b * hq * hd))
     pairs = int(valid.sum())
     if kz is not None:
@@ -1296,12 +1358,14 @@ def decode_bound(torch, q, k, valid, log_gz=None, kz=None, rows=None,
         pairs += int(live_z.sum())
         z_live = torch.zeros(kz.shape[:2], device=q.device).index_add_(
             0, sel.repeat_interleave(rep), live_z.float()) > 0
-        n_bytes += nbytes(log_gz) + 2 * int(z_live.sum()) * hkv * hd * 4
+        n_bytes += (nbytes(log_gz) + 2 * int(z_live.sum()) * hkv * hd
+                    * kz.element_size())
     if rows is not None:
         n_bytes += nbytes(rows)
     n_bytes += nbytes(*maps)                 # a page table, a means-row map
     b_ms, b_by = bound_ms(n_bytes, 4 * hd * hq * pairs,
-                          F32_3XTF32_FLOP_PER_S)
+                          BF16_FLOP_PER_S if k.dtype == torch.bfloat16
+                          else F32_3XTF32_FLOP_PER_S)
     return b_ms, b_by, n_bytes
 
 
@@ -1418,10 +1482,11 @@ def tick_layout_inputs(torch, gen, arch=ARCH):
     return chunk, packed, packed_prism, rows, hd ** -0.5
 
 
-def decode_checker(torch, chk, by_route, key=None):
+def decode_checker(torch, chk, by_route, key=None, tol=None):
     """``both(args, scale, case, rows=None, **paged)``: the decode kernel
     against its plain version, the error filed under ``key`` (default
-    the kernel's name), the cases counted per route in ``by_route``."""
+    the kernel's name) with ``Checker.stats``' ``tol``, the cases counted
+    per route in ``by_route``."""
     from repro_torch.kernels.decode_attention import (decode_route,
                                                       decode_stats,
                                                       launch_route)
@@ -1448,14 +1513,171 @@ def decode_checker(torch, chk, by_route, key=None):
         if not all(bool(torch.isfinite(t).all()) for t in want):
             raise AssertionError(f"flash_decode_stats [{case}]: the plain "
                                  "version is not finite")
-        chk.stats(got, want, f"{case}/{route}", key=key)
+        chk.stats(got, want, f"{case}/{route}", key=key, tol=tol)
         by_route[route] += 1
         if rows is None:
             other = "row" if route == "tile" else "tile"
             chk.stats(launch_route(other, *args, scale=scale, **paged), want,
-                      f"{case}/{other}", key=key)
+                      f"{case}/{other}", key=key, tol=tol)
             by_route[other] += 1
     return both
+
+
+# phase 3's bf16, mixed-dtype and head-dim 16 / 32 cases (the reference's
+# kernels take them: attention, then decode): the head dims
+# the bf16 instances build; each timed at a path's layout (GPT-2's for
+# hd 64 and, with their head dim, for 16, 32 and 80; Yi-6B's for 128,
+# Gemma 7B's for 256)
+BF16_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+# the columns of the decode sweeps (a multiple of PAGE_COLS, so that the
+# paged twin holds every column)
+BF16_SWEEP_COLS = 72
+
+
+def at_width(torch, gen, args, hd, dtype):
+    """A layout's inputs with every floating 4-D tensor (q, k, v; kz, vz)
+    drawn anew at head dim ``hd`` in ``dtype``, the rest (metadata,
+    valid, log g) as they are."""
+    return [0.5 * torch.randn(*t.shape[:-1], hd, device="cuda",
+                              generator=gen).to(dtype)
+            if t.dim() == 4 and t.is_floating_point() else t for t in args]
+
+
+def as_dtypes(torch, args, q_dtype, kv_dtype):
+    """Inputs with q in ``q_dtype`` and the other floating 4-D tensors
+    (k, v; kz, vz) in ``kv_dtype``."""
+    return [t.to(q_dtype) if i == 0 else
+            t.to(kv_dtype) if t.dim() == 4 and t.is_floating_point() else t
+            for i, t in enumerate(args)]
+
+
+def check_bf16_kernels(torch, chk, timer):
+    """The bf16 instances and the new head dims against their plain
+    versions, then timed.
+
+    Attention: bf16 at every head dim of ``BF16_HEAD_DIMS`` over
+    ``attention_groups``' edge sweep (ragged, GQA 1, 4, 8, dead rows, g
+    = 0, causal off, window, prefix), errors under
+    ``prism_flash_attention/bf16`` at ``TOL_BF16_KERNEL``; f32 at head dim
+    16 under ``prism_flash_attention/hd16`` at ``TOL``.  Decode: a bf16
+    cache at every head dim, on both routes (group 1 and 8), with and
+    without means, dense, through a page pool whose unmapped pages hold
+    NaN (``to_pages``) and through a row map, under
+    ``flash_decode_stats/bf16``; a bf16 query over an f32 cache at the
+    engine's layouts (the packed tick's two passes, the chunk call, the
+    static decode; dense and paged) under ``flash_decode_stats/mixed`` at
+    ``TOL``; f32 at head dims 16 and 32 under
+    ``flash_decode_stats/hd16_32``.  -> {"attention": {layout: times},
+    "decode": {layout: times}, "cases_by_route": ...}."""
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    att_bf16 = attention_checker(chk, key="prism_flash_attention/bf16",
+                                 tol=TOL_BF16_KERNEL)
+    att_hd16 = attention_checker(chk, key="prism_flash_attention/hd16")
+    for hd in BF16_HEAD_DIMS:
+        attention_groups(torch, att_bf16, gen, ((8, 8), (8, 2), (8, 1)), hd,
+                         bf)
+    attention_groups(torch, att_hd16, gen, ((8, 8), (8, 2), (8, 1)), 16)
+
+    ta = {}
+    for mode in ("prism", "voltage"):
+        ta[f"hd64/{mode}"] = attention_main(
+            torch, timer, att_bf16, mode, tag="bf16",
+            args=as_dtypes(torch, attention_inputs(torch, mode), bf, bf),
+            flop_per_s=BF16_FLOP_PER_S)
+    for hd, arch in ((128, LLAMA), (256, GEMMA7)):
+        ta[f"hd{hd}/prism"] = attention_main(
+            torch, timer, att_bf16, "prism", arch=arch, tag=f"bf16/{arch}",
+            args=as_dtypes(torch, attention_inputs(torch, "prism", arch=arch),
+                           bf, bf),
+            flop_per_s=BF16_FLOP_PER_S)
+    base = attention_inputs(torch, "prism")
+    for hd in (16, 32, 80):
+        ta[f"hd{hd}/prism"] = attention_main(
+            torch, timer, att_bf16, "prism", tag=f"bf16/hd{hd}",
+            args=at_width(torch, gen, base, hd, bf),
+            flop_per_s=BF16_FLOP_PER_S)
+    ta["f32/hd16/prism"] = attention_main(
+        torch, timer, att_hd16, "prism", tag="hd16",
+        args=at_width(torch, gen, base, 16, f32))
+
+    by_route = {"row": 0, "tile": 0}
+    dec = {key: decode_checker(torch, chk, by_route, key=key, tol=tol)
+           for key, tol in (("flash_decode_stats/bf16", TOL_BF16_KERNEL),
+                            ("flash_decode_stats/mixed", None),
+                            ("flash_decode_stats/hd16_32", None))}
+
+    def every_layout(both, q_dtype, kv_dtype, rep):
+        """``both`` on the inputs in (q_dtype, kv_dtype), dense (both
+        routes), through a page pool (both routes) and through a row map
+        that reverses the query rows (the row route)."""
+        def run(args, scale, case):
+            args = as_dtypes(torch, args, q_dtype, kv_dtype)
+            both(args, scale, case)
+            pargs, pages, zrows = to_pages(torch, gen, args, rep,
+                                           args[1].shape[1])
+            both(pargs, scale, f"{case}/paged", pages=pages, zrows=zrows)
+            rows = torch.arange(args[0].shape[0], device="cuda",
+                                dtype=torch.int32).flip(0)
+            both(args, scale, f"{case}/rows", rows=rows)
+        return run
+    for key, q_dtype, kv_dtype, dims in (
+            ("flash_decode_stats/bf16", bf, bf, BF16_HEAD_DIMS),
+            ("flash_decode_stats/hd16_32", f32, f32, (16, 32))):
+        for hd in dims:
+            for hq, hkv in ((4, 4), (16, 2)):     # groups 1 (row), 8 (tile)
+                sweep_decode_case(
+                    torch, every_layout(dec[key], q_dtype, kv_dtype, 4), gen,
+                    hq, hkv, BF16_SWEEP_COLS, 4, 12, None, hd=hd)
+    chunk, packed, packed_prism, rows, scale = tick_layout_inputs(torch, gen)
+    mixed = dec["flash_decode_stats/mixed"]
+    for name, args, r in (("packed", packed, rows),
+                          ("packed_prism", packed_prism, rows),
+                          ("chunk", chunk["off448"], None)):
+        args = as_dtypes(torch, args, bf, f32)
+        mixed(args, scale, f"mixed/{name}", rows=r)
+        rep = args[3].shape[0] // args[0].shape[0]
+        pargs, pages, zrows = to_pages(torch, gen, args, rep,
+                                       args[1].shape[1])
+        mixed(pargs, scale, f"mixed/{name}/paged", rows=r, pages=pages,
+              zrows=zrows)
+
+    td = {}
+    for mode in ("exact", "prism"):
+        for hd, arch in ((64, ARCH), (128, LLAMA), (256, GEMMA7)):
+            args, sc = decode_inputs(torch, mode, gen, arch=arch)
+            args = as_dtypes(torch, args, bf, bf)
+            dec["flash_decode_stats/bf16"](args, sc, f"bf16/{arch}/{mode}")
+            td[f"hd{hd}/{mode}"] = time_decode(torch, timer, args, sc)
+    base, _ = decode_inputs(torch, "prism", gen)
+    for hd, dtype in ((16, bf), (32, bf), (80, bf), (16, f32), (32, f32)):
+        args = at_width(torch, gen, base, hd, dtype)
+        key = "bf16" if dtype == bf else "hd16_32"
+        dec[f"flash_decode_stats/{key}"](args, hd ** -0.5,
+                                         f"{key}/hd{hd}/prism")
+        td[f"{'f32/' if dtype == f32 else ''}hd{hd}/prism"] = time_decode(
+            torch, timer, args, hd ** -0.5)
+    for name, args in (("packed", packed), ("packed_prism", packed_prism)):
+        td[f"mixed/{name}"] = time_decode(
+            torch, timer, as_dtypes(torch, args, bf, f32), scale, rows=rows)
+    return {"attention": ta, "decode": td, "cases_by_route": by_route}
+
+
+def instance_row(name, kernel, t, launches, chk, key, tol, by_layout):
+    """The kernels line's row of one new instance: its times at its main
+    layout ``t`` (ms, device_ms, plain_ms, bound, library), its launches
+    on the paths, its largest error under ``key`` and every layout's
+    times (``by_layout``)."""
+    src, rep = SOURCES[kernel]
+    pick = lambda t: {k: t[k] for k in TIME_KEYS + (  # noqa: E731
+        "library_note", "shape") if k in t}
+    return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches, "max_abs_err": chk.max_err.get(key, 0.0),
+            "tol": list(tol), "tol_share": chk.tol_share.get(key, 0.0),
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "by_layout": {k: pick(v) for k, v in by_layout.items()}}
 
 
 def check_decode(torch, chk, timer):
@@ -1920,7 +2142,7 @@ def to_pages(torch, gen, args, rep, n_cols):
 
     def pool(x):
         out = torch.full((n_pages, rep, PAGE_COLS, *x.shape[2:]),
-                         float("nan"), device=dev)
+                         float("nan"), device=dev, dtype=x.dtype)
         src = x[:, :n_cols].reshape(n_rows, rep, ppr, PAGE_COLS,
                                     *x.shape[2:]).transpose(1, 2)
         out[pages[mapped].long()] = src[mapped]
@@ -1935,7 +2157,7 @@ def to_pages(torch, gen, args, rep, n_cols):
 
         def state(x):
             out = torch.full((n_state, *x.shape[1:]), float("nan"),
-                             device=dev)
+                             device=dev, dtype=x.dtype)
             out[zrows.long()] = x
             return out
         paged += [log_gz, state(kz), state(vz)]
@@ -2210,6 +2432,8 @@ def decode_library(torch, timer, args, scale):
         k = torch.cat([k, kz.repeat_interleave(rep, 0)], dim=1)
         v = torch.cat([v, vz.repeat_interleave(rep, 0)], dim=1)
         bias = torch.cat([bias, log_gz], dim=1)
+    # the call in the cache's dtype (a bf16 query over an f32 cache: f32)
+    q, bias = q.to(k.dtype), bias.to(k.dtype)
 
     def heads(t):                                # (B, N, Hkv, hd) -> BHNd
         return t.repeat_interleave(hq // hkv, 2).transpose(1, 2).contiguous()
@@ -3261,10 +3485,10 @@ def engine_trace(vocab):
 
 
 def run_engine(torch, cfg, params, prefill, mode, paged, prompts,
-               forced=None, **hp_over):
+               forced=None, gen=GEN, **hp_over):
     """The trace through ``ServingEngine``: every request submitted at
-    t = 0 (8 take the slots, the rest admit as slots free up), 64 greedy
-    tokens each.  The engine's tick callables are wrapped here to keep
+    t = 0 (8 take the slots, the rest admit as slots free up), ``gen``
+    greedy tokens each (64).  The engine's tick callables are wrapped here to keep
     each decode row's logits by request (and, with ``forced``, to
     teacher-force each request's tokens).  ``hp_over``: fields of the
     run's ``ServeHParams`` (a plain twin's backend, a ``RoutingLog``).
@@ -3279,7 +3503,7 @@ def run_engine(torch, cfg, params, prefill, mode, paged, prompts,
         paged=paged, prefill_mode=prefill, **ENGINE), n_seq=SHARDS)
     log = keep_logits(eng, forced)
     for prompt in prompts:
-        eng.submit(prompt, max_new_tokens=GEN)
+        eng.submit(prompt, max_new_tokens=gen)
     torch.cuda.synchronize()
     LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -6458,6 +6682,189 @@ def drive_mesh(torch):
 
 # the argument that makes this script run its late phases, named after
 # it (keys of ``child_phases``), in a process of its own (``drive_apart``)
+# ---------------------------------------------------------------------------
+# the bf16 phase (run apart): the serving paths with bf16 weights
+# ---------------------------------------------------------------------------
+
+# the cells: GPT-2 small at full depth (static in both pairings, then one
+# engine run), Yi-6B (GQA 8, head dim 128: the tile route) and Gemma 7B
+# (head dim 256) on their first BF16_DEPTH layers, static in both
+# pairings; all at full width, weights from init(..., dtype=
+# torch.bfloat16), seed 0.  BF16_DEPTH and BF16_REF_STEPS are the time
+# budget's cuts, in order: with Yi-6B and Gemma 7B at their STATIC_DEPTH
+# (8) and the plain and witness runs at GEN - 1 steps the script took
+# 1,124.7 s of its 1,200 on one H100 host (850.7 s on another)
+BF16_DEPTH = 4
+BF16_CELLS = ((ARCH, None), (LLAMA, BF16_DEPTH), (GEMMA7, BF16_DEPTH))
+BF16_ENGINE = ("packed", "prism", True)          # prefill, mode, paged
+# E(run) = max |logits - witness| / max |witness|, the witness the f32
+# plain path on the same bf16 weights widened (exact): a run through the
+# kernels may lie at most E_FACTOR x the bf16 plain path's E + E_FLOOR
+# from it, teacher-forced on the kernel run's tokens
+BF16_E_FACTOR, BF16_E_FLOOR = 1.5, 1e-3
+# tokens equal the bf16 plain path's where its top-2 gap exceeds this
+# share of its largest |logit| (the reference's bf16 tolerance)
+BF16_TOKEN_GAP = 2e-2
+# the teacher-forced steps of the plain and witness runs (the kernel run
+# takes GEN - 1)
+BF16_REF_STEPS = 16
+
+
+def bf16_agree(torch, tokens, logits, ref, wit, what):
+    """The bf16 rule on one run: E(kernels) <= BF16_E_FACTOR x E(plain) +
+    BF16_E_FLOOR against the witness, over the steps the references
+    took, and the greedy tokens the plain run's where its gap is clear.
+    ``tokens`` (B, steps), ``logits``, ``ref``, ``wit`` (steps, B, V).
+    Returns the record."""
+    n = ref.shape[0]
+    e_k, e_p = rel_err(logits[:n], wit), rel_err(ref, wit)
+    if e_k > BF16_E_FACTOR * e_p + BF16_E_FLOOR:
+        raise AssertionError(f"{what}: E(kernels) {e_k:.3e} > "
+                             f"{BF16_E_FACTOR} x E(plain) {e_p:.3e} + "
+                             f"{BF16_E_FLOOR}")
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > BF16_TOKEN_GAP * float(
+        ref.abs().max())
+    if (tokens[:, :n].T[clear] != ref.argmax(-1)[clear]).any():
+        raise AssertionError(f"{what}: greedy tokens differ where the bf16 "
+                             "plain path's top-2 gap is clear")
+    return {"e_kernels": e_k, "e_plain": e_p, "steps_checked": n,
+            "tokens_checked": int(clear.sum()), "tokens_total": clear.numel(),
+            "e_factor": BF16_E_FACTOR, "e_floor": BF16_E_FLOOR,
+            "token_gap": BF16_TOKEN_GAP}
+
+
+def weight_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def bf16_static(torch, arch, cfg, params, wit_params, pairing):
+    """One static pairing with bf16 weights: a warm-up, the counted run
+    through the kernels (every attention and decode launch of the bf16
+    instances: ``.bf16``), its bf16 plain twin and the f32 witness
+    teacher-forced on its tokens (``bf16_agree``), then the same call's
+    f32 weights through the kernels for the times beside it.  Returns
+    (record, launches)."""
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.serve import setup
+    prefill_mode, mode = pairing
+    n_attn = cfg.n_layers
+
+    def static(weights, backend, gen=GEN):
+        run = setup(arch, batch=BATCH, prompt_len=PROMPT, gen=gen,
+                    seq_shards=SHARDS, decode_mode=mode, cr=CR,
+                    device="cuda", params=weights, backend=backend,
+                    prefill=prefill_mode)
+        run.cfg = cfg
+        return run
+    run = static(params, "auto")
+    run.run()                                             # warm-up
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    tokens, logits, times = run.run()
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    steps = n_attn * (GEN - 1)
+    check_launches(f"bf16/{arch}/static/{mode}", counts, {
+        "prism_flash_attention": n_attn,
+        "prism_flash_attention.bf16": n_attn,
+        "segment_means": n_attn if mode == "prism" else 0,
+        "flash_decode_stats": steps, "flash_decode_stats.bf16": steps,
+        "flash_decode_stats.kv_bf16": steps})
+    forced = tokens[:, :BF16_REF_STEPS]
+    _, ref, _ = static(params, "plain", BF16_REF_STEPS + 1).run(forced)
+    _, wit, _ = static(wit_params, "plain", BF16_REF_STEPS + 1).run(forced)
+    rec = bf16_agree(torch, tokens, logits, ref, wit,
+                     f"bf16/{arch}/static/{prefill_mode}+{mode}")
+    del ref, wit
+    _, _, t32 = static(wit_params, "auto").run()
+    return {**rec, "prefill_ms": times["prefill_ms"],
+            "decode_ms_per_token": times["decode_ms_per_token"],
+            "f32_prefill_ms": t32["prefill_ms"],
+            "f32_decode_ms_per_token": t32["decode_ms_per_token"],
+            "launches": counts}, counts
+
+
+def bf16_engine(torch, cfg, params, wit_params):
+    """GPT-2 small's engine run with bf16 weights (``BF16_ENGINE``): its
+    cache f32, as the reference's engine keeps it; the decode kernel's
+    launches take the bf16 query of layer 0 (``.bf16``) over the f32
+    cache (no ``.kv_bf16``); its bf16 plain twin and the f32 witness
+    teacher-forced on its tokens (``keep_logits``) for each request's
+    first ``BF16_REF_STEPS`` + 1 tokens, held by ``bf16_agree`` over
+    every request's rows."""
+    prefill, mode, paged = BF16_ENGINE
+    prompts = engine_trace(cfg.vocab_size)
+    eng, out, log, counts, wall = run_engine(torch, cfg, params, prefill,
+                                             mode, paged, prompts)
+    dtypes = {str(t.dtype) for c in eng.kv_cache.storage for t in c.values()}
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"bf16/engine: cache leaves {dtypes}, the "
+                             "reference's engine keeps f32")
+    if not counts.get("flash_decode_stats.bf16") or counts.get(
+            "flash_decode_stats.kv_bf16"):
+        raise AssertionError(f"bf16/engine: launches {counts}")
+    if len(out) != ENGINE_REQUESTS:
+        raise AssertionError(f"bf16/engine: {len(out)} requests finished")
+    rids = sorted(out)
+    ref = dict(forced=out, gen=BF16_REF_STEPS + 1, backend="plain")
+    _, _, p_log, _, _ = run_engine(torch, cfg, params, prefill, mode, paged,
+                                   prompts, **ref)
+    _, _, w_log, _, _ = run_engine(torch, cfg, wit_params, prefill, mode,
+                                   paged, prompts, **ref)
+
+    def rows(lg):                     # (GEN, requests, V), request-major
+        return torch.stack([torch.stack(lg[r]) for r in rids], dim=1)
+    tokens = torch.tensor([out[r] for r in rids], device="cuda")
+    rec = bf16_agree(torch, tokens, rows(log), rows(p_log), rows(w_log),
+                     "bf16/engine")
+    return {**rec, **engine_record(eng, out, wall), "launches": counts,
+            "cache_dtypes": sorted(dtypes)}, counts
+
+
+def drive_bf16(torch):
+    """The bf16 phase: ``BF16_CELLS`` on the static path in both
+    pairings, then GPT-2's ``BF16_ENGINE`` run, each held to its bf16
+    plain twin and the f32 witness by ``bf16_agree``.  Emits each run's
+    prefill ms and decode ms a token beside the same call's f32 weights',
+    and the weight bytes of both; returns the launches by path
+    (``bf16/...``)."""
+    import time
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.rules import tree_map
+    card = nvidia_smi()
+    by_path = {}
+    for arch, depth in BF16_CELLS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = replace(cfg, n_layers=depth, blocks=cfg.block_kinds[:depth])
+        params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda", dtype=torch.bfloat16)
+        wit = tree_map(lambda t: t.float(), params)
+        for pairing in PAIRINGS:
+            rec, counts = bf16_static(torch, arch, cfg, params, wit, pairing)
+            by_path[f"bf16/{arch}/static/{pairing[1]}"] = counts
+            emit("path", arch=arch, path="bf16", prefill=pairing[0],
+                 mode=pairing[1], card=card, layers=cfg.n_layers,
+                 batch=BATCH, prompt=PROMPT, gen=GEN, shards=SHARDS, cr=CR,
+                 weight_bytes=weight_bytes(params),
+                 f32_weight_bytes=weight_bytes(wit), **rec)
+        if arch == ARCH:
+            rec, counts = bf16_engine(torch, cfg, params, wit)
+            by_path[f"bf16/{arch}/engine/{BF16_ENGINE[0]}/"
+                    f"{BF16_ENGINE[1]}"] = counts
+            emit("path", arch=arch, path="bf16/engine", card=card,
+                 prefill=BF16_ENGINE[0], mode=BF16_ENGINE[1],
+                 paged=BF16_ENGINE[2], layers=cfg.n_layers, **ENGINE,
+                 requests=ENGINE_REQUESTS, gen=GEN, **rec)
+        del params, wit
+        torch.cuda.empty_cache()
+        emit("phase", name=f"bf16/{arch}", seconds=time.perf_counter() - t0)
+    return by_path
+
+
 CHILD_ARG = "--phase-child"
 
 
@@ -6493,7 +6900,8 @@ def child_phases():
     encoders; 14, PaliGemma 3B on the static path; 15, Command-R 35B;
     16, MusicGen-medium on the static path; 17, xLSTM 1.3B on the static
     path, voltage + exact; 18, Zamba2 2.7B on the static path; 19,
-    training and the accuracy path; 20, serving over a mesh of ranks."""
+    training and the accuracy path; 20, serving over a mesh of ranks;
+    bf16, the serving paths with bf16 weights (``drive_bf16``)."""
     return {LLAMA: lambda torch: drive_family(torch, LLAMA,
                                               LLAMA_ENGINE_RUNS),
             GEMMA: lambda torch: drive_static(torch, GEMMA, GEMMA_PROMPT),
@@ -6507,7 +6915,8 @@ def child_phases():
                                               pairings=PAIRINGS[:1]),
             ZAMBA: lambda torch: drive_static(torch, ZAMBA),
             "train": drive_train,
-            "mesh": drive_mesh}
+            "mesh": drive_mesh,
+            "bf16": drive_bf16}
 
 
 def phase_child(torch, phases) -> int:
@@ -6715,12 +7124,13 @@ def main() -> int:
     t_fam = {arch: check_family(torch, chk, timer, arch, tag, seed)
              for arch, (tag, seed) in FAMILY_TAGS.items()}
     t_enc = check_encoder_kernels(torch, chk, timer)
+    t_bf16 = check_bf16_kernels(torch, chk, timer)
     emit("kernel", max_abs_err=chk.max_err, tol_share=chk.tol_share,
          worst_case=chk.worst, tol=TOL, cases=chk.cases,
          floor_ms=timer.floor(), attention=t_attn, segment_means=t_means,
          decode=t_dec, hd128=t_128, hd256=t_256,
          **{tag: t_fam[arch] for arch, (tag, _) in FAMILY_TAGS.items()},
-         encoders=t_enc, charlm=t_char)
+         encoders=t_enc, charlm=t_char, bf16=t_bf16)
 
     t_phase = [t_start]
 
@@ -6748,7 +7158,8 @@ def main() -> int:
     by_path.update(drive_apart((LLAMA, GEMMA, MOE, GEMMA7)))  # phases 9-12
     by_path.update(drive_apart(("encoders", PALI, CMDR, MUSICGEN,
                                 XLSTM)))                      # phases 13-17
-    by_path.update(drive_apart((ZAMBA,)))                     # phase 18
+    # phase 18, then the bf16 phase
+    by_path.update(drive_apart((ZAMBA, "bf16")))
     by_path.update(drive_apart(("train",)))                   # phase 19
     by_path.update(drive_apart(("mesh",)))                    # phase 20
 
@@ -6892,6 +7303,37 @@ def main() -> int:
                        "launches_by_path": {p: by_path[p].get(name, 0)
                                             for p in paths}}
         rows.append(row)
+    # the bf16, mixed-dtype and head-dim 16 / 32 instances, each at its
+    # main layout with every layout's times; the launches on the paths
+    # (``.bf16``: a bf16 query or cache; ``.kv_bf16``: a bf16 cache)
+    def total(key):
+        return sum(c.get(key, 0) for c in by_path.values())
+    ta, td = t_bf16["attention"], t_bf16["decode"]
+    tol_dec = TOL["flash_decode_stats"]
+    rows += [
+        instance_row("prism_flash_attention.bf16", "prism_flash_attention",
+                     ta["hd64/prism"], total("prism_flash_attention.bf16"),
+                     chk, "prism_flash_attention/bf16", TOL_BF16_KERNEL,
+                     {k: v for k, v in ta.items() if not k.startswith("f32")}),
+        instance_row("prism_flash_attention.hd16", "prism_flash_attention",
+                     ta["f32/hd16/prism"], 0, chk,
+                     "prism_flash_attention/hd16",
+                     TOL["prism_flash_attention"],
+                     {"f32/hd16/prism": ta["f32/hd16/prism"]}),
+        instance_row("flash_decode_stats.bf16", "flash_decode_stats",
+                     td["hd64/exact"], total("flash_decode_stats.kv_bf16"),
+                     chk, "flash_decode_stats/bf16", TOL_BF16_KERNEL,
+                     {k: v for k, v in td.items() if k.startswith("hd")}),
+        instance_row("flash_decode_stats.mixed", "flash_decode_stats",
+                     td["mixed/packed"], total("flash_decode_stats.bf16")
+                     - total("flash_decode_stats.kv_bf16"), chk,
+                     "flash_decode_stats/mixed", tol_dec,
+                     {k: v for k, v in td.items() if k.startswith("mixed")}),
+        instance_row("flash_decode_stats.hd16_32", "flash_decode_stats",
+                     td["f32/hd16/prism"], 0, chk,
+                     "flash_decode_stats/hd16_32", tol_dec,
+                     {k: v for k, v in td.items() if k.startswith("f32")})]
+    rows[-1]["cases_by_route"] = t_bf16["cases_by_route"]
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -24,6 +24,13 @@ Mamba2 cells (``in``, ``conv``, ``a_log``, ``dt_bias``, ``d_skip``,
 ``ynorm``, ``out``) over its 6-layer unit of 5 ``mamba`` and 1
 ``shared_attn`` (``scan_split`` (6, 9, 0)).  A ``shared_attn`` layer is
 ``{}`` on both sides; the one weight set it reads is ``shared``.
+
+bf16 crosses both ways as exact f32 numpy arrays: every bf16 value is an
+f32 value, so ``to_jax_numpy`` widens a bf16 leaf and
+``from_jax_numpy(dtype=torch.bfloat16)`` rounds an f32 leaf back, exactly
+where it came from bf16.  (A numpy array of the reference's own bf16
+dtype is widened the same way, by its own ``astype``.)  Neither side
+needs a numpy bf16 type or jax.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ import torch
 
 from .device import resolve_device
 from .models.config import ModelConfig
-from .models.transformer import check_supported
+from .models.transformer import DTYPES, check_supported
 from .sharding.rules import local_shard, tree_map
 
 
@@ -67,18 +74,38 @@ def port_layout(cfg: ModelConfig, tree: dict, leaf) -> dict:
     return out
 
 
-def from_jax_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
-    """The reference's numpy parameter pytree -> the port's parameters on
-    ``device``: the card unless the caller asks for the CPU; raises
-    without a card."""
+#: leaves the reference keeps in f32 whatever its ``dtype`` (Mamba2's)
+F32_LEAVES = ("a_log", "dt_bias")
+
+
+def _cast(tree, dtype, name=None):
+    """The port's tree with every leaf in ``dtype`` but ``F32_LEAVES``."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype, name) for v in tree]
+    return tree if name in F32_LEAVES else tree.to(dtype)
+
+
+def from_jax_numpy(cfg: ModelConfig, tree: dict, device="cuda",
+                   dtype=torch.float32) -> dict:
+    """The reference's numpy parameter pytree -> the port's parameters in
+    ``dtype`` (the reference's ``init`` dtype: f32 or bf16, Mamba2's
+    ``a_log`` and ``dt_bias`` f32 in either) on ``device``: the card
+    unless the caller asks for the CPU; raises without a card."""
     check_supported(cfg)
+    if dtype not in DTYPES:
+        raise NotImplementedError(f"parameters in {dtype}; the port takes "
+                                  f"{DTYPES}")
     device = resolve_device(device)
 
     def leaf(a, index):
         a = np.asarray(a)
+        if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)             # the reference's bf16
         return torch.tensor(a if index is None else a[index],
                             dtype=torch.float32, device=device)
-    return port_layout(cfg, tree, leaf)
+    return _cast(port_layout(cfg, tree, leaf), dtype)
 
 
 def shard_params(params: dict, rules: dict, mesh) -> dict:
@@ -91,9 +118,11 @@ def shard_params(params: dict, rules: dict, mesh) -> dict:
 
 
 def _numpy(tree):
+    """Leaves as numpy arrays; a bf16 leaf widened to f32, exactly."""
     if isinstance(tree, dict):
         return {k: _numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    t = tree.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def _stack(trees):
@@ -109,7 +138,8 @@ def to_jax_numpy(cfg: ModelConfig, params: dict) -> dict:
     """The inverse of ``from_jax_numpy``: the port's parameters -> the
     reference's numpy tree, layer ``i·u + j`` of the scanned part
     stacked as slice ``i`` of ``scan[j]`` and the ``tail`` layers after
-    (``ModelConfig.scan_split``).  Leaves keep their dtype."""
+    (``ModelConfig.scan_split``).  Leaves keep their dtype, but for bf16,
+    which crosses as exact f32."""
     u, n_units, n_tail = cfg.scan_split
     layers = [_numpy(p) for p in params["layers"]]
     if len(layers) != cfg.n_layers:

@@ -28,14 +28,23 @@ def at_least_f32(x):
     return x if x.dtype == torch.float64 else x.float()
 
 
+def promoted(x: torch.Tensor, y: torch.Tensor):
+    """x and y in their promoted dtype, as JAX's mixed-dtype products
+    take them (a bf16 query over an f32 cache: f32)."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
 def _gqa_logits(q: torch.Tensor, k: torch.Tensor, scale: float
                 ) -> torch.Tensor:
-    """(B, Hq, Nq, M) attention logits with KV-head grouping."""
+    """(B, Hq, Nq, M) attention logits with KV-head grouping, in the
+    inputs' (promoted) dtype."""
     b, nq, hq, hd = q.shape
     _, m, hkv, _ = k.shape
     if hq % hkv:
         raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
     grp = hq // hkv
+    q, k = promoted(q, k)
     qg = q.reshape(b, nq, hkv, grp, hd)
     logits = torch.einsum("bnkgh,bmkh->bkgnm", qg, k) * scale
     return logits.reshape(b, hq, nq, m)
@@ -46,6 +55,7 @@ def _gqa_output(weights: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     b, hq, nq, m = weights.shape
     hkv = v.shape[2]
     grp = hq // hkv
+    weights, v = promoted(weights, v)
     wg = weights.reshape(b, hkv, grp, nq, m)
     out = torch.einsum("bkgnm,bmkh->bnkgh", wg, v)
     return out.reshape(b, nq, hq, v.shape[-1])

@@ -23,7 +23,10 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIBS = ("prism_attention", "decode_attention", "segment_means")
+# one library a source, each built by its own nvcc: the bf16 instances
+# have sources of their own, so the build's wall time does not double
+LIBS = ("prism_attention", "prism_attention_bf16", "decode_attention",
+        "decode_attention_bf16", "segment_means")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}

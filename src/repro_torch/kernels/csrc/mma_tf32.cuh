@@ -8,10 +8,17 @@
 // digits and does not meet the kernels' f32 tolerances.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tc {
+
+// an operand element in f32: f32 as it is, bf16 widened (exact)
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 // x rounded to TF32 (to nearest, ties away from zero, as
 // cvt.rna.tf32.f32 rounds) with two integer ops in place of the cvt
@@ -62,9 +69,11 @@ constexpr int QK_CHAIN = 8;
 // inside each 8-column group (column 2i <- i, 2i + 1 <- i + 4), so the
 // accumulator is the A fragment of the P V product that follows.  n-tile
 // j, entry e holds column j*8 + t + 4*(e & 1) of row g + 8*(e >> 1).
-template <int K0, int K1, int NJ, int LDK>
+// K's elements are f32 or bf16 (T), widened where they are read: a bf16
+// value is a TF32 value, so its lo part is 0.
+template <int K0, int K1, int NJ, int LDK, typename T>
 __device__ __forceinline__ void qk_3xtf32(float (&acc)[NJ][4],
-                                          const uint4* my_q, const float* sK,
+                                          const uint4* my_q, const T* sK,
                                           int g, int t) {
 #pragma unroll
   for (int ks = K0; ks < K1; ++ks) {
@@ -73,10 +82,10 @@ __device__ __forceinline__ void qk_3xtf32(float (&acc)[NJ][4],
     const uint32_t ql[4] = {l4.x, l4.y, l4.z, l4.w};
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const float* kr = sK + (j * 8 + (g >> 1) + (g & 1) * 4) * LDK + ks * 8;
+      const T* kr = sK + (j * 8 + (g >> 1) + (g & 1) * 4) * LDK + ks * 8;
       uint32_t bh0, bl0, bh1, bl1;
-      split(kr[t], bh0, bl0);
-      split(kr[t + 4], bh1, bl1);
+      split(to_f32(kr[t]), bh0, bl0);
+      split(to_f32(kr[t + 4]), bh1, bl1);
       mma_3xtf32(acc[j], qh, ql, bh0, bh1, bl0, bl1);
     }
   }
@@ -113,7 +122,7 @@ __device__ __forceinline__ void qk_3xtf32_f32q(float (&acc)[NJ][4],
 }
 
 // 16 bytes from global to shared memory, zero-filled when !ok
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"

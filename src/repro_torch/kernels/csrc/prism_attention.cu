@@ -58,7 +58,9 @@
 // - Head dim 32 (the accuracy protocol's char-LM: 4 heads of 32).  The
 //   hd-64 layout at KS = 4 k-steps, one QK^T chain; strides 36 and 40
 //   floats give hd 64's banks (4g + t for K, 8t + g for V); built for
-//   three blocks an SM, as hd 64.
+//   three blocks an SM, as hd 64.  Head dim 16 (the reference's test
+//   grid; no ported model has it) is the same at KS = 2.
+// - bf16 inputs take prism_attention_bf16.cu, a library of its own.
 // - Head dim 80 (Zamba2 2.7B: 32 heads, MHA).  The hd-128 layout with
 //   KS = 10 k-steps: QK^T runs as a chain of 8 and one of 2, each in its
 //   own accumulator; strides 84 and 88 floats keep the fragment loads
@@ -100,10 +102,12 @@
 #include <stdint.h>
 
 #include "mma_tf32.cuh"
+#include "prism_tiles.cuh"
 
 namespace {
 
-constexpr float NEG = -1e30f;
+using prism::NEG;
+using prism::visible;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BQ = 64;          // query rows per block (16 per warp)
 constexpr int BK = 32;          // K/V columns per tile
@@ -135,20 +139,7 @@ struct Smem {
 
 using namespace tc;   // 3xTF32 mma.sync and cp.async (mma_tf32.cuh)
 
-// whether a column [lo, hi] is visible to a row at position r
-__device__ __forceinline__ bool visible(int lo, int hi, int r, int causal,
-                                        int prefix_len, int has_window,
-                                        int window) {
-  bool vis = true;
-  if (causal) {
-    vis = hi <= r;
-    if (prefix_len > 0) vis = vis || (hi < prefix_len);
-  }
-  if (has_window) vis = vis && ((long long)lo > (long long)r - window);
-  return vis;
-}
-
-// blocks an SM the kernel is built for: three at head dims 32 and 64;
+// blocks an SM the kernel is built for: three at head dims 16, 32 and 64;
 // one at 80, 128 and 256, whose shared memory admits no second
 constexpr int min_blocks(int hd) { return hd <= 64 ? 3 : 1; }
 
@@ -177,7 +168,7 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
   // Q kept per thread in its mma A-fragment order: TF32 parts, or f32
   uint4* s_q = reinterpret_cast<uint4*>(smem + STAGES * S::STAGE);
   int* s_tiles = reinterpret_cast<int*>(s_q + NW * KS * (QP ? 2 : 1) * 32);
-  __shared__ int s_rmin, s_rmax, s_ntiles;
+  __shared__ int s_int[3];
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -189,7 +180,6 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma groupID, thread-in-group
-  const int ntiles = (M + BK - 1) / BK;
 
   // ---- this warp's Q rows g and g + 8: loads issued first, split later
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
@@ -210,39 +200,9 @@ __global__ void __launch_bounds__(NT, min_blocks(HD)) prism_attention_kernel(
   const int rp1 = ok1 ? row_pos[pm * Nq + r1] : INT_MIN;
 
   // ---- which tiles can any row of this query tile see? ----------------
-  if (tid == 0) {
-    s_rmin = INT_MAX;
-    s_rmax = INT_MIN;
-  }
-  for (int i = tid; i < ntiles; i += NT) s_tiles[i] = 0;
-  __syncthreads();
-  if (tid < BQ && q0 + tid < Nq) {
-    const int r = row_pos[pm * Nq + q0 + tid];
-    atomicMin(&s_rmin, r);
-    atomicMax(&s_rmax, r);
-  }
-  __syncthreads();
-  const int rmin = s_rmin, rmax = s_rmax;
-  for (int c = tid; c < M; c += NT) {
-    const float lg = log_g[pm * M + c];
-    const long long lo = col_lo[pm * M + c], hi = col_hi[pm * M + c];
-    if (!(lg > NEG * 0.5f)) continue;
-    // the rows that could see [lo, hi]: r >= hi (causal, unless a
-    // prefix column) and r < lo + window; intersect with [rmin, rmax]
-    long long a = rmin, z = rmax;
-    if (causal && !(prefix_len > 0 && hi < prefix_len)) a = a > hi ? a : hi;
-    if (has_window) z = z < lo + window - 1 ? z : lo + window - 1;
-    if (a <= z) s_tiles[c / BK] = 1;
-  }
-  __syncthreads();
-  if (tid == 0) {                       // compact the live tiles in order
-    int n = 0;
-    for (int i = 0; i < ntiles; ++i)
-      if (s_tiles[i]) s_tiles[n++] = i;
-    s_ntiles = n;
-  }
-  __syncthreads();
-  const int nlive = s_ntiles;
+  const int nlive = prism::live_tiles<BQ, BK, NT>(
+      log_g, col_lo, col_hi, row_pos, pm, q0, Nq, M, causal, prefix_len,
+      has_window, window, s_tiles, s_int);
 
   auto load_tile = [&](int tile, int stage) {
     float* st = smem + stage * S::STAGE;
@@ -497,8 +457,12 @@ extern "C" int prism_attention_f32(
   auto st = static_cast<cudaStream_t>(stream);
   // one head dim per ported model family (the accuracy protocol's
   // char-LM: 32; GPT-2: 64; Zamba2 2.7B: 80; Llama, Yi-6B: 128; Gemma 3
-  // 1B: 256)
+  // 1B: 256) and the reference's test grid's 16
   switch (hd) {
+    case 16:
+      return launch<16>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv,
+                        rep, P, causal, prefix_len, has_window, window,
+                        scale, st);
     case 32:
       return launch<32>(qf, kf, vf, lg, lo, hi, rp, o, B, Nq, M, Hq, Hkv,
                         rep, P, causal, prefix_len, has_window, window,

@@ -1,5 +1,7 @@
-"""Single-token flash-decode partial stats: the CUDA kernel
-(``csrc/decode_attention.cu``) and its plain PyTorch version.
+"""Single-token flash-decode partial stats: the CUDA kernels
+(``csrc/decode_attention.cuh``, built over an f32 cache by
+``csrc/decode_attention.cu`` and over a bf16 one by
+``csrc/decode_attention_bf16.cu``) and their plain PyTorch version.
 
 Both return the running softmax statistics ``(m, l, acc)`` — m, l
 (B, Hq, 1, 1) f32 and acc (B, 1, Hq, hd) f32 — over one local KV shard,
@@ -17,6 +19,13 @@ output row ``b`` is shard ``b % rep`` of query row ``b // rep``):
     log_gz   (B, m) f32             per output row: its means bias
     kz, vz   (R, m, Hkv, hd)        the means, shared by the shards
     rows     (B_q,) int32 or None   the cache row of each query row
+
+Dtypes, as the reference's kernel takes them: q f32 or bf16; k and v
+f32 or bf16, the cache's (the kernel of k's dtype runs); kz and vz in
+any of the two, cast to k's dtype (the reference's ``kz.astype(k.dtype)``);
+the stats f32.  The kernels read q in f32: the wrapper widens a bf16
+query (exact), so a bf16 query over an f32 cache (an engine's bf16
+model) and over a bf16 one (a bf16 static path) take the same kernels.
 
 Without ``rows`` query row ``i`` reads cache row ``i`` (``R = B_q``).
 With it, query row ``i`` reads cache row ``rows[i]`` (clamped to
@@ -47,7 +56,15 @@ from ..core.attention import _gqa_logits, _gqa_output, at_least_f32
 from ..core.masks import NEG_INF
 
 NEG = NEG_INF
-HEAD_DIMS = (64, 80, 128, 256)  # head dims csrc/decode_attention.cu builds
+#: head dims csrc/decode_attention.cuh builds, on both routes and caches
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: the cache's dtype -> (library, C entry points of the row and tile
+#: routes)
+ENTRIES = {torch.float32: ("decode_attention", "flash_decode_stats_f32",
+                           "flash_decode_stats_mq_f32"),
+           torch.bfloat16: ("decode_attention_bf16", "flash_decode_stats_bf16",
+                            "flash_decode_stats_mq_bf16")}
+DTYPES = tuple(ENTRIES)
 
 _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_void_p])
@@ -201,11 +218,11 @@ def decode_route(hq: int, hkv: int, no_rows: bool) -> str:
 
 def flash_decode_stats(q, k, v, valid, log_gz=None, kz=None, vz=None, *,
                        scale, rows=None, pages=None, zrows=None):
-    """The CUDA kernel, on the route ``decode_route`` picks from the
-    shapes and the row map.  f32 only; raises on anything it does not
+    """The CUDA kernel of the cache's dtype, on the route ``decode_route``
+    picks from the shapes and the row map; raises on anything it does not
     take.  Launches on the current stream and does not synchronise."""
-    check_tensor(q, "q", dtype=torch.float32, ndim=4, device=k.device)
-    check_tensor(k, "k", dtype=torch.float32, ndim=4, device=k.device)
+    check_tensor(q, "q", dtype=DTYPES, ndim=4, device=k.device)
+    check_tensor(k, "k", dtype=DTYPES, ndim=4, device=k.device)
     return launch_route(decode_route(q.shape[2], k.shape[2], rows is None),
                         q, k, v, valid, log_gz, kz, vz, scale=scale,
                         rows=rows, pages=pages, zrows=zrows)
@@ -225,13 +242,15 @@ def launch_route(route, q, k, v, valid, log_gz=None, kz=None, vz=None, *,
     serving path calls ``flash_decode_stats``.  Every launch counts under
     ``flash_decode_stats``, the tile route's also under
     ``flash_decode_stats.mq``, a launch with a page table also under
-    ``flash_decode_stats.paged``."""
+    ``flash_decode_stats.paged``, one with a bf16 query or cache also
+    under ``flash_decode_stats.bf16``, and one over a bf16 cache (the
+    bf16 library) also under ``flash_decode_stats.kv_bf16``."""
     if route not in ROUTES:
         raise ValueError(f"route {route!r} not in {ROUTES}")
     dev = k.device
-    check_tensor(q, "q", dtype=torch.float32, ndim=4, device=dev)
-    check_tensor(k, "k", dtype=torch.float32, ndim=4, device=dev)
-    check_tensor(v, "v", dtype=torch.float32, ndim=4, device=dev)
+    check_tensor(q, "q", dtype=DTYPES, ndim=4, device=dev)
+    check_tensor(k, "k", dtype=DTYPES, ndim=4, device=dev)
+    check_tensor(v, "v", dtype=k.dtype, ndim=4, device=dev)
     check_tensor(valid, "valid", dtype=torch.bool, ndim=2, device=dev)
     bq, nq, hq, hd = q.shape
     n_kv, pc, hkv, hd_k = k.shape
@@ -272,8 +291,9 @@ def launch_route(route, q, k, v, valid, log_gz=None, kz=None, vz=None, *,
     if kz is not None:
         check_tensor(log_gz, "log_gz", dtype=torch.float32, ndim=2,
                      device=dev)
-        check_tensor(kz, "kz", dtype=torch.float32, ndim=4, device=dev)
-        check_tensor(vz, "vz", dtype=torch.float32, ndim=4, device=dev)
+        check_tensor(kz, "kz", dtype=DTYPES, ndim=4, device=dev)
+        check_tensor(vz, "vz", dtype=DTYPES, ndim=4, device=dev)
+        kz, vz = kz.to(k.dtype), vz.to(k.dtype)     # the reference's cast
         mz = kz.shape[1]
         if (kz.shape[1:] != (mz, hkv, hd) or vz.shape != kz.shape
                 or log_gz.shape != (b, mz)
@@ -285,6 +305,8 @@ def launch_route(route, q, k, v, valid, log_gz=None, kz=None, vz=None, *,
             _check_map(zrows, "zrows", (n_rows,), dev)
             ptr["zrows"] = zrows.data_ptr()
         means = (log_gz.data_ptr(), kz.data_ptr(), vz.data_ptr())
+    bf16 = torch.bfloat16 in (q.dtype, k.dtype)
+    q = q.float()                       # exact: the kernels read f32
     m_p = torch.empty((b, hq, 1, 1), dtype=torch.float32, device=dev)
     l_p = torch.empty((b, hq, 1, 1), dtype=torch.float32, device=dev)
     acc_p = torch.empty((b, 1, hq, hd), dtype=torch.float32, device=dev)
@@ -293,17 +315,18 @@ def launch_route(route, q, k, v, valid, log_gz=None, kz=None, vz=None, *,
     outputs = (m_p.data_ptr(), l_p.data_ptr(), acc_p.data_ptr())
     sizes = (b, m_loc, mz, hq, hkv, hd, rep, ppr, pc, n_kv // rep,
              0 if kz is None else kz.shape[0], ctypes.c_float(scale))
-    counts = (("flash_decode_stats.mq",) if route == "tile" else ()) + (
-        ("flash_decode_stats.paged",) if pages is not None else ())
+    counts = tuple(f"flash_decode_stats.{c}" for c, on in (
+        ("mq", route == "tile"), ("paged", pages is not None),
+        ("bf16", bf16), ("kv_bf16", k.dtype == torch.bfloat16)) if on)
+    lib, row_entry, tile_entry = ENTRIES[k.dtype]
     if route == "tile":
-        launch("flash_decode_stats", "decode_attention",
-               "flash_decode_stats_mq_f32", _TILE_ARGTYPES, dev, *inputs,
-               ptr["pages"], ptr["zrows"], *outputs, *sizes, counts=counts)
-    else:
-        launch("flash_decode_stats", "decode_attention",
-               "flash_decode_stats_f32", _ARGTYPES, dev, *inputs,
-               ptr["rows"], ptr["pages"], ptr["zrows"], *outputs, *sizes,
+        launch("flash_decode_stats", lib, tile_entry, _TILE_ARGTYPES, dev,
+               *inputs, ptr["pages"], ptr["zrows"], *outputs, *sizes,
                counts=counts)
+    else:
+        launch("flash_decode_stats", lib, row_entry, _ARGTYPES, dev,
+               *inputs, ptr["rows"], ptr["pages"], ptr["zrows"], *outputs,
+               *sizes, counts=counts)
     return m_p, l_p, acc_p
 
 

@@ -3,7 +3,9 @@
 ``prism_attention_op`` takes repeat counts ``g`` (0 = dead / padding
 column) and position metadata in the reference's layout, or with a
 leading shard dimension, turns ``g`` into the ``+log g`` bias, and routes
-to the CUDA kernel or its plain version (``kernels.dispatch``).  Ragged
+to the CUDA kernel or its plain version (``kernels.dispatch``).  q, k
+and v are f32 or bf16, one dtype (the kernel of that dtype; the output
+in it); g and the positions any dtype, taken to f32 and int32.  Ragged
 Nq and M need no padding: the kernel masks its own edges.
 """
 from __future__ import annotations

@@ -1,10 +1,12 @@
-"""PRISM scaling-aware flash attention (prefill): the CUDA kernel
-(``csrc/prism_attention.cu``) and its plain PyTorch version.
+"""PRISM scaling-aware flash attention (prefill): the CUDA kernels
+(``csrc/prism_attention.cu`` for f32, ``csrc/prism_attention_bf16.cu``
+for bf16) and their plain PyTorch version.
 
-Both take the same arguments:
+All take the same arguments:
 
-    q          (B, Nq, Hq, hd)
-    k, v       (B / rep, M, Hkv, hd)   batch row b reads K/V row b // rep
+    q          (B, Nq, Hq, hd)         f32 or bf16, the output's dtype
+    k, v       (B / rep, M, Hkv, hd)   q's dtype; batch row b reads K/V
+                                       row b // rep
     log_g      (P, M) f32              +log g column bias; -1e30 = dead
     col_lo/hi  (P, M) int32            global position range per column
     row_pos    (P, Nq) int32           global position per query row
@@ -26,7 +28,11 @@ from ..core.attention import _gqa_logits, _gqa_output, at_least_f32
 from ..core.masks import NEG_INF, visibility
 
 NEG = NEG_INF
-HEAD_DIMS = (32, 64, 80, 128, 256)  # head dims csrc/prism_attention.cu builds
+#: head dims both sources build, at each dtype
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: q / k / v dtype -> (library, C entry point)
+ENTRIES = {torch.float32: ("prism_attention", "prism_attention_f32"),
+           torch.bfloat16: ("prism_attention_bf16", "prism_attention_bf16")}
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
              + [ctypes.c_float, ctypes.c_void_p])
@@ -54,7 +60,10 @@ def prism_attention_reference(q, k, v, log_g, col_lo, col_hi, row_pos, *,
                               window: int | None = None,
                               scale: float | None = None) -> torch.Tensor:
     """Plain version: the full (Nq, M) logits with the +log g bias and the
-    position-range mask, then a stable softmax (paper Eq. 13-15, 17)."""
+    position-range mask, then a stable softmax (paper Eq. 13-15, 17).  In
+    the reference's dtypes: bf16 logits (the einsum in the inputs' dtype)
+    taken to f32, the weights cast to v's dtype before the output's
+    einsum."""
     b, nq, hq, hd, bk, m, hkv, p = _shapes(q, k, v, log_g, col_lo, col_hi,
                                            row_pos)
     scale = (hd ** -0.5) if scale is None else scale
@@ -78,13 +87,18 @@ def prism_flash_attention(q, k, v, log_g, col_lo, col_hi, row_pos, *,
                           causal: bool, prefix_len: int = 0,
                           window: int | None = None,
                           scale: float | None = None) -> torch.Tensor:
-    """The CUDA kernel.  f32 only; raises on anything it does not take.
-    Launches on the current stream and does not synchronise.  A launch
-    with a window counts also under ``prism_flash_attention.window``."""
+    """The CUDA kernel of q's dtype, f32 or bf16 (k and v in the same);
+    raises on anything it does not take.  Launches on the current stream
+    and does not synchronise.  A launch with a window counts also under
+    ``prism_flash_attention.window``, a bf16 one under
+    ``prism_flash_attention.bf16``."""
     dev = q.device
-    for name, t, dt, ndim in (("q", q, torch.float32, 4),
-                              ("k", k, torch.float32, 4),
-                              ("v", v, torch.float32, 4),
+    if q.dtype not in ENTRIES:
+        raise TypeError(f"q: kernel takes torch.float32 or torch.bfloat16, "
+                        f"got {q.dtype}")
+    for name, t, dt, ndim in (("q", q, q.dtype, 4),
+                              ("k", k, q.dtype, 4),
+                              ("v", v, q.dtype, 4),
                               ("log_g", log_g, torch.float32, 2),
                               ("col_lo", col_lo, torch.int32, 2),
                               ("col_hi", col_hi, torch.int32, 2),
@@ -96,12 +110,14 @@ def prism_flash_attention(q, k, v, log_g, col_lo, col_hi, row_pos, *,
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     scale = (hd ** -0.5) if scale is None else scale
     out = torch.empty_like(q)
-    launch("prism_flash_attention", "prism_attention", "prism_attention_f32",
-           _ARGTYPES, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           log_g.data_ptr(), col_lo.data_ptr(), col_hi.data_ptr(),
-           row_pos.data_ptr(), out.data_ptr(), b, nq, m, hq, hkv, hd,
-           b // bk, p, int(causal), prefix_len, int(window is not None),
+    counts = (("prism_flash_attention.window",) if window is not None
+              else ()) + (("prism_flash_attention.bf16",)
+                          if q.dtype == torch.bfloat16 else ())
+    launch("prism_flash_attention", *ENTRIES[q.dtype], _ARGTYPES, dev,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), log_g.data_ptr(),
+           col_lo.data_ptr(), col_hi.data_ptr(), row_pos.data_ptr(),
+           out.data_ptr(), b, nq, m, hq, hkv, hd, b // bk, p, int(causal),
+           prefix_len, int(window is not None),
            0 if window is None else window, ctypes.c_float(scale),
-           counts=("prism_flash_attention.window",) if window is not None
-           else ())
+           counts=counts)
     return out

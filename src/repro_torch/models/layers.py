@@ -1,7 +1,9 @@
 """Neural layers as plain functions on tensors with parameter dicts.
 
 Layouts follow the JAX reference so parameters convert by copying:
-dense weights are ``(d_in, d_out)``, embeddings ``(vocab, d)``.  Only
+dense weights are ``(d_in, d_out)``, embeddings ``(vocab, d)``.  Every
+``*_init`` takes the reference's ``dtype``: the weights are drawn in f32
+and then cast, so a bf16 init is the f32 init rounded.  Only
 what the ported models use is here: LayerNorm and RMSNorm, the tanh-GELU,
 GeGLU and SwiGLU MLPs, rotary embeddings (split halves) and the attention
 projections that apply them, with qk-norm where the model has it.
@@ -20,17 +22,18 @@ from ..core.attention import at_least_f32
 # primitives
 # --------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape, scale: float, device):
+def _normal(gen: torch.Generator, shape, scale: float, device,
+            dtype=torch.float32):
     return (torch.randn(shape, generator=gen, device=gen.device)
-            * scale).to(device)
+            * scale).to(device=device, dtype=dtype)
 
 
 def dense_init(gen, d_in: int, d_out: int, *, device, bias: bool = False,
-               scale: float | None = None):
+               scale: float | None = None, dtype=torch.float32):
     scale = (d_in ** -0.5) if scale is None else scale
-    p = {"w": _normal(gen, (d_in, d_out), scale, device)}
+    p = {"w": _normal(gen, (d_in, d_out), scale, device, dtype)}
     if bias:
-        p["b"] = torch.zeros(d_out, device=device)
+        p["b"] = torch.zeros(d_out, device=device, dtype=dtype)
     return p
 
 
@@ -41,8 +44,8 @@ def dense(p, x):
     return y
 
 
-def embedding_init(gen, vocab: int, d: int, device):
-    return {"table": _normal(gen, (vocab, d), d ** -0.5, device)}
+def embedding_init(gen, vocab: int, d: int, device, dtype=torch.float32):
+    return {"table": _normal(gen, (vocab, d), d ** -0.5, device, dtype)}
 
 
 def embed(p, tokens):
@@ -52,12 +55,12 @@ def embed(p, tokens):
 NORM_KINDS = ("layernorm", "rmsnorm")
 
 
-def norm_init(d: int, kind: str, device):
+def norm_init(d: int, kind: str, device, dtype=torch.float32):
     if kind not in NORM_KINDS:
         raise NotImplementedError(f"norm kind {kind!r} is not ported yet")
-    p = {"scale": torch.ones(d, device=device)}
+    p = {"scale": torch.ones(d, device=device, dtype=dtype)}
     if kind == "layernorm":
-        p["bias"] = torch.zeros(d, device=device)
+        p["bias"] = torch.zeros(d, device=device, dtype=dtype)
     return p
 
 
@@ -104,13 +107,14 @@ MLP_KINDS = ("gelu", "geglu", "swiglu")
 
 
 def mlp_init(gen, d: int, d_ff: int, kind: str, *, device,
-             bias: bool = False):
+             bias: bool = False, dtype=torch.float32):
     if kind not in MLP_KINDS:
         raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
-    p = {"up": dense_init(gen, d, d_ff, bias=bias, device=device),
-         "down": dense_init(gen, d_ff, d, bias=bias, device=device)}
+    kw = dict(bias=bias, device=device, dtype=dtype)
+    p = {"up": dense_init(gen, d, d_ff, **kw),
+         "down": dense_init(gen, d_ff, d, **kw)}
     if kind in ("geglu", "swiglu"):              # the gated kinds
-        p["gate"] = dense_init(gen, d, d_ff, bias=bias, device=device)
+        p["gate"] = dense_init(gen, d, d_ff, **kw)
     return p
 
 
@@ -146,17 +150,18 @@ class AttnSpec:
     causal: bool = True
 
 
-def attn_init(gen, s: AttnSpec, device):
+def attn_init(gen, s: AttnSpec, device, dtype=torch.float32):
     hq, hkv = s.n_heads * s.head_dim, s.n_kv_heads * s.head_dim
+    kw = dict(bias=s.bias, device=device, dtype=dtype)
     p = {
-        "wq": dense_init(gen, s.d_model, hq, bias=s.bias, device=device),
-        "wk": dense_init(gen, s.d_model, hkv, bias=s.bias, device=device),
-        "wv": dense_init(gen, s.d_model, hkv, bias=s.bias, device=device),
-        "wo": dense_init(gen, hq, s.d_model, bias=s.bias, device=device),
+        "wq": dense_init(gen, s.d_model, hq, **kw),
+        "wk": dense_init(gen, s.d_model, hkv, **kw),
+        "wv": dense_init(gen, s.d_model, hkv, **kw),
+        "wo": dense_init(gen, hq, s.d_model, **kw),
     }
     if s.qk_norm:                 # RMSNorm of each head's q and k
-        p["qnorm"] = norm_init(s.head_dim, "rmsnorm", device)
-        p["knorm"] = norm_init(s.head_dim, "rmsnorm", device)
+        p["qnorm"] = norm_init(s.head_dim, "rmsnorm", device, dtype)
+        p["knorm"] = norm_init(s.head_dim, "rmsnorm", device, dtype)
     return p
 
 

@@ -35,24 +35,28 @@ from .layers import MLP_KINDS, dense, dense_init, mlp, mlp_init
 
 
 def moe_init(gen: torch.Generator, d: int, n_experts: int, d_ff: int,
-             kind: str, *, device, dense_d_ff: int = 0):
+             kind: str, *, device, dense_d_ff: int = 0, dtype=torch.float32):
     """The router (d, E), the experts' MLP leaves stacked (E, d_in,
     d_out) with ``mlp_init``'s distributions (drawn stacked, so a large
     model's experts never exist twice), and the dense residual MLP where
-    the model has one (arctic)."""
+    the model has one (arctic); drawn in f32 and cast to ``dtype``.  The
+    router's logits are f32 whatever the dtype (``router``), the top-k
+    probabilities and the combine weights in x's dtype (``route``,
+    ``moe_apply``), as the reference's."""
     if kind not in MLP_KINDS:
         raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
-    p = {"router": dense_init(gen, d, n_experts, device=device)}
+    p = {"router": dense_init(gen, d, n_experts, device=device, dtype=dtype)}
 
     def stacked(d_in, d_out):
         return {"w": (torch.randn((n_experts, d_in, d_out), generator=gen,
                                   device=gen.device)
-                      * d_in ** -0.5).to(device)}
+                      * d_in ** -0.5).to(device=device, dtype=dtype)}
     p["experts"] = {"up": stacked(d, d_ff), "down": stacked(d_ff, d)}
     if kind in ("geglu", "swiglu"):
         p["experts"]["gate"] = stacked(d, d_ff)
     if dense_d_ff:
-        p["dense_mlp"] = mlp_init(gen, d, dense_d_ff, kind, device=device)
+        p["dense_mlp"] = mlp_init(gen, d, dense_d_ff, kind, device=device,
+                                  dtype=dtype)
     return p
 
 

@@ -111,16 +111,17 @@ def chunked_linear_attention(q, k, v, log_f, gate_i, *, chunk: int, ctx,
 # --------------------------------------------------------------------------
 
 def mlstm_init(gen: torch.Generator, d: int, heads: int, expand: int,
-               device):
+               device, dtype=torch.float32):
     d_in = d * expand
+    kw = dict(device=device, dtype=dtype)
     return {
-        "up": dense_init(gen, d, 2 * d_in, device=device),
-        "wq": dense_init(gen, d_in, d_in, device=device),
-        "wk": dense_init(gen, d_in, d_in, device=device),
-        "wv": dense_init(gen, d_in, d_in, device=device),
-        "gates": dense_init(gen, d_in, 2 * heads, bias=True, device=device),
-        "hnorm": norm_init(d_in // heads, "rmsnorm", device),
-        "down": dense_init(gen, d_in, d, device=device),
+        "up": dense_init(gen, d, 2 * d_in, **kw),
+        "wq": dense_init(gen, d_in, d_in, **kw),
+        "wk": dense_init(gen, d_in, d_in, **kw),
+        "wv": dense_init(gen, d_in, d_in, **kw),
+        "gates": dense_init(gen, d_in, 2 * heads, bias=True, **kw),
+        "hnorm": norm_init(d_in // heads, "rmsnorm", device, dtype),
+        "down": dense_init(gen, d_in, d, **kw),
     }
 
 
@@ -184,15 +185,17 @@ def mlstm_decode(p, x, state, *, heads: int):
 # sLSTM: sequential
 # --------------------------------------------------------------------------
 
-def slstm_init(gen: torch.Generator, d: int, heads: int, device):
+def slstm_init(gen: torch.Generator, d: int, heads: int, device,
+               dtype=torch.float32):
     hd = d // heads
     return {
-        "wx": dense_init(gen, d, 4 * d, bias=True, device=device),
+        "wx": dense_init(gen, d, 4 * d, bias=True, device=device,
+                         dtype=dtype),
         # block-diagonal recurrent weights, one (hd, hd) block per gate
         # and head
-        "r": _normal(gen, (4, heads, hd, hd), hd ** -0.5, device),
-        "hnorm": norm_init(d, "rmsnorm", device),
-        "down": dense_init(gen, d, d, device=device),
+        "r": _normal(gen, (4, heads, hd, hd), hd ** -0.5, device, dtype),
+        "hnorm": norm_init(d, "rmsnorm", device, dtype),
+        "down": dense_init(gen, d, d, device=device, dtype=dtype),
     }
 
 
@@ -250,19 +253,21 @@ def slstm_decode(p, x, state, *, heads: int):
 # --------------------------------------------------------------------------
 
 def mamba2_init(gen: torch.Generator, d: int, heads: int, d_state: int,
-                expand: int, conv: int, device):
+                expand: int, conv: int, device, dtype=torch.float32):
+    """Mamba2's cell; ``a_log`` and ``dt_bias`` stay f32 whatever
+    ``dtype``, as the reference's."""
     d_in = d * expand
     return {
         # fused in-proj: [z (d_in), x (d_in), B (d_state), C (d_state),
         # dt (H)]
         "in": dense_init(gen, d, 2 * d_in + 2 * d_state + heads,
-                         device=device),
-        "conv": _normal(gen, (conv, d_in), conv ** -0.5, device),
+                         device=device, dtype=dtype),
+        "conv": _normal(gen, (conv, d_in), conv ** -0.5, device, dtype),
         "a_log": torch.zeros(heads, device=device),   # A = -exp(0) = -1
         "dt_bias": torch.zeros(heads, device=device),
-        "d_skip": torch.ones(heads, device=device),
-        "ynorm": norm_init(d_in, "rmsnorm", device),
-        "out": dense_init(gen, d_in, d, device=device),
+        "d_skip": torch.ones(heads, device=device, dtype=dtype),
+        "ynorm": norm_init(d_in, "rmsnorm", device, dtype),
+        "out": dense_init(gen, d_in, d, device=device, dtype=dtype),
     }
 
 

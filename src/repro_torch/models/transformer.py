@@ -93,6 +93,61 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.parallel_block})")
 
 
+#: the block kinds bf16 parameters serve (``check_dtype``)
+BF16_KINDS = ("attn", "moe")
+#: the parameter dtypes ``init`` and ``convert.from_jax_numpy`` make
+DTYPES = (torch.float32, torch.bfloat16)
+#: the paths that refuse bf16 parameters whatever the model
+#: (``check_dtype``'s ``what``)
+BF16_REFUSED = {
+    "mesh": "a mesh of ranks (launch/mesh.py, sharding/comm.py: the gloo "
+            "collectives and the meter's byte counts are f32's)",
+    "train": "make_train_step (the train step and its AdamW state)",
+    "encode": "encode (the encoders' classification)"}
+
+
+def params_dtype(params) -> torch.dtype:
+    """The dtype of a parameter tree (``init``'s ``dtype``), from its
+    final norm, which every model has; a rank's ``MeshParams`` by its
+    local tree.  A tree of the reference's numpy arrays converts as f32
+    (``convert.from_jax_numpy``'s default)."""
+    scale = getattr(params, "params", params)["final_norm"]["scale"]
+    return scale.dtype if isinstance(scale, torch.Tensor) else torch.float32
+
+
+def check_dtype(cfg: ModelConfig, dtype: torch.dtype,
+                what: str = "serving") -> None:
+    """Raise for parameters of ``dtype`` where ``what`` (a path) does not
+    take them.  f32 runs everywhere, and so does float64 (the checks'
+    float64 witnesses, through the plain versions).  bf16, the reference's
+    ``init(dtype=jnp.bfloat16)``, serves decoders of ``attn`` and ``moe``
+    blocks with token prompts on one card: the forward, the static
+    prefill and decode, the chunked and packed ticks and the engine;
+    each other use refuses by name: ``BF16_REFUSED``'s paths, Gemma 3's
+    window ring, the recurrent kinds (the reference keeps their state in
+    f32) and an image or frame prefix."""
+    if dtype in (torch.float32, torch.float64):
+        return
+    if dtype != torch.bfloat16:
+        raise NotImplementedError(f"{cfg.name}: parameters in {dtype}; "
+                                  f"the port takes {DTYPES}")
+    if what in BF16_REFUSED:
+        raise NotImplementedError(
+            f"{cfg.name}: bf16 parameters on {BF16_REFUSED[what]}: not "
+            "ported; take f32 parameters")
+    bad = sorted(set(cfg.block_kinds) - set(BF16_KINDS))
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: bf16 parameters over {bad} blocks: not ported "
+            "(Gemma 3's window ring; the recurrent kinds, whose state the "
+            f"reference keeps in f32); bf16 serves {list(BF16_KINDS)} "
+            "blocks")
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: bf16 parameters with the {cfg.frontend} frontend "
+            "(an image or frame prefix): not ported")
+
+
 def is_encoder(cfg: ModelConfig) -> bool:
     """A classifying or bidirectional model: prefill only, no decode."""
     return bool(cfg.num_classes) or not cfg.causal
@@ -124,69 +179,79 @@ def attn_spec(cfg: ModelConfig, kind: str = "attn") -> AttnSpec:
         window=cfg.window if local else None, causal=cfg.causal)
 
 
-def block_init(cfg: ModelConfig, kind: str, gen: torch.Generator, device):
+def block_init(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
+               dtype=torch.float32):
     if kind == "mlstm":
-        return {"ln": norm_init(cfg.d_model, cfg.norm_kind, device),
+        return {"ln": norm_init(cfg.d_model, cfg.norm_kind, device, dtype),
                 "cell": mlstm_init(gen, cfg.d_model, cfg.n_ssm_heads,
-                                   cfg.ssm_expand, device)}
+                                   cfg.ssm_expand, device, dtype)}
     if kind == "slstm":
-        return {"ln": norm_init(cfg.d_model, cfg.norm_kind, device),
+        return {"ln": norm_init(cfg.d_model, cfg.norm_kind, device, dtype),
                 "cell": slstm_init(gen, cfg.d_model, cfg.n_ssm_heads,
-                                   device)}
+                                   device, dtype)}
     if kind == "mamba":
-        return {"ln": norm_init(cfg.d_model, cfg.norm_kind, device),
+        return {"ln": norm_init(cfg.d_model, cfg.norm_kind, device, dtype),
                 "cell": mamba2_init(gen, cfg.d_model, cfg.n_ssm_heads,
                                     cfg.ssm_state, cfg.ssm_expand,
-                                    cfg.ssm_conv, device)}
+                                    cfg.ssm_conv, device, dtype)}
     if kind == "shared_attn":
         return {}              # the layer reads params["shared"]
-    p = {"ln1": norm_init(cfg.d_model, cfg.norm_kind, device),
-         "attn": attn_init(gen, attn_spec(cfg, kind), device)}
+    p = {"ln1": norm_init(cfg.d_model, cfg.norm_kind, device, dtype),
+         "attn": attn_init(gen, attn_spec(cfg, kind), device, dtype)}
     if not cfg.parallel_block:          # a parallel block has one norm
-        p["ln2"] = norm_init(cfg.d_model, cfg.norm_kind, device)
+        p["ln2"] = norm_init(cfg.d_model, cfg.norm_kind, device, dtype)
     if kind == "moe":
         p["moe"] = moe_init(gen, cfg.d_model, cfg.n_experts,
                             cfg.expert_d_ff, cfg.mlp_kind, device=device,
-                            dense_d_ff=cfg.moe_dense_d_ff)
+                            dense_d_ff=cfg.moe_dense_d_ff, dtype=dtype)
     else:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                            bias=cfg.attn_bias, device=device)
+                            bias=cfg.attn_bias, device=device, dtype=dtype)
     return p
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda",
+         dtype=torch.float32):
     """Random parameters with the reference's distributions (normal
     weights scaled by d_in^-0.5, unit norms, zero biases), drawn from
-    ``generator`` and placed on ``device``: the card unless the caller
-    asks for the CPU; raises without a card."""
+    ``generator`` in f32, then cast to ``dtype`` (the reference's
+    ``init(cfg, key, dtype)``: a bf16 init is the f32 one rounded; Mamba2's
+    ``a_log`` and ``dt_bias`` stay f32), and placed on ``device``: the card
+    unless the caller asks for the CPU; raises without a card.  Any block
+    kind takes either dtype; what bf16 parameters serve is
+    ``check_dtype``'s."""
     check_supported(cfg)
+    if dtype not in DTYPES:
+        raise NotImplementedError(f"{cfg.name}: parameters in {dtype}; "
+                                  f"the port takes {DTYPES}")
     device = resolve_device(device)
+    kw = dict(device=device, dtype=dtype)
     params = {
-        "layers": [block_init(cfg, kind, generator, device)
+        "layers": [block_init(cfg, kind, generator, **kw)
                    for kind in cfg.block_kinds],
-        "final_norm": norm_init(cfg.d_model, cfg.norm_kind, device),
+        "final_norm": norm_init(cfg.d_model, cfg.norm_kind, **kw),
     }
     if "shared_attn" in cfg.block_kinds:
         # Zamba2's one attention + MLP block, read by every shared_attn
         # layer
-        params["shared"] = block_init(cfg, "attn", generator, device)
+        params["shared"] = block_init(cfg, "attn", generator, **kw)
     if cfg.vocab_size:
         params["embed"] = embedding_init(generator, cfg.vocab_size,
-                                         cfg.d_model, device)
+                                         cfg.d_model, **kw)
     if cfg.pos == "learned":
         params["pos_embed"] = embedding_init(generator, cfg.max_seq,
-                                             cfg.d_model, device)
+                                             cfg.d_model, **kw)
     if cfg.vocab_size and not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model,
-                                       cfg.vocab_size, device=device)
+                                       cfg.vocab_size, **kw)
     if cfg.num_classes:
         params["head"] = dense_init(generator, cfg.d_model, cfg.num_classes,
-                                    device=device, bias=True)
+                                    bias=True, **kw)
     if cfg.frontend:
         # the stub modality projector: a square linear from the
         # frontend's embedding space into the backbone
         params["frontend_proj"] = dense_init(generator, cfg.d_model,
-                                             cfg.d_model, device=device)
+                                             cfg.d_model, **kw)
     return params
 
 
@@ -392,8 +457,10 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     as one by default); an ``mlstm`` or ``mamba`` block runs in chunks of
     ``chunk`` (N a multiple of it).  With ``aux`` -> (logits, the MoE
     load-balance loss summed over the blocks, f32; 0 without experts),
-    the reference's ``aux["moe_aux"]``."""
+    the reference's ``aux["moe_aux"]``.  The logits are in the
+    parameters' dtype, as the reference's."""
     check_supported(cfg)
+    check_dtype(cfg, params_dtype(params))
     return forward_embedded(cfg, params,
                             embed_inputs(cfg, params, tokens, embeds=embeds),
                             ctx=ctx, start=start, routing=routing,

@@ -122,8 +122,9 @@ from ..models.layers import (AttnSpec, attn_output, attn_project_kv,
 from ..models.moe import RoutingLog
 from ..models.transformer import (RECURRENT_KINDS, attn_spec,
                                   block_residual, check_decoder,
-                                  check_supported, classify, embed_inputs,
-                                  embed_scale, head, layer_blocks,
+                                  check_dtype, check_supported, classify,
+                                  embed_inputs, embed_scale, head,
+                                  layer_blocks, params_dtype,
                                   recurrent_block, recurrent_decode, sincos)
 from ..sharding import comm
 from ..sharding.context import (ShardedPrismContext, expert_all_to_all,
@@ -209,7 +210,9 @@ def mesh_params(cfg: ModelConfig, params: dict, mesh: Mesh, *,
     tree, or the reference's numpy tree): the FSDP rules of prefill and
     of the FSDP decode (``rules.param_specs``), or the decode-TP rules
     (``rules.decode_param_specs``).  Rules are computed on the port's
-    tree, so a reference tree is carried across first."""
+    tree, so a reference tree is carried across first.  bf16 parameters
+    are refused (``transformer.check_dtype``)."""
+    check_dtype(cfg, params_dtype(params), "mesh")
     if "scan" in params:
         params = from_jax_numpy(cfg, params, device=mesh.device)
     rules = (decode_param_specs(params, mesh, cfg.vocab_size, cfg)
@@ -415,12 +418,22 @@ def paged_placement(hp: ServeHParams, paging) -> str:
                     and hp.decode_mode == "exact") else "aligned"
 
 
+#: the cache leaves in the cache's dtype; the others (the repeat counts
+#: gz, the segment sums zsum, a recurrent state) are f32 in any, as the
+#: reference's ``layer_cache_shape``
+DTYPE_LEAVES = ("k", "v", "kz", "vz")
+
+
 def init_cache(cfg: ModelConfig, lay: ServeLayout, batch: int,
-               hp: ServeHParams, device, paging=None) -> list:
-    """An all-zero f32 decode-layout cache, one dict of leaves per layer
-    (``layer_cache_shape``): what the chunked and packed ticks admit
-    requests into."""
-    return [{name: torch.zeros(shape, device=device)
+               hp: ServeHParams, device, paging=None,
+               dtype=torch.float32) -> list:
+    """An all-zero decode-layout cache, one dict of leaves per layer
+    (``layer_cache_shape``), k, v, kz, vz in ``dtype`` (the reference's
+    ``init_cache(..., dtype)``, f32 by default) and the other leaves f32:
+    what the chunked and packed ticks admit requests into."""
+    return [{name: torch.zeros(shape, device=device,
+                               dtype=dtype if name in DTYPE_LEAVES
+                               else torch.float32)
              for name, shape in layer_cache_shape(cfg, lay, batch, hp,
                                                   paging, kind).items()}
             for kind in cfg.block_kinds]
@@ -485,11 +498,15 @@ def layer_cache_shape(cfg: ModelConfig, lay: ServeLayout, batch: int,
 
 def make_kv_cache(cfg: ModelConfig, lay: ServeLayout, batch: int,
                   hp: ServeHParams, *, device, paging=None,
-                  prefix_cache: bool = False, mesh=None) -> KVCache:
+                  prefix_cache: bool = False, mesh=None,
+                  dtype=torch.float32) -> KVCache:
     """The engine's one cache object: zero-filled device storage in a
     ``KVCache`` (paged: the pools, a ``PageTable`` and, if asked, a
     ``PrefixCache``; dense, ``paging=None``: the rowset of ``batch``
-    rows).  With a mesh layout, this rank's storage on ``mesh``: the
+    rows), its k, v, kz, vz in ``dtype`` (``init_cache``).  The engine
+    takes the default, f32, whatever its parameters' dtype, as the
+    reference's (its ``make_kv_cache`` call passes no dtype), so a bf16
+    model writes every K/V row into an f32 cache.  With a mesh layout, this rank's storage on ``mesh``: the
     pools replicated over the batch axes (the reference's specs), or its
     block of the dense rows over them; every rank holds the same page
     table and prefix cache, since page ids name the same span on every
@@ -499,7 +516,8 @@ def make_kv_cache(cfg: ModelConfig, lay: ServeLayout, batch: int,
         grp = mesh.group(lay.ba)
         rows = batch // grp.size
         first = grp.index * rows
-    kv = KVCache(storage=init_cache(cfg, lay, rows, hp, device, paging),
+    kv = KVCache(storage=init_cache(cfg, lay, rows, hp, device, paging,
+                                    dtype),
                  layout=lay, paging=paging, first_row=first)
     if paging is not None and prefix_cache:
         kv.prefix = PrefixCache(kv.table)
@@ -610,6 +628,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
             prism: PrismConfig, lay: ServeLayout, hp: ServeHParams,
             embeds: torch.Tensor | None = None):
     """tokens (B, n0) -> (last-token logits (B, V) f32, decode cache).
+    The cache's k, v, kz, vz come out in the parameters' (compute) dtype,
+    gz and zsum in f32, as the reference's; bf16 parameters serve what
+    ``transformer.check_dtype`` lets them.
 
     ``prism.mode`` picks the exchange: 'prism' (Segment-Means) or
     'voltage' (full).  A vlm's image embeds (B, prefix_len, D) overwrite
@@ -629,6 +650,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
     check_supported(cfg)
     check_decoder(cfg, "prefill")
     mesh = _mesh(params)
+    check_dtype(cfg, params_dtype(params),
+                "serving" if mesh is None else "mesh")
     _check_on_mesh(cfg, hp, mesh, lay)
     b, n = (tokens if tokens is not None else embeds).shape[:2]
     P = lay.n_seq
@@ -765,6 +788,7 @@ def score(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     character."""
     check_supported(cfg)
     check_decoder(cfg, "score")
+    check_dtype(cfg, params_dtype(params))
     with torch.no_grad():
         x = embed_inputs(cfg, params, tokens, embeds=embeds)
         b, n, _ = x.shape
@@ -795,6 +819,7 @@ def encode(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     if not cfg.num_classes:
         raise ValueError(f"encode classifies; arch {cfg.name!r} has no "
                          "class head (num_classes 0)")
+    check_dtype(cfg, params_dtype(params), "encode")
     x = embed_inputs(cfg, params, tokens, embeds=embeds)
     b, n, _ = x.shape
     ctx = ShardedPrismContext(prism, n_shards=n_shards, backend=hp.backend,

@@ -48,7 +48,8 @@ from ..device import resolve_device
 from ..launch.mesh import Mesh, batch_axes
 from ..models.config import ModelConfig
 from ..models.layers import dense, norm
-from ..models.transformer import (check_decoder, check_supported,
+from ..models.transformer import (check_decoder, check_dtype,
+                                  check_supported, params_dtype,
                                   embed_inputs, embed_scale, layer_blocks,
                                   sincos)
 from ..optim.adamw import (adamw_init, adamw_update, clip_by_global_norm,
@@ -159,6 +160,8 @@ def make_train_step(cfg: ModelConfig, prism: PrismConfig,
     rank's block; ``n_shards`` is the mesh's ``model`` size."""
     check_supported(cfg)
     check_decoder(cfg, "the train step")
+    if params is not None:
+        check_dtype(cfg, params_dtype(params), "train")
     if mesh is not None:
         return mesh_train_step(cfg, prism, hp, mesh, params,
                                n_shards=n_shards)
@@ -173,6 +176,7 @@ def make_train_step(cfg: ModelConfig, prism: PrismConfig,
     ctx = ShardedPrismContext(prism, n_shards=n_shards, backend="plain")
 
     def step(params, opt, batch):
+        check_dtype(cfg, params_dtype(params), "train")
         batch = to_batch(batch, device)
         nll, aux, grads = loss_and_grads(cfg, params, batch, ctx, hp)
         grads, gnorm = clip_by_global_norm(grads, hp.grad_clip)

@@ -123,7 +123,8 @@ import torch
 
 from ..core.protocol import PrismConfig
 from ..models.config import ModelConfig
-from ..models.transformer import check_decoder, check_supported
+from ..models.transformer import (check_decoder, check_dtype,
+                                  check_supported, params_dtype)
 from ..runtime.faults import FaultInjector, FaultPlan
 from ..runtime.offload import KVStore
 from ..runtime.paging import AdmitPlan, make_paged_layout
@@ -301,6 +302,9 @@ class ServingEngine:
         # 3): an encoder classifies through runtime.serve.encode
         check_decoder(cfg, "ServingEngine")
         check_supported(cfg)
+        # bf16 parameters over the reference's cache: make_kv_cache's
+        # default, f32
+        check_dtype(cfg, params_dtype(params))
         self.cfg, self.params, self.config = cfg, params, config
         self.mesh = mesh
         self.device = (params["embed"]["table"].device if mesh is None

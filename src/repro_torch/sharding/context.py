@@ -25,6 +25,11 @@ are over its real rows, with its own Eq. 8 segment sizes; Voltage's
 x_hat is the N real rows.  ``n`` (the real length) arms it; r = 0 is the
 even split, unchanged.
 
+Dtypes: the exchanged rows keep x's dtype (bf16 x: the means through the
+bf16 instance of ``prism_augment_op``, summed in f32, rounded once, as
+the reference's), and the repeat counts g and every position stay f32
+and int.
+
 Exchanges:
   * PRISM:   every shard's (B, L, D) segment means, gathered — the own
              shard's means included but neutralized with g = 0

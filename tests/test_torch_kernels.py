@@ -1096,13 +1096,13 @@ def _c_params(lib, entry):
     return [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
 
 
-@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256, 96])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128, 256, 96])
 def test_wrappers_take_head_dims_64_and_128(monkeypatch, hd):
-    """The prefill kernel takes head dim 32 (the accuracy protocol's
-    char-LM), 64 (GPT-2), 80 (Zamba2), 128 (the Llama family) and 256
-    (Gemma 3), both decode routes all of them but 32, and each passes
-    it to its C entry as ``hd``; any other head dim raises before a
-    launch."""
+    """The prefill kernel and both decode routes take head dims 16 (the
+    reference's test grid), 32 (the accuracy protocol's char-LM), 64
+    (GPT-2), 80 (Zamba2), 128 (the Llama family) and 256 (Gemma 3), and
+    each passes it to its C entry as ``hd``; any other head dim raises
+    before a launch."""
     import contextlib
     import types
     from repro_torch.kernels import prism_attention as TP
@@ -1121,8 +1121,8 @@ def test_wrappers_take_head_dims_64_and_128(monkeypatch, hd):
     for mod in (TD, TP):
         monkeypatch.setattr(mod, "check_tensor", lambda *a, **k: None)
     dispatch.LAUNCHES.clear()
-    assert TP.HEAD_DIMS == (32, 64, 80, 128, 256)
-    assert TD.HEAD_DIMS == (64, 80, 128, 256)
+    assert TP.HEAD_DIMS == (16, 32, 64, 80, 128, 256)
+    assert TD.HEAD_DIMS == (16, 32, 64, 80, 128, 256)
     q, k, v, g, lo, hi, row = attention_case(2, 8, 8, 4, 8, 2, hd)
     meta = (T(np.log(g))[None], T(lo)[None], T(hi)[None], T(row)[None])
     c_row = decode_case(2, 8, 2, 2, hd)                  # group 1: row
