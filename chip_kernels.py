@@ -6,12 +6,19 @@ checkout's sources, checked against their plain versions and timed with
 its own functions; one JSON line with the main-shape times.
 
     python3 chip_kernels.py [CHECKOUT] [TAG]
+    python3 chip_kernels.py --bf16 [CHECKOUT] [TAG]
 
 CHECKOUT (default: the directory of this file) is the root of a checkout
 of this repository, for example an older commit unpacked with ``git
 archive``.  To compare two checkouts' kernels, run them in turns in one
 call on one card (a, b, b, a): machines and power limits differ between
 calls.
+
+``--bf16`` runs the checkout's ``check_bf16_kernels`` alone (the bf16,
+mixed-dtype and head-dim 16 / 32 cases) and prints whether it passed,
+the first case outside its tolerance and the share of each tolerance
+used; it exits 1 if a case failed.  Run on a copy of a checkout with a
+fault planted in a kernel source, it shows whether the checks see it.
 """
 from __future__ import annotations
 
@@ -22,9 +29,11 @@ import time
 
 
 def main() -> int:
-    tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1
+    args = [a for a in sys.argv[1:] if a != "--bf16"]
+    bf16 = len(args) < len(sys.argv) - 1
+    tree = os.path.abspath(args[0] if args
                            else os.path.dirname(os.path.abspath(__file__)))
-    tag = sys.argv[2] if len(sys.argv) > 2 else os.path.basename(tree)
+    tag = args[1] if len(args) > 1 else os.path.basename(tree)
     sys.path[:0] = [os.path.join(tree, "src"), tree]
     import torch
     if not torch.cuda.is_available():
@@ -39,6 +48,18 @@ def main() -> int:
     build.build()
     timer, chk = cs.Timer(torch), cs.Checker(torch)
     t0 = time.perf_counter()
+    if bf16:
+        try:
+            cs.check_bf16_kernels(torch, chk, timer)
+            failed = None
+        except AssertionError as e:
+            failed = str(e)
+        print(json.dumps({
+            "tag": tag, "nvidia_smi": cs.nvidia_smi(), "failed": failed,
+            "tol_share": {k: v for k, v in chk.tol_share.items() if v},
+            "worst": chk.worst, "seconds": time.perf_counter() - t0}),
+            flush=True)
+        return 1 if failed else 0
     att = cs.check_attention(torch, chk, timer)
     means = cs.check_segment_means(torch, chk, timer)
     dec = cs.check_decode(torch, chk, timer)

@@ -90,8 +90,9 @@ Phases, one JSON line each:
             row map; a bf16 query over an f32 cache at the engine's
             layouts (packed, its prism pass, the chunk call; dense and
             paged); f32 decode at 16 and 32.  bf16 holds to the
-            reference's own tolerance (``TOL_BF16_KERNEL``), the rest to
-            ``TOL``; each timed at a path's layout (GPT-2's, Yi-6B's,
+            reference's own tolerance (``TOL_BF16_KERNEL``) on draws
+            whose outputs are O(1) (``peaked``: V of std 1, rows that
+            see few columns), the rest to ``TOL``; each timed at a path's layout (GPT-2's, Yi-6B's,
             Gemma 7B's; bf16 bytes and the bf16 tensor-core rate in the
             bound; the library calls in bf16).
             Times are event pairs (``ms``, over a floor of about 5 us,
@@ -375,8 +376,8 @@ Phases, one JSON line each:
 bf16 path   the serving paths with bf16 weights (``drive_bf16``; init's
             dtype, seed 0, full width): GPT-2 small at full depth on the
             static path in both pairings and one engine run (packed,
-            prism, paged; its cache f32, as the reference's engine keeps
-            it), Yi-6B and Gemma 7B on their first ``BF16_DEPTH``
+            prism, paged; its cache f32, ``make_kv_cache``'s default, as
+            the reference's engine makes it), Yi-6B and Gemma 7B on their first ``BF16_DEPTH``
             layers in both pairings.  Each run through the kernels is
             held, over its first ``BF16_REF_STEPS`` steps teacher-
             forced, to its bf16 plain twin and the f32 witness (the f32
@@ -619,6 +620,17 @@ TOL_BF16 = (1e-5, 2.0 ** -7)
 # live columns a row sums; a bf16 query over an f32 cache is exact in f32
 # and is held to TOL
 TOL_BF16_KERNEL = (2e-2, 1e-2)
+# the bf16 cases' draws (``peaked``): the f32 cases' 0.5 randn with q
+# times BF16_Q_GAIN and V (and the means' V) times BF16_V_GAIN, so that
+# outputs are O(1) (V of std 1), and the sweeps add rows that see few
+# columns (decode: every 8th, so that each column is one of 9 a row
+# sees; attention: the first 1-5, beside the window cases' 13-20): a
+# column read wrong moves such a row's output by O(0.1-1), past atol.  The logits grow to std 0.5 and no
+# further: the plain version's bf16 logits part from the kernel's f32
+# ones by half a bf16 ulp of the row's max m, which scales every term of
+# l alike; under m = 2 that is 2^-9 of l, beside l's rtol of 1e-2, but a
+# gain of 4 puts m in [2, 8), where the ulp alone is 0.8-1.6% of l
+BF16_Q_GAIN, BF16_V_GAIN = 2.0, 2.0
 # end-to-end: max |logits - reference| / max |reference| over every step
 PATH_REL_TOL = 1e-4
 # greedy tokens must agree where the reference's top-2 gap exceeds this
@@ -1078,19 +1090,23 @@ def attention_checker(chk, key=None, tol=None):
 def attention_groups(torch, both, gen, groups, hd, dtype=None):
     """Ragged Nq (100) and M (97) at each (hq, hkv) of ``groups``: rows
     that see nothing, g = 0 columns, causal off, window, prefix; q, k, v
-    in ``dtype`` (default f32)."""
+    in ``dtype`` (default f32).  bf16: ``peaked`` draws, and three rows
+    that see at most 1, 3 and 5 columns (causal)."""
     dtype = dtype or torch.float32
     for hq, hkv in groups:
         b, nq, m = 2, 100, 97
-        q, k, v = (0.5 * torch.randn(*s, device="cuda", generator=gen).to(
-            dtype) for s in ((b, nq, hq, hd), (b, m, hkv, hd),
+        q, k, v = (0.5 * torch.randn(*s, device="cuda", generator=gen)
+                   for s in ((b, nq, hq, hd), (b, m, hkv, hd),
                              (b, m, hkv, hd)))
         g = torch.randint(0, 5, (m,), device="cuda", generator=gen).float()
         lo = torch.randint(0, 120, (m,), device="cuda", generator=gen)
         hi = lo + torch.randint(0, 4, (m,), device="cuda", generator=gen)
         row = torch.arange(nq, device="cuda") + 20
         row[:7] = -1                              # rows that see nothing
-        args = (q, k, v, g, lo, hi, row)
+        if dtype == torch.bfloat16:
+            q, k, v = peaked((q, k, v))
+            row[7:10] = hi.sort().values[[0, 2, 4]]
+        args = (q.to(dtype), k.to(dtype), v.to(dtype), g, lo, hi, row)
         for kw in (dict(causal=True), dict(causal=False),
                    dict(causal=True, window=16), dict(causal=True,
                                                       prefix_len=6),
@@ -1534,13 +1550,25 @@ BF16_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 BF16_SWEEP_COLS = 72
 
 
+def peaked(args):
+    """The bf16 cases' draws from the f32 cases' (0.5 randn): q (index 0)
+    times ``BF16_Q_GAIN``, V and the means' V (indices 2 and 6) times
+    ``BF16_V_GAIN``; the rest as they are."""
+    gain = {0: BF16_Q_GAIN, 2: BF16_V_GAIN, 6: BF16_V_GAIN}
+    return [t * gain[i] if i in gain else t for i, t in enumerate(args)]
+
+
 def at_width(torch, gen, args, hd, dtype):
     """A layout's inputs with every floating 4-D tensor (q, k, v; kz, vz)
-    drawn anew at head dim ``hd`` in ``dtype``, the rest (metadata,
-    valid, log g) as they are."""
-    return [0.5 * torch.randn(*t.shape[:-1], hd, device="cuda",
-                              generator=gen).to(dtype)
+    drawn anew at head dim ``hd`` in ``dtype`` (bf16: ``peaked``), the
+    rest (metadata, valid, log g) as they are."""
+    args = [0.5 * torch.randn(*t.shape[:-1], hd, device="cuda",
+                              generator=gen)
             if t.dim() == 4 and t.is_floating_point() else t for t in args]
+    if dtype == torch.bfloat16:
+        args = peaked(args)
+    return [t.to(dtype) if t.dim() == 4 and t.is_floating_point() else t
+            for t in args]
 
 
 def as_dtypes(torch, args, q_dtype, kv_dtype):
@@ -1555,13 +1583,15 @@ def check_bf16_kernels(torch, chk, timer):
     """The bf16 instances and the new head dims against their plain
     versions, then timed.
 
-    Attention: bf16 at every head dim of ``BF16_HEAD_DIMS`` over
-    ``attention_groups``' edge sweep (ragged, GQA 1, 4, 8, dead rows, g
-    = 0, causal off, window, prefix), errors under
+    Every bf16 case draws ``peaked`` inputs.  Attention: bf16 at every
+    head dim of ``BF16_HEAD_DIMS`` over ``attention_groups``' edge sweep
+    (ragged, GQA 1, 4, 8, dead rows, rows that see few columns, g = 0,
+    causal off, window, prefix), errors under
     ``prism_flash_attention/bf16`` at ``TOL_BF16_KERNEL``; f32 at head dim
     16 under ``prism_flash_attention/hd16`` at ``TOL``.  Decode: a bf16
     cache at every head dim, on both routes (group 1 and 8), with and
-    without means, dense, through a page pool whose unmapped pages hold
+    without means, rows that see every 8th column, dense, through a
+    page pool whose unmapped pages hold
     NaN (``to_pages``) and through a row map, under
     ``flash_decode_stats/bf16``; a bf16 query over an f32 cache at the
     engine's layouts (the packed tick's two passes, the chunk call, the
@@ -1583,13 +1613,14 @@ def check_bf16_kernels(torch, chk, timer):
     for mode in ("prism", "voltage"):
         ta[f"hd64/{mode}"] = attention_main(
             torch, timer, att_bf16, mode, tag="bf16",
-            args=as_dtypes(torch, attention_inputs(torch, mode), bf, bf),
+            args=as_dtypes(torch, peaked(attention_inputs(torch, mode)), bf,
+                           bf),
             flop_per_s=BF16_FLOP_PER_S)
     for hd, arch in ((128, LLAMA), (256, GEMMA7)):
         ta[f"hd{hd}/prism"] = attention_main(
             torch, timer, att_bf16, "prism", arch=arch, tag=f"bf16/{arch}",
-            args=as_dtypes(torch, attention_inputs(torch, "prism", arch=arch),
-                           bf, bf),
+            args=as_dtypes(torch, peaked(attention_inputs(
+                torch, "prism", arch=arch)), bf, bf),
             flop_per_s=BF16_FLOP_PER_S)
     base = attention_inputs(torch, "prism")
     for hd in (16, 32, 80):
@@ -1612,6 +1643,8 @@ def check_bf16_kernels(torch, chk, timer):
         routes), through a page pool (both routes) and through a row map
         that reverses the query rows (the row route)."""
         def run(args, scale, case):
+            if kv_dtype == bf:
+                args = peaked(args)
             args = as_dtypes(torch, args, q_dtype, kv_dtype)
             both(args, scale, case)
             pargs, pages, zrows = to_pages(torch, gen, args, rep,
@@ -1628,7 +1661,8 @@ def check_bf16_kernels(torch, chk, timer):
             for hq, hkv in ((4, 4), (16, 2)):     # groups 1 (row), 8 (tile)
                 sweep_decode_case(
                     torch, every_layout(dec[key], q_dtype, kv_dtype, 4), gen,
-                    hq, hkv, BF16_SWEEP_COLS, 4, 12, None, hd=hd)
+                    hq, hkv, BF16_SWEEP_COLS, 4, 12, None, hd=hd,
+                    few_live=True)
     chunk, packed, packed_prism, rows, scale = tick_layout_inputs(torch, gen)
     mixed = dec["flash_decode_stats/mixed"]
     for name, args, r in (("packed", packed, rows),
@@ -1646,7 +1680,7 @@ def check_bf16_kernels(torch, chk, timer):
     for mode in ("exact", "prism"):
         for hd, arch in ((64, ARCH), (128, LLAMA), (256, GEMMA7)):
             args, sc = decode_inputs(torch, mode, gen, arch=arch)
-            args = as_dtypes(torch, args, bf, bf)
+            args = as_dtypes(torch, peaked(args), bf, bf)
             dec["flash_decode_stats/bf16"](args, sc, f"bf16/{arch}/{mode}")
             td[f"hd{hd}/{mode}"] = time_decode(torch, timer, args, sc)
     base, _ = decode_inputs(torch, "prism", gen)
@@ -2389,10 +2423,12 @@ def sweep_rows_case(torch, both, gen, t, n_rows, rep, hq, hkv, kind,
 
 
 def sweep_decode_case(torch, both, gen, hq, hkv, m_loc, rep, mz, max_pos,
-                      hd=64):
+                      hd=64, few_live=False):
     """One decode sweep case, without and with means columns: 3 query
     rows, each folded over ``rep`` shards; cache positions up to
-    ``max_pos`` (default: the whole shard) with row 0 all dead."""
+    ``max_pos`` (default: the whole shard) with row 0 all dead;
+    ``few_live``: rows 1-8 see every 8th column, from columns 0-7, so
+    that every column is one of few a row sees."""
     bq = 3
     b = bq * rep
     top = m_loc if max_pos is None else max_pos
@@ -2401,7 +2437,10 @@ def sweep_decode_case(torch, both, gen, hq, hkv, m_loc, rep, mz, max_pos,
     v = 0.5 * torch.randn(b, m_loc, hkv, hd, device="cuda", generator=gen)
     pos = torch.randint(-1, top, (b,), device="cuda", generator=gen)
     pos[0] = -1                                  # an all-dead row
-    valid = torch.arange(m_loc, device="cuda")[None] <= pos[:, None]
+    cols = torch.arange(m_loc, device="cuda")
+    valid = cols[None] <= pos[:, None]
+    if few_live:
+        valid[1:9] = cols[None] % 8 == torch.arange(8, device="cuda")[:, None]
     case = f"hq{hq}/hkv{hkv}/M{m_loc}/rep{rep}/top{top}"
     both([q, k, v, valid], hd ** -0.5, case)
     gz = torch.randint(0, 5, (b, mz), device="cuda", generator=gen)
@@ -6787,7 +6826,7 @@ def bf16_static(torch, arch, cfg, params, wit_params, pairing):
 
 def bf16_engine(torch, cfg, params, wit_params):
     """GPT-2 small's engine run with bf16 weights (``BF16_ENGINE``): its
-    cache f32, as the reference's engine keeps it; the decode kernel's
+    cache f32, as the reference's engine makes it; the decode kernel's
     launches take the bf16 query of layer 0 (``.bf16``) over the f32
     cache (no ``.kv_bf16``); its bf16 plain twin and the f32 witness
     teacher-forced on its tokens (``keep_logits``) for each request's
@@ -6800,7 +6839,7 @@ def bf16_engine(torch, cfg, params, wit_params):
     dtypes = {str(t.dtype) for c in eng.kv_cache.storage for t in c.values()}
     if dtypes != {"torch.float32"}:
         raise AssertionError(f"bf16/engine: cache leaves {dtypes}, the "
-                             "reference's engine keeps f32")
+                             "reference's engine makes f32")
     if not counts.get("flash_decode_stats.bf16") or counts.get(
             "flash_decode_stats.kv_bf16"):
         raise AssertionError(f"bf16/engine: launches {counts}")

@@ -97,13 +97,6 @@ def check_supported(cfg: ModelConfig) -> None:
 BF16_KINDS = ("attn", "moe")
 #: the parameter dtypes ``init`` and ``convert.from_jax_numpy`` make
 DTYPES = (torch.float32, torch.bfloat16)
-#: the paths that refuse bf16 parameters whatever the model
-#: (``check_dtype``'s ``what``)
-BF16_REFUSED = {
-    "mesh": "a mesh of ranks (launch/mesh.py, sharding/comm.py: the gloo "
-            "collectives and the meter's byte counts are f32's)",
-    "train": "make_train_step (the train step and its AdamW state)",
-    "encode": "encode (the encoders' classification)"}
 
 
 def params_dtype(params) -> torch.dtype:
@@ -116,25 +109,27 @@ def params_dtype(params) -> torch.dtype:
 
 
 def check_dtype(cfg: ModelConfig, dtype: torch.dtype,
-                what: str = "serving") -> None:
-    """Raise for parameters of ``dtype`` where ``what`` (a path) does not
-    take them.  f32 runs everywhere, and so does float64 (the checks'
-    float64 witnesses, through the plain versions).  bf16, the reference's
-    ``init(dtype=jnp.bfloat16)``, serves decoders of ``attn`` and ``moe``
-    blocks with token prompts on one card: the forward, the static
-    prefill and decode, the chunked and packed ticks and the engine;
-    each other use refuses by name: ``BF16_REFUSED``'s paths, Gemma 3's
-    window ring, the recurrent kinds (the reference keeps their state in
-    f32) and an image or frame prefix."""
+                refused: str | None = None) -> None:
+    """Raise for parameters of ``dtype`` that a path does not take; each
+    path checks once, where its parameters enter.  f32 runs everywhere,
+    and so does float64 (the checks' float64 witnesses, through the plain
+    versions).  bf16, the reference's ``init(dtype=jnp.bfloat16)``,
+    serves decoders of ``attn`` and ``moe`` blocks with token prompts on
+    one card: the forward, the static prefill and decode, ``score``, the
+    engine and its chunked and packed ticks; each other use refuses by
+    name: a path that takes no bf16 parameters names itself
+    (``refused``), and Gemma 3's window ring, the recurrent kinds (the
+    reference keeps their state in f32) and an image or frame prefix
+    refuse everywhere."""
     if dtype in (torch.float32, torch.float64):
         return
     if dtype != torch.bfloat16:
         raise NotImplementedError(f"{cfg.name}: parameters in {dtype}; "
                                   f"the port takes {DTYPES}")
-    if what in BF16_REFUSED:
+    if refused:
         raise NotImplementedError(
-            f"{cfg.name}: bf16 parameters on {BF16_REFUSED[what]}: not "
-            "ported; take f32 parameters")
+            f"{cfg.name}: bf16 parameters on {refused}: not ported; take "
+            "f32 parameters")
     bad = sorted(set(cfg.block_kinds) - set(BF16_KINDS))
     if bad:
         raise NotImplementedError(

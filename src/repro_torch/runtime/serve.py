@@ -212,7 +212,9 @@ def mesh_params(cfg: ModelConfig, params: dict, mesh: Mesh, *,
     (``rules.decode_param_specs``).  Rules are computed on the port's
     tree, so a reference tree is carried across first.  bf16 parameters
     are refused (``transformer.check_dtype``)."""
-    check_dtype(cfg, params_dtype(params), "mesh")
+    check_dtype(cfg, params_dtype(params), refused=(
+        "a mesh of ranks (launch/mesh.py, sharding/comm.py: the gloo "
+        "collectives and the meter's byte counts are f32's)"))
     if "scan" in params:
         params = from_jax_numpy(cfg, params, device=mesh.device)
     rules = (decode_param_specs(params, mesh, cfg.vocab_size, cfg)
@@ -650,8 +652,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor | None,
     check_supported(cfg)
     check_decoder(cfg, "prefill")
     mesh = _mesh(params)
-    check_dtype(cfg, params_dtype(params),
-                "serving" if mesh is None else "mesh")
+    check_dtype(cfg, params_dtype(params))     # a mesh's: mesh_params
     _check_on_mesh(cfg, hp, mesh, lay)
     b, n = (tokens if tokens is not None else embeds).shape[:2]
     P = lay.n_seq
@@ -819,7 +820,8 @@ def encode(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     if not cfg.num_classes:
         raise ValueError(f"encode classifies; arch {cfg.name!r} has no "
                          "class head (num_classes 0)")
-    check_dtype(cfg, params_dtype(params), "encode")
+    check_dtype(cfg, params_dtype(params),
+                refused="encode (the encoders' classification)")
     x = embed_inputs(cfg, params, tokens, embeds=embeds)
     b, n, _ = x.shape
     ctx = ShardedPrismContext(prism, n_shards=n_shards, backend=hp.backend,

@@ -62,7 +62,7 @@ from ..models.config import ModelConfig
 from ..models.layers import (attn_output, attn_project_kv, attn_project_q,
                              norm)
 from ..models.transformer import (attn_spec, block_residual, check_decoder,
-                                  check_dtype, check_supported, params_dtype)
+                                  check_supported)
 from ..sharding import comm
 from ..sharding.context import means_columns
 from .serve import (ServeHParams, ServeLayout, _check_on_mesh, _combine_exact,
@@ -219,7 +219,6 @@ def chunk_prefill_step(cfg: ModelConfig, params, cache, tokens, off, nreal,
     the rank's batch rows, whose tokens alone the call takes
     (``batch_rows``)."""
     check_tick_kinds(cfg, "chunked prefill")
-    check_dtype(cfg, params_dtype(params))
     mesh, seq, shard0 = _tick_mesh(cfg, params, lay, hp)
     if page_map is None:
         tokens, off, nreal = (batch_rows(t, lay, mesh)
@@ -323,7 +322,6 @@ def packed_step(cfg: ModelConfig, params, cache, tokens, slot, pos, off,
     The logits are over the rank's vocabulary shard (``gather_logits``).
     """
     check_tick_kinds(cfg, "packed serving")
-    check_dtype(cfg, params_dtype(params))
     mesh, seq, shard0 = _tick_mesh(cfg, params, lay, hp)
     dev = tokens.device
     n_rows = (cache[0]["k"].shape[0] if page_map is None

@@ -62,6 +62,9 @@ from ..sharding.rules import (GradReduce, _map_paths, _tile, cut,
 from .losses import chunked_lm_loss, embed_vp, vp_lm_loss
 from .serve import ServeHParams, sharded_block, sharded_layers
 
+#: the train step names itself when it refuses bf16 parameters
+TRAIN_REFUSED = "make_train_step (the train step and its AdamW state)"
+
 
 @dataclass(frozen=True)
 class TrainHParams:
@@ -160,9 +163,9 @@ def make_train_step(cfg: ModelConfig, prism: PrismConfig,
     rank's block; ``n_shards`` is the mesh's ``model`` size."""
     check_supported(cfg)
     check_decoder(cfg, "the train step")
-    if params is not None:
-        check_dtype(cfg, params_dtype(params), "train")
     if mesh is not None:
+        if params is not None:           # mesh_train_step refuses None
+            check_dtype(cfg, params_dtype(params), refused=TRAIN_REFUSED)
         return mesh_train_step(cfg, prism, hp, mesh, params,
                                n_shards=n_shards)
     if n_data != 1:
@@ -176,7 +179,8 @@ def make_train_step(cfg: ModelConfig, prism: PrismConfig,
     ctx = ShardedPrismContext(prism, n_shards=n_shards, backend="plain")
 
     def step(params, opt, batch):
-        check_dtype(cfg, params_dtype(params), "train")
+        # the one-card step's parameters enter here
+        check_dtype(cfg, params_dtype(params), refused=TRAIN_REFUSED)
         batch = to_batch(batch, device)
         nll, aux, grads = loss_and_grads(cfg, params, batch, ctx, hp)
         grads, gnorm = clip_by_global_norm(grads, hp.grad_clip)

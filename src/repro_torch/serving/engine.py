@@ -303,7 +303,9 @@ class ServingEngine:
         check_decoder(cfg, "ServingEngine")
         check_supported(cfg)
         # bf16 parameters over the reference's cache: make_kv_cache's
-        # default, f32
+        # default, f32.  A layer's rows turn f32 over it from layer 0's
+        # attention on, as the reference's layers compute (its engine's
+        # layer scan refuses that change of dtype and raises)
         check_dtype(cfg, params_dtype(params))
         self.cfg, self.params, self.config = cfg, params, config
         self.mesh = mesh

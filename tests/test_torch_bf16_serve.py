@@ -21,8 +21,13 @@ leaf by leaf (k, v, kz, vz bf16; gz, zsum f32), the logits f32;
 ways bit for bit; the engine with bf16 weights keeps the reference's
 f32 cache (its chunked and packed ticks), and its tokens are the port's
 bf16 static path's wherever that path's top-2 gap exceeds 2e-2 of its
-largest |logit|; every path this slice does not serve in bf16 refuses by
-name.
+largest |logit|.  The reference's engine raises on bf16 parameters
+throughout (its layer scan's carry turns f32 over the f32 cache); the
+child keeps its error, and runs it on the bf16 weights with the
+embedding tables widened to f32 (packed and chunked, exact and prism),
+saving its tokens and every decode row: the port's engine on the same
+tree, forced on those tokens, is held to them by the rules above.
+Every path this slice does not serve in bf16 refuses by name.
 """
 from __future__ import annotations
 
@@ -49,8 +54,48 @@ REL_TOL, E_FACTOR, E_FLOOR = 2e-2, 1.5, 1e-3
 # whose decode steps they must match (an engine's prefill is exact)
 ENGINE_RUNS = {("packed", "exact"): ("voltage", "exact"),
                ("packed", "prism"): ("voltage", "prism"),
-               ("chunked", "exact"): ("voltage", "exact")}
+               ("chunked", "exact"): ("voltage", "exact"),
+               ("chunked", "prism"): ("voltage", "prism")}
 GEN = 6                                  # tokens an engine request makes
+ENGINE_CAP = N + GEN + (-(N + GEN)) % P
+
+
+def engine_config(EngineConfig, hp, prefill):
+    """Either package's engine configuration for one run."""
+    return EngineConfig(hp=hp, n_slots=B, prefill_len=N,
+                        max_cache=ENGINE_CAP, chunk_len=8,
+                        token_budget=B + 8, prefill_mode=prefill)
+
+
+def f32_embedding(params, f32):
+    """Either package's bf16 tree with its embedding tables (token and
+    position) widened to f32 (exact), so that the residual stream is f32
+    from the first layer on: the one bf16 tree the reference's engine
+    runs (its layer scan carries one dtype, and over the engine's f32
+    cache a layer's output is f32)."""
+    return {k: ({n: t.astype(f32) if hasattr(t, "astype") else t.to(f32)
+                 for n, t in v.items()} if k in ("embed", "pos_embed")
+                else v) for k, v in params.items()}
+
+
+def record_rows(eng, forced=None):
+    """Keep each decode row's logits by request, on either package's
+    engine (both sample every generated token in ``_advance_decode``):
+    {rid: [row, ...]}.  ``forced`` {rid: tokens}: the engine samples
+    request rid's k-th token as ``forced[rid][k]`` (its logit raised
+    above the row's largest in a copy), the log keeps the real row."""
+    log = {}
+    advance = eng._advance_decode
+
+    def advance_kept(st, row, now):
+        rows = log.setdefault(st.req.rid, [])
+        rows.append(np.array(row, dtype=np.float32))
+        if forced is not None:
+            row = np.array(row)
+            row[forced[st.req.rid][len(rows) - 1]] = row.max() + 1.0
+        return advance(st, row, now)
+    eng._advance_decode = advance_kept
+    return log
 
 
 def family_config(get_config, arch):
@@ -106,8 +151,49 @@ def _unflatten(flat, prefix):
     return listify(root)
 
 
-def jax_reference(out_path):
-    """Child process: the reference in bf16 on a (1, 4) host mesh."""
+def engine_reference(cfg, params, mesh, prompts, arch, out, dtypes):
+    """The reference's engine runs of one arch (the JAX child's "engine"
+    part): on GPT-2, bf16 throughout, the error it raises; on every
+    arch, the bf16 weights with ``f32_embedding``, its tokens and decode
+    rows."""
+    import jax
+    import jax.numpy as jnp
+    from repro.runtime.serve import ServeHParams
+    from repro.serving import EngineConfig, ServingEngine
+    for prefill, mode in ENGINE_RUNS:
+        key = f"{arch}/engine/{prefill}-{mode}"
+        hp = ServeHParams(decode_mode=mode, means_cr=CR, backend="jnp")
+        if arch == "gpt2-small" and mode == "exact":
+            # bf16 parameters throughout: each program's layer scan
+            # refuses the carry that turns f32
+            eng = ServingEngine(cfg, mesh, params,
+                                engine_config(EngineConfig, hp, prefill),
+                                clock=lambda: 0.0)
+            eng.submit(prompts[0].tolist(), max_new_tokens=GEN)
+            try:
+                eng.run()
+                dtypes[f"{prefill}/refusal"] = None
+            except TypeError as e:
+                dtypes[f"{prefill}/refusal"] = str(e)
+        eng = ServingEngine(cfg, mesh, f32_embedding(params, jnp.float32),
+                            engine_config(EngineConfig, hp, prefill),
+                            clock=lambda: 0.0)
+        log = record_rows(eng)
+        rids = [eng.submit(p.tolist(), max_new_tokens=GEN)
+                for p in prompts]
+        res = eng.run()
+        out[f"{key}/tokens"] = np.array([res[r] for r in rids])
+        out[f"{key}/logits"] = np.stack([np.stack(log[r])
+                                         for r in rids])
+        dtypes[f"{key}/cache"] = sorted(
+            {str(leaf.dtype) for leaf in
+             jax.tree.leaves(eng.kv_cache.storage)})
+
+
+def jax_reference(out_path, part):
+    """Child process: the reference in bf16 on a (1, 4) host mesh; part
+    "static" (the forward, the static pairings, the weights) or
+    "engine" (the engine runs)."""
     import jax
     import jax.numpy as jnp
     from repro.configs import get_config
@@ -123,10 +209,13 @@ def jax_reference(out_path):
     for arch in ARCHS:
         cfg = family_config(get_config, arch)
         params = T.init(cfg, jax.random.PRNGKey(0), jnp.bfloat16)
+        prompts, forced = _inputs(cfg.vocab_size)
+        if part == "engine":
+            engine_reference(cfg, params, mesh, prompts, arch, out, dtypes)
+            continue
         flat = {}
         _flatten(params, f"{arch}/params", flat)
         out.update({k: widened(v) for k, v in flat.items()})
-        prompts, forced = _inputs(cfg.vocab_size)
         logits, _ = T.forward(cfg, params, jnp.asarray(
             np.concatenate([prompts, forced], axis=1)))
         out[f"{arch}/forward"] = widened(logits)
@@ -157,18 +246,25 @@ def jax_reference(out_path):
 
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
-    out = tmp_path_factory.mktemp("jax_bf16") / "ref.npz"
+    """The two parts of the JAX child, run side by side."""
+    tmp = tmp_path_factory.mktemp("jax_bf16")
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.path.join(HERE, "..", "src")
-    r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--jax-ref", str(out)], env=env, capture_output=True,
-                       text=True, timeout=600)
-    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
-    with np.load(out) as z:
-        ref = dict(z)
-    ref["dtypes"] = json.loads(str(ref["dtypes"]))
+    procs = {part: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--jax-ref",
+         str(tmp / f"{part}.npz"), part], env=env,
+        stdout=open(tmp / f"{part}.log", "w"), stderr=subprocess.STDOUT)
+        for part in ("static", "engine")}
+    ref = {"dtypes": {}}
+    for part, proc in procs.items():
+        rc = proc.wait(timeout=600)
+        assert rc == 0, (tmp / f"{part}.log").read_text()[-6000:]
+        with np.load(tmp / f"{part}.npz") as z:
+            got = dict(z)
+        ref["dtypes"].update(json.loads(str(got.pop("dtypes"))))
+        ref.update(got)
     return ref
 
 
@@ -381,12 +477,14 @@ def test_engine_keeps_the_f32_cache(port, arch):
     prism decode at the last prompt position, which the static path does
     not run (its prefill is exact there): its later tokens are checked.
     At least one token is checked a run.  The dense models: the engine's
-    rows turn f32 after layer 0's attention over its f32 cache (as the
-    reference's: bf16 + f32 is f32) while the static path's stay bf16,
-    and on OLMoE that moves a router near-tie here (router margins down
-    to 2e-3 on this model), which changes a token's experts, not its
-    precision; OLMoE's bf16 static path is held to the reference
-    above."""
+    rows turn f32 after layer 0's attention over its f32 cache (the
+    reference's layers do the same, which its engine's layer scan
+    refuses: ``test_reference_engine_refuses_bf16_throughout``) while
+    the static path's stay bf16, and on OLMoE that moves a router
+    near-tie here (router margins down to 2e-3 on this model), which
+    changes a token's experts, not its precision; OLMoE's bf16 static
+    path and its engine (``test_engine_matches_reference``) are held to
+    the reference."""
     from repro_torch.core.protocol import PrismConfig
     from repro_torch.runtime.serve import ServeHParams, generate, make_layout
     from repro_torch.serving import EngineConfig, ServingEngine
@@ -417,6 +515,73 @@ def test_engine_keeps_the_f32_cache(port, arch):
                         prefill, mode, b, i)
                     checked += 1
         assert checked, f"{prefill}/{mode}: no clear token to check"
+
+
+def engine_rows(cfg, params, run, prompts, forced):
+    """The port's engine on one run, forced on ``forced`` (B, GEN):
+    its logits rows (B, GEN, V) and its cache's leaf dtypes."""
+    from repro_torch.runtime.serve import ServeHParams
+    from repro_torch.serving import EngineConfig, ServingEngine
+    prefill, mode = run
+    eng = ServingEngine(cfg, params, engine_config(
+        EngineConfig, ServeHParams(decode_mode=mode, means_cr=CR), prefill),
+        n_seq=P, clock=lambda: 0.0)
+    rids = [eng.submit(p.tolist(), max_new_tokens=GEN) for p in prompts]
+    log = record_rows(eng, {rid: [int(t) for t in f]
+                            for rid, f in zip(rids, forced)})
+    eng.run()
+    dtypes = sorted({str(t.dtype).replace("torch.", "")
+                     for c in eng.kv_cache.storage for t in c.values()})
+    return torch.from_numpy(np.stack([np.stack(log[r]) for r in rids])), \
+        dtypes
+
+
+@pytest.mark.parametrize("prefill", ["packed", "chunked"])
+def test_reference_engine_refuses_bf16_throughout(jax_ref, prefill):
+    """What the reference's engine does with bf16 parameters throughout:
+    its packed tick (serve.py:2058) and chunk call (:1684) raise, because
+    the layer scan's carry enters bf16 and leaves f32: a layer's output
+    over the engine's f32 cache is f32 (the writes' cast to the cache's
+    dtype, serve.py:525, :532).  So the reference has no engine run to
+    hold the port's bf16 engine to; the port's engine computes what the
+    reference's layers do, the residual f32 from layer 0's output on,
+    and ``test_engine_matches_reference`` holds it where the reference
+    runs."""
+    msg = jax_ref["dtypes"][f"{prefill}/refusal"]
+    assert msg is not None and "carry" in msg
+    assert "has type bfloat16[" in msg and "has type float32[" in msg
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("run", list(ENGINE_RUNS), ids=_case)
+def test_engine_matches_reference(jax_ref, port, arch, run):
+    """The engine with bf16 weights against the reference's
+    ``ServingEngine`` on the same weights, prompts and schedule, the
+    embedding tables widened to f32 on both sides (``f32_embedding``:
+    the one bf16 tree the reference's engine runs): both keep an f32
+    cache; the port, teacher-forced on the reference's tokens, gives
+    every decode row within REL_TOL of the reference's largest |logit|,
+    no farther from the f32 witness (the port's engine on the weights
+    widened, forced alike) than E_FACTOR x the reference's distance +
+    E_FLOOR, and the reference's token wherever the reference picks it
+    clearly (``clear``).  OLMoE's routing is held here too."""
+    r, key = port[arch], f"{arch}/engine/{_case(run)}"
+    assert jax_ref["dtypes"][f"{key}/cache"] == ["float32"]
+    tokens, want = jax_ref[f"{key}/tokens"], jax_ref[f"{key}/logits"]
+    got, dtypes = engine_rows(r["cfg"], f32_embedding(r["p16"],
+                                                      torch.float32),
+                              run, r["prompts"], tokens)
+    assert dtypes == ["float32"]
+    witness, _ = engine_rows(r["cfg"], r["p32"], run, r["prompts"], tokens)
+    assert got.shape == want.shape == (B, GEN, r["cfg"].vocab_size)
+    assert_bf16_close(got, want, witness, f"{arch} engine {_case(run)}")
+    checked = 0
+    for b in range(B):
+        for i in range(GEN):
+            if clear(torch.from_numpy(want[b, i])):
+                assert int(got[b, i].argmax()) == int(tokens[b, i]), (b, i)
+                checked += 1
+    assert checked, "no clear token to check"
 
 
 # --------------------------------------------------------------------------
@@ -490,10 +655,10 @@ def test_mesh_train_and_encode_refuse_bf16():
     with pytest.raises(NotImplementedError, match="encode"):
         encode(bert, bparams, torch.ones(1, 64, dtype=torch.long),
                prism=PrismConfig(P=P, cr=CR), n_shards=P, hp=ServeHParams())
-    for what in ("serving", "mesh", "train", "encode"):
-        T.check_dtype(cfg, torch.float32, what)
+    for refused in (None, "a mesh of ranks", "make_train_step", "encode"):
+        T.check_dtype(cfg, torch.float32, refused)
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--jax-ref":
-        jax_reference(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--jax-ref":
+        jax_reference(sys.argv[2], sys.argv[3])
